@@ -1,0 +1,522 @@
+"""Hotness-aware unified cache (paper §4.2): topology + features in device
+memory, sliced across the devices of one clique.
+
+Structures (per clique):
+* feature cache — 2-D array of hot-vertex feature rows, slot-major by owning
+  device; ``feat_pos[v]`` maps vertex -> global slot (-1 = miss),
+  ``feat_owner[slot]`` -> device (for the GPU-GPU traffic matrix).
+* topology cache — CSR subset of hot adjacency lists (``topo_pos[v]`` -> row).
+
+The host mirrors are numpy; ``device_arrays`` uploads them once as torch
+tensors on one explicit device (the GPU's HBM, or the CPU when a caller
+asks for it).  ``TrafficCounter`` accounts every miss in PCIe transactions
+with the same CLS granularity as the cost model, and every intra-clique
+remote hit as NVLink traffic.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.hotness import CLS, S_FLOAT32, S_UINT32
+from repro_torch.graph.csr import CSRGraph
+from repro_torch.utils import resolve_device
+
+
+@dataclasses.dataclass
+class TrafficCounter:
+    n_devices: int
+    # traffic[dst, src]: src == n_devices means CPU (PCIe); else peer device
+    bytes_matrix: np.ndarray = None
+    # topology-exchange traffic, same [dst, src] layout: sampled neighbor
+    # ids served by the owner shard (diagonal = own shard, off-diagonal =
+    # the routed neighbor exchange's intra-clique hops).  Kept separate
+    # from bytes_matrix so feature-gather accounting stays bit-identical
+    # between the replicated and sharded topology layouts.
+    topo_bytes_matrix: np.ndarray = None
+    pcie_transactions: int = 0
+    feature_requests: int = 0
+    feature_hits: int = 0
+    topo_requests: int = 0
+    topo_hits: int = 0
+    # sampling's host-CSR fallback: spec builds that had to touch the host
+    # CSR at all, and the neighbor draws those resolves produced
+    host_sample_syncs: int = 0
+    host_sampled_edges: int = 0
+    # guards the scalar tallies when several threads account concurrently
+    # (integer adds commute, so totals stay bit-identical regardless of
+    # interleaving; the lock only prevents lost updates)
+    lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.bytes_matrix is None:
+            self.bytes_matrix = np.zeros(
+                (self.n_devices, self.n_devices + 1), dtype=np.int64)
+        if self.topo_bytes_matrix is None:
+            self.topo_bytes_matrix = np.zeros(
+                (self.n_devices, self.n_devices + 1), dtype=np.int64)
+
+    @classmethod
+    def for_devices(cls, devices) -> "TrafficCounter":
+        """Counter sized so every physical device id has its own column —
+        device ids are used directly as matrix indices (no modulo aliasing)."""
+        devices = list(devices)
+        return cls(n_devices=(max(devices) + 1) if devices else 1)
+
+    @classmethod
+    def for_plan(cls, plan) -> "TrafficCounter":
+        return cls.for_devices([d for c in plan.partition.cliques for d in c])
+
+    @property
+    def feature_hit_rate(self) -> float:
+        return self.feature_hits / max(self.feature_requests, 1)
+
+    @property
+    def topo_hit_rate(self) -> float:
+        return self.topo_hits / max(self.topo_requests, 1)
+
+
+class CliqueCache:
+    """One clique's unified cache."""
+
+    TOPOLOGY_MODES = ("sharded", "replicated")
+
+    def __init__(self, g: CSRGraph, devices: Sequence[int],
+                 feat_ids_per_dev: Sequence[np.ndarray],
+                 topo_ids_per_dev: Sequence[np.ndarray],
+                 materialize: bool = True,
+                 topology_mode: str = "sharded"):
+        if topology_mode not in self.TOPOLOGY_MODES:
+            raise ValueError(f"unknown topology_mode {topology_mode!r} "
+                             f"(expected one of {self.TOPOLOGY_MODES})")
+        self.g = g
+        self.devices = list(devices)
+        # "sharded" (default): each device holds only the CSR rows the plan
+        # assigned to it, and sampling routes each frontier row to its
+        # owner shard.  "replicated": every device holds the whole union.
+        self.topology_mode = topology_mode
+        # ---- feature cache ----
+        self.feat_pos = np.full(g.n, -1, dtype=np.int64)
+        owners = []
+        all_ids = []
+        for gi, ids in enumerate(feat_ids_per_dev):
+            all_ids.append(ids)
+            owners.append(np.full(len(ids), gi, dtype=np.int32))
+        ids = np.concatenate(all_ids) if all_ids else np.zeros(0, np.int64)
+        self.feat_ids = ids.astype(np.int64)
+        self.feat_owner = (np.concatenate(owners) if owners
+                           else np.zeros(0, np.int32))
+        self.feat_pos[self.feat_ids] = np.arange(len(self.feat_ids))
+        self._materialized = materialize
+        if materialize:
+            self.feat_cache = (g.get_features(self.feat_ids)
+                               if len(self.feat_ids)
+                               else np.zeros((0, g.feat_dim), np.float32))
+        else:
+            self.feat_cache = None
+        # ---- topology cache (CSR subset) ----
+        self._build_topology(topo_ids_per_dev)
+        # device residency is double-buffered across refresh epochs: the
+        # previous epoch's arrays stay alive until the epoch after next so
+        # in-flight batch specs keep gathering from the buffer they indexed
+        self.epoch = 0
+        self.device: Optional[torch.device] = None  # fixed at first upload
+        self._device_arrays = None
+        self._prev_device_arrays = None
+        self._prev_epoch = -1
+        # guards the lazy upload: several builders may race the first
+        # spec build
+        self._mat_lock = threading.RLock()
+
+    @staticmethod
+    def _subset_csr(g: CSRGraph, tids: np.ndarray):
+        """CSR subset for ``tids``: (indptr, indices) with row ``r`` holding
+        ``tids[r]``'s full adjacency in host order (the bit-parity anchor:
+        any sampler drawing ``r % deg`` offsets against it reproduces
+        ``host_sample_level`` exactly)."""
+        deg = (g.indptr[tids + 1] - g.indptr[tids]) if len(tids) \
+            else np.zeros(0, np.int64)
+        indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+        if len(tids):
+            # vectorized adjacency copy: slot k of the subset CSR maps to
+            # g.indices[g.indptr[tids[row]] + (k - indptr[row])]
+            starts = g.indptr[tids]
+            total = int(indptr[-1])
+            src = (np.arange(total, dtype=np.int64)
+                   - np.repeat(indptr[:-1], deg)
+                   + np.repeat(starts, deg))
+            indices = g.indices[src].astype(np.int32)
+        else:
+            indices = np.zeros(0, np.int32)
+        return indptr, indices
+
+    def _build_topology(self, topo_ids_per_dev: Sequence[np.ndarray]) -> None:
+        """Build the topology cache from per-device id lists.
+
+        Always builds the *union* CSR subset (``topo_pos`` / ``cache_indptr``
+        / ``cache_indices``) — the host mirror every fallback resolve and
+        accounting pass reads, and the replicated layout's device residency.
+        In sharded mode additionally builds the per-device shard form: the
+        vertex->owner routing tables (``topo_owner`` / ``topo_local``) and
+        the padded per-shard CSR stacks (``topo_shard_indptr`` (k_g, R+1),
+        ``topo_shard_indices`` (k_g, E)).  Each shard stores its vertices'
+        adjacency in host order, so shard sampling is bit-identical to the
+        union CSR."""
+        g = self.g
+        per_dev = [np.asarray(t).astype(np.int64) for t in topo_ids_per_dev]
+        tids = (np.concatenate(per_dev) if per_dev
+                else np.zeros(0, np.int64))
+        self.topo_ids = tids
+        self.topo_ids_per_dev = per_dev
+        self.topo_pos = np.full(g.n, -1, dtype=np.int64)
+        self.topo_pos[tids] = np.arange(len(tids))
+        deg = (g.indptr[tids + 1] - g.indptr[tids]) if len(tids) \
+            else np.zeros(0, np.int64)
+        self.cache_indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+        self.cache_indices = (self._subset_csr(g, tids)[1]
+                              if self._materialized else None)
+        self.topo_owner = None
+        self.topo_local = None
+        self.topo_shard_indptr = None
+        self.topo_shard_indices = None
+        if self.topology_mode != "sharded":
+            return
+        # vertex -> (owner shard, row within it); later lists win on
+        # duplicate ids, matching the union's topo_pos assignment order
+        self.topo_owner = np.full(g.n, -1, dtype=np.int32)
+        self.topo_local = np.zeros(g.n, dtype=np.int64)
+        for gi, ids in enumerate(per_dev):
+            self.topo_owner[ids] = gi
+            self.topo_local[ids] = np.arange(len(ids))
+        if not self._materialized:
+            return
+        k_g = max(len(self.devices), 1)
+        shard_csrs = [self._subset_csr(g, ids) for ids in per_dev]
+        shard_csrs += [self._subset_csr(g, np.zeros(0, np.int64))
+                       for _ in range(k_g - len(shard_csrs))]
+        R = max(len(p) - 1 for p, _ in shard_csrs)
+        E = max(max(len(ix) for _, ix in shard_csrs), 1)
+        self.topo_shard_indptr = np.zeros((k_g, R + 1), dtype=np.int64)
+        self.topo_shard_indices = np.zeros((k_g, E), dtype=np.int32)
+        for gi, (p, ix) in enumerate(shard_csrs):
+            self.topo_shard_indptr[gi, :len(p)] = p
+            self.topo_shard_indptr[gi, len(p):] = p[-1]  # pad rows: deg 0
+            self.topo_shard_indices[gi, :len(ix)] = ix
+
+    # ---- device residency ----
+    @staticmethod
+    def _lane_padded(D: int) -> int:
+        """Feature columns padded to the 128-column boundary (only when
+        feat_dim exceeds one 128-column tile) — the reference package's
+        table width, kept so both packages stage and gather identical
+        shapes."""
+        return D if not (D > 128 and D % 128) else D + 128 - D % 128
+
+    def _epoch_view(self, current, prev, epoch: Optional[int], what: str):
+        """Double-buffered epoch pinning: ``epoch`` selects the current or
+        the single retained previous buffer; anything older raises."""
+        if epoch is None or epoch == self.epoch:
+            return current
+        if epoch == self._prev_epoch and prev is not None:
+            return prev
+        raise RuntimeError(
+            f"cache epoch {epoch} is no longer resident{what} (current "
+            f"{self.epoch}, retained {self._prev_epoch}); refresh_interval "
+            "must be larger than the prefetch depth")
+
+    def device_arrays(self, epoch: Optional[int] = None, device=None):
+        """The device-resident cache halves as torch tensors (uploaded once,
+        lazily).
+
+        ``device`` fixes where they live on the first call (default
+        ``"cuda"``, which raises without a card; tests pass ``"cpu"``);
+        later calls may omit it, and naming another device raises.
+        ``feat_cache`` columns are padded once to the 128-column boundary
+        (only when feat_dim exceeds 128), so the per-batch gather never
+        re-pads the whole table; consumers slice back to ``g.feat_dim``.
+
+        ``epoch`` pins a refresh generation: batch specs built before a
+        cache refresh finalize against the buffer they indexed (the double
+        buffer retains exactly one previous epoch)."""
+        if self._device_arrays is None:
+            with self._mat_lock:
+                if self._device_arrays is None:
+                    dev = resolve_device("cuda" if device is None else device)
+                    fc = self.feat_cache
+                    D = fc.shape[1]
+                    Dp = self._lane_padded(D)
+                    if Dp != D:
+                        fc = np.pad(fc, ((0, 0), (0, Dp - D)))
+                    # torch.tensor always copies: on the CPU
+                    # torch.from_numpy would alias the host mirrors, which
+                    # a refresh mutates in place
+                    arrays = {
+                        "feat_cache": torch.tensor(fc, device=dev),
+                        "feat_pos": torch.tensor(self.feat_pos, device=dev),
+                        "cache_indptr": torch.tensor(self.cache_indptr,
+                                                     device=dev),
+                        "cache_indices": torch.tensor(self.cache_indices,
+                                                      device=dev),
+                        "topo_pos": torch.tensor(self.topo_pos, device=dev),
+                    }
+                    if self.topo_owner is not None \
+                            and self.topo_shard_indptr is not None:
+                        for k in ("topo_owner", "topo_local",
+                                  "topo_shard_indptr", "topo_shard_indices"):
+                            arrays[k] = torch.tensor(getattr(self, k),
+                                                     device=dev)
+                    self.device = dev
+                    self._device_arrays = arrays
+        if device is not None and resolve_device(device) != self.device:
+            raise ValueError(f"cache arrays live on {self.device}, not "
+                             f"{device}")
+        return self._epoch_view(self._device_arrays,
+                                self._prev_device_arrays, epoch, "")
+
+    def begin_epoch(self) -> int:
+        """Rotate the device double buffer: the current arrays become the
+        retained previous epoch; subsequent mutations build the new one.
+        Returns the new epoch id.  Before the first upload there is nothing
+        to retain, and the rotation only bumps the epoch id."""
+        self._prev_device_arrays = self._device_arrays
+        self._prev_epoch = self.epoch if self._device_arrays is not None \
+            else -1
+        self.epoch += 1
+        return self.epoch
+
+    def device_sample_cached(self, seeds, fanout: int, rand) -> tuple:
+        """Fixed-fanout neighbor sampling *on the device* from the
+        device-resident topology cache (Legion's GPU sampling).
+
+        Seeds whose adjacency is cached sample from the cache CSR; misses
+        (uncached or negative/padded seeds) return -1 rows for the host
+        pipeline to fill (and account as PCIe).  ``rand`` is the host
+        sampler's (B, fanout) draw, replayed exactly, so the device path
+        produces bit-identical subgraphs.
+
+        In sharded topology mode each row routes through its owner shard's
+        padded CSR (the single-process form of the routed neighbor
+        exchange); every shard stores its vertices' adjacency in host
+        order, so the outputs are bit-identical to the replicated layout
+        and to the host sampler.  ``seeds`` may be a numpy array or a
+        device tensor (the chained sampler's previous hop).  Every index
+        below is clamped into range before it is used: a CUDA gather
+        asserts on an out-of-range index where XLA would clamp.
+        Returns (neighbors (B, fanout) int32, hit_mask (B,) bool), both on
+        the cache's device.
+        """
+        # upload before any early return: the first call happens at
+        # spec-build time, serialized with refreshes
+        da = self.device_arrays()
+        dev = self.device
+        seeds = torch.as_tensor(seeds, device=dev).to(torch.int64)
+        if len(self.cache_indices) == 0:
+            # empty topology cache: every row is a host fill
+            return (torch.full(tuple(seeds.shape) + (fanout,), -1,
+                               dtype=torch.int32, device=dev),
+                    torch.zeros(seeds.shape, dtype=torch.bool, device=dev))
+        valid = seeds >= 0
+        safe_seed = torch.where(valid, seeds, 0)
+        r = torch.as_tensor(np.asarray(rand, dtype=np.int64), device=dev)
+        if self.topology_mode == "sharded":
+            own = da["topo_owner"][safe_seed].to(torch.int64)
+            hit = (own >= 0) & valid
+            o = own.clamp_min(0)
+            loc = da["topo_local"][safe_seed]
+            start = da["topo_shard_indptr"][o, loc]
+            deg = da["topo_shard_indptr"][o, loc + 1] - start
+            offs = r % deg.clamp_min(1)[:, None]
+            E = da["topo_shard_indices"].shape[1]
+            idx = (start[:, None] + offs).clamp_max(E - 1)
+            out = da["topo_shard_indices"][o[:, None], idx]
+        else:
+            pos = da["topo_pos"][safe_seed]
+            hit = (pos >= 0) & valid
+            safe = pos.clamp_min(0)
+            start = da["cache_indptr"][safe]
+            deg = da["cache_indptr"][safe + 1] - start
+            offs = r % deg.clamp_min(1)[:, None]
+            idx = (start[:, None] + offs).clamp_max(
+                max(len(self.cache_indices) - 1, 0))
+            out = da["cache_indices"][idx]
+        ok = hit & (deg > 0)
+        return torch.where(ok[:, None], out.to(torch.int32), -1), hit
+
+    def device_sample_chain(self, seeds, fanouts: Sequence[int],
+                            rands: Sequence[np.ndarray]):
+        """Enqueue every hop's device half back-to-back — *no host sync*.
+
+        Hop ``k`` samples directly from hop ``k-1``'s device output, so the
+        whole multi-hop chain is queued before any result is read back (one
+        sync per batch instead of one per hop).  A frontier row whose
+        parent was a topology miss carries ``-1`` on the device, so the
+        child row comes back as a miss too; the caller's single resolve
+        pass (``graph.sampling.cache_sample_dispatch``) re-samples exactly
+        those rows with the same ``rands`` draws, which keeps the composed
+        levels bit-identical to the host sampler.
+
+        ``rands[k]`` must be the hop-``k`` draw of shape
+        ``(len(flattened frontier_k), fanouts[k])``.  Returns two lists of
+        device tensors: per-hop neighbors (flat, fanout) and per-hop
+        device-hit masks.
+        """
+        outs, hits = [], []
+        frontier = np.asarray(seeds)
+        for f, r in zip(fanouts, rands):
+            out, hit = self.device_sample_cached(frontier, f, rand=r)
+            outs.append(out)
+            hits.append(hit)
+            frontier = out.reshape(-1)
+        return outs, hits
+
+    # ---- accounting + extraction ----
+    def split_hits(self, ids: np.ndarray):
+        """Hit/miss split of a unique-vertex request against the feature
+        cache: returns (pos, hit) where ``pos[i]`` is the cache slot for
+        ``ids[i]`` (-1 on miss) and ``hit = pos >= 0``.  This is the only
+        sanctioned way for batch backends to read cache placement."""
+        ids = np.asarray(ids, dtype=np.int64)
+        pos = self.feat_pos[ids]
+        return pos, pos >= 0
+
+    def account_feature_gather(self, pos: np.ndarray, hit: np.ndarray,
+                               requester_dev: int,
+                               counter: TrafficCounter) -> None:
+        """Traffic accounting for one feature gather, shared by the host and
+        device batch backends (identical counts by construction).  Hits are
+        charged to their owning device's column (physical device ids index
+        the matrix directly), misses to the CPU/PCIe column."""
+        n_miss = int((~hit).sum())
+        row_bytes = self.g.feat_dim * S_FLOAT32
+        tx_per_row = int(np.ceil(row_bytes / CLS))
+        if hit.any() and max(self.devices) >= counter.n_devices:
+            raise ValueError(
+                f"TrafficCounter(n_devices={counter.n_devices}) cannot "
+                f"index clique devices {self.devices}; size it from the "
+                "plan (TrafficCounter.for_plan / for_devices)")
+        with counter.lock:
+            counter.feature_requests += len(pos)
+            counter.feature_hits += int(hit.sum())
+            counter.pcie_transactions += tx_per_row * n_miss
+            counter.bytes_matrix[requester_dev, -1] += row_bytes * n_miss
+            if hit.any():
+                owners = self.feat_owner[pos[hit]]
+                cnt = np.bincount(owners, minlength=len(self.devices))
+                np.add.at(counter.bytes_matrix[requester_dev],
+                          np.asarray(self.devices), row_bytes * cnt)
+
+    def extract_features(self, ids: np.ndarray, requester_dev: int,
+                         counter: Optional[TrafficCounter] = None
+                         ) -> np.ndarray:
+        """Gather rows for `ids` (unique sampled vertices of one batch) from
+        the host mirror, accounting hits (local/peer) and misses (CPU over
+        PCIe)."""
+        ids = np.asarray(ids, dtype=np.int64)
+        pos, hit = self.split_hits(ids)
+        out = np.empty((len(ids), self.g.feat_dim), dtype=np.float32)
+        if hit.any():
+            out[hit] = self.feat_cache[pos[hit]]
+        if (~hit).any():
+            out[~hit] = self.g.get_features(ids[~hit])
+        if counter is not None:
+            self.account_feature_gather(pos, hit, requester_dev, counter)
+        return out
+
+    def sample_accounting(self, srcs: np.ndarray, fanout: int,
+                          counter: TrafficCounter, requester_dev: int):
+        """Account one sampling level: adjacency reads of `srcs` hit the topo
+        cache or cost PCIe transactions (Eq. 3/4 granularity).
+
+        The legacy counters (requests/hits/pcie/bytes_matrix) are mode-
+        independent by construction: the sharded and replicated layouts
+        cache the *same* vertex set, so the hit split is identical.  The
+        topology-specific exchange traffic lands in ``topo_bytes_matrix``:
+        each hit delivers its ``fanout`` sampled neighbor ids from the
+        owner shard (a peer column under sharded mode, the requester's own
+        diagonal under replicated), and each miss adds ``fanout`` edges to
+        ``host_sampled_edges``."""
+        srcs = np.asarray(srcs, dtype=np.int64)
+        srcs = srcs[srcs >= 0]
+        pos = self.topo_pos[srcs]
+        hit = pos >= 0
+        miss = srcs[~hit]
+        tx = n_bytes = 0
+        if len(miss):
+            deg = self.g.indptr[miss + 1] - self.g.indptr[miss]
+            tx = int((np.ceil(deg * S_UINT32 / CLS).astype(np.int64) + 1).sum())
+            n_bytes = int((deg * S_UINT32).sum())
+        hb = fanout * S_UINT32
+        with counter.lock:
+            counter.topo_requests += len(srcs)
+            counter.topo_hits += int(hit.sum())
+            counter.pcie_transactions += tx
+            counter.bytes_matrix[requester_dev, -1] += n_bytes
+            counter.host_sampled_edges += fanout * len(miss)
+            counter.topo_bytes_matrix[requester_dev, -1] += n_bytes
+            if hit.any():
+                if self.topology_mode == "sharded":
+                    owners = self.topo_owner[srcs[hit]]
+                    cnt = np.bincount(owners, minlength=len(self.devices))
+                    np.add.at(counter.topo_bytes_matrix[requester_dev],
+                              np.asarray(self.devices), hb * cnt)
+                else:
+                    counter.topo_bytes_matrix[
+                        requester_dev, requester_dev] += hb * int(hit.sum())
+
+
+def plan_cache_contents(g: CSRGraph, k_g: int, cslp_res, cost_plan: dict,
+                        mem_per_device: float, topology_mode: str = "sharded"):
+    """Fill per-device queues until the planned per-device budgets (§4.2 S3).
+    Returns (feat_ids_per_dev, topo_ids_per_dev) — the *target* residency
+    sets.
+
+    ``topology_mode`` controls how the per-device topology byte budget
+    ``bt`` is spent.  Under ``"sharded"`` each device fills its own CSLP
+    queue ``G_T[gi]`` to ``bt`` (the per-device lists are disjoint, so the
+    clique's *union* caches ~k_g x bt of topology).  Under ``"replicated"``
+    every device must hold the same union, so the union itself is capped
+    at ``bt``: the globally hottest vertices (``Q_T`` order) up to ``bt``
+    bytes, split back into per-device lists by CSLP ownership purely for
+    bookkeeping."""
+    alpha = cost_plan["m_T"] / max(cost_plan["m_T"] + cost_plan["m_F"], 1)
+    if topology_mode not in CliqueCache.TOPOLOGY_MODES:
+        raise ValueError(f"unknown topology_mode {topology_mode!r}; "
+                         f"expected one of {CliqueCache.TOPOLOGY_MODES}")
+    bt = mem_per_device * alpha
+    bf = mem_per_device * (1 - alpha)
+    keep = None
+    if topology_mode == "replicated":
+        q = np.asarray(cslp_res.Q_T)
+        b = np.cumsum(g.topology_bytes(q)) if len(q) else np.zeros(0)
+        keep = np.zeros(g.n, dtype=bool)
+        keep[q[: int(np.searchsorted(b, bt, side="right"))]] = True
+    feat_ids, topo_ids = [], []
+    for gi in range(k_g):
+        # topology: fill G_T[gi] until bt bytes (sharded), or take this
+        # device's slice of the bt-byte union (replicated)
+        q = np.asarray(cslp_res.G_T[gi])
+        if keep is not None:
+            topo_ids.append(q[keep[q]] if len(q) else q)
+        else:
+            b = np.cumsum(g.topology_bytes(q)) if len(q) else np.zeros(0)
+            topo_ids.append(q[: int(np.searchsorted(b, bt, side="right"))])
+        # features: fixed row size
+        q = cslp_res.G_F[gi]
+        nrows = int(bf // g.feature_bytes_per_vertex())
+        feat_ids.append(q[:nrows])
+    return feat_ids, topo_ids
+
+
+def build_clique_cache(g: CSRGraph, devices, cslp_res, cost_plan: dict,
+                       mem_per_device: float, materialize: bool = True,
+                       topology_mode: str = "sharded") -> CliqueCache:
+    feat_ids, topo_ids = plan_cache_contents(g, len(devices), cslp_res,
+                                             cost_plan, mem_per_device,
+                                             topology_mode=topology_mode)
+    return CliqueCache(g, devices, feat_ids, topo_ids, materialize=materialize,
+                       topology_mode=topology_mode)

@@ -1,0 +1,103 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each kernel source under ``csrc/`` exposes a plain C entry point.  It is
+compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``build/repro_torch/`` at the repository root, named by the hash of its
+source so an edited source rebuilds, and loaded with ``ctypes``.  Nothing
+is compiled when a module is imported: the first launch (or the first
+``CudaKernel.fn()`` call) builds.  Without ``nvcc`` the build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Sequence
+
+_PKG = Path(__file__).resolve().parent
+BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (put the CUDA toolkit's bin/ on PATH "
+                       "or set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+class CudaKernel:
+    """One ``csrc/`` source, its C entry point and its launch count.
+
+    The entry point returns the ``cudaError_t`` of its launch as an int;
+    ``check`` raises on anything but success.
+
+    ``launches`` is incremented by the kernel's wrapper exactly where it
+    launches, and nowhere else: a run reads it to show which path it took.
+    ``build_log`` keeps what ``nvcc -Xptxas -v`` printed (registers, spills)
+    and ``build_s`` the compile time (0 when the library was already built).
+    """
+
+    def __init__(self, name: str, source: str, symbol: str,
+                 argtypes: Sequence):
+        self.name = name
+        self.source = _PKG / source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self.build_log = ""
+        self.build_s = 0.0
+        self._fn = None
+        self._lock = threading.Lock()
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(self.source.read_bytes()
+                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        return BUILD_DIR / f"{self.source.stem}-{digest[:16]}.so"
+
+    def _build(self) -> None:
+        """Compile this source with nvcc unless its library exists."""
+        out = self.library_path()
+        if out.exists():
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        self.build_log = proc.stdout
+        self.build_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {self.source.name} "
+                               f"(exit {proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, out)
+
+    def fn(self):
+        """The loaded C entry point (builds on first use)."""
+        if self._fn is None:
+            with self._lock:
+                if self._fn is None:
+                    self._build()
+                    lib = ctypes.CDLL(str(self.library_path()))
+                    f = getattr(lib, self.symbol)
+                    f.argtypes = self.argtypes
+                    f.restype = ctypes.c_int  # the launch's cudaError_t
+                    self._fn = f
+        return self._fn
+
+    def check(self, err: int) -> None:
+        if err != 0:
+            raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
+                               f"cudaError {err}")
+

@@ -1,0 +1,28 @@
+"""Plain PyTorch versions of the hand-written kernels (the correctness
+contracts).  Each mirrors its counterpart in the reference package's
+``kernels/ref.py``; every index is clamped explicitly where XLA would clamp
+it implicitly, so the results match bit for bit on any input."""
+from __future__ import annotations
+
+import torch
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[i] = table[idx[i]]; idx < 0 yields zeros (cache-miss slots)."""
+    safe = idx.to(torch.int64).clamp(0, table.shape[0] - 1)
+    out = table.index_select(0, safe)
+    return torch.where((idx >= 0)[:, None], out, 0).to(table.dtype)
+
+
+def fused_gather_overlay(table: torch.Tensor, idx: torch.Tensor,
+                         miss_rows: torch.Tensor,
+                         miss_inv: torch.Tensor) -> torch.Tensor:
+    """One batch's unique-vertex feature block from two sources:
+    ``out[i] = miss_rows[miss_inv[i]]`` where ``miss_inv[i] >= 0``, else
+    ``table[idx[i]]`` where ``idx[i] >= 0``, else zeros (bucket padding).
+    The two maps are disjoint by construction; miss wins on overlap."""
+    cached = gather_rows(table, idx)
+    fresh = miss_inv >= 0
+    safe = miss_inv.to(torch.int64).clamp(0, miss_rows.shape[0] - 1)
+    staged = miss_rows.index_select(0, safe).to(table.dtype)
+    return torch.where(fresh[:, None], staged, cached)

@@ -1,0 +1,379 @@
+"""Batch builders: the host/device split of Legion's per-step pipeline.
+
+One batch is produced in two phases with a hard boundary between them:
+
+  sample_spec() / fill_spec()   host: seed sampling, hit/miss split,
+                                miss-row fetch, traffic accounting.
+                                Produces a backend-agnostic ``BatchSpec``
+                                (numpy, plus a pinned staging tensor).
+  finalize()                    turns a spec into the torch tensors the
+                                model consumes, on the builder's device.
+
+Two interchangeable backends (paper §4.2/§5 vs the classic CPU pipeline)::
+
+    HostBatchBuilder                     DeviceBatchBuilder
+    ----------------                     ------------------
+    sample: host CSR (numpy)             sample: device topology cache (all
+                                           hops queued back-to-back, one
+                                           sync); host fills only the
+                                           topo-miss rows
+    gather: numpy rows, hits from        gather: one fused kernel launch
+      the host copy of the cache           (kernels/fused_batch.py): cache
+                                           gather + miss overlay, then
+                                           per-level positioning/masking
+    finalize: one host->device copy      finalize: staged miss upload +
+      per batch tensor                     fused gather on the device
+
+Both backends draw identical randomness (the device sampler replays the
+host generator's draws) and share one accounting implementation
+(``CliqueCache.account_feature_gather`` / ``sample_accounting``), so for a
+given seed they produce bit-identical batches and identical hit/miss
+counts — and both equal the reference package's builders bit for bit.
+
+Stable shapes: the device spec's per-id layout is **bucket-rounded** —
+``ids``/``cache_pos``/``hit``/``miss_inv`` pad to the next multiple of
+``bucket`` (default 256), and miss rows stage into a bucket-rounded pinned
+staging buffer reused across batches (padded to the cache table's width).
+Padded tail entries are inert (ids/cache_pos/miss_inv = -1, hit = False)
+and are never referenced by any level position.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.unified_cache import CliqueCache, TrafficCounter
+from repro_torch.graph.csr import CSRGraph
+from repro_torch.graph.sampling import (cache_sample_dispatch,
+                                        host_sample_batch, unique_vertices)
+from repro_torch.kernels import fused_batch
+from repro_torch.obs import maybe_span
+from repro_torch.utils import resolve_device
+
+DEFAULT_BUCKET = 256  # id/miss shape quantum of the device spec layout
+
+
+def _round_bucket(n: int, bucket: int) -> int:
+    """Smallest positive multiple of ``bucket`` holding ``n`` rows."""
+    return max(-(-n // bucket), 1) * bucket
+
+
+@dataclasses.dataclass
+class BatchSpec:
+    """Backend-agnostic description of one sampled mini-batch.
+
+    Device specs use the bucket-rounded layout (see module doc):
+    ``ids``/``cache_pos``/``hit``/``miss_inv`` have length
+    ``_round_bucket(n_ids, bucket)`` with inert padding (-1 / False), and
+    ``miss_feats`` is a bucket-rounded staging tensor on the host (pinned
+    when the builder's device is a GPU) whose first ``n_miss`` rows are
+    real (width may exceed the graph's feature dim — it is padded to the
+    cache table's device width).  Host specs are unpadded
+    (``n_ids == len(ids)``)."""
+    labels: np.ndarray                  # (B,) int32
+    levels: List[np.ndarray]            # padded level id tensors, -1 = pad
+    ids: np.ndarray                     # unique vertex ids (pad rows = -1)
+    level_pos: List[np.ndarray]         # per-level position into ``ids``
+    # host backend: fully materialized feature rows for ``ids``
+    host_feats: Optional[np.ndarray] = None
+    # device backend: hit/miss split + host-staged miss rows
+    cache_pos: Optional[np.ndarray] = None   # feat-cache slot per id (-1 miss)
+    hit: Optional[np.ndarray] = None         # (n_pad,) bool (pad rows False)
+    miss_feats: Optional[torch.Tensor] = None  # (m_pad, >=D) f32 staging
+    # row i's source row in miss_feats (-1 = cached or padding)
+    miss_inv: Optional[np.ndarray] = None
+    n_ids: int = 0                      # true unique-id count (<= len(ids))
+    n_miss: int = 0                     # true miss count (<= len(miss_feats))
+    # cache refresh epoch this spec's slots index into: finalize gathers
+    # from the matching (possibly previous) device buffer
+    cache_epoch: int = 0
+
+
+class _StagingPool:
+    """Reusable host-side miss staging buffers, keyed by (rows, width).
+
+    Buffers are page-locked (pinned) when the target device is a GPU, so
+    the upload can run as a true asynchronous copy.  The consumer releases
+    a buffer only after its device copy *completed* (finalize waits on the
+    copy's CUDA event first): a buffer recycled mid-transfer would feed the
+    in-flight batch rows from the *next* batch.  Thread-safe: specs fill on
+    one thread and finalize on another.
+    """
+
+    def __init__(self, pin: bool):
+        self._pin = pin
+        self._free: Dict[Tuple[int, int], deque] = {}
+        self._lock = threading.Lock()
+
+    def acquire(self, rows: int, width: int) -> torch.Tensor:
+        with self._lock:
+            q = self._free.setdefault((rows, width), deque())
+            if q:
+                return q.pop()
+        return torch.zeros((rows, width), dtype=torch.float32,
+                           pin_memory=self._pin)
+
+    def release(self, buf: Optional[torch.Tensor]) -> None:
+        if buf is not None:
+            with self._lock:
+                self._free.setdefault(tuple(buf.shape), deque()).append(buf)
+
+
+def _level_positions(ids: np.ndarray, levels: List[np.ndarray]) -> List[np.ndarray]:
+    out = []
+    for lvl in levels:
+        pos = np.searchsorted(ids, np.maximum(lvl, 0))
+        out.append(np.clip(pos, 0, max(len(ids) - 1, 0)))
+    return out
+
+
+def _position_and_mask(feats: torch.Tensor, levels: List[np.ndarray],
+                       level_pos: List[np.ndarray], labels: np.ndarray,
+                       device: torch.device) -> Dict[str, torch.Tensor]:
+    """Per-level positioning and pad masking of the gathered unique-vertex
+    block: ``feats_l = feats[pos_l] * (level_l >= 0)``, plus the masks and
+    labels, all on ``device``."""
+    D = feats.shape[1]
+    out = {"labels": torch.from_numpy(labels).to(device)}
+    for li, (lvl, pos) in enumerate(zip(levels, level_pos)):
+        p = torch.from_numpy(pos.reshape(-1).astype(np.int64)).to(device)
+        v = torch.from_numpy(lvl >= 0).to(device)
+        f = feats.index_select(0, p).reshape(tuple(lvl.shape) + (D,))
+        out[f"feats_{li}"] = f * v[..., None].to(f.dtype)
+        if li > 0:
+            out[f"mask_{li}"] = v
+    return out
+
+
+class BatchBuilder:
+    """Samples and extracts one device's mini-batches (see module doc).
+
+    ``device`` is where finalized batches live (default ``"cuda"``, which
+    raises without a card; pass ``"cpu"`` to run on the CPU)."""
+
+    backend: str = "?"
+
+    def __init__(self, g: CSRGraph, cache: Optional[CliqueCache],
+                 fanouts: Sequence[int],
+                 counter: Optional[TrafficCounter] = None, dev: int = 0,
+                 *, device="cuda"):
+        self.g = g
+        self.cache = cache
+        self.fanouts = tuple(fanouts)
+        self.counter = counter
+        self.dev = dev
+        self.device = resolve_device(device)
+        # telemetry tap: a shared no-op context while None
+        self.telemetry = None
+
+    # -- phase 1: host ---------------------------------------------------
+    # sample_spec() draws this step's randomness and samples the batch (all
+    # RNG consumption happens here, in step order); fill_spec() splits
+    # against the device cache at the *current* epoch and fetches the miss
+    # rows (RNG-free).
+    def sample_spec(self, seeds: np.ndarray,
+                    rng: np.random.Generator) -> BatchSpec:
+        raise NotImplementedError
+
+    def fill_spec(self, spec: BatchSpec) -> BatchSpec:
+        raise NotImplementedError
+
+    def build_spec(self, seeds: np.ndarray,
+                   rng: np.random.Generator) -> BatchSpec:
+        return self.fill_spec(self.sample_spec(seeds, rng))
+
+    # -- phase 2: consumer -----------------------------------------------
+    def finalize(self, spec: BatchSpec) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def release_spec(self, spec: BatchSpec) -> None:
+        """Return a spec's pooled resources without finalizing it."""
+
+    def build(self, seeds: np.ndarray, rng: np.random.Generator) -> Dict:
+        """Convenience: both phases back to back (benchmarks, tests)."""
+        return self.finalize(self.build_spec(seeds, rng))
+
+    def _account_sampling(self, levels: List[np.ndarray]) -> None:
+        if self.counter is not None and self.cache is not None:
+            for lvl, f in zip(levels[:-1], self.fanouts):
+                self.cache.sample_accounting(lvl.reshape(-1), f,
+                                             self.counter, self.dev)
+
+
+class HostBatchBuilder(BatchBuilder):
+    """The classic CPU pipeline: everything numpy, then one host->device
+    copy per batch tensor."""
+
+    backend = "host"
+
+    def sample_spec(self, seeds, rng):
+        levels = host_sample_batch(self.g, seeds, self.fanouts, rng)
+        if self.counter is not None:
+            # every host build samples from the host CSR by construction
+            with self.counter.lock:
+                self.counter.host_sample_syncs += 1
+        self._account_sampling(levels)
+        ids = unique_vertices(levels)
+        return BatchSpec(labels=self.g.get_labels(seeds), levels=levels,
+                         ids=ids, level_pos=_level_positions(ids, levels),
+                         n_ids=len(ids))
+
+    def fill_spec(self, spec):
+        ids = spec.ids
+        spec.host_feats = (
+            self.cache.extract_features(ids, self.dev, self.counter)
+            if self.cache is not None else self.g.get_features(ids))
+        return spec
+
+    @staticmethod
+    def assemble(spec: BatchSpec) -> Dict[str, np.ndarray]:
+        """Spec -> padded numpy batch (the pre-copy host representation)."""
+        batch = {"labels": spec.labels}
+        for li, (lvl, pos) in enumerate(zip(spec.levels, spec.level_pos)):
+            f = spec.host_feats[pos]
+            f[lvl < 0] = 0.0
+            batch[f"feats_{li}"] = f
+            if li > 0:
+                batch[f"mask_{li}"] = lvl >= 0
+        return batch
+
+    def finalize(self, spec):
+        with maybe_span(self.telemetry, "finalize", dev=self.dev):
+            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                        self.device)
+                    for k, v in self.assemble(spec).items()}
+
+
+class DeviceBatchBuilder(BatchBuilder):
+    """Device-resident pipeline: sampling and feature gather run against the
+    device-resident unified cache; the host only fills misses.
+
+    The cached-row gather is always ``fused_batch.fused_gather_overlay``:
+    on a GPU it launches the hand-written Hopper kernel, on the CPU the
+    wrapper runs its plain version (the device of the tensors decides).
+
+    ``bucket`` sets the shape quantum of the spec layout (see module doc).
+    ``fused=False`` (the reference's unfused
+    finalize chain) needs the ``gather_rows`` kernel, which is not ported
+    yet, and raises.
+    """
+
+    backend = "device"
+
+    def __init__(self, g, cache, fanouts, counter=None, dev=0, *,
+                 device="cuda", fused: bool = True,
+                 bucket: int = DEFAULT_BUCKET):
+        if cache is None:
+            raise ValueError("DeviceBatchBuilder needs a unified cache "
+                             "(build a LegionPlan, or use HostBatchBuilder)")
+        super().__init__(g, cache, fanouts, counter, dev, device=device)
+        if not fused:
+            raise NotImplementedError(
+                "fused=False needs the gather_rows kernel, which is not "
+                "ported yet (ROADMAP: TPU kernels to port, gather_rows)")
+        if bucket < 1:
+            raise ValueError(f"bucket must be >= 1, got {bucket}")
+        self.bucket = int(bucket)
+        self._staging = _StagingPool(pin=self.device.type == "cuda")
+        # upload the cache's device half now, on the builder's device
+        cache.device_arrays(device=self.device)
+
+    def _staging_width(self) -> int:
+        """Miss rows stage at the cache table's padded device width so the
+        fused kernel sees one width for both sources (columns beyond
+        feat_dim stay zero for the buffer's lifetime)."""
+        return CliqueCache._lane_padded(self.g.feat_dim)
+
+    def sample_spec(self, seeds, rng):
+        # queue the whole device chain, then fetch labels while it is in
+        # flight; resolve() pays the single sync and repairs stale-parent /
+        # host-miss rows (see cache_sample_dispatch)
+        resolve = cache_sample_dispatch(self.g, self.cache, seeds,
+                                        self.fanouts, rng)
+        labels = self.g.get_labels(seeds)
+        levels, _topo_hits = resolve(counter=self.counter)
+        self._account_sampling(levels)
+        ids = unique_vertices(levels)
+        return BatchSpec(labels=labels, levels=levels, ids=ids,
+                         level_pos=_level_positions(ids, levels),
+                         n_ids=len(ids))
+
+    def fill_spec(self, spec):
+        # the hit/miss split runs HERE, so the spec pins the *current*
+        # cache epoch regardless of how far ahead it was sampled
+        ids, n_ids = spec.ids, spec.n_ids
+        cache_pos, hit = self.cache.split_hits(ids)
+        if self.counter is not None:
+            self.cache.account_feature_gather(cache_pos, hit, self.dev,
+                                              self.counter)
+        n_miss = int((~hit).sum())
+        # bucket-rounded layout: pad rows are inert (-1 / False) and never
+        # referenced by level_pos, so every downstream shape is stable
+        n_pad = _round_bucket(n_ids, self.bucket)
+        m_pad = _round_bucket(n_miss, self.bucket)
+        ids_p = np.full(n_pad, -1, dtype=np.int64)
+        ids_p[:n_ids] = ids
+        pos_p = np.full(n_pad, -1, dtype=np.int64)
+        pos_p[:n_ids] = cache_pos
+        hit_p = np.zeros(n_pad, dtype=bool)
+        hit_p[:n_ids] = hit
+        miss_inv = np.full(n_pad, -1, dtype=np.int32)
+        miss_inv[np.flatnonzero(~hit)] = np.arange(n_miss, dtype=np.int32)
+        staging = self._staging.acquire(m_pad, self._staging_width())
+        host = staging.numpy()  # shares the (pinned) buffer's memory
+        D = self.g.feat_dim
+        if n_miss:
+            host[:n_miss, :D] = self.g.get_features(ids[~hit])
+        host[n_miss:, :D] = 0.0
+        spec.ids = ids_p
+        spec.cache_pos = pos_p
+        spec.hit = hit_p
+        spec.miss_feats = staging
+        spec.miss_inv = miss_inv
+        spec.n_miss = n_miss
+        spec.cache_epoch = self.cache.epoch
+        return spec
+
+    def release_spec(self, spec):
+        self._staging.release(spec.miss_feats)
+        spec.miss_feats = None
+
+    def _table(self, epoch: int) -> torch.Tensor:
+        """The epoch-pinned device feature table; a (1, Dp) zero dummy when
+        the plan cached nothing (every row then resolves as miss/pad)."""
+        if len(self.cache.feat_ids) == 0:
+            return torch.zeros((1, self._staging_width()),
+                               dtype=torch.float32, device=self.device)
+        return self.cache.device_arrays(epoch)["feat_cache"]
+
+    def finalize(self, spec):
+        tele = self.telemetry
+        dev = self.device
+        with maybe_span(tele, "finalize", dev=self.dev):
+            table = self._table(spec.cache_epoch)
+            # the upload is ASYNC from pinned memory: it must complete
+            # before the staging buffer goes back to the pool, or the next
+            # fill overwrites it mid-read.  copy=True also keeps a CPU
+            # "upload" from aliasing the pooled buffer.
+            with maybe_span(tele, "h2d_staging", dev=self.dev,
+                            rows=spec.n_miss):
+                miss = spec.miss_feats.to(dev, non_blocking=True, copy=True)
+                if dev.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(dev))
+                    done.synchronize()
+            self.release_spec(spec)
+            # -1 at miss AND pad rows
+            idx = torch.from_numpy(spec.cache_pos.astype(np.int32)).to(dev)
+            inv = torch.from_numpy(spec.miss_inv).to(dev)
+            feats = fused_batch.fused_gather_overlay(table, idx, miss, inv)
+            D = self.g.feat_dim
+            if feats.shape[1] != D:
+                feats = feats[:, :D]
+            return _position_and_mask(feats, spec.levels, spec.level_pos,
+                                      spec.labels, dev)

@@ -1,0 +1,50 @@
+"""The PyTorch port stands alone: importing every ``repro_torch`` module
+pulls in neither ``jax`` nor anything of the reference package ``repro``,
+and no port source (nor ``chip_smoke.py``) names either in an import."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(n for n in sys.modules if n in ("jax", "repro")
+             or n.startswith(("jax.", "repro.")))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def _forbidden(name: str) -> bool:
+    return name in ("jax", "repro") or name.startswith(("jax.", "repro."))
+
+
+def test_importing_every_port_module_loads_no_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20  # every subpackage was walked
+
+
+def test_port_sources_name_no_jax_or_reference_import():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(_forbidden(n) for n in names), (path, names)
