@@ -8,29 +8,48 @@ result line):
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions.
-2. Build: every hand-written kernel of the serving path, compiled from the
-   sources in this checkout at its first ``fn()`` call.
+2. Build: every hand-written kernel (``repro_torch.kernels.KERNELS``),
+   compiled from the sources in this checkout, one nvcc per source, all
+   started together; registers and spills as ptxas reports them.
 3. Graph + plan: ``synthetic_instance("PA", 1M vertices)`` and a one-GPU
    Legion plan with a 300 MB cache, fanouts (25, 10).
 4. Kernels: each kernel against its plain PyTorch version on the card,
-   bitwise, at the serving shape taken from a real micro-batch, in bf16, at
-   D = 100 and with one-row sources; then kernel and plain version timed
+   bitwise, at the shapes the serving and training paths give it (taken
+   from a real 256-seed micro-batch and a real 8000-seed training batch)
+   and at edge cases (bf16, D = 100, one-row sources, an int32 D = 1
+   table, out-of-range and multi-dimensional indices, an empty update);
+   then kernel, plain version and the nearest single PyTorch call timed
    with CUDA events, L2 flushed before every launch.
 5. Serve: ``GNNServer`` with GraphSAGE at paper width (feat 128, hidden
    256, 32 classes, random weights from a seed) answers 200 requests of
-   1-256 seeds with the bitwise host-oracle check on; every kernel's launch
-   count is zeroed just before and read just after.
+   1-256 seeds with the bitwise host-oracle check on.
+6. Train: ``train_gnn`` on the device backend at paper width (batch 8000)
+   for 20 steps with an online cache refresh every 5 steps that replans on
+   any drift; step times, hit rates before and after the first refresh,
+   the refresh events, the staging pool, a per-layer breakdown of one step
+   (sample, fill, finalize, forward+backward, optimizer) and of one
+   refresh, and the device busy share of 5 steady steps of a separate
+   profiled run.
+7. Parity: host and device backends at batch 1024 for 12 steps with a
+   refresh every 4 steps: bitwise-equal losses, identical refresh
+   summaries and hit tallies.
+8. Unfused: the device run again with ``fused=False`` for 4 steps: losses
+   bitwise equal to the fused run's.
 
-The last two lines are the ``{"kernels": [...]}`` record and
+Every kernel's launch count is zeroed just before each of the serve,
+train, parity and unfused phases and read just after.  The last three lines
+are the card's name and power limit, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -41,6 +60,12 @@ MEM_PER_DEVICE = 300e6
 MAX_BATCH = 256
 N_REQUESTS = 200
 TIMED_LAUNCHES = 100
+TRAIN_STEPS = 20
+PARITY_BATCH = 1024
+PARITY_STEPS = 12
+UNFUSED_STEPS = 4
+PROFILE_STEPS = 8        # the profiled run; its steps 2..6 are the window
+PROFILE_WINDOW = (2, 5)  # (first step, steps)
 
 
 def smi() -> str:
@@ -51,33 +76,9 @@ def smi() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def kernel_cases(torch, table, idx, miss, inv, seed: int = 0):
-    """The bitwise cases: the serving shape as given, the same in bf16, a
-    random D = 100 instance with the same hit/miss/pad mix, and one-row
-    sources (an empty cache's dummy table, a one-row miss buffer)."""
-    gen = torch.Generator(device=table.device).manual_seed(seed)
-    dev = table.device
-    t100 = torch.randn((50_000, 100), generator=gen, device=dev)
-    m100 = torch.randn((miss.shape[0], 100), generator=gen, device=dev)
-    idx100 = torch.where(idx >= 0, idx % t100.shape[0], idx)
-    one_t = torch.zeros((1, table.shape[1]), device=dev)
-    one_m = torch.arange(table.shape[1], dtype=torch.float32,
-                         device=dev)[None, :] + 1.0
-    one_idx = torch.full_like(idx, -1)
-    one_inv = torch.where(inv >= 0, torch.zeros_like(inv),
-                          torch.full_like(inv, -1))
-    return {
-        "serve_f32": (table, idx, miss, inv),
-        "serve_bf16": (table.to(torch.bfloat16), idx,
-                       miss.to(torch.bfloat16), inv),
-        "d100_f32": (t100, idx100, m100, inv),
-        "one_row_sources": (one_t, one_idx, one_m, one_inv),
-    }
-
-
 def time_ms(torch, fn, args, n: int, flush) -> float:
-    """Median per-launch device time, L2 flushed before each launch (a
-    micro-batch finds its rows cold: the forward runs in between)."""
+    """Median per-launch device time, L2 flushed before each launch (a batch
+    finds its rows cold: the forward and backward run in between)."""
     fn(*args)
     torch.cuda.synchronize()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
@@ -92,9 +93,12 @@ def time_ms(torch, fn, args, n: int, flush) -> float:
     return times[len(times) // 2]
 
 
+# ---- the bytes each kernel must move (each input read once, each output
+# ---- written once, counted for this run's data) -------------------------
+
 def gather_bytes(idx, miss_inv, row_bytes: int) -> int:
-    """Bytes the fused gather must move for these maps: every distinct
-    source row read once, both maps read once, every output row written."""
+    """fused_gather_overlay: every distinct source row read once, both maps
+    read once, every output row written."""
     import torch
 
     fresh = miss_inv >= 0
@@ -104,6 +108,178 @@ def gather_bytes(idx, miss_inv, row_bytes: int) -> int:
     B = idx.numel()
     return rows * row_bytes + 2 * B * 4 + B * row_bytes
 
+
+def gather_rows_bytes(idx, n_table: int, row_bytes: int) -> int:
+    """gather_rows: every distinct row referenced read once, the index read
+    once, every output row written."""
+    import torch
+
+    valid = idx[idx >= 0].clamp_max(n_table - 1)
+    B = idx.numel()
+    return torch.unique(valid).numel() * row_bytes + B * 4 + B * row_bytes
+
+
+def scatter_rows_bytes(n_table: int, n_idx: int, row_bytes: int) -> int:
+    """scatter_rows: every table row read once (from the old table or the
+    admitted rows), the index read once, every output row written."""
+    return 2 * n_table * row_bytes + n_idx * 4
+
+
+# ---- the cases of each kernel: name -> wrapper arguments, plus the timed
+# ---- shapes (name, args, bytes, library call or None) --------------------
+
+def fused_gather_overlay_cases(torch, ctx, seed: int = 0):
+    """The serving and training shapes as given, the serving shape in bf16,
+    a random D = 100 instance with the same hit/miss/pad mix, and one-row
+    sources (an empty cache's dummy table, a one-row miss buffer)."""
+    table, s, t = ctx["table"], ctx["serve"], ctx["train"]
+    idx, miss, inv = s["idx"], s["miss"], s["inv"]
+    gen = torch.Generator(device=table.device).manual_seed(seed)
+    dev = table.device
+    t100 = torch.randn((50_000, 100), generator=gen, device=dev)
+    m100 = torch.randn((miss.shape[0], 100), generator=gen, device=dev)
+    idx100 = torch.where(idx >= 0, idx % t100.shape[0], idx)
+    one_t = torch.zeros((1, table.shape[1]), device=dev)
+    one_m = torch.arange(table.shape[1], dtype=torch.float32,
+                         device=dev)[None, :] + 1.0
+    one_idx = torch.full_like(idx, -1)
+    one_inv = torch.where(inv >= 0, torch.zeros_like(inv),
+                          torch.full_like(inv, -1))
+    cases = {
+        "train_f32": (table, t["idx"], t["miss"], t["inv"]),
+        "serve_f32": (table, idx, miss, inv),
+        "serve_bf16": (table.to(torch.bfloat16), idx,
+                       miss.to(torch.bfloat16), inv),
+        "d100_f32": (t100, idx100, m100, inv),
+        "one_row_sources": (one_t, one_idx, one_m, one_inv),
+    }
+    row = table.shape[1] * table.element_size()
+    timed = [("train", cases["train_f32"],
+              gather_bytes(t["idx"], t["inv"], row), None),
+             ("serve", cases["serve_f32"], gather_bytes(idx, inv, row),
+              None)]
+    return cases, timed
+
+
+def gather_rows_cases(torch, ctx, seed: int = 1):
+    """The unfused finalize's cached-row gather of the real training batch
+    (misses at -1), in bf16, at D = 100, an int32 D = 1 table (the cached
+    CSR column), indices past the end, and a (B, F) index."""
+    table, idx = ctx["table"], ctx["train"]["unfused_idx"]
+    dev, N = table.device, table.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t100 = torch.randn((50_000, 100), generator=gen, device=dev)
+    col = ctx["csr_col"]
+    col_idx = torch.randint(-1_000, col.shape[0] + 1_000, (300_000,),
+                            generator=gen, device=dev, dtype=torch.int32)
+    oor = idx.clone()
+    oor[::97] = N + torch.arange(oor[::97].numel(), dtype=torch.int32,
+                                 device=dev)
+    F = 25
+    nb = idx.numel() // F
+    cases = {
+        "train_f32": (table, idx),
+        "train_bf16": (table.to(torch.bfloat16), idx),
+        "d100_f32": (t100, torch.where(idx >= 0, idx % t100.shape[0], idx)),
+        "int32_d1": (col, col_idx),
+        "out_of_range": (table, oor),
+        "index_bxf": (table, idx[:nb * F].reshape(nb, F)),
+    }
+    row = table.shape[1] * table.element_size()
+    lib_idx = idx.clamp_min(0)
+    timed = [("train", cases["train_f32"], gather_rows_bytes(idx, N, row),
+              ("torch.index_select(table, 0, idx.clamp_min(0))",
+               lambda: torch.index_select(table, 0, lib_idx)))]
+    return cases, timed
+
+
+def scatter_rows_cases(torch, ctx, seed: int = 2):
+    """The real feature table with 10% unique random slots admitted (1% of
+    the entries negative and 1% past the end, both dropped), in bf16, at
+    D = 100, and an empty update."""
+    table = ctx["table"]
+    dev, (N, D) = table.device, table.shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B = N // 10
+    idx = torch.randperm(N, generator=gen, device=dev)[:B].to(torch.int32)
+    k = B // 100
+    idx[:k] = -1 - torch.arange(k, dtype=torch.int32, device=dev)
+    idx[k:2 * k] = N + torch.arange(k, dtype=torch.int32, device=dev)
+    rows = torch.randn((B, D), generator=gen, device=dev)
+    t100 = torch.randn((50_000, 100), generator=gen, device=dev)
+    idx100 = torch.randperm(50_000, generator=gen, device=dev)[:5_000] \
+        .to(torch.int32)
+    rows100 = torch.randn((5_000, 100), generator=gen, device=dev)
+    cases = {
+        "refresh_f32": (table, idx, rows),
+        "refresh_bf16": (table.to(torch.bfloat16), idx,
+                         rows.to(torch.bfloat16)),
+        "d100_f32": (t100, idx100, rows100),
+        "empty": (table, idx[:0], rows[:0]),
+    }
+    valid = (idx >= 0) & (idx < N)
+    lib_idx, lib_rows = idx[valid].to(torch.int64), rows[valid]
+    row = D * table.element_size()
+    timed = [("refresh", cases["refresh_f32"],
+              scatter_rows_bytes(N, B, row),
+              ("torch.index_copy(table, 0, valid_idx, valid_rows)",
+               lambda: torch.index_copy(table, 0, lib_idx, lib_rows)))]
+    return cases, timed
+
+
+KERNEL_CASES = {"fused_gather_overlay": fused_gather_overlay_cases,
+                "gather_rows": gather_rows_cases,
+                "scatter_rows": scatter_rows_cases}
+
+
+def check_and_time(torch, np, k, ctx, flush, card) -> dict:
+    """Bitwise checks of one kernel against its plain version on every
+    case, then kernel / plain / library timings at each timed shape (two
+    alternating rounds averaged).  Inputs must be unchanged afterwards."""
+    cases, timed = KERNEL_CASES[k.name](torch, ctx)
+    snapshots = {id(t): t.clone() for args in cases.values() for t in args}
+    errs = {}
+    for name, args in cases.items():
+        got = k.wrapper(*args)
+        want = k.plain(*args)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype \
+                or not torch.equal(got, want):
+            raise AssertionError(f"{k.name} != plain version on case {name}")
+        errs[name] = (float((got.float() - want.float()).abs().max())
+                      if got.numel() else 0.0)
+    out = {"max_abs_err": max(errs.values()), "timed": {}}
+    for shape, args, nbytes, lib in timed:
+        runs = []
+        for _ in range(2):  # kernel, plain, library; twice
+            r = [time_ms(torch, k.wrapper, args, TIMED_LAUNCHES, flush),
+                 time_ms(torch, k.plain, args, TIMED_LAUNCHES, flush)]
+            if lib is not None:
+                r.append(time_ms(torch, lib[1], (), TIMED_LAUNCHES, flush))
+            runs.append(r)
+        res = {"ms": float(np.mean([r[0] for r in runs])),
+               "plain_ms": float(np.mean([r[1] for r in runs])),
+               "library_ms": (float(np.mean([r[2] for r in runs]))
+                              if lib is not None else None),
+               "library_call": lib[0] if lib is not None else None,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bytes": int(nbytes)}
+        out["timed"][shape] = res
+        print(f"[kernel] {k.name} @ {shape}: kernel {res['ms']:.4f} ms, "
+              f"plain {res['plain_ms']:.4f} ms, library "
+              f"{res['library_ms']} ms ({res['library_call']}), bound "
+              f"{res['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB) "
+              f"runs {runs} | {card}")
+    for args in cases.values():
+        for t in args:
+            if not torch.equal(t, snapshots[id(t)]):
+                raise AssertionError(f"{k.name} wrote one of its inputs")
+    print(f"[kernel] {k.name}: bitwise equal on {sorted(errs)}; inputs "
+          f"unchanged | {card}")
+    return out
+
+
+# ---- serving layers (phase 4b) --------------------------------------------
 
 def breakdown(torch, np, builder, cfg, params, n: int,
               oracle: bool = True) -> dict:
@@ -142,8 +318,46 @@ def breakdown(torch, np, builder, cfg, params, n: int,
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
+def device_rows(torch, events, w0=None, w1=None):
+    """(start, end, name) of the device-side events (kernels, copies,
+    memsets), clipped to [w0, w1] when given; the CPU-side ops and the
+    device copies of record_function ranges are left out."""
+    out = []
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.name == "device_step":
+            continue
+        s, t = e.time_range.start, e.time_range.end
+        if w0 is not None:
+            s, t = max(s, w0), min(t, w1)
+        if t > s:
+            out.append((s, t, e.name))
+    return out
+
+
+def busy_and_top(rows, k: int = 8):
+    """Union of the device intervals, and the top ``k`` names by time."""
+    busy, cur = 0.0, None
+    for s, t, _ in sorted(rows):
+        if cur is None or s > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [s, t]
+        else:
+            cur[1] = max(cur[1], t)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    by_name = {}
+    for s, t, name in rows:
+        tot, cnt = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + t - s, cnt + 1)
+    top = sorted(((us, name, cnt) for name, (us, cnt) in by_name.items()),
+                 reverse=True)[:k]
+    return busy, top
+
+
 def device_share(torch, np, builder, cfg, params, n: int):
-    """Device busy time over ``n`` micro-batches of the production serving
+    """Device busy share over ``n`` micro-batches of the production serving
     path (no host oracle) from torch.profiler, and the top device
     operations; None when the profiler saw no device time.  The wall time
     includes the profiler's own overhead."""
@@ -154,21 +368,109 @@ def device_share(torch, np, builder, cfg, params, n: int):
         t0 = time.perf_counter()
         breakdown(torch, np, builder, cfg, params, n, oracle=False)
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []  # device-side events only (kernels, copies, memsets): the
-    # CPU-side aten ops report the same device time again
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((us, e.key, e.count))
+    rows = device_rows(torch, prof.events())
     if not rows:
         return None
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    return busy / wall_us, rows[:8]
+    busy, top = busy_and_top(rows)
+    return busy / wall_us, top
+
+
+# ---- training (phases 6-8) -------------------------------------------------
+
+def fresh_copy(plan):
+    """A plan whose caches start from ``plan``'s residency as built (a
+    refresh mutates its plan in place; every training run gets its own)."""
+    from repro_torch.core.unified_cache import CliqueCache
+
+    caches = [CliqueCache(c.g, c.devices, c.feat_ids_by_device(),
+                          c.topo_ids_per_dev, topology_mode=c.topology_mode)
+              for c in plan.caches]
+    return dataclasses.replace(plan, stats=list(plan.stats),
+                               cslp=list(plan.cslp),
+                               cost_plans=list(plan.cost_plans),
+                               caches=caches)
+
+
+def zero_launches(kernels) -> None:
+    for k in kernels:
+        k.kernel.launches = 0
+
+
+def read_launches(kernels) -> dict:
+    return {k.name: k.kernel.launches for k in kernels}
+
+
+def train_breakdown(torch, np, g, plan, cfg, params, n: int):
+    """Host milliseconds per layer of one device-backend training step at
+    ``cfg.batch_size`` (median over ``n`` steps), driven one step at a time
+    through the builder, model and optimizer calls ``train_gnn`` makes, each
+    layer closed by a device synchronize (so no prefetch overlap); then one
+    online refresh over the traffic those steps produced, timed the same
+    way.  Returns (layer ms, refresh ms, refresh stats)."""
+    from repro_torch.core.cache_manager import (OnlineCacheManager,
+                                                RefreshConfig)
+    from repro_torch.models.gnn import loss_fn
+    from repro_torch.train.batch import DeviceBatchBuilder
+    from repro_torch.train.optimizer import (adamw, apply_updates,
+                                             tree_leaves, tree_map)
+
+    bplan = fresh_copy(plan)
+    mgr = OnlineCacheManager(g, bplan, RefreshConfig(drift_threshold=1.0))
+    b = DeviceBatchBuilder(g, bplan.caches[0], cfg.fanouts, None, 0,
+                           device="cuda", observer=mgr.observer_for(0))
+    opt = adamw(cfg.lr)
+    state = opt.init(params)
+    rng = np.random.default_rng(0)
+    tablet = bplan.partition.tablets[0]
+    times = {k: [] for k in ("sample", "fill", "finalize",
+                             "forward+backward", "optimizer")}
+    for _ in range(n):
+        t = [time.perf_counter()]
+        spec = b.sample_spec(tablet[rng.integers(0, len(tablet),
+                                                 cfg.batch_size)], rng)
+        t.append(time.perf_counter())
+        spec = b.fill_spec(spec)
+        t.append(time.perf_counter())
+        batch = b.finalize(spec)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        p = tree_map(lambda x: x.detach().requires_grad_(), params)
+        loss, _ = loss_fn(cfg, p, batch)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(p)))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        upd, state = opt.update(tree_map(lambda _: next(grads), p), state,
+                                p)
+        params = apply_updates(p, upd)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, a, c in zip(times, t, t[1:]):
+            times[k].append((c - a) * 1e3)
+    t0 = time.perf_counter()
+    mgr.maybe_refresh(n)
+    torch.cuda.synchronize()
+    refresh_ms = (time.perf_counter() - t0) * 1e3
+    return ({k: float(np.median(v)) for k, v in times.items()}, refresh_ms,
+            mgr.summary())
+
+
+def step_window_share(torch, prof, first: int, count: int):
+    """Device busy share over steps ``first .. first+count-1`` of a
+    profiled ``train_gnn`` run (the loop's ``device_step`` ranges bound the
+    window), and the top device operations inside it."""
+    events = prof.events()
+    steps = sorted((e for e in events if e.name == "device_step"
+                    and e.device_type == torch.autograd.DeviceType.CPU),
+                   key=lambda e: e.time_range.start)
+    if len(steps) < first + count:
+        return None
+    w0 = steps[first].time_range.start
+    w1 = steps[first + count - 1].time_range.end
+    rows = device_rows(torch, events, w0, w1)
+    if not rows:
+        return None
+    busy, top = busy_and_top(rows)
+    return busy / (w1 - w0), (w1 - w0) / 1e3, top
 
 
 def main() -> int:
@@ -180,14 +482,16 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.configs.legion_gnn import GRAPHSAGE
+    from repro_torch.core.cache_manager import RefreshConfig
     from repro_torch.core.cliques import topology_matrix
     from repro_torch.core.planner import build_plan
     from repro_torch.graph.csr import synthetic_instance
-    from repro_torch.kernels import fused_batch, ref
+    from repro_torch.kernels import KERNELS, scatter
     from repro_torch.models.gnn import defs as gnn_defs
     from repro_torch.models.params import init_from_defs
     from repro_torch.serve import GNNServer, ServeConfig
     from repro_torch.train.batch import DeviceBatchBuilder
+    from repro_torch.train.loop import train_gnn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -196,20 +500,18 @@ def main() -> int:
     print(f"[device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {kind} x {torch.cuda.device_count()}")
 
-    # ---- 2. build ----------------------------------------------------------
-    kernels = [{"kernel": fused_batch.KERNEL, "wrapper":
-                fused_batch.fused_gather_overlay, "plain":
-                ref.fused_gather_overlay,
-                "source": "src/repro_torch/kernels/csrc/fused_gather_overlay.cu",
-                "replaces": "src/repro/kernels/fused_batch.py:48"}]
-    for k in kernels:
-        t0 = time.perf_counter()
-        k["kernel"].fn()
-        print(f"[build] {k['kernel'].name}: {time.perf_counter() - t0:.2f}s "
-              f"(nvcc {k['kernel'].build_s:.2f}s) | {card}")
-        for line in k["kernel"].build_log.splitlines():
+    # ---- 2. build: one nvcc per source, all started together --------------
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        for f in [pool.submit(k.kernel.fn) for k in KERNELS]:
+            f.result()
+    print(f"[build] {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f}s"
+          f" | {card}")
+    for k in KERNELS:
+        print(f"[build] {k.name}: nvcc {k.kernel.build_s:.2f}s | {card}")
+        for line in k.kernel.build_log.splitlines():
             if "registers" in line or "spill" in line:
-                print(f"[build] {k['kernel'].name}: {line.strip()}")
+                print(f"[build] {k.name}: {line.strip()}")
 
     # ---- 3. graph + plan ---------------------------------------------------
     t0 = time.perf_counter()
@@ -223,52 +525,47 @@ def main() -> int:
           f"alpha={plan.cost_plans[0]['alpha']:.2f} "
           f"({time.perf_counter() - t0:.1f}s host)")
 
-    # ---- 4. kernels vs plain versions -------------------------------------
+    # ---- 4. kernels vs plain versions, at the paths' real shapes -----------
     slots, cap = 1, 1
     for f in GRAPHSAGE.fanouts:
         slots *= f
         cap += slots
     builder = DeviceBatchBuilder(g, cache, GRAPHSAGE.fanouts, None, 0,
                                  device="cuda", bucket=MAX_BATCH * cap)
-    rng = np.random.default_rng(0)
-    spec = builder.fill_spec(builder.sample_spec(
-        rng.integers(0, g.n, MAX_BATCH), rng))
     table = cache.device_arrays()["feat_cache"]
-    idx = torch.from_numpy(spec.cache_pos.astype(np.int32)).cuda()
-    inv = torch.from_numpy(spec.miss_inv).cuda()
-    miss = spec.miss_feats.cuda()
-    builder.release_spec(spec)
-    print(f"[kernel] serve shape: B={idx.numel()} table={tuple(table.shape)} "
-          f"miss={tuple(miss.shape)} unique={spec.n_ids} "
-          f"hits={int(spec.hit.sum())} misses={spec.n_miss}")
+
+    def spec_maps(b, seeds, rng):
+        spec = b.fill_spec(b.sample_spec(seeds, rng))
+        n = spec.n_ids
+        maps = {"idx": torch.from_numpy(spec.cache_pos.astype(np.int32))
+                .cuda(),
+                "inv": torch.from_numpy(spec.miss_inv).cuda(),
+                "miss": spec.miss_feats.cuda(),
+                "unfused_idx": torch.from_numpy(np.where(
+                    spec.hit[:n], spec.cache_pos[:n], -1).astype(np.int32))
+                .cuda()}
+        b.release_spec(spec)
+        print(f"[kernel] {len(seeds)}-seed batch: B={maps['idx'].numel()} "
+              f"table={tuple(table.shape)} miss={tuple(maps['miss'].shape)} "
+              f"unique={spec.n_ids} hits={int(spec.hit.sum())} "
+              f"misses={spec.n_miss}")
+        return maps
+
+    rng = np.random.default_rng(0)
+    tablet = plan.partition.tablets[0]
+    ctx = {"table": table,
+           "serve": spec_maps(builder, rng.integers(0, g.n, MAX_BATCH), rng),
+           "train": spec_maps(
+               DeviceBatchBuilder(g, cache, GRAPHSAGE.fanouts, None, 0,
+                                  device="cuda"),
+               tablet[rng.integers(0, len(tablet), GRAPHSAGE.batch_size)],
+               rng),
+           "csr_col": cache.device_arrays()["cache_indices"][:, None]
+           .contiguous()}
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    for k in kernels:
-        errs = {}
-        for name, args in kernel_cases(torch, table, idx, miss, inv).items():
-            got = k["wrapper"](*args)
-            want = k["plain"](*args)
-            torch.cuda.synchronize()
-            if got.shape != want.shape or not torch.equal(got, want):
-                raise AssertionError(f"{k['kernel'].name} != plain version "
-                                     f"on case {name}")
-            errs[name] = float((got.float() - want.float()).abs().max())
-        args = (table, idx, miss, inv)
-        runs = []
-        for _ in range(2):  # kernel, plain, kernel, plain
-            runs.append((time_ms(torch, k["wrapper"], args, TIMED_LAUNCHES,
-                                 flush),
-                         time_ms(torch, k["plain"], args, TIMED_LAUNCHES,
-                                 flush)))
-        k["ms"] = float(np.mean([r[0] for r in runs]))
-        k["plain_ms"] = float(np.mean([r[1] for r in runs]))
-        nbytes = gather_bytes(idx, inv, table.shape[1] * table.element_size())
-        k["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
-        k["max_abs_err"] = max(errs.values())
-        print(f"[kernel] {k['kernel'].name}: bitwise equal on {sorted(errs)}; "
-              f"kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
-              f"{k['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB) "
-              f"runs {runs} | {card}")
-    del flush
+    measured = {k.name: check_and_time(torch, np, k, ctx, flush, card)
+                for k in KERNELS}
+    del ctx
 
     # ---- 4b. where the time goes (serving layers, one batch at a time) ----
     params = init_from_defs(gnn_defs(GRAPHSAGE),
@@ -285,18 +582,19 @@ def main() -> int:
         print(f"[layers] device busy share {share[0]:.4f} over 5 micro-batches"
               f" without the oracle, profiler on (idle {1 - share[0]:.4f}) "
               f"| {card}")
-        for us, key, count in share[1]:
-            print(f"[layers]   {us / 1e3:9.3f} ms  x{count:<5d} {key[:70]}")
+        for us, name, count in share[1]:
+            print(f"[layers]   {us / 1e3:9.3f} ms  x{count:<5d} {name[:70]} "
+                  f"| {card}")
 
     # ---- 5. serve ----------------------------------------------------------
+    phase_launches = {}
     srv = GNNServer(g, plan, GRAPHSAGE, params, device="cuda",
                     config=ServeConfig(max_batch=MAX_BATCH,
                                        oracle_check=True), seed=0)
     req_rng = np.random.default_rng(1)
     requests = [req_rng.integers(0, g.n, int(n))
                 for n in req_rng.integers(1, MAX_BATCH + 1, N_REQUESTS)]
-    for k in kernels:
-        k["kernel"].launches = 0
+    zero_launches(KERNELS)
     srv.warmup()
     srv.start()
     t0 = time.perf_counter()
@@ -304,14 +602,12 @@ def main() -> int:
     results = [f.result(timeout=900) for f in futs]
     wall = time.perf_counter() - t0
     srv.stop()
-    for k in kernels:
-        k["launches"] = k["kernel"].launches
+    phase_launches["serve"] = read_launches(KERNELS)
     s = srv.summary()
-    for k in kernels:
-        if k["launches"] != s["batches"]:
-            raise AssertionError(f"{k['kernel'].name} launched "
-                                 f"{k['launches']} times for {s['batches']} "
-                                 "micro-batches")
+    if phase_launches["serve"] != {"fused_gather_overlay": s["batches"],
+                                   "gather_rows": 0, "scatter_rows": 0}:
+        raise AssertionError(f"serve launches {phase_launches['serve']} for "
+                             f"{s['batches']} micro-batches")
     if s["oracle_mismatches"] or s["oracle_checks"] != s["batches"]:
         raise AssertionError(f"oracle check failed: {s}")
     for req, res in zip(requests, results):
@@ -328,14 +624,170 @@ def main() -> int:
     print(f"[serve] feature hit rate {c.feature_hit_rate:.4f} topo hit rate "
           f"{c.topo_hit_rate:.4f} forward {s['forward_us'] / s['batches']:.0f}"
           f" us/batch, oracle mismatches 0 of {s['oracle_checks']} | {card}")
+    del srv, builder
 
-    record = {"kernels": [{
-        "name": k["kernel"].name, "route": "cuda", "source": k["source"],
-        "replaces": k["replaces"], "launches": k["launches"],
-        "bitwise_equal": True, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"], "bound_by": "bytes", "library_ms": None,
-    } for k in kernels]}
+    # ---- 6. train at paper width with online refresh ------------------------
+    train_kw = dict(backend="device", device="cuda", seed=0,
+                    refresh_config=RefreshConfig(interval=5,
+                                                 drift_threshold=1.0))
+    before = train_gnn(g, fresh_copy(plan), GRAPHSAGE, steps=5, **train_kw)
+    if before.refresh["refreshes"]:
+        raise AssertionError("a 5-step run must not reach the first refresh")
+    tplan = fresh_copy(plan)
+    zero_launches(KERNELS)
+    t0 = time.perf_counter()
+    res = train_gnn(g, tplan, GRAPHSAGE, steps=TRAIN_STEPS, **train_kw)
+    wall = time.perf_counter() - t0
+    phase_launches["train"] = read_launches(KERNELS)
+    if len(res.losses) != TRAIN_STEPS or not np.isfinite(res.losses).all():
+        raise AssertionError(f"training losses: {res.losses}")
+    ref = res.refresh
+    admitting = sum(1 for e in ref["events"] if e["admitted"] > 0)
+    if ref["refreshes"] < 1 or ref["admitted"] <= 0:
+        raise AssertionError(f"no refresh admitted rows: {ref}")
+    want = {"fused_gather_overlay": TRAIN_STEPS, "gather_rows": 0,
+            "scatter_rows": admitting}
+    if phase_launches["train"] != want:
+        raise AssertionError(f"train launches {phase_launches['train']}, "
+                             f"expected {want}")
+    st = np.array(res.step_times)
+    print(f"[train] GraphSAGE-256 batch {GRAPHSAGE.batch_size} fanouts "
+          f"{GRAPHSAGE.fanouts}: {TRAIN_STEPS} steps in {wall:.3f}s; step "
+          f"median {np.median(st) * 1e3:.2f} ms (min {st.min() * 1e3:.2f}, "
+          f"max {st.max() * 1e3:.2f}), {TRAIN_STEPS / st.sum():.3f} steps/s "
+          f"over the loop | {card}")
+    print(f"[train] losses {[round(x, 5) for x in res.losses]} | {card}")
+    cb, ca = before.counter, res.counter
+
+    def after(kind):
+        """Hit rate of steps 5..19: the 20-step run's tallies minus those
+        of the 5-step run, whose batches are the same first five."""
+        hits = getattr(ca, f"{kind}_hits") - getattr(cb, f"{kind}_hits")
+        reqs = (getattr(ca, f"{kind}_requests")
+                - getattr(cb, f"{kind}_requests"))
+        return hits / max(reqs, 1)
+
+    print(f"[train] hit rates before the first refresh (steps 0-4): "
+          f"feature {cb.feature_hit_rate:.4f} topo {cb.topo_hit_rate:.4f}; "
+          f"after it (steps 5-{TRAIN_STEPS - 1}): feature "
+          f"{after('feature'):.4f} topo {after('topo'):.4f} | {card}")
+    for e in ref["events"]:
+        print(f"[train] refresh at step {e['step']}: overlap "
+              f"{e['overlap']:.6f} admitted {e['admitted']} evicted "
+              f"{e['evicted']} topo_rebuilt {e['topo_rebuilt']} | {card}")
+    p = res.pipeline
+    print(f"[train] host build mean {p['host_build_s_mean'] * 1e3:.2f} ms, "
+          f"fill total {p['fill_s_total']:.3f}s over {TRAIN_STEPS} steps, "
+          f"queue dry {p['queue_dry_s_total']:.3f}s; staging pool "
+          f"{p['staging_buffers']} pinned buffers, "
+          f"{p['staging_bytes'] / 1e6:.1f} MB, allocated in "
+          f"{p['staging_alloc_s']:.3f}s | {card}")
+    first = next(e for e in ref["events"] if e["admitted"] > 0)
+    t_table = tplan.caches[0].device_arrays()["feat_cache"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a_idx = torch.randperm(t_table.shape[0], generator=gen, device="cuda")[
+        :first["admitted"]].to(torch.int32)
+    a_rows = torch.randn((first["admitted"], t_table.shape[1]),
+                         generator=gen, device="cuda")
+    scatter_ms = time_ms(torch, scatter.scatter_rows,
+                         (t_table, a_idx, a_rows), TIMED_LAUNCHES, flush)
+    print(f"[train] scatter per refresh ({first['admitted']} admitted rows "
+          f"into {tuple(t_table.shape)}): {scatter_ms:.4f} ms | {card}")
+    del tplan, t_table, a_rows
+    layers, refresh_ms, rstats = train_breakdown(torch, np, g, plan,
+                                                 GRAPHSAGE, params, 5)
+    print("[train-layers] median ms per step, one step at a time: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in layers.items())
+          + f" (total {sum(layers.values()):.3f}); refresh {refresh_ms:.3f}"
+          f" ms (admitted {rstats['admitted']}, evicted "
+          f"{rstats['evicted']}, topo rebuilds {rstats['topo_rebuilds']})"
+          f" | {card}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    pplan = fresh_copy(plan)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        train_gnn(g, pplan, GRAPHSAGE, steps=PROFILE_STEPS, **train_kw)
+    share = step_window_share(torch, prof, *PROFILE_WINDOW)
+    if share is None:
+        print("[train] device busy share: not measured (torch.profiler saw "
+              "no device time in the window)")
+    else:
+        print(f"[train] device busy share {share[0]:.4f} over steps "
+              f"{PROFILE_WINDOW[0]}-{sum(PROFILE_WINDOW) - 1} "
+              f"({share[1]:.1f} ms, profiler on; idle {1 - share[0]:.4f}) "
+              f"| {card}")
+        for us, name, count in share[2]:
+            print(f"[train]   {us / 1e3:9.3f} ms  x{count:<5d} {name[:70]} "
+                  f"| {card}")
+    del prof, pplan
+
+    # ---- 7. parity: host and device backends across refreshes --------------
+    cfg_p = dataclasses.replace(GRAPHSAGE, batch_size=PARITY_BATCH)
+    par_kw = dict(device="cuda", seed=0, params=params,
+                  refresh_config=RefreshConfig(interval=4,
+                                               drift_threshold=1.0))
+    host = train_gnn(g, fresh_copy(plan), cfg_p, steps=PARITY_STEPS,
+                     backend="host", **par_kw)
+    zero_launches(KERNELS)
+    dev_run = train_gnn(g, fresh_copy(plan), cfg_p, steps=PARITY_STEPS,
+                        backend="device", **par_kw)
+    phase_launches["parity"] = read_launches(KERNELS)
+    if host.losses != dev_run.losses or host.accs != dev_run.accs:
+        raise AssertionError(f"host/device losses differ: {host.losses} vs "
+                             f"{dev_run.losses}")
+    if host.refresh != dev_run.refresh or dev_run.refresh["refreshes"] < 1:
+        raise AssertionError(f"refresh summaries differ or no refresh: "
+                             f"{host.refresh} vs {dev_run.refresh}")
+    for name in ("feature_requests", "feature_hits", "topo_requests",
+                 "topo_hits", "pcie_transactions"):
+        if getattr(host.counter, name) != getattr(dev_run.counter, name):
+            raise AssertionError(f"counter {name} differs")
+    admitting = sum(1 for e in dev_run.refresh["events"]
+                    if e["admitted"] > 0)
+    want = {"fused_gather_overlay": PARITY_STEPS, "gather_rows": 0,
+            "scatter_rows": admitting}
+    if phase_launches["parity"] != want:
+        raise AssertionError(f"parity launches {phase_launches['parity']}, "
+                             f"expected {want}")
+    print(f"[parity] host == device bitwise over {PARITY_STEPS} steps at "
+          f"batch {PARITY_BATCH}: losses {dev_run.losses}; "
+          f"{dev_run.refresh['refreshes']} refreshes, admitted "
+          f"{dev_run.refresh['admitted']}, hit tallies equal | {card}")
+
+    # ---- 8. the unfused finalize -------------------------------------------
+    zero_launches(KERNELS)
+    unfused = train_gnn(g, fresh_copy(plan), cfg_p, steps=UNFUSED_STEPS,
+                        backend="device", fused=False, **par_kw)
+    phase_launches["unfused"] = read_launches(KERNELS)
+    if unfused.losses != dev_run.losses[:UNFUSED_STEPS]:
+        raise AssertionError(f"unfused losses {unfused.losses} != fused "
+                             f"{dev_run.losses[:UNFUSED_STEPS]}")
+    want = {"fused_gather_overlay": 0, "gather_rows": UNFUSED_STEPS,
+            "scatter_rows": 0}
+    if phase_launches["unfused"] != want:
+        raise AssertionError(f"unfused launches {phase_launches['unfused']}")
+    print(f"[unfused] fused=False == fused over {UNFUSED_STEPS} steps, "
+          f"gather_rows launched {UNFUSED_STEPS} times | {card}")
+
+    record = {"kernels": []}
+    for k in KERNELS:
+        m = measured[k.name]
+        shape, first_timed = next(iter(m["timed"].items()))
+        by_phase = {ph: n[k.name] for ph, n in phase_launches.items()}
+        if sum(by_phase.values()) == 0:
+            raise AssertionError(f"{k.name} never launched on a main path")
+        record["kernels"].append({
+            "name": k.name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase, "bitwise_equal": True,
+            "max_abs_err": m["max_abs_err"], "ms": first_timed["ms"],
+            "plain_ms": first_timed["plain_ms"],
+            "bound_ms": first_timed["bound_ms"], "bound_by": "bytes",
+            "library_ms": first_timed["library_ms"],
+            "library_call": first_timed["library_call"], "shape": shape,
+            "timed": m["timed"]})
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,8 @@ from repro_torch.core.cost_model import CliqueCostModel
 from repro_torch.core.cslp import CSLPResult, cslp
 from repro_torch.core.hotness import HotnessStats, presample_clique
 from repro_torch.core.partition import PartitionPlan, hierarchical_partition
-from repro_torch.core.unified_cache import CliqueCache, build_clique_cache
+from repro_torch.core.unified_cache import (CliqueCache, build_clique_cache,
+                                           plan_cache_contents)
 from repro_torch.graph.csr import CSRGraph
 
 
@@ -88,3 +89,27 @@ def build_plan(g: CSRGraph, topo_matrix: np.ndarray, mem_per_device: float,
                       cost_plans=plans, caches=caches,
                       mem_per_device=mem_per_device, timings=timings,
                       topology_mode=topology_mode)
+
+
+def replan_cache_from_hotness(g: CSRGraph, plan: LegionPlan, clique_idx: int,
+                              stats: HotnessStats,
+                              planner: str = "alpha_sweep"):
+    """Incremental delta-plan for one clique from *blended* (pre-sampled +
+    observed) hotness: re-run CSLP and the cost model under the unchanged
+    memory budget and return the target residency sets, without building a
+    fresh CliqueCache, so the online cache manager can diff them against
+    current residency and apply admissions/evictions in place.
+
+    Returns (cslp_res, cost_plan, feat_ids_per_dev, topo_ids_per_dev).
+    """
+    devices = plan.partition.cliques[clique_idx]
+    res = cslp(stats.H_T, stats.H_F)
+    cm = CliqueCostModel.build(g, res, stats.N_TSUM)
+    B = plan.mem_per_device * len(devices)
+    cost_plan = cm.plan_knapsack(B) if planner == "knapsack" else cm.plan(B)
+    cost_plan["cost_model"] = cm
+    mode = plan.caches[clique_idx].topology_mode
+    feat_ids, topo_ids = plan_cache_contents(g, len(devices), res, cost_plan,
+                                             plan.mem_per_device,
+                                             topology_mode=mode)
+    return res, cost_plan, feat_ids, topo_ids

@@ -17,14 +17,20 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.hotness import CLS, S_FLOAT32, S_UINT32
 from repro_torch.graph.csr import CSRGraph
-from repro_torch.utils import resolve_device
+from repro_torch.kernels import scatter
+from repro_torch.utils import device_context, resolve_device
+
+# the sharded topology layout's device arrays (routing tables + per-shard
+# CSR stacks), present only in sharded mode
+_SHARD_TOPO_KEYS = ("topo_owner", "topo_local", "topo_shard_indptr",
+                    "topo_shard_indices")
 
 
 @dataclasses.dataclass
@@ -258,18 +264,8 @@ class CliqueCache:
                     arrays = {
                         "feat_cache": torch.tensor(fc, device=dev),
                         "feat_pos": torch.tensor(self.feat_pos, device=dev),
-                        "cache_indptr": torch.tensor(self.cache_indptr,
-                                                     device=dev),
-                        "cache_indices": torch.tensor(self.cache_indices,
-                                                      device=dev),
-                        "topo_pos": torch.tensor(self.topo_pos, device=dev),
                     }
-                    if self.topo_owner is not None \
-                            and self.topo_shard_indptr is not None:
-                        for k in ("topo_owner", "topo_local",
-                                  "topo_shard_indptr", "topo_shard_indices"):
-                            arrays[k] = torch.tensor(getattr(self, k),
-                                                     device=dev)
+                    arrays.update(self._topology_arrays(dev))
                     self.device = dev
                     self._device_arrays = arrays
         if device is not None and resolve_device(device) != self.device:
@@ -278,6 +274,19 @@ class CliqueCache:
         return self._epoch_view(self._device_arrays,
                                 self._prev_device_arrays, epoch, "")
 
+    def _topology_arrays(self, dev: torch.device) -> dict:
+        """The topology half of the device residency, uploaded to ``dev``:
+        the union CSR subset and, in sharded mode, the routing tables and
+        per-shard CSR stacks.  ``replace_topology`` swaps these wholesale
+        (never in place)."""
+        arrays = {k: torch.tensor(getattr(self, k), device=dev)
+                  for k in ("cache_indptr", "cache_indices", "topo_pos")}
+        if self.topo_owner is not None and self.topo_shard_indptr is not None:
+            for k in _SHARD_TOPO_KEYS:
+                arrays[k] = torch.tensor(getattr(self, k), device=dev)
+        return arrays
+
+    # ---- online refresh (cache manager API) ----
     def begin_epoch(self) -> int:
         """Rotate the device double buffer: the current arrays become the
         retained previous epoch; subsequent mutations build the new one.
@@ -288,6 +297,98 @@ class CliqueCache:
             else -1
         self.epoch += 1
         return self.epoch
+
+    def apply_feature_delta(self, evict_ids: np.ndarray,
+                            admit_ids: np.ndarray,
+                            admit_owner: np.ndarray,
+                            admit_rows: Optional[np.ndarray] = None) -> dict:
+        """Evict ``evict_ids`` from the feature cache and write the admitted
+        rows into the freed slots (slot reuse: the capacity never changes).
+
+        admit_owner: per admitted id, the owning device's *clique-local*
+        index.  admit_rows defaults to a host fetch of the admitted ids.  If
+        fewer slots are free than ids admitted, the admission list is
+        truncated; surplus free slots stay empty (-1 in ``feat_ids``).
+
+        Device side (once uploaded): ``kernels.scatter.scatter_rows`` writes
+        the admitted rows into a *new* table, so the previous epoch's buffer
+        stays untouched for in-flight batches, and ``feat_pos`` is uploaded
+        anew as a copy.  With nothing admitted the new epoch shares the old
+        table and nothing launches.  Call ``begin_epoch`` first.
+
+        Returns {"evicted": n, "admitted": n, "bytes_h2d": host->device
+        admission traffic}.
+        """
+        evict_ids = np.asarray(evict_ids, dtype=np.int64)
+        admit_ids = np.asarray(admit_ids, dtype=np.int64)
+        slots = self.feat_pos[evict_ids]
+        if (slots < 0).any():
+            raise ValueError("apply_feature_delta: evict_ids contain "
+                             "vertices that are not cached")
+        self.feat_pos[evict_ids] = -1
+        self.feat_ids[slots] = -1
+        # reuse every empty slot (just-freed + leftovers of past refreshes)
+        free = np.flatnonzero(self.feat_ids < 0)
+        n_admit = min(len(admit_ids), len(free))
+        admit_ids = admit_ids[:n_admit]
+        admit_owner = np.asarray(admit_owner, dtype=np.int32)[:n_admit]
+        use = free[:n_admit]
+        # host-side slot maps
+        self.feat_pos[admit_ids] = use
+        self.feat_ids[use] = admit_ids
+        self.feat_owner[use] = admit_owner
+        if admit_rows is None:
+            admit_rows = (self.g.get_features(admit_ids) if n_admit
+                          else np.zeros((0, self.g.feat_dim), np.float32))
+        admit_rows = np.asarray(admit_rows, dtype=np.float32)[:n_admit]
+        if self.feat_cache is not None and n_admit:
+            self.feat_cache[use] = admit_rows
+        # device side: double-buffered scatter into the freed slots, on the
+        # cache device's current stream (ordered before any later gather)
+        if self._device_arrays is not None:
+            dev = self.device
+            old = self._device_arrays
+            table = old["feat_cache"]
+            Dp = table.shape[1]
+            rows = admit_rows
+            if rows.shape[0] and Dp != rows.shape[1]:
+                rows = np.pad(rows, ((0, 0), (0, Dp - rows.shape[1])))
+            new = dict(old)
+            with device_context(dev):
+                new["feat_cache"] = scatter.scatter_rows(
+                    table, torch.tensor(use, dtype=torch.int32, device=dev),
+                    torch.tensor(rows, device=dev))
+                # a copy: the host mirror mutates in place
+                new["feat_pos"] = torch.tensor(self.feat_pos, device=dev)
+            self._device_arrays = new
+        return {"evicted": int(len(evict_ids)), "admitted": int(n_admit),
+                "bytes_h2d": int(n_admit) * self.g.feat_dim * S_FLOAT32}
+
+    def replace_topology(self, topo_ids_per_dev: Sequence[np.ndarray]) -> None:
+        """Swap the topology half of the cache for a new planned id set.
+
+        Topology is read only while specs are sampled (serialized with
+        refreshes), never at finalize, so the rebuilt arrays need no epoch
+        retention: they replace the topology entries of the *current*
+        epoch's dict, and the retained epoch keeps its old ones."""
+        self._build_topology(topo_ids_per_dev)
+        if self._device_arrays is not None:
+            new = dict(self._device_arrays)
+            # drop stale shard entries first: a refresh may flip the
+            # per-shard stack shapes, or empty a stack
+            for k in _SHARD_TOPO_KEYS:
+                new.pop(k, None)
+            with device_context(self.device):
+                new.update(self._topology_arrays(self.device))
+            self._device_arrays = new
+
+    def feat_ids_by_device(self) -> List[np.ndarray]:
+        """Current per-device cached feature ids (clique-local order), the
+        cache manager's view of residency for delta planning.  Empty slots
+        (evicted, not yet re-admitted) are skipped."""
+        live = self.feat_ids >= 0
+        return [self.feat_ids[live & (self.feat_owner == gi)]
+                for gi in range(len(self.devices))]
 
     def device_sample_cached(self, seeds, fanout: int, rand) -> tuple:
         """Fixed-fanout neighbor sampling *on the device* from the

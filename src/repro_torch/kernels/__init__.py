@@ -1,0 +1,47 @@
+"""The port's hand-written Hopper kernels, described in one place.
+
+Each entry of ``KERNELS`` names a CUDA source under ``csrc/``, the wrapper
+that launches it on CUDA tensors (and runs the plain version on CPU
+tensors), that plain PyTorch version in ``ref.py``, and the reference
+package's TPU kernel it replaces (file:line of the function that reaches
+``pl.pallas_call``).  Each wrapper counts its launches on its
+``CudaKernel`` (``kernel.launches``), only where it launches.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from repro_torch.kernels import fused_batch, gather, ref, scatter
+from repro_torch.kernels._build import CudaKernel
+
+
+@dataclasses.dataclass(frozen=True)
+class PortedKernel:
+    kernel: CudaKernel
+    wrapper: Callable
+    plain: Callable
+    replaces: str  # the TPU kernel, as file:line in the repository
+
+    @property
+    def name(self) -> str:
+        return self.kernel.name
+
+    @property
+    def source(self) -> str:
+        """The CUDA source, relative to the repository root."""
+        return str(self.kernel.source.relative_to(
+            self.kernel.source.parents[4]))
+
+
+KERNELS = (
+    PortedKernel(fused_batch.KERNEL, fused_batch.fused_gather_overlay,
+                 ref.fused_gather_overlay,
+                 "src/repro/kernels/fused_batch.py:48"),
+    PortedKernel(gather.KERNEL, gather.gather_rows, ref.gather_rows,
+                 "src/repro/kernels/gather.py:37"),
+    PortedKernel(scatter.KERNEL, scatter.scatter_rows, ref.scatter_rows,
+                 "src/repro/kernels/scatter.py:36"),
+)
+
+__all__ = ["KERNELS", "PortedKernel"]

@@ -8,10 +8,24 @@ import torch
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[i] = table[idx[i]]; idx < 0 yields zeros (cache-miss slots)."""
+    """out[...] = table[idx[...]] for an index of any shape (output
+    ``idx.shape + (D,)``); idx < 0 yields zeros (cache-miss slots), idx >= N
+    reads row N - 1 (XLA's clamp)."""
     safe = idx.to(torch.int64).clamp(0, table.shape[0] - 1)
-    out = table.index_select(0, safe)
-    return torch.where((idx >= 0)[:, None], out, 0).to(table.dtype)
+    out = table.index_select(0, safe.reshape(-1)).reshape(
+        tuple(idx.shape) + tuple(table.shape[1:]))
+    return torch.where((idx >= 0)[..., None], out, 0).to(table.dtype)
+
+
+def scatter_rows(table: torch.Tensor, idx: torch.Tensor,
+                 rows: torch.Tensor) -> torch.Tensor:
+    """out = table; out[idx[i]] = rows[i] for idx[i] in [0, N) — functional
+    (the input table is untouched); negatives/out-of-range are dropped.
+    Valid indices must be unique (cache slots freed by one refresh are)."""
+    N = table.shape[0]
+    idx = idx.reshape(-1).to(torch.int64)
+    valid = (idx >= 0) & (idx < N)
+    return table.index_copy(0, idx[valid], rows[valid].to(table.dtype))
 
 
 def fused_gather_overlay(table: torch.Tensor, idx: torch.Tensor,

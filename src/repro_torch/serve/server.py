@@ -4,8 +4,12 @@ The serving path is the training pipeline's device phase, request-driven:
 
   submit(seeds)  any thread: admission queue (DeadlineBatcher)
   serve loop     one thread, per micro-batch:
+                   [refresh?]  OnlineCacheManager.maybe_refresh — hot-set
+                               drift checks fed by *serving* traffic,
+                               serialized with the fill under the epoch
+                               lock
                    sample      DeviceBatchBuilder.sample_spec — device
-                               topology-cache sampling
+                               topology-cache sampling, observer-tapped
                    gather      fill_spec (pins the cache epoch) +
                                finalize (one fused gather+overlay kernel
                                launch against the epoch-pinned table)
@@ -21,14 +25,14 @@ fused kernel exactly once, warm-up included.
 
 **Epoch-pinned reads**: ``fill_spec`` stamps the current cache epoch into
 the spec and ``finalize`` gathers from the double-buffered table of *that*
-epoch; fill, oracle and finalize run in one locked region.
+epoch; fill, oracle and finalize run in one locked region, and the server's
+own refreshes take the same lock between micro-batches.
 
 On a GPU the serve loop thread runs under ``torch.cuda.device`` of the
 server's device and launches on that thread's current stream.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import threading
 import time
@@ -46,7 +50,7 @@ from repro_torch.serve.batcher import (FLUSH_DEADLINE, FLUSH_FULL,
                                        DeadlineBatcher, ServeRequest)
 from repro_torch.serve.oracle import host_oracle_batch
 from repro_torch.train.batch import DeviceBatchBuilder
-from repro_torch.utils import resolve_device, synchronize
+from repro_torch.utils import device_context, resolve_device, synchronize
 
 
 @dataclasses.dataclass
@@ -58,17 +62,22 @@ class ServeConfig:
     ``pad_vertex``: vertex id used to fill the seed tail
     (default: the serving device's first tablet vertex) — padded rows
     sample and gather like real traffic but are never replied.
+    ``refresh_interval``: micro-batches between online-manager drift
+    checks (None = no serving-driven refreshes; needs ``manager=``).
     ``oracle_check``: after every gather, assemble the host-oracle batch,
     compare it with the device batch, run it through the same forward and
     compare the logits — all bitwise."""
     max_batch: int = 64
     max_wait_s: float = 0.005
     pad_vertex: Optional[int] = None
+    refresh_interval: Optional[int] = None
     oracle_check: bool = False
 
     def __post_init__(self):
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
+        if self.refresh_interval is not None and self.refresh_interval < 1:
+            raise ValueError("refresh_interval must be >= 1 or None")
 
 
 @dataclasses.dataclass
@@ -90,15 +99,18 @@ class GNNServer:
 
     Lifecycle: construct, ``warmup()``, ``start()``, ``submit(seeds)`` from
     anywhere, ``stop()``.  ``device`` defaults to ``"cuda"`` (raises
-    without a card); pass ``"cpu"`` to serve on the CPU.  ``telemetry``
-    must be None: the span recorder is not part of this package yet.
+    without a card); pass ``"cpu"`` to serve on the CPU.  ``manager`` (an
+    ``OnlineCacheManager`` over the same plan) observes serving traffic
+    and, with ``ServeConfig.refresh_interval``, refreshes the cache between
+    micro-batches.  ``telemetry`` must be None: the span recorder is not
+    part of this package yet.
     """
 
     def __init__(self, g: CSRGraph, plan: LegionPlan, cfg: GNNConfig,
                  params, *, dev: int = 0, device="cuda",
                  config: Optional[ServeConfig] = None,
                  counter: Optional[TrafficCounter] = None,
-                 telemetry=None, seed: int = 0):
+                 telemetry=None, manager=None, seed: int = 0):
         if telemetry is not None:
             raise NotImplementedError(
                 "telemetry is not ported yet (ROADMAP: obs beyond "
@@ -110,6 +122,10 @@ class GNNServer:
         self.dev = dev
         self.device = resolve_device(device)
         self.config = config or ServeConfig()
+        if self.config.refresh_interval is not None and manager is None:
+            raise ValueError("refresh_interval needs an OnlineCacheManager "
+                             "(pass manager=)")
+        self.manager = manager
         self.counter = (counter if counter is not None
                         else TrafficCounter.for_plan(plan))
         cache = plan.cache_for_device(dev)
@@ -124,7 +140,9 @@ class GNNServer:
         self.shape_cap = self.config.max_batch * cap
         self._builder = DeviceBatchBuilder(
             g, cache, cfg.fanouts, self.counter, dev, device=self.device,
-            bucket=self.shape_cap)
+            bucket=self.shape_cap,
+            observer=(manager.observer_for(dev) if manager is not None
+                      else None))
         if self.config.pad_vertex is not None:
             self._pad_vertex = int(self.config.pad_vertex)
         else:
@@ -136,6 +154,7 @@ class GNNServer:
                                        self.config.max_wait_s)
         self._thread: Optional[threading.Thread] = None
         # serializes fill -> oracle -> finalize against cache refreshes
+        # (the server's own, and any other thread driving the manager)
         self._epoch_lock = threading.RLock()
         # ---- serve tallies ---------------------------------------------
         self._m_lock = threading.Lock()
@@ -181,19 +200,13 @@ class GNNServer:
                 future=Future(), t_enqueue=time.perf_counter())
             with self._m_lock:
                 self._requests += 1  # keep requests == replies invariant
-            with self._device_ctx():
+            with device_context(self.device):
                 self._serve_batch([req], FLUSH_FULL)
             req.future.result()
 
     # ---- the serve loop ------------------------------------------------
-    def _device_ctx(self):
-        """The CUDA current-device context of this thread (per host
-        thread), or nothing on the CPU."""
-        return (torch.cuda.device(self.device) if self.device.type == "cuda"
-                else contextlib.nullcontext())
-
     def _run(self) -> None:
-        with self._device_ctx():
+        with device_context(self.device):
             while True:
                 nxt = self.batcher.next_batch()
                 if nxt is None:
@@ -206,6 +219,14 @@ class GNNServer:
                         if not r.future.done():
                             r.future.set_exception(e)
 
+    def _maybe_refresh(self, batch_id: int) -> None:
+        ri = self.config.refresh_interval
+        if self.manager is None or ri is None or batch_id == 0:
+            return
+        if batch_id % ri == 0:
+            with self._epoch_lock:
+                self.manager.maybe_refresh(batch_id)
+
     def _serve_batch(self, reqs: List[ServeRequest], trigger: str) -> None:
         t_batch = time.perf_counter()
         with self._m_lock:
@@ -213,6 +234,7 @@ class GNNServer:
             self._batches += 1
             if trigger in self._flushes:
                 self._flushes[trigger] += 1
+        self._maybe_refresh(batch_id)
         real = np.concatenate([r.seeds for r in reqs])
         n_real = len(real)
         n_pad = self.config.max_batch - n_real

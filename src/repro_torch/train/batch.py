@@ -21,6 +21,8 @@ Two interchangeable backends (paper §4.2/§5 vs the classic CPU pipeline)::
       the host copy of the cache           (kernels/fused_batch.py): cache
                                            gather + miss overlay, then
                                            per-level positioning/masking
+                                           (``fused=False``: the gather
+                                           kernel, then a separate overlay)
     finalize: one host->device copy      finalize: staged miss upload +
       per batch tensor                     fused gather on the device
 
@@ -41,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -51,9 +54,11 @@ from repro_torch.core.unified_cache import CliqueCache, TrafficCounter
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.graph.sampling import (cache_sample_dispatch,
                                         host_sample_batch, unique_vertices)
-from repro_torch.kernels import fused_batch
+from repro_torch.kernels import fused_batch, gather
 from repro_torch.obs import maybe_span
-from repro_torch.utils import resolve_device
+from repro_torch.utils import device_context, resolve_device
+
+BACKENDS = ("host", "device")
 
 DEFAULT_BUCKET = 256  # id/miss shape quantum of the device spec layout
 
@@ -103,20 +108,32 @@ class _StagingPool:
     copy's CUDA event first): a buffer recycled mid-transfer would feed the
     in-flight batch rows from the *next* batch.  Thread-safe: specs fill on
     one thread and finalize on another.
+
+    Buffers are never freed: ``buffers``/``bytes`` count what the pool has
+    allocated so far and ``alloc_s`` the host time those allocations took.
     """
 
     def __init__(self, pin: bool):
         self._pin = pin
         self._free: Dict[Tuple[int, int], deque] = {}
         self._lock = threading.Lock()
+        self.buffers = 0
+        self.bytes = 0
+        self.alloc_s = 0.0
 
     def acquire(self, rows: int, width: int) -> torch.Tensor:
         with self._lock:
             q = self._free.setdefault((rows, width), deque())
             if q:
                 return q.pop()
-        return torch.zeros((rows, width), dtype=torch.float32,
-                           pin_memory=self._pin)
+        t0 = time.perf_counter()
+        buf = torch.zeros((rows, width), dtype=torch.float32,
+                          pin_memory=self._pin)
+        with self._lock:
+            self.buffers += 1
+            self.bytes += rows * width * 4
+            self.alloc_s += time.perf_counter() - t0
+        return buf
 
     def release(self, buf: Optional[torch.Tensor]) -> None:
         if buf is not None:
@@ -154,20 +171,26 @@ class BatchBuilder:
     """Samples and extracts one device's mini-batches (see module doc).
 
     ``device`` is where finalized batches live (default ``"cuda"``, which
-    raises without a card; pass ``"cpu"`` to run on the CPU)."""
+    raises without a card; pass ``"cpu"`` to run on the CPU).  ``observer``
+    (``OnlineCacheManager.observer_for``) is fed every sampled batch's
+    level tensors; it only records, so attaching one changes neither
+    batches nor accounting.  ``fill_s`` totals the host time of
+    ``fill_spec``."""
 
     backend: str = "?"
 
     def __init__(self, g: CSRGraph, cache: Optional[CliqueCache],
                  fanouts: Sequence[int],
                  counter: Optional[TrafficCounter] = None, dev: int = 0,
-                 *, device="cuda"):
+                 *, device="cuda", observer=None):
         self.g = g
         self.cache = cache
         self.fanouts = tuple(fanouts)
         self.counter = counter
         self.dev = dev
         self.device = resolve_device(device)
+        self.observer = observer
+        self.fill_s = 0.0
         # telemetry tap: a shared no-op context while None
         self.telemetry = None
 
@@ -194,11 +217,18 @@ class BatchBuilder:
     def release_spec(self, spec: BatchSpec) -> None:
         """Return a spec's pooled resources without finalizing it."""
 
+    def staging_stats(self) -> dict:
+        """What the miss-staging pool has allocated: buffers, bytes, and
+        the host seconds the allocations took (none on the host backend)."""
+        return {"buffers": 0, "bytes": 0, "alloc_s": 0.0}
+
     def build(self, seeds: np.ndarray, rng: np.random.Generator) -> Dict:
         """Convenience: both phases back to back (benchmarks, tests)."""
         return self.finalize(self.build_spec(seeds, rng))
 
     def _account_sampling(self, levels: List[np.ndarray]) -> None:
+        if self.observer is not None:
+            self.observer.record(levels, self.fanouts)
         if self.counter is not None and self.cache is not None:
             for lvl, f in zip(levels[:-1], self.fanouts):
                 self.cache.sample_accounting(lvl.reshape(-1), f,
@@ -224,10 +254,12 @@ class HostBatchBuilder(BatchBuilder):
                          n_ids=len(ids))
 
     def fill_spec(self, spec):
+        t0 = time.perf_counter()
         ids = spec.ids
         spec.host_feats = (
             self.cache.extract_features(ids, self.dev, self.counter)
             if self.cache is not None else self.g.get_features(ids))
+        self.fill_s += time.perf_counter() - t0
         return spec
 
     @staticmethod
@@ -253,31 +285,29 @@ class DeviceBatchBuilder(BatchBuilder):
     """Device-resident pipeline: sampling and feature gather run against the
     device-resident unified cache; the host only fills misses.
 
-    The cached-row gather is always ``fused_batch.fused_gather_overlay``:
-    on a GPU it launches the hand-written Hopper kernel, on the CPU the
-    wrapper runs its plain version (the device of the tensors decides).
+    The cached-row gather is ``fused_batch.fused_gather_overlay``, or with
+    ``fused=False`` the reference's unfused chain (``gather.gather_rows``,
+    then the miss rows overlaid by a separate copy, at exact per-batch
+    shapes; kept as a second parity oracle).  On a GPU each launches its
+    hand-written Hopper kernel, on the CPU the wrapper runs its plain
+    version (the device of the tensors decides).
 
     ``bucket`` sets the shape quantum of the spec layout (see module doc).
-    ``fused=False`` (the reference's unfused
-    finalize chain) needs the ``gather_rows`` kernel, which is not ported
-    yet, and raises.
     """
 
     backend = "device"
 
     def __init__(self, g, cache, fanouts, counter=None, dev=0, *,
-                 device="cuda", fused: bool = True,
+                 device="cuda", observer=None, fused: bool = True,
                  bucket: int = DEFAULT_BUCKET):
         if cache is None:
             raise ValueError("DeviceBatchBuilder needs a unified cache "
                              "(build a LegionPlan, or use HostBatchBuilder)")
-        super().__init__(g, cache, fanouts, counter, dev, device=device)
-        if not fused:
-            raise NotImplementedError(
-                "fused=False needs the gather_rows kernel, which is not "
-                "ported yet (ROADMAP: TPU kernels to port, gather_rows)")
+        super().__init__(g, cache, fanouts, counter, dev, device=device,
+                         observer=observer)
         if bucket < 1:
             raise ValueError(f"bucket must be >= 1, got {bucket}")
+        self.fused = fused
         self.bucket = int(bucket)
         self._staging = _StagingPool(pin=self.device.type == "cuda")
         # upload the cache's device half now, on the builder's device
@@ -292,11 +322,14 @@ class DeviceBatchBuilder(BatchBuilder):
     def sample_spec(self, seeds, rng):
         # queue the whole device chain, then fetch labels while it is in
         # flight; resolve() pays the single sync and repairs stale-parent /
-        # host-miss rows (see cache_sample_dispatch)
-        resolve = cache_sample_dispatch(self.g, self.cache, seeds,
-                                        self.fanouts, rng)
-        labels = self.g.get_labels(seeds)
-        levels, _topo_hits = resolve(counter=self.counter)
+        # host-miss rows (see cache_sample_dispatch).  Specs are built on
+        # prefetch threads: the current device and the grad mode are per
+        # thread, so both are set here.
+        with device_context(self.device), torch.no_grad():
+            resolve = cache_sample_dispatch(self.g, self.cache, seeds,
+                                            self.fanouts, rng)
+            labels = self.g.get_labels(seeds)
+            levels, _topo_hits = resolve(counter=self.counter)
         self._account_sampling(levels)
         ids = unique_vertices(levels)
         return BatchSpec(labels=labels, levels=levels, ids=ids,
@@ -306,6 +339,7 @@ class DeviceBatchBuilder(BatchBuilder):
     def fill_spec(self, spec):
         # the hit/miss split runs HERE, so the spec pins the *current*
         # cache epoch regardless of how far ahead it was sampled
+        t0 = time.perf_counter()
         ids, n_ids = spec.ids, spec.n_ids
         cache_pos, hit = self.cache.split_hits(ids)
         if self.counter is not None:
@@ -337,11 +371,16 @@ class DeviceBatchBuilder(BatchBuilder):
         spec.miss_inv = miss_inv
         spec.n_miss = n_miss
         spec.cache_epoch = self.cache.epoch
+        self.fill_s += time.perf_counter() - t0
         return spec
 
     def release_spec(self, spec):
         self._staging.release(spec.miss_feats)
         spec.miss_feats = None
+
+    def staging_stats(self):
+        p = self._staging
+        return {"buffers": p.buffers, "bytes": p.bytes, "alloc_s": p.alloc_s}
 
     def _table(self, epoch: int) -> torch.Tensor:
         """The epoch-pinned device feature table; a (1, Dp) zero dummy when
@@ -352,6 +391,8 @@ class DeviceBatchBuilder(BatchBuilder):
         return self.cache.device_arrays(epoch)["feat_cache"]
 
     def finalize(self, spec):
+        if not self.fused:
+            return self._finalize_unfused(spec)
         tele = self.telemetry
         dev = self.device
         with maybe_span(tele, "finalize", dev=self.dev):
@@ -377,3 +418,53 @@ class DeviceBatchBuilder(BatchBuilder):
                 feats = feats[:, :D]
             return _position_and_mask(feats, spec.levels, spec.level_pos,
                                       spec.labels, dev)
+
+    # -- the unfused finalize chain: a second parity oracle ---------------
+    def _gather_cached(self, idx: np.ndarray, epoch: int) -> torch.Tensor:
+        """(n,) slot ids (-1 = miss) -> (n, D) rows, zeros at -1, from the
+        table of cache epoch ``epoch``."""
+        D = self.g.feat_dim
+        if len(self.cache.feat_ids) == 0:
+            return torch.zeros((len(idx), D), dtype=torch.float32,
+                               device=self.device)
+        table = self.cache.device_arrays(epoch)["feat_cache"]
+        out = gather.gather_rows(
+            table, torch.tensor(idx, dtype=torch.int32, device=self.device))
+        return out[:, :D] if table.shape[1] != D else out
+
+    def _finalize_unfused(self, spec):
+        """The reference's unfused chain at exact (unpadded) shapes: the
+        cached-row gather, the miss rows overlaid by an index copy, then
+        per-level positioning and masking."""
+        dev = self.device
+        n, D = spec.n_ids, self.g.feat_dim
+        with maybe_span(self.telemetry, "finalize", dev=self.dev):
+            idx = np.where(spec.hit[:n], spec.cache_pos[:n], -1)
+            feats = self._gather_cached(idx, spec.cache_epoch)
+            miss_rows = np.flatnonzero(spec.miss_inv[:n] >= 0)
+            if len(miss_rows):
+                # a blocking copy: it has completed when it returns, so the
+                # staging buffer may go back to the pool right after
+                miss = spec.miss_feats[:spec.n_miss, :D].to(dev, copy=True)
+                feats = feats.index_copy(
+                    0, torch.from_numpy(miss_rows).to(dev), miss)
+            self.release_spec(spec)
+            return _position_and_mask(feats, spec.levels, spec.level_pos,
+                                      spec.labels, dev)
+
+
+def make_batch_builder(backend: str, g: CSRGraph,
+                       cache: Optional[CliqueCache],
+                       fanouts: Sequence[int],
+                       counter: Optional[TrafficCounter] = None,
+                       dev: int = 0, **kw) -> BatchBuilder:
+    if backend == "host":
+        return HostBatchBuilder(g, cache, fanouts, counter, dev, **kw)
+    if backend == "device":
+        return DeviceBatchBuilder(g, cache, fanouts, counter, dev, **kw)
+    if backend == "sharded":
+        raise NotImplementedError(
+            "backend='sharded' is not ported yet (ROADMAP: modules to port, "
+            "the sharded clique executor)")
+    raise ValueError(f"unknown batch backend {backend!r} (expected one of "
+                     f"{BACKENDS})")

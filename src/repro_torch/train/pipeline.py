@@ -1,0 +1,214 @@
+"""Training pipeline (paper §5): the prefetching sampling server and the
+straggler monitor.
+
+* ``Prefetcher``: background batch building (batch generation, neighbor
+  sampling, the host phase of feature extraction) running ahead of the
+  device, the inter-batch pipeline of Figure 7.  Two build modes:
+
+    batch_fn(step) -> item      one callable builds the whole step
+    part_fns=[fn, ...]          one callable per device; the parts of one
+                                step build **concurrently** on a worker
+                                pool and are delivered as a list in device
+                                order
+
+  The step sequence itself stays serial: ``pre_batch_hook(step)`` runs
+  strictly *between* steps, after every build of step ``i`` finished (the
+  gather of part futures is the barrier) and before any build of step
+  ``i+1`` starts.  That is what lets the online cache manager mutate cache
+  residency between (never during) spec builds without a lock.
+
+  ``summary()`` reports per-batch host build time and queue-dry time: how
+  long ``get()`` waited on an empty queue, the time the device would have
+  stalled for host work.
+* ``StragglerMonitor``: EWMA step-time tracker flagging outlier steps.
+"""
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor, wait
+from typing import Callable, List, Optional
+
+# get() polls at this interval so a worker exception raised while the
+# consumer is blocked surfaces within about one tick, not after the timeout
+_POLL_S = 0.05
+
+
+class Prefetcher:
+    def __init__(self, batch_fn: Optional[Callable[[int], object]] = None,
+                 depth: int = 2, limit: Optional[int] = None,
+                 pre_batch_hook: Optional[Callable[[int], None]] = None, *,
+                 part_fns: Optional[List[Callable[[int], object]]] = None,
+                 workers: Optional[int] = None,
+                 extra_summary: Optional[Callable[[], dict]] = None,
+                 start_step: int = 0):
+        """``limit`` bounds the number of batches produced (the train loop
+        passes its step count): without it the worker keeps building ahead
+        until ``close()``, and side effects of building (traffic
+        accounting) would include a timing-dependent tail nobody consumes.
+
+        ``pre_batch_hook(step)`` runs on the coordinator thread right
+        before batch ``step`` is built, serialized with every build; its
+        exceptions propagate like build exceptions.
+
+        ``part_fns`` switches to pool mode: each step's batch is the list
+        ``[fn(step) for fn in part_fns]``, built concurrently on
+        ``workers`` threads (default: one per part, capped at
+        ``os.cpu_count() - 1``; ``workers=1`` builds serially in order).
+        The list is always in ``part_fns`` order.
+
+        ``extra_summary`` is a zero-argument callable merged into
+        ``summary()``; a key that collides with a build stat raises.
+
+        ``start_step`` is the first step built; ``limit`` counts batches
+        from there."""
+        if (batch_fn is None) == (part_fns is None):
+            raise ValueError("pass exactly one of batch_fn / part_fns")
+        self._batch_fn = batch_fn
+        self._part_fns = list(part_fns) if part_fns is not None else None
+        if self._part_fns is not None and not self._part_fns:
+            raise ValueError("part_fns must not be empty")
+        n_parts = len(self._part_fns) if self._part_fns is not None else 1
+        if workers is None:
+            workers = max(1, (os.cpu_count() or 2) - 1)
+        self._workers = max(1, min(int(workers), n_parts))
+        self._pool = (ThreadPoolExecutor(max_workers=self._workers,
+                                         thread_name_prefix="prefetch-build")
+                      if self._part_fns is not None and self._workers > 1
+                      else None)
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._step = int(start_step)
+        self._start = int(start_step)
+        self._limit = limit
+        self._hook = pre_batch_hook
+        self._extra_summary = extra_summary
+        self._build_s = 0.0
+        self._built = 0
+        self._dry_s = 0.0
+        self._gets = 0
+        self._exc: Optional[BaseException] = None
+        self._exc_raised = False
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _build(self, step: int):
+        if self._part_fns is None:
+            return self._batch_fn(step)
+        if self._pool is None:
+            return [fn(step) for fn in self._part_fns]
+        futs = [self._pool.submit(fn, step) for fn in self._part_fns]
+        # barrier: every part of step i lands before this returns (and so
+        # before the next pre_batch_hook), even if one of them failed
+        wait(futs)
+        return [f.result() for f in futs]  # raises the first part failure
+
+    def _worker(self):
+        try:
+            self._worker_loop()
+        except Exception as e:
+            self._exc = e  # surfaced on the next get() or at close()
+
+    def _worker_loop(self):
+        while not self._stop.is_set():
+            if self._limit is not None \
+                    and self._step - self._start >= self._limit:
+                return
+            if self._hook is not None:
+                self._hook(self._step)
+            t0 = time.perf_counter()
+            batch = self._build(self._step)
+            self._build_s += time.perf_counter() - t0
+            self._built += 1
+            self._step += 1
+            while not self._stop.is_set():
+                try:
+                    self._q.put(batch, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+
+    def get(self, timeout: float = 60.0):
+        """Next prefetched batch.  Polls in short intervals so a worker
+        exception surfaces promptly even while this thread is blocked on an
+        empty queue.  Time spent in here accumulates as queue-dry time."""
+        t0 = time.perf_counter()
+        deadline = t0 + timeout
+        try:
+            while True:
+                if self._exc is not None:
+                    self._exc_raised = True
+                    raise self._exc
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    raise queue.Empty
+                try:
+                    item = self._q.get(timeout=min(_POLL_S, remaining))
+                except queue.Empty:
+                    continue
+                self._gets += 1
+                return item
+        finally:
+            self._dry_s += time.perf_counter() - t0
+
+    def summary(self) -> dict:
+        """Host build stats plus what the consumer stalled on:
+        ``queue_dry_s_*`` is time ``get()`` waited for the queue."""
+        out = {"batches_built": self._built,
+               "gets": self._gets,
+               "host_build_s_total": self._build_s,
+               "host_build_s_mean": self._build_s / max(self._built, 1),
+               "queue_dry_s_total": self._dry_s,
+               "queue_dry_s_mean": self._dry_s / max(self._gets, 1),
+               "build_workers": self._workers}
+        if self._extra_summary is not None:
+            extra = self._extra_summary()
+            clash = sorted(set(extra) & set(out))
+            if clash:
+                raise ValueError(
+                    f"extra_summary keys collide with build stats: {clash}; "
+                    "namespace them (e.g. 'sampling/...')")
+            out.update(extra)
+        return out
+
+    def close(self):
+        """Stop the worker.  A worker exception never surfaced through
+        ``get()`` re-raises here: a failure in the last prefetched batches
+        (or in a refresh hook) must not vanish at shutdown."""
+        self._stop.set()
+        self._thread.join(timeout=5)
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+        if self._exc is not None and not self._exc_raised:
+            self._exc_raised = True
+            raise self._exc
+
+
+class StragglerMonitor:
+    def __init__(self, alpha: float = 0.1, threshold: float = 2.5):
+        self.alpha = alpha
+        self.threshold = threshold
+        self.ewma: Optional[float] = None
+        self.stragglers = 0
+        self.steps = 0
+        self.worst: float = 0.0
+
+    def record(self, step_time: float) -> bool:
+        """Returns True if this step is a straggler."""
+        self.steps += 1
+        self.worst = max(self.worst, step_time)
+        if self.ewma is None:
+            self.ewma = step_time
+            return False
+        is_straggler = step_time > self.threshold * self.ewma
+        if is_straggler:
+            self.stragglers += 1
+        else:
+            self.ewma = (1 - self.alpha) * self.ewma + self.alpha * step_time
+        return is_straggler
+
+    def summary(self) -> dict:
+        return {"steps": self.steps, "ewma_s": self.ewma,
+                "stragglers": self.stragglers, "worst_s": self.worst}

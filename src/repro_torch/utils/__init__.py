@@ -1,6 +1,7 @@
 """Small shared utilities: logging, deterministic hashing, device checks."""
 from __future__ import annotations
 
+import contextlib
 import logging
 
 import numpy as np
@@ -54,3 +55,10 @@ def synchronize(device: torch.device) -> None:
     """Wait for the work queued on ``device`` (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def device_context(device: torch.device):
+    """The CUDA current-device context for ``device`` on the calling thread
+    (the current device is per host thread), or a no-op on the CPU."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())

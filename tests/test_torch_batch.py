@@ -19,6 +19,7 @@ from repro_torch.core.unified_cache import TrafficCounter as TCounter
 from repro_torch.graph.csr import powerlaw_graph as t_graph
 from repro_torch.train.batch import DeviceBatchBuilder as TDevice
 from repro_torch.train.batch import HostBatchBuilder as THost
+from repro_torch.train.batch import make_batch_builder
 
 FANOUTS = (5, 3)
 SPEC_ARRAYS = ("ids", "cache_pos", "hit", "miss_inv", "labels")
@@ -125,8 +126,31 @@ def test_bucket_collapses_spec_shapes(setup):
 def test_builder_options_that_cannot_run_here_raise(setup):
     _, _, gt, pt = setup
     cache = pt.cache_for_device(0)
-    with pytest.raises(NotImplementedError, match="gather_rows"):
-        TDevice(gt, cache, FANOUTS, device="cpu", fused=False)
+    with pytest.raises(NotImplementedError, match="sharded"):
+        make_batch_builder("sharded", gt, cache, FANOUTS, device="cpu")
+    with pytest.raises(ValueError, match="unknown batch backend"):
+        make_batch_builder("tpu", gt, cache, FANOUTS, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             TDevice(gt, cache, FANOUTS)  # the default device is cuda
+
+
+@pytest.mark.parametrize("dev", [0, 3])
+def test_unfused_finalize_equals_fused_and_reference_unfused(setup, dev):
+    """``fused=False`` (the ``gather_rows`` chain at exact shapes) gives the
+    fused finalize's batch bit for bit, and the reference's unfused one."""
+    gj, pj, gt, pt = setup
+    bj = JDevice(gj, pj.cache_for_device(dev), FANOUTS, None, dev,
+                 gather="xla", fused=False)
+    bt = TDevice(gt, pt.cache_for_device(dev), FANOUTS, None, dev,
+                 device="cpu", fused=False)
+    bf = make_batch_builder("device", gt, pt.cache_for_device(dev), FANOUTS,
+                            None, dev, device="cpu")
+    for step in range(2):
+        seeds = pt.partition.tablets[dev][step * 40:(step + 1) * 40]
+        rngs = [np.random.default_rng(11 + step) for _ in range(3)]
+        batch_j = bj.build(seeds, rngs[0])
+        batch_t = bt.build(seeds, rngs[1])
+        _assert_batches_equal(batch_j, batch_t)
+        _assert_batches_equal({k: v.numpy() for k, v in batch_t.items()},
+                              bf.build(seeds, rngs[2]))

@@ -1,7 +1,8 @@
-"""The port's ``fused_gather_overlay`` against the reference package's:
-its plain path (CPU tensors) equals the Pallas kernel in interpret mode and
-the jnp oracle bit for bit, in f32 and bf16; the CUDA kernel equals the
-plain version on the card (``gpu``-marked, skips without one).
+"""The port's kernels against the reference package's: each plain path
+(CPU tensors) equals the reference's Pallas kernel in interpret mode and its
+jnp oracle bit for bit (``fused_gather_overlay``, ``gather_rows``,
+``scatter_rows``; the sweeps of ``tests/test_kernels.py``); each CUDA kernel
+equals its plain version on the card (``gpu``-marked, skips without one).
 
 The reference package is imported inside the CPU tests only, so that the
 ``gpu`` tests also run on a GPU host that has no JAX:
@@ -10,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fused_batch
+from repro_torch.kernels import KERNELS, fused_batch, gather, scatter
 from repro_torch.kernels import ref as tref
 
 
@@ -197,3 +198,302 @@ def test_cuda_server_launches_kernel_once_per_micro_batch(cuda_device):
     assert fused_batch.KERNEL.launches - before == s["batches"]
     assert s["oracle_mismatches"] == 0 and s["oracle_checks"] == s["batches"]
     assert all(np.isfinite(r.logits).all() for r in res)
+
+
+# ---------------- gather_rows and scatter_rows (plain path) ----------------
+
+def _table(N, D, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return _to_torch(rng.standard_normal((N, D), dtype=np.float32), dtype)
+
+
+def _assert_same_bits(got, *wants):
+    for want in wants:
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("N,D,B", [(64, 128, 16), (100, 256, 33), (7, 128, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_plain_path_matches_pallas_and_oracle(N, D, B, dtype):
+    jnp, jops, jref = _reference()
+    table = _table(N, D, dtype)
+    idx = np.random.default_rng(0).integers(-2, N, size=B).astype(np.int32)
+    got = gather.gather_rows(table, torch.from_numpy(idx))
+    args = (_to_jax(table), jnp.asarray(idx))
+    assert got.dtype == dtype and tuple(got.shape) == (B, D)
+    _assert_same_bits(got, jops.gather_rows(*args), jref.gather_rows(*args))
+
+
+@pytest.mark.parametrize("N,D,B", [(50, 100, 17), (64, 130, 9), (20, 1, 3),
+                                   (64, 384, 16)])
+def test_gather_plain_path_at_non_lane_widths(N, D, B):
+    jnp, jops, jref = _reference()
+    table = _table(N, D, torch.float32, seed=5)
+    idx = np.random.default_rng(2).integers(-3, N, size=B).astype(np.int32)
+    got = gather.gather_rows(table, torch.from_numpy(idx))
+    args = (_to_jax(table), jnp.asarray(idx))
+    _assert_same_bits(got, jops.gather_rows(*args), jref.gather_rows(*args))
+
+
+def test_gather_negative_indices_zero_and_mask():
+    jnp, jops, _ = _reference()
+    table = torch.arange(12.0).reshape(4, 3) + 1.0  # no zero rows
+    idx = torch.tensor([2, -1, 0, -7, 3], dtype=torch.int32)
+    out, mask = gather.gather_rows(table, idx, return_mask=True)
+    jout, jmask = jops.gather_rows(_to_jax(table), jnp.asarray(idx.numpy()),
+                                   return_mask=True)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+    np.testing.assert_array_equal(mask.numpy(),
+                                  [True, False, True, False, True])
+    _assert_same_bits(out, jout)
+    assert (out[~mask] == 0).all()
+    assert torch.equal(out[mask], table[[2, 0, 3]])
+
+
+def test_gather_batched_index_shape():
+    """idx may be multi-dimensional (B, F): the output is (B, F, D), equal
+    to the Pallas kernel's and to the flat gather reshaped."""
+    jnp, jops, jref = _reference()
+    table = _table(32, 128, torch.float32, seed=6)
+    idx = np.random.default_rng(3).integers(-1, 32, size=(7, 5)) \
+        .astype(np.int32)
+    out = gather.gather_rows(table, torch.from_numpy(idx))
+    assert tuple(out.shape) == (7, 5, 128)
+    _assert_same_bits(out, jops.gather_rows(_to_jax(table), jnp.asarray(idx)))
+    flat = jref.gather_rows(_to_jax(table), jnp.asarray(idx.reshape(-1)))
+    _assert_same_bits(out, np.asarray(flat).reshape(7, 5, 128))
+
+
+def test_gather_int32_column_table():
+    """The integer D = 1 table the routed neighbor sampler gathers from."""
+    jnp, jops, jref = _reference()
+    rng = np.random.default_rng(4)
+    col = rng.integers(0, 1 << 30, size=(40, 1)).astype(np.int32)
+    idx = rng.integers(-2, 40, size=(6, 9)).astype(np.int32)
+    got = gather.gather_rows(torch.from_numpy(col), torch.from_numpy(idx))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (6, 9, 1)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jops.gather_rows(jnp.asarray(col),
+                                                 jnp.asarray(idx))))
+    np.testing.assert_array_equal(
+        got.numpy().reshape(-1, 1),
+        np.asarray(jref.gather_rows(jnp.asarray(col),
+                                    jnp.asarray(idx.reshape(-1)))))
+
+
+def test_gather_out_of_range_indices_clamp_like_xla():
+    jnp, jops, jref = _reference()
+    table = _table(9, 32, torch.float32, seed=2)
+    idx = np.asarray([20, 8, -1, 9, 0], np.int32)
+    got = gather.gather_rows(table, torch.from_numpy(idx))
+    args = (_to_jax(table), jnp.asarray(idx))
+    _assert_same_bits(got, jops.gather_rows(*args), jref.gather_rows(*args))
+    assert torch.equal(got[0], table[8]) and torch.equal(got[3], table[8])
+
+
+def _scatter_case(N, D, B, dtype, seed=0):
+    """Unique valid targets plus dropped (negative / out-of-range) entries,
+    as ``tests/test_kernels.py`` builds them."""
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(N)[:B].astype(np.int32)
+    bad = np.resize(np.array([-1, N, -7, N + 3], np.int32), max(B // 3, 1))
+    idx[: len(bad)] = bad
+    table = _table(N, D, dtype, seed=seed + 1)
+    rows = _table(B, D, dtype, seed=seed + 2)
+    return table, torch.from_numpy(idx), rows
+
+
+@pytest.mark.parametrize("N,D,B", [(64, 128, 16), (100, 256, 33),
+                                   (20, 100, 7), (16, 130, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_plain_path_matches_pallas_and_oracle(N, D, B, dtype):
+    jnp, jops, jref = _reference()
+    table, idx, rows = _scatter_case(N, D, B, dtype)
+    before = table.clone()
+    got = scatter.scatter_rows(table, idx, rows)
+    args = (_to_jax(table), jnp.asarray(idx.numpy()), _to_jax(rows))
+    assert got.dtype == dtype and tuple(got.shape) == (N, D)
+    _assert_same_bits(got, jops.scatter_rows(*args),
+                      jref.scatter_rows(*args))
+    assert torch.equal(table, before)  # functional: the input is untouched
+
+
+def test_scatter_is_functional_and_targets_only_valid_rows():
+    jnp, jops, _ = _reference()
+    table = torch.arange(12.0).reshape(4, 3)
+    idx = torch.tensor([2, -1], dtype=torch.int32)
+    rows = torch.full((2, 3), -5.0)
+    out = scatter.scatter_rows(table, idx, rows)
+    _assert_same_bits(out, jops.scatter_rows(_to_jax(table),
+                                             jnp.asarray(idx.numpy()),
+                                             _to_jax(rows)))
+    assert (out[2] == -5.0).all()
+    for r in (0, 1, 3):  # untouched rows preserved
+        assert torch.equal(out[r], table[r])
+    assert torch.equal(table, torch.arange(12.0).reshape(4, 3))
+
+
+def test_scatter_empty_update_returns_the_table():
+    """B = 0 returns the input table itself (nothing is written, nothing
+    launches), as the reference wrapper does; the plain version copies."""
+    jnp, jops, _ = _reference()
+    table = torch.arange(20.0).reshape(5, 4)
+    idx, rows = torch.zeros((0,), dtype=torch.int32), torch.zeros((0, 4))
+    assert scatter.scatter_rows(table, idx, rows) is table
+    want = jops.scatter_rows(_to_jax(table), jnp.zeros((0,), jnp.int32),
+                             jnp.zeros((0, 4)))
+    _assert_same_bits(tref.scatter_rows(table, idx, rows), want)
+
+
+def test_scatter_then_gather_roundtrip():
+    """The refresh write path feeds the gather read path: admitted rows
+    come back bit-exact through the same slot ids."""
+    table = _table(32, 128, torch.float32, seed=8)
+    rows = _table(6, 128, torch.float32, seed=9)
+    slots = torch.tensor([3, 30, 7, 0, 21, 16], dtype=torch.int32)
+    new = scatter.scatter_rows(table, slots, rows)
+    assert torch.equal(gather.gather_rows(new, slots), rows)
+
+
+@pytest.mark.parametrize("bad", ["index_dtype", "table_rank", "empty_table",
+                                 "device"])
+def test_gather_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    table = torch.zeros((4, 8))
+    idx = torch.zeros(3, dtype=torch.int32)
+    if bad == "index_dtype":
+        idx = idx.to(torch.int64)
+    elif bad == "table_rank":
+        table = torch.zeros(4)
+    elif bad == "empty_table":
+        table = torch.zeros((0, 8))
+    else:
+        table = table.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        gather.gather_rows(table, idx)
+
+
+@pytest.mark.parametrize("bad", ["index_dtype", "index_rank", "rows_width",
+                                 "rows_count"])
+def test_scatter_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    table = torch.zeros((4, 8))
+    idx = torch.zeros(3, dtype=torch.int32)
+    rows = torch.zeros((3, 8))
+    if bad == "index_dtype":
+        idx = idx.to(torch.int64)
+    elif bad == "index_rank":
+        idx = idx[:, None]
+    elif bad == "rows_width":
+        rows = torch.zeros((3, 9))
+    else:
+        rows = torch.zeros((2, 8))
+    with pytest.raises((TypeError, ValueError)):
+        scatter.scatter_rows(table, idx, rows)
+
+
+def test_gather_and_scatter_on_cpu_count_no_launches():
+    table = _table(20, 16, torch.float32, seed=5)
+    idx = torch.tensor([1, -1, 19], dtype=torch.int32)
+    before = (gather.KERNEL.launches, scatter.KERNEL.launches)
+    gather.gather_rows(table, idx)
+    scatter.scatter_rows(table, idx, torch.zeros((3, 16)))
+    assert (gather.KERNEL.launches, scatter.KERNEL.launches) == before
+
+
+def test_kernel_registry_describes_every_ported_kernel():
+    names = [k.name for k in KERNELS]
+    assert names == ["fused_gather_overlay", "gather_rows", "scatter_rows"]
+    for k in KERNELS:
+        assert k.source == f"src/repro_torch/kernels/csrc/{k.name}.cu"
+        assert k.kernel.source.exists()
+        path, line = k.replaces.split(":")
+        assert path.startswith("src/repro/kernels/") and int(line) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,D,shape", [(64, 128, (33,)), (7, 100, (12,)),
+                                       (500, 128, (40, 25)),
+                                       (498_046, 128, (412_746,))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gather_matches_plain_version(cuda_device, N, D, shape, dtype):
+    rng = np.random.default_rng(1)
+    table = _table(N, D, dtype).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(-N // 3, N + 3, size=shape)
+                           .astype(np.int32)).to(cuda_device)
+    before = gather.KERNEL.launches
+    got, mask = gather.gather_rows(table, idx, return_mask=True)
+    torch.cuda.synchronize()
+    assert gather.KERNEL.launches == before + 1
+    assert torch.equal(got, tref.gather_rows(table, idx))
+    assert torch.equal(mask, idx >= 0)
+
+
+@pytest.mark.gpu
+def test_cuda_gather_int32_column(cuda_device):
+    rng = np.random.default_rng(2)
+    col = torch.from_numpy(rng.integers(0, 1 << 30, size=(10_000, 1))
+                           .astype(np.int32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(-5, 10_005, size=(300, 10))
+                           .astype(np.int32)).to(cuda_device)
+    assert torch.equal(gather.gather_rows(col, idx),
+                       tref.gather_rows(col, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,D,B", [(64, 128, 16), (20, 100, 7),
+                                   (498_046, 128, 49_804)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_scatter_matches_plain_version(cuda_device, N, D, B, dtype):
+    table, idx, rows = (t.to(cuda_device)
+                        for t in _scatter_case(N, D, B, dtype, seed=3))
+    before_table = table.clone()
+    launches = scatter.KERNEL.launches
+    got = scatter.scatter_rows(table, idx, rows)
+    torch.cuda.synchronize()
+    assert scatter.KERNEL.launches == launches + 1
+    assert torch.equal(got, tref.scatter_rows(table, idx, rows))
+    assert torch.equal(table, before_table)  # the input is never written
+    empty = scatter.scatter_rows(table, idx[:0], rows[:0])
+    assert empty is table and scatter.KERNEL.launches == launches + 1
+
+
+@pytest.mark.gpu
+def test_cuda_training_runs_the_kernels_and_matches_the_host_backend(
+        cuda_device):
+    """On the card: host and device backends train to bitwise-equal losses
+    across refreshes; each step launches the fused kernel once per
+    simulated device (two here, concatenated), each admitting refresh the
+    scatter once, and the unfused finalize the gather once per device and
+    step, with the same losses."""
+    from repro_torch.core.cache_manager import RefreshConfig
+    from repro_torch.core.cliques import topology_matrix
+    from repro_torch.core.planner import build_plan
+    from repro_torch.graph.csr import powerlaw_graph
+    from repro_torch.models.gnn import GNNConfig
+    from repro_torch.train.loop import train_gnn
+
+    g = powerlaw_graph(4000, 8, seed=4, feat_dim=32)
+    cfg = GNNConfig(feat_dim=32, hidden=32, batch_size=64, fanouts=(4, 2),
+                    lr=3e-3)
+
+    def run(**kw):
+        plan = build_plan(g, topology_matrix("nv2", 2),
+                          mem_per_device=100_000, batch_size=64, seed=0,
+                          fanouts=cfg.fanouts)
+        return train_gnn(g, plan, cfg, steps=8, seed=0, device=cuda_device,
+                         refresh_config=RefreshConfig(interval=4,
+                                                      drift_threshold=1.0),
+                         **kw)
+
+    host = run(backend="host")
+    before = {k: k_.launches for k, k_ in
+              (("f", fused_batch.KERNEL), ("g", gather.KERNEL),
+               ("s", scatter.KERNEL))}
+    dev = run(backend="device")
+    admitting = sum(1 for e in dev.refresh["events"] if e["admitted"] > 0)
+    assert dev.refresh["admitted"] > 0
+    assert fused_batch.KERNEL.launches - before["f"] == 8 * 2
+    assert scatter.KERNEL.launches - before["s"] == admitting
+    assert host.losses == dev.losses and host.refresh == dev.refresh
+    unfused = run(backend="device", fused=False)
+    assert gather.KERNEL.launches - before["g"] == 8 * 2
+    assert unfused.losses == dev.losses

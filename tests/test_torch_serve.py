@@ -3,7 +3,9 @@ batcher tests), the device batch against the host oracle bitwise, and the
 whole slice against the reference ``GNNServer`` — same graph, plan inputs,
 weights, seed and request stream give the same micro-batch packing and
 logits within rtol = atol = 1e-5 (float32 matmul sums run in another order
-under XLA and PyTorch)."""
+under XLA and PyTorch).  With an online cache manager attached, both
+servers refresh at the same micro-batches with the same deltas, and the
+bitwise host-oracle check holds across every refresh."""
 import time
 
 import jax
@@ -11,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.cache_manager import OnlineCacheManager as JManager
+from repro.core.cache_manager import RefreshConfig as JRefresh
 from repro.core.cliques import topology_matrix as j_topo
 from repro.core.planner import build_plan as j_build_plan
 from repro.graph.csr import powerlaw_graph as j_graph
@@ -19,6 +23,7 @@ from repro.models.gnn import defs as j_defs
 from repro.models.params import init_from_defs as j_init
 from repro.serve import GNNServer as JServer
 from repro.serve import ServeConfig as JServeConfig
+from repro_torch.core.cache_manager import OnlineCacheManager, RefreshConfig
 from repro_torch.core.cliques import topology_matrix as t_topo
 from repro_torch.core.planner import build_plan as t_build_plan
 from repro_torch.graph.csr import powerlaw_graph as t_graph
@@ -179,3 +184,42 @@ def test_server_refuses_what_is_not_ported(setup):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             GNNServer(*args)  # the default device is cuda
 
+
+
+def test_port_server_with_refresh_matches_reference_server(setup):
+    """Serving traffic drives online refreshes (every 4 micro-batches,
+    any drift replans) on fresh plans in both packages: the same refresh
+    events, the same replies, and no oracle mismatch across the refreshes."""
+    kw = dict(mem_per_device=100_000, batch_size=MAX_BATCH, fanouts=FANOUTS,
+              seed=0)
+    plan_j = j_build_plan(setup["gj"], j_topo("nv2"), **kw)
+    plan_t = t_build_plan(setup["gt"], t_topo("nv2"), **kw)
+    mj = JManager(setup["gj"], plan_j, JRefresh(drift_threshold=1.0))
+    mt = OnlineCacheManager(setup["gt"], plan_t,
+                            RefreshConfig(drift_threshold=1.0))
+    rng = np.random.default_rng(6)
+    requests = [rng.integers(0, setup["gt"].n, int(n))
+                for n in rng.integers(1, MAX_BATCH + 1, 30)]
+    jsrv = JServer(setup["gj"], plan_j, setup["cfg_j"], setup["params_j"],
+                   dev=0, seed=7, manager=mj,
+                   config=JServeConfig(max_batch=MAX_BATCH, max_wait_s=0.002,
+                                       gather="xla", refresh_interval=4))
+    tsrv = GNNServer(setup["gt"], plan_t, setup["cfg_t"], setup["params_t"],
+                     dev=0, seed=7, device="cpu", manager=mt,
+                     config=ServeConfig(max_batch=MAX_BATCH,
+                                        max_wait_s=0.002, refresh_interval=4,
+                                        oracle_check=True))
+    res_j = _serve_all(jsrv, requests)
+    res_t = _serve_all(tsrv, requests)
+    for rj, rt in zip(res_j, res_t):
+        assert (rj.batch_id, rj.cache_epoch) == (rt.batch_id, rt.cache_epoch)
+        np.testing.assert_allclose(rt.logits, rj.logits, **TOL)
+    assert mt.summary() == mj.summary()
+    assert mt.stats.refreshes >= 1 and mt.stats.admitted > 0
+    assert res_t[-1].cache_epoch >= 1
+    s = tsrv.summary()
+    assert s["oracle_mismatches"] == 0 and s["oracle_checks"] == s["batches"]
+    assert tsrv.counter.feature_hits == jsrv.counter.feature_hits
+    with pytest.raises(ValueError, match="manager"):
+        GNNServer(setup["gt"], plan_t, setup["cfg_t"], setup["params_t"],
+                  device="cpu", config=ServeConfig(refresh_interval=4))
