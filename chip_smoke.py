@@ -11,13 +11,18 @@ result line):
 2. Build: every hand-written kernel (``repro_torch.kernels.KERNELS``),
    compiled from the sources in this checkout, one nvcc per source, all
    started together; registers and spills as ptxas reports them.
-3. Graph + plan: ``synthetic_instance("PA", 1M vertices)`` and a one-GPU
-   Legion plan with a 300 MB cache, fanouts (25, 10).
+3. Graph + plans: ``synthetic_instance("PA", 1M vertices)``, a one-GPU
+   Legion plan with a 300 MB cache, fanouts (25, 10), and the 2 x 2
+   hierarchy of ``topology_matrix("dgx-v100", 4)`` (two cliques of two
+   simulated GPUs, 150 MB per device, so each clique caches 300 MB).
 4. Kernels: each kernel against its plain PyTorch version on the card,
-   bitwise, at the shapes the serving and training paths give it (taken
-   from a real 256-seed micro-batch and a real 8000-seed training batch)
-   and at edge cases (bf16, D = 100, one-row sources, an int32 D = 1
-   table, out-of-range and multi-dimensional indices, an empty update);
+   bitwise, at the shapes the serving, training and sharded paths give it
+   (taken from a real 256-seed micro-batch, a real 8000-seed training
+   batch and a real 8000-seed sharded step: one mesh position's routed
+   gather, and the routed sampler's hop 0 (2000 x 25) and hop 1
+   (50,000 x 10)) and at edge cases (bf16, D = 100, one-row sources, an
+   int32 D = 1 table, out-of-range and multi-dimensional indices, an empty
+   update, all misses, one owning shard, degree-0 rows, draws near 2^31);
    then kernel, plain version and the nearest single PyTorch call timed
    with CUDA events, L2 flushed before every launch.
 5. Serve: ``GNNServer`` with GraphSAGE at paper width (feat 128, hidden
@@ -35,12 +40,26 @@ result line):
    summaries and hit tallies.
 8. Unfused: the device run again with ``fused=False`` for 4 steps: losses
    bitwise equal to the fused run's.
+9. Shard: ``train_gnn(backend="sharded")`` on the 2 x 2 hierarchy at paper
+   width (batch 8000 = 2000 seeds per mesh position) for 12 steps with a
+   refresh every 5 steps that replans on any drift: step times, hit rates,
+   each clique's refresh events, zero cross-clique feature and topology
+   bytes, peer bytes within each clique; a per-layer breakdown of one
+   sharded step (sample, fill, pack, upload, routed gather, forward and
+   backward over the 4 positions, gradient sum and optimizer) and the
+   device busy share of a profiled run.
+10. Shard parity: at batch 1024 for 8 steps with a refresh at step 4, the
+   sharded executor against the device backend on the same plan (losses
+   within 1e-4, accuracies within 1e-6, identical traffic and refreshes),
+   two sharded runs bitwise equal, and one step's per-position batches
+   bitwise equal to the device backend's fused finalize of the same specs.
 
 Every kernel's launch count is zeroed just before each of the serve,
-train, parity and unfused phases and read just after.  The last three lines
-are the card's name and power limit, the ``{"kernels": [...]}`` record and
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
-the repository beside it, the script fails.
+train, parity, unfused, shard and shard-parity phases and read just after.
+The last three lines are the card's name and power limit, the
+``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
+Without CUDA, or without the rest of the repository beside it, the script
+fails.
 """
 from __future__ import annotations
 
@@ -61,6 +80,12 @@ MAX_BATCH = 256
 N_REQUESTS = 200
 TIMED_LAUNCHES = 100
 TRAIN_STEPS = 20
+SHARD_TOPOLOGY = ("dgx-v100", 4)  # 2 cliques x 2 GPUs
+SHARD_MEM_PER_DEVICE = 150e6      # 300 MB per clique, the one-GPU budget
+SHARD_STEPS = 12
+SHARD_REFRESH = 5
+SHARD_LAYER_STEPS = 3
+SHARD_PARITY_STEPS = 8
 PARITY_BATCH = 1024
 PARITY_STEPS = 12
 UNFUSED_STEPS = 4
@@ -227,9 +252,110 @@ def scatter_rows_cases(torch, ctx, seed: int = 2):
     return cases, timed
 
 
+def routed_gather_bytes(shards, owner, local) -> int:
+    """routed_gather: every distinct owned row read once, both routing maps
+    read once, every output row written."""
+    import torch
+
+    k, R, D = shards.shape
+    row = D * shards.element_size()
+    hit = owner >= 0
+    flat = (owner[hit].clamp_max(k - 1).to(torch.int64) * R
+            + local[hit].clamp(0, R - 1).to(torch.int64))
+    n = owner.numel()
+    return torch.unique(flat).numel() * row + n * 8 + n * row
+
+
+def routed_sample_bytes(indptr, indices, owner, local, rand) -> int:
+    """routed_neighbor_sample: the routing read once, every distinct indptr
+    entry an owned row needs read once, the draws read once, every distinct
+    neighbor id sampled read once, the output written."""
+    import torch
+
+    k, R1 = indptr.shape
+    E = indices.shape[1]
+    n, f = rand.shape
+    own = owner >= 0
+    o = owner[own].clamp_max(k - 1).to(torch.int64)
+    lo = local[own].to(torch.int64).clamp(0, R1 - 1)
+    l1 = (lo + 1).clamp_max(R1 - 1)
+    entries = torch.unique(torch.cat([o * R1 + lo, o * R1 + l1])).numel()
+    start = indptr[o, lo]
+    deg = indptr[o, l1] - start
+    offs = rand[own] % deg.clamp_min(1)[:, None]
+    idx = (start[:, None] + offs).clamp(0, E - 1)
+    reads = torch.unique((o[:, None] * E + idx)[deg > 0]).numel()
+    return n * 8 + entries * 8 + n * f * 8 + reads * 4 + n * f * 4
+
+
+def routed_gather_cases(torch, ctx, seed: int = 3):
+    """One mesh position's routed gather of the real sharded step (clique
+    0's shard stack, position (0, 0)'s routing), in bf16, at D = 100, all
+    misses, every hit owned by one shard, and owners and slots past the
+    end."""
+    sh = ctx["shard"]
+    shards, owner, local = sh["shards"], sh["owner"], sh["local"]
+    k, R, D = shards.shape
+    dev = shards.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s100 = torch.randn((k, 50_000, 100), generator=gen, device=dev)
+    one = torch.where(owner >= 0, torch.full_like(owner, k - 1), owner)
+    bad_o, bad_l = owner.clone(), local.clone()
+    bad_o[1::97] = k + 1
+    bad_l[::89] = R + 5
+    bad_l[2::89] = -3
+    cases = {
+        "position_f32": (shards, owner, local),
+        "position_bf16": (shards.to(torch.bfloat16), owner, local),
+        "d100_f32": (s100, owner, local % 50_000),
+        "all_misses": (shards, torch.full_like(owner, -1), local),
+        "one_owner": (shards, one, local),
+        "out_of_range": (shards, bad_o, bad_l),
+    }
+    flat = shards.reshape(k * R, D)
+    lib_idx = (owner.clamp(0, k - 1).to(torch.int64) * R
+               + local.clamp(0, R - 1).to(torch.int64))
+    timed = [("position", cases["position_f32"],
+              routed_gather_bytes(shards, owner, local),
+              ("torch.index_select(shards.reshape(-1, D), 0, flat_idx)",
+               lambda: torch.index_select(flat, 0, lib_idx)))]
+    return cases, timed
+
+
+def routed_neighbor_sample_cases(torch, ctx, seed: int = 4):
+    """The routed sampler at the real sharded step's hop 0 and hop 1 (clique
+    0's CSR shards, position (0, 0)'s frontier), degree-0 rows (the pad
+    row), draws near 2^31, owners and slots past the end, all misses."""
+    sh = ctx["shard"]
+    ip, ix = sh["indptr"], sh["indices"]
+    (o1, l1, r1), hop0 = sh["hop1"], sh["hop0"]
+    k, R1 = ip.shape
+    near = r1.clone()
+    near[::3] = (1 << 31) - 1 - torch.arange(
+        near[::3].shape[0], device=near.device)[:, None]
+    bad_o, bad_l = o1.clone(), l1.clone()
+    bad_o[::101] = k + 2
+    bad_l[1::71] = R1 + 3
+    cases = {
+        "hop0": (ip, ix, *hop0),
+        "hop1": (ip, ix, o1, l1, r1),
+        "deg0_rows": (ip, ix, o1, torch.full_like(l1, R1 - 1), r1),
+        "draws_near_2^31": (ip, ix, o1, l1, near),
+        "out_of_range": (ip, ix, bad_o, bad_l, r1),
+        "all_misses": (ip, ix, torch.full_like(o1, -1), l1, r1),
+    }
+    timed = [("hop1", cases["hop1"], routed_sample_bytes(*cases["hop1"]),
+              None),
+             ("hop0", cases["hop0"], routed_sample_bytes(*cases["hop0"]),
+              None)]
+    return cases, timed
+
+
 KERNEL_CASES = {"fused_gather_overlay": fused_gather_overlay_cases,
                 "gather_rows": gather_rows_cases,
-                "scatter_rows": scatter_rows_cases}
+                "scatter_rows": scatter_rows_cases,
+                "routed_gather": routed_gather_cases,
+                "routed_neighbor_sample": routed_neighbor_sample_cases}
 
 
 def check_and_time(torch, np, k, ctx, flush, card) -> dict:
@@ -473,9 +599,172 @@ def step_window_share(torch, prof, first: int, count: int):
     return busy / (w1 - w0), (w1 - w0) / 1e3, top
 
 
+# ---- the sharded executor (phases 4, 9 and 10) ------------------------------
+
+def sharded_specs(np, g, plan, cfg, seed: int):
+    """One synchronized step's specs on ``plan``'s cliques, built through
+    ``ShardedBatchBuilder`` as ``train_gnn`` builds them (per device
+    ``cfg.batch_size / n_devices`` seeds of its tablet), and the builders."""
+    from repro_torch.train.batch import ShardedBatchBuilder
+
+    n_dev = sum(len(c) for c in plan.partition.cliques)
+    per_dev = cfg.batch_size // n_dev
+    rng = np.random.default_rng(seed)
+    groups, builders = [], {}
+    for clique in plan.partition.cliques:
+        gr = []
+        for d in clique:
+            b = ShardedBatchBuilder(g, plan.cache_for_device(d),
+                                    cfg.fanouts, None, d, device="cuda")
+            tab = plan.partition.tablets[d]
+            gr.append(b.build_spec(tab[rng.integers(0, len(tab), per_dev)],
+                                   rng))
+            builders[d] = b
+        groups.append(gr)
+    return groups, builders
+
+
+def upload_packed(torch, np, plan, groups, feat_dim: int):
+    """pack_sharded_specs -> (the hierarchical shard stack, the packed
+    arrays on the card, host bytes of miss_rows)."""
+    from repro_torch.core.unified_cache import stack_hierarchical_shards
+    from repro_torch.train.batch import pack_sharded_specs
+
+    packed = pack_sharded_specs(groups, feat_dim)
+    epochs = [int(e) for e in packed.pop("cache_epochs")]
+    stack = stack_hierarchical_shards(plan.caches, epochs)
+    miss_bytes = packed["miss_rows"].nbytes
+    return stack, {k: torch.from_numpy(v).cuda()
+                   for k, v in packed.items()}, miss_bytes
+
+
+def shard_context(torch, np, g, plan, cfg, card) -> dict:
+    """Kernel inputs taken from a real sharded step at paper width: clique
+    0's shard stack and position (0, 0)'s routing for ``routed_gather``;
+    clique 0's CSR shards and position (0, 0)'s hop-0 frontier (its seeds,
+    2000 x 25 draws) and hop-1 frontier (the hop-0 samples, 50,000 x 10
+    draws, sampled with the plain version) for ``routed_neighbor_sample``."""
+    from repro_torch.kernels import ref
+
+    groups, _ = sharded_specs(np, g, plan, cfg, seed=5)
+    stack, packed, _ = upload_packed(torch, np, plan, groups, g.feat_dim)
+    da = plan.caches[0].device_arrays()
+    rng = np.random.default_rng(6)
+
+    def hop(frontier, f):
+        safe = frontier.clamp_min(0).to(torch.int64)
+        owner = torch.where(frontier >= 0, da["topo_owner"][safe], -1)
+        local = da["topo_local"][safe].to(torch.int32)
+        rand = torch.from_numpy(rng.integers(0, 1 << 31,
+                                             size=(frontier.numel(), f)))
+        return owner.contiguous(), local.contiguous(), rand.cuda()
+
+    seeds = torch.from_numpy(groups[0][0].levels[0]).cuda()
+    ip, ix = da["topo_shard_indptr"], da["topo_shard_indices"]
+    hop0 = hop(seeds, cfg.fanouts[0])
+    out0 = ref.routed_neighbor_sample_dense(ip, ix, *hop0)
+    hop1 = hop(out0.reshape(-1), cfg.fanouts[1])
+    ctx = {"shards": stack[0], "owner": packed["owner"][0, 0],
+           "local": packed["local"][0, 0], "indptr": ip, "indices": ix,
+           "hop0": hop0, "hop1": hop1}
+    s = groups[0][0]
+    n = s.n_ids
+    peer = int((s.owner[:n] >= 0).sum() - (s.owner[:n] == 0).sum())
+    print(f"[kernel] sharded step, position (0, 0): n_pad="
+          f"{ctx['owner'].numel()} stack={tuple(stack.shape)} unique={n} "
+          f"local hits={int((s.owner[:n] == 0).sum())} peer hits={peer} "
+          f"misses={s.n_miss}; hop 0 {tuple(hop0[2].shape)}, hop 1 "
+          f"{tuple(hop1[2].shape)} | {card}")
+    return ctx
+
+
+def sum_loss(torch, cfg, params, batch):
+    """One mesh position's summed cross-entropy, as the sharded step
+    computes it."""
+    from repro_torch.models.gnn import forward
+
+    logits = forward(cfg, params, batch).to(torch.float32)
+    labels = batch["labels"].to(torch.int64)
+    ll = torch.gather(logits, -1, labels[:, None])[:, 0]
+    return (torch.logsumexp(logits, dim=-1) - ll).sum()
+
+
+def shard_breakdown(torch, np, g, plan, cfg, params, n: int):
+    """Host milliseconds per layer of one sharded step at ``cfg.batch_size``
+    (median over ``n`` steps), through the calls ``train_gnn`` makes, one
+    step and one mesh position after the other (the pipeline runs the four
+    positions' sample and fill on four threads), each layer closed by a
+    device synchronize.  Returns (layer ms, host bytes of miss_rows)."""
+    from repro_torch.core.unified_cache import stack_hierarchical_shards
+    from repro_torch.launch.mesh import make_hierarchical_mesh
+    from repro_torch.train.batch import (ShardedBatchBuilder,
+                                         pack_sharded_specs)
+    from repro_torch.train.loop import sharded_position_batch
+    from repro_torch.train.optimizer import (adamw, apply_updates,
+                                             tree_leaves, tree_map)
+
+    bplan = fresh_copy(plan)
+    cliques = bplan.partition.cliques
+    devs = [d for c in cliques for d in c]
+    builders = {d: ShardedBatchBuilder(g, bplan.cache_for_device(d),
+                                       cfg.fanouts, None, d, device="cuda")
+                for d in devs}
+    rngs = {d: np.random.default_rng(d) for d in devs}
+    per_dev = cfg.batch_size // len(devs)
+    mesh = make_hierarchical_mesh(cliques)
+    opt = adamw(cfg.lr)
+    state = opt.init(params)
+    names = ("sample", "fill", "pack", "upload", "routed gather+overlay+"
+             "positioning", "forward+backward", "grad sum+optimizer")
+    times = {k: [] for k in names}
+    miss_bytes = 0
+    for _ in range(n):
+        t = [time.perf_counter()]
+        specs = {}
+        for d in devs:
+            tab = bplan.partition.tablets[d]
+            specs[d] = builders[d].sample_spec(
+                tab[rngs[d].integers(0, len(tab), per_dev)], rngs[d])
+        t.append(time.perf_counter())
+        for d in devs:
+            specs[d] = builders[d].fill_spec(specs[d])
+        t.append(time.perf_counter())
+        packed = pack_sharded_specs([[specs[d] for d in c] for c in cliques],
+                                    g.feat_dim)
+        for d in devs:
+            builders[d].release_spec(specs[d])
+        miss_bytes = packed["miss_rows"].nbytes
+        t.append(time.perf_counter())
+        stack = stack_hierarchical_shards(
+            bplan.caches, [int(e) for e in packed.pop("cache_epochs")])
+        pt = {k: torch.from_numpy(v).cuda() for k, v in packed.items()}
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        batches = [sharded_position_batch(stack[ci], pt, ci, gi, g.feat_dim)
+                   for ci, gi in mesh.positions()]
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        p = tree_map(lambda x: x.detach().requires_grad_(), params)
+        leaves = tree_leaves(p)
+        grads = [torch.autograd.grad(sum_loss(torch, cfg, p, b), leaves)
+                 for b in batches]
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        total = [sum(gs) / (per_dev * len(devs)) for gs in zip(*grads)]
+        it = iter(total)
+        upd, state = opt.update(tree_map(lambda _: next(it), p), state, p)
+        params = apply_updates(p, upd)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, a, c in zip(times, t, t[1:]):
+            times[k].append((c - a) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}, miss_bytes
+
+
 def main() -> int:
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -486,12 +775,13 @@ def main() -> int:
     from repro_torch.core.cliques import topology_matrix
     from repro_torch.core.planner import build_plan
     from repro_torch.graph.csr import synthetic_instance
+    from repro_torch.core.unified_cache import TrafficCounter
     from repro_torch.kernels import KERNELS, scatter
     from repro_torch.models.gnn import defs as gnn_defs
     from repro_torch.models.params import init_from_defs
     from repro_torch.serve import GNNServer, ServeConfig
     from repro_torch.train.batch import DeviceBatchBuilder
-    from repro_torch.train.loop import train_gnn
+    from repro_torch.train.loop import sharded_position_batch, train_gnn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -524,6 +814,19 @@ def main() -> int:
           f"{len(cache.feat_ids)} topo rows {len(cache.topo_ids)} "
           f"alpha={plan.cost_plans[0]['alpha']:.2f} "
           f"({time.perf_counter() - t0:.1f}s host)")
+    t0 = time.perf_counter()
+    splan = build_plan(g, topology_matrix(*SHARD_TOPOLOGY),
+                       mem_per_device=SHARD_MEM_PER_DEVICE,
+                       fanouts=GRAPHSAGE.fanouts, batch_size=1024, seed=0)
+    cliques = splan.partition.cliques
+    print(f"[plan] {SHARD_TOPOLOGY[0]} x {SHARD_TOPOLOGY[1]}: cliques "
+          f"{cliques}, per clique feat rows "
+          f"{[len(c.feat_ids) for c in splan.caches]} topo rows "
+          f"{[len(c.topo_ids) for c in splan.caches]} alpha "
+          f"{[round(cp['alpha'], 2) for cp in splan.cost_plans]} "
+          f"({time.perf_counter() - t0:.1f}s host)")
+    if [len(c) for c in cliques] != [2, 2]:
+        raise AssertionError(f"expected a 2 x 2 hierarchy, got {cliques}")
 
     # ---- 4. kernels vs plain versions, at the paths' real shapes -----------
     slots, cap = 1, 1
@@ -561,7 +864,8 @@ def main() -> int:
                tablet[rng.integers(0, len(tablet), GRAPHSAGE.batch_size)],
                rng),
            "csr_col": cache.device_arrays()["cache_indices"][:, None]
-           .contiguous()}
+           .contiguous(),
+           "shard": shard_context(torch, np, g, splan, GRAPHSAGE, card)}
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     measured = {k.name: check_and_time(torch, np, k, ctx, flush, card)
                 for k in KERNELS}
@@ -604,8 +908,12 @@ def main() -> int:
     srv.stop()
     phase_launches["serve"] = read_launches(KERNELS)
     s = srv.summary()
+    hops = len(GRAPHSAGE.fanouts)
     if phase_launches["serve"] != {"fused_gather_overlay": s["batches"],
-                                   "gather_rows": 0, "scatter_rows": 0}:
+                                   "gather_rows": 0, "scatter_rows": 0,
+                                   "routed_gather": 0,
+                                   "routed_neighbor_sample":
+                                       hops * s["batches"]}:
         raise AssertionError(f"serve launches {phase_launches['serve']} for "
                              f"{s['batches']} micro-batches")
     if s["oracle_mismatches"] or s["oracle_checks"] != s["batches"]:
@@ -646,7 +954,8 @@ def main() -> int:
     if ref["refreshes"] < 1 or ref["admitted"] <= 0:
         raise AssertionError(f"no refresh admitted rows: {ref}")
     want = {"fused_gather_overlay": TRAIN_STEPS, "gather_rows": 0,
-            "scatter_rows": admitting}
+            "scatter_rows": admitting, "routed_gather": 0,
+            "routed_neighbor_sample": hops * TRAIN_STEPS}
     if phase_launches["train"] != want:
         raise AssertionError(f"train launches {phase_launches['train']}, "
                              f"expected {want}")
@@ -703,8 +1012,6 @@ def main() -> int:
           f"{rstats['evicted']}, topo rebuilds {rstats['topo_rebuilds']})"
           f" | {card}")
 
-    from torch.profiler import ProfilerActivity, profile
-
     pplan = fresh_copy(plan)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
@@ -747,7 +1054,8 @@ def main() -> int:
     admitting = sum(1 for e in dev_run.refresh["events"]
                     if e["admitted"] > 0)
     want = {"fused_gather_overlay": PARITY_STEPS, "gather_rows": 0,
-            "scatter_rows": admitting}
+            "scatter_rows": admitting, "routed_gather": 0,
+            "routed_neighbor_sample": hops * PARITY_STEPS}
     if phase_launches["parity"] != want:
         raise AssertionError(f"parity launches {phase_launches['parity']}, "
                              f"expected {want}")
@@ -765,11 +1073,158 @@ def main() -> int:
         raise AssertionError(f"unfused losses {unfused.losses} != fused "
                              f"{dev_run.losses[:UNFUSED_STEPS]}")
     want = {"fused_gather_overlay": 0, "gather_rows": UNFUSED_STEPS,
-            "scatter_rows": 0}
+            "scatter_rows": 0, "routed_gather": 0,
+            "routed_neighbor_sample": hops * UNFUSED_STEPS}
     if phase_launches["unfused"] != want:
         raise AssertionError(f"unfused launches {phase_launches['unfused']}")
     print(f"[unfused] fused=False == fused over {UNFUSED_STEPS} steps, "
           f"gather_rows launched {UNFUSED_STEPS} times | {card}")
+
+    # ---- 9. the sharded clique executor on the 2 x 2 hierarchy ---------------
+    n_pos = sum(len(c) for c in cliques)
+    shard_kw = dict(backend="sharded", device="cuda", seed=0, params=params,
+                    refresh_config=RefreshConfig(interval=SHARD_REFRESH,
+                                                 drift_threshold=1.0))
+    rplan = fresh_copy(splan)
+    sc = TrafficCounter.for_plan(rplan)
+    zero_launches(KERNELS)
+    t0 = time.perf_counter()
+    res = train_gnn(g, rplan, GRAPHSAGE, steps=SHARD_STEPS, counter=sc,
+                    **shard_kw)
+    wall = time.perf_counter() - t0
+    phase_launches["shard"] = read_launches(KERNELS)
+    if len(res.losses) != SHARD_STEPS or not np.isfinite(res.losses).all():
+        raise AssertionError(f"sharded losses: {res.losses}")
+    ref = res.refresh
+    admitting = sum(1 for e in ref["events"] if e["admitted"] > 0)
+    if {e["clique"] for e in ref["events"]} != {0, 1} or ref["admitted"] <= 0:
+        raise AssertionError(f"both cliques must refresh: {ref}")
+    want = {"fused_gather_overlay": 0, "gather_rows": 0,
+            "scatter_rows": admitting, "routed_gather": n_pos * SHARD_STEPS,
+            "routed_neighbor_sample": hops * n_pos * SHARD_STEPS}
+    if phase_launches["shard"] != want:
+        raise AssertionError(f"shard launches {phase_launches['shard']}, "
+                             f"expected {want}")
+    cross = (sc.cross_clique_bytes(cliques), sc.cross_clique_topo_bytes(cliques))
+    split = sc.per_clique_split(cliques)
+    if cross != (0, 0) or not all(x["peer_bytes"] > 0 for x in split):
+        raise AssertionError(f"cross-clique bytes {cross}, split {split}")
+    st = np.array(res.step_times)
+    print(f"[shard] GraphSAGE-256 batch {GRAPHSAGE.batch_size} on "
+          f"{len(cliques)} x {len(cliques[0])} (pod, clique) positions, "
+          f"{GRAPHSAGE.batch_size // n_pos} seeds each: {SHARD_STEPS} steps "
+          f"in {wall:.3f}s; step median {np.median(st) * 1e3:.2f} ms (min "
+          f"{st.min() * 1e3:.2f}, max {st.max() * 1e3:.2f}), "
+          f"{SHARD_STEPS / st.sum():.3f} steps/s over the loop | {card}")
+    print(f"[shard] losses {[round(x, 5) for x in res.losses]} | {card}")
+    print(f"[shard] feature hit rate {sc.feature_hit_rate:.4f} topo hit rate "
+          f"{sc.topo_hit_rate:.4f}; host sample syncs "
+          f"{sc.host_sample_syncs}, host-sampled edges "
+          f"{sc.host_sampled_edges} | {card}")
+    for e in ref["events"]:
+        print(f"[shard] refresh at step {e['step']} clique {e['clique']}: "
+              f"overlap {e['overlap']:.6f} admitted {e['admitted']} evicted "
+              f"{e['evicted']} topo_rebuilt {e['topo_rebuilt']} | {card}")
+    print(f"[shard] cache epochs {[c.epoch for c in rplan.caches]}; launches "
+          f"{phase_launches['shard']} | {card}")
+    print(f"[shard] cross-clique bytes: features {cross[0]}, topology "
+          f"{cross[1]}; per clique (local, peer, host-fill) bytes "
+          f"{[(x['local_bytes'], x['peer_bytes'], x['host_fill_bytes']) for x in split]}"
+          f" | {card}")
+    p = res.pipeline
+    print(f"[shard] host build mean {p['host_build_s_mean'] * 1e3:.2f} ms, "
+          f"pack mean {p['host_pack_s_mean'] * 1e3:.2f} ms, fill total "
+          f"{p['fill_s_total']:.3f}s (4 positions), queue dry "
+          f"{p['queue_dry_s_total']:.3f}s | {card}")
+    del rplan
+    layers, miss_bytes = shard_breakdown(torch, np, g, splan, GRAPHSAGE,
+                                         params, SHARD_LAYER_STEPS)
+    print("[shard-layers] median ms per step, one position after the other: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in layers.items())
+          + f" (total {sum(layers.values()):.3f}); miss_rows "
+          f"{miss_bytes / 1e6:.1f} MB host -> device per step | {card}")
+    pplan = fresh_copy(splan)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        train_gnn(g, pplan, GRAPHSAGE, steps=PROFILE_STEPS, **shard_kw)
+    share = step_window_share(torch, prof, *PROFILE_WINDOW)
+    if share is None:
+        print("[shard-layers] device busy share: not measured (torch.profiler"
+              " saw no device time in the window)")
+    else:
+        print(f"[shard-layers] device busy share {share[0]:.4f} over steps "
+              f"{PROFILE_WINDOW[0]}-{sum(PROFILE_WINDOW) - 1} "
+              f"({share[1]:.1f} ms, profiler on; idle {1 - share[0]:.4f}) "
+              f"| {card}")
+        for us, name, count in share[2]:
+            print(f"[shard-layers]   {us / 1e3:9.3f} ms  x{count:<5d} "
+                  f"{name[:70]} | {card}")
+    del prof, pplan
+
+    # ---- 10. sharded parity against the device backend ----------------------
+    groups, builders = sharded_specs(np, g, splan, cfg_p, seed=8)
+    stack, packed, _ = upload_packed(torch, np, splan, groups, g.feat_dim)
+    for ci, clique in enumerate(cliques):
+        for gi, d in enumerate(clique):
+            got = sharded_position_batch(stack[ci], packed, ci, gi,
+                                         g.feat_dim)
+            want = builders[d].finalize(groups[ci][gi])
+            if set(got) != set(want) or not all(
+                    torch.equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"position ({ci}, {gi}) batch != the "
+                                     "device backend's finalize")
+    del stack, packed, builders, groups
+    sp_kw = dict(device="cuda", seed=0, params=params,
+                 refresh_config=RefreshConfig(interval=4,
+                                              drift_threshold=1.0))
+    dc = TrafficCounter.for_plan(splan)
+    dev_run = train_gnn(g, fresh_copy(splan), cfg_p, steps=SHARD_PARITY_STEPS,
+                        backend="device", counter=dc, **sp_kw)
+    zero_launches(KERNELS)
+    runs = []
+    for _ in range(2):
+        c = TrafficCounter.for_plan(splan)
+        runs.append((train_gnn(g, fresh_copy(splan), cfg_p,
+                               steps=SHARD_PARITY_STEPS, backend="sharded",
+                               counter=c, **sp_kw), c))
+    phase_launches["shard-parity"] = read_launches(KERNELS)
+    (s1, c1), (s2, _) = runs
+    if s1.losses != s2.losses or s1.accs != s2.accs:
+        raise AssertionError(f"sharded reruns differ: {s1.losses} vs "
+                             f"{s2.losses}")
+    dl = float(np.abs(np.subtract(s1.losses, dev_run.losses)).max())
+    da = float(np.abs(np.subtract(s1.accs, dev_run.accs)).max())
+    if dl > 1e-4 or da > 1e-6:
+        raise AssertionError(f"sharded vs device: loss diff {dl}, acc diff "
+                             f"{da}")
+    for name in ("feature_requests", "feature_hits", "topo_requests",
+                 "topo_hits", "pcie_transactions", "host_sample_syncs",
+                 "host_sampled_edges"):
+        if getattr(c1, name) != getattr(dc, name):
+            raise AssertionError(f"counter {name} differs")
+    if not (np.array_equal(c1.bytes_matrix, dc.bytes_matrix)
+            and np.array_equal(c1.topo_bytes_matrix, dc.topo_bytes_matrix)):
+        raise AssertionError("traffic matrices differ")
+    if s1.refresh != dev_run.refresh or s1.refresh["refreshes"] < 1:
+        raise AssertionError(f"refreshes differ or none: {s1.refresh} vs "
+                             f"{dev_run.refresh}")
+    admitting = sum(1 for e in s1.refresh["events"] if e["admitted"] > 0)
+    want = {"fused_gather_overlay": 0, "gather_rows": 0,
+            "scatter_rows": 2 * admitting,
+            "routed_gather": 2 * n_pos * SHARD_PARITY_STEPS,
+            "routed_neighbor_sample": 2 * hops * n_pos * SHARD_PARITY_STEPS}
+    if phase_launches["shard-parity"] != want:
+        raise AssertionError(f"shard-parity launches "
+                             f"{phase_launches['shard-parity']}, expected "
+                             f"{want}")
+    print(f"[shard-parity] batch {PARITY_BATCH}, {SHARD_PARITY_STEPS} steps: "
+          f"sharded vs device max |loss diff| {dl:.3e} (atol 1e-4), max "
+          f"|acc diff| {da:.3e} (atol 1e-6); two sharded runs bitwise equal; "
+          f"traffic tallies and byte matrices identical; "
+          f"{s1.refresh['refreshes']} refreshes, admitted "
+          f"{s1.refresh['admitted']}; per-position batches bitwise equal to "
+          f"the fused finalize | {card}")
+    print(f"[shard-parity] sharded losses {s1.losses} | {card}")
 
     record = {"kernels": []}
     for k in KERNELS:

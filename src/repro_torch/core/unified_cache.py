@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core.hotness import CLS, S_FLOAT32, S_UINT32
 from repro_torch.graph.csr import CSRGraph
-from repro_torch.kernels import scatter
+from repro_torch.kernels import gather, scatter
 from repro_torch.utils import device_context, resolve_device
 
 # the sharded topology layout's device arrays (routing tables + per-shard
@@ -86,6 +86,47 @@ class TrafficCounter:
     def topo_hit_rate(self) -> float:
         return self.topo_hits / max(self.topo_requests, 1)
 
+    @staticmethod
+    def _cross_clique(matrix: np.ndarray,
+                      cliques: Sequence[Sequence[int]]) -> int:
+        total = 0
+        for ci, devs in enumerate(cliques):
+            others = [d for cj, c in enumerate(cliques) if cj != ci
+                      for d in c]
+            if others:
+                total += int(matrix[np.ix_(list(devs), others)].sum())
+        return total
+
+    def cross_clique_bytes(self, cliques: Sequence[Sequence[int]]) -> int:
+        """Device-to-device feature bytes between devices of *different*
+        cliques.  The hierarchical executor's invariant is that this is
+        exactly 0: feature rows only travel intra-clique (peer exchange) or
+        over PCIe (host fill)."""
+        return self._cross_clique(self.bytes_matrix, cliques)
+
+    def cross_clique_topo_bytes(self, cliques: Sequence[Sequence[int]]) -> int:
+        """Topology-exchange bytes between devices of different cliques:
+        every frontier row is served by an owner shard *within* the
+        requester's clique (or by the host over PCIe), so this is exactly
+        0 as well."""
+        return self._cross_clique(self.topo_bytes_matrix, cliques)
+
+    def per_clique_split(self, cliques: Sequence[Sequence[int]]) -> list:
+        """Feature-gather traffic aggregated per clique: local-hit bytes
+        (each device's own partition, the matrix diagonal), peer bytes
+        (intra-clique exchange, off-diagonal within the clique block) and
+        host-fill bytes (the PCIe column)."""
+        out = []
+        for ci, devs in enumerate(cliques):
+            devs = list(devs)
+            sub = self.bytes_matrix[np.ix_(devs, devs)]
+            out.append({"clique": ci,
+                        "local_bytes": int(np.trace(sub)),
+                        "peer_bytes": int(sub.sum() - np.trace(sub)),
+                        "host_fill_bytes": int(
+                            self.bytes_matrix[devs, -1].sum())})
+        return out
+
 
 class CliqueCache:
     """One clique's unified cache."""
@@ -134,8 +175,11 @@ class CliqueCache:
         self.device: Optional[torch.device] = None  # fixed at first upload
         self._device_arrays = None
         self._prev_device_arrays = None
+        self._sharded_arrays = None
+        self._prev_sharded_arrays = None
+        self._shard_routing = None
         self._prev_epoch = -1
-        # guards the lazy upload: several builders may race the first
+        # guards the lazy uploads: several builders may race the first
         # spec build
         self._mat_lock = threading.RLock()
 
@@ -286,15 +330,101 @@ class CliqueCache:
                 arrays[k] = torch.tensor(getattr(self, k), device=dev)
         return arrays
 
+    # ---- per-device shard views (the sharded clique executor) ----
+    def shard_routing(self):
+        """Ownership routing tables for the sharded executor: two int32
+        arrays over global feature-cache slots, ``owner[s]`` (clique-local
+        index of the device whose shard holds slot ``s``) and
+        ``local_slot[s]`` (the row of that slot within the owner's shard).
+        With ``split_hits`` this routes a batch's cached ids: requester ==
+        owner is a local hit, requester != owner an intra-clique peer
+        exchange, pos < 0 a host fill.
+
+        Slots freed by an online refresh keep their last routing entry;
+        no vertex maps to them any more, so it is never consulted.
+        Memoized (invariant between refreshes, read once per spec-build
+        epoch); ``apply_feature_delta`` invalidates."""
+        if self._shard_routing is None:
+            with self._mat_lock:
+                if self._shard_routing is None:
+                    owner = self.feat_owner.astype(np.int32)
+                    local = np.zeros(len(owner), dtype=np.int32)
+                    for gi in range(len(self.devices)):
+                        sel = np.flatnonzero(owner == gi)
+                        local[sel] = np.arange(len(sel), dtype=np.int32)
+                    self._shard_routing = (owner, local)
+        return self._shard_routing
+
+    def shard_row_count(self) -> int:
+        """Rows of the largest per-device shard (all shards pad to this)."""
+        if len(self.feat_owner) == 0:
+            return 0
+        return int(np.bincount(self.feat_owner,
+                               minlength=len(self.devices)).max())
+
+    def sharded_device_arrays(self, epoch: Optional[int] = None, device=None):
+        """The cache's *partitioned* device residency: the feature table
+        restacked as one shard per clique device, ``feat_shards`` of shape
+        ``(k_g, R, D_padded)`` — row ``local_slot[s]`` of shard
+        ``owner[s]`` is global slot ``s`` — plus the routing tables
+        (``slot_owner``, ``slot_local``) and, in sharded topology mode, the
+        per-shard CSR stacks (the same tensors as ``device_arrays``').
+
+        Uploaded once, lazily, on the cache's device (``device`` as in
+        ``device_arrays``, whose flat arrays this uploads first).  Every
+        mesh position of a clique reads its own shard and its peers' from
+        this stack.  Same double-buffered epoch pinning as
+        ``device_arrays``: specs built before a refresh finalize against
+        the stack they indexed."""
+        if self._sharded_arrays is None:
+            with self._mat_lock:
+                if self._sharded_arrays is None:
+                    if self.feat_cache is None:
+                        raise RuntimeError(
+                            "sharded_device_arrays needs a materialized "
+                            "cache (build the plan with "
+                            "materialize_caches=True)")
+                    flat = self.device_arrays(device=device)
+                    dev = self.device
+                    k_g = len(self.devices)
+                    owner, local = self.shard_routing()
+                    R = self.shard_row_count()
+                    fc = self.feat_cache
+                    D = fc.shape[1]
+                    Dp = self._lane_padded(D)
+                    shards = np.zeros((k_g, R, Dp), dtype=np.float32)
+                    if len(owner):
+                        shards[owner, local, :D] = fc
+                    # copies: owner/local derive from feat_owner, which a
+                    # refresh mutates in place
+                    with device_context(dev):
+                        arrays = {
+                            "feat_shards": torch.from_numpy(shards).to(dev),
+                            "slot_owner": torch.tensor(owner, device=dev),
+                            "slot_local": torch.tensor(local, device=dev),
+                        }
+                    arrays.update({k: flat[k] for k in _SHARD_TOPO_KEYS
+                                   if k in flat})
+                    self._sharded_arrays = arrays
+        if device is not None and resolve_device(device) != self.device:
+            raise ValueError(f"cache arrays live on {self.device}, not "
+                             f"{device}")
+        return self._epoch_view(self._sharded_arrays,
+                                self._prev_sharded_arrays, epoch,
+                                " in sharded form")
+
     # ---- online refresh (cache manager API) ----
     def begin_epoch(self) -> int:
-        """Rotate the device double buffer: the current arrays become the
-        retained previous epoch; subsequent mutations build the new one.
-        Returns the new epoch id.  Before the first upload there is nothing
-        to retain, and the rotation only bumps the epoch id."""
+        """Rotate the device double buffers (flat and sharded): the current
+        arrays become the retained previous epoch; subsequent mutations
+        build the new one.  Returns the new epoch id.  Before the first
+        upload there is nothing to retain, and the rotation only bumps the
+        epoch id."""
         self._prev_device_arrays = self._device_arrays
-        self._prev_epoch = self.epoch if self._device_arrays is not None \
-            else -1
+        self._prev_sharded_arrays = self._sharded_arrays
+        had_any = (self._device_arrays is not None
+                   or self._sharded_arrays is not None)
+        self._prev_epoch = self.epoch if had_any else -1
         self.epoch += 1
         return self.epoch
 
@@ -361,6 +491,14 @@ class CliqueCache:
                 # a copy: the host mirror mutates in place
                 new["feat_pos"] = torch.tensor(self.feat_pos, device=dev)
             self._device_arrays = new
+        # partitioned view: the routing changed, so drop the memo and, if
+        # the shard stack was uploaded, rebuild it *here*, on the refresh
+        # thread (serialized with spec builds), so consumers only ever see
+        # epoch-pinned stacks.  begin_epoch kept the previous one.
+        self._shard_routing = None
+        if self._sharded_arrays is not None:
+            self._sharded_arrays = None
+            self.sharded_device_arrays()
         return {"evicted": int(len(evict_ids)), "admitted": int(n_admit),
                 "bytes_h2d": int(n_admit) * self.g.feat_dim * S_FLOAT32}
 
@@ -381,6 +519,12 @@ class CliqueCache:
             with device_context(self.device):
                 new.update(self._topology_arrays(self.device))
             self._device_arrays = new
+        if self._sharded_arrays is not None:
+            new = {k: v for k, v in self._sharded_arrays.items()
+                   if k not in _SHARD_TOPO_KEYS}
+            new.update({k: self._device_arrays[k] for k in _SHARD_TOPO_KEYS
+                        if k in self._device_arrays})
+            self._sharded_arrays = new
 
     def feat_ids_by_device(self) -> List[np.ndarray]:
         """Current per-device cached feature ids (clique-local order), the
@@ -404,10 +548,13 @@ class CliqueCache:
         padded CSR (the single-process form of the routed neighbor
         exchange); every shard stores its vertices' adjacency in host
         order, so the outputs are bit-identical to the replicated layout
-        and to the host sampler.  ``seeds`` may be a numpy array or a
-        device tensor (the chained sampler's previous hop).  Every index
-        below is clamped into range before it is used: a CUDA gather
-        asserts on an out-of-range index where XLA would clamp.
+        and to the host sampler.  That lookup is the routed neighbor
+        exchange, ``kernels.gather.routed_neighbor_sample``: its CUDA kernel
+        on a card, its plain version on the CPU.  ``seeds`` may be a numpy
+        array or a device tensor (the chained sampler's previous hop).
+        Every index of the replicated path is clamped into range before it
+        is used: a CUDA gather asserts on an out-of-range index where XLA
+        would clamp.
         Returns (neighbors (B, fanout) int32, hit_mask (B,) bool), both on
         the cache's device.
         """
@@ -425,16 +572,13 @@ class CliqueCache:
         safe_seed = torch.where(valid, seeds, 0)
         r = torch.as_tensor(np.asarray(rand, dtype=np.int64), device=dev)
         if self.topology_mode == "sharded":
-            own = da["topo_owner"][safe_seed].to(torch.int64)
-            hit = (own >= 0) & valid
-            o = own.clamp_min(0)
-            loc = da["topo_local"][safe_seed]
-            start = da["topo_shard_indptr"][o, loc]
-            deg = da["topo_shard_indptr"][o, loc + 1] - start
-            offs = r % deg.clamp_min(1)[:, None]
-            E = da["topo_shard_indices"].shape[1]
-            idx = (start[:, None] + offs).clamp_max(E - 1)
-            out = da["topo_shard_indices"][o[:, None], idx]
+            # the owner is -1 for an invalid seed as for an uncached one
+            owner = torch.where(valid, da["topo_owner"][safe_seed], -1)
+            local = da["topo_local"][safe_seed].to(torch.int32)
+            out = gather.routed_neighbor_sample(
+                da["topo_shard_indptr"], da["topo_shard_indices"], owner,
+                local, r)
+            return out, owner >= 0
         else:
             pos = da["topo_pos"][safe_seed]
             hit = (pos >= 0) & valid
@@ -568,6 +712,34 @@ class CliqueCache:
                 else:
                     counter.topo_bytes_matrix[
                         requester_dev, requester_dev] += hb * int(hit.sum())
+
+
+def stack_hierarchical_shards(caches: Sequence[CliqueCache],
+                              epochs: Sequence[int]) -> torch.Tensor:
+    """Stack every clique's partitioned feature residency into the one
+    tensor the hierarchical executor indexes by ``(pod, clique)`` mesh
+    position: shape ``(K_c, K_g, R_max, D_padded)`` — row ``ci`` is clique
+    ``ci``'s ``sharded_device_arrays(epochs[ci])["feat_shards"]``.
+
+    Each clique plans its own cache, so per-clique row counts differ;
+    shorter stacks zero-pad to the tallest clique's ``R``.  The pad rows
+    are unreachable: every routing entry indexes within its own clique's
+    real rows.  ``epochs`` pins each clique's refresh generation
+    independently (refreshes fire per clique, so one synchronized step may
+    combine different epochs across cliques — never within one)."""
+    if len(caches) != len(epochs):
+        raise ValueError(f"{len(caches)} caches but {len(epochs)} epochs")
+    k_gs = {len(c.devices) for c in caches}
+    if len(k_gs) != 1:
+        raise ValueError(f"ragged clique sizes {sorted(k_gs)}: the "
+                         "hierarchical shard stack needs one uniform K_g")
+    stacks = [c.sharded_device_arrays(int(e))["feat_shards"]
+              for c, e in zip(caches, epochs)]
+    R = max(s.shape[1] for s in stacks)
+    padded = [s if s.shape[1] == R
+              else torch.nn.functional.pad(s, (0, 0, 0, R - s.shape[1]))
+              for s in stacks]
+    return torch.stack(padded)
 
 
 def plan_cache_contents(g: CSRGraph, k_g: int, cslp_res, cost_plan: dict,

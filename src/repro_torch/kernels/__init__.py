@@ -42,6 +42,11 @@ KERNELS = (
                  "src/repro/kernels/gather.py:37"),
     PortedKernel(scatter.KERNEL, scatter.scatter_rows, ref.scatter_rows,
                  "src/repro/kernels/scatter.py:36"),
+    PortedKernel(gather.ROUTED_KERNEL, gather.routed_gather,
+                 ref.routed_gather_dense, "src/repro/kernels/gather.py:80"),
+    PortedKernel(gather.SAMPLE_KERNEL, gather.routed_neighbor_sample,
+                 ref.routed_neighbor_sample_dense,
+                 "src/repro/kernels/gather.py:119"),
 )
 
 __all__ = ["KERNELS", "PortedKernel"]

@@ -42,8 +42,10 @@ class CudaKernel:
     The entry point returns the ``cudaError_t`` of its launch as an int;
     ``check`` raises on anything but success.
 
-    ``launches`` is incremented by the kernel's wrapper exactly where it
-    launches, and nowhere else: a run reads it to show which path it took.
+    ``launches`` is incremented by the kernel's wrapper (``count_launch``)
+    exactly where it launches, and nowhere else: a run reads it to show
+    which path it took.  Several prefetch threads may launch one kernel at
+    once (device sampling), so the increment takes a lock.
     ``build_log`` keeps what ``nvcc -Xptxas -v`` printed (registers, spills)
     and ``build_s`` the compile time (0 when the library was already built).
     """
@@ -59,6 +61,7 @@ class CudaKernel:
         self.build_s = 0.0
         self._fn = None
         self._lock = threading.Lock()
+        self._count_lock = threading.Lock()
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes()
@@ -95,6 +98,10 @@ class CudaKernel:
                     f.restype = ctypes.c_int  # the launch's cudaError_t
                     self._fn = f
         return self._fn
+
+    def count_launch(self) -> None:
+        with self._count_lock:
+            self.launches += 1
 
     def check(self, err: int) -> None:
         if err != 0:

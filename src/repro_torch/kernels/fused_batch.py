@@ -82,5 +82,5 @@ def fused_gather_overlay(table: torch.Tensor, idx: torch.Tensor,
                  miss_inv.data_ptr(), out.data_ptr(), B, N,
                  miss_rows.shape[0], D * table.element_size(), stream)
     KERNEL.check(err)
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     return out

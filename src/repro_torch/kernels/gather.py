@@ -1,11 +1,16 @@
-"""Unified-cache row gather: ``out[...] = table[idx[...]]``, zeros where the
-index is negative (cache misses).
+"""Unified-cache gathers: the feature-extraction and sampling hot loops.
 
-The unfused finalize chain gathers a batch's cached rows with it
-(``DeviceBatchBuilder(fused=False)``), and the sharded executor's per-shard
-gather will.  On CUDA tensors the wrapper launches the hand-written Hopper
-kernel (``csrc/gather_rows.cu``); on CPU tensors it runs the plain version
-in ``kernels/ref.py``.  There is no other fallback.
+* ``gather_rows``: ``out[...] = table[idx[...]]``, zeros where the index is
+  negative (cache misses).  The unfused finalize chain gathers a batch's
+  cached rows with it (``DeviceBatchBuilder(fused=False)``).
+* ``routed_gather``: the sharded executor's intra-clique exchange, one
+  clique's shard stack gathered by per-row (owner, local slot) routing.
+* ``routed_neighbor_sample``: the sharded topology cache's routed neighbor
+  exchange, fixed-fanout sampling from the owner shard's CSR.
+
+On CUDA tensors each wrapper launches its hand-written Hopper kernel
+(``csrc/<name>.cu``); on CPU tensors it runs the plain version in
+``kernels/ref.py``.  There is no other fallback.
 """
 from __future__ import annotations
 
@@ -19,6 +24,28 @@ from repro_torch.kernels._build import CudaKernel
 KERNEL = CudaKernel(
     "gather_rows", "csrc/gather_rows.cu", "gather_rows",
     [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
+ROUTED_KERNEL = CudaKernel(
+    "routed_gather", "csrc/routed_gather.cu", "routed_gather",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
+SAMPLE_KERNEL = CudaKernel(
+    "routed_neighbor_sample", "csrc/routed_neighbor_sample.cu",
+    "routed_neighbor_sample",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 5 + [ctypes.c_void_p])
+
+
+def _device_of(name: str, *tensors: torch.Tensor) -> torch.device:
+    """The one device all ``tensors`` live on: the CPU (plain version) or a
+    CUDA card (the kernel); raises on mixed or other devices."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: all inputs must share one device, got "
+                         f"{sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if dev.type == "cuda" and not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous inputs")
+    return dev
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor, *,
@@ -55,7 +82,105 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, *,
             err = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
                      idx.numel(), N, D * table.element_size(), stream)
         KERNEL.check(err)
-        KERNEL.launches += 1
+        KERNEL.count_launch()
     if return_mask:
         return out, idx >= 0
+    return out
+
+
+def routed_gather(shards: torch.Tensor, owner: torch.Tensor,
+                  local: torch.Tensor) -> torch.Tensor:
+    """One clique's owner-routed row gather: ``out[i] = shards[owner[i],
+    local[i]]``, zeros where ``owner[i] < 0`` (host-fill misses).
+
+    shards: (K_g, R, Dp) with K_g, R >= 1, f32 or bf16 (any element type
+    the copy can move); owner, local: (n,) int32 on the shards' device.
+    Returns (n, Dp).  An owner past K_g - 1 and a slot outside [0, R) are
+    clamped (the reference's dense oracle clamps them the same way), never
+    rejected.  The sharded executor calls this once per mesh position and
+    step; on one card the peer shards are plain device memory.
+    """
+    if shards.dim() != 3 or shards.shape[0] < 1 or shards.shape[1] < 1:
+        raise ValueError(f"shards must be (K_g, R, D) with K_g, R >= 1, got "
+                         f"{tuple(shards.shape)}")
+    if owner.dtype != torch.int32 or local.dtype != torch.int32:
+        raise TypeError(f"owner and local must be int32, got {owner.dtype} "
+                        f"and {local.dtype}")
+    if owner.dim() != 1 or local.shape != owner.shape:
+        raise ValueError(f"owner and local must be (n,) alike, got "
+                         f"{tuple(owner.shape)} and {tuple(local.shape)}")
+    dev = _device_of("routed_gather", shards, owner, local)
+    if dev.type == "cpu":
+        return ref.routed_gather_dense(shards, owner, local)
+    k_g, R, D = shards.shape
+    out = torch.empty((owner.shape[0], D), dtype=shards.dtype, device=dev)
+    if out.numel() == 0:
+        return out  # nothing to launch
+    fn = ROUTED_KERNEL.fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(shards.data_ptr(), owner.data_ptr(), local.data_ptr(),
+                 out.data_ptr(), owner.shape[0], k_g, R,
+                 D * shards.element_size(), stream)
+    ROUTED_KERNEL.check(err)
+    ROUTED_KERNEL.count_launch()
+    return out
+
+
+def routed_neighbor_sample(indptr_shards: torch.Tensor,
+                           indices_shards: torch.Tensor, owner: torch.Tensor,
+                           local: torch.Tensor,
+                           rand: torch.Tensor) -> torch.Tensor:
+    """One clique's owner-routed fixed-fanout sampling:
+    ``out[i, j] = indices[owner[i], start + rand[i, j] % deg]`` with
+    ``start``/``deg`` from row ``local[i]`` of the owner's CSR shard, -1
+    where ``owner[i] < 0`` (topology miss) or the vertex has degree 0.
+
+    indptr_shards: (K_g, R+1) int64, pad rows repeating the last offset;
+    indices_shards: (K_g, E) int32 with E >= 1; owner, local: (n,) int32;
+    rand: (n, f) int64 draws (the host sampler's, in [0, 2^31)).  Returns
+    (n, f) int32.  Owners, slots and offsets out of range clamp as in the
+    reference's dense oracle.  Every device-sampling hop of a sharded
+    topology cache calls this once.
+    """
+    if indptr_shards.dim() != 2 or indices_shards.dim() != 2 \
+            or indptr_shards.shape[0] != indices_shards.shape[0] \
+            or indptr_shards.shape[0] < 1 or indptr_shards.shape[1] < 1 \
+            or indices_shards.shape[1] < 1:
+        raise ValueError(f"indptr_shards (K_g, R+1) and indices_shards "
+                         f"(K_g, E) must be non-empty and agree on K_g, got "
+                         f"{tuple(indptr_shards.shape)} and "
+                         f"{tuple(indices_shards.shape)}")
+    if indptr_shards.dtype != torch.int64 \
+            or indices_shards.dtype != torch.int32:
+        raise TypeError(f"indptr_shards must be int64 and indices_shards "
+                        f"int32, got {indptr_shards.dtype} and "
+                        f"{indices_shards.dtype}")
+    if owner.dtype != torch.int32 or local.dtype != torch.int32 \
+            or rand.dtype != torch.int64:
+        raise TypeError(f"owner and local must be int32 and rand int64, got "
+                        f"{owner.dtype}, {local.dtype}, {rand.dtype}")
+    if owner.dim() != 1 or local.shape != owner.shape or rand.dim() != 2 \
+            or rand.shape[0] != owner.shape[0]:
+        raise ValueError(f"owner, local (n,) and rand (n, f) must agree, got "
+                         f"{tuple(owner.shape)}, {tuple(local.shape)}, "
+                         f"{tuple(rand.shape)}")
+    dev = _device_of("routed_neighbor_sample", indptr_shards, indices_shards,
+                     owner, local, rand)
+    if dev.type == "cpu":
+        return ref.routed_neighbor_sample_dense(indptr_shards, indices_shards,
+                                                owner, local, rand)
+    n, f = rand.shape
+    out = torch.empty((n, f), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out  # nothing to launch
+    fn = SAMPLE_KERNEL.fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(indptr_shards.data_ptr(), indices_shards.data_ptr(),
+                 owner.data_ptr(), local.data_ptr(), rand.data_ptr(),
+                 out.data_ptr(), n, f, indptr_shards.shape[0],
+                 indptr_shards.shape[1], indices_shards.shape[1], stream)
+    SAMPLE_KERNEL.check(err)
+    SAMPLE_KERNEL.count_launch()
     return out

@@ -40,3 +40,41 @@ def fused_gather_overlay(table: torch.Tensor, idx: torch.Tensor,
     safe = miss_inv.to(torch.int64).clamp(0, miss_rows.shape[0] - 1)
     staged = miss_rows.index_select(0, safe).to(table.dtype)
     return torch.where(fresh[:, None], staged, cached)
+
+
+def routed_gather_dense(shards: torch.Tensor, owner: torch.Tensor,
+                        local_slot: torch.Tensor) -> torch.Tensor:
+    """The owner-routed gather over a whole shard stack (k, R, D) with
+    routing of any shape S...: ``out[...] = shards[owner, local_slot]``
+    (output ``S... + (D,)``), zeros where ``owner < 0`` (host-fill misses).
+    An owner past k - 1 and a slot outside [0, R) are clamped, as XLA
+    clamps them."""
+    k, R = shards.shape[:2]
+    safe_o = owner.to(torch.int64).clamp(0, k - 1)
+    safe_l = local_slot.to(torch.int64).clamp(0, R - 1)
+    out = shards[safe_o, safe_l]
+    return torch.where((owner >= 0)[..., None], out, 0).to(shards.dtype)
+
+
+def routed_neighbor_sample_dense(indptr_shards: torch.Tensor,
+                                 indices_shards: torch.Tensor,
+                                 owner: torch.Tensor, local: torch.Tensor,
+                                 rand: torch.Tensor) -> torch.Tensor:
+    """Owner-routed CSR sampling over whole sharded-CSR stacks —
+    ``indptr_shards`` (k, R+1), ``indices_shards`` (k, E) — with routing of
+    any shape S... and draws ``S... + (f,)``: int32 neighbor ids
+    ``out[..., j] = indices[owner, start + rand[..., j] % deg]``, -1 where
+    ``owner < 0`` (topology miss) or ``deg == 0`` (``host_sample_level``'s
+    sentinel).  Out-of-range owners, slots and offsets clamp as XLA clamps
+    them; ``%`` is the floored remainder, as in the reference."""
+    k, R1 = indptr_shards.shape
+    E = indices_shards.shape[1]
+    safe_o = owner.to(torch.int64).clamp(0, k - 1)
+    safe_l = local.to(torch.int64).clamp(0, R1 - 1)
+    start = indptr_shards[safe_o, safe_l]
+    deg = indptr_shards[safe_o, (safe_l + 1).clamp_max(R1 - 1)] - start
+    offs = rand.to(torch.int64) % deg.clamp_min(1)[..., None]
+    idx = (start[..., None] + offs).clamp(0, E - 1)
+    out = indices_shards[safe_o[..., None], idx].to(torch.int32)
+    ok = (owner >= 0) & (deg > 0)
+    return torch.where(ok[..., None], out, -1)

@@ -66,5 +66,5 @@ def scatter_rows(table: torch.Tensor, idx: torch.Tensor,
                  inv.data_ptr(), out.data_ptr(), N, B,
                  D * table.element_size(), stream)
     KERNEL.check(err)
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     return out

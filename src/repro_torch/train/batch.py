@@ -38,6 +38,14 @@ Stable shapes: the device spec's per-id layout is **bucket-rounded** —
 staging buffer reused across batches (padded to the cache table's width).
 Padded tail entries are inert (ids/cache_pos/miss_inv = -1, hit = False)
 and are never referenced by any level position.
+
+A third backend, ``ShardedBatchBuilder`` (``backend="sharded"``), keeps the
+device backend's host phase (and so its specs and accounting) and adds
+per-id ownership routing, so the hierarchical executor can finalize every
+clique jointly: local hits gather from the requester's own cache shard,
+peer hits from a peer's shard of the same clique, and only true misses are
+host-filled.  ``pack_sharded_specs`` stacks the per-clique spec groups into
+the ``(K_c, K_g, ...)`` arrays of the ``(pod, clique)`` mesh.
 """
 from __future__ import annotations
 
@@ -58,7 +66,7 @@ from repro_torch.kernels import fused_batch, gather
 from repro_torch.obs import maybe_span
 from repro_torch.utils import device_context, resolve_device
 
-BACKENDS = ("host", "device")
+BACKENDS = ("host", "device", "sharded")
 
 DEFAULT_BUCKET = 256  # id/miss shape quantum of the device spec layout
 
@@ -97,6 +105,11 @@ class BatchSpec:
     # cache refresh epoch this spec's slots index into: finalize gathers
     # from the matching (possibly previous) device buffer
     cache_epoch: int = 0
+    # sharded backend: ownership routing per id — clique-local owning
+    # device and row within the owner's shard (-1 on miss), read off
+    # CliqueCache.shard_routing at spec-build time
+    owner: Optional[np.ndarray] = None
+    local_slot: Optional[np.ndarray] = None
 
 
 class _StagingPool:
@@ -453,6 +466,132 @@ class DeviceBatchBuilder(BatchBuilder):
                                       spec.labels, dev)
 
 
+class ShardedBatchBuilder(DeviceBatchBuilder):
+    """Spec builder for the hierarchical (pod x clique) executor.
+
+    The host phase is the device backend's (same sampler replay, same
+    hit/miss split, same accounting: bit-identical specs), plus the
+    ownership routing read off ``CliqueCache.shard_routing``: per cached
+    id, which clique device's shard holds the row and at which local slot.
+    The routing and the shard-stack upload are resolved **once per cache
+    epoch**, not per spec: the first spec build of an epoch reads the
+    routing and uploads the per-device shard stack on the build thread,
+    serialized with refresh hooks, so the consumer only ever sees
+    epoch-pinned buffers.  The *joint* finalize (routed gather across the
+    clique, miss overlay, the gradient sum over the mesh) is the train
+    loop's sharded step; ``pack_sharded_specs`` stacks the per-clique spec
+    groups into the arrays it consumes.  ``finalize`` on this builder is
+    the single-device gather (identical rows)."""
+
+    backend = "sharded"
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self._routing_epoch = -1
+        self._routing = None
+
+    def _routing_for_epoch(self):
+        """Per-epoch memo of (owner, local_slot); re-derived only after an
+        online refresh bumps ``cache.epoch``."""
+        ep = self.cache.epoch
+        if self._routing_epoch != ep:
+            owner, local = self.cache.shard_routing()
+            if len(owner):
+                # upload the shard stack *here*, on the build thread
+                # (serialized with refresh hooks), once per epoch
+                with device_context(self.device):
+                    self.cache.sharded_device_arrays(device=self.device)
+            self._routing = (owner, local)
+            self._routing_epoch = ep
+        return self._routing
+
+    def fill_spec(self, spec):
+        spec = super().fill_spec(spec)
+        owner, local = self._routing_for_epoch()
+        if len(owner) == 0:  # empty feature cache: every id is a host fill
+            spec.owner = np.full(len(spec.ids), -1, dtype=np.int32)
+            spec.local_slot = np.zeros(len(spec.ids), dtype=np.int32)
+            return spec
+        safe = np.maximum(spec.cache_pos, 0)  # pads/misses route as -1
+        spec.owner = np.where(spec.hit, owner[safe], -1).astype(np.int32)
+        spec.local_slot = np.where(spec.hit, local[safe], -1).astype(np.int32)
+        return spec
+
+
+def pack_sharded_specs(spec_groups: Sequence[Sequence[BatchSpec]],
+                       feat_dim: int,
+                       bucket: int = DEFAULT_BUCKET) -> Dict[str, np.ndarray]:
+    """Stack ``ShardedBatchBuilder`` specs — grouped per clique, one spec
+    per clique device — into the arrays the hierarchical train step reads
+    per ``(pod, clique)`` mesh position (leading axes = clique index,
+    clique-local device).  A single-clique run is ``K_c == 1``.
+
+    Unique-id counts differ per device, so ids pad to the bucket-rounded
+    mesh-wide max.  Padded tail entries route as misses with zero fill
+    rows and are never referenced by any level position.  Host numpy, the
+    reference package's layout, bit for bit.  Returns::
+
+        owner      (K_c, K_g, n_pad) int32   routing: owning clique-local
+                                             device, -1 = miss/pad
+        local      (K_c, K_g, n_pad) int32   row within the owner's shard
+        miss_rows  (K_c, K_g, n_pad, D) f32  host-staged rows at miss slots
+        labels     (K_c, K_g, B) int32
+        pos_{l}    (K_c, K_g, prod(level_l shape)) int32  positions into ids
+        valid_{l}  (K_c, K_g, *level_l shape) bool        lvl >= 0
+        cache_epochs (K_c,) int64  per-clique refresh generation (uniform
+                                   *within* each clique; cliques refresh
+                                   independently, so rows may differ)
+    """
+    groups = [list(gr) for gr in spec_groups]
+    if not groups or any(not gr for gr in groups):
+        raise ValueError("pack_sharded_specs: need one non-empty spec "
+                         "group per clique")
+    k_gs = {len(gr) for gr in groups}
+    if len(k_gs) != 1:
+        raise ValueError(f"pack_sharded_specs: ragged spec groups "
+                         f"{sorted(len(gr) for gr in groups)}; the "
+                         "(pod, clique) mesh needs one uniform K_g")
+    k_c, k_g = len(groups), k_gs.pop()
+    epochs = np.zeros(k_c, dtype=np.int64)
+    for ci, gr in enumerate(groups):
+        eps = {s.cache_epoch for s in gr}
+        if len(eps) != 1:
+            raise ValueError(f"pack_sharded_specs: clique {ci} specs span "
+                             f"cache epochs {sorted(eps)}; one synchronized "
+                             "step must gather from one refresh generation "
+                             "per clique")
+        epochs[ci] = gr[0].cache_epoch
+    flat = [s for gr in groups for s in gr]
+    n_pad = max(max(len(s.ids) for s in flat), 1)
+    n_pad = -(-n_pad // bucket) * bucket
+    owner = np.full((k_c, k_g, n_pad), -1, dtype=np.int32)
+    local = np.zeros((k_c, k_g, n_pad), dtype=np.int32)
+    miss_rows = np.zeros((k_c, k_g, n_pad, feat_dim), dtype=np.float32)
+    for ci, gr in enumerate(groups):
+        for gi, s in enumerate(gr):
+            n = len(s.owner)
+            owner[ci, gi, :n] = s.owner
+            local[ci, gi, :n] = np.maximum(s.local_slot, 0)
+            mloc = np.flatnonzero(s.miss_inv >= 0) if s.miss_inv is not None \
+                else np.zeros(0, np.int64)
+            if len(mloc):
+                miss_rows[ci, gi, mloc] = \
+                    s.miss_feats.numpy()[:s.n_miss, :feat_dim]
+    packed = {"owner": owner, "local": local, "miss_rows": miss_rows,
+              "labels": np.stack([s.labels for s in flat]).reshape(
+                  (k_c, k_g) + flat[0].labels.shape)}
+    for li in range(len(flat[0].levels)):
+        lvl_shape = flat[0].levels[li].shape
+        packed[f"pos_{li}"] = np.stack(
+            [s.level_pos[li].reshape(-1).astype(np.int32) for s in flat]
+        ).reshape((k_c, k_g, -1))
+        packed[f"valid_{li}"] = np.stack(
+            [s.levels[li] >= 0 for s in flat]).reshape(
+                (k_c, k_g) + lvl_shape)
+    packed["cache_epochs"] = epochs
+    return packed
+
+
 def make_batch_builder(backend: str, g: CSRGraph,
                        cache: Optional[CliqueCache],
                        fanouts: Sequence[int],
@@ -463,8 +602,6 @@ def make_batch_builder(backend: str, g: CSRGraph,
     if backend == "device":
         return DeviceBatchBuilder(g, cache, fanouts, counter, dev, **kw)
     if backend == "sharded":
-        raise NotImplementedError(
-            "backend='sharded' is not ported yet (ROADMAP: modules to port, "
-            "the sharded clique executor)")
+        return ShardedBatchBuilder(g, cache, fanouts, counter, dev, **kw)
     raise ValueError(f"unknown batch backend {backend!r} (expected one of "
                      f"{BACKENDS})")

@@ -14,6 +14,14 @@ previous batch.  Several simulated devices train on one GPU: each consumes
 its own tablet stream, and their batches concatenate into one step, which
 is synchronous data parallelism with the gradients averaged.
 
+``backend="sharded"`` is the hierarchical clique-parallel executor over the
+2-D ``(pod, clique)`` mesh (``launch/mesh.py``), run in one process as the
+reference runs it under one ``shard_map``: every mesh position is bound to
+a device, holds its clique's cache partition, gathers its batch through
+the routed gather (its own shard and its clique peers', never another
+clique's), and runs its own forward and backward; the positions' gradient
+sums combine in a fixed order before one AdamW update.
+
 Device work is queued on the GPU's current (default) stream from three
 threads: the Prefetcher's (device sampling, and the online refresh's
 scatter), the build pool's, and the consumer's (finalize and the step).
@@ -31,12 +39,16 @@ import torch
 
 from repro_torch.core.cache_manager import OnlineCacheManager, RefreshConfig
 from repro_torch.core.planner import LegionPlan
-from repro_torch.core.unified_cache import TrafficCounter
+from repro_torch.core.unified_cache import (TrafficCounter,
+                                           stack_hierarchical_shards)
 from repro_torch.graph.csr import CSRGraph
+from repro_torch.kernels import gather
+from repro_torch.launch.mesh import HierarchicalMesh, make_hierarchical_mesh
 from repro_torch.models.gnn import GNNConfig, defs as gnn_defs
+from repro_torch.models.gnn import forward as gnn_forward
 from repro_torch.models.gnn import loss_fn as gnn_loss
 from repro_torch.models.params import init_from_defs
-from repro_torch.train.batch import make_batch_builder
+from repro_torch.train.batch import make_batch_builder, pack_sharded_specs
 from repro_torch.train.optimizer import (adamw, apply_updates, tree_leaves,
                                          tree_map)
 from repro_torch.train.pipeline import Prefetcher, StragglerMonitor
@@ -47,7 +59,7 @@ from repro_torch.utils import device_context, resolve_device
 _NOT_PORTED = {
     "checkpoint_dir": "resilience (checkpoint and resume)",
     "resume": "resilience (checkpoint and resume)",
-    "mesh": "the sharded clique executor",
+    "mesh": "gradient compression (an explicit data-parallel mesh)",
     "compress_grads": "gradient compression",
     "telemetry": "telemetry beyond maybe_span",
     "feature_store": "the tiered feature store",
@@ -93,6 +105,86 @@ def _make_train_step(cfg: GNNConfig, opt):
     return step
 
 
+def sharded_position_batch(shard: torch.Tensor, packed: dict, ci: int,
+                           gi: int, feat_dim: int) -> dict:
+    """The batch of mesh position ``(ci, gi)``: its clique's shard stack
+    ``shard`` (K_g, R, Dp) gathered by the position's routing
+    (``kernels.gather.routed_gather``: local hits from its own shard, peer
+    hits from its clique peers'), the host-staged miss rows added, then
+    per-level positioning and pad masking.  ``packed`` holds the
+    ``pack_sharded_specs`` arrays as tensors on the position's device.
+    The add stays outside the kernel, as in the reference; it also turns a
+    -0.0 in a cached row into +0.0, as the reference's psum does."""
+    D = feat_dim
+    miss = packed["miss_rows"][ci, gi]
+    if shard.shape[1] == 0:  # empty cache: every row is a host fill
+        feats = miss
+    else:
+        feats = gather.routed_gather(shard, packed["owner"][ci, gi],
+                                     packed["local"][ci, gi])
+        feats = feats[:, :D] + miss
+    batch = {"labels": packed["labels"][ci, gi]}
+    li = 0
+    while f"pos_{li}" in packed:
+        valid = packed[f"valid_{li}"][ci, gi]
+        f = feats.index_select(0, packed[f"pos_{li}"][ci, gi]).reshape(
+            tuple(valid.shape) + (D,))
+        batch[f"feats_{li}"] = f * valid[..., None].to(f.dtype)
+        if li > 0:
+            batch[f"mask_{li}"] = valid
+        li += 1
+    return batch
+
+
+def _sum_loss(cfg: GNNConfig, params, batch):
+    """Summed (not averaged) cross-entropy and correct count of one mesh
+    position, normalized by the mesh-wide batch after the combine."""
+    logits = gnn_forward(cfg, params, batch).to(torch.float32)
+    labels = batch["labels"].to(torch.int64)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[:, None])[:, 0]
+    acc = (logits.argmax(-1) == labels).to(torch.float32).sum()
+    return (lse - ll).sum(), acc
+
+
+def _make_sharded_step(cfg: GNNConfig, opt, mesh: HierarchicalMesh,
+                       n_total: int, feat_dim: int):
+    """The hierarchical (clique-parallel x data-parallel) train step over
+    the ``(pod, clique)`` mesh, the reference's ``shard_map`` body written
+    out as a loop.  For each position ``(ci, gi)`` in clique-major order,
+    on its device: the routed gather from clique ``ci``'s shard stack (no
+    feature row crosses a clique), the forward, and the gradients of the
+    position's *summed* loss.  The gradients, losses and correct counts
+    are summed over the positions in that fixed order and divided by the
+    mesh-wide batch ``n_total``, so the math is the single-device mean over
+    the concatenated batch, and a rerun is bitwise identical; then one
+    AdamW update."""
+
+    def step(params, opt_state, shards, packed):
+        params = tree_map(lambda p: p.detach().requires_grad_(), params)
+        leaves = tree_leaves(params)
+        grad_sum, loss_sum, acc_sum = None, None, None
+        for ci, gi in mesh.positions():
+            with device_context(mesh.device(ci, gi)):
+                batch = sharded_position_batch(shards[ci], packed, ci, gi,
+                                               feat_dim)
+                loss, acc = _sum_loss(cfg, params, batch)
+                grads = torch.autograd.grad(loss, leaves)
+            if grad_sum is None:
+                grad_sum, loss_sum, acc_sum = list(grads), loss.detach(), acc
+            else:
+                grad_sum = [a + b for a, b in zip(grad_sum, grads)]
+                loss_sum = loss_sum + loss.detach()
+                acc_sum = acc_sum + acc
+        it = iter([g / n_total for g in grad_sum])
+        grads = tree_map(lambda _: next(it), params)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        return params, opt_state, loss_sum / n_total, acc_sum / n_total
+
+    return step
+
+
 def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
               steps: int = 100, devices: Optional[Sequence[int]] = None,
               seed: int = 0, counter: Optional[TrafficCounter] = None,
@@ -112,8 +204,16 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
     samples and gathers against the device-resident unified cache with the
     host filling only misses (``fused=False`` runs the unfused finalize
     chain, ``bucket`` is the spec layout's shape quantum).  Both draw the
-    same randomness and produce bitwise-equal batches.  Without a plan the
-    run falls back to the host pipeline.
+    same randomness and produce bitwise-equal batches.  ``"sharded"`` is
+    the hierarchical clique executor (see module doc): ``devices`` must
+    cover whole cliques of equal size (the default, every plan device, runs
+    the full hierarchy; one clique is the ``K_c=1`` mesh), each clique's
+    cache is partitioned across its devices
+    (``CliqueCache.sharded_device_arrays``, stacked per clique by
+    ``stack_hierarchical_shards``), and every mesh position is bound to
+    ``device``.  Its losses equal the device backend's up to the order of
+    the float sums.  Without a plan the run falls back to the host
+    pipeline.
 
     ``device`` is where the model trains and the cache lives (default
     ``"cuda"``, which raises without a card; pass ``"cpu"`` to run on the
@@ -129,21 +229,27 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
 
     The reference's ``checkpoint_dir``, ``resume``, ``mesh``,
     ``compress_grads``, ``telemetry``, ``feature_store``, ``lookahead`` and
-    ``resilience``, ``backend="sharded"`` and ``sampler="stepwise"`` are not
-    ported yet and raise ``NotImplementedError``.
+    ``resilience``, and ``sampler="stepwise"``, are not ported yet and
+    raise ``NotImplementedError``; ``backend="sharded"`` with ``mesh=`` or
+    ``compress_grads=`` raises ``ValueError``, as in the reference.
     """
     for name in not_ported:
         if name not in _NOT_PORTED:
             raise TypeError(f"train_gnn() got an unexpected keyword "
                             f"argument {name!r}")
+    if backend == "sharded" and plan is not None and (
+            not_ported.get("mesh") is not None
+            or not_ported.get("compress_grads")):
+        raise ValueError(
+            "backend='sharded' builds its own hierarchical (pod, clique) "
+            "mesh and combines gradients over both axes; it does not "
+            "compose with mesh=/compress_grads= (use backend='device' for "
+            "the DP-mesh path)")
     asked = [k for k, v in not_ported.items() if v not in (None, False)]
     if asked:
         raise NotImplementedError(
             f"{asked[0]}= is not ported yet (ROADMAP: "
             f"{_NOT_PORTED[asked[0]]})")
-    if backend == "sharded":
-        raise NotImplementedError("backend='sharded' is not ported yet "
-                                  "(ROADMAP: the sharded clique executor)")
     if sampler != "chain":
         raise NotImplementedError(
             f"sampler={sampler!r} is not ported yet (ROADMAP: train_gnn "
@@ -153,6 +259,21 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
         devices = sorted(plan.partition.tablets) if plan is not None else [0]
     devices = list(devices)
     backend = backend if plan is not None else "host"
+    exec_clique_ids, exec_cliques = None, None
+    if backend == "sharded":
+        # devices must cover whole cliques (each clique's cache is
+        # partitioned across all of its devices)
+        exec_clique_ids, exec_cliques = \
+            plan.partition.execution_cliques(devices)
+        sizes = sorted({len(c) for c in exec_cliques})
+        if len(sizes) != 1:
+            raise ValueError(
+                f"backend='sharded' needs uniform clique sizes for the "
+                f"(pod, clique) mesh; cliques {exec_clique_ids} have sizes "
+                f"{[len(c) for c in exec_cliques]} — run ragged cliques as "
+                "separate jobs or replan")
+        # clique-major order == shard stacking order == mesh position
+        devices = [d for c in exec_cliques for d in c]
     n_dev = len(devices)
     counter = (counter if counter is not None
                else TrafficCounter.for_devices(devices))
@@ -188,7 +309,8 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
     builders = {}
     for d in devices:
         cache = plan.cache_for_device(d) if plan is not None else None
-        kw = {"fused": fused, "bucket": bucket} if backend == "device" else {}
+        kw = ({"fused": fused, "bucket": bucket}
+              if backend in ("device", "sharded") else {})
         if manager is not None:
             kw["observer"] = manager.observer_for(d)
         builders[d] = make_batch_builder(backend, g, cache, cfg.fanouts,
@@ -207,8 +329,48 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
             return builder.build_spec(seeds, rng)
         return build
 
+    sharded_step = pack_fn = None
+    if backend == "sharded":
+        mesh = make_hierarchical_mesh(exec_cliques, devices=[dev] * n_dev)
+        sharded_step = _make_sharded_step(cfg, opt, mesh,
+                                          n_total=per_dev * n_dev,
+                                          feat_dim=g.feat_dim)
+        clique_caches = [plan.caches[ci] for ci in exec_clique_ids]
+        shard_stack_memo = {}
+
+        def hierarchical_shards(epochs):
+            """The (K_c, K_g, R, Dp) stack for one per-clique epoch vector,
+            memoized: cliques refresh independently, so it is restacked
+            only when some clique's epoch moves.  Two entries are kept, the
+            caches' double-buffer horizon, so queued steps straddling a
+            refresh keep their stack."""
+            if epochs not in shard_stack_memo:
+                while len(shard_stack_memo) >= 2:
+                    shard_stack_memo.pop(next(iter(shard_stack_memo)))
+                shard_stack_memo[epochs] = stack_hierarchical_shards(
+                    clique_caches, epochs)
+            return shard_stack_memo[epochs]
+
+        def pack_fn(spec_groups):
+            """Second host phase, on the Prefetcher's coordinator: the
+            per-clique spec groups in the mesh layout, then each spec's
+            staging buffer back to its builder's pool."""
+            packed = pack_sharded_specs(spec_groups, g.feat_dim,
+                                        bucket=bucket)
+            for d, s in zip(devices, (s for gr in spec_groups for s in gr)):
+                builders[d].release_spec(s)
+            return packed
+
     def finalize_batch(item):
-        """Device phase: finalize every part and concatenate (== DP)."""
+        """Device phase: finalize every part and concatenate (== DP).  The
+        sharded backend dequeues an already-packed hierarchical batch:
+        here it only uploads it and resolves the epoch-pinned shard stack
+        its routing indexes into."""
+        if backend == "sharded":
+            packed = dict(item)
+            epochs = tuple(int(e) for e in packed.pop("cache_epochs"))
+            return hierarchical_shards(epochs), {
+                k: torch.from_numpy(v).to(dev) for k, v in packed.items()}
         parts = [builders[d].finalize(s) for d, s in zip(devices, item)]
         if len(parts) == 1:
             return parts[0]
@@ -228,9 +390,11 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
 
     prefetcher = Prefetcher(
         part_fns=[make_spec_fn(d) for d in devices],
+        part_group_sizes=([len(c) for c in exec_cliques]
+                          if backend == "sharded" else None),
         workers=prefetch_workers, depth=prefetch_depth, limit=steps,
         pre_batch_hook=(manager.on_step if manager is not None else None),
-        extra_summary=pipeline_summary)
+        pack_fn=pack_fn, extra_summary=pipeline_summary)
 
     monitor = StragglerMonitor()
     losses, accs, epoch_times, step_times = [], [], [], []
@@ -243,8 +407,12 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
             for step in range(steps):
                 t0 = time.perf_counter()
                 with torch.profiler.record_function("device_step"):
-                    params, opt_state, loss, acc = train_step(
-                        params, opt_state, next_batch)
+                    if sharded_step is not None:
+                        params, opt_state, loss, acc = sharded_step(
+                            params, opt_state, *next_batch)
+                    else:
+                        params, opt_state, loss, acc = train_step(
+                            params, opt_state, next_batch)
                     # queue batch i+1's finalize behind step i, then wait
                     # on step i's loss: the one host sync of the step
                     next_batch = (finalize_batch(prefetcher.get())

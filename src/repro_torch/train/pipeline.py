@@ -17,9 +17,12 @@ straggler monitor.
   ``i+1`` starts.  That is what lets the online cache manager mutate cache
   residency between (never during) spec builds without a lock.
 
-  ``summary()`` reports per-batch host build time and queue-dry time: how
-  long ``get()`` waited on an empty queue, the time the device would have
-  stalled for host work.
+  ``part_group_sizes`` nests the parts per clique and ``pack_fn`` packs
+  them on the coordinator thread (the sharded executor's mesh layout).
+
+  ``summary()`` reports per-batch host build and pack time and queue-dry
+  time: how long ``get()`` waited on an empty queue, the time the device
+  would have stalled for host work.
 * ``StragglerMonitor``: EWMA step-time tracker flagging outlier steps.
 """
 from __future__ import annotations
@@ -39,8 +42,10 @@ _POLL_S = 0.05
 class Prefetcher:
     def __init__(self, batch_fn: Optional[Callable[[int], object]] = None,
                  depth: int = 2, limit: Optional[int] = None,
-                 pre_batch_hook: Optional[Callable[[int], None]] = None, *,
+                 pre_batch_hook: Optional[Callable[[int], None]] = None,
+                 pack_fn: Optional[Callable[[object], object]] = None, *,
                  part_fns: Optional[List[Callable[[int], object]]] = None,
+                 part_group_sizes: Optional[List[int]] = None,
                  workers: Optional[int] = None,
                  extra_summary: Optional[Callable[[], dict]] = None,
                  start_step: int = 0):
@@ -59,6 +64,16 @@ class Prefetcher:
         ``os.cpu_count() - 1``; ``workers=1`` builds serially in order).
         The list is always in ``part_fns`` order.
 
+        ``part_group_sizes`` nests that list: the flat results (still built
+        concurrently across the whole pool) are regrouped into consecutive
+        sublists of these sizes, one per clique for the hierarchical
+        executor.
+
+        ``pack_fn`` is an optional second host phase applied to each built
+        batch on the coordinator thread, after the build barrier (timed
+        separately in ``summary()``): the sharded executor packs the
+        per-clique specs into its mesh layout here.
+
         ``extra_summary`` is a zero-argument callable merged into
         ``summary()``; a key that collides with a build stat raises.
 
@@ -70,6 +85,16 @@ class Prefetcher:
         self._part_fns = list(part_fns) if part_fns is not None else None
         if self._part_fns is not None and not self._part_fns:
             raise ValueError("part_fns must not be empty")
+        self._group_sizes = (list(part_group_sizes)
+                             if part_group_sizes is not None else None)
+        if self._group_sizes is not None:
+            if self._part_fns is None:
+                raise ValueError("part_group_sizes needs part_fns")
+            if (any(s < 1 for s in self._group_sizes)
+                    or sum(self._group_sizes) != len(self._part_fns)):
+                raise ValueError(
+                    f"part_group_sizes {self._group_sizes} must be positive "
+                    f"and sum to len(part_fns) == {len(self._part_fns)}")
         n_parts = len(self._part_fns) if self._part_fns is not None else 1
         if workers is None:
             workers = max(1, (os.cpu_count() or 2) - 1)
@@ -84,8 +109,10 @@ class Prefetcher:
         self._start = int(start_step)
         self._limit = limit
         self._hook = pre_batch_hook
+        self._pack_fn = pack_fn
         self._extra_summary = extra_summary
         self._build_s = 0.0
+        self._pack_s = 0.0
         self._built = 0
         self._dry_s = 0.0
         self._gets = 0
@@ -94,16 +121,28 @@ class Prefetcher:
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
+    def _regroup(self, parts: List[object]) -> List[object]:
+        """Flat part results -> consecutive sublists of part_group_sizes
+        (identity without grouping)."""
+        if self._group_sizes is None:
+            return parts
+        out, i = [], 0
+        for sz in self._group_sizes:
+            out.append(parts[i:i + sz])
+            i += sz
+        return out
+
     def _build(self, step: int):
         if self._part_fns is None:
             return self._batch_fn(step)
         if self._pool is None:
-            return [fn(step) for fn in self._part_fns]
+            return self._regroup([fn(step) for fn in self._part_fns])
         futs = [self._pool.submit(fn, step) for fn in self._part_fns]
         # barrier: every part of step i lands before this returns (and so
         # before the next pre_batch_hook), even if one of them failed
         wait(futs)
-        return [f.result() for f in futs]  # raises the first part failure
+        # f.result() raises the first part failure
+        return self._regroup([f.result() for f in futs])
 
     def _worker(self):
         try:
@@ -121,6 +160,10 @@ class Prefetcher:
             t0 = time.perf_counter()
             batch = self._build(self._step)
             self._build_s += time.perf_counter() - t0
+            if self._pack_fn is not None:
+                t0 = time.perf_counter()
+                batch = self._pack_fn(batch)
+                self._pack_s += time.perf_counter() - t0
             self._built += 1
             self._step += 1
             while not self._stop.is_set():
@@ -160,6 +203,8 @@ class Prefetcher:
                "gets": self._gets,
                "host_build_s_total": self._build_s,
                "host_build_s_mean": self._build_s / max(self._built, 1),
+               "host_pack_s_total": self._pack_s,
+               "host_pack_s_mean": self._pack_s / max(self._built, 1),
                "queue_dry_s_total": self._dry_s,
                "queue_dry_s_mean": self._dry_s / max(self._gets, 1),
                "build_workers": self._workers}

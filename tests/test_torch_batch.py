@@ -126,8 +126,6 @@ def test_bucket_collapses_spec_shapes(setup):
 def test_builder_options_that_cannot_run_here_raise(setup):
     _, _, gt, pt = setup
     cache = pt.cache_for_device(0)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        make_batch_builder("sharded", gt, cache, FANOUTS, device="cpu")
     with pytest.raises(ValueError, match="unknown batch backend"):
         make_batch_builder("tpu", gt, cache, FANOUTS, device="cpu")
     if not torch.cuda.is_available():

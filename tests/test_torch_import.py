@@ -36,6 +36,28 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     assert int(out.stdout.strip()) >= 20  # every subpackage was walked
 
 
+_BLOCKED = """
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name in ("jax", "repro") or name.startswith(("jax.", "repro.")):
+            raise ImportError(f"blocked: {name}")
+sys.meta_path.insert(0, Block())
+import repro_torch.launch.mesh as m
+import repro_torch.train.loop
+mesh = m.make_hierarchical_mesh([[0, 1], [2, 3]], devices=["cpu"] * 4)
+print(mesh.shape)
+"""
+
+
+def test_mesh_and_sharded_loop_import_with_jax_and_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _BLOCKED], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "(2, 2)"
+
+
 def test_port_sources_name_no_jax_or_reference_import():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20

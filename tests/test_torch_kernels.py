@@ -1,17 +1,23 @@
 """The port's kernels against the reference package's: each plain path
 (CPU tensors) equals the reference's Pallas kernel in interpret mode and its
 jnp oracle bit for bit (``fused_gather_overlay``, ``gather_rows``,
-``scatter_rows``; the sweeps of ``tests/test_kernels.py``); each CUDA kernel
-equals its plain version on the card (``gpu``-marked, skips without one).
+``scatter_rows``; the sweeps of ``tests/test_kernels.py``; the routed
+kernels' plain versions are held to the reference in
+``tests/test_torch_sharded.py``); each CUDA kernel equals its plain version
+on the card (``gpu``-marked, skips without one).
 
 The reference package is imported inside the CPU tests only, so that the
 ``gpu`` tests also run on a GPU host that has no JAX:
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels.py``."""
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import KERNELS, fused_batch, gather, scatter
+from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels import ref as tref
 
 
@@ -401,7 +407,8 @@ def test_gather_and_scatter_on_cpu_count_no_launches():
 
 def test_kernel_registry_describes_every_ported_kernel():
     names = [k.name for k in KERNELS]
-    assert names == ["fused_gather_overlay", "gather_rows", "scatter_rows"]
+    assert names == ["fused_gather_overlay", "gather_rows", "scatter_rows",
+                     "routed_gather", "routed_neighbor_sample"]
     for k in KERNELS:
         assert k.source == f"src/repro_torch/kernels/csrc/{k.name}.cu"
         assert k.kernel.source.exists()
@@ -497,3 +504,219 @@ def test_cuda_training_runs_the_kernels_and_matches_the_host_backend(
     unfused = run(backend="device", fused=False)
     assert gather.KERNEL.launches - before["g"] == 8 * 2
     assert unfused.losses == dev.losses
+
+
+# ---------------- routed_gather and routed_neighbor_sample ----------------
+
+def _routed_gather_case(k, R, D, n, dtype, seed=0, device="cpu"):
+    """A shard stack and routing with misses (-1), owners past K_g - 1 and
+    slots outside [0, R): the clamps the kernel shares with its plain
+    version."""
+    rng = np.random.default_rng(seed)
+    shards = _to_torch(rng.standard_normal((k, R, D), dtype=np.float32),
+                       dtype)
+    owner = rng.integers(-1, k, size=n).astype(np.int32)
+    owner[::97] = k + 1
+    local = rng.integers(0, R, size=n).astype(np.int32)
+    local[::89] = R + 5
+    local[1::89] = -2
+    return (shards.to(device), torch.from_numpy(owner).to(device),
+            torch.from_numpy(local).to(device))
+
+
+def _csr_stack(k, R, max_deg, seed=0):
+    """A padded per-shard CSR stack (indptr (k, R+1) int64, indices (k, E)
+    int32) with degree-0 rows and pad rows repeating the last offset."""
+    rng = np.random.default_rng(seed)
+    degs = rng.integers(0, max_deg + 1, size=(k, R))
+    degs[:, ::13] = 0
+    E = max(int(degs.sum(1).max()), 1)
+    indptr = np.zeros((k, R + 1), np.int64)
+    indices = np.zeros((k, E), np.int32)
+    for gi in range(k):
+        ptr = np.concatenate([[0], np.cumsum(degs[gi])])
+        indptr[gi] = ptr
+        indices[gi, :ptr[-1]] = rng.integers(0, 1 << 30, size=ptr[-1])
+    return torch.from_numpy(indptr), torch.from_numpy(indices)
+
+
+def _sample_case(k, R, n, f, seed=0, device="cpu"):
+    indptr, indices = _csr_stack(k, R, 40, seed)
+    rng = np.random.default_rng(seed + 1)
+    owner = rng.integers(-1, k, size=n).astype(np.int32)
+    owner[::101] = k + 2
+    local = rng.integers(0, R, size=n).astype(np.int32)
+    local[::71] = R + 3
+    rand = rng.integers(0, 1 << 31, size=(n, f), dtype=np.int64)
+    rand[::53] = (1 << 31) - 1
+    return tuple(t.to(device) for t in (
+        indptr, indices, torch.from_numpy(owner), torch.from_numpy(local),
+        torch.from_numpy(rand)))
+
+
+@pytest.mark.parametrize("bad", ["owner_dtype", "local_shape", "rank",
+                                 "empty_shard", "device"])
+def test_routed_gather_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    shards, owner, local = _routed_gather_case(2, 4, 8, 5, torch.float32)
+    if bad == "owner_dtype":
+        owner = owner.to(torch.int64)
+    elif bad == "local_shape":
+        local = local[:3]
+    elif bad == "rank":
+        shards = shards[0]
+    elif bad == "empty_shard":
+        shards = shards[:, :0]
+    else:
+        shards = shards.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        gather.routed_gather(shards, owner, local)
+
+
+@pytest.mark.parametrize("bad", ["indptr_dtype", "rand_dtype", "rand_rows",
+                                 "k_mismatch", "empty_indices"])
+def test_routed_sample_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    indptr, indices, owner, local, rand = _sample_case(2, 6, 4, 3)
+    if bad == "indptr_dtype":
+        indptr = indptr.to(torch.int32)
+    elif bad == "rand_dtype":
+        rand = rand.to(torch.int32)
+    elif bad == "rand_rows":
+        rand = rand[:2]
+    elif bad == "k_mismatch":
+        indices = indices[:1]
+    else:
+        indices = indices[:, :0]
+    with pytest.raises((TypeError, ValueError)):
+        gather.routed_neighbor_sample(indptr, indices, owner, local, rand)
+
+
+def test_launch_count_is_exact_under_concurrent_launches():
+    """Prefetch threads launch the routed sampler concurrently: with a
+    thread switch forced every microsecond, no increment is lost."""
+    k = CudaKernel("probe", "csrc/gather_rows.cu", "gather_rows", [])
+    n_threads, per_thread = 16, 2_000
+
+    def launch_many():
+        for _ in range(per_thread):
+            k.count_launch()
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launch_many)
+                   for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert k.launches == n_threads * per_thread
+
+
+def test_routed_kernels_on_cpu_count_no_launches_and_empty_is_empty():
+    before = (gather.ROUTED_KERNEL.launches, gather.SAMPLE_KERNEL.launches)
+    shards, owner, local = _routed_gather_case(2, 4, 8, 5, torch.float32)
+    got = gather.routed_gather(shards, owner, local)
+    assert torch.equal(got, tref.routed_gather_dense(shards, owner, local))
+    case = _sample_case(2, 6, 4, 3)
+    got = gather.routed_neighbor_sample(*case)
+    assert torch.equal(got, tref.routed_neighbor_sample_dense(*case))
+    assert tuple(gather.routed_gather(shards, owner[:0], local[:0]).shape) \
+        == (0, 8)
+    assert (gather.ROUTED_KERNEL.launches,
+            gather.SAMPLE_KERNEL.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,R,D,n", [(2, 12, 32, 50), (4, 7, 100, 33),
+                                     (2, 250_000, 128, 140_032)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_routed_gather_matches_plain_version(cuda_device, k, R, D, n,
+                                                  dtype):
+    args = _routed_gather_case(k, R, D, n, dtype, device=cuda_device)
+    snap = [a.clone() for a in args]
+    before = gather.ROUTED_KERNEL.launches
+    got = gather.routed_gather(*args)
+    torch.cuda.synchronize()
+    assert gather.ROUTED_KERNEL.launches == before + 1
+    assert torch.equal(got, tref.routed_gather_dense(*args))
+    assert all(torch.equal(a, b) for a, b in zip(args, snap))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,R,n,f", [(2, 6, 4, 3), (4, 300, 77, 5),
+                                     (2, 200_000, 2_000, 25),
+                                     (2, 200_000, 50_000, 10)])
+def test_cuda_routed_sample_matches_plain_version(cuda_device, k, R, n, f):
+    args = _sample_case(k, R, n, f, device=cuda_device)
+    before = gather.SAMPLE_KERNEL.launches
+    got = gather.routed_neighbor_sample(*args)
+    torch.cuda.synchronize()
+    assert gather.SAMPLE_KERNEL.launches == before + 1
+    assert torch.equal(got, tref.routed_neighbor_sample_dense(*args))
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_spanning_two_cards_is_not_ported(cuda_device):
+    from repro_torch.launch.mesh import make_hierarchical_mesh
+
+    mesh = make_hierarchical_mesh([[0, 1], [2, 3]])
+    assert {mesh.device(ci, gi) for ci, gi in mesh.positions()} == \
+        {torch.device("cuda", 0)}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_hierarchical_mesh([[0, 1]], devices=["cuda:0", "cuda:1"])
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_training_is_repeatable_and_near_the_device_backend(
+        cuda_device):
+    """On the card, a 2 x 2 hierarchy: two sharded runs are bitwise equal,
+    their losses are within 1e-4 of the device backend's with identical
+    traffic and refreshes, and every step launches the routed gather once
+    per mesh position and every spec build the routed sampler once per
+    hop (the fused finalize never runs)."""
+    from repro_torch.core.cache_manager import RefreshConfig
+    from repro_torch.core.cliques import topology_matrix
+    from repro_torch.core.planner import build_plan
+    from repro_torch.core.unified_cache import TrafficCounter
+    from repro_torch.graph.csr import powerlaw_graph
+    from repro_torch.models.gnn import GNNConfig
+    from repro_torch.train.loop import train_gnn
+
+    g = powerlaw_graph(3000, 8, seed=9, feat_dim=16)
+    cfg = GNNConfig(feat_dim=16, hidden=32, batch_size=64, fanouts=(4, 2),
+                    lr=3e-3)
+    steps = 8
+
+    def run(backend):
+        plan = build_plan(g, topology_matrix("dgx-v100", 4),
+                          mem_per_device=30_000, batch_size=64, seed=0,
+                          fanouts=cfg.fanouts)
+        counter = TrafficCounter.for_plan(plan)
+        before = {k.name: k.kernel.launches for k in KERNELS}
+        res = train_gnn(g, plan, cfg, steps=steps, seed=0,
+                        device=cuda_device, backend=backend, counter=counter,
+                        refresh_config=RefreshConfig(interval=4,
+                                                     drift_threshold=1.0))
+        torch.cuda.synchronize()
+        launched = {k.name: k.kernel.launches - before[k.name]
+                    for k in KERNELS}
+        return res, counter, launched, plan
+
+    dev, dc, dl, _ = run("device")
+    s1, sc, sl, plan = run("sharded")
+    s2, _, _, _ = run("sharded")
+    assert s1.losses == s2.losses and s1.accs == s2.accs
+    np.testing.assert_allclose(s1.losses, dev.losses, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(s1.accs, dev.accs, rtol=0, atol=1e-6)
+    assert s1.refresh == dev.refresh and s1.refresh["admitted"] > 0
+    np.testing.assert_array_equal(sc.bytes_matrix, dc.bytes_matrix)
+    np.testing.assert_array_equal(sc.topo_bytes_matrix, dc.topo_bytes_matrix)
+    assert sc.cross_clique_bytes(plan.partition.cliques) == 0
+    assert sl["routed_gather"] == 4 * steps
+    assert sl["routed_neighbor_sample"] == 4 * steps * len(cfg.fanouts)
+    assert sl["fused_gather_overlay"] == 0
+    assert dl["fused_gather_overlay"] == 4 * steps
+    assert dl["routed_neighbor_sample"] == sl["routed_neighbor_sample"]

@@ -231,3 +231,42 @@ def test_straggler_monitor_flags_outliers_and_keeps_the_ewma():
     assert s["steps"] == 4 and s["stragglers"] == 1 and s["worst_s"] == 5.0
     # the straggler did not move the EWMA: 1.0 -> 1.1 -> (skip) -> 0.95
     assert s["ewma_s"] == pytest.approx(0.95)
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+def test_part_groups_nest_per_clique_and_pack_runs_after_the_barrier(workers):
+    """``part_group_sizes`` regroups the (concurrently built) parts per
+    clique, and ``pack_fn`` sees each whole step on the coordinator thread
+    after every part landed, timed apart from the build."""
+    built, packed_on = [], []
+
+    def part(i):
+        def fn(step):
+            built.append((step, i))
+            return (step, i)
+        return fn
+
+    def pack(groups):
+        packed_on.append(threading.current_thread().name)
+        step = groups[0][0][0]
+        assert sorted(built[-3:]) == [(step, 0), (step, 1), (step, 2)]
+        time.sleep(0.02)
+        return {"groups": groups}
+
+    p = Prefetcher(part_fns=[part(i) for i in range(3)],
+                   part_group_sizes=[1, 2], pack_fn=pack, workers=workers,
+                   depth=1, limit=2)
+    got = [p.get()["groups"] for _ in range(2)]
+    p.close()
+    assert got == [[[(s, 0)], [(s, 1), (s, 2)]] for s in (0, 1)]
+    assert all(not n.startswith("prefetch-build") for n in packed_on)
+    s = p.summary()
+    assert s["host_pack_s_total"] >= 0.04 and s["host_pack_s_mean"] > 0
+
+
+@pytest.mark.parametrize("sizes", [[1, 1], [2, 0, 1], [4]])
+def test_part_group_sizes_must_cover_the_parts(sizes):
+    with pytest.raises(ValueError, match="part_group_sizes"):
+        Prefetcher(part_fns=[lambda s: s] * 3, part_group_sizes=sizes)
+    with pytest.raises(ValueError, match="needs part_fns"):
+        Prefetcher(lambda s: s, part_group_sizes=[1])

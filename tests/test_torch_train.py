@@ -102,6 +102,27 @@ def test_unfused_finalize_trains_bitwise_like_the_fused_one(reference, port):
     assert unfused.refresh == port["device"].refresh
 
 
+def test_refresh_summary_of_the_gpu_training_test_matches_reference():
+    """The configuration of the gpu-marked training test in
+    ``test_torch_kernels.py`` (8 steps, a drift check at step 4 that
+    replans on any drift), on the CPU: the port's device backend makes the
+    reference's refresh, event for event (one check, one refresh, 329 rows
+    admitted and 345 evicted)."""
+    cfg = dict(CFG)
+    g = j_graph(4000, 8, seed=4, feat_dim=32)
+    want = j_train(g, j_build_plan(g, j_topo("nv2", 2), **PLAN),
+                   JConfig(**cfg), steps=8, seed=0, backend="device",
+                   refresh_config=JRefresh(**REFRESH))
+    gt = t_graph(4000, 8, seed=4, feat_dim=32)
+    got = train_gnn(gt, t_build_plan(gt, t_topo("nv2", 2), **PLAN),
+                    GNNConfig(**cfg), steps=8, seed=0, backend="device",
+                    device="cpu", refresh_config=RefreshConfig(**REFRESH))
+    assert got.refresh == want.refresh
+    assert (got.refresh["checks"], got.refresh["refreshes"],
+            got.refresh["admitted"], got.refresh["evicted"]) == (1, 1, 329,
+                                                                 345)
+
+
 def test_gcn_trains_finite_and_the_default_init_runs():
     res = _port_run(cfg=GNNConfig(**dict(CFG, model="gcn")))
     assert np.isfinite(res.losses).all() and len(res.losses) == STEPS
@@ -122,7 +143,7 @@ def test_refresh_interval_must_exceed_prefetch_depth():
     {"checkpoint_dir": "ckpt"}, {"resume": True}, {"mesh": object()},
     {"compress_grads": True}, {"telemetry": object()},
     {"feature_store": object()}, {"lookahead": 2}, {"resilience": object()},
-    {"backend": "sharded"}, {"sampler": "stepwise"}])
+    {"backend": "sharded", "mesh": object()}, {"sampler": "stepwise"}])
 def test_options_not_ported_yet_raise(kw):
     g = t_graph(500, 4, seed=1, feat_dim=8)
     cfg = GNNConfig(feat_dim=8, hidden=8, batch_size=16, fanouts=(2, 2))
