@@ -12,7 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from repro_torch.kernels import fused_batch, gather, ref, scatter
+from repro_torch.kernels import (flash_attention, fused_batch, gather, ref,
+                                 sage_agg, scatter)
 from repro_torch.kernels._build import CudaKernel
 
 
@@ -47,6 +48,11 @@ KERNELS = (
     PortedKernel(gather.SAMPLE_KERNEL, gather.routed_neighbor_sample,
                  ref.routed_neighbor_sample_dense,
                  "src/repro/kernels/gather.py:119"),
+    PortedKernel(flash_attention.KERNEL, flash_attention.flash_attention,
+                 ref.flash_attention,
+                 "src/repro/kernels/flash_attention.py:64"),
+    PortedKernel(sage_agg.KERNEL, sage_agg.sage_aggregate, ref.sage_aggregate,
+                 "src/repro/kernels/sage_agg.py:32"),
 )
 
 __all__ = ["KERNELS", "PortedKernel"]

@@ -78,3 +78,91 @@ def routed_neighbor_sample_dense(indptr_shards: torch.Tensor,
     out = indices_shards[safe_o[..., None], idx].to(torch.int32)
     ok = (owner >= 0) & (deg > 0)
     return torch.where(ok[..., None], out, -1)
+
+
+NEG_INF = -1e30  # the reference's masked score
+
+
+def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+              window: int = 0, k_valid=None) -> torch.Tensor:
+    """(…, Sq, Sk) boolean mask from absolute positions (the reference's
+    ``layers._attn_mask``); ``window <= 0`` means unbounded."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    m = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                   dtype=torch.bool, device=q_pos.device)
+    if causal:
+        m &= qp >= kp
+    if window > 0:
+        m &= qp - kp < window
+    if k_valid is not None:
+        m &= k_valid[..., None, :]
+    return m
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    block_kv: int = 1024) -> torch.Tensor:
+    """Chunked online-softmax attention with GQA, as the reference's LM path
+    computes it (``models/layers.py`` ``flash_attention``).
+
+    q (B, Sq, Hq, Dh), k and v (B, Sk, Hkv, Dh); or the Pallas kernel's
+    (BH, S, Dh), which is the case B = BH, Hq = Hkv = 1.  Query head ``h``
+    reads kv head ``h // (Hq // Hkv)``.  Keys are padded to a multiple of
+    ``block_kv`` and visited block by block; ``q * scale`` is rounded to the
+    input type (jnp's weakly typed scalar is the input type, so the scale
+    is rounded too), scores and running statistics are f32, ``p`` is
+    rounded to the value type before ``p @ v``, and masked scores are
+    ``NEG_INF``."""
+    if q.dim() == 3:
+        return flash_attention(q[:, :, None], k[:, :, None], v[:, :, None],
+                               causal=causal, window=window,
+                               block_kv=block_kv)[:, :, 0]
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    dev = q.device
+    scale = torch.full((), Dh ** -0.5, dtype=q.dtype, device=dev)
+    block = min(block_kv, Sk)
+    pad = (-Sk) % block
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qg = (q.reshape(B, Sq, Hkv, G, Dh) * scale).float()
+    q_pos = torch.arange(Sq, device=dev)
+    o = torch.zeros((B, Hkv, G, Sq, Dh), dtype=torch.float32, device=dev)
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
+    for b0 in range(0, Sk + pad, block):
+        kb, vb = k[:, b0:b0 + block], v[:, b0:b0 + block]
+        j = torch.arange(b0, b0 + block, device=dev)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb.float())
+        mask = attn_mask(q_pos, j, causal=causal, window=window,
+                         k_valid=j < Sk)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(vb.dtype).float(), vb.float())
+        m = m_new
+    o = o / l.clamp_min(1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dh).to(q.dtype)
+
+
+def sage_aggregate(table: torch.Tensor, idx: torch.Tensor,
+                   weights: torch.Tensor) -> torch.Tensor:
+    """Fused gather + weighted sum: ``out[b] = Σ_f w[b, f] · table[idx[b, f]]``
+    with f32 accumulation in the order f = 0, 1, …, one rounded multiply and
+    one rounded add per term (as the Pallas kernel accumulates), pads
+    (idx < 0) weighted 0, indices past the end clamped to the last row,
+    output cast to the table's type."""
+    N = table.shape[0]
+    safe = idx.to(torch.int64).clamp(0, N - 1)
+    w = torch.where(idx >= 0, weights.float(), 0.0)
+    acc = torch.zeros((idx.shape[0], table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    for f in range(idx.shape[1]):
+        acc = acc + table.index_select(0, safe[:, f]).float() * w[:, f, None]
+    return acc.to(table.dtype)

@@ -1,0 +1,105 @@
+"""GQA self-attention block of the decoder-only language models.
+
+The reference shards q, k and v differently per mode (train / prefill /
+decode) over its mesh; on one device those constraints are no-ops, so the
+port has one layout.  Cross attention comes with the encoder-decoder family
+(ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+from repro_torch.models.params import Def
+
+
+def attn_defs(cfg: ModelConfig, stack: int = 0, d_model: int = 0) -> dict:
+    """Param defs; ``stack`` > 0 prepends a stacked-layers dim."""
+    D = d_model or cfg.d_model
+    Dh = cfg.resolved_head_dim
+    PQ, PKV = cfg.n_heads * Dh, cfg.n_kv_heads * Dh
+    L = (stack,) if stack else ()
+    La = ("layers",) if stack else ()
+    d = {
+        "wq": Def(L + (D, PQ), La + ("embed", "heads")),
+        "wk": Def(L + (D, PKV), La + ("embed", "kv_heads")),
+        "wv": Def(L + (D, PKV), La + ("embed", "kv_heads")),
+        "wo": Def(L + (PQ, D), La + ("heads", "embed")),
+    }
+    if cfg.qkv_bias:
+        d["bq"] = Def(L + (PQ,), La + ("heads",), init="zeros")
+        d["bk"] = Def(L + (PKV,), La + ("kv_heads",), init="zeros")
+        d["bv"] = Def(L + (PKV,), La + ("kv_heads",), init="zeros")
+    if cfg.qk_norm:
+        d["q_norm"] = Def(L + (Dh,), La + (None,), init="zeros")
+        d["k_norm"] = Def(L + (Dh,), La + (None,), init="zeros")
+    return d
+
+
+def _project(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """q (B, S, Hq, Dh), k and v (B, S, Hkv, Dh) in x's type: projections,
+    the optional qkv bias, the optional qk-norm over Dh."""
+    B, S, _ = x.shape
+    Dh = cfg.resolved_head_dim
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = q.reshape(B, S, cfg.n_heads, Dh)
+    k = k.reshape(B, S, cfg.n_kv_heads, Dh)
+    v = v.reshape(B, S, cfg.n_kv_heads, Dh)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = layers.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _out(cfg: ModelConfig, p: dict, o: torch.Tensor) -> torch.Tensor:
+    B, S = o.shape[:2]
+    o = o.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
+    return o @ p["wo"].to(o.dtype)
+
+
+def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+                   window: int = 0,
+                   theta: Optional[float] = None) -> torch.Tensor:
+    """Full-sequence causal self attention (train / prefill)."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = _project(cfg, p, x)
+    if theta is None:
+        theta = cfg.rope_theta
+    q = layers.rope(q, positions, theta)
+    k = layers.rope(k, positions, theta)
+    o = layers.flash_attention(q, k, v, causal=True, window=window)
+    return _out(cfg, p, o)
+
+
+def decode_self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                          cache: dict, pos: int, *, window: int = 0,
+                          theta: Optional[float] = None) -> tuple:
+    """One-token self attention against a KV cache.
+
+    cache: {"k": (B, Smax, Hkv, Dh), "v": same}; ``pos`` (a host int) is the
+    number of tokens already in the cache, the new token's position.  The
+    new k and v are written into the cache tensors in place (the reference
+    returns updated copies); returns (out, cache)."""
+    S = x.shape[1]  # 1
+    q, k_new, v_new = _project(cfg, p, x)
+    if theta is None:
+        theta = cfg.rope_theta
+    positions = pos + torch.arange(S, device=x.device)
+    q = layers.rope(q, positions, theta)
+    k_new = layers.rope(k_new, positions, theta)
+    k, v = cache["k"], cache["v"]
+    k[:, pos:pos + S] = k_new.to(k.dtype)
+    v[:, pos:pos + S] = v_new.to(v.dtype)
+    idx = torch.arange(k.shape[1], device=x.device)
+    k_pos = torch.where(idx <= pos, idx, -1)  # only filled slots are valid
+    o = layers.decode_attention(q, k, v, positions, k_pos, window=window)
+    return _out(cfg, p, o), cache

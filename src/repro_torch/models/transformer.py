@@ -1,0 +1,168 @@
+"""Decoder-only LM of the dense family (and the vlm family's early-fusion
+text path, which is the same network).
+
+Parameters keep the reference's stacked layout: every per-layer weight has
+a leading (L, ...) dim, and a Python loop over the layers takes the place
+of the reference's ``lax.scan``.  Per-layer heterogeneity (gemma3's 5 local
+: 1 global attention pattern and its per-layer rope theta) comes from
+``layer_flags`` as host values.  Decode writes one token per step into
+stacked KV caches (L, B, Smax, Hkv, Dh), in place.  Activations are bf16
+over f32 master weights, cast at each use, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import flash_attention, rms_norm, rope, swiglu_mlp
+from repro_torch.models.params import Def
+
+BIG_WINDOW = 1 << 30  # "no window": the global layers' window
+
+
+def defs(cfg: ModelConfig) -> dict:
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts layers are not ported yet "
+            "(ROADMAP queue 1: the MoE family)")
+    L, D, V = cfg.n_layers, cfg.d_model, cfg.padded_vocab
+    layer = {
+        "attn_norm": Def((L, D), ("layers", "embed"), init="zeros"),
+        "mlp_norm": Def((L, D), ("layers", "embed"), init="zeros"),
+        **attn.attn_defs(cfg, stack=L),
+        "w_gate": Def((L, D, cfg.d_ff), ("layers", "embed", "ff")),
+        "w_up": Def((L, D, cfg.d_ff), ("layers", "embed", "ff")),
+        "w_down": Def((L, cfg.d_ff, D), ("layers", "ff", "embed")),
+    }
+    out = {
+        "embed": Def((V, D), ("vocab", "embed"), scale=0.02),
+        "layers": layer,
+        "final_norm": Def((D,), ("embed",), init="zeros"),
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = Def((D, V), ("embed", "vocab"))
+    return out
+
+
+def layer_flags(cfg: ModelConfig) -> tuple:
+    """Per-layer (windows, rope thetas) as host lists.  With a local:global
+    ratio N, every (N+1)-th layer (l % (N+1) == N) is global: no window
+    (``BIG_WINDOW``) and ``global_rope_theta``."""
+    L = cfg.n_layers
+    if cfg.local_global_ratio > 0:
+        per = cfg.local_global_ratio + 1
+        is_global = [l % per == cfg.local_global_ratio for l in range(L)]
+        window = [BIG_WINDOW if g else cfg.sliding_window for g in is_global]
+        theta = [(cfg.global_rope_theta or cfg.rope_theta) if g
+                 else cfg.rope_theta for g in is_global]
+    else:
+        w = cfg.sliding_window if cfg.sliding_window > 0 else BIG_WINDOW
+        window = [w] * L
+        theta = [cfg.rope_theta] * L
+    return window, [float(t) for t in theta]
+
+
+def _layer(params: dict, l: int) -> dict:
+    """Layer ``l``'s slice of the stacked parameters (views, no copies)."""
+    return {k: v[l] for k, v in params["layers"].items()}
+
+
+def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(dtype)
+
+
+def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    w = params.get("lm_head")
+    if w is None:  # tied: the embedding's transpose
+        return x @ params["embed"].to(x.dtype).T
+    return x @ w.to(x.dtype)
+
+
+def _mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    return x + swiglu_mlp(p, h)
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    """Full-sequence forward.  Returns (logits (B, S, V), aux loss 0.0)."""
+    x, aux = forward_hidden(cfg, params, tokens)
+    return unembed(cfg, params, x), aux
+
+
+def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    """Forward up to the final norm (pre-unembed); (hidden, aux 0.0)."""
+    x = embed_tokens(cfg, params, tokens)
+    window, theta = layer_flags(cfg)
+    for l in range(cfg.n_layers):
+        p = _layer(params, l)
+        h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        x = x + attn.self_attention(cfg, p, h, window=window[l],
+                                    theta=theta[l])
+        x = _mlp_block(cfg, p, x)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), 0.0
+
+
+# ---------------------------------------------------------------- decode ----
+
+def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": Def((L, batch, max_len, Hkv, Dh),
+                 ("layers", "batch", "kv_seq", None, None), init="zeros"),
+        "v": Def((L, batch, max_len, Hkv, Dh),
+                 ("layers", "batch", "kv_seq", None, None), init="zeros"),
+    }
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16, device="cpu") -> dict:
+    L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (L, batch, max_len, Hkv, Dh)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                tokens: torch.Tensor, pos: int):
+    """One token for every sequence.  tokens (B, 1); ``pos`` (a host int)
+    the position being written.  Writes each layer's k and v into
+    ``cache`` in place; returns (logits (B, 1, V), cache)."""
+    x = embed_tokens(cfg, params, tokens)
+    window, theta = layer_flags(cfg)
+    for l in range(cfg.n_layers):
+        p = _layer(params, l)
+        h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        a, _ = attn.decode_self_attention(
+            cfg, p, h, {"k": cache["k"][l], "v": cache["v"][l]}, pos,
+            window=window[l], theta=theta[l])
+        x = _mlp_block(cfg, p, x + a)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params, x), cache
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            max_len: Optional[int] = None):
+    """Forward that also emits the KV cache (zero-padded to ``max_len``).
+    Returns (logits of the last position (B, 1, V), cache)."""
+    x = embed_tokens(cfg, params, tokens)
+    B, S = x.shape[:2]
+    max_len = max_len or S
+    window, theta = layer_flags(cfg)
+    positions = torch.arange(S, device=x.device)
+    cache = init_cache(cfg, B, max_len, dtype=x.dtype, device=x.device)
+    for l in range(cfg.n_layers):
+        p = _layer(params, l)
+        h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        q, k, v = attn._project(cfg, p, h)
+        q = rope(q, positions, theta[l])
+        k = rope(k, positions, theta[l])
+        o = flash_attention(q, k, v, causal=True, window=window[l])
+        x = _mlp_block(cfg, p, x + attn._out(cfg, p, o))
+        cache["k"][l, :, :S] = k
+        cache["v"][l, :, :S] = v
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params, x[:, -1:]), cache

@@ -408,7 +408,8 @@ def test_gather_and_scatter_on_cpu_count_no_launches():
 def test_kernel_registry_describes_every_ported_kernel():
     names = [k.name for k in KERNELS]
     assert names == ["fused_gather_overlay", "gather_rows", "scatter_rows",
-                     "routed_gather", "routed_neighbor_sample"]
+                     "routed_gather", "routed_neighbor_sample",
+                     "flash_attention", "sage_aggregate"]
     for k in KERNELS:
         assert k.source == f"src/repro_torch/kernels/csrc/{k.name}.cu"
         assert k.kernel.source.exists()
