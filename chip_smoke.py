@@ -10,7 +10,8 @@ result line):
    versions.
 2. Build: every hand-written kernel (``repro_torch.kernels.KERNELS``),
    compiled from the sources in this checkout, one nvcc per source, all
-   started together; registers and spills as ptxas reports them.
+   started together; registers and spills of each kernel function as
+   ptxas reports them (a spill in the wgmma flash kernel fails the run).
 3. Graph + plans: ``synthetic_instance("PA", 1M vertices)``, a one-GPU
    Legion plan with a 300 MB cache, fanouts (25, 10), and the 2 x 2
    hierarchy of ``topology_matrix("dgx-v100", 4)`` (two cliques of two
@@ -62,17 +63,21 @@ result line):
    on 5 of every 6 layers; f32 weights from seed 0, about 1.0 B
    parameters).  ``flash_attention`` against its plain version on the card
    within rtol 1e-2 + atol 2e-3 (bf16) and rtol 1e-3 + atol 2e-4 (f32),
-   each case's median |output| printed beside its error: q, k, v captured from a real 4 x 4096
-   prefill at layer 0 (local) and layer 5 (global), the Pallas tests'
-   (BH, S, Dh) shapes in f32, causal and not, and ragged S = 1000 with
-   window 1, a window >= S, a full window-64 case, G = 1 and 4, Dh 80, 128
-   and 256; then timed at the two prefill shapes beside its bound (bf16
+   each case's median |output| and route (``flash_route``: wgmma, mma_sync
+   or simt, read from the per-route launch counts) printed beside its
+   error: q, k, v captured from a real 4 x 4096 prefill at layer 0 (local)
+   and layer 5 (global), both of which must take the wgmma route, the
+   Pallas tests' (BH, S, Dh) shapes in f32, causal and not, and ragged
+   S = 77, 1000 with window 1, 64 (a row's first visited tile all masked),
+   512 and >= S, not causal, Sq != Sk, G = 1, 3, 4, 5 and 8, Dh 64, 80,
+   128 and 256; then timed at the two prefill shapes beside its bound (bf16
    operations at 989 TFLOP/s or bytes, the larger) and SDPA.
 12. LM serve: ``generate`` for 4 prompts of 4096 tokens (numpy, seed 1),
    then 32 greedy tokens: prefill ms, decode ms per step (CUDA events
    after each step; ``generate`` syncs only after the loop), tokens/s, peak
    device memory, flash-attention launches (26 = one per layer of the one
-   prefill), and the device busy share of 5 decode steps of a profiled run.
+   prefill, all on the wgmma route), the profiled prefill's device time by
+   kind, and the device busy share of 5 decode steps of a profiled run.
 13. LM parity: at full width over S = 600 (across the window of 512),
    teacher-forced ``decode_step`` logits against the kernel path's
    ``forward`` (the log-softmax within the reference's rtol = atol = 5e-2,
@@ -146,6 +151,39 @@ LM_DECODE_GAP = 0.15
 LM_SMOKE_ATOL = 5e-3
 # kernels that no path of either package runs (their launches stay 0)
 NO_PATH = {"sage_aggregate": "called only by its tests in the reference"}
+
+
+def ptxas_functions(log: str) -> list:
+    """Per kernel function of an ``nvcc -Xptxas -v`` log, in its order:
+    (short name such as ``flash_fwd_wgmma<256>``, the ptxas lines on its
+    registers and spills)."""
+    out = []
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            out.append((demangle(line.split("Function properties for ")[1]
+                                 .strip()), []))
+        elif out and ("registers" in line or "spill" in line):
+            out[-1][1].append(line.replace("ptxas info    :", "").strip())
+    return out
+
+
+def demangle(sym: str) -> str:
+    """The last name of an Itanium-mangled symbol, with its integer template
+    arguments: ``_ZN..15flash_fwd_wgmmaILi256EEEv..`` -> ``flash_fwd_wgmma<256>``."""
+    import re
+
+    pos = 3 if sym.startswith("_ZN") else 2
+    name = sym
+    while pos < len(sym) and sym[pos].isdigit():
+        m = re.match(r"\d+", sym[pos:])
+        n = int(m.group())
+        pos += len(m.group())
+        name = sym[pos:pos + n]
+        pos += n
+    args = re.match(r"I((?:Li\d+E)+)E", sym[pos:])
+    if args:
+        name += "<" + ", ".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+    return name
 
 
 def smi() -> str:
@@ -466,18 +504,21 @@ def flash_work(q, k, window: int) -> tuple:
 def flash_attention_cases(torch, ctx, seed: int = 6):
     """bf16 q/k/v captured from the full-width gemma3-1b prefill (4 x 4096
     tokens): layer 0 (local, window 512) and layer 5 (global); the Pallas
-    tests' (BH, S, Dh) shapes in f32, causal and not; ragged S = 1000 with
-    window 1, a window >= S, G = 1 and 4, Dh 80, 128 and 256."""
+    tests' (BH, S, Dh) shapes in f32, causal and not; ragged S = 77 and
+    1000 with windows 1, 64 (the tile at position 96 visits keys 0-63, all
+    masked for its row 127), 512 and >= S, not causal, Sq != Sk, G = 1, 3,
+    4, 5 and 8, Dh 64, 80, 128 and 256."""
     import torch.nn.functional as F
 
     dev = ctx["lm"][0][0].device
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def qkv(B, S, Hq, Hkv, Dh, dtype, scale=1.0):
+    def qkv(B, S, Hq, Hkv, Dh, dtype, scale=1.0, Sk=None):
+        Sk = S if Sk is None else Sk
         return tuple((torch.randn(shape, generator=gen, device=dev) * sc)
                      .to(dtype) for shape, sc in
-                     (((B, S, Hq, Dh), scale), ((B, S, Hkv, Dh), scale),
-                      ((B, S, Hkv, Dh), 1.0)))
+                     (((B, S, Hq, Dh), scale), ((B, Sk, Hkv, Dh), scale),
+                      ((B, Sk, Hkv, Dh), 1.0)))
 
     cases, timed = {}, []
     for layer, (q, k, v, kw) in sorted(ctx["lm"].items()):
@@ -512,8 +553,25 @@ def flash_attention_cases(torch, ctx, seed: int = 6):
              {"window": 1000}),
             ("s1000_g4_dh80", (2, 1000, 8, 2, 80), {"window": 0}),
             ("s1000_full_window64_dh256", (1, 1000, 4, 1, 256),
-             {"window": 64, "causal": False})):
+             {"window": 64, "causal": False}),
+            ("s1000_window64_first_tile_masked_g4_dh256",
+             (1, 1000, 4, 1, 256), {"window": 64}),
+            ("s77_window64_g4_dh256", (2, 77, 8, 2, 256), {"window": 64}),
+            ("s1000_window512_g3_dh128", (1, 1000, 24, 8, 128),
+             {"window": 512}),
+            ("s1000_g5_dh128", (1, 1000, 40, 8, 128), {"window": 0}),
+            ("s1000_window64_g3_dh256", (1, 1000, 12, 4, 256), {"window": 64}),
+            ("s500_full_g8_dh64", (2, 500, 8, 1, 64),
+             {"window": 0, "causal": False}),
+            ("s1000_window_ge_s_g1_dh256", (1, 1000, 2, 2, 256),
+             {"window": 1 << 30})):
         cases[name] = (*qkv(*shape, torch.bfloat16), kw)
+    for name, shape, Sk, kw in (
+            ("sq100_sk300_g4_dh256", (1, 100, 4, 1, 256), 300, {}),
+            ("sq300_sk100_full_g4_dh128", (1, 300, 8, 2, 128), 100,
+             {"causal": False})):
+        cases[name] = (*qkv(*shape, torch.bfloat16, Sk=Sk),
+                       {"window": 0} | kw)
     return cases, timed
 
 
@@ -548,10 +606,13 @@ def check_and_time(torch, np, k, ctx, flush, card) -> dict:
     tol = TOLERANCE.get(k.name)
     snapshots = {id(t): t.clone() for args in cases.values()
                  for t in _split(args)[0]}
-    errs = {}
+    errs, routes = {}, {}
     for name, args in cases.items():
         a, kw = _split(args)
+        before = dict(k.kernel.route_launches)
         got = k.wrapper(*a, **kw)
+        routes[name] = [r for r, n in k.kernel.route_launches.items()
+                        if n != before[r]]
         want = k.plain(*a, **kw)
         torch.cuda.synchronize()
         if got.shape != want.shape or got.dtype != want.dtype:
@@ -570,9 +631,11 @@ def check_and_time(torch, np, k, ctx, flush, card) -> dict:
         if tol is not None:
             print(f"[kernel] {k.name} case {name}: max |err| "
                   f"{errs[name]:.4e}, median |plain| "
-                  f"{float(want.float().abs().median()):.4e}, {t} | {card}")
+                  f"{float(want.float().abs().median()):.4e}, {t}"
+                  + (f", route {routes[name]}" if k.kernel.route_launches
+                     else "") + f" | {card}")
     out = {"max_abs_err": max(errs.values()), "timed": {},
-           "errs": errs}
+           "errs": errs, "routes": routes}
     for shape, args, nbytes, lib, *flops in timed:
         a, kw = _split(args)
         runs = []
@@ -729,7 +792,7 @@ def fresh_copy(plan):
 
 def zero_launches(kernels) -> None:
     for k in kernels:
-        k.kernel.launches = 0
+        k.kernel.reset_launches()
 
 
 def read_launches(kernels) -> dict:
@@ -1074,6 +1137,27 @@ def by_category(rows) -> dict:
     return out
 
 
+def route_rule_agrees(torch, fa) -> None:
+    """The CUDA source's route rule (``flash_attention_route``, which picks
+    the kernel a call launches) against ``flash_route`` (which the wrapper
+    counts the launch under), for both types and every head dim the
+    wrapper takes."""
+    import ctypes
+
+    from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, flash_route
+
+    c_route = ctypes.CDLL(str(fa.kernel.library_path())).flash_attention_route
+    c_route.argtypes = [ctypes.c_int, ctypes.c_int]
+    c_route.restype = ctypes.c_int
+    names = {0: "simt", 1: "mma_sync", 2: "wgmma"}
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for dh in range(16, MAX_HEAD_DIM + 1, 16):
+            if names[c_route(code, dh)] != flash_route(dtype, dh):
+                raise AssertionError(f"route of ({dtype}, {dh}): CUDA "
+                                     f"{names[c_route(code, dh)]}, Python "
+                                     f"{flash_route(dtype, dh)}")
+
+
 def gap_summary(gap, window: int) -> str:
     return (f"max {gap.max():.4e} (positions < {window}: "
             f"{gap[:window].max():.4e}, >= {window}: {gap[window:].max():.4e})"
@@ -1123,8 +1207,15 @@ def main() -> int:
           f" | {card}")
     for k in KERNELS:
         print(f"[build] {k.name}: nvcc {k.kernel.build_s:.2f}s | {card}")
+        for fn, lines in ptxas_functions(k.kernel.build_log):
+            print(f"[build] {k.name}: {fn}: {'; '.join(lines)}")
+            spills = [ln for ln in lines if "spill" in ln
+                      and not ln.startswith("0 bytes stack frame, 0 bytes "
+                                            "spill stores, 0 bytes spill")]
+            if fn.startswith("flash_fwd_wgmma") and spills:
+                raise AssertionError(f"{fn} spills registers: {spills}")
         for line in k.kernel.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "warning" in line.lower():
                 print(f"[build] {k.name}: {line.strip()}")
 
     # ---- 3. graph + plan ---------------------------------------------------
@@ -1216,6 +1307,7 @@ def main() -> int:
 
     # ---- 5. serve ----------------------------------------------------------
     phase_launches = {}
+    phase_routes = {}  # flash_attention's launches by route, LM phases
     srv = GNNServer(g, plan, GRAPHSAGE, params, device="cuda",
                     config=ServeConfig(max_batch=MAX_BATCH,
                                        oracle_check=True), seed=0)
@@ -1571,6 +1663,13 @@ def main() -> int:
                                  LM_CAPTURE)
     measured[fa.name] = check_and_time(torch, np, fa, {"lm": captured}, flush,
                                        card)
+    route_rule_agrees(torch, fa)
+    prefill_routes = {c: r for c, r in measured[fa.name]["routes"].items()
+                      if c.startswith("prefill_")}
+    if len(prefill_routes) != 2 or any(r != ["wgmma"]
+                                       for r in prefill_routes.values()):
+        raise AssertionError(f"prefill cases' routes {prefill_routes}, "
+                             f"expected wgmma")
     del captured, flush
 
     # ---- 12. LM serve: prefill 4 x 4096, 32 greedy tokens ------------------
@@ -1583,10 +1682,13 @@ def main() -> int:
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     phase_launches["lm-serve"] = read_launches(KERNELS)
+    phase_routes["lm-serve"] = dict(fa.kernel.route_launches)
     want = expect({"flash_attention": lm.n_layers})
-    if phase_launches["lm-serve"] != want:
+    if phase_launches["lm-serve"] != want or phase_routes["lm-serve"] != {
+            "wgmma": lm.n_layers, "mma_sync": 0, "simt": 0}:
         raise AssertionError(f"lm-serve launches {phase_launches['lm-serve']}"
-                             f", expected {want}")
+                             f" by route {phase_routes['lm-serve']}, expected "
+                             f"{want}, all on the wgmma route")
     toks = gen.tokens.cpu().numpy()
     if toks.shape != (LM_BATCH, LM_NEW) or toks.min() < 0 or toks.max() >= V \
             or gen.logits.shape != (LM_BATCH, LM_NEW, V) \
@@ -1604,7 +1706,8 @@ def main() -> int:
           f"decoding, {LM_BATCH * LM_NEW / wall:.1f} tokens/s end to end "
           f"(wall {wall:.3f}s); peak device memory {peak / 2**30:.3f} GiB; "
           f"flash_attention launches {phase_launches['lm-serve'][fa.name]} "
-          f"= {lm.n_layers} layers x 1 prefill | {card}")
+          f"= {lm.n_layers} layers x 1 prefill, by route "
+          f"{phase_routes['lm-serve']} | {card}")
     print(f"[lm-serve] tokens of sequence 0: {toks[0].tolist()} | {card}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
@@ -1699,10 +1802,16 @@ def main() -> int:
     sdiff = float((on_card - on_cpu.logits.float()).abs().max())
     same = float((on_card.argmax(-1) == on_cpu.tokens).float().mean())
     phase_launches["lm-parity"] = read_launches(KERNELS)
+    phase_routes["lm-parity"] = dict(fa.kernel.route_launches)
     want = expect({"flash_attention": lm.n_layers + small.n_layers})
-    if phase_launches["lm-parity"] != want:
+    want_routes = {"wgmma": lm.n_layers, "mma_sync": small.n_layers,
+                   "simt": 0}  # the smoke config's head dim is 16
+    if phase_launches["lm-parity"] != want \
+            or phase_routes["lm-parity"] != want_routes:
         raise AssertionError(f"lm-parity launches "
-                             f"{phase_launches['lm-parity']}, expected {want}")
+                             f"{phase_launches['lm-parity']} by route "
+                             f"{phase_routes['lm-parity']}, expected {want} "
+                             f"by route {want_routes}")
     print(f"[lm-parity] {small.name} batch {B} x prompt {P}, {N} tokens: "
           f"card (kernel, teacher-forced with the CPU's tokens) vs CPU "
           f"(plain version): max |logit diff| {sdiff:.4e} (atol "
@@ -1723,6 +1832,12 @@ def main() -> int:
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": sum(by_phase.values()),
             "launches_by_phase": by_phase,
+            "launches_by_route": ({r: sum(ph.get(r, 0) for ph in
+                                          phase_routes.values())
+                                   for r in k.kernel.route_launches}
+                                  if k.kernel.route_launches else None),
+            "case_routes": m.get("routes") if k.kernel.route_launches
+            else None,
             "bitwise_equal": k.name not in TOLERANCE,
             "tolerance": TOLERANCE.get(k.name), "no_path": NO_PATH.get(k.name),
             "max_abs_err": m["max_abs_err"], "ms": first_timed["ms"],

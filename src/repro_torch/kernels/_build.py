@@ -3,7 +3,8 @@
 Each kernel source under ``csrc/`` exposes a plain C entry point.  It is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/repro_torch/`` at the repository root, named by the hash of its
-source so an edited source rebuilds, and loaded with ``ctypes``.  Nothing
+source and of the local headers it includes (``#include "..."``), so an
+edited source or header rebuilds, and loaded with ``ctypes``.  Nothing
 is compiled when a module is imported: the first launch (or the first
 ``CudaKernel.fn()`` call) builds.  Without ``nvcc`` the build raises.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,6 +25,21 @@ _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_sources(source: Path) -> list:
+    """``source`` and every header it includes with ``#include "..."``
+    (found beside the including file), recursively, each once."""
+    seen, todo = [], [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            todo.append((path.parent / name.decode()).resolve())
+    return seen
 
 
 def _nvcc() -> str:
@@ -44,19 +61,22 @@ class CudaKernel:
 
     ``launches`` is incremented by the kernel's wrapper (``count_launch``)
     exactly where it launches, and nowhere else: a run reads it to show
-    which path it took.  Several prefetch threads may launch one kernel at
-    once (device sampling), so the increment takes a lock.
+    which path it took.  A source with several kernels names its ``routes``
+    and counts each launch under one of them too (``route_launches``);
+    ``launches`` stays the total.  Several prefetch threads may launch one
+    kernel at once (device sampling), so the increment takes a lock.
     ``build_log`` keeps what ``nvcc -Xptxas -v`` printed (registers, spills)
     and ``build_s`` the compile time (0 when the library was already built).
     """
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence):
+                 argtypes: Sequence, routes: Sequence[str] = ()):
         self.name = name
         self.source = _PKG / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.route_launches = dict.fromkeys(routes, 0)
         self.build_log = ""
         self.build_s = 0.0
         self._fn = None
@@ -64,9 +84,10 @@ class CudaKernel:
         self._count_lock = threading.Lock()
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return BUILD_DIR / f"{self.source.stem}-{digest[:16]}.so"
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in local_sources(self.source):
+            h.update(path.name.encode() + b"\0" + path.read_bytes())
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def _build(self) -> None:
         """Compile this source with nvcc unless its library exists."""
@@ -99,9 +120,16 @@ class CudaKernel:
                     self._fn = f
         return self._fn
 
-    def count_launch(self) -> None:
+    def count_launch(self, route: str | None = None) -> None:
         with self._count_lock:
             self.launches += 1
+            if route is not None:
+                self.route_launches[route] += 1
+
+    def reset_launches(self) -> None:
+        with self._count_lock:
+            self.launches = 0
+            self.route_launches = dict.fromkeys(self.route_launches, 0)
 
     def check(self, err: int) -> None:
         if err != 0:

@@ -6,42 +6,65 @@
 // chunked attention computes (src/repro/models/layers.py:75):
 //
 //   q (B, Sq, Hq, Dh), k and v (B, Sk, Hkv, Dh), contiguous; query head h
-//   reads kv head h / (Hq / Hkv).  Key j is visible to query i when j < Sk,
-//   and (causal) j <= i, and (window > 0) i - j < window.  Scores are
-//   (q * scale) . k in f32, the running max m, sum l and accumulator are
-//   f32, masked scores are -1e30 as in the reference (so a block that a row
-//   cannot see is reset by the next visible one through alpha = 0), and
+//   reads kv head h / G (G = Hq / Hkv).  Key j is visible to query i when
+//   j < Sk, and (causal) j <= i, and (window > 0) i - j < window.  Scores
+//   are bf16(q * scale) . k in f32, the running max m, sum l and
+//   accumulator are f32, p is rounded to bf16 before p . v while l sums the
+//   f32 p, masked scores are -1e30 as in the reference (so a tile that a
+//   row cannot see is reset by the next visible one through alpha = 0), and
 //   out = acc / max(l, 1e-30) in the input type.
 //
-// bf16 (the LM path): one CTA of 4 warps per (64-query tile, query head,
-// batch row).  Q (pre-scaled and rounded to bf16, as the reference rounds
-// q * scale), and 64-key K and V tiles are staged in shared memory with
-// rows padded by 16 bytes so that the fragment loads of 8 rows fall in 8
-// different bank groups (Dh = 256: 3 x 33 KB).  Each warp owns 16 query
-// rows: S = Q K^T and O += P V run on the tensor cores (mma.sync m16n8k16,
-// bf16 in, f32 accumulate), P is rounded to bf16 before P V as the
-// reference rounds it, V's fragments come from ldmatrix.trans.  The CTA
-// visits only the key tiles its rows can see (from q0 - window + 1 to the
-// diagonal), so a local layer costs S * window work, not S^2.
-//
-// f32 (the TPU kernel's second type, off the LM path): a plain SIMT kernel,
-// one warp per query row, 4 rows per CTA, 32-key tiles in shared memory.
-//
 // Bound on this card: at the LM prefill shapes, operations (4 * Dh flops
-// per visible (query, key) pair and head) rather than bytes.  The bf16
-// design keeps scores and probabilities in registers (nothing but q, k, v
-// and out touches device memory); it does not yet use wgmma or TMA, so it
-// is far from the tensor cores' peak (a later PR's work).
+// per visible (query, key) pair and query head; 137 GFLOP for a global
+// gemma3-1b layer at 4 x 4096, 0.14 ms at 989 TFLOP/s) rather than bytes
+// (84 MB, 0.025 ms).  So the design is about keeping the tensor cores fed.
+//
+// Three routes, chosen by (dtype, Dh) alone (flash_attention_route):
+//
+// wgmma (bf16, Dh 64, 128 or 256: gemma3, qwen2.5, minitron).  A CTA of
+//   three warpgroups owns 128 packed query rows of one kv head: GQA's G
+//   query heads of a position are neighbouring rows (row = position *
+//   G + head), so one K/V tile serves all of them (gemma3: 32 positions x 4
+//   heads).  Warpgroup 0 is the producer: it gives up registers
+//   (setmaxnreg) and one thread issues TMA loads -- Q once (a 5-D map over
+//   q viewed as (B, Sq, Hkv, G, Dh)), then K and V tiles of 64 keys (4-D
+//   maps over (B, Sk, Hkv, Dh)) into a ring of stages with full and empty
+//   mbarriers, so loads stay in flight while the tensor cores work.  Boxes
+//   are 64 columns wide (128-byte swizzle), Dh / 64 boxes per tile, and
+//   TMA's zero fill covers ragged Sq and Sk inside each batch row.
+//   Warpgroups 1 and 2 are consumers of 64 rows each: S = Q K^T by wgmma
+//   m64n64k16 from shared memory, scaled into the exp2 domain (log2 e, and
+//   the scale when it is a power of two; for Dh 128 the consumers round
+//   q * scale into shared memory once, as the reference rounds it), the
+//   online softmax in registers, P rounded to bf16 in registers and O +=
+//   P V by wgmma with P as the register operand and V read transposed.
+//   P V is one wgmma m64n{Dh}k16 per 16 keys.  The next tile's Q K^T is
+//   issued before the softmax of the current one, and the two consumers
+//   take turns issuing their products (named barriers), so the tensor
+//   cores work while a softmax runs.  The output goes through the Q tile's
+//   shared memory to one TMA store per box.  A CTA visits only the key
+//   tiles its rows can see, and causal CTAs start heaviest first.
+//
+// mma.sync (bf16, other Dh: stablelm's 80, the smoke configs' 16): one CTA
+//   of 4 warps per (64-query tile, query head), mma.sync m16n8k16, K and V
+//   tiles staged through padded shared memory.
+//
+// SIMT (f32, the TPU kernel's second type, off the LM path): one warp per
+//   query row, 4 rows per CTA, 32-key tiles in shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 constexpr int kThreads = 128;      // 4 warps
 
-// ---------------------------------------------------------------- bf16 ----
+// ------------------------------------------------------ bf16, mma.sync ----
 constexpr int kBM = 64;  // query rows per CTA (16 per warp)
 constexpr int kBN = 64;  // keys per tile
 
@@ -339,6 +362,451 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// -------------------------------------------------------- bf16, wgmma ----
+constexpr int kWgThreads = 384;  // producer + 2 consumer warpgroups
+constexpr int kRowsPerCta = 128;  // packed (position, head) rows
+constexpr int kKeys = 64;         // keys per K/V tile
+constexpr int kBoxBytes = 64 * 128;  // 64 rows of 64 bf16 columns
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DH>
+struct WgTile {
+  static constexpr int kChunks = DH / 64;  // 64-column boxes per row
+  // K and V tiles in flight: 64 KB of Q and 2 x (32 + 32) KB at Dh 256
+  static constexpr int kStages = DH == 256 ? 2 : 4;
+  static constexpr int kQBytes = kChunks * kRowsPerCta * 128;
+  static constexpr int kKvBytes = kChunks * kBoxBytes;  // one K or V stage
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kKvBytes;
+  // tiles, 1 + 4 * stages barriers, and slack to align the base to 1024
+  static constexpr int kSmem = kBarOffset + (1 + 4 * kStages) * 8 + 1024;
+};
+
+struct WgParams {
+  int B, Sq, Sk, Hkv;
+  int Gt;      // heads packed per tile: min(G, 128)
+  int HB;      // head blocks per kv head: ceil(G / Gt)
+  int P;       // positions per tile: 128 / Gt
+  int ntiles;  // query tiles: ceil(Sq / P)
+  int causal, window;
+  float c;        // multiplies q . k into the exp2 domain
+  int rescale_q;  // 1: round q * scale into shared memory first
+  float scale;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S (this warpgroup's 64 rows x 64 keys) = Q K^T over Dh, from shared
+// memory: the k-th 16 columns of a 64-column box start 32 bytes further
+// inside each 128-byte swizzled row.
+template <int DH>
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t q_base,
+                                         uint32_t k_base) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) hopper::reg_fence(s[i]);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    hopper::wgmma_ss_m64n64k16(
+        s,
+        hopper::sw128_desc(q_base + (kk / 4) * kRowsPerCta * 128 + off, 16),
+        hopper::sw128_desc(k_base + (kk / 4) * kBoxBytes + off, 16), kk > 0);
+  }
+  hopper::wgmma_commit();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) hopper::reg_fence(s[i]);
+}
+
+// O (64 rows x Dh) += P (64 x 64 keys, bf16 registers) V (64 keys x Dh):
+// V's box is key-major with d contiguous, so it is the transposed (MN-major)
+// B operand; 16 keys are 2048 bytes, a 64-column block 8 KB.
+template <int NC>
+__device__ __forceinline__ void issue_pv(float (&o)[NC][32],
+                                         const uint32_t (&p)[4][4],
+                                         uint32_t v_base) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) hopper::reg_fence(o[c][i]);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    const uint64_t dv = hopper::sw128_desc(v_base + kk * 2048, kBoxBytes);
+    if constexpr (NC == 4)
+      hopper::wgmma_rs_m64n256k16_tb(o, p[kk], dv);
+    else if constexpr (NC == 2)
+      hopper::wgmma_rs_m64n128k16_tb(o, p[kk], dv);
+    else
+      hopper::wgmma_rs_m64n64k16_tb(o[0], p[kk], dv);
+  }
+  hopper::wgmma_commit();
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) hopper::reg_fence(o[c][i]);
+}
+
+// The online-softmax step of one tile for this thread's two rows (the
+// accumulator layout: s[4n + e] is row r0 (e < 2) or r0 + 8 (e >= 2), key
+// 8n + 2 * (lane % 4) + (e % 2)).  Scores go to the exp2 domain, masked
+// ones to -1e30; m is updated and alpha = 2^(m_old - m_new) returned; s is
+// overwritten by p = 2^(s - m) and `sum` gets each row's partial sum.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], bool masked,
+                                             int j0, int jlo0, int jhi0,
+                                             int jlo1, int jhi1, float c,
+                                             float (&m)[2], float (&alpha)[2],
+                                             float (&sum)[2]) {
+  const int jt = j0 + 2 * (threadIdx.x & 3);
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * n + e] * c;
+      if (masked) {
+        const int j = jt + 8 * n + (e & 1);
+        const bool vis = e < 2 ? (j >= jlo0 && j < jhi0)
+                               : (j >= jlo1 && j < jhi1);
+        x = vis ? x : kNegInf;
+      }
+      s[4 * n + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    sum[r] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = ex2(s[i] - m[r]);
+    sum[r] += s[i];
+  }
+}
+
+// P as the A operand of the k-th 16 keys: two neighbouring 8-key blocks of
+// the accumulator layout are one 16-wide A fragment.
+__device__ __forceinline__ void pack_p(const float (&s)[32],
+                                       uint32_t (&p)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap to, const WgParams prm) {
+  using T = WgTile<DH>;
+  constexpr int NC = T::kChunks, ST = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = smem;
+  unsigned char* Ks = smem + T::kQBytes;
+  unsigned char* Vs = Ks + ST * T::kKvBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + T::kBarOffset);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + ST;
+  uint64_t* v_full = k_empty + ST;
+  uint64_t* v_empty = v_full + ST;
+
+  // This CTA's tile: heaviest (last) query tiles first when causal.
+  const int per = prm.B * prm.Hkv * prm.HB;
+  const int u = blockIdx.x % per;
+  const int t = blockIdx.x / per;
+  const int tile = prm.causal ? prm.ntiles - 1 - t : t;
+  const int hb = u % prm.HB;
+  const int hk = (u / prm.HB) % prm.Hkv;
+  const int b = u / (prm.HB * prm.Hkv);
+  const int p0 = tile * prm.P;
+  const int p_last = min(p0 + prm.P - 1, prm.Sq - 1);
+
+  // The key tiles some row of the CTA can see.
+  int hi = prm.Sk - 1;
+  if (prm.causal) hi = min(hi, p_last);
+  const int lo = prm.window > 0 ? max(0, p0 - prm.window + 1) : 0;
+  const int t_lo = lo / kKeys;
+  const int n = hi < lo ? 0 : hi / kKeys - t_lo + 1;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], 2 * 128);  // every consumer thread
+      hopper::mbar_init(&v_empty[s], 2 * 128);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(q_full, NC * 128 * prm.Gt * prm.P);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        hopper::tma_load_5d(Qs + c * kRowsPerCta * 128, &tq, q_full, 64 * c,
+                            hb * prm.Gt, hk, p0, b);
+      for (int i = 0; i < n; ++i) {
+        const int j0 = (t_lo + i) * kKeys, st = i % ST;
+        const uint32_t ph = ((i / ST) & 1) ^ 1;  // the first pass is free
+        hopper::mbar_wait(&k_empty[st], ph);
+        hopper::mbar_expect_tx(&k_full[st], T::kKvBytes);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          hopper::tma_load_4d(Ks + st * T::kKvBytes + c * kBoxBytes, &tk,
+                              &k_full[st], 64 * c, hk, j0, b);
+        hopper::mbar_wait(&v_empty[st], ph);
+        hopper::mbar_expect_tx(&v_full[st], T::kKvBytes);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          hopper::tma_load_4d(Vs + st * T::kKvBytes + c * kBoxBytes, &tv,
+                              &v_full[st], 64 * c, hk, j0, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 rows each ----
+    hopper::setmaxnreg_inc<240>();
+    const int w = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int r0 = 64 * w + 16 * warp + lane / 4, r1 = r0 + 8;
+    const int pos0 = p0 + r0 / prm.Gt, pos1 = p0 + r1 / prm.Gt;
+    // keys [jlo, jhi) are visible to a row
+    const int jlo0 = prm.window > 0 ? pos0 - prm.window + 1 : INT_MIN;
+    const int jlo1 = prm.window > 0 ? pos1 - prm.window + 1 : INT_MIN;
+    const int jhi0 = prm.causal ? min(prm.Sk, pos0 + 1) : prm.Sk;
+    const int jhi1 = prm.causal ? min(prm.Sk, pos1 + 1) : prm.Sk;
+    // every row of the CTA sees all keys in [lo_all, hi_all)
+    const int lo_all = prm.window > 0 ? p_last - prm.window + 1 : INT_MIN;
+    const int hi_all = prm.causal ? min(prm.Sk, p0 + 1) : prm.Sk;
+
+    const uint32_t q_base = hopper::smem_addr(Qs) + w * 64 * 128;
+    const uint32_t k_base = hopper::smem_addr(Ks);
+    const uint32_t v_base = hopper::smem_addr(Vs);
+
+    hopper::mbar_wait(q_full, 0);
+    if (prm.rescale_q) {
+      // bf16(q * scale), as the reference rounds it, on this warpgroup's
+      // 64 rows of every box; then visible to wgmma (the async proxy).
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        uint4* rows = reinterpret_cast<uint4*>(Qs + c * kRowsPerCta * 128 +
+                                               w * 64 * 128);
+        for (int e = tid; e < 64 * 128 / 16; e += 128) {
+          uint4 val = rows[e];
+          __nv_bfloat16* x = reinterpret_cast<__nv_bfloat16*>(&val);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            x[i] = __float2bfloat16_rn(__bfloat162float(x[i]) * prm.scale);
+          rows[e] = val;
+        }
+      }
+      hopper::fence_proxy_async();
+      hopper::named_sync(1 + w, 128);
+    }
+
+    float o[NC][32];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+    float s[32];
+    uint32_t p[4][4];
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float alpha[2] = {1.f, 1.f}, sum[2];
+
+    // The two consumer warpgroups take turns issuing their products
+    // (named barriers 3 and 4, consumer 0 first), so that one's softmax
+    // runs while the other's products have the tensor cores.
+    if (w == 1) hopper::named_arrive(3, 256);
+    auto turn_begin = [&] { hopper::named_sync(3 + w, 256); };
+    auto turn_end = [&] { hopper::named_arrive(4 - w, 256); };
+    auto masked = [&](int j0) { return j0 < lo_all || j0 + kKeys > hi_all; };
+    if (n > 0) {
+      // tile 0: S, softmax, P
+      hopper::mbar_wait(&k_full[0], 0);
+      turn_begin();
+      issue_qk<DH>(s, q_base, k_base);
+      turn_end();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) hopper::reg_fence(s[i]);
+      hopper::mbar_arrive(&k_empty[0]);
+      int j0 = t_lo * kKeys;
+      softmax_tile(s, masked(j0), j0, jlo0, jhi0, jlo1, jhi1, prm.c, m, alpha,
+                   sum);
+      l[0] = sum[0];
+      l[1] = sum[1];
+      pack_p(s, p);
+      for (int i = 1; i < n; ++i) {
+        const int ks = i % ST, vs = (i - 1) % ST;  // K of i, V of i - 1
+        // S of tile i on the tensor cores ...
+        hopper::mbar_wait(&k_full[ks], (i / ST) & 1);
+        turn_begin();
+        issue_qk<DH>(s, q_base, k_base + ks * T::kKvBytes);
+        // ... O rescaled for tile i - 1 and its P V behind it ...
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) o[c][e] *= alpha[(e >> 1) & 1];
+        hopper::mbar_wait(&v_full[vs], ((i - 1) / ST) & 1);
+        issue_pv<NC>(o, p, v_base + vs * T::kKvBytes);
+        turn_end();
+        // ... while the softmax of tile i runs once its S is in
+        hopper::wgmma_wait<1>();
+#pragma unroll
+        for (int e = 0; e < 32; ++e) hopper::reg_fence(s[e]);
+        hopper::mbar_arrive(&k_empty[ks]);
+        j0 = (t_lo + i) * kKeys;
+        softmax_tile(s, masked(j0), j0, jlo0, jhi0, jlo1, jhi1, prm.c, m,
+                     alpha, sum);
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) hopper::reg_fence(o[c][e]);
+        hopper::mbar_arrive(&v_empty[vs]);
+        l[0] = l[0] * alpha[0] + sum[0];
+        l[1] = l[1] * alpha[1] + sum[1];
+        pack_p(s, p);
+      }
+      const int vs = (n - 1) % ST;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) o[c][e] *= alpha[(e >> 1) & 1];
+      hopper::mbar_wait(&v_full[vs], ((n - 1) / ST) & 1);
+      turn_begin();
+      issue_pv<NC>(o, p, v_base + vs * T::kKvBytes);
+      turn_end();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) hopper::reg_fence(o[c][e]);
+      hopper::mbar_arrive(&v_empty[vs]);
+    }
+    if (w == 0) hopper::named_sync(3, 256);  // the other's last turn_end
+
+    // out = O / max(l, 1e-30); l summed over the row's 4 threads.
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+    }
+    // Into this warpgroup's Q rows (their products are done), in the
+    // swizzled layout of the Q box, then one TMA store of the whole tile:
+    // it clips rows past Sq and heads past G.
+    const int g = lane / 4;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn) {
+        unsigned char* chunk = Qs + c * kRowsPerCta * 128 +
+                               ((nn ^ g) * 16) + 4 * (lane & 3);
+        *reinterpret_cast<uint32_t*>(chunk + r0 * 128) =
+            pack_bf16(o[c][4 * nn] * inv[0], o[c][4 * nn + 1] * inv[0]);
+        *reinterpret_cast<uint32_t*>(chunk + r1 * 128) =
+            pack_bf16(o[c][4 * nn + 2] * inv[1], o[c][4 * nn + 3] * inv[1]);
+      }
+    hopper::fence_proxy_async();
+    hopper::named_sync(5, 256);
+    if (threadIdx.x == 128) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        hopper::tma_store_5d(&to, Qs + c * kRowsPerCta * 128, 64 * c,
+                             hb * prm.Gt, hk, p0, b);
+      hopper::tma_store_wait();
+    }
+  }
+}
+
+template <int DH>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, int B, int Sq, int Sk, int Hq, int Hkv,
+                         int causal, int window, float scale,
+                         cudaStream_t stream) {
+  using T = WgTile<DH>;
+  const int G = Hq / Hkv;
+  WgParams prm;
+  prm.B = B;
+  prm.Sq = Sq;
+  prm.Sk = Sk;
+  prm.Hkv = Hkv;
+  prm.Gt = min(G, kRowsPerCta);
+  prm.HB = (G + prm.Gt - 1) / prm.Gt;
+  prm.P = kRowsPerCta / prm.Gt;
+  prm.ntiles = (Sq + prm.P - 1) / prm.P;
+  prm.causal = causal;
+  prm.window = window;
+  int ex;
+  const bool pow2 = frexpf(scale, &ex) == 0.5f;  // exact to fold into c
+  prm.c = pow2 ? scale * kLog2e : kLog2e;
+  prm.rescale_q = !pow2;
+  prm.scale = scale;
+  const long long grid = static_cast<long long>(B) * Hkv * prm.HB * prm.ntiles;
+  if (grid > INT_MAX) return cudaErrorInvalidConfiguration;
+  // TMA reads 16-byte aligned global memory
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(out) |
+       (Sk > 0 ? reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)
+               : 0)) % 16)
+    return cudaErrorMisalignedAddress;
+
+  // q viewed as (B, Sq, Hkv, G, Dh): a box is P positions x Gt heads x 64
+  // columns; k and v as (B, Sk, Hkv, Dh): 64 keys x 64 columns.  With
+  // Sk = 0 no key tile is loaded (the map only has to be valid).
+  const cuuint64_t e = 2, Dh = DH;
+  CUtensorMap tq, tk, tv, to;
+  const cuuint64_t qdim[5] = {Dh, static_cast<cuuint64_t>(G),
+                              static_cast<cuuint64_t>(Hkv),
+                              static_cast<cuuint64_t>(Sq),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t qstr[4] = {Dh * e, G * Dh * e, Hq * Dh * e,
+                              static_cast<cuuint64_t>(Sq) * Hq * Dh * e};
+  const cuuint32_t qbox[5] = {64, static_cast<cuuint32_t>(prm.Gt), 1,
+                              static_cast<cuuint32_t>(prm.P), 1};
+  const cuuint64_t sk = Sk > 0 ? Sk : 1;
+  const cuuint64_t kdim[4] = {Dh, static_cast<cuuint64_t>(Hkv), sk,
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t kstr[3] = {Dh * e, Hkv * Dh * e, sk * Hkv * Dh * e};
+  const cuuint32_t kbox[4] = {64, 1, kKeys, 1};
+  if (!hopper::encode_bf16(&tq, q, 5, qdim, qstr, qbox) ||
+      !hopper::encode_bf16(&to, out, 5, qdim, qstr, qbox) ||
+      !hopper::encode_bf16(&tk, Sk > 0 ? k : q, 4, kdim, kstr, kbox) ||
+      !hopper::encode_bf16(&tv, Sk > 0 ? v : q, 4, kdim, kstr, kbox))
+    return cudaErrorInvalidValue;
+
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_wgmma<DH><<<static_cast<unsigned>(grid), kWgThreads, T::kSmem,
+                        stream>>>(tq, tk, tv, to, prm);
+  return cudaGetLastError();
+}
+
 template <int DMAX>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, int B, int Sq, int Sk, int Hq, int Hkv,
@@ -359,6 +827,14 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// The route (dtype, Dh) takes: 0 = SIMT (f32), 1 = mma.sync (bf16),
+// 2 = wgmma (bf16, Dh 64, 128 or 256).  kernels/flash_attention.py's
+// flash_route states the same rule.
+extern "C" int flash_attention_route(int dtype, int Dh) {
+  if (dtype != 1) return 0;
+  return Dh == 64 || Dh == 128 || Dh == 256 ? 2 : 1;
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  Dh a multiple of 16 up to 256 (the
 // wrapper checks); window <= 0 means unbounded.  Returns the launch's
 // cudaError_t.
@@ -368,15 +844,27 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0) return cudaSuccess;
-  if (dtype == 1) {
-    if (Dh <= 64)
-      return launch_bf16<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, Dh, causal,
-                             window, scale, st);
-    if (Dh <= 128)
-      return launch_bf16<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, Dh, causal,
+  switch (flash_attention_route(dtype, Dh)) {
+    case 2:
+      if (Dh == 64)
+        return launch_wgmma<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                                window, scale, st);
+      if (Dh == 128)
+        return launch_wgmma<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                                 window, scale, st);
+      return launch_wgmma<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                               window, scale, st);
+    case 1:
+      if (Dh <= 64)
+        return launch_bf16<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, Dh, causal,
+                               window, scale, st);
+      if (Dh <= 128)
+        return launch_bf16<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, Dh, causal,
+                                window, scale, st);
+      return launch_bf16<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, Dh, causal,
                               window, scale, st);
-    return launch_bf16<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, Dh, causal,
-                            window, scale, st);
+    default:
+      break;
   }
   const size_t smem = (static_cast<size_t>(kRows) * Dh
                        + 2 * static_cast<size_t>(kTileK) * (Dh + 1)) * 4;

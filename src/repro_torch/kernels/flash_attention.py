@@ -3,9 +3,12 @@
 ``flash_attention`` takes the LM path's layout — q (B, Sq, Hq, Dh), k and v
 (B, Sk, Hkv, Dh) with grouped-query heads and a per-call sliding window —
 and ``flash_attention_bhsd`` the TPU kernel's (BH, S, Dh).  On CUDA tensors
-they launch the hand-written Hopper kernel (``csrc/flash_attention.cu``:
-tensor-core tiles for bf16, a SIMT kernel for f32); on CPU tensors they run
-the plain version in ``kernels/ref.py``.  There is no other fallback.
+they launch one of the hand-written Hopper kernels of
+``csrc/flash_attention.cu``, chosen by ``flash_route(dtype, Dh)`` alone:
+``wgmma`` (bf16 with Dh 64, 128 or 256: TMA, wgmma, warp-specialised, GQA
+heads packed into one tile), ``mma_sync`` (bf16, other head dims) or
+``simt`` (f32).  On CPU tensors they run the plain version in
+``kernels/ref.py``.  There is no other fallback.
 """
 from __future__ import annotations
 
@@ -16,12 +19,23 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import CudaKernel
 
+ROUTES = ("wgmma", "mma_sync", "simt")
 KERNEL = CudaKernel(
     "flash_attention", "csrc/flash_attention.cu", "flash_attention",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float,
-                                                  ctypes.c_void_p])
+                                                  ctypes.c_void_p],
+    routes=ROUTES)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+WGMMA_HEAD_DIMS = (64, 128, 256)
+
+
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call launches, by (dtype, Dh) alone — the rule
+    ``flash_attention_route`` in ``csrc/flash_attention.cu`` applies too."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -35,8 +49,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     than ``window`` positions before it.  bf16 or f32, all three
     of one type; Dh a multiple of 16 up to 256.  Returns (B, Sq, Hq, Dh) in
     the input type.  ``block_kv`` is the plain version's key block; the
-    kernel tiles keys by 64 (bf16) or 32 (f32) and visits only the tiles
-    its queries can see.  A query that sees no key at all is undefined.
+    kernels tile keys by 64 (bf16) or 32 (f32) and visit only the tiles
+    their queries can see.  A query that sees no key at all is undefined.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be 4-D (B, S, H, Dh), got "
@@ -73,6 +87,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # jnp's weakly typed scalar takes the input's type: the scale is
     # rounded to bf16 before it multiplies q (exact for Dh = 16, 64, 256).
     scale = float(torch.tensor(Dh ** -0.5, dtype=q.dtype))
+    route = flash_route(q.dtype, Dh)
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)
+                                if t.numel()):
+        raise ValueError("the wgmma route reads q, k, v by TMA and needs "
+                         "them 16-byte aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -83,7 +102,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  _DTYPES[q.dtype], B, Sq, Sk, Hq, Hkv, Dh, int(causal),
                  int(window), scale, stream)
     KERNEL.check(err)
-    KERNEL.count_launch()
+    KERNEL.count_launch(route)
     return out
 
 

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import KERNELS, fused_batch, gather, scatter
-from repro_torch.kernels._build import CudaKernel
+from repro_torch.kernels._build import CudaKernel, local_sources
 from repro_torch.kernels import ref as tref
 
 
@@ -415,6 +415,36 @@ def test_kernel_registry_describes_every_ported_kernel():
         assert k.kernel.source.exists()
         path, line = k.replaces.split(":")
         assert path.startswith("src/repro/kernels/") and int(line) > 0
+
+
+def test_library_path_hashes_the_local_headers_a_source_includes(tmp_path):
+    """An edited header rebuilds: the library's name hashes the source and
+    every ``#include "..."`` it reaches (nested, each once), not the
+    toolkit's ``<...>`` headers."""
+    (tmp_path / "sub").mkdir()
+    (tmp_path / "k.cu").write_text(
+        '#include <cuda_runtime.h>\n#include "a.cuh"\n#include "sub/b.cuh"\n'
+        'extern "C" int k() { return 0; }\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  # include "sub/b.cuh"\n')
+    (tmp_path / "sub" / "b.cuh").write_text("#pragma once\n")
+    kern = CudaKernel("k", str(tmp_path / "k.cu"), "k", [])
+    assert [p.name for p in local_sources(kern.source)] == ["k.cu", "a.cuh",
+                                                            "b.cuh"]
+    paths = [kern.library_path()]
+    for name, text in (("sub/b.cuh", "#pragma once\n// edited\n"),
+                       ("a.cuh", '#pragma once\n#include "sub/b.cuh"\n'),
+                       ("k.cu", '#include "a.cuh"\n')):
+        (tmp_path / name).write_text(text)
+        paths.append(kern.library_path())
+    assert len(set(paths)) == len(paths)
+    assert kern.library_path() == paths[-1]  # unchanged files, same name
+
+
+def test_flash_attention_library_covers_its_hopper_header():
+    from repro_torch.kernels import flash_attention as fa
+
+    names = [p.name for p in local_sources(fa.KERNEL.source)]
+    assert names == ["flash_attention.cu", "hopper.cuh"]
 
 
 @pytest.mark.gpu

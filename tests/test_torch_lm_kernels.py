@@ -8,11 +8,18 @@ interpret mode) and against the LM path's chunked attention
 (``repro.models.layers.flash_attention``) with GQA, windows and a ragged
 length; ``sage_aggregate`` over the Pallas test's grid.
 
+CPU, the flash kernel's design: ``flash_route`` (the rule the CUDA source
+applies too) and a plain-PyTorch emulation of the ``wgmma`` route's
+arithmetic (GQA heads packed into 128-row tiles, 64-key tiles, the exp2
+domain, -1e30 masks) held to the plain version.
+
 GPU (``gpu``-marked, skipped without a card): each CUDA kernel against its
-plain version on the card.  The reference package is imported inside the
+plain version on the card, and the route each call took.  The reference package is imported inside the
 CPU tests only, so the ``gpu`` tests run on a GPU host that has no JAX:
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_lm_kernels.py``.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -114,6 +121,122 @@ def test_plain_flash_matches_lm_path_attention(Hkv, causal, Dh, window,
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype,Dh,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 80, "mma_sync"),
+    (torch.float32, 16, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"), (torch.float32, 256, "simt"),
+])
+def test_flash_route_depends_on_dtype_and_head_dim_only(dtype, Dh, route):
+    """gemma3 (256), qwen2.5 and minitron (128) and Dh 64 take the wgmma
+    kernel in bf16; stablelm's 80 and the smoke configs' 16 the mma.sync
+    kernel; f32 the SIMT kernel."""
+    assert fa.flash_route(dtype, Dh) == route
+    assert route in fa.ROUTES and set(fa.KERNEL.route_launches) == set(
+        fa.ROUTES)
+
+
+def _emulate_wgmma(q, k, v, *, causal, window, stats=None):
+    """The wgmma route's arithmetic in plain PyTorch.  Per kv head, the G
+    query heads of a position are neighbouring rows (row = position * G +
+    head), 128 rows to a tile (128 // G positions); a tile visits the
+    64-key tiles from the first any of its rows can see to the last.  Q is
+    multiplied by the bf16 scale and rounded to bf16 when the scale is not
+    a power of two, else the scale is folded into c = log2(e) * scale;
+    scores q . k * c, masked to -1e30 in that exp2 domain; m the running
+    max, alpha = 2^(m_old - m_new), p = 2^(s - m_new) rounded to bf16 for
+    p . v while l sums the f32 p; out = o / max(l, 1e-30).  ``stats``
+    counts the rows whose first visited tile is fully masked."""
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    assert G <= 128
+    P, T = 128 // G, 64
+    scale = torch.tensor(Dh ** -0.5, dtype=q.dtype)
+    folded = math.frexp(float(scale))[0] == 0.5
+    c = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    if folded:
+        c = c * float(scale)
+    else:
+        q = q * scale  # rounded to bf16, as the reference rounds it
+    pad = (-Sk) % T + T
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)).float()
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    out = torch.zeros((B, Sq, Hq, Dh), dtype=torch.float32)
+    for b in range(B):
+        for hk in range(Hkv):
+            for p0 in range(0, Sq, P):
+                p_last = min(p0 + P, Sq) - 1
+                rows = q[b, p0:p_last + 1, hk * G:(hk + 1) * G]
+                qt = rows.reshape(-1, Dh).float()
+                pos = torch.arange(p0, p_last + 1).repeat_interleave(G)
+                hi = min(Sk - 1, p_last) if causal else Sk - 1
+                lo = max(0, p0 - window + 1) if window > 0 else 0
+                m = torch.full((len(pos),), -1e30)
+                l = torch.zeros(len(pos))
+                o = torch.zeros((len(pos), Dh))
+                seen = torch.zeros(len(pos), dtype=torch.bool)
+                for t in range(lo // T, hi // T + 1 if hi >= lo else 0):
+                    j = torch.arange(t * T, t * T + T)
+                    s = qt @ kp[b, t * T:t * T + T, hk].T * c
+                    vis = (j < Sk)[None, :].expand(len(pos), T)
+                    if causal:
+                        vis = vis & (j[None, :] <= pos[:, None])
+                    if window > 0:
+                        vis = vis & (pos[:, None] - j[None, :] < window)
+                    if stats is not None:
+                        stats["masked_first"] = stats.get("masked_first", 0) \
+                            + int((~seen & ~vis.any(1)).sum()) * (t == lo // T)
+                    seen |= vis.any(1)
+                    s = torch.where(vis, s, torch.tensor(-1e30))
+                    m_new = torch.maximum(m, s.amax(1))
+                    alpha = torch.exp2(m - m_new)
+                    pr = torch.exp2(s - m_new[:, None])
+                    l = l * alpha + pr.sum(1)
+                    o = o * alpha[:, None] + pr.to(v.dtype).float() @ \
+                        vp[b, t * T:t * T + T, hk].float()
+                    m = m_new
+                o = o / l.clamp_min(1e-30)[:, None]
+                out[b, p0:p_last + 1, hk * G:(hk + 1) * G] = o.reshape(
+                    p_last + 1 - p0, G, Dh)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,Dh,window,causal", [
+    (1, 100, 100, 4, 1, 64, 1, True),     # G = 4, window 1: out = v
+    (1, 100, 100, 4, 1, 64, 8, True),     # window 8: a first tile all masked
+    (2, 70, 70, 4, 1, 128, 8, True),      # Dh 128: q * scale rounded first
+    (1, 77, 77, 6, 2, 64, 0, True),       # G = 3: 42 positions, 126 rows
+    (1, 50, 90, 4, 1, 64, 0, False),      # Sq != Sk, not causal
+    (1, 90, 50, 4, 4, 128, 48, True),     # G = 1, Sq > Sk (every row sees a
+                                          # key: the contract leaves one
+                                          # that sees none undefined)
+])
+def test_wgmma_route_arithmetic_matches_the_plain_version(B, Sq, Sk, Hq, Hkv,
+                                                          Dh, window, causal):
+    """The emulation within the card's bf16 tolerance of the plain version
+    (rtol 1e-2 + atol 2e-3): tiles of 64 keys against the plain version's
+    one block, exp2 against exp, and p rounded to bf16 against another
+    running max move the output by about one bf16 step."""
+    q, k, v = _qkv(Sq + Hq, B, Sq, Hq, Hkv, Dh, torch.bfloat16, Sk=Sk)
+    stats = {}
+    got = _emulate_wgmma(q, k, v, causal=causal, window=window, stats=stats)
+    want = tref.flash_attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **CUDA_TOL[torch.bfloat16])
+    if window == 8 and Sq >= 96:  # row 95 of the tile at 64 sees keys
+        # 88-95: its first visited tile (keys 0-63) is all masked
+        assert stats["masked_first"] > 0
+
+
+def test_cpu_tensors_count_no_route_launches():
+    q, k, v = _qkv(0, 1, 8, 4, 1, 64, torch.bfloat16)
+    before = dict(fa.KERNEL.route_launches)
+    fa.flash_attention(q, k, v, window=4)
+    assert fa.KERNEL.route_launches == before
+
+
 @pytest.mark.parametrize("N,D,B,F", [(64, 128, 8, 5), (128, 256, 16, 10),
                                      (32, 128, 4, 25)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -198,31 +321,72 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,Hq,Hkv,Dh,window,causal", [
-    (2, 256, 4, 1, 256, 512, True),          # gemma3: a local layer
-    (2, 300, 4, 1, 256, BIG_WINDOW, True),   # gemma3: a global layer
-    (1, 1000, 4, 1, 256, 1, True),           # ragged, window 1
-    (1, 1000, 4, 4, 128, 0, True),           # ragged, G = 1
-    (2, 130, 8, 2, 80, 64, True),            # stablelm's Dh
-    (1, 77, 4, 1, 16, 8, False),             # the smoke configs' Dh
-    (1, 200, 4, 1, 64, 0, False),
+@pytest.mark.parametrize("B,S,Hq,Hkv,Dh,window,causal,Sk", [
+    (2, 256, 4, 1, 256, 512, True, None),          # gemma3: a local layer
+    (2, 300, 4, 1, 256, BIG_WINDOW, True, None),   # gemma3: a global layer
+    (1, 1000, 4, 1, 256, 1, True, None),           # ragged, window 1
+    (1, 1000, 4, 4, 128, 0, True, None),           # ragged, G = 1
+    (2, 130, 8, 2, 80, 64, True, None),            # stablelm's Dh
+    (1, 77, 4, 1, 16, 8, False, None),             # the smoke configs' Dh
+    (1, 200, 4, 1, 64, 0, False, None),
+    # the wgmma route's edges: G = 1, 3, 4, 5, 8 at Dh 128 and 256 (3 and 5
+    # leave 2 and 3 of a tile's 128 rows empty), Dh 64, ragged S (77, 1000)
+    # against 32-position tiles and 64-key tiles, windows 1, 64, 512 and
+    # >= S, not causal, Sq != Sk
+    (1, 1000, 3, 3, 256, 0, True, None),           # G = 1, Dh 256
+    (1, 1000, 6, 2, 128, 512, True, None),         # G = 3
+    (1, 1000, 12, 4, 256, 64, True, None),         # G = 3
+    (2, 77, 8, 2, 128, 0, True, None),             # G = 4, S 77
+    (1, 1000, 10, 2, 128, 64, True, None),         # G = 5
+    (1, 333, 5, 1, 256, BIG_WINDOW, True, None),   # G = 5
+    (1, 1000, 8, 1, 128, 1, True, None),           # G = 8
+    (2, 500, 8, 1, 256, 512, False, None),         # G = 8, not causal
+    (2, 1000, 8, 2, 64, 1000, True, None),         # Dh 64, window = S
+    (1, 77, 4, 1, 64, 64, True, None),             # Dh 64, S 77
+    (1, 1000, 4, 1, 256, 0, False, None),          # not causal
+    (1, 100, 4, 1, 256, 0, True, 300),             # Sq < Sk
+    (1, 300, 8, 2, 128, 0, False, 100),            # Sq > Sk, not causal
+    # the tile at position 96 visits keys 33-127 for window 64: row 127
+    # sees 64-127, so its first visited tile (keys 0-63) is all masked
+    (1, 1000, 4, 1, 256, 64, True, None),
+    (1, 1000, 4, 1, 128, 64, True, None),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_flash_matches_plain_version(cuda_device, B, S, Hq, Hkv, Dh,
-                                          window, causal, dtype):
+                                          window, causal, Sk, dtype):
     """bf16 within rtol 1e-2 + atol 2e-3 (p is rounded to bf16 against
     another running max and summed in another order, and the output is
     rounded to bf16: one step is at most 2**-7 relative; the absolute part
     covers outputs near 0, and is well below the 0.03 of a typical output
     of a row over 2048 keys);
-    f32 within rtol 1e-3 + atol 2e-4 (summation order only)."""
-    q, k, v = _qkv(S, B, S, Hq, Hkv, Dh, dtype, device=cuda_device)
+    f32 within rtol 1e-3 + atol 2e-4 (summation order only).  The call
+    counts one launch, on the route ``flash_route`` names."""
+    q, k, v = _qkv(S, B, S, Hq, Hkv, Dh, dtype, device=cuda_device, Sk=Sk)
     before = fa.KERNEL.launches
+    routes = dict(fa.KERNEL.route_launches)
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.KERNEL.launches == before + 1
+    route = fa.flash_route(dtype, Dh)
+    routes[route] += 1
+    assert fa.KERNEL.route_launches == routes
+    assert route == ("simt" if dtype == torch.float32 else
+                     "wgmma" if Dh in (64, 128, 256) else "mma_sync")
     want = tref.flash_attention(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_cuda_flash_wgmma_route_refuses_unaligned_inputs(cuda_device):
+    """TMA reads 16-byte aligned memory: a contiguous view that starts 2
+    bytes into its storage is refused, not read wrongly."""
+    q, k, v = _qkv(0, 1, 64, 4, 1, 128, torch.bfloat16, device=cuda_device)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError):
+        fa.flash_attention(shifted, k, v)
 
 
 @pytest.mark.gpu
