@@ -11,7 +11,8 @@ result line):
 2. Build: every hand-written kernel (``repro_torch.kernels.KERNELS``),
    compiled from the sources in this checkout, one nvcc per source, all
    started together; registers and spills of each kernel function as
-   ptxas reports them (a spill in the wgmma flash kernel fails the run).
+   ptxas reports them (a spill in the wgmma flash kernel, the fused
+   gather or the sampling chain fails the run).
 3. Graph + plans: ``synthetic_instance("PA", 1M vertices)``, a one-GPU
    Legion plan with a 300 MB cache, fanouts (25, 10), and the 2 x 2
    hierarchy of ``topology_matrix("dgx-v100", 4)`` (two cliques of two
@@ -21,9 +22,19 @@ result line):
    (taken from a real 256-seed micro-batch, a real 8000-seed training
    batch and a real 8000-seed sharded step: one mesh position's routed
    gather, and the routed sampler's hop 0 (2000 x 25) and hop 1
-   (50,000 x 10)) and at edge cases (bf16, D = 100, one-row sources, an
-   int32 D = 1 table, out-of-range and multi-dimensional indices, an empty
-   update, all misses, one owning shard, degree-0 rows, draws near 2^31);
+   (50,000 x 10)) and at edge cases (bf16, D = 100, rows of 512 bytes in
+   bf16 and of 4096 bytes, 4- and 1-byte aligned sources, a batch not a
+   multiple of 32, all padding, one-row sources, an int32 D = 1 table,
+   out-of-range and multi-dimensional indices, an empty update, all
+   misses, one owning shard, degree-0 rows, draws near 2^31); the routed
+   sampler's chain entry (every hop in one launch, routing included)
+   bitwise against its plain version at the sharded position's 2000 seeds
+   and a one-GPU training batch of 8000 seeds, with 1 and 3 hops, seeds
+   of -1, uncached seeds, degree-0 rows, all misses, an empty topology
+   cache, draws near 2^31 and out-of-range routing, then timed beside its
+   byte bound, the two per-hop kernels on the same draws, and the per-hop
+   (``device_sample_cached`` looped) and chain (``device_sample_chain``)
+   compositions;
    ``sage_aggregate``, which no path runs, at a GraphSAGE first-layer shape
    of the training cell (200,000 rows x 10 neighbours over a 416,768 x 128
    f32 table), in bf16, with a row of pads only, F = 1 and D = 100; then
@@ -71,7 +82,9 @@ result line):
    S = 77, 1000 with window 1, 64 (a row's first visited tile all masked),
    512 and >= S, not causal, Sq != Sk, G = 1, 3, 4, 5 and 8, Dh 64, 80,
    128 and 256; then timed at the two prefill shapes beside its bound (bf16
-   operations at 989 TFLOP/s or bytes, the larger) and SDPA.
+   operations at 989 TFLOP/s or bytes, the larger) and SDPA; and on the
+   card a call autograd would differentiate must raise (the kernels are
+   forward only).
 12. LM serve: ``generate`` for 4 prompts of 4096 tokens (numpy, seed 1),
    then 32 greedy tokens: prefill ms, decode ms per step (CUDA events
    after each step; ``generate`` syncs only after the loop), tokens/s, peak
@@ -88,7 +101,9 @@ result line):
 
 Every kernel's launch count is zeroed just before each of the serve,
 train, parity, unfused, shard, shard-parity, lm-serve and lm-parity phases
-and read just after; ``sage_aggregate``'s stay 0 (no path runs it).
+and read just after, with the launches by route; ``sage_aggregate``'s stay
+0 (no path runs it), and ``routed_neighbor_sample`` launches once per
+device-sampling spec build, on its ``chain`` route, never per hop.
 The last three lines are the card's name and power limit, the
 ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the rest of the repository beside it, the script
@@ -98,6 +113,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -107,6 +123,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
+SPIN_CYCLES = 2_000_000    # time_ms's device spin: about 1 ms at 1.98 GHz
 N_VERTICES = 1_000_000
 MEM_PER_DEVICE = 300e6
 MAX_BATCH = 256
@@ -149,6 +166,11 @@ TOLERANCE = {"flash_attention": {"bfloat16": {"rtol": 1e-2, "atol": 2e-3},
 LM_DECODE_GAP = 0.15
 # smoke logits card vs CPU: measured 9.8e-4, one bf16 step at |logit| 0.125+
 LM_SMOKE_ATOL = 5e-3
+# kernel functions whose ptxas report must show no spill: the ones
+# redesigned for Hopper (the wgmma flash kernel, the fused gather, the
+# sampling chain)
+SPILL_FREE = ("flash_fwd_wgmma", "fused_gather_overlay_kernel",
+              "routed_neighbor_sample_chain_kernel")
 # kernels that no path of either package runs (their launches stay 0)
 NO_PATH = {"sage_aggregate": "called only by its tests in the reference"}
 
@@ -170,8 +192,6 @@ def ptxas_functions(log: str) -> list:
 def demangle(sym: str) -> str:
     """The last name of an Itanium-mangled symbol, with its integer template
     arguments: ``_ZN..15flash_fwd_wgmmaILi256EEEv..`` -> ``flash_fwd_wgmma<256>``."""
-    import re
-
     pos = 3 if sym.startswith("_ZN") else 2
     name = sym
     while pos < len(sym) and sym[pos].isdigit():
@@ -196,13 +216,17 @@ def smi() -> str:
 
 def time_ms(torch, fn, args, n: int, flush) -> float:
     """Median per-launch device time, L2 flushed before each launch (a batch
-    finds its rows cold: the forward and backward run in between)."""
+    finds its rows cold: the forward and backward run in between).  After
+    the flush the device spins for about a millisecond, so the call's host
+    work (the wrapper's checks, the launch) is enqueued before the start
+    event is reached and never counts as device time."""
     fn(*args)
     torch.cuda.synchronize()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn(*args)
         e.record()
@@ -246,10 +270,23 @@ def scatter_rows_bytes(n_table: int, n_idx: int, row_bytes: int) -> int:
 # ---- the cases of each kernel: name -> wrapper arguments, plus the timed
 # ---- shapes (name, args, bytes, library call or None) --------------------
 
+def offset_copy(torch, t, nbytes: int):
+    """A contiguous copy of ``t`` whose data starts ``nbytes`` past a
+    16-byte boundary."""
+    size = t.numel() * t.element_size()
+    raw = torch.zeros(size + 16, dtype=torch.uint8, device=t.device)
+    out = raw[nbytes:nbytes + size].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def fused_gather_overlay_cases(torch, ctx, seed: int = 0):
     """The serving and training shapes as given, the serving shape in bf16,
-    a random D = 100 instance with the same hit/miss/pad mix, and one-row
-    sources (an empty cache's dummy table, a one-row miss buffer)."""
+    with the same hit/miss/pad mix: random rows of 400 bytes (D = 100 f32),
+    512 bytes in bf16 (D = 256) and 4096 bytes (D = 1024 f32), 4-byte and
+    1-byte aligned sources, a batch that is not a multiple of 32, all
+    padding and all misses; and one-row sources (an empty cache's dummy
+    table, a one-row miss buffer)."""
     table, s, t = ctx["table"], ctx["serve"], ctx["train"]
     idx, miss, inv = s["idx"], s["miss"], s["inv"]
     gen = torch.Generator(device=table.device).manual_seed(seed)
@@ -257,6 +294,20 @@ def fused_gather_overlay_cases(torch, ctx, seed: int = 0):
     t100 = torch.randn((50_000, 100), generator=gen, device=dev)
     m100 = torch.randn((miss.shape[0], 100), generator=gen, device=dev)
     idx100 = torch.where(idx >= 0, idx % t100.shape[0], idx)
+    t256 = torch.randn((50_000, 256), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    m256 = torch.randn((miss.shape[0], 256), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    t1024 = torch.randn((20_000, 1024), generator=gen, device=dev)
+    m1024 = torch.randn((miss.shape[0], 1024), generator=gen, device=dev)
+    idx20k = torch.where(idx >= 0, idx % t1024.shape[0], idx)
+    u8t = torch.randint(0, 256, (50_000, 100), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    u8m = torch.randint(0, 256, (miss.shape[0], 100), generator=gen,
+                        device=dev, dtype=torch.uint8)
+    B = idx.shape[0]
+    odd = B - 13
+    pad = torch.full_like(idx, -1)
     one_t = torch.zeros((1, table.shape[1]), device=dev)
     one_m = torch.arange(table.shape[1], dtype=torch.float32,
                          device=dev)[None, :] + 1.0
@@ -269,6 +320,18 @@ def fused_gather_overlay_cases(torch, ctx, seed: int = 0):
         "serve_bf16": (table.to(torch.bfloat16), idx,
                        miss.to(torch.bfloat16), inv),
         "d100_f32": (t100, idx100, m100, inv),
+        "d256_bf16_512B": (t256, idx100, m256, inv),
+        "d1024_f32_4096B": (t1024, idx20k, m1024, inv),
+        "aligned_4B": (offset_copy(torch, table, 4), idx,
+                       offset_copy(torch, miss, 4), inv),
+        "aligned_1B_uint8": (offset_copy(torch, u8t, 1), idx100,
+                             offset_copy(torch, u8m, 3), inv),
+        "b_not_multiple_of_32": (table, idx[:odd].contiguous(), miss,
+                                 inv[:odd].contiguous()),
+        "all_padding": (table, pad, miss, pad),
+        "all_misses": (table, idx, miss,
+                       (torch.arange(B, device=dev, dtype=torch.int32)
+                        % miss.shape[0])),
         "one_row_sources": (one_t, one_idx, one_m, one_inv),
     }
     row = table.shape[1] * table.element_size()
@@ -442,6 +505,231 @@ def routed_neighbor_sample_cases(torch, ctx, seed: int = 4):
              ("hop0", cases["hop0"], routed_sample_bytes(*cases["hop0"]),
               None)]
     return cases, timed
+
+
+def routed_chain_bytes(indptr, indices, topo_owner, topo_local, seeds,
+                       rands) -> int:
+    """routed_neighbor_sample_chain: the seeds and every hop's draws read
+    once, the routing (owner and slot) of every distinct frontier vertex
+    read once, every distinct indptr entry an owned row needs read once,
+    every distinct neighbor id sampled read once; every hop's neighbors and
+    hit flags written once."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    k, R1 = indptr.shape
+    E = indices.shape[1]
+    N = topo_owner.shape[0]
+    verts, entries, reads = [], [], []
+    frontier = seeds
+    total = seeds.numel() * 8
+    for rand in rands:
+        valid = frontier >= 0
+        v = frontier[valid].clamp_max(N - 1)
+        verts.append(v)
+        o_raw = topo_owner[v].to(torch.int64)
+        own = o_raw >= 0
+        o = o_raw[own].clamp_max(k - 1)
+        lo = topo_local[v][own].clamp(0, R1 - 1)
+        l1 = (lo + 1).clamp_max(R1 - 1)
+        entries += [o * R1 + lo, o * R1 + l1]
+        start = indptr[o, lo]
+        deg = indptr[o, l1] - start
+        rows = torch.nonzero(valid).reshape(-1)[own]
+        offs = rand[rows] % deg.clamp_min(1)[:, None]
+        idx = (start[:, None] + offs).clamp(0, E - 1)
+        reads.append((o[:, None] * E + idx)[deg > 0].reshape(-1))
+        total += rand.numel() * 8 + rand.numel() * 4 + rand.shape[0]
+        outs, _ = ref.routed_neighbor_sample_chain(
+            indptr, indices, topo_owner, topo_local, frontier, [rand])
+        frontier = outs[0].reshape(-1).to(torch.int64)
+    uniq = [torch.unique(torch.cat(x)).numel() if x else 0
+            for x in (verts, entries, reads)]
+    return total + uniq[0] * (4 + 8) + uniq[1] * 8 + uniq[2] * 4
+
+
+def chain_edge_cases(torch, np, sample, seed: int = 7) -> dict:
+    """The chain at the sharded position's shape with 1 and 3 hops, seeds
+    of -1, uncached seeds, degree-0 rows (every slot routed to the pad
+    row), all misses, an empty topology cache, draws near 2^31, and owners
+    and slots out of range."""
+    ip, ix, owner, local, seeds, (r0, r1) = sample["chain"]
+    dev = seeds.device
+    k, R1 = ip.shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draws(n, fanouts):
+        out = []
+        for f in fanouts:
+            out.append(torch.randint(0, 1 << 31, (n, f), generator=gen,
+                                     device=dev, dtype=torch.int64))
+            n *= f
+        return out
+
+    minus = seeds.clone()
+    minus[::5] = -1
+    uncached = torch.nonzero(owner < 0).reshape(-1)
+    uncached = uncached[torch.randint(0, uncached.numel(), seeds.shape,
+                                      generator=gen, device=dev)]
+    mixed = torch.where(torch.arange(seeds.numel(), device=dev) % 2 == 0,
+                        seeds, uncached)
+    near0, near1 = r0.clone(), r1.clone()
+    near0[::3] = (1 << 31) - 1 - torch.arange(near0.shape[1], device=dev)
+    near1[1::3] = (1 << 31) - 1 - torch.arange(near1.shape[1], device=dev)
+    bad_o, bad_l = owner.clone(), local.clone()
+    bad_o[::101] = k + 2
+    bad_o[1::103] = -5
+    bad_l[::71] = R1 + 3
+    bad_l[1::73] = -2
+    s3 = seeds[:200].contiguous()
+    return {
+        "position_1_hop": (ip, ix, owner, local, seeds, [r0]),
+        "position_2_hops": sample["chain"],
+        "position_3_hops": (ip, ix, owner, local, s3,
+                            draws(s3.numel(), (25, 10, 4))),
+        "seeds_of_-1": (ip, ix, owner, local, minus, [r0, r1]),
+        "uncached_seeds": (ip, ix, owner, local, mixed, [r0, r1]),
+        "degree_0_rows": (ip, ix, owner, torch.full_like(local, R1 - 1),
+                          seeds, [r0, r1]),
+        "all_misses": (ip, ix, torch.full_like(owner, -1), local, seeds,
+                       [r0, r1]),
+        "empty_topology_cache": (
+            torch.zeros((k, 1), dtype=torch.int64, device=dev),
+            torch.zeros((k, 1), dtype=torch.int32, device=dev),
+            torch.full_like(owner, -1), local, seeds, [r0, r1]),
+        "draws_near_2^31": (ip, ix, owner, local, seeds, [near0, near1]),
+        "out_of_range": (ip, ix, bad_o, bad_l, seeds, [r0, r1]),
+    }
+
+
+def per_hop_composition(cache, seeds, fanouts, rands):
+    """The chain as it ran before the chain kernel: ``device_sample_cached``
+    hop after hop (routing glue, pageable upload of the draws, the per-hop
+    kernel), each hop fed the previous hop's device output."""
+    frontier = seeds
+    for f, r in zip(fanouts, rands):
+        out, _ = cache.device_sample_cached(frontier, f, rand=r)
+        frontier = out.reshape(-1)
+
+
+def composition_cost(torch, fn, args, flush, n: int = 10) -> dict:
+    """One composition of host and device work (``device_sample_cached``
+    looped, or ``device_sample_chain``) per call, L2 flushed before each:
+    its device operations and their summed device time (torch.profiler),
+    and the host wall time of the call up to a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    walls = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(n):
+            flush.zero_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.profiler.record_function("composition"):
+                fn(*args)
+                torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    events = prof.events()
+    rows = []
+    for e in events:
+        if e.name == "composition" \
+                and e.device_type == torch.autograd.DeviceType.CPU:
+            rows += device_rows(torch, events, e.time_range.start,
+                                e.time_range.end)
+    wall = sorted(walls)[len(walls) // 2]
+    if not rows:
+        return {"device_ops": None, "device_ms": None, "wall_ms": wall}
+    return {"device_ops": len(rows) / n,
+            "device_ms": sum(t - s for s, t, _ in rows) / n / 1e3,
+            "wall_ms": wall}
+
+
+def check_and_time_chain(torch, np, k, measured, contexts, flush,
+                         card) -> None:
+    """The chain entry of ``routed_neighbor_sample``: bitwise against its
+    plain version on the edge cases and at the timed shapes (outputs and
+    hit masks, inputs unchanged), then at each timed shape the kernel, the
+    plain version and the two per-hop kernels on the same draws (summed),
+    beside the byte bound, the same method's floor (an empty kernel,
+    ``torch.cuda._sleep(0)``) and the chain cut to its first hop; and the
+    per-hop composition (``device_sample_cached`` looped) against the
+    chain composition (``device_sample_chain``: one upload, one kernel):
+    device operations, their device time and the host wall time per call.
+    Adds its timed shapes first in ``measured["timed"]``."""
+    from repro_torch.kernels import gather, ref
+
+    cases = chain_edge_cases(torch, np, contexts["position"])
+    for shape, c in contexts.items():
+        cases[f"chain_{shape}"] = c["chain"]
+    for name, args in cases.items():
+        snap = [t.clone() for t in args[:5]] + [r.clone() for r in args[5]]
+        got_o, got_h = gather.routed_neighbor_sample_chain(*args)
+        want_o, want_h = ref.routed_neighbor_sample_chain(*args)
+        torch.cuda.synchronize()
+        if len(got_o) != len(args[5]) or not all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(got_o + got_h, want_o + want_h)):
+            raise AssertionError(f"routed_neighbor_sample_chain != plain "
+                                 f"version on case {name}")
+        if not all(torch.equal(a, b)
+                   for a, b in zip(list(args[:5]) + list(args[5]), snap)):
+            raise AssertionError("routed_neighbor_sample_chain wrote one of "
+                                 f"its inputs (case {name})")
+        measured["errs"][f"chain:{name}"] = 0.0
+    print(f"[kernel] routed_neighbor_sample chain: bitwise equal (neighbors "
+          f"and hit masks) on {sorted(cases)}; inputs unchanged | {card}")
+    timed = {}
+    floor = time_ms(torch, torch.cuda._sleep, (0,), TIMED_LAUNCHES, flush)
+    for shape, c in contexts.items():
+        args = c["chain"]
+        first = (*args[:5], args[5][:1])
+        n_args = (c["cache"], c["seeds"], c["fanouts"], c["rands"])
+        runs = []
+        for _ in range(2):  # kernel, plain, per-hop kernels, first hop
+            r = [time_ms(torch, gather.routed_neighbor_sample_chain, args,
+                         TIMED_LAUNCHES, flush),
+                 time_ms(torch, ref.routed_neighbor_sample_chain, args,
+                         TIMED_LAUNCHES, flush),
+                 sum(time_ms(torch, gather.routed_neighbor_sample, h,
+                             TIMED_LAUNCHES, flush) for h in c["hops"]),
+                 time_ms(torch, gather.routed_neighbor_sample_chain, first,
+                         TIMED_LAUNCHES, flush)]
+            runs.append(r)
+        mean = [float(np.mean([r[i] for r in runs])) for i in range(4)]
+        per_hop = composition_cost(torch, per_hop_composition, n_args, flush)
+        chain = composition_cost(torch, c["cache"].device_sample_chain,
+                                 n_args[1:], flush)
+        nbytes = routed_chain_bytes(*args)
+        res = {"ms": mean[0], "plain_ms": mean[1], "library_ms": None,
+               "library_call": None,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "bytes": int(nbytes), "flops": None,
+               "per_hop_kernels_ms": mean[2], "first_hop_ms": mean[3],
+               "launch_floor_ms": floor,
+               "per_hop_composition": per_hop, "chain_composition": chain,
+               "seeds": len(c["seeds"]), "fanouts": list(c["fanouts"])}
+        timed[f"chain_{shape}"] = res
+        print(f"[kernel] routed_neighbor_sample chain @ {shape} "
+              f"({len(c['seeds'])} seeds, fanouts {c['fanouts']}): kernel "
+              f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+              f"{res['bound_ms']:.4f} ms by bytes ({nbytes / 1e6:.2f} MB); "
+              f"the per-hop kernels on the same draws {mean[2]:.4f} ms "
+              f"summed (chain / per-hop {mean[0] / mean[2]:.3f}); the chain "
+              f"cut to its first hop {mean[3]:.4f} ms; an empty kernel "
+              f"timed the same way {floor:.4f} ms; runs {runs} | {card}")
+        print(f"[kernel] routed_neighbor_sample compositions @ {shape}, per "
+              f"call: per hop (device_sample_cached x {len(c['fanouts'])}) "
+              f"{per_hop['device_ops']} device operations, "
+              f"{per_hop['device_ms']} ms of device time, wall "
+              f"{per_hop['wall_ms']:.4f} ms; chain (device_sample_chain) "
+              f"{chain['device_ops']} device operations, "
+              f"{chain['device_ms']} ms of device time, wall "
+              f"{chain['wall_ms']:.4f} ms (torch.profiler on) | {card}")
+    measured["timed"] = timed | measured["timed"]
 
 
 def sage_aggregate_bytes(table, idx) -> int:
@@ -724,7 +1012,7 @@ def device_rows(torch, events, w0=None, w1=None):
     out = []
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA \
-                or e.name == "device_step":
+                or e.name in ("device_step", "composition"):
             continue
         s, t = e.time_range.start, e.time_range.end
         if w0 is not None:
@@ -799,12 +1087,29 @@ def read_launches(kernels) -> dict:
     return {k.name: k.kernel.launches for k in kernels}
 
 
+def read_routes(kernels) -> dict:
+    """The launches by route of each kernel that has routes."""
+    return {k.name: dict(k.kernel.route_launches) for k in kernels
+            if k.kernel.route_launches}
+
+
 def expect(counts: dict) -> dict:
     """A phase's expected launches: ``counts``, and 0 for every other
     kernel."""
     from repro_torch.kernels import KERNELS
 
     return {k.name: counts.get(k.name, 0) for k in KERNELS}
+
+
+def expect_chains(phase: str, routes: dict, builds: int) -> None:
+    """Every device-sampling spec build of a GNN phase runs its whole chain
+    in one ``routed_neighbor_sample`` launch on the ``chain`` route; the
+    per-hop route is never taken."""
+    got = routes["routed_neighbor_sample"]
+    if got != {"hop": 0, "chain": builds}:
+        raise AssertionError(f"{phase}: routed_neighbor_sample launches by "
+                             f"route {got}, expected {builds} on the chain "
+                             f"route, one per spec build")
 
 
 def train_breakdown(torch, np, g, plan, cfg, params, n: int):
@@ -919,35 +1224,53 @@ def upload_packed(torch, np, plan, groups, feat_dim: int):
                    for k, v in packed.items()}, miss_bytes
 
 
+def chain_context(torch, np, cache, seeds, fanouts, seed: int) -> dict:
+    """Inputs of one sampling chain on ``cache`` (sharded topology mode):
+    the seeds and the sampler's draws (numpy, as ``cache_sample_dispatch``
+    draws them: int64 in [0, 2^31)), the chain kernel's arguments on the
+    card, and each hop's arguments of the per-hop kernel on the same draws
+    (the routing glue of ``device_sample_cached``, hop 1's frontier sampled
+    with the plain version)."""
+    from repro_torch.kernels import ref
+
+    da = cache.device_arrays()
+    rng = np.random.default_rng(seed)
+    seeds = np.asarray(seeds, dtype=np.int64)
+    rands, n = [], len(seeds)
+    for f in fanouts:
+        rands.append(rng.integers(0, 1 << 31, size=(n, f)))
+        n *= f
+    ip, ix = da["topo_shard_indptr"], da["topo_shard_indices"]
+    routing = (ip, ix, da["topo_owner"], da["topo_local"])
+    chain = (*routing, torch.from_numpy(seeds).cuda(),
+             [torch.from_numpy(r).cuda() for r in rands])
+    hops, frontier = [], chain[4]
+    for r in chain[5]:
+        safe = frontier.clamp_min(0)
+        owner = torch.where(frontier >= 0, da["topo_owner"][safe], -1)
+        local = da["topo_local"][safe].to(torch.int32)
+        hops.append((ip, ix, owner.contiguous(), local.contiguous(), r))
+        frontier = ref.routed_neighbor_sample_dense(*hops[-1]).reshape(-1) \
+            .to(torch.int64)
+    return {"cache": cache, "seeds": seeds, "rands": rands,
+            "fanouts": tuple(fanouts), "chain": chain, "hops": hops}
+
+
 def shard_context(torch, np, g, plan, cfg, card) -> dict:
     """Kernel inputs taken from a real sharded step at paper width: clique
     0's shard stack and position (0, 0)'s routing for ``routed_gather``;
-    clique 0's CSR shards and position (0, 0)'s hop-0 frontier (its seeds,
-    2000 x 25 draws) and hop-1 frontier (the hop-0 samples, 50,000 x 10
-    draws, sampled with the plain version) for ``routed_neighbor_sample``."""
-    from repro_torch.kernels import ref
-
+    clique 0's CSR shards, position (0, 0)'s 2000 seeds and the sampler's
+    draws (2000 x 25, then 50,000 x 10) for ``routed_neighbor_sample``: the
+    chain, and its hop 0 and hop 1 on the per-hop kernel."""
     groups, _ = sharded_specs(np, g, plan, cfg, seed=5)
     stack, packed, _ = upload_packed(torch, np, plan, groups, g.feat_dim)
-    da = plan.caches[0].device_arrays()
-    rng = np.random.default_rng(6)
-
-    def hop(frontier, f):
-        safe = frontier.clamp_min(0).to(torch.int64)
-        owner = torch.where(frontier >= 0, da["topo_owner"][safe], -1)
-        local = da["topo_local"][safe].to(torch.int32)
-        rand = torch.from_numpy(rng.integers(0, 1 << 31,
-                                             size=(frontier.numel(), f)))
-        return owner.contiguous(), local.contiguous(), rand.cuda()
-
-    seeds = torch.from_numpy(groups[0][0].levels[0]).cuda()
-    ip, ix = da["topo_shard_indptr"], da["topo_shard_indices"]
-    hop0 = hop(seeds, cfg.fanouts[0])
-    out0 = ref.routed_neighbor_sample_dense(ip, ix, *hop0)
-    hop1 = hop(out0.reshape(-1), cfg.fanouts[1])
+    sample = chain_context(torch, np, plan.caches[0],
+                           groups[0][0].levels[0], cfg.fanouts, seed=6)
+    hop0, hop1 = (h[2:] for h in sample["hops"])
     ctx = {"shards": stack[0], "owner": packed["owner"][0, 0],
-           "local": packed["local"][0, 0], "indptr": ip, "indices": ix,
-           "hop0": hop0, "hop1": hop1}
+           "local": packed["local"][0, 0], "indptr": sample["chain"][0],
+           "indices": sample["chain"][1], "hop0": hop0, "hop1": hop1,
+           "sample": sample}
     s = groups[0][0]
     n = s.n_ids
     peer = int((s.owner[:n] >= 0).sum() - (s.owner[:n] == 0).sum())
@@ -1158,6 +1481,36 @@ def route_rule_agrees(torch, fa) -> None:
                                      f"{flash_route(dtype, dh)}")
 
 
+def flash_refuses_autograd(torch, fa, card) -> None:
+    """The CUDA kernels are forward only: a call autograd would
+    differentiate (grad mode on, q, k or v requiring grad) must raise
+    without a launch, and the same inputs under ``torch.no_grad()`` run."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn((1, 64, 4, 256), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    k, v = k[:, :, :1].contiguous(), v[:, :, :1].contiguous()
+    before = fa.kernel.launches
+    for name in ("q", "k", "v"):
+        args = {"q": q, "k": k, "v": v}
+        args[name] = args[name].clone().requires_grad_()
+        try:
+            flash_attention(**args)
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            raise AssertionError(f"flash_attention on CUDA gave an output "
+                                 f"with {name} requiring grad")
+        with torch.no_grad():
+            flash_attention(**args)
+    torch.cuda.synchronize()
+    if fa.kernel.launches != before + 3:
+        raise AssertionError("flash_attention launched under autograd")
+    print(f"[lm] flash_attention on CUDA refuses autograd for q, k and v "
+          f"(RuntimeError: {msg[:60]}...), runs under no_grad | {card}")
+
+
 def gap_summary(gap, window: int) -> str:
     return (f"max {gap.max():.4e} (positions < {window}: "
             f"{gap[:window].max():.4e}, >= {window}: {gap[window:].max():.4e})"
@@ -1209,10 +1562,9 @@ def main() -> int:
         print(f"[build] {k.name}: nvcc {k.kernel.build_s:.2f}s | {card}")
         for fn, lines in ptxas_functions(k.kernel.build_log):
             print(f"[build] {k.name}: {fn}: {'; '.join(lines)}")
-            spills = [ln for ln in lines if "spill" in ln
-                      and not ln.startswith("0 bytes stack frame, 0 bytes "
-                                            "spill stores, 0 bytes spill")]
-            if fn.startswith("flash_fwd_wgmma") and spills:
+            spills = [ln for ln in lines if any(
+                int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+            if fn.startswith(SPILL_FREE) and spills:
                 raise AssertionError(f"{fn} spills registers: {spills}")
         for line in k.kernel.build_log.splitlines():
             if "warning" in line.lower():
@@ -1281,10 +1633,17 @@ def main() -> int:
            "csr_col": cache.device_arrays()["cache_indices"][:, None]
            .contiguous(),
            "shard": shard_context(torch, np, g, splan, GRAPHSAGE, card)}
+    train_seeds = tablet[rng.integers(0, len(tablet), GRAPHSAGE.batch_size)]
+    chains = {"position": ctx["shard"]["sample"],
+              "train": chain_context(torch, np, cache, train_seeds,
+                                     GRAPHSAGE.fanouts, seed=9)}
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     measured = {k.name: check_and_time(torch, np, k, ctx, flush, card)
                 for k in KERNELS if k.name != "flash_attention"}
-    del ctx
+    sk = next(k for k in KERNELS if k.name == "routed_neighbor_sample")
+    check_and_time_chain(torch, np, sk, measured[sk.name], chains, flush,
+                         card)
+    del ctx, chains
 
     # ---- 4b. where the time goes (serving layers, one batch at a time) ----
     params = init_from_defs(gnn_defs(GRAPHSAGE),
@@ -1307,7 +1666,7 @@ def main() -> int:
 
     # ---- 5. serve ----------------------------------------------------------
     phase_launches = {}
-    phase_routes = {}  # flash_attention's launches by route, LM phases
+    phase_routes = {}  # each phase's launches by route (read_routes)
     srv = GNNServer(g, plan, GRAPHSAGE, params, device="cuda",
                     config=ServeConfig(max_batch=MAX_BATCH,
                                        oracle_check=True), seed=0)
@@ -1323,15 +1682,15 @@ def main() -> int:
     wall = time.perf_counter() - t0
     srv.stop()
     phase_launches["serve"] = read_launches(KERNELS)
+    phase_routes["serve"] = read_routes(KERNELS)
     s = srv.summary()
-    hops = len(GRAPHSAGE.fanouts)
     if phase_launches["serve"] != expect({"fused_gather_overlay": s["batches"],
                                    "gather_rows": 0, "scatter_rows": 0,
                                    "routed_gather": 0,
-                                   "routed_neighbor_sample":
-                                       hops * s["batches"]}):
+                                   "routed_neighbor_sample": s["batches"]}):
         raise AssertionError(f"serve launches {phase_launches['serve']} for "
                              f"{s['batches']} micro-batches")
+    expect_chains("serve", phase_routes["serve"], s["batches"])
     if s["oracle_mismatches"] or s["oracle_checks"] != s["batches"]:
         raise AssertionError(f"oracle check failed: {s}")
     for req, res in zip(requests, results):
@@ -1363,6 +1722,7 @@ def main() -> int:
     res = train_gnn(g, tplan, GRAPHSAGE, steps=TRAIN_STEPS, **train_kw)
     wall = time.perf_counter() - t0
     phase_launches["train"] = read_launches(KERNELS)
+    phase_routes["train"] = read_routes(KERNELS)
     if len(res.losses) != TRAIN_STEPS or not np.isfinite(res.losses).all():
         raise AssertionError(f"training losses: {res.losses}")
     ref = res.refresh
@@ -1371,10 +1731,11 @@ def main() -> int:
         raise AssertionError(f"no refresh admitted rows: {ref}")
     want = expect({"fused_gather_overlay": TRAIN_STEPS, "gather_rows": 0,
             "scatter_rows": admitting, "routed_gather": 0,
-            "routed_neighbor_sample": hops * TRAIN_STEPS})
+            "routed_neighbor_sample": TRAIN_STEPS})
     if phase_launches["train"] != want:
         raise AssertionError(f"train launches {phase_launches['train']}, "
                              f"expected {want}")
+    expect_chains("train", phase_routes["train"], TRAIN_STEPS)
     st = np.array(res.step_times)
     print(f"[train] GraphSAGE-256 batch {GRAPHSAGE.batch_size} fanouts "
           f"{GRAPHSAGE.fanouts}: {TRAIN_STEPS} steps in {wall:.3f}s; step "
@@ -1457,6 +1818,7 @@ def main() -> int:
     dev_run = train_gnn(g, fresh_copy(plan), cfg_p, steps=PARITY_STEPS,
                         backend="device", **par_kw)
     phase_launches["parity"] = read_launches(KERNELS)
+    phase_routes["parity"] = read_routes(KERNELS)
     if host.losses != dev_run.losses or host.accs != dev_run.accs:
         raise AssertionError(f"host/device losses differ: {host.losses} vs "
                              f"{dev_run.losses}")
@@ -1471,10 +1833,11 @@ def main() -> int:
                     if e["admitted"] > 0)
     want = expect({"fused_gather_overlay": PARITY_STEPS, "gather_rows": 0,
             "scatter_rows": admitting, "routed_gather": 0,
-            "routed_neighbor_sample": hops * PARITY_STEPS})
+            "routed_neighbor_sample": PARITY_STEPS})
     if phase_launches["parity"] != want:
         raise AssertionError(f"parity launches {phase_launches['parity']}, "
                              f"expected {want}")
+    expect_chains("parity", phase_routes["parity"], PARITY_STEPS)
     print(f"[parity] host == device bitwise over {PARITY_STEPS} steps at "
           f"batch {PARITY_BATCH}: losses {dev_run.losses}; "
           f"{dev_run.refresh['refreshes']} refreshes, admitted "
@@ -1485,14 +1848,16 @@ def main() -> int:
     unfused = train_gnn(g, fresh_copy(plan), cfg_p, steps=UNFUSED_STEPS,
                         backend="device", fused=False, **par_kw)
     phase_launches["unfused"] = read_launches(KERNELS)
+    phase_routes["unfused"] = read_routes(KERNELS)
     if unfused.losses != dev_run.losses[:UNFUSED_STEPS]:
         raise AssertionError(f"unfused losses {unfused.losses} != fused "
                              f"{dev_run.losses[:UNFUSED_STEPS]}")
     want = expect({"fused_gather_overlay": 0, "gather_rows": UNFUSED_STEPS,
             "scatter_rows": 0, "routed_gather": 0,
-            "routed_neighbor_sample": hops * UNFUSED_STEPS})
+            "routed_neighbor_sample": UNFUSED_STEPS})
     if phase_launches["unfused"] != want:
         raise AssertionError(f"unfused launches {phase_launches['unfused']}")
+    expect_chains("unfused", phase_routes["unfused"], UNFUSED_STEPS)
     print(f"[unfused] fused=False == fused over {UNFUSED_STEPS} steps, "
           f"gather_rows launched {UNFUSED_STEPS} times | {card}")
 
@@ -1509,6 +1874,7 @@ def main() -> int:
                     **shard_kw)
     wall = time.perf_counter() - t0
     phase_launches["shard"] = read_launches(KERNELS)
+    phase_routes["shard"] = read_routes(KERNELS)
     if len(res.losses) != SHARD_STEPS or not np.isfinite(res.losses).all():
         raise AssertionError(f"sharded losses: {res.losses}")
     ref = res.refresh
@@ -1517,10 +1883,11 @@ def main() -> int:
         raise AssertionError(f"both cliques must refresh: {ref}")
     want = expect({"fused_gather_overlay": 0, "gather_rows": 0,
             "scatter_rows": admitting, "routed_gather": n_pos * SHARD_STEPS,
-            "routed_neighbor_sample": hops * n_pos * SHARD_STEPS})
+            "routed_neighbor_sample": n_pos * SHARD_STEPS})
     if phase_launches["shard"] != want:
         raise AssertionError(f"shard launches {phase_launches['shard']}, "
                              f"expected {want}")
+    expect_chains("shard", phase_routes["shard"], n_pos * SHARD_STEPS)
     cross = (sc.cross_clique_bytes(cliques), sc.cross_clique_topo_bytes(cliques))
     split = sc.per_clique_split(cliques)
     if cross != (0, 0) or not all(x["peer_bytes"] > 0 for x in split):
@@ -1604,6 +1971,7 @@ def main() -> int:
                                steps=SHARD_PARITY_STEPS, backend="sharded",
                                counter=c, **sp_kw), c))
     phase_launches["shard-parity"] = read_launches(KERNELS)
+    phase_routes["shard-parity"] = read_routes(KERNELS)
     (s1, c1), (s2, _) = runs
     if s1.losses != s2.losses or s1.accs != s2.accs:
         raise AssertionError(f"sharded reruns differ: {s1.losses} vs "
@@ -1628,11 +1996,13 @@ def main() -> int:
     want = expect({"fused_gather_overlay": 0, "gather_rows": 0,
             "scatter_rows": 2 * admitting,
             "routed_gather": 2 * n_pos * SHARD_PARITY_STEPS,
-            "routed_neighbor_sample": 2 * hops * n_pos * SHARD_PARITY_STEPS})
+            "routed_neighbor_sample": 2 * n_pos * SHARD_PARITY_STEPS})
     if phase_launches["shard-parity"] != want:
         raise AssertionError(f"shard-parity launches "
                              f"{phase_launches['shard-parity']}, expected "
                              f"{want}")
+    expect_chains("shard-parity", phase_routes["shard-parity"],
+                  2 * n_pos * SHARD_PARITY_STEPS)
     print(f"[shard-parity] batch {PARITY_BATCH}, {SHARD_PARITY_STEPS} steps: "
           f"sharded vs device max |loss diff| {dl:.3e} (atol 1e-4), max "
           f"|acc diff| {da:.3e} (atol 1e-6); two sharded runs bitwise equal; "
@@ -1664,6 +2034,7 @@ def main() -> int:
     measured[fa.name] = check_and_time(torch, np, fa, {"lm": captured}, flush,
                                        card)
     route_rule_agrees(torch, fa)
+    flash_refuses_autograd(torch, fa, card)
     prefill_routes = {c: r for c, r in measured[fa.name]["routes"].items()
                       if c.startswith("prefill_")}
     if len(prefill_routes) != 2 or any(r != ["wgmma"]
@@ -1682,12 +2053,13 @@ def main() -> int:
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     phase_launches["lm-serve"] = read_launches(KERNELS)
-    phase_routes["lm-serve"] = dict(fa.kernel.route_launches)
+    phase_routes["lm-serve"] = read_routes(KERNELS)
+    fa_routes = phase_routes["lm-serve"][fa.name]
     want = expect({"flash_attention": lm.n_layers})
-    if phase_launches["lm-serve"] != want or phase_routes["lm-serve"] != {
+    if phase_launches["lm-serve"] != want or fa_routes != {
             "wgmma": lm.n_layers, "mma_sync": 0, "simt": 0}:
         raise AssertionError(f"lm-serve launches {phase_launches['lm-serve']}"
-                             f" by route {phase_routes['lm-serve']}, expected "
+                             f" by route {fa_routes}, expected "
                              f"{want}, all on the wgmma route")
     toks = gen.tokens.cpu().numpy()
     if toks.shape != (LM_BATCH, LM_NEW) or toks.min() < 0 or toks.max() >= V \
@@ -1707,7 +2079,7 @@ def main() -> int:
           f"(wall {wall:.3f}s); peak device memory {peak / 2**30:.3f} GiB; "
           f"flash_attention launches {phase_launches['lm-serve'][fa.name]} "
           f"= {lm.n_layers} layers x 1 prefill, by route "
-          f"{phase_routes['lm-serve']} | {card}")
+          f"{fa_routes} | {card}")
     print(f"[lm-serve] tokens of sequence 0: {toks[0].tolist()} | {card}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
@@ -1802,15 +2174,15 @@ def main() -> int:
     sdiff = float((on_card - on_cpu.logits.float()).abs().max())
     same = float((on_card.argmax(-1) == on_cpu.tokens).float().mean())
     phase_launches["lm-parity"] = read_launches(KERNELS)
-    phase_routes["lm-parity"] = dict(fa.kernel.route_launches)
+    phase_routes["lm-parity"] = read_routes(KERNELS)
+    fa_routes = phase_routes["lm-parity"][fa.name]
     want = expect({"flash_attention": lm.n_layers + small.n_layers})
     want_routes = {"wgmma": lm.n_layers, "mma_sync": small.n_layers,
                    "simt": 0}  # the smoke config's head dim is 16
-    if phase_launches["lm-parity"] != want \
-            or phase_routes["lm-parity"] != want_routes:
+    if phase_launches["lm-parity"] != want or fa_routes != want_routes:
         raise AssertionError(f"lm-parity launches "
                              f"{phase_launches['lm-parity']} by route "
-                             f"{phase_routes['lm-parity']}, expected {want} "
+                             f"{fa_routes}, expected {want} "
                              f"by route {want_routes}")
     print(f"[lm-parity] {small.name} batch {B} x prompt {P}, {N} tokens: "
           f"card (kernel, teacher-forced with the CPU's tokens) vs CPU "
@@ -1832,7 +2204,7 @@ def main() -> int:
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": sum(by_phase.values()),
             "launches_by_phase": by_phase,
-            "launches_by_route": ({r: sum(ph.get(r, 0) for ph in
+            "launches_by_route": ({r: sum(ph[k.name][r] for ph in
                                           phase_routes.values())
                                    for r in k.kernel.route_launches}
                                   if k.kernel.route_launches else None),

@@ -609,7 +609,16 @@ class CliqueCache:
         ``(len(flattened frontier_k), fanouts[k])``.  Returns two lists of
         device tensors: per-hop neighbors (flat, fanout) and per-hop
         device-hit masks.
+
+        In sharded topology mode the whole chain is one call of
+        ``kernels.gather.routed_neighbor_sample_chain`` (one kernel launch
+        on a card, routing included): the seeds and every hop's draws go
+        up in one pinned, non-blocking copy, and the results are views of
+        one packed buffer, which ``graph.sampling`` reads back with one
+        copy.  The replicated mode samples hop by hop.
         """
+        if self.topology_mode == "sharded":
+            return self._sharded_chain(seeds, fanouts, rands)
         outs, hits = [], []
         frontier = np.asarray(seeds)
         for f, r in zip(fanouts, rands):
@@ -618,6 +627,34 @@ class CliqueCache:
             hits.append(hit)
             frontier = out.reshape(-1)
         return outs, hits
+
+    def _sharded_chain(self, seeds, fanouts: Sequence[int],
+                       rands: Sequence[np.ndarray]):
+        """``device_sample_chain`` of a sharded topology cache: one upload
+        of the seeds and draws, one chain kernel."""
+        da = self.device_arrays()
+        dev = self.device
+        seeds = np.asarray(seeds, dtype=np.int64).reshape(-1)
+        n = len(seeds)
+        parts = [seeds]
+        for k, (f, r) in enumerate(zip(fanouts, rands)):
+            r = np.asarray(r, dtype=np.int64)
+            if r.shape != (n, f):
+                raise ValueError(f"rands[{k}] must be ({n}, {f}), got "
+                                 f"{r.shape}")
+            parts.append(r.reshape(-1))
+            n *= f
+        host = torch.empty(sum(len(p) for p in parts), dtype=torch.int64,
+                           pin_memory=dev.type == "cuda")
+        bounds = np.cumsum([0] + [len(p) for p in parts])
+        for p, a, b in zip(parts, bounds, bounds[1:]):
+            host[a:b].copy_(torch.from_numpy(p))  # torch's threaded copy
+        up = host.to(dev, non_blocking=True)
+        views = [up[a:b] for a, b in zip(bounds, bounds[1:])]
+        draws = [v.view(-1, f) for v, f in zip(views[1:], fanouts)]
+        return gather.routed_neighbor_sample_chain(
+            da["topo_shard_indptr"], da["topo_shard_indices"],
+            da["topo_owner"], da["topo_local"], views[0], draws)
 
     # ---- accounting + extraction ----
     def split_hits(self, ids: np.ndarray):

@@ -80,9 +80,27 @@ def cache_sample_level(g: CSRGraph, cache, seeds: np.ndarray, fanout: int,
 
 
 def _to_host(outs: Sequence[torch.Tensor], hits: Sequence[torch.Tensor]):
-    """Read every hop's device result back with ONE device-to-host copy:
-    the hops are packed into a single int32 tensor on the device, copied
-    once, and split on the host."""
+    """Read every hop's device result back with ONE device-to-host copy.
+
+    The sharded chain's results are views of one packed buffer
+    (``kernels.gather.routed_neighbor_sample_chain``): that buffer is
+    copied as it is and viewed on the host.  Otherwise the hops are packed into a single int32
+    tensor on the device, copied once, and split on the host."""
+    tensors = list(outs) + list(hits)
+    if tensors and len({t.untyped_storage().data_ptr()
+                        for t in tensors}) == 1 \
+            and all(t.is_contiguous() for t in tensors) \
+            and all(o.dtype == torch.int32 for o in outs) \
+            and all(h.dtype == torch.bool for h in hits):
+        whole = torch.empty(0, dtype=torch.uint8, device=tensors[0].device)
+        flat = whole.set_(tensors[0].untyped_storage()).cpu().numpy()
+        res = []
+        for t in tensors:
+            off = t.storage_offset() * t.element_size()
+            part = flat[off:off + t.numel() * t.element_size()]
+            res.append(part.view(np.int32 if t.dtype == torch.int32
+                                 else np.bool_).reshape(tuple(t.shape)))
+        return res[:len(outs)], res[len(outs):]
     parts = [o.reshape(-1) for o in outs] + [h.reshape(-1).to(torch.int32)
                                              for h in hits]
     flat = torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int32)

@@ -5,7 +5,11 @@ that launches it on CUDA tensors (and runs the plain version on CPU
 tensors), that plain PyTorch version in ``ref.py``, and the reference
 package's TPU kernel it replaces (file:line of the function that reaches
 ``pl.pallas_call``).  Each wrapper counts its launches on its
-``CudaKernel`` (``kernel.launches``), only where it launches.
+``CudaKernel`` (``kernel.launches``), only where it launches.  A source
+may hold several entries, counted by route: ``routed_neighbor_sample``'s
+has the per-hop entry (the wrapper listed here, route ``hop``) and
+``gather.routed_neighbor_sample_chain`` (route ``chain``), which the
+device-sampling paths run.
 """
 from __future__ import annotations
 

@@ -67,19 +67,26 @@ class CudaKernel:
     kernel at once (device sampling), so the increment takes a lock.
     ``build_log`` keeps what ``nvcc -Xptxas -v`` printed (registers, spills)
     and ``build_s`` the compile time (0 when the library was already built).
+    A source may export more C entry points than ``symbol``: ``symbols``
+    maps each further name to its argument types, and ``fn(name)`` loads it
+    from the same library.
     """
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence, routes: Sequence[str] = ()):
+                 argtypes: Sequence, routes: Sequence[str] = (),
+                 symbols: dict | None = None):
         self.name = name
         self.source = _PKG / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.symbols = {symbol: self.argtypes,
+                        **{k: list(v) for k, v in (symbols or {}).items()}}
         self.launches = 0
         self.route_launches = dict.fromkeys(routes, 0)
         self.build_log = ""
         self.build_s = 0.0
-        self._fn = None
+        self._lib = None
+        self._fns = {}
         self._lock = threading.Lock()
         self._count_lock = threading.Lock()
 
@@ -107,18 +114,23 @@ class CudaKernel:
                                f"(exit {proc.returncode}):\n{proc.stdout}")
         os.replace(tmp, out)
 
-    def fn(self):
-        """The loaded C entry point (builds on first use)."""
-        if self._fn is None:
+    def fn(self, symbol: str | None = None):
+        """The loaded C entry point ``symbol`` (default: the kernel's own),
+        building the library on first use."""
+        symbol = self.symbol if symbol is None else symbol
+        f = self._fns.get(symbol)
+        if f is None:
             with self._lock:
-                if self._fn is None:
+                if self._lib is None:
                     self._build()
-                    lib = ctypes.CDLL(str(self.library_path()))
-                    f = getattr(lib, self.symbol)
-                    f.argtypes = self.argtypes
+                    self._lib = ctypes.CDLL(str(self.library_path()))
+                f = self._fns.get(symbol)
+                if f is None:
+                    f = getattr(self._lib, symbol)
+                    f.argtypes = self.symbols[symbol]
                     f.restype = ctypes.c_int  # the launch's cudaError_t
-                    self._fn = f
-        return self._fn
+                    self._fns[symbol] = f
+        return f
 
     def count_launch(self, route: str | None = None) -> None:
         with self._count_lock:

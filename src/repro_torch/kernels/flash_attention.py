@@ -9,6 +9,12 @@ they launch one of the hand-written Hopper kernels of
 heads packed into one tile), ``mma_sync`` (bf16, other head dims) or
 ``simt`` (f32).  On CPU tensors they run the plain version in
 ``kernels/ref.py``.  There is no other fallback.
+
+The kernels are forward only: on a card, a call that autograd would
+differentiate (grad mode on and q, k or v requiring grad) raises rather
+than return an output with no gradient.  The backward kernel comes with LM
+training (ROADMAP, queue 1).  On the CPU the plain version is
+differentiable as it is.
 """
 from __future__ import annotations
 
@@ -79,6 +85,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    block_kv=block_kv)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention on CUDA has no backward kernel yet, so it "
+            "cannot give q, k or v a gradient: call it under "
+            "torch.no_grad() or torch.inference_mode(); the backward comes "
+            "with LM training (ROADMAP, queue 1)")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention needs contiguous inputs")
     for name, value in (("window", window), ("Sq", Sq), ("Sk", Sk)):

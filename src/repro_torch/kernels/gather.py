@@ -7,6 +7,8 @@
   clique's shard stack gathered by per-row (owner, local slot) routing.
 * ``routed_neighbor_sample``: the sharded topology cache's routed neighbor
   exchange, fixed-fanout sampling from the owner shard's CSR.
+* ``routed_neighbor_sample_chain``: every hop of one device-sampling chain
+  in one launch of the same source, the routing decoded in the kernel.
 
 On CUDA tensors each wrapper launches its hand-written Hopper kernel
 (``csrc/<name>.cu``); on CPU tensors it runs the plain version in
@@ -15,6 +17,7 @@ On CUDA tensors each wrapper launches its hand-written Hopper kernel
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -30,7 +33,18 @@ ROUTED_KERNEL = CudaKernel(
 SAMPLE_KERNEL = CudaKernel(
     "routed_neighbor_sample", "csrc/routed_neighbor_sample.cu",
     "routed_neighbor_sample",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 5 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 5 + [ctypes.c_void_p],
+    routes=("hop", "chain"),
+    symbols={"routed_neighbor_sample_chain":
+             [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_void_p),
+                                      ctypes.POINTER(ctypes.c_int32),
+                                      ctypes.c_int32, ctypes.c_void_p,
+                                      ctypes.c_void_p]
+             + [ctypes.c_int64] * 5 + [ctypes.c_void_p]})
+# the chain kernel's limits (csrc/routed_neighbor_sample.cu): hops, and its
+# threads (up to 4 outputs of one row of the last hop each) below 2^31
+MAX_CHAIN_HOPS = 4
+_CHAIN_CHUNK = 4
 
 
 def _device_of(name: str, *tensors: torch.Tensor) -> torch.device:
@@ -182,5 +196,119 @@ def routed_neighbor_sample(indptr_shards: torch.Tensor,
                  out.data_ptr(), n, f, indptr_shards.shape[0],
                  indptr_shards.shape[1], indices_shards.shape[1], stream)
     SAMPLE_KERNEL.check(err)
-    SAMPLE_KERNEL.count_launch()
+    SAMPLE_KERNEL.count_launch("hop")
     return out
+
+
+def _chain_buffer(n_seeds: int, fanouts, device) -> tuple:
+    """One chain's packed output: a uint8 buffer holding every hop's
+    neighbors ``(n_k, f_k)`` int32 one after the other, then every hop's
+    hit flags ``(n_k,)`` one byte each.  Returns its per-hop views
+    (neighbors int32, hit masks bool)."""
+    rows = [n_seeds]
+    for f in fanouts[:-1]:
+        rows.append(rows[-1] * f)
+    n_out = sum(n * f for n, f in zip(rows, fanouts))
+    buf = torch.empty(4 * n_out + sum(rows), dtype=torch.uint8,
+                      device=device)
+    outs, hits, off = [], [], 0
+    for n, f in zip(rows, fanouts):
+        outs.append(buf[off:off + 4 * n * f].view(torch.int32).view(n, f))
+        off += 4 * n * f
+    for n in rows:
+        hits.append(buf[off:off + n].view(torch.bool))
+        off += n
+    return outs, hits
+
+
+def routed_neighbor_sample_chain(indptr_shards: torch.Tensor,
+                                 indices_shards: torch.Tensor,
+                                 topo_owner: torch.Tensor,
+                                 topo_local: torch.Tensor,
+                                 seeds: torch.Tensor, rands) -> tuple:
+    """Every hop of one device-sampling chain of a sharded topology cache,
+    routing included, in one launch: per hop ``k``, frontier vertex ``v``
+    (the seeds, then hop ``k - 1``'s flattened output) samples ``f_k``
+    neighbors from row ``topo_local[v]`` of shard ``topo_owner[v]``'s CSR
+    with the draws ``rands[k]``; ``v < 0`` and ``topo_owner[v] < 0`` are
+    misses (-1 rows), as is degree 0.
+
+    indptr_shards (K_g, R+1) int64 and indices_shards (K_g, E) int32 as for
+    ``routed_neighbor_sample``; topo_owner (N,) int32 and topo_local (N,)
+    int64 with N >= 1; seeds (n_0,) int64; rands: 1 to ``MAX_CHAIN_HOPS``
+    int64 draws ``(n_k, f_k)`` with ``n_{k+1} = n_k * f_k``.  Vertices,
+    owners, slots and offsets out of range clamp as in
+    ``ref.routed_neighbor_sample_chain``, which this equals bit for bit.
+    Returns (per-hop neighbors (n_k, f_k) int32, per-hop hit masks (n_k,)
+    bool), all views of one packed buffer that ``graph.sampling`` reads
+    back with one copy.
+    """
+    rands = list(rands)
+    if not 1 <= len(rands) <= MAX_CHAIN_HOPS:
+        raise ValueError(f"a chain has 1 to {MAX_CHAIN_HOPS} hops, got "
+                         f"{len(rands)}")
+    if indptr_shards.dim() != 2 or indices_shards.dim() != 2 \
+            or indptr_shards.shape[0] != indices_shards.shape[0] \
+            or indptr_shards.shape[0] < 1 or indptr_shards.shape[1] < 1 \
+            or indices_shards.shape[1] < 1:
+        raise ValueError(f"indptr_shards (K_g, R+1) and indices_shards "
+                         f"(K_g, E) must be non-empty and agree on K_g, got "
+                         f"{tuple(indptr_shards.shape)} and "
+                         f"{tuple(indices_shards.shape)}")
+    if indptr_shards.dtype != torch.int64 \
+            or indices_shards.dtype != torch.int32:
+        raise TypeError(f"indptr_shards must be int64 and indices_shards "
+                        f"int32, got {indptr_shards.dtype} and "
+                        f"{indices_shards.dtype}")
+    if topo_owner.dtype != torch.int32 or topo_local.dtype != torch.int64 \
+            or seeds.dtype != torch.int64 \
+            or any(r.dtype != torch.int64 for r in rands):
+        raise TypeError(f"topo_owner must be int32, topo_local, seeds and "
+                        f"rands int64, got {topo_owner.dtype}, "
+                        f"{topo_local.dtype}, {seeds.dtype}, "
+                        f"{[r.dtype for r in rands]}")
+    if topo_owner.dim() != 1 or topo_owner.shape[0] < 1 \
+            or topo_local.shape != topo_owner.shape or seeds.dim() != 1:
+        raise ValueError(f"topo_owner, topo_local (N,) with N >= 1 and seeds "
+                         f"(n,) must agree, got {tuple(topo_owner.shape)}, "
+                         f"{tuple(topo_local.shape)}, {tuple(seeds.shape)}")
+    n = seeds.shape[0]
+    for k, r in enumerate(rands):
+        if r.dim() != 2 or r.shape[0] != n:
+            raise ValueError(f"rands[{k}] must be ({n}, f), got "
+                             f"{tuple(r.shape)}")
+        n = r.numel()
+    fanouts = [r.shape[1] for r in rands]
+    # the kernel walks to the last hop, or to the first of fanout 0
+    walk = fanouts.index(0) + 1 if 0 in fanouts else len(fanouts)
+    rows = seeds.shape[0] * math.prod(fanouts[:walk - 1])
+    if rows * max(-(-fanouts[walk - 1] // _CHAIN_CHUNK), 1) >= 1 << 31:
+        raise ValueError(f"{rows} rows of the last hop at fanouts {fanouts} "
+                         "are too many for one launch of the chain kernel")
+    dev = _device_of("routed_neighbor_sample_chain", indptr_shards,
+                     indices_shards, topo_owner, topo_local, seeds, *rands)
+    outs, hits = _chain_buffer(seeds.shape[0], fanouts, dev)
+    if dev.type == "cpu":
+        want_o, want_h = ref.routed_neighbor_sample_chain(
+            indptr_shards, indices_shards, topo_owner, topo_local, seeds,
+            rands)
+        for got, want in zip(outs + hits, want_o + want_h):
+            got.copy_(want)
+        return outs, hits
+    if seeds.shape[0] == 0:
+        return outs, hits  # nothing to launch
+    fn = SAMPLE_KERNEL.fn("routed_neighbor_sample_chain")
+    hops = len(rands)
+    rand_ptrs = (ctypes.c_void_p * hops)(*[r.data_ptr() for r in rands])
+    fanout_arr = (ctypes.c_int32 * hops)(*fanouts)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(indptr_shards.data_ptr(), indices_shards.data_ptr(),
+                 topo_owner.data_ptr(), topo_local.data_ptr(),
+                 seeds.data_ptr(), rand_ptrs, fanout_arr, hops,
+                 outs[0].data_ptr(), hits[0].data_ptr(), seeds.shape[0],
+                 topo_owner.shape[0], indptr_shards.shape[0],
+                 indptr_shards.shape[1], indices_shards.shape[1], stream)
+    SAMPLE_KERNEL.check(err)
+    SAMPLE_KERNEL.count_launch("chain")
+    return outs, hits

@@ -80,6 +80,39 @@ def routed_neighbor_sample_dense(indptr_shards: torch.Tensor,
     return torch.where(ok[..., None], out, -1)
 
 
+def routed_neighbor_sample_chain(indptr_shards: torch.Tensor,
+                                 indices_shards: torch.Tensor,
+                                 topo_owner: torch.Tensor,
+                                 topo_local: torch.Tensor, seeds: torch.Tensor,
+                                 rands) -> tuple:
+    """A whole device-sampling chain over the sharded topology cache: per
+    hop, the routing glue of ``CliqueCache.device_sample_cached`` (sharded
+    mode) composed with ``routed_neighbor_sample_dense``, hop ``k + 1``
+    sampling from hop ``k``'s flattened output.
+
+    A frontier vertex below 0 (a padded seed, a -1 parent) is a miss, as is
+    one whose ``topo_owner`` is below 0 (uncached); a vertex past the end
+    of the routing tables reads the last entry and a slot is clamped into
+    the owner's rows before the int32 cast, as XLA clamps them.  Returns
+    (per-hop neighbors ``(n_k, f_k)`` int32, per-hop hit masks ``(n_k,)``
+    bool), ``n_0 = len(seeds)`` and ``n_{k+1} = n_k * f_k``."""
+    R1 = indptr_shards.shape[1]
+    N = topo_owner.shape[0]
+    outs, hits = [], []
+    frontier = seeds.to(torch.int64)
+    for rand in rands:
+        valid = frontier >= 0
+        safe = torch.where(valid, frontier, 0).clamp_max(N - 1)
+        owner = torch.where(valid, topo_owner[safe], -1)
+        local = topo_local[safe].clamp(0, R1 - 1).to(torch.int32)
+        out = routed_neighbor_sample_dense(indptr_shards, indices_shards,
+                                           owner, local, rand)
+        outs.append(out)
+        hits.append(owner >= 0)
+        frontier = out.reshape(-1).to(torch.int64)
+    return outs, hits
+
+
 NEG_INF = -1e30  # the reference's masked score
 
 

@@ -60,16 +60,21 @@ def test_device_sample_cached_identical(graphs, mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_device_sample_chain_identical(graphs, mode):
+@pytest.mark.parametrize("fanouts", [FANOUTS, (4,), (3, 2, 2)])
+def test_device_sample_chain_identical(graphs, mode, fanouts):
+    """The chain (in sharded mode one call of the chain kernel's plain
+    version) against the reference's per-hop chain, for 1 to 3 hops."""
     jc, tc = _caches(graphs, mode)
     rng = np.random.default_rng(4)
     seeds = rng.integers(0, graphs[0].n, 40)
+    seeds[::9] = -1
     rands, n = [], len(seeds)
-    for f in FANOUTS:
+    for f in fanouts:
         rands.append(rng.integers(0, 1 << 31, size=(n, f)))
         n *= f
-    oj, hj = jc.device_sample_chain(seeds, FANOUTS, rands)
-    ot, ht = tc.device_sample_chain(seeds, FANOUTS, rands)
+    oj, hj = jc.device_sample_chain(seeds, fanouts, rands)
+    ot, ht = tc.device_sample_chain(seeds, fanouts, rands)
+    assert len(ot) == len(ht) == len(fanouts)
     for a, b in zip(oj, ot):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     for a, b in zip(hj, ht):

@@ -171,6 +171,78 @@ def test_cuda_kernel_matches_plain_version(cuda_device, N, D, B, M, dtype):
     assert torch.equal(got, tref.fused_gather_overlay(*args))
 
 
+def _offset_copy(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts ``nbytes`` past a
+    16-byte boundary, so the kernel must copy in narrower vectors."""
+    size = t.numel() * t.element_size()
+    raw = torch.zeros(size + 16, dtype=torch.uint8, device=t.device)
+    out = raw[nbytes:nbytes + size].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _overlay_case(name, device):
+    """``fused_gather_overlay`` inputs on ``device`` for one of the row
+    widths, alignments and map mixes the redesigned kernel must serve."""
+    N, D, B, M, dtype = 5_000, 128, 3_000, 1_000, torch.float32
+    if name == "d100_f32_400B":
+        D = 100
+    elif name == "bf16_512B":
+        D, dtype = 256, torch.bfloat16
+    elif name == "f32_4096B":
+        D = 1024
+    elif name == "b_not_multiple_of_32":
+        B = 3_001
+    table, idx, miss, inv = _case(N, D, B, M, seed=7)
+    if name == "aligned_1B_uint8":
+        rng = np.random.default_rng(8)
+        table = rng.integers(0, 256, (N, 100), dtype=np.uint8)
+        miss = rng.integers(0, 256, (M, 100), dtype=np.uint8)
+        dtype = torch.uint8
+    elif name == "all_padding":
+        idx[:] = -1
+        inv[:] = -1
+    elif name == "all_misses":
+        idx[:] = np.arange(B) % N
+        inv[:] = np.arange(B) % M
+    elif name == "out_of_range":
+        idx[::7] = N + 3
+        inv[::11] = M + 5
+    args = [torch.from_numpy(table).to(dtype).to(device),
+            torch.from_numpy(idx).to(device),
+            torch.from_numpy(miss).to(dtype).to(device),
+            torch.from_numpy(inv).to(device)]
+    if name == "aligned_4B_f32":
+        args[0], args[2] = _offset_copy(args[0], 4), _offset_copy(args[2], 4)
+    elif name == "aligned_1B_uint8":
+        args[0], args[2] = _offset_copy(args[0], 1), _offset_copy(args[2], 3)
+    return args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    "d100_f32_400B", "bf16_512B", "f32_4096B", "aligned_4B_f32",
+    "aligned_1B_uint8", "b_not_multiple_of_32", "all_padding", "all_misses",
+    "out_of_range"])
+def test_cuda_kernel_serves_every_width_alignment_and_map_mix(cuda_device,
+                                                              name):
+    """The redesigned kernel (runs of 32 rows a warp, loads before stores)
+    at row widths of 400, 512 and 4096 bytes, sources 4- and 1-byte
+    aligned, a batch that is not a multiple of 32, all padding, all
+    misses, and indices past the end: bitwise equal to the plain version,
+    one launch, inputs unchanged."""
+    args = _overlay_case(name, cuda_device)
+    snap = [a.clone() for a in args]
+    before = fused_batch.KERNEL.launches
+    got = fused_batch.fused_gather_overlay(*args)
+    torch.cuda.synchronize()
+    assert fused_batch.KERNEL.launches == before + 1
+    assert torch.equal(got, tref.fused_gather_overlay(*args))
+    assert all(torch.equal(a, b) for a, b in zip(args, snap))
+    if name == "all_padding":
+        assert not got.any()
+
+
 @pytest.mark.gpu
 def test_cuda_server_launches_kernel_once_per_micro_batch(cuda_device):
     """On the card every micro-batch (warm-up included) launches the fused
@@ -683,9 +755,11 @@ def test_cuda_routed_gather_matches_plain_version(cuda_device, k, R, D, n,
 def test_cuda_routed_sample_matches_plain_version(cuda_device, k, R, n, f):
     args = _sample_case(k, R, n, f, device=cuda_device)
     before = gather.SAMPLE_KERNEL.launches
+    hops = gather.SAMPLE_KERNEL.route_launches["hop"]
     got = gather.routed_neighbor_sample(*args)
     torch.cuda.synchronize()
     assert gather.SAMPLE_KERNEL.launches == before + 1
+    assert gather.SAMPLE_KERNEL.route_launches["hop"] == hops + 1
     assert torch.equal(got, tref.routed_neighbor_sample_dense(*args))
 
 
@@ -706,8 +780,8 @@ def test_cuda_sharded_training_is_repeatable_and_near_the_device_backend(
     """On the card, a 2 x 2 hierarchy: two sharded runs are bitwise equal,
     their losses are within 1e-4 of the device backend's with identical
     traffic and refreshes, and every step launches the routed gather once
-    per mesh position and every spec build the routed sampler once per
-    hop (the fused finalize never runs)."""
+    per mesh position and every spec build the routed sampler once, on its
+    ``chain`` route (the fused finalize never runs)."""
     from repro_torch.core.cache_manager import RefreshConfig
     from repro_torch.core.cliques import topology_matrix
     from repro_torch.core.planner import build_plan
@@ -727,6 +801,7 @@ def test_cuda_sharded_training_is_repeatable_and_near_the_device_backend(
                           fanouts=cfg.fanouts)
         counter = TrafficCounter.for_plan(plan)
         before = {k.name: k.kernel.launches for k in KERNELS}
+        routes = dict(gather.SAMPLE_KERNEL.route_launches)
         res = train_gnn(g, plan, cfg, steps=steps, seed=0,
                         device=cuda_device, backend=backend, counter=counter,
                         refresh_config=RefreshConfig(interval=4,
@@ -734,6 +809,9 @@ def test_cuda_sharded_training_is_repeatable_and_near_the_device_backend(
         torch.cuda.synchronize()
         launched = {k.name: k.kernel.launches - before[k.name]
                     for k in KERNELS}
+        launched["sample_routes"] = {
+            r: n - routes[r]
+            for r, n in gather.SAMPLE_KERNEL.route_launches.items()}
         return res, counter, launched, plan
 
     dev, dc, dl, _ = run("device")
@@ -747,7 +825,10 @@ def test_cuda_sharded_training_is_repeatable_and_near_the_device_backend(
     np.testing.assert_array_equal(sc.topo_bytes_matrix, dc.topo_bytes_matrix)
     assert sc.cross_clique_bytes(plan.partition.cliques) == 0
     assert sl["routed_gather"] == 4 * steps
-    assert sl["routed_neighbor_sample"] == 4 * steps * len(cfg.fanouts)
+    # one chain launch per spec build (4 positions a step), all hops in it
+    assert sl["routed_neighbor_sample"] == 4 * steps
+    assert sl["sample_routes"] == {"hop": 0, "chain": 4 * steps}
     assert sl["fused_gather_overlay"] == 0
     assert dl["fused_gather_overlay"] == 4 * steps
     assert dl["routed_neighbor_sample"] == sl["routed_neighbor_sample"]
+    assert dl["sample_routes"] == sl["sample_routes"]

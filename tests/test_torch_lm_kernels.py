@@ -237,6 +237,28 @@ def test_cpu_tensors_count_no_route_launches():
     assert fa.KERNEL.route_launches == before
 
 
+@pytest.mark.parametrize("dtype,window,causal", [
+    (torch.float32, 0, True), (torch.float32, 8, True),
+    (torch.bfloat16, 0, False)])
+def test_cpu_flash_attention_is_differentiable(dtype, window, causal):
+    """On the CPU the wrapper returns the plain version's output with its
+    autograd graph: its gradients equal autograd through
+    ``ref.flash_attention`` on the same inputs, bit for bit."""
+    q, k, v = _qkv(3, 2, 40, 4, 2, 32, dtype)
+    w = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        tuple(q.shape)).astype(np.float32))
+    grads = []
+    for f in (fa.flash_attention, tref.flash_attention):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = f(*leaves, causal=causal, window=window, block_kv=16)
+        assert out.requires_grad and out.grad_fn is not None
+        (out.float() * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert a is not None and a.dtype == dtype and torch.equal(a, b)
+        assert bool(torch.isfinite(a.float()).all()) and a.abs().sum() > 0
+
+
 @pytest.mark.parametrize("N,D,B,F", [(64, 128, 8, 5), (128, 256, 16, 10),
                                      (32, 128, 4, 25)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -399,6 +421,29 @@ def test_cuda_flash_bhsd_matches_plain_version(cuda_device, causal, dtype):
     got = fa.flash_attention_bhsd(q, k, v, causal=causal)
     want = tref.flash_attention(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
+def test_cuda_flash_refuses_autograd(cuda_device, needs_grad):
+    """The kernels are forward only: on the card, a call autograd would
+    differentiate raises (without a launch) instead of returning an output
+    with no gradient; with grad mode off, or in inference mode, the same
+    inputs run the kernel."""
+    q, k, v = _qkv(5, 1, 64, 4, 1, 256, torch.bfloat16, device=cuda_device)
+    qkv = {"q": q, "k": k, "v": v}
+    qkv[needs_grad] = qkv[needs_grad].clone().requires_grad_()
+    before = fa.KERNEL.launches
+    with pytest.raises(RuntimeError, match="backward"):
+        fa.flash_attention(**qkv, window=8)
+    assert fa.KERNEL.launches == before
+    with torch.no_grad():
+        got = fa.flash_attention(**qkv, window=8)
+    with torch.inference_mode():
+        again = fa.flash_attention(**qkv, window=8)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 2
+    assert not got.requires_grad and torch.equal(got, again)
 
 
 @pytest.mark.gpu
