@@ -12,7 +12,7 @@ result line):
    compiled from the sources in this checkout, one nvcc per source, all
    started together; registers and spills of each kernel function as
    ptxas reports them (a spill in the wgmma flash kernel, the fused
-   gather or the sampling chain fails the run).
+   gather, the sampling chain or ``sage_aggregate`` fails the run).
 3. Graph + plans: ``synthetic_instance("PA", 1M vertices)``, a one-GPU
    Legion plan with a 300 MB cache, fanouts (25, 10), and the 2 x 2
    hierarchy of ``topology_matrix("dgx-v100", 4)`` (two cliques of two
@@ -37,7 +37,15 @@ result line):
    compositions;
    ``sage_aggregate``, which no path runs, at a GraphSAGE first-layer shape
    of the training cell (200,000 rows x 10 neighbours over a 416,768 x 128
-   f32 table), in bf16, with a row of pads only, F = 1 and D = 100; then
+   f32 table), in bf16, at F = 25 and 40, with a row of pads only, F = 1,
+   D = 100 in f32 and bf16, a table at storage offset 1 and row 0 = +inf
+   under pads (NaN in the same places as the plain version), each case's
+   route printed (``sage_route``: ``vec`` for rows of a multiple of 16
+   bytes on a 16-byte aligned table, else ``scalar``; a spill in either
+   route's kernel fails the build phase); its two routes timed in turns at
+   the training shape (the scalar route forced through the route rule,
+   ``forced_route``) beside the bound and a no-reuse diagnostic (every
+   non-pad gather from device memory); then
    kernel, plain version and the nearest single PyTorch call timed with
    CUDA events, L2 flushed before every launch.
 5. Serve: ``GNNServer`` with GraphSAGE at paper width (feat 128, hidden
@@ -111,6 +119,7 @@ fails.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -168,9 +177,10 @@ LM_DECODE_GAP = 0.15
 LM_SMOKE_ATOL = 5e-3
 # kernel functions whose ptxas report must show no spill: the ones
 # redesigned for Hopper (the wgmma flash kernel, the fused gather, the
-# sampling chain)
+# sampling chain, both routes of sage_aggregate)
 SPILL_FREE = ("flash_fwd_wgmma", "fused_gather_overlay_kernel",
-              "routed_neighbor_sample_chain_kernel")
+              "routed_neighbor_sample_chain_kernel", "sage_vec_kernel",
+              "sage_scalar_kernel")
 # kernels that no path of either package runs (their launches stay 0)
 NO_PATH = {"sage_aggregate": "called only by its tests in the reference"}
 
@@ -743,10 +753,35 @@ def sage_aggregate_bytes(table, idx) -> int:
             + idx.shape[0] * D * table.element_size())
 
 
+def sage_no_reuse_bytes(table, idx) -> int:
+    """A diagnostic, not a bound: the bytes sage_aggregate moves when L2
+    keeps no row between its gathers (every non-pad gather read from device
+    memory), plus idx, w and out."""
+    D = table.shape[1]
+    return (int((idx >= 0).sum()) * D * table.element_size()
+            + idx.numel() * 8 + idx.shape[0] * D * table.element_size())
+
+
+@contextlib.contextmanager
+def forced_route(module, route: str):
+    """Every call of ``module``'s wrapper takes ``route``: its route rule
+    (``module.sage_route``) is swapped for one that returns ``route``."""
+    rule = module.sage_route
+    module.sage_route = lambda *_: route
+    try:
+        yield
+    finally:
+        module.sage_route = rule
+
+
 def sage_aggregate_cases(torch, ctx, seed: int = 5):
     """A GraphSAGE first-layer aggregation at the training cell's shape
     (200,000 hop-1 rows of 10 neighbours over the 416,768 x 128 f32 block
-    of unique rows, 5% pads), in bf16, a row of pads only, F = 1, D = 100."""
+    of unique rows, 5% pads), in bf16; the hop-0 fanout (8000 x 25); F = 40
+    (past one 32-lane chunk of indices); a row of pads only, F = 1; D = 100
+    in f32 (400-byte rows: ``vec``) and bf16 (200-byte rows: ``scalar``); a
+    contiguous f32 table at storage offset 1 (``scalar``); row 0 = +inf
+    under pads (NaN wherever a row has a pad, in both versions)."""
     dev = ctx["table"].device
     gen = torch.Generator(device=dev).manual_seed(seed)
     N, D, B, F = SAGE_SHAPE
@@ -757,21 +792,82 @@ def sage_aggregate_cases(torch, ctx, seed: int = 5):
     idx = torch.where(pad, -1, idx).contiguous()
     idx[0] = -1
     w = torch.rand((B, F), generator=gen, device=dev)
-    t100 = torch.randn((50_000, 100), generator=gen, device=dev)
+
+    def wide(b, f):
+        i = torch.randint(-1, N, (b, f), generator=gen, device=dev,
+                          dtype=torch.int32)
+        return i, torch.rand((b, f), generator=gen, device=dev)
+
+    small = 50_000
+    t100 = torch.randn((small, 100), generator=gen, device=dev)
+    raw = torch.randn(small * D + 1, generator=gen, device=dev)
+    inf0 = raw[1:].view(small, D).clone()
+    inf0[0] = float("inf")
+    i_small = torch.where(idx >= 0, idx % small, idx)[:20_000].contiguous()
     cases = {
         "train_f32": (table, idx, w),
         "train_bf16": (table.to(torch.bfloat16), idx, w),
+        "f25": (table, *wide(8000, 25)),
+        "f40": (table, *wide(20_000, 40)),
         "f1": (table, idx[:, :1].contiguous(), w[:, :1].contiguous()),
-        "d100_f32": (t100, torch.where(idx >= 0, idx % 50_000, idx), w),
+        "d100_f32": (t100, torch.where(idx >= 0, idx % small, idx), w),
+        "d100_bf16": (t100.to(torch.bfloat16), i_small, w[:20_000]),
+        "misaligned": (raw[1:].view(small, D), i_small, w[:20_000]),
+        "row0_inf": (inf0, i_small, w[:20_000]),
     }
     lib_idx = idx.clamp_min(0)
-    lib_w = w * (idx >= 0)
-    timed = [("train", cases["train_f32"], sage_aggregate_bytes(table, idx),
-              ("F.embedding_bag(idx.clamp_min(0), table, per_sample_weights="
-               "w * (idx >= 0), mode='sum')",
-               lambda: torch.nn.functional.embedding_bag(
-                   lib_idx, table, per_sample_weights=lib_w, mode="sum")))]
+    lib = ("F.embedding_bag(idx.clamp_min(0), table, per_sample_weights="
+           "w * (idx >= 0), mode='sum')")
+    timed = []
+    for name, case in (("train", "train_f32"), ("train_bf16", "train_bf16")):
+        t = cases[case][0]
+        lib_w = (w * (idx >= 0)).to(t.dtype)
+        timed.append((name, cases[case], sage_aggregate_bytes(t, idx),
+                      (lib, lambda t=t, lib_w=lib_w:
+                       torch.nn.functional.embedding_bag(
+                           lib_idx, t, per_sample_weights=lib_w,
+                           mode="sum"))))
     return cases, timed
+
+
+def sage_routes_side_by_side(torch, np, k, measured, flush, card) -> None:
+    """``sage_aggregate``'s two routes at the training shape in f32, in
+    turns (vec, scalar, scalar, vec; the scalar route forced through the
+    route rule), beside the bound and the no-reuse diagnostic; and the
+    row0_inf case's NaNs, which must fall where a row has a pad."""
+    from repro_torch.kernels import sage_agg
+
+    cases, _ = sage_aggregate_cases(torch, {"table": flush})
+    table, idx, w = cases["row0_inf"]
+    nan = k.wrapper(table, idx, w).isnan()
+    if not torch.equal(nan.any(1), (idx < 0).any(1)) or not bool(nan.any()):
+        raise AssertionError("sage_aggregate row0_inf: NaN rows are not the "
+                             "rows with a pad")
+    table, idx, w = cases["train_f32"]
+    times = {"vec": [], "scalar": []}
+    for route in ("vec", "scalar", "scalar", "vec"):
+        with forced_route(sage_agg, route):
+            times[route].append(time_ms(torch, k.wrapper, (table, idx, w),
+                                        TIMED_LAUNCHES, flush))
+    vec = measured["timed"]["train"]
+    no_reuse = sage_no_reuse_bytes(table, idx)
+    measured["timed"]["train_scalar"] = vec | {
+        "ms": float(np.mean(times["scalar"])), "route": "scalar",
+        "library_ms": None, "library_call": None}
+    measured["timed"]["train"]["route"] = "vec"
+    print(f"[kernel] sage_aggregate @ train (f32), in turns: vec "
+          f"{np.mean(times['vec']):.4f} ms {times['vec']}, scalar "
+          f"{np.mean(times['scalar']):.4f} ms {times['scalar']}; bound "
+          f"{vec['bound_ms']:.4f} ms ({vec['bytes'] / 1e6:.1f} MB); "
+          f"diagnostic, not a bound: no-reuse bytes {no_reuse / 1e6:.1f} MB"
+          f", {no_reuse / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s | "
+          f"{card}")
+    bf = cases["train_bf16"]
+    bf_no_reuse = sage_no_reuse_bytes(bf[0], bf[1])
+    print(f"[kernel] sage_aggregate @ train_bf16: diagnostic, not a bound: "
+          f"no-reuse bytes {bf_no_reuse / 1e6:.1f} MB, "
+          f"{bf_no_reuse / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s | "
+          f"{card}")
 
 
 def causal_pairs(S: int, window: int) -> int:
@@ -906,7 +1002,9 @@ def check_and_time(torch, np, k, ctx, flush, card) -> dict:
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"{k.name}: shape/type differ on {name}")
         if tol is None:
-            if not torch.equal(got, want):
+            nan = got.isnan()  # NaN where the plain version has NaN
+            if not (torch.equal(nan, want.isnan()) and torch.equal(
+                    got.masked_fill(nan, 0), want.masked_fill(nan, 0))):
                 raise AssertionError(f"{k.name} != plain version on case "
                                      f"{name}")
         else:
@@ -914,7 +1012,8 @@ def check_and_time(torch, np, k, ctx, flush, card) -> dict:
             torch.testing.assert_close(got.float(), want.float(), **t,
                                        msg=lambda m: f"{k.name} "
                                        f"case {name}: {m}")
-        errs[name] = (float((got.float() - want.float()).abs().max())
+        diff = (got.float() - want.float()).abs()
+        errs[name] = (float(diff.nan_to_num(0.0).max())
                       if got.numel() else 0.0)
         if tol is not None:
             print(f"[kernel] {k.name} case {name}: max |err| "
@@ -958,6 +1057,10 @@ def check_and_time(torch, np, k, ctx, flush, card) -> dict:
         for t in _split(args)[0]:
             if not torch.equal(t, snapshots[id(t)]):
                 raise AssertionError(f"{k.name} wrote one of its inputs")
+    if tol is None and k.kernel.route_launches:
+        print(f"[kernel] {k.name} route by case: "
+              + ", ".join(f"{c} {r}" for c, r in routes.items())
+              + f" | {card}")
     how = "bitwise equal" if tol is None else (
         "within " + ", ".join(f"rtol {t['rtol']} + atol {t['atol']} ({d})"
                               for d, t in tol.items()))
@@ -1643,6 +1746,9 @@ def main() -> int:
     sk = next(k for k in KERNELS if k.name == "routed_neighbor_sample")
     check_and_time_chain(torch, np, sk, measured[sk.name], chains, flush,
                          card)
+    sage = next(k for k in KERNELS if k.name == "sage_aggregate")
+    sage_routes_side_by_side(torch, np, sage, measured[sage.name], flush,
+                             card)
     del ctx, chains
 
     # ---- 4b. where the time goes (serving layers, one batch at a time) ----

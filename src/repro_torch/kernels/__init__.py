@@ -9,7 +9,8 @@ package's TPU kernel it replaces (file:line of the function that reaches
 may hold several entries, counted by route: ``routed_neighbor_sample``'s
 has the per-hop entry (the wrapper listed here, route ``hop``) and
 ``gather.routed_neighbor_sample_chain`` (route ``chain``), which the
-device-sampling paths run.
+device-sampling paths run; ``sage_aggregate``'s wrapper takes route
+``vec`` or ``scalar`` by ``sage_agg.sage_route``.
 """
 from __future__ import annotations
 

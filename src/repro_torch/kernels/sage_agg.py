@@ -3,8 +3,11 @@
 
 Fusing the neighbour gather with the weighted sum never writes the
 (B, F, D) rows.  On CUDA tensors the wrapper launches the hand-written
-Hopper kernel (``csrc/sage_aggregate.cu``); on CPU tensors it runs the
-plain version in ``kernels/ref.py``.  There is no other fallback.
+Hopper kernel (``csrc/sage_aggregate.cu``) on one of its two routes,
+``vec`` (16-byte row gathers, every neighbour of a run in flight) or
+``scalar`` (one element per load, any width and alignment), chosen by
+``sage_route`` from the shape and the table's address; on CPU tensors it
+runs the plain version in ``kernels/ref.py``.  There is no other fallback.
 """
 from __future__ import annotations
 
@@ -15,11 +18,23 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import CudaKernel
 
+ROUTES = ("vec", "scalar")  # the C entry's route codes, in order
 KERNEL = CudaKernel(
     "sage_aggregate", "csrc/sage_aggregate.cu", "sage_aggregate",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_int64] * 4
-    + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 4
+    + [ctypes.c_void_p], routes=ROUTES)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def sage_route(D: int, dtype: torch.dtype, data_ptr: int) -> str:
+    """The route a table of row width ``D`` and type ``dtype`` at address
+    ``data_ptr`` takes: ``vec`` when its rows are a multiple of 16 bytes
+    and it starts on a 16-byte boundary (every row then does), else
+    ``scalar``."""
+    row_bytes = D * dtype.itemsize
+    if row_bytes > 0 and row_bytes % 16 == 0 and data_ptr % 16 == 0:
+        return "vec"
+    return "scalar"
 
 
 def sage_aggregate(table: torch.Tensor, idx: torch.Tensor,
@@ -53,11 +68,13 @@ def sage_aggregate(table: torch.Tensor, idx: torch.Tensor,
     out = torch.empty((B, D), dtype=table.dtype, device=table.device)
     if B == 0 or D == 0:
         return out
+    route = sage_route(D, table.dtype, table.data_ptr())
     fn = KERNEL.fn()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(table.data_ptr(), idx.data_ptr(), weights.data_ptr(),
-                 out.data_ptr(), _DTYPES[table.dtype], N, D, B, F, stream)
+                 out.data_ptr(), _DTYPES[table.dtype], ROUTES.index(route),
+                 N, D, B, F, stream)
     KERNEL.check(err)
-    KERNEL.count_launch()
+    KERNEL.count_launch(route)
     return out

@@ -19,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import flash_attention, rms_norm, rope, swiglu_mlp
 from repro_torch.models.params import Def
+from repro_torch.utils import resolve_device
 
 BIG_WINDOW = 1 << 30  # "no window": the global layers' window
 
@@ -119,9 +120,12 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype: torch.dtype = torch.bfloat16, device="cpu") -> dict:
+               dtype: torch.dtype = torch.bfloat16, device="cuda") -> dict:
+    """Zeroed k and v caches (L, batch, max_len, Hkv, Dh) on ``device``
+    (the card unless the caller asks for the CPU; raises without one)."""
     L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
     shape = (L, batch, max_len, Hkv, Dh)
+    device = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

@@ -366,6 +366,22 @@ def test_generate_takes_the_argmax_over_the_real_vocabulary():
                                   gen.logits.float().argmax(-1).numpy())
 
 
+def test_init_cache_defaults_to_the_card():
+    """Like the reference's (on JAX's default device), the cache goes to
+    the card unless the caller asks for the CPU; without a card that
+    raises instead of falling back."""
+    cfg = tconfigs.get_config("gemma3-1b", smoke=True)
+    on_cpu = transformer.init_cache(cfg, 2, 8, device="cpu")
+    assert on_cpu["k"].device.type == "cpu"
+    assert on_cpu["k"].shape == (cfg.n_layers, 2, 8, cfg.n_kv_heads,
+                                 cfg.resolved_head_dim)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            transformer.init_cache(cfg, 2, 8)
+    else:
+        assert transformer.init_cache(cfg, 2, 8)["v"].device.type == "cuda"
+
+
 @pytest.mark.parametrize("arch", ["gemma3-1b", "qwen2.5-14b"])
 def test_decode_matches_the_port_forward(arch):
     """The reference's decode consistency check on the port: teacher-forced
@@ -378,7 +394,7 @@ def test_decode_matches_the_port_forward(arch):
     tokens = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (1, S)))
     full, _ = transformer.forward(cfg, params, tokens)
-    cache = transformer.init_cache(cfg, 1, S)
+    cache = transformer.init_cache(cfg, 1, S, device="cpu")
     outs = []
     for t in range(S):
         lg, cache = transformer.decode_step(cfg, params, cache,

@@ -260,7 +260,7 @@ def test_cpu_flash_attention_is_differentiable(dtype, window, causal):
 
 
 @pytest.mark.parametrize("N,D,B,F", [(64, 128, 8, 5), (128, 256, 16, 10),
-                                     (32, 128, 4, 25)])
+                                     (32, 128, 4, 25), (64, 128, 4, 40)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_plain_sage_matches_pallas_and_oracle(N, D, B, F, dtype):
     """The Pallas test's grid.  f32 within 1e-5 (the reference may contract
@@ -292,6 +292,44 @@ def test_plain_sage_edge_cases():
     assert torch.equal(out[2], table[3] + 2.0 * table[0])
     one = sage_agg.sage_aggregate(table, idx[:, :1], w[:, :1])
     assert torch.equal(one[1], 0.5 * table[2])
+
+
+def test_plain_sage_gives_nan_where_a_pad_meets_a_non_finite_row_0():
+    """A pad is weighted 0 but still multiplies row 0, so with row 0 = +inf
+    every row with a pad is NaN, as in the reference's oracle (its einsum
+    multiplies the gathered row 0 by the zero weight too); other rows are
+    finite, or +inf where they gather row 0 with a positive weight."""
+    _, _, jref, _ = _reference()
+    rng = np.random.default_rng(7)
+    table = _randn(rng, (16, 32), torch.float32)
+    table[0] = float("inf")
+    idx = rng.integers(1, 16, size=(6, 5)).astype(np.int32)
+    idx[1, 2] = idx[4, 0] = idx[4, 3] = -1  # pads
+    idx[2, 1] = 0                           # row 0, weighted
+    w = (rng.random((6, 5)) + 0.5).astype(np.float32)
+    got = sage_agg.sage_aggregate(table, torch.from_numpy(idx),
+                                  torch.from_numpy(w))
+    want = _f32(jref.sage_aggregate(_to_jax(table), idx, w))
+    assert np.array_equal(np.isnan(_f32(got)), np.isnan(want))
+    assert np.isnan(want[[1, 4]]).all() and not np.isnan(want[[0, 2, 3, 5]]
+                                                         ).any()
+    assert np.isposinf(want[2]).all()
+    np.testing.assert_allclose(_f32(got), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("D", [1, 100, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sage_route_depends_on_row_bytes_and_alignment(dtype, D, aligned):
+    """``vec`` needs rows of a multiple of 16 bytes (f32: D = 100, 128,
+    256; bf16: D = 128, 256) on a 16-byte aligned table; anything else,
+    a table at storage offset 1 included, takes ``scalar``."""
+    vec_widths = {torch.float32: (100, 128, 256), torch.bfloat16: (128, 256)}
+    table = torch.zeros(8 * D + 1, dtype=dtype)
+    table = (table[:8 * D] if aligned else table[1:]).view(8, D)
+    ptr = 4096 + table.storage_offset() * table.element_size()
+    want = "vec" if aligned and D in vec_widths[dtype] else "scalar"
+    assert sage_agg.sage_route(D, dtype, ptr) == want
 
 
 def test_cpu_tensors_take_the_plain_path_without_counting_launches():
@@ -464,23 +502,42 @@ def test_cuda_flash_of_no_queries_launches_nothing(cuda_device, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N,D,B,F", [(64, 128, 8, 5), (1000, 100, 333, 1),
-                                     (416_768, 128, 20_000, 10)])
+@pytest.mark.parametrize("N,D,B,F,variant", [
+    (64, 128, 8, 5, None), (1000, 100, 333, 1, None),
+    (416_768, 128, 20_000, 10, None), (5000, 128, 800, 25, None),
+    (5000, 128, 300, 40, None), (5000, 128, 500, 10, "misaligned"),
+    (5000, 128, 500, 10, "row0_inf")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_sage_matches_plain_version_bitwise(cuda_device, N, D, B, F,
-                                                 dtype):
-    rng = np.random.default_rng(N)
-    table = _randn(rng, (N, D), dtype, device=cuda_device)
+                                                 variant, dtype):
+    """Bitwise against the plain version (NaN in the same places), on the
+    route ``sage_route`` gives: a table at storage offset 1 takes
+    ``scalar``; with row 0 = +inf every row with a pad is NaN."""
+    rng = np.random.default_rng(N + F)
+    table = _randn(rng, (N * D + 1,), dtype, device=cuda_device)
+    table = (table[1:] if variant == "misaligned" else table[:-1]).view(N, D)
+    if variant == "row0_inf":
+        table[0] = float("inf")
     idx = rng.integers(-1, N, size=(B, F)).astype(np.int32)
     idx[0] = -1  # a row of pads only
     idx = torch.from_numpy(idx).to(cuda_device)
     w = torch.from_numpy(rng.random((B, F)).astype(np.float32)).to(cuda_device)
-    before = sage_agg.KERNEL.launches
+    route = sage_agg.sage_route(D, dtype, table.data_ptr())
+    assert (route == "scalar") == (variant == "misaligned"
+                                   or D * table.element_size() % 16 != 0)
+    before = dict(sage_agg.KERNEL.route_launches)
     got = sage_agg.sage_aggregate(table, idx, w)
     torch.cuda.synchronize()
-    assert sage_agg.KERNEL.launches == before + 1
-    assert torch.equal(got, tref.sage_aggregate(table, idx, w))
-    assert not got[0].any()
+    assert sage_agg.KERNEL.route_launches == before | {
+        route: before[route] + 1}
+    want = tref.sage_aggregate(table, idx, w)
+    nan = got.isnan()
+    assert torch.equal(nan, want.isnan())
+    assert torch.equal(got.masked_fill(nan, 0), want.masked_fill(nan, 0))
+    if variant == "row0_inf":
+        assert torch.equal(nan.any(1), (idx < 0).any(1).to(cuda_device))
+    else:
+        assert not got[0].any()
 
 
 @pytest.mark.gpu
