@@ -11,8 +11,9 @@ result line):
 2. Build: every hand-written kernel (``repro_torch.kernels.KERNELS``),
    compiled from the sources in this checkout, one nvcc per source, all
    started together; registers and spills of each kernel function as
-   ptxas reports them (a spill in the wgmma flash kernel, the fused
-   gather, the sampling chain or ``sage_aggregate`` fails the run).
+   ptxas reports them (a spill in the wgmma flash kernel, the attention
+   backward's two main kernels, the fused gather, the sampling chain or
+   ``sage_aggregate`` fails the run).
 3. Graph + plans: ``synthetic_instance("PA", 1M vertices)``, a one-GPU
    Legion plan with a 300 MB cache, fanouts (25, 10), and the 2 x 2
    hierarchy of ``topology_matrix("dgx-v100", 4)`` (two cliques of two
@@ -90,9 +91,19 @@ result line):
    S = 77, 1000 with window 1, 64 (a row's first visited tile all masked),
    512 and >= S, not causal, Sq != Sk, G = 1, 3, 4, 5 and 8, Dh 64, 80,
    128 and 256; then timed at the two prefill shapes beside its bound (bf16
-   operations at 989 TFLOP/s or bytes, the larger) and SDPA; and on the
-   card a call autograd would differentiate must raise (the kernels are
-   forward only).
+   operations at 989 TFLOP/s or bytes, the larger) and SDPA; on the card
+   an f32 call autograd would differentiate must raise (there is no f32
+   backward), and a bf16 one must give gradients through the backward.
+11b. LM backward: ``flash_attention_bwd`` on q, k, v, o, lse and do
+   captured from one real training step (layer 0, local, and layer 5,
+   global) and on edge cases (Dh 16, 64, 80, 128 and 256, window 64, G =
+   1, 2 and 4, ragged Sq, Sq != Sk): per gradient, its max error over max
+   |g| against the f64 exact gradient within twice the plain version's
+   plus 1e-3, two calls bitwise equal; the forward recomputed on the
+   captured calls gives the saved o and lse bits; then timed at the two
+   captured shapes beside its bound (5 products at the bf16 rate), its
+   plain version and SDPA's backward, with the forward timed with and
+   without lse.
 12. LM serve: ``generate`` for 4 prompts of 4096 tokens (numpy, seed 1),
    then 32 greedy tokens: prefill ms, decode ms per step (CUDA events
    after each step; ``generate`` syncs only after the loop), tokens/s, peak
@@ -106,10 +117,21 @@ result line):
    plain attention differs by); the gemma3 smoke config
    generated on the CPU (plain version) and teacher-forced with its tokens
    on the card (kernel), logits within atol 5e-3.
+14. LM train: ``launch.train.train_step`` on the same gemma3-1b weights at
+   4 x 4096 (numpy batches, seed 0) with remat and the CE in chunks of
+   512, AdamW, 8 steps (the first is warm-up): finite losses, step ms host
+   wall and tokens/s, forward, backward and AdamW ms on CUDA events, peak
+   device memory, exactly 26 forward, 26 recompute (both ``wgmma``) and 26
+   backward launches a step; then one profiled step's device time by kind
+   (attention forward and backward, matmul, copies and casts, the rest,
+   and AdamW after a synchronize).
+15. LM train parity: the gemma3 smoke config trained 4 steps on the card
+   (kernels) and on the CPU (plain versions) from the same seed-0 weights
+   and batches, losses within atol 2e-3.
 
 Every kernel's launch count is zeroed just before each of the serve,
-train, parity, unfused, shard, shard-parity, lm-serve and lm-parity phases
-and read just after, with the launches by route; ``sage_aggregate``'s stay
+train, parity, unfused, shard, shard-parity, lm-serve, lm-parity, lm-train
+and lm-train-parity phases and read just after, with the launches by route; ``sage_aggregate``'s stay
 0 (no path runs it), and ``routed_neighbor_sample`` launches once per
 device-sampling spec build, on its ``chain`` route, never per hop.
 The last three lines are the card's name and power limit, the
@@ -158,6 +180,18 @@ LM_CAPTURE = (0, 5)  # gemma3's first local and first global layer
 LM_PROFILE_NEW = 8   # the profiled generation: decode steps 2..6 the window
 LM_PARITY_LEN = 600  # crosses the local layers' window of 512
 LM_SMOKE = (4, 24, 16)  # batch, prompt, new: the reference's serve_lm loop
+# LM training: gemma3-1b at 4 x 4096 with remat and the CE in chunks of 512
+# (the unchunked f32 logits would be 17.2 GB); the first step is warm-up
+LM_TRAIN_STEPS = 8
+LM_TRAIN_CHUNK = 512
+LM_TRAIN_LR = 1e-3  # launch/train.py's default
+LM_TRAIN_SMOKE = (4, 64, 4)  # batch, seq, steps: smoke config, card vs CPU
+# the backward kernel against the f64 exact gradient: per gradient, max
+# |kernel - exact| / max |exact| within twice the plain version's plus this
+# floor (both round q * scale, p and each gradient to bf16; the kernel
+# also rounds ds and sums in another order)
+BWD_F64_FLOOR = 1e-3
+BWD_TIMED_PLAIN = 10  # the plain backward's timed launches (tens of ms each)
 # kernels held to their plain version within rtol + atol (the rest
 # bitwise): flash attention sums in another order and rounds p to bf16
 # against another running max; in bf16 the output's own rounding (one step
@@ -165,6 +199,9 @@ LM_SMOKE = (4, 24, 16)  # batch, prompt, new: the reference's serve_lm loop
 # |output| of each case (printed beside it)
 TOLERANCE = {"flash_attention": {"bfloat16": {"rtol": 1e-2, "atol": 2e-3},
                                  "float32": {"rtol": 1e-3, "atol": 2e-4}}}
+# the backward kernel's rule (check_backward), for the kernels line
+BWD_RULE = {"bfloat16": f"max|kernel - f64| / max|f64| <= 2 x the plain "
+                        f"version's + {BWD_F64_FLOOR}"}
 # teacher-forced decode against the kernel-path forward at full width: max
 # |log-softmax difference| over the real vocabulary, on top of the
 # reference's rtol = atol = 5e-2 (whose rtol allows about 0.6 at the
@@ -175,12 +212,18 @@ TOLERANCE = {"flash_attention": {"bfloat16": {"rtol": 1e-2, "atol": 2e-3},
 LM_DECODE_GAP = 0.15
 # smoke logits card vs CPU: measured 9.8e-4, one bf16 step at |logit| 0.125+
 LM_SMOKE_ATOL = 5e-3
+# smoke-config training, card vs CPU: each step's loss (from the same
+# seed-0 weights and numpy batches; bf16 rounded at other points, then
+# AdamW, whose normalised step turns small gradient differences into whole
+# steps of lr for the weights that have them): measured 2.3e-4 over 4 steps
+# on an H100 80GB HBM3 at 700 W
+LM_TRAIN_SMOKE_ATOL = 2e-3
 # kernel functions whose ptxas report must show no spill: the ones
 # redesigned for Hopper (the wgmma flash kernel, the fused gather, the
 # sampling chain, both routes of sage_aggregate)
 SPILL_FREE = ("flash_fwd_wgmma", "fused_gather_overlay_kernel",
               "routed_neighbor_sample_chain_kernel", "sage_vec_kernel",
-              "sage_scalar_kernel")
+              "sage_scalar_kernel", "flash_bwd_dkdv", "flash_bwd_dq")
 # kernels that no path of either package runs (their launches stay 0)
 NO_PATH = {"sage_aggregate": "called only by its tests in the reference"}
 
@@ -1115,7 +1158,7 @@ def device_rows(torch, events, w0=None, w1=None):
     out = []
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA \
-                or e.name in ("device_step", "composition"):
+                or e.name in ("device_step", "composition", "lm_optimizer"):
             continue
         s, t = e.time_range.start, e.time_range.end
         if w0 is not None:
@@ -1545,14 +1588,17 @@ def timed_decode_steps(torch, transformer, run):
 
 
 def by_category(rows) -> dict:
-    """Device ms by kind of operation: the flash kernel, matrix products
-    (cuBLAS), copies and casts, and the rest (elementwise, reductions)."""
-    out = {"flash_attention": 0.0, "matmul": 0.0, "copy/cast": 0.0,
-           "other": 0.0}
+    """Device ms by kind of operation: the flash kernels (forward, and the
+    backward's three launches), matrix products (cuBLAS), copies and casts,
+    and the rest (elementwise, reductions)."""
+    out = {"flash_attention": 0.0, "flash_attention_bwd": 0.0, "matmul": 0.0,
+           "copy/cast": 0.0, "other": 0.0}
     for s, t, name in rows:
         n = name.lower()
         if "flash_fwd" in n:
             key = "flash_attention"
+        elif "flash_bwd" in n:
+            key = "flash_attention_bwd"
         elif any(w in n for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
             key = "matmul"
         elif "copy" in n or "memcpy" in n or "memset" in n:
@@ -1585,14 +1631,16 @@ def route_rule_agrees(torch, fa) -> None:
 
 
 def flash_refuses_autograd(torch, fa, card) -> None:
-    """The CUDA kernels are forward only: a call autograd would
+    """There is no f32 backward on the card: an f32 call autograd would
     differentiate (grad mode on, q, k or v requiring grad) must raise
-    without a launch, and the same inputs under ``torch.no_grad()`` run."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    without a launch, and the same inputs under ``torch.no_grad()`` run; a
+    bf16 call under autograd runs and gives each input its gradient through
+    the backward kernel (one forward and one backward launch)."""
+    from repro_torch.kernels.flash_attention import BWD_KERNEL, flash_attention
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     q, k, v = (torch.randn((1, 64, 4, 256), generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
+               for _ in range(3))
     k, v = k[:, :, :1].contiguous(), v[:, :, :1].contiguous()
     before = fa.kernel.launches
     for name in ("q", "k", "v"):
@@ -1603,15 +1651,332 @@ def flash_refuses_autograd(torch, fa, card) -> None:
         except RuntimeError as e:
             msg = str(e)
         else:
-            raise AssertionError(f"flash_attention on CUDA gave an output "
-                                 f"with {name} requiring grad")
+            raise AssertionError(f"flash_attention on CUDA gave an f32 output"
+                                 f" with {name} requiring grad")
         with torch.no_grad():
             flash_attention(**args)
     torch.cuda.synchronize()
     if fa.kernel.launches != before + 3:
-        raise AssertionError("flash_attention launched under autograd")
-    print(f"[lm] flash_attention on CUDA refuses autograd for q, k and v "
-          f"(RuntimeError: {msg[:60]}...), runs under no_grad | {card}")
+        raise AssertionError("flash_attention launched under autograd in f32")
+    bf = [t.bfloat16().requires_grad_() for t in (q, k, v)]
+    launches = (fa.kernel.launches, BWD_KERNEL.launches)
+    flash_attention(*bf).float().square().sum().backward()
+    torch.cuda.synchronize()
+    if (fa.kernel.launches, BWD_KERNEL.launches) != (launches[0] + 1,
+                                                     launches[1] + 1) \
+            or any(t.grad is None or not bool(torch.isfinite(t.grad).all())
+                   for t in bf):
+        raise AssertionError("bf16 flash_attention under autograd did not "
+                             "give finite gradients through the kernels")
+    print(f"[lm] flash_attention on CUDA refuses autograd in f32 for q, k and"
+          f" v (RuntimeError: {msg[:60]}...), runs under no_grad; bf16 under"
+          f" autograd gives q, k and v gradients through the backward kernel"
+          f" | {card}")
+
+
+# ---- the attention backward and LM training (phases 11b, 14, 15) -----------
+
+def capture_backward(torch, fa, transformer, cfg, params, batch, layers):
+    """q, k, v, o, lse, do and the call's keywords of ``layers``' backward
+    calls in one real training step (``flash_attention_bwd`` wrapped for
+    the step; the backward visits the layers last to first)."""
+    from repro_torch.train.optimizer import tree_map
+
+    captured, calls = {}, []
+    inner = fa.flash_attention_bwd
+
+    def capture(*args, **kw):
+        layer = cfg.n_layers - 1 - len(calls)
+        if layer in layers:
+            captured[layer] = (*(t.clone() for t in args), kw)
+        calls.append(kw)
+        return inner(*args, **kw)
+
+    fa.flash_attention_bwd = capture
+    try:
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, _ = transformer.loss_fn(cfg, leaves, batch)
+        loss.backward()
+        del leaves, loss
+    finally:
+        fa.flash_attention_bwd = inner
+    if len(calls) != cfg.n_layers or sorted(captured) != list(layers):
+        raise AssertionError(f"a training step made {len(calls)} attention "
+                             f"backward calls")
+    return captured
+
+
+def exact_grads(torch, q, k, v, do, causal: bool, window: int):
+    """The f64 gradient of attention over q * the bf16-rounded scale (the
+    product not rounded), k and v at output gradient ``do``, one batch row
+    at a time (the f64 scores of a 4096-token row are 537 MB a head
+    group)."""
+    Dh, G = q.shape[-1], q.shape[2] // k.shape[2]
+    scale = float(torch.tensor(Dh ** -0.5, dtype=q.dtype))
+    i = torch.arange(q.shape[1], device=q.device)[:, None]
+    j = torch.arange(k.shape[1], device=q.device)[None, :]
+    seen = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        seen &= j <= i
+    if window > 0:
+        seen &= i - j < window
+    out = [[], [], []]
+    for b in range(q.shape[0]):
+        qd, kd, vd = (t[b:b + 1].double().requires_grad_() for t in (q, k, v))
+        s = torch.einsum("bqhd,bkhd->bhqk", qd * scale,
+                         kd.repeat_interleave(G, 2))
+        o = torch.einsum("bhqk,bkhd->bqhd",
+                         s.masked_fill(~seen, float("-inf")).softmax(-1),
+                         vd.repeat_interleave(G, 2))
+        for acc, g in zip(out, torch.autograd.grad(o, (qd, kd, vd),
+                                                   do[b:b + 1].double())):
+            acc.append(g)
+        del s, o
+    return [torch.cat(g) for g in out]
+
+
+def bwd_cases(torch, fa, captured, seed: int = 12):
+    """The backward's cases: the training step's layer 0 (local) and layer
+    5 (global) calls as captured, and edge cases with o and lse from the
+    forward kernel: Dh 16, 64, 80, 128 and 256, windows 64 and none, G = 1,
+    2 and 4, causal and not, ragged Sq (77, 130, 1000), Sq != Sk."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = {}
+    for layer, (q, k, v, o, lse, do, kw) in sorted(captured.items()):
+        kind = "global" if kw["window"] >= q.shape[1] else "local"
+        cases[f"train_l{layer}_{kind}"] = (q, k, v, o, lse, do, kw)
+    for name, (B, Sq, Hq, Hkv, Dh), Sk, kw in (
+            ("s77_full_window64_g4_dh16", (1, 77, 4, 1, 16), None,
+             {"window": 64, "causal": False}),
+            ("s200_g4_dh64", (1, 200, 8, 2, 64), None, {"window": 0}),
+            ("s130_g2_dh80", (2, 130, 4, 2, 80), None, {"window": 0}),
+            ("s300_window64_g1_dh128", (1, 300, 2, 2, 128), None,
+             {"window": 64}),
+            ("s1000_window64_g4_dh256", (1, 1000, 4, 1, 256), None,
+             {"window": 64}),
+            ("sq100_sk300_g4_dh256", (1, 100, 4, 1, 256), 300,
+             {"window": 0}),
+            ("sq300_sk100_full_g4_dh128", (1, 300, 8, 2, 128), 100,
+             {"window": 0, "causal": False})):
+        Sk = Sq if Sk is None else Sk
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .bfloat16() for shape in
+                       ((B, Sq, Hq, Dh), (B, Sk, Hkv, Dh), (B, Sk, Hkv, Dh),
+                        (B, Sq, Hq, Dh)))
+        kw = {"causal": True} | kw
+        o, lse = fa._forward_cuda(q, k, v, kw["causal"], kw["window"], True)
+        cases[name] = (q, k, v, o, lse, do, kw)
+    return cases
+
+
+def check_backward(torch, fa, k, cases, card) -> dict:
+    """The backward kernel on every case: against the f64 exact gradient
+    beside the plain version (``BWD_F64_FLOOR``), twice (bitwise equal),
+    one launch counted per call."""
+    from repro_torch.kernels import ref
+
+    errs, rel = {}, {}
+    for name, (q, kk, v, o, lse, do, kw) in cases.items():
+        before = k.kernel.launches
+        got = fa.flash_attention_bwd(q, kk, v, o, lse, do, **kw)
+        again = fa.flash_attention_bwd(q, kk, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        if k.kernel.launches != before + 2:
+            raise AssertionError(f"flash_attention_bwd counted "
+                                 f"{k.kernel.launches - before} launches "
+                                 f"for 2 calls")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd is not deterministic "
+                                 f"on case {name}")
+        plain = ref.flash_attention_bwd(q, kk, v, o, lse, do, **kw)
+        exact = exact_grads(torch, q, kk, v, do, kw.get("causal", True),
+                            kw["window"])
+        parts = []
+        for n, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+            den = float(e.abs().max())
+            ek = float((g.double() - e).abs().max()) / den
+            ep = float((p.double() - e).abs().max()) / den
+            if not (g.dtype == torch.bfloat16 and g.shape == p.shape
+                    and ek <= 2 * ep + BWD_F64_FLOOR):
+                raise AssertionError(f"flash_attention_bwd case {name} {n}: "
+                                     f"kernel {ek:.3e}, plain {ep:.3e} of "
+                                     f"max |g| {den:.3e} from the f64 "
+                                     f"gradient")
+            rel[f"{name}/{n}"] = (ek, ep)
+            parts.append(f"{n} {ek:.3e} (plain {ep:.3e}, max |g| {den:.3e})")
+        errs[name] = max(float((g.float() - p.float()).abs().max())
+                         for g, p in zip(got, plain))
+        print(f"[lm-bwd] case {name}: q {tuple(q.shape)} k {tuple(kk.shape)} "
+              f"{kw}: max |err| / max |g| against f64: " + ", ".join(parts)
+              + f"; two calls bitwise equal | {card}")
+        del got, again, plain, exact
+    return {"max_abs_err": max(errs.values()), "errs": errs, "rel": rel,
+            "timed": {}}
+
+
+def time_backward(torch, np, fa, k, cases, flush, card) -> dict:
+    """At the two captured training shapes: the backward kernel, its plain
+    version and SDPA's backward (k and v expanded to the query heads,
+    is_causal or the explicit window mask; (forward + backward) - forward),
+    beside the bound (5 products of 2 Dh flops per visible pair and query
+    head at the bf16 rate, or the bytes of q, k, v, o, do, lse in and dq,
+    dk, dv out, the larger); and the forward kernel with and without lse,
+    in turns."""
+    import functools
+
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+
+    out = {}
+    for name, (q, kk, v, o, lse, do, kw) in cases.items():
+        if not name.startswith("train_"):
+            continue
+        B, S, Hq, Dh = q.shape
+        G = Hq // kk.shape[2]
+        flops = 10 * Dh * B * Hq * causal_pairs(S, kw["window"])
+        # q, o, do in and dq out; k, v in and dk, dv out; lse in
+        nbytes = 4 * (q.numel() + kk.numel()) * q.element_size() \
+            + lse.numel() * 4
+        mask = None
+        if kw["window"] < S:
+            i = torch.arange(S, device="cuda")
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
+                                                 < kw["window"])
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kt, vt = (t.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+                  .requires_grad_() for t in (kk, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+        a = (q, kk, v, o, lse, do)
+        runs = []
+        for _ in range(2):
+            runs.append([
+                time_ms(torch, functools.partial(fa.flash_attention_bwd,
+                                                 **kw), a, TIMED_LAUNCHES,
+                        flush),
+                time_ms(torch, functools.partial(ref.flash_attention_bwd,
+                                                 **kw), a, BWD_TIMED_PLAIN,
+                        flush),
+                time_ms(torch, sdpa_fwd_bwd, (), TIMED_LAUNCHES, flush)
+                - time_ms(torch, sdpa, (), TIMED_LAUNCHES, flush),
+                time_ms(torch, fa._forward_cuda, (q, kk, v, True,
+                                                  kw["window"], True),
+                        TIMED_LAUNCHES, flush),
+                time_ms(torch, fa._forward_cuda, (q, kk, v, True,
+                                                  kw["window"], False),
+                        TIMED_LAUNCHES, flush)])
+        m = np.mean(runs, axis=0)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        call = ("F.scaled_dot_product_attention backward, k/v expanded to "
+                + ("the query heads, explicit window mask" if mask is not None
+                   else "the query heads, is_causal")
+                + ", (forward + backward) - forward")
+        res = {"ms": float(m[0]), "plain_ms": float(m[1]),
+               "library_ms": float(m[2]), "library_call": call,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+               "bytes": int(nbytes), "flops": int(flops),
+               "forward_lse_ms": float(m[3]),
+               "forward_no_lse_ms": float(m[4])}
+        out[name] = res
+        print(f"[lm-bwd] {name} @ q {tuple(q.shape)}: backward kernel "
+              f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, SDPA "
+              f"backward {res['library_ms']:.4f} ms ({call}), bound "
+              f"{res['bound_ms']:.4f} ms by {res['bound_by']} "
+              f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); forward "
+              f"kernel with lse {res['forward_lse_ms']:.4f} ms, without "
+              f"{res['forward_no_lse_ms']:.4f} ms; runs {runs} | {card}")
+        del qt, kt, vt, dot, mask
+    return out
+
+
+def lse_under_recompute(torch, fa, cases, card) -> None:
+    """The forward kernel, run again on a captured call's q, k, v (as remat
+    runs it again in the backward), gives the same o and lse bits as the
+    call the training step saved."""
+    for name, (q, k, v, o, lse, do, kw) in cases.items():
+        if not name.startswith("train_"):
+            continue
+        for _ in range(2):
+            o2, lse2 = fa._forward_cuda(q, k, v, kw.get("causal", True),
+                                        kw["window"], True)
+            if not (torch.equal(o2, o) and torch.equal(lse2, lse)):
+                raise AssertionError(f"forward recompute differs from the "
+                                     f"saved o / lse on {name}")
+    print(f"[lm-bwd] forward recomputed twice on the captured calls: o and "
+          f"lse bitwise equal to the saved ones | {card}")
+
+
+def lm_train(torch, np, fa, transformer, cfg, params, batch: int, seq: int,
+             steps: int, device, lr: float = LM_TRAIN_LR, marks=None,
+             split_optimizer: bool = False):
+    """``steps`` of ``launch.train.train_step`` from ``params`` on numpy
+    batches (seed 0): per step the loss, the host wall time (synchronized)
+    and, with ``marks``, CUDA events at the step's start, after the loss
+    (the forward), where AdamW starts (after the backward) and at its end,
+    and the flash kernels' launches by route after the forward and at the
+    end.  ``split_optimizer`` synchronizes before AdamW and opens the
+    profiler range ``lm_optimizer`` there, so that every device operation
+    after its start is the optimizer's.  Returns (losses, wall seconds,
+    final params)."""
+    from repro_torch.launch.train import make_batch, train_step
+    from repro_torch.train.optimizer import AdamW, adamw
+
+    opt = adamw(lr)
+    state = opt.init(params)
+    inner_loss, step_marks = transformer.loss_fn, {}
+
+    def routes():
+        return (dict(fa.KERNEL.route_launches),
+                dict(fa.BWD_KERNEL.route_launches))
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def loss_fn(*a, **kw):
+        out = inner_loss(*a, **kw)
+        if marks is not None:
+            step_marks["fwd"], step_marks["fwd_routes"] = event(), routes()
+        return out
+
+    def update(*a, **kw):
+        if marks is not None:
+            step_marks["opt"] = event()
+        if split_optimizer:
+            torch.cuda.synchronize()
+            with torch.profiler.record_function("lm_optimizer"):
+                return opt.update(*a, **kw)
+        return opt.update(*a, **kw)
+
+    timed = AdamW(opt.init, update)
+    transformer.loss_fn = loss_fn
+    losses, walls = [], []
+    try:
+        for step in range(steps):
+            b = make_batch(cfg, batch, seq, 0, step, device)
+            if marks is not None:
+                step_marks = {"start": event(), "start_routes": routes()}
+            t0 = time.perf_counter()
+            params, state, loss = train_step(cfg, params, timed, state, b)
+            if marks is not None:
+                step_marks["end"], step_marks["end_routes"] = event(), routes()
+                marks.append(step_marks)
+            losses.append(float(loss))  # synchronizes
+            walls.append(time.perf_counter() - t0)
+    finally:
+        transformer.loss_fn = inner_loss
+    return losses, walls, params
 
 
 def gap_summary(gap, window: int) -> str:
@@ -1643,7 +2008,9 @@ def main() -> int:
     from repro_torch.train.loop import sharded_position_batch, train_gnn
     from repro_torch.configs import get_config
     from repro_torch.launch.serve_lm import generate
+    from repro_torch.kernels import flash_attention as fam
     from repro_torch.kernels import ref as kref
+    from repro_torch.launch.train import make_batch
     from repro_torch.models import layers as lm_layers
     from repro_torch.models import transformer
 
@@ -1742,7 +2109,8 @@ def main() -> int:
                                      GRAPHSAGE.fanouts, seed=9)}
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     measured = {k.name: check_and_time(torch, np, k, ctx, flush, card)
-                for k in KERNELS if k.name != "flash_attention"}
+                for k in KERNELS
+                if k.name not in ("flash_attention", "flash_attention_bwd")}
     sk = next(k for k in KERNELS if k.name == "routed_neighbor_sample")
     check_and_time_chain(torch, np, sk, measured[sk.name], chains, flush,
                          card)
@@ -2147,7 +2515,25 @@ def main() -> int:
                                        for r in prefill_routes.values()):
         raise AssertionError(f"prefill cases' routes {prefill_routes}, "
                              f"expected wgmma")
-    del captured, flush
+    del captured
+
+    # ---- 11b. LM kernel: the attention backward at a training step's shapes
+    bwd = next(k for k in KERNELS if k.name == "flash_attention_bwd")
+    tcfg = dataclasses.replace(lm, remat=True, loss_chunk=LM_TRAIN_CHUNK)
+    t0 = time.perf_counter()
+    grads_in = capture_backward(
+        torch, fam, transformer, tcfg, lm_params,
+        make_batch(tcfg, LM_BATCH, LM_PROMPT, 0, 0, "cuda"), LM_CAPTURE)
+    print(f"[lm-bwd] captured layers {sorted(grads_in)}' backward calls of "
+          f"one training step ({LM_BATCH} x {LM_PROMPT}, remat, loss chunk "
+          f"{LM_TRAIN_CHUNK}) in {time.perf_counter() - t0:.1f}s | {card}")
+    bcases = bwd_cases(torch, fam, grads_in)
+    del grads_in
+    lse_under_recompute(torch, fam, bcases, card)
+    measured[bwd.name] = check_backward(torch, fam, bwd, bcases, card)
+    measured[bwd.name]["timed"] = time_backward(torch, np, fam, bwd, bcases,
+                                                flush, card)
+    del bcases, flush
 
     # ---- 12. LM serve: prefill 4 x 4096, 32 greedy tokens ------------------
     zero_launches(KERNELS)
@@ -2253,7 +2639,7 @@ def main() -> int:
         lm_layers.flash_attention = kernel_fa
     kp_gap, _ = log_softmax_gap(torch, full, plain_full, V)
     dp_gap, _ = log_softmax_gap(torch, dec, plain_full, V)
-    del full, dec, cache, lm_params, plain_full
+    del full, dec, cache, plain_full
     w = lm.sliding_window
     print(f"[lm-parity] {lm.name} full width, S = {LM_PARITY_LEN}: "
           f"teacher-forced decode_step vs the kernel-path forward within "
@@ -2297,6 +2683,117 @@ def main() -> int:
           f"{float(on_cpu.logits.float().abs().median()):.4e}), greedy "
           f"tokens equal at {same:.4f} of the positions | {card}")
 
+    # ---- 14. LM train: gemma3-1b, 4 x 4096, remat, CE in chunks of 512 ----
+    zero_launches(KERNELS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+    losses, walls, _ = lm_train(torch, np, fam, transformer, tcfg, lm_params,
+                                LM_BATCH, LM_PROMPT, LM_TRAIN_STEPS, "cuda",
+                                marks=marks)
+    peak = torch.cuda.max_memory_allocated()
+    phase_launches["lm-train"] = read_launches(KERNELS)
+    phase_routes["lm-train"] = read_routes(KERNELS)
+    L = lm.n_layers
+    on_wgmma = {"wgmma": L, "mma_sync": 0, "simt": 0}
+    for i, m in enumerate(marks):
+        (f0, b0), (f1, b1), (f2, b2) = (m["start_routes"], m["fwd_routes"],
+                                        m["end_routes"])
+        fwd = {r: f1[r] - f0[r] for r in f0}
+        again = {r: f2[r] - f1[r] for r in f0}
+        back = {r: b2[r] - b1[r] for r in b0}
+        if fwd != on_wgmma or again != on_wgmma or back != {"mma_sync": L} \
+                or b1 != b0:
+            raise AssertionError(f"lm-train step {i}: forward launches {fwd}"
+                                 f", recompute {again}, backward {back}; "
+                                 f"expected {L} each (forward and recompute"
+                                 f" on wgmma)")
+    want = expect({"flash_attention": 2 * L * LM_TRAIN_STEPS,
+                   "flash_attention_bwd": L * LM_TRAIN_STEPS})
+    if phase_launches["lm-train"] != want:
+        raise AssertionError(f"lm-train launches {phase_launches['lm-train']}"
+                             f", expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"lm-train losses {losses}")
+    walls = np.array(walls[1:]) * 1e3  # the first step is warm-up
+    dev = {k: np.median([m[a].elapsed_time(m[b]) for m in marks[1:]])
+           for k, a, b in (("forward", "start", "fwd"),
+                           ("backward", "fwd", "opt"),
+                           ("optimizer", "opt", "end"),
+                           ("step", "start", "end"))}
+    tokens = LM_BATCH * LM_PROMPT
+    print(f"[lm-train] {lm.name} batch {LM_BATCH} x seq {LM_PROMPT}, remat, "
+          f"loss chunk {LM_TRAIN_CHUNK}, AdamW lr {LM_TRAIN_LR}, "
+          f"{LM_TRAIN_STEPS} steps (the first warm-up): median step "
+          f"{np.median(walls):.3f} ms host wall (min {walls.min():.3f}, max "
+          f"{walls.max():.3f}), {tokens / np.median(walls) * 1e3:.0f} "
+          f"tokens/s; on CUDA events (median) forward {dev['forward']:.3f} "
+          f"ms, backward {dev['backward']:.3f} ms, AdamW "
+          f"{dev['optimizer']:.3f} ms, step {dev['step']:.3f} ms; peak device"
+          f" memory {peak / 2**30:.3f} GiB; per step flash_attention "
+          f"{L} forward + {L} recompute on wgmma, flash_attention_bwd {L} on "
+          f"mma_sync | {card}")
+    print(f"[lm-train] losses {losses} | {card}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        lm_train(torch, np, fam, transformer, tcfg, lm_params, LM_BATCH,
+                 LM_PROMPT, 1, "cuda", split_optimizer=True)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    rows = device_rows(torch, events)
+    opt_at = [e.time_range.start for e in events if e.name == "lm_optimizer"
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    if not rows or len(opt_at) != 1:
+        print("[lm-train] profiled step: not measured (torch.profiler saw no "
+              "device time)")
+    else:
+        busy, top = busy_and_top(rows, k=12)
+        cats = by_category([r for r in rows if r[0] < opt_at[0]])
+        cats["optimizer"] = sum(t - s for s, t, _ in rows
+                                if s >= opt_at[0]) / 1e3
+        print(f"[lm-train] profiled step: device busy {busy / 1e3:.3f} ms of "
+              f"{wall_us / 1e3:.3f} ms host wall (profiler on, a synchronize "
+              f"before AdamW; busy share {busy / wall_us:.4f}); device ms by "
+              f"kind: " + ", ".join(f"{k} {v:.3f}" for k, v in cats.items())
+              + f"; by operation: | {card}")
+        for us, name, count in top:
+            print(f"[lm-train]   {us / 1e3:9.3f} ms  x{count:<5d} {name[:70]} "
+                  f"| {card}")
+    del prof, events, rows, lm_params
+    torch.cuda.empty_cache()
+
+    # ---- 15. LM train parity: the smoke config on the card and the CPU ----
+    zero_launches(KERNELS)
+    B, S, N = LM_TRAIN_SMOKE
+    sp = init_from_defs(transformer.defs(small),
+                        torch.Generator().manual_seed(0), "cpu")
+    cpu_losses, _, _ = lm_train(torch, np, fam, transformer, small, sp, B, S,
+                                N, "cpu")
+    card_losses, _, _ = lm_train(
+        torch, np, fam, transformer, small,
+        {k: (v.cuda() if isinstance(v, torch.Tensor)
+             else {n: t.cuda() for n, t in v.items()}) for k, v in sp.items()},
+        B, S, N, "cuda")
+    tdiff = float(np.abs(np.subtract(card_losses, cpu_losses)).max())
+    if not tdiff <= LM_TRAIN_SMOKE_ATOL:
+        raise AssertionError(f"smoke training card vs CPU: losses "
+                             f"{card_losses} vs {cpu_losses}")
+    phase_launches["lm-train-parity"] = read_launches(KERNELS)
+    phase_routes["lm-train-parity"] = read_routes(KERNELS)
+    want = expect({"flash_attention": small.n_layers * N,
+                   "flash_attention_bwd": small.n_layers * N})
+    if phase_launches["lm-train-parity"] != want or phase_routes[
+            "lm-train-parity"]["flash_attention"]["mma_sync"] != \
+            small.n_layers * N:
+        raise AssertionError(f"lm-train-parity launches "
+                             f"{phase_launches['lm-train-parity']}, expected "
+                             f"{want}, the forward on mma_sync")
+    print(f"[lm-train-parity] {small.name} batch {B} x seq {S}, {N} AdamW "
+          f"steps from the same seed-0 weights and numpy batches: card "
+          f"(kernels) {card_losses} vs CPU (plain versions) {cpu_losses}, max"
+          f" |loss diff| {tdiff:.4e} (atol {LM_TRAIN_SMOKE_ATOL}) | {card}")
+
     record = {"kernels": []}
     for k in KERNELS:
         m = measured[k.name]
@@ -2316,8 +2813,9 @@ def main() -> int:
                                   if k.kernel.route_launches else None),
             "case_routes": m.get("routes") if k.kernel.route_launches
             else None,
-            "bitwise_equal": k.name not in TOLERANCE,
-            "tolerance": TOLERANCE.get(k.name), "no_path": NO_PATH.get(k.name),
+            "bitwise_equal": k.name not in TOLERANCE and k is not bwd,
+            "tolerance": BWD_RULE if k is bwd else TOLERANCE.get(k.name),
+            "no_path": NO_PATH.get(k.name),
             "max_abs_err": m["max_abs_err"], "ms": first_timed["ms"],
             "plain_ms": first_timed["plain_ms"],
             "bound_ms": first_timed["bound_ms"],

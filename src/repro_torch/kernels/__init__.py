@@ -11,6 +11,12 @@ has the per-hop entry (the wrapper listed here, route ``hop``) and
 ``gather.routed_neighbor_sample_chain`` (route ``chain``), which the
 device-sampling paths run; ``sage_aggregate``'s wrapper takes route
 ``vec`` or ``scalar`` by ``sage_agg.sage_route``.
+
+One entry stands for a gradient, not a Pallas kernel: ``flash_attention_bwd``
+(``csrc/flash_attention_bwd.cu``) is the backward of the LM path's
+attention, which the reference gets by differentiating the ``lax.scan`` of
+``models/layers.py:75`` (it has no backward Pallas kernel); its
+``replaces`` names that function.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ class PortedKernel:
     kernel: CudaKernel
     wrapper: Callable
     plain: Callable
-    replaces: str  # the TPU kernel, as file:line in the repository
+    replaces: str  # the TPU kernel (or differentiated function), file:line
 
     @property
     def name(self) -> str:
@@ -56,6 +62,9 @@ KERNELS = (
     PortedKernel(flash_attention.KERNEL, flash_attention.flash_attention,
                  ref.flash_attention,
                  "src/repro/kernels/flash_attention.py:64"),
+    PortedKernel(flash_attention.BWD_KERNEL,
+                 flash_attention.flash_attention_bwd, ref.flash_attention_bwd,
+                 "src/repro/models/layers.py:75"),
     PortedKernel(sage_agg.KERNEL, sage_agg.sage_aggregate, ref.sage_aggregate,
                  "src/repro/kernels/sage_agg.py:32"),
 )

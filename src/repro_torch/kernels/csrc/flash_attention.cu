@@ -14,6 +14,12 @@
 //   row cannot see is reset by the next visible one through alpha = 0), and
 //   out = acc / max(l, 1e-30) in the input type.
 //
+//   lse (optional, null for none; training asks for it, serving does not):
+//   each row's log-sum-exp in natural log, m + log(l) from the running max
+//   and sum the loop keeps, as f32 (B, Hq, Sq); the wgmma route converts its
+//   base-2 statistic, (m2 + log2(l)) * ln 2.  flash_attention_bwd.cu
+//   recomputes p = exp(s - lse) from it.
+//
 // Bound on this card: at the LM prefill shapes, operations (4 * Dh flops
 // per visible (query, key) pair and query head; 137 GFLOP for a global
 // gemma3-1b layer at 4 x 4096, 0.14 ms at 989 TFLOP/s) rather than bytes
@@ -113,8 +119,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
-               __nv_bfloat16* __restrict__ out, int Sq, int Sk, int Hq,
-               int Hkv, int Dh, int causal, int window, float scale) {
+               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+               int Sq, int Sk, int Hq, int Hkv, int Dh, int causal,
+               int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = Dh + 8;  // padded row, in elements
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -266,6 +273,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int i = q0 + row0 + r * 8;
     if (i >= Sq) continue;
+    if (lse != nullptr && tig == 0)  // l is the row's whole sum in each thread
+      lse[(static_cast<size_t>(b) * Hq + h) * Sq + i] = m[r] + logf(l[r]);
     __nv_bfloat16* orow = out + ((static_cast<size_t>(b) * Sq + i) * Hq + h) * Dh;
     const float inv = r ? inv1 : inv0;
 #pragma unroll
@@ -284,9 +293,9 @@ constexpr int kMaxChunks = 8;  // Dh <= 256 = 8 x 32 lanes
 
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out, int Sq,
-              int Sk, int Hq, int Hkv, int Dh, int causal, int window,
-              float scale) {
+              const float* __restrict__ v, float* __restrict__ out,
+              float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int Dh,
+              int causal, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = Dh + 1;  // odd stride: lane j reads row j without conflicts
   float* Qs = reinterpret_cast<float*>(smem);  // kRows x Dh
@@ -353,6 +362,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   if (i >= Sq) return;
+  if (lse != nullptr && lane == 0)
+    lse[(static_cast<size_t>(b) * Hq + h) * Sq + i] = m + logf(l);
   float* orow = out + ((static_cast<size_t>(b) * Sq + i) * Hq + h) * Dh;
   const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
@@ -368,6 +379,7 @@ constexpr int kRowsPerCta = 128;  // packed (position, head) rows
 constexpr int kKeys = 64;         // keys per K/V tile
 constexpr int kBoxBytes = 64 * 128;  // 64 rows of 64 bf16 columns
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DH>
 struct WgTile {
@@ -383,6 +395,8 @@ struct WgTile {
 
 struct WgParams {
   int B, Sq, Sk, Hkv;
+  int G;       // query heads per kv head
+  float* lse;  // (B, Hkv * G, Sq) f32, or null
   int Gt;      // heads packed per tile: min(G, 128)
   int HB;      // head blocks per kv head: ceil(G / Gt)
   int P;       // positions per tile: 128 / Gt
@@ -716,6 +730,18 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       inv[r] = 1.f / fmaxf(l[r], 1e-30f);
     }
+    if (prm.lse != nullptr && (lane & 3) == 0) {
+      // natural-log lse of each real (position, head) row: the exp2
+      // domain's m2 + log2(l), times ln 2
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r ? r1 : r0;
+        const int pos = p0 + row / prm.Gt, gh = hb * prm.Gt + row % prm.Gt;
+        if (pos < prm.Sq && gh < prm.G)
+          prm.lse[(static_cast<size_t>(b) * prm.Hkv * prm.G + hk * prm.G +
+                   gh) * prm.Sq + pos] = (m[r] + log2f(l[r])) * kLn2;
+      }
+    }
     // Into this warpgroup's Q rows (their products are done), in the
     // swizzled layout of the Q box, then one TMA store of the whole tile:
     // it clips rows past Sq and heads past G.
@@ -745,8 +771,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 
 template <int DH>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* out, int B, int Sq, int Sk, int Hq, int Hkv,
-                         int causal, int window, float scale,
+                         void* out, float* lse, int B, int Sq, int Sk, int Hq,
+                         int Hkv, int causal, int window, float scale,
                          cudaStream_t stream) {
   using T = WgTile<DH>;
   const int G = Hq / Hkv;
@@ -755,6 +781,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   prm.Sq = Sq;
   prm.Sk = Sk;
   prm.Hkv = Hkv;
+  prm.G = G;
+  prm.lse = lse;
   prm.Gt = min(G, kRowsPerCta);
   prm.HB = (G + prm.Gt - 1) / prm.Gt;
   prm.P = kRowsPerCta / prm.Gt;
@@ -809,8 +837,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 
 template <int DMAX>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, int B, int Sq, int Sk, int Hq, int Hkv,
-                        int Dh, int causal, int window, float scale,
+                        void* out, float* lse, int B, int Sq, int Sk, int Hq,
+                        int Hkv, int Dh, int causal, int window, float scale,
                         cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kBM + 2 * kBN) * (Dh + 8) * 2;
   cudaError_t err = cudaFuncSetAttribute(
@@ -821,7 +849,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   flash_fwd_bf16<DMAX><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Sq, Sk, Hq, Hkv, Dh, causal, window, scale);
+      lse, Sq, Sk, Hq, Hkv, Dh, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -836,33 +864,33 @@ extern "C" int flash_attention_route(int dtype, int Dh) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Dh a multiple of 16 up to 256 (the
-// wrapper checks); window <= 0 means unbounded.  Returns the launch's
-// cudaError_t.
+// wrapper checks); window <= 0 means unbounded; lse null or (B, Hq, Sq)
+// f32.  Returns the launch's cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int dtype, int B, int Sq, int Sk,
-                               int Hq, int Hkv, int Dh, int causal, int window,
-                               float scale, void* stream) {
+                               void* out, float* lse, int dtype, int B, int Sq,
+                               int Sk, int Hq, int Hkv, int Dh, int causal,
+                               int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0) return cudaSuccess;
   switch (flash_attention_route(dtype, Dh)) {
     case 2:
       if (Dh == 64)
-        return launch_wgmma<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
-                                window, scale, st);
+        return launch_wgmma<64>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv,
+                                causal, window, scale, st);
       if (Dh == 128)
-        return launch_wgmma<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
-                                 window, scale, st);
-      return launch_wgmma<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+        return launch_wgmma<128>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv,
+                                 causal, window, scale, st);
+      return launch_wgmma<256>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal,
                                window, scale, st);
     case 1:
       if (Dh <= 64)
-        return launch_bf16<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, Dh, causal,
-                               window, scale, st);
+        return launch_bf16<64>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, Dh,
+                               causal, window, scale, st);
       if (Dh <= 128)
-        return launch_bf16<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, Dh, causal,
-                                window, scale, st);
-      return launch_bf16<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, Dh, causal,
-                              window, scale, st);
+        return launch_bf16<128>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, Dh,
+                                causal, window, scale, st);
+      return launch_bf16<256>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, Dh,
+                              causal, window, scale, st);
     default:
       break;
   }
@@ -875,7 +903,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   dim3 grid((Sq + kRows - 1) / kRows, Hq, B);
   flash_fwd_f32<<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, Hq, Hkv,
-      Dh, causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Sk, Hq,
+      Hkv, Dh, causal, window, scale);
   return cudaGetLastError();
 }

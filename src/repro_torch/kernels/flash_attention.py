@@ -1,4 +1,4 @@
-"""Online-softmax attention forward: the LM prefill's hot spot.
+"""Online-softmax attention and its gradient: the LM path's hot spot.
 
 ``flash_attention`` takes the LM path's layout — q (B, Sq, Hq, Dh), k and v
 (B, Sk, Hkv, Dh) with grouped-query heads and a per-call sliding window —
@@ -10,11 +10,16 @@ heads packed into one tile), ``mma_sync`` (bf16, other head dims) or
 ``simt`` (f32).  On CPU tensors they run the plain version in
 ``kernels/ref.py``.  There is no other fallback.
 
-The kernels are forward only: on a card, a call that autograd would
-differentiate (grad mode on and q, k or v requiring grad) raises rather
-than return an output with no gradient.  The backward kernel comes with LM
-training (ROADMAP, queue 1).  On the CPU the plain version is
-differentiable as it is.
+Under autograd (grad mode on and q, k or v requiring grad) the call is a
+``torch.autograd.Function``: its forward also writes each row's
+log-sum-exp and saves q, k, v, the output and the lse; its backward is
+``flash_attention_bwd``, the hand-written kernel of
+``csrc/flash_attention_bwd.cu`` (bf16, counted on ``BWD_KERNEL``).  On CPU
+tensors both directions run the plain versions (``ref.flash_attention``
+with ``return_lse``, ``ref.flash_attention_bwd``).  The card has no f32
+backward yet: an f32 call on the card under autograd raises rather than
+differentiate the plain version.  Without autograd (serving, under
+``inference_mode``) no lse is written.
 """
 from __future__ import annotations
 
@@ -28,9 +33,18 @@ from repro_torch.kernels._build import CudaKernel
 ROUTES = ("wgmma", "mma_sync", "simt")
 KERNEL = CudaKernel(
     "flash_attention", "csrc/flash_attention.cu", "flash_attention",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float,
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                   ctypes.c_void_p],
     routes=ROUTES)
+BWD_ROUTES = ("mma_sync",)  # bf16, every head dim
+BWD_KERNEL = CudaKernel(
+    "flash_attention_bwd", "csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float,
+                                                   ctypes.c_void_p],
+    routes=BWD_ROUTES)
+F32_BACKWARD = ("ROADMAP queue 2: the f32 backward of flash_attention on "
+                "the card")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 128, 256)
@@ -42,6 +56,96 @@ def flash_route(dtype: torch.dtype, head_dim: int) -> str:
     if dtype != torch.bfloat16:
         return "simt"
     return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be 4-D (B, S, H, Dh), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, Hq, Dh = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != Dh:
+        raise ValueError(f"k and v must be (B, Sk, Hkv, Dh) = "
+                         f"({B}, Sk, Hkv, {Dh}), got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    Hkv = k.shape[2]
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"query heads {Hq} must be a multiple of kv heads "
+                         f"{Hkv}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must all be bf16 or all f32, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if Dh % 16 or not 16 <= Dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim must be a multiple of 16 up to "
+                         f"{MAX_HEAD_DIM}, got {Dh}")
+    devices = {t.device for t in (q, k, v)}
+    if len(devices) != 1:
+        raise ValueError(f"q, k, v must share one device, got {devices}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+
+
+def _cuda_args(q, k, window: int) -> float:
+    """Checks a CUDA launch needs beyond ``_check``; returns the scale,
+    rounded to the input type (jnp's weakly typed scalar takes the input's
+    type: exact for Dh = 16, 64, 256)."""
+    for name, value in (("window", window), ("Sq", q.shape[1]),
+                        ("Sk", k.shape[1])):
+        if not -(1 << 31) <= value < (1 << 31):
+            raise ValueError(f"{name} {value} does not fit the kernel's int32")
+    return float(torch.tensor(q.shape[3] ** -0.5, dtype=q.dtype))
+
+
+def _forward_cuda(q, k, v, causal: bool, window: int, with_lse: bool):
+    """One launch of the forward kernel: (out, lse or None)."""
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flash_attention needs contiguous inputs")
+    scale = _cuda_args(q, k, window)
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    route = flash_route(q.dtype, Dh)
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)
+                                if t.numel()):
+        raise ValueError("the wgmma route reads q, k, v by TMA and needs "
+                         "them 16-byte aligned")
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0:
+        return out, lse
+    fn = KERNEL.fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if with_lse else None, _DTYPES[q.dtype], B,
+                 Sq, Sk, Hq, Hkv, Dh, int(causal), int(window), scale, stream)
+    KERNEL.check(err)
+    KERNEL.count_launch(route)
+    return out, lse
+
+
+class _Attention(torch.autograd.Function):
+    """The kernel (or, on the CPU, the plain version) forward with its lse
+    saved, and the backward kernel (or its plain version) as the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, block_kv):
+        if q.device.type == "cpu":
+            out, lse = ref.flash_attention(q, k, v, causal=causal,
+                                           window=window, block_kv=block_kv,
+                                           return_lse=True)
+        else:
+            out, lse = _forward_cuda(q, k, v, causal, window, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = {"causal": causal, "window": window, "block_kv": block_kv}
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -57,65 +161,73 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the input type.  ``block_kv`` is the plain version's key block; the
     kernels tile keys by 64 (bf16) or 32 (f32) and visit only the tiles
     their queries can see.  A query that sees no key at all is undefined.
+    Differentiable (see the module's doc); on the card in bf16 only.
     """
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"q, k, v must be 4-D (B, S, H, Dh), got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    B, Sq, Hq, Dh = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != Dh:
-        raise ValueError(f"k and v must be (B, Sk, Hkv, Dh) = "
-                         f"({B}, Sk, Hkv, {Dh}), got {tuple(k.shape)} and "
-                         f"{tuple(v.shape)}")
-    Sk, Hkv = k.shape[1], k.shape[2]
-    if Hkv < 1 or Hq % Hkv:
-        raise ValueError(f"query heads {Hq} must be a multiple of kv heads "
-                         f"{Hkv}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must all be bf16 or all f32, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
-    if Dh % 16 or not 16 <= Dh <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim must be a multiple of 16 up to "
-                         f"{MAX_HEAD_DIM}, got {Dh}")
-    devices = {t.device for t in (q, k, v)}
-    if len(devices) != 1:
-        raise ValueError(f"q, k, v must share one device, got {devices}")
-    dev = q.device
-    if dev.type == "cpu":
+    _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.device.type == "cuda" and q.dtype != torch.bfloat16:
+            raise RuntimeError(
+                f"flash_attention on CUDA has a backward kernel for bf16 "
+                f"only, so it cannot give {q.dtype} q, k or v a gradient "
+                f"({F32_BACKWARD}): call it in bf16, or under "
+                f"torch.no_grad() or torch.inference_mode()")
+        return _Attention.apply(q, k, v, causal, window, block_kv)
+    if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    block_kv=block_kv)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention on CUDA has no backward kernel yet, so it "
-            "cannot give q, k or v a gradient: call it under "
-            "torch.no_grad() or torch.inference_mode(); the backward comes "
-            "with LM training (ROADMAP, queue 1)")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("flash_attention needs contiguous inputs")
-    for name, value in (("window", window), ("Sq", Sq), ("Sk", Sk)):
-        if not -(1 << 31) <= value < (1 << 31):
-            raise ValueError(f"{name} {value} does not fit the kernel's int32")
-    # jnp's weakly typed scalar takes the input's type: the scale is
-    # rounded to bf16 before it multiplies q (exact for Dh = 16, 64, 256).
-    scale = float(torch.tensor(Dh ** -0.5, dtype=q.dtype))
-    route = flash_route(q.dtype, Dh)
-    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)
-                                if t.numel()):
-        raise ValueError("the wgmma route reads q, k, v by TMA and needs "
-                         "them 16-byte aligned")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    fn = KERNEL.fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPES[q.dtype], B, Sq, Sk, Hq, Hkv, Dh, int(causal),
-                 int(window), scale, stream)
-    KERNEL.check(err)
-    KERNEL.count_launch(route)
-    return out
+    return _forward_cuda(q, k, v, causal, window, False)[0]
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        block_kv: int = 1024) -> tuple:
+    """The gradient (dq, dk, dv) of ``flash_attention(q, k, v)`` at output
+    gradient ``do``, from its output ``o`` and log-sum-exp ``lse``
+    (B, Hq, Sq) f32, natural log.  On CUDA tensors one call of the
+    hand-written kernel (three launches: D = rowsum(do * o), dk and dv, dq;
+    bf16 only, no atomics, so repeated calls give the same bits); on CPU
+    tensors ``ref.flash_attention_bwd`` (``block_kv`` its key block)."""
+    _check(q, k, v)
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"o and do must be {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(o.shape)} {o.dtype} and {tuple(do.shape)} "
+                         f"{do.dtype}")
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({B}, {Hq}, {Sq}) f32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if {t.device for t in (o, lse, do)} != {q.device}:
+        raise ValueError("q, k, v, o, lse and do must share one device")
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                       window=window, block_kv=block_kv)
+    if q.dtype != torch.bfloat16:
+        raise RuntimeError(f"flash_attention_bwd on CUDA takes bf16 only, "
+                           f"got {q.dtype} ({F32_BACKWARD})")
+    ts = (q, k, v, o, do, lse)
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("flash_attention_bwd needs contiguous inputs")
+    if any(t.data_ptr() % 16 for t in ts if t.numel()):
+        raise ValueError("flash_attention_bwd reads 16-byte chunks and needs "
+                         "its inputs 16-byte aligned")
+    scale = _cuda_args(q, k, window)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    fn = BWD_KERNEL.fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq,
+                 Hkv, Dh, int(causal), int(window), scale, stream)
+    BWD_KERNEL.check(err)
+    BWD_KERNEL.count_launch("mma_sync")
+    return dq, dk, dv
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -135,7 +135,7 @@ def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    block_kv: int = 1024) -> torch.Tensor:
+                    block_kv: int = 1024, return_lse: bool = False):
     """Chunked online-softmax attention with GQA, as the reference's LM path
     computes it (``models/layers.py`` ``flash_attention``).
 
@@ -146,11 +146,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     input type (jnp's weakly typed scalar is the input type, so the scale
     is rounded too), scores and running statistics are f32, ``p`` is
     rounded to the value type before ``p @ v``, and masked scores are
-    ``NEG_INF``."""
+    ``NEG_INF``.
+
+    With ``return_lse`` it returns ``(out, lse)``: each row's log-sum-exp of
+    its masked scores, (B, Hq, Sq) f32 (or (BH, S) for the 3-D contract),
+    in natural log, ``m + log(l)`` from the same running max ``m`` and sum
+    ``l`` the loop keeps (the kernels write the same convention).  It is
+    what ``flash_attention_bwd`` recomputes p from."""
     if q.dim() == 3:
-        return flash_attention(q[:, :, None], k[:, :, None], v[:, :, None],
-                               causal=causal, window=window,
-                               block_kv=block_kv)[:, :, 0]
+        out = flash_attention(q[:, :, None], k[:, :, None], v[:, :, None],
+                              causal=causal, window=window,
+                              block_kv=block_kv, return_lse=return_lse)
+        if return_lse:
+            return out[0][:, :, 0], out[1][:, 0]
+        return out[:, :, 0]
     B, Sq, Hq, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -181,7 +190,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "bhgqk,bkhd->bhgqd", p.to(vb.dtype).float(), vb.float())
         m = m_new
     o = o / l.clamp_min(1e-30)[..., None]
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dh).to(q.dtype)
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dh).to(q.dtype)
+    if return_lse:
+        return o, (m + torch.log(l)).reshape(B, Hq, Sq).contiguous()
+    return o
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        block_kv: int = 1024) -> tuple:
+    """The gradient of ``flash_attention`` as the backward kernel computes
+    it: (dq, dk, dv) in the input type, from q, k, v, the forward's output
+    ``o``, its log-sum-exp ``lse`` (B, Hq, Sq) (natural log, as
+    ``flash_attention(..., return_lse=True)`` gives it) and the output's
+    gradient ``do`` (B, Sq, Hq, Dh).
+
+    Key block by key block (``block_kv`` keys): p = exp(s - lse) from the
+    recomputed masked scores s = bf16(q * scale) . k (0 where masked);
+    D = rowsum(do * o) in f32; dv = p^T do and dp = do v^T; ds = p * (dp -
+    D); dk = ds^T bf16(q * scale) and dq = ds k * scale, summed in f32 over
+    the blocks.  dk and dv sum over the G query heads of each kv head.
+
+    Rounding points, those of autograd through ``flash_attention``: q *
+    scale rounded to the input type (the scale itself rounded too), p
+    rounded to the value type before p^T do (the forward's p . v), o and do
+    in the input type (the output cast); dq, dk and dv are each rounded to
+    the input type once, at the end.  Everything else is f32 (the kernel
+    also rounds ds to bf16 for its products).  In f32 none of these
+    rounds."""
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    dev = q.device
+    scale = torch.full((), Dh ** -0.5, dtype=q.dtype, device=dev)
+    qs = (q.reshape(B, Sq, Hkv, G, Dh) * scale).float()
+    dof = do.reshape(B, Sq, Hkv, G, Dh).float()
+    delta = (dof * o.reshape(B, Sq, Hkv, G, Dh).float()).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)  # (B, Hkv, G, Sq)
+    lse = lse.reshape(B, Hkv, G, Sq).float()
+    q_pos = torch.arange(Sq, device=dev)
+    dqs = torch.zeros((B, Sq, Hkv, G, Dh), dtype=torch.float32, device=dev)
+    dk = torch.empty((B, Sk, Hkv, Dh), dtype=k.dtype, device=dev)
+    dv = torch.empty((B, Sk, Hkv, Dh), dtype=v.dtype, device=dev)
+    for b0 in range(0, Sk, block_kv):
+        kb = k[:, b0:b0 + block_kv].float()
+        vb = v[:, b0:b0 + block_kv]
+        j = torch.arange(b0, b0 + kb.shape[1], device=dev)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qs, kb)
+        mask = attn_mask(q_pos, j, causal=causal, window=window)
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        dv[:, b0:b0 + block_kv] = torch.einsum(
+            "bhgqk,bqhgd->bkhd", p.to(v.dtype).float(), dof).to(v.dtype)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vb.float())
+        ds = p * (dp - delta[..., None])
+        dk[:, b0:b0 + block_kv] = torch.einsum(
+            "bhgqk,bqhgd->bkhd", ds, qs).to(k.dtype)
+        dqs += torch.einsum("bhgqk,bkhd->bqhgd", ds, kb)
+    dq = (dqs * scale.float()).to(q.dtype).reshape(B, Sq, Hq, Dh)
+    return dq, dk, dv
 
 
 def sage_aggregate(table: torch.Tensor, idx: torch.Tensor,

@@ -8,12 +8,20 @@ of the reference's ``lax.scan``.  Per-layer heterogeneity (gemma3's 5 local
 ``layer_flags`` as host values.  Decode writes one token per step into
 stacked KV caches (L, B, Smax, Hkv, Dh), in place.  Activations are bf16
 over f32 master weights, cast at each use, as in the reference.
+
+Training: ``loss_fn`` is the reference's next-token cross entropy.  With
+``cfg.remat`` each layer of a ``mode="train"`` forward runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint(layer)``), and
+with ``cfg.loss_chunk`` each chunk's CE runs under it too, so that neither
+the layers' activations nor a chunk's (B, chunk, V) f32 logits are kept for
+the backward: they are recomputed there.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -94,17 +102,71 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     return unembed(cfg, params, x), aux
 
 
-def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
-    """Forward up to the final norm (pre-unembed); (hidden, aux 0.0)."""
+def _block(cfg: ModelConfig, p: dict, x: torch.Tensor, window: int,
+           theta: float) -> torch.Tensor:
+    """One decoder layer: attention and MLP, each behind a pre-norm and a
+    residual add."""
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    x = x + attn.self_attention(cfg, p, h, window=window, theta=theta)
+    return _mlp_block(cfg, p, x)
+
+
+def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+                   mode: str = "train"):
+    """Forward up to the final norm (pre-unembed); (hidden, aux 0.0).  With
+    ``cfg.remat`` and ``mode == "train"`` each layer is checkpointed when
+    autograd records (nothing to recompute otherwise)."""
     x = embed_tokens(cfg, params, tokens)
     window, theta = layer_flags(cfg)
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     for l in range(cfg.n_layers):
         p = _layer(params, l)
-        h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        x = x + attn.self_attention(cfg, p, h, window=window[l],
-                                    theta=theta[l])
-        x = _mlp_block(cfg, p, x)
+        if remat:
+            x = checkpoint(_block, cfg, p, x, window[l], theta[l],
+                           use_reentrant=False)
+        else:
+            x = _block(cfg, p, x, window[l], theta[l])
     return rms_norm(x, params["final_norm"], cfg.norm_eps), 0.0
+
+
+def _ce(cfg: ModelConfig, params: dict, x: torch.Tensor,
+        labels: torch.Tensor):
+    """(sum of the token CEs, number of tokens) over the unmasked labels
+    (labels < 0 are masked), from f32 logits."""
+    logits = unembed(cfg, params, x).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+    """Next-token CE (labels = tokens shifted by the caller; labels < 0
+    masked).  Returns (loss, {"ce", "aux"}); aux is 0.0 (dense).
+
+    With ``cfg.loss_chunk`` > 0 dividing S (and S > the chunk), the CE is
+    summed chunk by chunk along the sequence, in order, as the reference's
+    scan sums it; under autograd each chunk is checkpointed, so that only
+    one chunk's logits exist at a time in the backward too."""
+    hidden, aux = forward_hidden(cfg, params, batch["tokens"], mode="train")
+    labels = batch["labels"]
+    S = hidden.shape[1]
+    chunk = cfg.loss_chunk
+    if chunk and S % chunk == 0 and S > chunk:
+        se = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c in range(0, S, chunk):
+            h, lab = hidden[:, c:c + chunk], labels[:, c:c + chunk]
+            if torch.is_grad_enabled():
+                s_c, n_c = checkpoint(_ce, cfg, params, h, lab,
+                                      use_reentrant=False)
+            else:
+                s_c, n_c = _ce(cfg, params, h, lab)
+            se, cnt = se + s_c, cnt + n_c
+    else:
+        se, cnt = _ce(cfg, params, hidden, labels)
+    ce = se / cnt.clamp_min(1.0)
+    loss = ce + 0.01 * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------- decode ----

@@ -478,14 +478,21 @@ def test_gather_and_scatter_on_cpu_count_no_launches():
 
 
 def test_kernel_registry_describes_every_ported_kernel():
+    """Each entry replaces a TPU kernel of ``src/repro/kernels/``, except
+    the attention backward, which stands for the gradient of the LM path's
+    ``lax.scan`` (the reference has no backward Pallas kernel)."""
     names = [k.name for k in KERNELS]
     assert names == ["fused_gather_overlay", "gather_rows", "scatter_rows",
                      "routed_gather", "routed_neighbor_sample",
-                     "flash_attention", "sage_aggregate"]
+                     "flash_attention", "flash_attention_bwd",
+                     "sage_aggregate"]
     for k in KERNELS:
         assert k.source == f"src/repro_torch/kernels/csrc/{k.name}.cu"
         assert k.kernel.source.exists()
         path, line = k.replaces.split(":")
+        if k.name == "flash_attention_bwd":
+            assert k.replaces == "src/repro/models/layers.py:75"
+            continue
         assert path.startswith("src/repro/kernels/") and int(line) > 0
 
 

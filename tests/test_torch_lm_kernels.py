@@ -6,7 +6,9 @@ CPU: the plain versions (``kernels/ref.py``) against the reference —
 ``test_flash_matches_ref``: its jnp oracle and its Pallas kernel in
 interpret mode) and against the LM path's chunked attention
 (``repro.models.layers.flash_attention``) with GQA, windows and a ragged
-length; ``sage_aggregate`` over the Pallas test's grid.
+length; its lse against a jnp logsumexp; ``flash_attention_bwd`` against
+autograd through the plain forward and ``jax.vjp`` of the reference's
+chunked attention; ``sage_aggregate`` over the Pallas test's grid.
 
 CPU, the flash kernel's design: ``flash_route`` (the rule the CUDA source
 applies too) and a plain-PyTorch emulation of the ``wgmma`` route's
@@ -14,7 +16,9 @@ arithmetic (GQA heads packed into 128-row tiles, 64-key tiles, the exp2
 domain, -1e30 masks) held to the plain version.
 
 GPU (``gpu``-marked, skipped without a card): each CUDA kernel against its
-plain version on the card, and the route each call took.  The reference package is imported inside the
+plain version on the card, and the route each call took; the backward
+kernel against the f64 exact gradient beside its plain version, twice
+(bitwise), and autograd through the wrapper (bf16 runs, f32 raises).  The reference package is imported inside the
 CPU tests only, so the ``gpu`` tests run on a GPU host that has no JAX:
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_lm_kernels.py``.
 """
@@ -241,22 +245,142 @@ def test_cpu_tensors_count_no_route_launches():
     (torch.float32, 0, True), (torch.float32, 8, True),
     (torch.bfloat16, 0, False)])
 def test_cpu_flash_attention_is_differentiable(dtype, window, causal):
-    """On the CPU the wrapper returns the plain version's output with its
-    autograd graph: its gradients equal autograd through
-    ``ref.flash_attention`` on the same inputs, bit for bit."""
+    """On the CPU the wrapper is differentiable through its plain versions:
+    the forward's output is ``ref.flash_attention``'s bit for bit, and its
+    gradients are ``ref.flash_attention_bwd``'s of the saved output and
+    lse, bit for bit, and within the backward's tolerance (BWD_TOL) of
+    autograd through ``ref.flash_attention``."""
     q, k, v = _qkv(3, 2, 40, 4, 2, 32, dtype)
     w = torch.from_numpy(np.random.default_rng(4).standard_normal(
         tuple(q.shape)).astype(np.float32))
-    grads = []
+    grads, outs = [], []
     for f in (fa.flash_attention, tref.flash_attention):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out = f(*leaves, causal=causal, window=window, block_kv=16)
         assert out.requires_grad and out.grad_fn is not None
         (out.float() * w).sum().backward()
         grads.append([t.grad for t in leaves])
-    for a, b in zip(*grads):
-        assert a is not None and a.dtype == dtype and torch.equal(a, b)
+        outs.append(out.detach())
+    assert torch.equal(*outs)
+    o, lse = tref.flash_attention(q, k, v, causal=causal, window=window,
+                                  block_kv=16, return_lse=True)
+    plain = tref.flash_attention_bwd(q, k, v, o, lse, w.to(dtype),
+                                     causal=causal, window=window,
+                                     block_kv=16)
+    for a, b, c in zip(*grads, plain):
+        assert a is not None and a.dtype == dtype and torch.equal(a, c)
         assert bool(torch.isfinite(a.float()).all()) and a.abs().sum() > 0
+        assert _rel(a, b) <= BWD_TOL[dtype]
+
+
+def _rel(a, b) -> float:
+    """|a - b| / |b| in Frobenius norms, in f64."""
+    a, b = (torch.as_tensor(np.asarray(_f32(x), np.float64)) for x in (a, b))
+    return float((a - b).norm() / b.norm())
+
+
+# the plain backward against autograd through the plain forward (and the
+# reference's jax.grad of its lax.scan), per gradient, as |a - b| / |b|:
+# f32 differs by summation order only (measured 1e-7 to 6.2e-7); bf16 by
+# where each side rounds (autograd also rounds dp to bf16 at the backward
+# of p's cast, and each side rounds each gradient once; measured 2.4e-3 to
+# 4.2e-3), about one bf16 step (2**-8 = 3.9e-3)
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("Hkv,Dh,window", [
+    (4, 16, 8), (2, 80, 0), (1, 256, 64), (1, 16, 0), (2, 256, 8),
+    (4, 80, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_flash_bwd_matches_autograd_and_the_reference(Hkv, Dh, window,
+                                                            dtype):
+    """``ref.flash_attention_bwd`` against autograd through
+    ``ref.flash_attention`` and against ``jax.vjp`` of the reference's
+    LM-path attention (``repro.models.layers.flash_attention``, a
+    ``lax.scan`` over key blocks) on the same inputs: G = 1, 2, 4 query
+    heads per kv head, Dh 16, 80 (a scale that bf16 rounds) and 256,
+    causal with windows 0, 8 and 64, S = 77 over key blocks of 16 (the
+    last one padded).  Within BWD_TOL."""
+    jnp, _, _, jlayers = _reference()
+    import jax
+
+    S = 77
+    q, k, v = _qkv(Dh + Hkv, 2, S, 4, Hkv, Dh, dtype)
+    do = _randn(np.random.default_rng(5), tuple(q.shape), dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tref.flash_attention(*leaves, window=window, block_kv=16)
+    out.backward(do)
+    o, lse = tref.flash_attention(q, k, v, window=window, block_kv=16,
+                                  return_lse=True)
+    got = tref.flash_attention_bwd(q, k, v, o, lse, do, window=window,
+                                   block_kv=16)
+    _, vjp = jax.vjp(lambda a, b, c: jlayers.flash_attention(
+        a, b, c, causal=True, window=window, block_kv=16),
+        *(_to_jax(t) for t in (q, k, v)))
+    want = vjp(_to_jax(do))
+    for g, auto, ref_g in zip(got, leaves, want):
+        assert g.shape == auto.shape and g.dtype == dtype
+        assert _rel(g, auto.grad) <= BWD_TOL[dtype]
+        assert _rel(g, ref_g) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("window,causal,Hkv", [(0, True, 1), (8, True, 2),
+                                               (0, False, 4), (5, False, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_return_lse_is_the_logsumexp_of_the_masked_scores(window, causal,
+                                                          Hkv, dtype):
+    """lse (B, Hq, Sq) against a jnp logsumexp over each row's visible
+    scores bf16(q * scale) . k (masked ones -inf), S = 37 over key blocks
+    of 16; within 1e-5 (f32 sums in another order).  The output is the
+    same bits with and without it; the (BH, S, Dh) contract gives (BH, S)."""
+    jnp = _reference()[0]
+    import jax
+
+    q, k, v = _qkv(11, 2, 37, 4, Hkv, 32, dtype)
+    o, lse = tref.flash_attention(q, k, v, causal=causal, window=window,
+                                  block_kv=16, return_lse=True)
+    assert torch.equal(o, tref.flash_attention(q, k, v, causal=causal,
+                                               window=window, block_kv=16))
+    assert lse.shape == (2, 4, 37) and lse.dtype == torch.float32
+    assert lse.is_contiguous()
+    scale = jnp.asarray(32 ** -0.5, _to_jax(q).dtype)
+    qs = (_to_jax(q) * scale).astype(jnp.float32)
+    kk = jnp.repeat(_to_jax(k).astype(jnp.float32), 4 // Hkv, axis=2)
+    s = jnp.einsum("bqhd,bkhd->bhqk", qs, kk)
+    i = jnp.arange(37)[:, None]
+    j = jnp.arange(37)[None, :]
+    seen = jnp.ones((37, 37), bool)
+    if causal:
+        seen &= j <= i
+    if window:
+        seen &= i - j < window
+    want = jax.nn.logsumexp(jnp.where(seen, s, -jnp.inf), axis=-1)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    o3, lse3 = tref.flash_attention(q[:, :, 0], k[:, :, 0], v[:, :, 0],
+                                    causal=causal, window=window,
+                                    return_lse=True)
+    assert o3.shape == q[:, :, 0].shape and lse3.shape == (2, 37)
+
+
+def test_flash_bwd_wrapper_checks_its_arguments():
+    q, k, v = _qkv(0, 1, 8, 4, 1, 16, torch.float32)
+    o, lse = tref.flash_attention(q, k, v, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, o)
+    want = tref.flash_attention_bwd(q, k, v, o, lse, o)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    before = (fa.BWD_KERNEL.launches, dict(fa.BWD_KERNEL.route_launches))
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, o, lse[:, :2], o)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, o, lse.double(), o)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, o.bfloat16(), lse, o)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, o, lse, o[:, :4])
+    assert (fa.BWD_KERNEL.launches,
+            dict(fa.BWD_KERNEL.route_launches)) == before
+    assert fa.BWD_ROUTES == ("mma_sync",)
 
 
 @pytest.mark.parametrize("N,D,B,F", [(64, 128, 8, 5), (128, 256, 16, 10),
@@ -463,25 +587,133 @@ def test_cuda_flash_bhsd_matches_plain_version(cuda_device, causal, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
-def test_cuda_flash_refuses_autograd(cuda_device, needs_grad):
-    """The kernels are forward only: on the card, a call autograd would
-    differentiate raises (without a launch) instead of returning an output
-    with no gradient; with grad mode off, or in inference mode, the same
-    inputs run the kernel."""
+def test_cuda_flash_autograd_runs_bf16_and_refuses_f32(cuda_device,
+                                                       needs_grad):
+    """Under autograd a bf16 call launches the forward (with its lse) and,
+    in ``backward``, the backward kernel once, and returns a gradient for
+    each input that requires one; with grad mode off, or in inference
+    mode, no backward exists and the output is the same bits.  There is no
+    f32 backward on the card: an f32 call under autograd raises without a
+    launch, and runs under no_grad."""
     q, k, v = _qkv(5, 1, 64, 4, 1, 256, torch.bfloat16, device=cuda_device)
     qkv = {"q": q, "k": k, "v": v}
     qkv[needs_grad] = qkv[needs_grad].clone().requires_grad_()
-    before = fa.KERNEL.launches
-    with pytest.raises(RuntimeError, match="backward"):
-        fa.flash_attention(**qkv, window=8)
-    assert fa.KERNEL.launches == before
+    before = (fa.KERNEL.launches, fa.BWD_KERNEL.launches)
+    out = fa.flash_attention(**qkv, window=8)
+    assert out.grad_fn is not None
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.KERNEL.launches, fa.BWD_KERNEL.launches) == (
+        before[0] + 1, before[1] + 1)
+    grad = qkv[needs_grad].grad
+    assert grad is not None and grad.shape == qkv[needs_grad].shape
+    assert bool(torch.isfinite(grad.float()).all()) and grad.abs().sum() > 0
     with torch.no_grad():
         got = fa.flash_attention(**qkv, window=8)
     with torch.inference_mode():
         again = fa.flash_attention(**qkv, window=8)
-    torch.cuda.synchronize()
-    assert fa.KERNEL.launches == before + 2
     assert not got.requires_grad and torch.equal(got, again)
+    assert torch.equal(got, out.detach())
+    f32 = {n: t.detach().float() for n, t in qkv.items()}
+    f32[needs_grad].requires_grad_()
+    launches = fa.KERNEL.launches
+    with pytest.raises(RuntimeError, match="bf16 only"):
+        fa.flash_attention(**f32, window=8)
+    assert fa.KERNEL.launches == launches
+    with torch.no_grad():
+        fa.flash_attention(**f32, window=8)
+    assert fa.KERNEL.launches == launches + 1
+
+
+def _exact_grads(q, k, v, do, causal, window):
+    """The f64 gradient of attention over q * the bf16-rounded scale (the
+    product not rounded), k and v, with the output gradient do."""
+    Dh, G = q.shape[-1], q.shape[2] // k.shape[2]
+    scale = float(torch.tensor(Dh ** -0.5, dtype=q.dtype))
+    qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))
+    i = torch.arange(q.shape[1], device=q.device)[:, None]
+    j = torch.arange(k.shape[1], device=q.device)[None, :]
+    seen = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        seen &= j <= i
+    if window > 0:
+        seen &= i - j < window
+    s = torch.einsum("bqhd,bkhd->bhqk", qd * scale,
+                     kd.repeat_interleave(G, 2))
+    o = torch.einsum("bhqk,bkhd->bqhd",
+                     s.masked_fill(~seen, float("-inf")).softmax(-1),
+                     vd.repeat_interleave(G, 2))
+    o.backward(do.double())
+    return qd.grad, kd.grad, vd.grad
+
+
+def _max_err(a, exact) -> float:
+    """max |a - exact| over max |exact|."""
+    return float((a.double() - exact).abs().max() / exact.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Hq,Hkv,Dh,window,causal,Sk", [
+    (2, 600, 4, 1, 256, 512, True, None),    # gemma3: a local layer
+    (1, 700, 4, 1, 256, 0, True, None),      # gemma3: a global layer
+    (1, 300, 2, 2, 128, 64, True, None),     # G = 1
+    (2, 130, 4, 2, 80, 0, True, None),       # stablelm's Dh, G = 2
+    (1, 77, 4, 1, 16, 64, False, None),      # the smoke configs' Dh, ragged
+    (1, 200, 8, 2, 64, 0, True, None),
+    (1, 100, 4, 1, 256, 0, True, 300),       # Sq < Sk
+    (1, 300, 8, 2, 128, 0, False, 100),      # Sq > Sk, not causal
+])
+def test_cuda_flash_bwd_matches_plain_version_and_exact_gradient(
+        cuda_device, B, S, Hq, Hkv, Dh, window, causal, Sk):
+    """The backward kernel against the f64 exact gradient: per gradient its
+    max error over max |g| within twice the plain version's plus 1e-3 (both
+    round q * scale, p and the outputs to bf16; the kernel also rounds ds
+    and sums in another order: measured at most 1.6x the plain version's
+    on an H100 80GB HBM3 at 700 W).  o and lse come from the forward kernel, as in training.
+    Two calls give the same bits; one call counts one launch."""
+    q, k, v = _qkv(S + Dh, B, S, Hq, Hkv, Dh, torch.bfloat16,
+                   device=cuda_device, Sk=Sk)
+    do = _randn(np.random.default_rng(S), tuple(q.shape), torch.bfloat16,
+                device=cuda_device)
+    o, lse = fa._forward_cuda(q, k, v, causal, window, True)
+    before = fa.BWD_KERNEL.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   window=window)
+    torch.cuda.synchronize()
+    assert fa.BWD_KERNEL.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain = tref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                     window=window)
+    exact = _exact_grads(q, k, v, do, causal, window)
+    for g, p, e in zip(got, plain, exact):
+        assert g.dtype == torch.bfloat16 and g.shape == p.shape
+        assert _max_err(g, e) <= 2 * _max_err(p, e) + 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh", [64, 80, 256])
+def test_cuda_flash_forward_lse_is_deterministic_and_matches_plain(
+        cuda_device, Dh):
+    """The forward's lse (wgmma at Dh 64 and 256, mma_sync at 80) within
+    1e-4 of the plain version's, and the same bits in a second call (the
+    backward's recompute under remat relies on it); the output is the same
+    bits with and without lse."""
+    q, k, v = _qkv(Dh, 2, 333, 8, 2, Dh, torch.bfloat16, device=cuda_device)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    outs = []
+    for _ in range(2):
+        out = fa.flash_attention(q, k, v, window=64)
+        outs.append((out.detach(), out.grad_fn.saved_tensors[4]))
+    (o1, l1), (o2, l2) = outs
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    with torch.no_grad():
+        assert torch.equal(o1, fa.flash_attention(q, k, v, window=64))
+    _, want = tref.flash_attention(q.detach(), k.detach(), v.detach(),
+                                   window=64, return_lse=True)
+    torch.testing.assert_close(l1, want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu
