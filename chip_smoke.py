@@ -12,8 +12,8 @@ result line):
    compiled from the sources in this checkout, one nvcc per source, all
    started together; registers and spills of each kernel function as
    ptxas reports them (a spill in the wgmma flash kernel, the attention
-   backward's two main kernels, the fused gather, the sampling chain or
-   ``sage_aggregate`` fails the run).
+   backward's kernels on both routes and its pre-pass, the fused gather,
+   the sampling chain or ``sage_aggregate`` fails the run).
 3. Graph + plans: ``synthetic_instance("PA", 1M vertices)``, a one-GPU
    Legion plan with a 300 MB cache, fanouts (25, 10), and the 2 x 2
    hierarchy of ``topology_matrix("dgx-v100", 4)`` (two cliques of two
@@ -96,14 +96,21 @@ result line):
    backward), and a bf16 one must give gradients through the backward.
 11b. LM backward: ``flash_attention_bwd`` on q, k, v, o, lse and do
    captured from one real training step (layer 0, local, and layer 5,
-   global) and on edge cases (Dh 16, 64, 80, 128 and 256, window 64, G =
-   1, 2 and 4, ragged Sq, Sq != Sk): per gradient, its max error over max
-   |g| against the f64 exact gradient within twice the plain version's
-   plus 1e-3, two calls bitwise equal; the forward recomputed on the
-   captured calls gives the saved o and lse bits; then timed at the two
-   captured shapes beside its bound (5 products at the bf16 rate), its
-   plain version and SDPA's backward, with the forward timed with and
-   without lse.
+   global) and on edge cases (Dh 16, 64, 80, 128 and 256, windows 64 and
+   512, G = 1, 2, 3, 4 and 5, ragged Sq, Sq != Sk), each on the route
+   ``flash_bwd_route`` gives it (``wgmma`` for bf16 with Dh 64, 128 or
+   256, ``mma_sync`` for other head dims; the captured calls must take
+   ``wgmma``) and, where that is ``wgmma``, on ``mma_sync`` too (forced
+   through the route rule, ``forced_route``): the forward kernel's o and
+   lse first held to the plain forward's (lse within rtol = atol = 1e-4);
+   per gradient, its max error over max |g| against the f64 exact
+   gradient within twice that of the plain version (fed the plain
+   forward's o and lse) plus 1e-3, two calls bitwise equal, each counted
+   under its route; the forward recomputed on the captured calls gives the saved o
+   and lse bits; then the two routes timed in turns at the two captured
+   shapes beside the bound (5 products at the bf16 rate), the plain
+   version and SDPA's backward, with the forward timed with and without
+   lse.
 12. LM serve: ``generate`` for 4 prompts of 4096 tokens (numpy, seed 1),
    then 32 greedy tokens: prefill ms, decode ms per step (CUDA events
    after each step; ``generate`` syncs only after the loop), tokens/s, peak
@@ -121,13 +128,14 @@ result line):
    4 x 4096 (numpy batches, seed 0) with remat and the CE in chunks of
    512, AdamW, 8 steps (the first is warm-up): finite losses, step ms host
    wall and tokens/s, forward, backward and AdamW ms on CUDA events, peak
-   device memory, exactly 26 forward, 26 recompute (both ``wgmma``) and 26
-   backward launches a step; then one profiled step's device time by kind
-   (attention forward and backward, matmul, copies and casts, the rest,
-   and AdamW after a synchronize).
+   device memory, exactly 26 forward, 26 recompute and 26 backward
+   launches a step, all on ``wgmma``; then one profiled step's device time
+   by kind (attention forward and backward, matmul, copies and casts, the
+   rest, and AdamW after a synchronize).
 15. LM train parity: the gemma3 smoke config trained 4 steps on the card
-   (kernels) and on the CPU (plain versions) from the same seed-0 weights
-   and batches, losses within atol 2e-3.
+   (kernels, forward and backward on ``mma_sync``: head dim 16) and on the
+   CPU (plain versions) from the same seed-0 weights and batches, losses
+   within atol 2e-3.
 
 Every kernel's launch count is zeroed just before each of the serve,
 train, parity, unfused, shard, shard-parity, lm-serve, lm-parity, lm-train
@@ -191,6 +199,9 @@ LM_TRAIN_SMOKE = (4, 64, 4)  # batch, seq, steps: smoke config, card vs CPU
 # floor (both round q * scale, p and each gradient to bf16; the kernel
 # also rounds ds and sums in another order)
 BWD_F64_FLOOR = 1e-3
+# the forward kernel's lse (which the backward reads) against the plain
+# forward's, as tests/test_torch_lm_kernels.py holds it
+BWD_LSE_TOL = {"rtol": 1e-4, "atol": 1e-4}
 BWD_TIMED_PLAIN = 10  # the plain backward's timed launches (tens of ms each)
 # kernels held to their plain version within rtol + atol (the rest
 # bitwise): flash attention sums in another order and rounds p to bf16
@@ -219,11 +230,13 @@ LM_SMOKE_ATOL = 5e-3
 # on an H100 80GB HBM3 at 700 W
 LM_TRAIN_SMOKE_ATOL = 2e-3
 # kernel functions whose ptxas report must show no spill: the ones
-# redesigned for Hopper (the wgmma flash kernel, the fused gather, the
-# sampling chain, both routes of sage_aggregate)
+# redesigned for Hopper (the wgmma flash kernels forward and backward with
+# the backward's pre-pass, the fused gather, the sampling chain, both routes
+# of sage_aggregate) and the mma.sync backward
 SPILL_FREE = ("flash_fwd_wgmma", "fused_gather_overlay_kernel",
               "routed_neighbor_sample_chain_kernel", "sage_vec_kernel",
-              "sage_scalar_kernel", "flash_bwd_dkdv", "flash_bwd_dq")
+              "sage_scalar_kernel", "flash_bwd_dkdv", "flash_bwd_dq",
+              "flash_bwd_wgmma", "flash_bwd_prep")
 # kernels that no path of either package runs (their launches stay 0)
 NO_PATH = {"sage_aggregate": "called only by its tests in the reference"}
 
@@ -806,15 +819,17 @@ def sage_no_reuse_bytes(table, idx) -> int:
 
 
 @contextlib.contextmanager
-def forced_route(module, route: str):
+def forced_route(module, rule: str, route: str):
     """Every call of ``module``'s wrapper takes ``route``: its route rule
-    (``module.sage_route``) is swapped for one that returns ``route``."""
-    rule = module.sage_route
-    module.sage_route = lambda *_: route
+    (the function ``module.<rule>``, e.g. ``sage_agg.sage_route`` or
+    ``flash_attention.flash_bwd_route``) is swapped for one that returns
+    ``route``."""
+    saved = getattr(module, rule)
+    setattr(module, rule, lambda *_: route)
     try:
         yield
     finally:
-        module.sage_route = rule
+        setattr(module, rule, saved)
 
 
 def sage_aggregate_cases(torch, ctx, seed: int = 5):
@@ -889,7 +904,7 @@ def sage_routes_side_by_side(torch, np, k, measured, flush, card) -> None:
     table, idx, w = cases["train_f32"]
     times = {"vec": [], "scalar": []}
     for route in ("vec", "scalar", "scalar", "vec"):
-        with forced_route(sage_agg, route):
+        with forced_route(sage_agg, "sage_route", route):
             times[route].append(time_ms(torch, k.wrapper, (table, idx, w),
                                         TIMED_LAUNCHES, flush))
     vec = measured["timed"]["train"]
@@ -1610,24 +1625,33 @@ def by_category(rows) -> dict:
 
 
 def route_rule_agrees(torch, fa) -> None:
-    """The CUDA source's route rule (``flash_attention_route``, which picks
-    the kernel a call launches) against ``flash_route`` (which the wrapper
-    counts the launch under), for both types and every head dim the
-    wrapper takes."""
+    """The CUDA sources' route rules (``flash_attention_route`` and
+    ``flash_attention_bwd_route``, which pick the kernel a call launches)
+    against ``flash_route`` and ``flash_bwd_route`` (which the wrappers
+    count the launch under and, for the backward, pass to the kernel), for
+    both types and every head dim the wrappers take."""
     import ctypes
 
-    from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, flash_route
+    from repro_torch.kernels.flash_attention import (BWD_KERNEL, MAX_HEAD_DIM,
+                                                     flash_bwd_route,
+                                                     flash_route)
 
     c_route = ctypes.CDLL(str(fa.kernel.library_path())).flash_attention_route
     c_route.argtypes = [ctypes.c_int, ctypes.c_int]
     c_route.restype = ctypes.c_int
+    c_bwd = BWD_KERNEL.fn("flash_attention_bwd_route")
     names = {0: "simt", 1: "mma_sync", 2: "wgmma"}
+    bwd_names = {-1: None, 0: "wgmma", 1: "mma_sync"}
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
         for dh in range(16, MAX_HEAD_DIM + 1, 16):
             if names[c_route(code, dh)] != flash_route(dtype, dh):
                 raise AssertionError(f"route of ({dtype}, {dh}): CUDA "
                                      f"{names[c_route(code, dh)]}, Python "
                                      f"{flash_route(dtype, dh)}")
+            if bwd_names[c_bwd(code, dh)] != flash_bwd_route(dtype, dh):
+                raise AssertionError(f"backward route of ({dtype}, {dh}): "
+                                     f"CUDA {bwd_names[c_bwd(code, dh)]}, "
+                                     f"Python {flash_bwd_route(dtype, dh)}")
 
 
 def flash_refuses_autograd(torch, fa, card) -> None:
@@ -1739,8 +1763,10 @@ def exact_grads(torch, q, k, v, do, causal: bool, window: int):
 def bwd_cases(torch, fa, captured, seed: int = 12):
     """The backward's cases: the training step's layer 0 (local) and layer
     5 (global) calls as captured, and edge cases with o and lse from the
-    forward kernel: Dh 16, 64, 80, 128 and 256, windows 64 and none, G = 1,
-    2 and 4, causal and not, ragged Sq (77, 130, 1000), Sq != Sk."""
+    forward kernel: Dh 16, 64, 80, 128 and 256, windows 64, 512 and none,
+    G = 1, 2, 3, 4 and 5 (3 and 5 leave rows of the wgmma route's 64-row
+    tiles, and of the forward's 128-row tiles, empty), causal and not,
+    ragged Sq (77, 130, 333, 1000), Sq != Sk."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cases = {}
     for layer, (q, k, v, o, lse, do, kw) in sorted(captured.items()):
@@ -1758,6 +1784,12 @@ def bwd_cases(torch, fa, captured, seed: int = 12):
             ("sq100_sk300_g4_dh256", (1, 100, 4, 1, 256), 300,
              {"window": 0}),
             ("sq300_sk100_full_g4_dh128", (1, 300, 8, 2, 128), 100,
+             {"window": 0, "causal": False}),
+            ("s1000_window512_g3_dh128", (1, 1000, 6, 2, 128), None,
+             {"window": 512}),
+            ("s333_window64_g5_dh256", (1, 333, 5, 1, 256), None,
+             {"window": 64}),
+            ("s333_full_g5_dh64", (1, 333, 10, 2, 64), None,
              {"window": 0, "causal": False})):
         Sk = Sq if Sk is None else Sk
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
@@ -1771,58 +1803,88 @@ def bwd_cases(torch, fa, captured, seed: int = 12):
 
 
 def check_backward(torch, fa, k, cases, card) -> dict:
-    """The backward kernel on every case: against the f64 exact gradient
-    beside the plain version (``BWD_F64_FLOOR``), twice (bitwise equal),
-    one launch counted per call."""
+    """The backward kernel on every case, on the route ``flash_bwd_route``
+    gives it and, where that is ``wgmma``, on ``mma_sync`` too (forced
+    through the route rule): against the f64 exact gradient beside the
+    plain version (``BWD_F64_FLOOR``), twice (bitwise equal), one launch
+    counted per call under the route taken.  The kernel is fed the forward
+    kernel's o and lse, as in training; those are first held to the plain
+    forward's (``TOLERANCE``, ``BWD_LSE_TOL``), and the plain backward
+    that sets the limit reads the plain forward's, so a wrong lse fails
+    rather than raise the limit."""
     from repro_torch.kernels import ref
 
-    errs, rel = {}, {}
+    errs, rel, routes = {}, {}, {}
     for name, (q, kk, v, o, lse, do, kw) in cases.items():
-        before = k.kernel.launches
-        got = fa.flash_attention_bwd(q, kk, v, o, lse, do, **kw)
-        again = fa.flash_attention_bwd(q, kk, v, o, lse, do, **kw)
-        torch.cuda.synchronize()
-        if k.kernel.launches != before + 2:
-            raise AssertionError(f"flash_attention_bwd counted "
-                                 f"{k.kernel.launches - before} launches "
-                                 f"for 2 calls")
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"flash_attention_bwd is not deterministic "
-                                 f"on case {name}")
-        plain = ref.flash_attention_bwd(q, kk, v, o, lse, do, **kw)
+        ro, rlse = ref.flash_attention(q, kk, v, return_lse=True, **kw)
+        for what, got, want, tol in (
+                ("o", o, ro, TOLERANCE["flash_attention"]["bfloat16"]),
+                ("lse", lse, rlse, BWD_LSE_TOL)):
+            torch.testing.assert_close(
+                got.float(), want.float(), **tol,
+                msg=lambda m: f"flash_attention_bwd case {name}: the forward "
+                f"kernel's {what} against the plain forward's: {m}")
+        lse_err = float((lse - rlse).abs().max())
+        plain = ref.flash_attention_bwd(q, kk, v, ro, rlse, do, **kw)
+        del ro, rlse
         exact = exact_grads(torch, q, kk, v, do, kw.get("causal", True),
                             kw["window"])
-        parts = []
-        for n, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
-            den = float(e.abs().max())
-            ek = float((g.double() - e).abs().max()) / den
-            ep = float((p.double() - e).abs().max()) / den
-            if not (g.dtype == torch.bfloat16 and g.shape == p.shape
-                    and ek <= 2 * ep + BWD_F64_FLOOR):
-                raise AssertionError(f"flash_attention_bwd case {name} {n}: "
-                                     f"kernel {ek:.3e}, plain {ep:.3e} of "
-                                     f"max |g| {den:.3e} from the f64 "
-                                     f"gradient")
-            rel[f"{name}/{n}"] = (ek, ep)
-            parts.append(f"{n} {ek:.3e} (plain {ep:.3e}, max |g| {den:.3e})")
-        errs[name] = max(float((g.float() - p.float()).abs().max())
-                         for g, p in zip(got, plain))
-        print(f"[lm-bwd] case {name}: q {tuple(q.shape)} k {tuple(kk.shape)} "
-              f"{kw}: max |err| / max |g| against f64: " + ", ".join(parts)
-              + f"; two calls bitwise equal | {card}")
-        del got, again, plain, exact
+        native = fa.flash_bwd_route(q.dtype, q.shape[3])
+        routes[name] = [native] + (["mma_sync"] if native == "wgmma" else [])
+        errs[name] = 0.0
+        for route in routes[name]:
+            before = dict(k.kernel.route_launches)
+            with forced_route(fa, "flash_bwd_route", route):
+                got = fa.flash_attention_bwd(q, kk, v, o, lse, do, **kw)
+                again = fa.flash_attention_bwd(q, kk, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            counted = {r: n - before[r]
+                       for r, n in k.kernel.route_launches.items()}
+            if counted != {r: 2 * (r == route) for r in counted}:
+                raise AssertionError(f"flash_attention_bwd counted {counted} "
+                                     f"for 2 calls on {route}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash_attention_bwd is not "
+                                     f"deterministic on case {name}, {route}")
+            parts = []
+            for n, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+                den = float(e.abs().max())
+                ek = float((g.double() - e).abs().max()) / den
+                ep = float((p.double() - e).abs().max()) / den
+                if not (g.dtype == torch.bfloat16 and g.shape == p.shape
+                        and ek <= 2 * ep + BWD_F64_FLOOR):
+                    raise AssertionError(
+                        f"flash_attention_bwd case {name} {route} {n}: "
+                        f"kernel {ek:.3e}, plain {ep:.3e} of max |g| "
+                        f"{den:.3e} from the f64 gradient")
+                rel[f"{name}/{route}/{n}"] = (ek, ep)
+                parts.append(f"{n} {ek:.3e} (plain {ep:.3e}, max |g| "
+                             f"{den:.3e})")
+            errs[name] = max([errs[name]] + [
+                float((g.float() - p.float()).abs().max())
+                for g, p in zip(got, plain)])
+            print(f"[lm-bwd] case {name} on {route}: q {tuple(q.shape)} k "
+                  f"{tuple(kk.shape)} {kw}: max |err| / max |g| against f64:"
+                  f" " + ", ".join(parts) + f"; two calls bitwise equal; the "
+                  f"forward kernel's lse within {lse_err:.3e} of the plain "
+                  f"forward's | {card}")
+            del got, again
+        del plain, exact
     return {"max_abs_err": max(errs.values()), "errs": errs, "rel": rel,
-            "timed": {}}
+            "routes": routes, "timed": {}}
 
 
 def time_backward(torch, np, fa, k, cases, flush, card) -> dict:
-    """At the two captured training shapes: the backward kernel, its plain
-    version and SDPA's backward (k and v expanded to the query heads,
-    is_causal or the explicit window mask; (forward + backward) - forward),
-    beside the bound (5 products of 2 Dh flops per visible pair and query
-    head at the bf16 rate, or the bytes of q, k, v, o, do, lse in and dq,
-    dk, dv out, the larger); and the forward kernel with and without lse,
-    in turns."""
+    """At the two captured training shapes: the backward kernel on its
+    ``wgmma`` route and on ``mma_sync`` (forced through the route rule) in
+    turns (wgmma, mma_sync, then mma_sync, wgmma), its plain version and
+    SDPA's backward (k and v expanded to the query heads, is_causal or the
+    explicit window mask; (forward + backward) - forward), beside the bound
+    (5 products of 2 Dh flops per visible pair and query head at the bf16
+    rate, or the bytes of q, k, v, o, do, lse in and dq, dk, dv out, the
+    larger, whatever either route computes); and the forward kernel with
+    and without lse, in turns.  The mma_sync times go in as
+    ``<shape>_mma_sync``."""
     import functools
 
     import torch.nn.functional as F
@@ -1856,12 +1918,18 @@ def time_backward(torch, np, fa, k, cases, flush, card) -> dict:
             torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
 
         a = (q, kk, v, o, lse, do)
+
+        def on(route):
+            def run(*args):
+                with forced_route(fa, "flash_bwd_route", route):
+                    return fa.flash_attention_bwd(*args, **kw)
+            return time_ms(torch, run, a, TIMED_LAUNCHES, flush)
+
         runs = []
-        for _ in range(2):
+        for turn in (("wgmma", "mma_sync"), ("mma_sync", "wgmma")):
+            t = dict((r, on(r)) for r in turn)
             runs.append([
-                time_ms(torch, functools.partial(fa.flash_attention_bwd,
-                                                 **kw), a, TIMED_LAUNCHES,
-                        flush),
+                t["wgmma"], t["mma_sync"],
                 time_ms(torch, functools.partial(ref.flash_attention_bwd,
                                                  **kw), a, BWD_TIMED_PLAIN,
                         flush),
@@ -1880,21 +1948,26 @@ def time_backward(torch, np, fa, k, cases, flush, card) -> dict:
                 + ("the query heads, explicit window mask" if mask is not None
                    else "the query heads, is_causal")
                 + ", (forward + backward) - forward")
-        res = {"ms": float(m[0]), "plain_ms": float(m[1]),
-               "library_ms": float(m[2]), "library_call": call,
+        res = {"ms": float(m[0]), "route": "wgmma",
+               "plain_ms": float(m[2]),
+               "library_ms": float(m[3]), "library_call": call,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
                "bytes": int(nbytes), "flops": int(flops),
-               "forward_lse_ms": float(m[3]),
-               "forward_no_lse_ms": float(m[4])}
+               "forward_lse_ms": float(m[4]),
+               "forward_no_lse_ms": float(m[5])}
         out[name] = res
-        print(f"[lm-bwd] {name} @ q {tuple(q.shape)}: backward kernel "
-              f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, SDPA "
-              f"backward {res['library_ms']:.4f} ms ({call}), bound "
+        out[f"{name}_mma_sync"] = res | {"ms": float(m[1]),
+                                         "route": "mma_sync"}
+        print(f"[lm-bwd] {name} @ q {tuple(q.shape)}: backward kernel, in "
+              f"turns, wgmma {res['ms']:.4f} ms, mma_sync {m[1]:.4f} ms; "
+              f"plain {res['plain_ms']:.4f} ms, SDPA backward "
+              f"{res['library_ms']:.4f} ms ({call}), bound "
               f"{res['bound_ms']:.4f} ms by {res['bound_by']} "
               f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); forward "
               f"kernel with lse {res['forward_lse_ms']:.4f} ms, without "
-              f"{res['forward_no_lse_ms']:.4f} ms; runs {runs} | {card}")
+              f"{res['forward_no_lse_ms']:.4f} ms; runs (wgmma, mma_sync, "
+              f"plain, SDPA, fwd lse, fwd) {runs} | {card}")
         del qt, kt, vt, dot, mask
     return out
 
@@ -1977,6 +2050,30 @@ def lm_train(torch, np, fa, transformer, cfg, params, batch: int, seq: int,
     finally:
         transformer.loss_fn = inner_loss
     return losses, walls, params
+
+
+def profile_train_step(torch, np, fa, transformer, cfg, params, batch: int,
+                       seq: int):
+    """One step of ``lm_train`` under ``torch.profiler`` with a synchronize
+    before AdamW: (host wall us, device rows, device ms by kind with the
+    optimizer's apart), or None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        lm_train(torch, np, fa, transformer, cfg, params, batch, seq, 1,
+                 "cuda", split_optimizer=True)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    rows = device_rows(torch, events)
+    opt_at = [e.time_range.start for e in events if e.name == "lm_optimizer"
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    if not rows or len(opt_at) != 1:
+        return None
+    cats = by_category([r for r in rows if r[0] < opt_at[0]])
+    cats["optimizer"] = sum(t - s for s, t, _ in rows if s >= opt_at[0]) / 1e3
+    return wall_us, rows, cats
 
 
 def gap_summary(gap, window: int) -> str:
@@ -2531,6 +2628,11 @@ def main() -> int:
     del grads_in
     lse_under_recompute(torch, fam, bcases, card)
     measured[bwd.name] = check_backward(torch, fam, bwd, bcases, card)
+    train_routes = {c: r[0] for c, r in measured[bwd.name]["routes"].items()
+                    if c.startswith("train_")}
+    if len(train_routes) != 2 or set(train_routes.values()) != {"wgmma"}:
+        raise AssertionError(f"captured backward calls' routes "
+                             f"{train_routes}, expected wgmma")
     measured[bwd.name]["timed"] = time_backward(torch, np, fam, bwd, bcases,
                                                 flush, card)
     del bcases, flush
@@ -2702,12 +2804,11 @@ def main() -> int:
         fwd = {r: f1[r] - f0[r] for r in f0}
         again = {r: f2[r] - f1[r] for r in f0}
         back = {r: b2[r] - b1[r] for r in b0}
-        if fwd != on_wgmma or again != on_wgmma or back != {"mma_sync": L} \
-                or b1 != b0:
+        if fwd != on_wgmma or again != on_wgmma \
+                or back != {"wgmma": L, "mma_sync": 0} or b1 != b0:
             raise AssertionError(f"lm-train step {i}: forward launches {fwd}"
                                  f", recompute {again}, backward {back}; "
-                                 f"expected {L} each (forward and recompute"
-                                 f" on wgmma)")
+                                 f"expected {L} each, all on wgmma")
     want = expect({"flash_attention": 2 * L * LM_TRAIN_STEPS,
                    "flash_attention_bwd": L * LM_TRAIN_STEPS})
     if phase_launches["lm-train"] != want:
@@ -2732,26 +2833,16 @@ def main() -> int:
           f"{dev['optimizer']:.3f} ms, step {dev['step']:.3f} ms; peak device"
           f" memory {peak / 2**30:.3f} GiB; per step flash_attention "
           f"{L} forward + {L} recompute on wgmma, flash_attention_bwd {L} on "
-          f"mma_sync | {card}")
+          f"wgmma | {card}")
     print(f"[lm-train] losses {losses} | {card}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        lm_train(torch, np, fam, transformer, tcfg, lm_params, LM_BATCH,
-                 LM_PROMPT, 1, "cuda", split_optimizer=True)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.events()
-    rows = device_rows(torch, events)
-    opt_at = [e.time_range.start for e in events if e.name == "lm_optimizer"
-              and e.device_type == torch.autograd.DeviceType.CPU]
-    if not rows or len(opt_at) != 1:
+    profiled = profile_train_step(torch, np, fam, transformer, tcfg,
+                                  lm_params, LM_BATCH, LM_PROMPT)
+    if profiled is None:
         print("[lm-train] profiled step: not measured (torch.profiler saw no "
               "device time)")
     else:
+        wall_us, rows, cats = profiled
         busy, top = busy_and_top(rows, k=12)
-        cats = by_category([r for r in rows if r[0] < opt_at[0]])
-        cats["optimizer"] = sum(t - s for s, t, _ in rows
-                                if s >= opt_at[0]) / 1e3
         print(f"[lm-train] profiled step: device busy {busy / 1e3:.3f} ms of "
               f"{wall_us / 1e3:.3f} ms host wall (profiler on, a synchronize "
               f"before AdamW; busy share {busy / wall_us:.4f}); device ms by "
@@ -2760,7 +2851,7 @@ def main() -> int:
         for us, name, count in top:
             print(f"[lm-train]   {us / 1e3:9.3f} ms  x{count:<5d} {name[:70]} "
                   f"| {card}")
-    del prof, events, rows, lm_params
+    del profiled, lm_params
     torch.cuda.empty_cache()
 
     # ---- 15. LM train parity: the smoke config on the card and the CPU ----
@@ -2783,12 +2874,14 @@ def main() -> int:
     phase_routes["lm-train-parity"] = read_routes(KERNELS)
     want = expect({"flash_attention": small.n_layers * N,
                    "flash_attention_bwd": small.n_layers * N})
-    if phase_launches["lm-train-parity"] != want or phase_routes[
-            "lm-train-parity"]["flash_attention"]["mma_sync"] != \
-            small.n_layers * N:
+    routes = phase_routes["lm-train-parity"]
+    if phase_launches["lm-train-parity"] != want \
+            or routes["flash_attention"]["mma_sync"] != small.n_layers * N \
+            or routes["flash_attention_bwd"]["mma_sync"] != small.n_layers * N:
         raise AssertionError(f"lm-train-parity launches "
-                             f"{phase_launches['lm-train-parity']}, expected "
-                             f"{want}, the forward on mma_sync")
+                             f"{phase_launches['lm-train-parity']} by route "
+                             f"{routes}, expected {want}, forward and "
+                             f"backward on mma_sync (head dim 16)")
     print(f"[lm-train-parity] {small.name} batch {B} x seq {S}, {N} AdamW "
           f"steps from the same seed-0 weights and numpy batches: card "
           f"(kernels) {card_losses} vs CPU (plain versions) {cpu_losses}, max"

@@ -92,10 +92,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
       : "r"(addr));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using hopper::pack_bf16;
 
 __device__ __forceinline__ bool visible(int i, int j, int Sk, int causal,
                                         int window) {
@@ -407,12 +404,6 @@ struct WgParams {
   float scale;
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // S (this warpgroup's 64 rows x 64 keys) = Q K^T over Dh, from shared
 // memory: the k-th 16 columns of a 64-column box start 32 bytes further
 // inside each 128-byte swizzled row.
@@ -433,35 +424,6 @@ __device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t q_base,
   hopper::wgmma_commit();
 #pragma unroll
   for (int i = 0; i < 32; ++i) hopper::reg_fence(s[i]);
-}
-
-// O (64 rows x Dh) += P (64 x 64 keys, bf16 registers) V (64 keys x Dh):
-// V's box is key-major with d contiguous, so it is the transposed (MN-major)
-// B operand; 16 keys are 2048 bytes, a 64-column block 8 KB.
-template <int NC>
-__device__ __forceinline__ void issue_pv(float (&o)[NC][32],
-                                         const uint32_t (&p)[4][4],
-                                         uint32_t v_base) {
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) hopper::reg_fence(o[c][i]);
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk) {
-    const uint64_t dv = hopper::sw128_desc(v_base + kk * 2048, kBoxBytes);
-    if constexpr (NC == 4)
-      hopper::wgmma_rs_m64n256k16_tb(o, p[kk], dv);
-    else if constexpr (NC == 2)
-      hopper::wgmma_rs_m64n128k16_tb(o, p[kk], dv);
-    else
-      hopper::wgmma_rs_m64n64k16_tb(o[0], p[kk], dv);
-  }
-  hopper::wgmma_commit();
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) hopper::reg_fence(o[c][i]);
 }
 
 // The online-softmax step of one tile for this thread's two rows (the
@@ -496,28 +458,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], bool masked,
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     const float m_new = fmaxf(m[r], mx[r]);
-    alpha[r] = ex2(m[r] - m_new);
+    alpha[r] = hopper::ex2(m[r] - m_new);
     m[r] = m_new;
     sum[r] = 0.f;
   }
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int r = (i >> 1) & 1;
-    s[i] = ex2(s[i] - m[r]);
+    s[i] = hopper::ex2(s[i] - m[r]);
     sum[r] += s[i];
-  }
-}
-
-// P as the A operand of the k-th 16 keys: two neighbouring 8-key blocks of
-// the accumulator layout are one 16-wide A fragment.
-__device__ __forceinline__ void pack_p(const float (&s)[32],
-                                       uint32_t (&p)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
 }
 
@@ -671,7 +620,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                    sum);
       l[0] = sum[0];
       l[1] = sum[1];
-      pack_p(s, p);
+      hopper::acc_to_a(s, p);
       for (int i = 1; i < n; ++i) {
         const int ks = i % ST, vs = (i - 1) % ST;  // K of i, V of i - 1
         // S of tile i on the tensor cores ...
@@ -684,7 +633,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
           for (int e = 0; e < 32; ++e) o[c][e] *= alpha[(e >> 1) & 1];
         hopper::mbar_wait(&v_full[vs], ((i - 1) / ST) & 1);
-        issue_pv<NC>(o, p, v_base + vs * T::kKvBytes);
+        hopper::wgmma_rs_tile<NC>(o, p, v_base + vs * T::kKvBytes);
         turn_end();
         // ... while the softmax of tile i runs once its S is in
         hopper::wgmma_wait<1>();
@@ -702,7 +651,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         hopper::mbar_arrive(&v_empty[vs]);
         l[0] = l[0] * alpha[0] + sum[0];
         l[1] = l[1] * alpha[1] + sum[1];
-        pack_p(s, p);
+        hopper::acc_to_a(s, p);
       }
       const int vs = (n - 1) % ST;
 #pragma unroll
@@ -711,7 +660,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         for (int e = 0; e < 32; ++e) o[c][e] *= alpha[(e >> 1) & 1];
       hopper::mbar_wait(&v_full[vs], ((n - 1) / ST) & 1);
       turn_begin();
-      issue_pv<NC>(o, p, v_base + vs * T::kKvBytes);
+      hopper::wgmma_rs_tile<NC>(o, p, v_base + vs * T::kKvBytes);
       turn_end();
       hopper::wgmma_wait<0>();
 #pragma unroll
@@ -732,12 +681,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     }
     if (prm.lse != nullptr && (lane & 3) == 0) {
       // natural-log lse of each real (position, head) row: the exp2
-      // domain's m2 + log2(l), times ln 2
+      // domain's m2 + log2(l), times ln 2.  Rows past P * Gt (128 is not a
+      // multiple of G) are no row: their position would be the next tile's
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = r ? r1 : r0;
         const int pos = p0 + row / prm.Gt, gh = hb * prm.Gt + row % prm.Gt;
-        if (pos < prm.Sq && gh < prm.G)
+        if (row < prm.P * prm.Gt && pos < prm.Sq && gh < prm.G)
           prm.lse[(static_cast<size_t>(b) * prm.Hkv * prm.G + hk * prm.G +
                    gh) * prm.Sq + pos] = (m[r] + log2f(l[r])) * kLn2;
       }

@@ -28,9 +28,65 @@
 // 343.7 GFLOP for a global gemma3-1b layer at 4 x 4096, 0.348 ms at 989
 // TFLOP/s, against about 117 MB of bytes (0.035 ms).
 //
-// Design (a simple, deterministic kernel first; a wgmma/TMA backward is
-// later work): FA2's split into three launches on mma.sync.m16n8k16 bf16
-// with f32 accumulators, no atomics, so two calls give the same bits.
+// Two routes, chosen by (dtype, Dh) alone (flash_attention_bwd_route; the
+// wrapper's flash_bwd_route states the same rule).  Both are deterministic
+// (no atomics: two calls give the same bits) and split the work FA2's way
+// into dk/dv work that owns a key tile and dq work that owns query rows,
+// so s and dp are computed for both (7 products against 5).  At Dh 256 a
+// fixed-order dq sum inside the dk/dv work would move a 64 x 256 f32
+// partial per (key tile, query tile) pair, gigabytes at 4 x 4096.
+//
+// wgmma (bf16, Dh 64, 128 or 256: gemma3, qwen2.5, minitron).  Two
+// launches.  Query rows are GQA-packed as in the forward: the G query heads
+// of a position are neighbouring rows (row = position * G + head), 64 rows
+// to a tile (64 / G positions; a 5-D tensor map over q viewed as (B, Sq,
+// Hkv, G, Dh)), so one K/V tile serves all G heads.
+//
+// 1. flash_bwd_prep, one warp per two packed rows: D = rowsum(do * o) and
+//    lse * log2 e in the packed order (64 floats a tile, so a stage loads
+//    them with one bulk copy; rows that are no real (position, head) get
+//    lse2 = +inf and D = 0, so their p and ds are 0), and, when the scale
+//    is not a power of two (Dh 128), bf16(q * scale) once for both
+//    products that read q.  Otherwise the scale is folded into the exp2
+//    constant c and into the dk and dq epilogues, which is exact.
+//    p = 2^(s c - lse2).
+// 2. flash_bwd_wgmma: CTAs of three warpgroups, a producer that gives up
+//    registers (setmaxnreg) and issues every TMA load from one thread into
+//    rings with full and empty mbarriers, and two consumers that run
+//    wgmma.  The first CTAs own a key tile each (dk, dv), the rest two
+//    query tiles each (dq), so the SMs that finish their dk/dv tiles take
+//    dq tiles while the last dk/dv tiles run; both kinds are ordered
+//    heaviest first on causal grids.
+//    dk/dv CTA, per (b, kv head, 64-key tile): K and V loaded once; the
+//    (Q, dO) tiles of the query tiles that can see the keys, for every
+//    head block, stream through a ring (2 stages at Dh 256, 4 below) with
+//    their lse2 and D.  Consumer 0 computes S^T = K Q^T (wgmma m64n64k16
+//    from shared memory), P^T in registers (masked only on tiles that
+//    straddle the causal diagonal, the window or Sk, by the range of
+//    columns each key sees), hands the f32 P^T to consumer 1 through a
+//    double-buffered 16 KB shared tile, and runs dV += P^T dO with P^T
+//    (bf16) as the register operand and dO read transposed (wgmma
+//    m64n{Dh}k16).  Consumer 1 computes dP^T = V dO^T, dS^T = P^T (dP^T -
+//    D), and dK += dS^T Q the same way.  So each consumer holds one 64 x Dh
+//    f32 accumulator (128 registers a thread at Dh 256), not two.  Rows of
+//    a tile that TMA never writes (64 is not a multiple of G) are zeroed
+//    once, so P^T's zeros meet finite rows.
+//    dq CTA, per two neighbouring 64-row query tiles, one per consumer: Q
+//    and dO loaded once, K and V tiles of the key tiles either tile can see
+//    through two rings, so each is loaded once for 128 rows: with 64 rows
+//    a CTA, L2 moved about as many bytes as the products took time.  dP =
+//    dO V^T first, so the V tile is free at once (1 stage at Dh 256), then
+//    S = Q K^T (ss), dS in registers, and dQ += dS K (rs, K read
+//    transposed; 2 K stages at Dh 256).
+//
+// Shared memory at Dh 256: a dk/dv CTA 64 KB of K and V + 2 stages x 64 KB
+// of Q and dO + 32 KB of P^T + 1 KB of row statistics = 225 KB of the 227
+// KB a CTA may use (+ barriers and 1 KB to align); a dq CTA 128 KB of Q and
+// dO + 2 K tiles + 1 V tile = 224 KB.
+//
+// mma.sync (bf16, other Dh: stablelm's 80, the smoke configs' 16), the
+// first design, three launches on mma.sync.m16n8k16 bf16 with f32
+// accumulators:
 //
 // 1. flash_bwd_delta: D = rowsum(do * o) in f32, one warp per row.
 // 2. flash_bwd_dkdv: one CTA of 8 warps per (b, kv head, 64-key tile).  K
@@ -48,15 +104,16 @@
 //    16 queries x 32 keys, ds through shared memory, dq for 16 queries and
 //    half the head dim).
 //
-// The split pays two extra products (s and dp are computed in both
-// kernels: 7 against 5) for determinism.  Dh: any multiple of 16 up to 256
-// (templates for Dh <= 64, 128, 256; rows padded by 8 elements in shared
-// memory so that fragment loads are free of bank conflicts).
+// Dh: any multiple of 16 up to 256 (templates for Dh <= 64, 128, 256;
+// rows padded by 8 elements in shared memory so that fragment loads are
+// free of bank conflicts).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -82,10 +139,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
       : "r"(addr));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using hopper::pack_bf16;
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -486,22 +540,771 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// -------------------------------------------------------- wgmma route ----
+constexpr int kWgThreads = 384;  // producer + 2 consumer warpgroups
+constexpr int kRows = 64;        // packed query rows per Q / dO tile
+constexpr int kKeys = 64;        // keys per K / V tile
+constexpr int kBox = 64 * 128;   // a 64-row box of 64 bf16 columns
+constexpr float kLog2e = 1.4426950408889634f;
+// registers a thread after setmaxnreg: 128 x 40 + 256 x 232 <= 65,536
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+template <int DH>
+struct WgTile {
+  static constexpr int kChunks = DH / 64;        // 64-column boxes per row
+  static constexpr int kBytes = kChunks * kBox;  // one 64-row tile
+};
+
+// A dk/dv CTA's shared memory: K, V, the (Q, dO) ring, two P^T tiles (64 x
+// 64 f32), each stage's lse2 and D rows, the barriers.
+template <int DH>
+struct DkdvSmem {
+  using T = WgTile<DH>;
+  static constexpr int kStages = DH == 256 ? 2 : 4;  // of Q and dO
+  static constexpr int kK = 0;
+  static constexpr int kV = T::kBytes;
+  static constexpr int kQ = 2 * T::kBytes;  // stage s: Q, then dO
+  static constexpr int kX = kQ + 2 * kStages * T::kBytes;
+  static constexpr int kStat = kX + 2 * kKeys * kRows * 4;
+  static constexpr int kBar = kStat + kStages * 2 * kRows * 4;
+  static constexpr int kSmem = kBar + (1 + 2 * kStages) * 8 + 1024;
+  static_assert(kSmem <= 232448, "dk/dv shared memory");
+};
+
+// A dq CTA's: two 64-row tiles of Q and of dO (one per consumer), a ring
+// of K tiles and one of V tiles, the barriers.  V is free after dP, K only
+// after dQ, so K gets the deeper ring (2 stages against 1 at Dh 256).
+template <int DH>
+struct DqSmem {
+  using T = WgTile<DH>;
+  static constexpr int kKStages = DH == 256 ? 2 : 4;
+  static constexpr int kVStages = DH == 256 ? 1 : 4;
+  static constexpr int kQ = 0;  // consumer w's tile w * kBytes further
+  static constexpr int kDo = 2 * T::kBytes;
+  static constexpr int kK = 4 * T::kBytes;
+  static constexpr int kV = kK + kKStages * T::kBytes;
+  static constexpr int kBar = kV + kVStages * T::kBytes;
+  static constexpr int kSmem =
+      kBar + (1 + 2 * kKStages + 2 * kVStages) * 8 + 1024;
+  static_assert(kSmem <= 232448, "dq shared memory");
+};
+
+struct WgParams {
+  int B, Sq, Sk, Hkv, G;
+  int Gt;      // heads packed per tile: min(G, 64)
+  int HB;      // head blocks per kv head: ceil(G / Gt)
+  int P;       // positions per tile: 64 / Gt
+  int ntiles;  // query tiles per (b, kv head, head block): ceil(Sq / P)
+  int causal, window;
+  int dkdv_ctas;  // CTAs of flash_bwd_wgmma that own a key tile
+  float c;       // multiplies q . k into the exp2 domain
+  float dk_mul;  // the scale where it is folded into c, else 1
+  float dq_mul;  // the scale
+  // packed row statistics, index ((((b Hkv + hk) HB + hb) ntiles + tile)
+  // 64 + row)
+  const float* lse2;   // lse * log2 e; +inf for rows that are no real row
+  const float* delta;  // rowsum(do * o); 0 for those rows
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// D (64 x 64) = A (64 rows x DH) B^T (B: 64 rows x DH), both 64-row tiles
+// of DH / 64 swizzled boxes in shared memory (K-major): the k-th 16
+// columns of a box start 32 bytes further inside each 128-byte row.
+template <int DH>
+__device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a,
+                                         uint32_t b) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) hopper::reg_fence(d[i]);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+    hopper::wgmma_ss_m64n64k16(d, hopper::sw128_desc(a + off, 16),
+                               hopper::sw128_desc(b + off, 16), kk > 0);
+  }
+  hopper::wgmma_commit();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) hopper::reg_fence(d[i]);
+}
+
+// Every product this warpgroup issued is done; d may be read.
+template <int NC>
+__device__ __forceinline__ void wait_all(float (&d)[NC][32]) {
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) hopper::reg_fence(d[c][i]);
+}
+
+// Row statistics in the wgmma route's packed order, and bf16(q * scale)
+// when qs is not null.  One warp per kPrepRows packed rows, every load of
+// them issued before any sum (16 bytes a lane: Dh <= 256).
+constexpr int kPrepRows = 2;
+
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_prep(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ o,
+               const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ lse, float* __restrict__ lse2,
+               float* __restrict__ delta, __nv_bfloat16* __restrict__ qs,
+               long long rows, const WgParams prm, int Dh, float scale) {
+  const int e0 = static_cast<int>((blockIdx.x * kThreads + threadIdx.x) >> 5) *
+                 kPrepRows;  // rows < 2^31 (launch_wgmma checks)
+  const int lane = threadIdx.x & 31;
+  const int Hq = prm.Hkv * prm.G;
+  const bool has_chunk = 8 * lane < Dh;
+  size_t row[kPrepRows];
+  bool ok[kPrepRows];
+  float l[kPrepRows];
+  uint4 xo[kPrepRows], xd[kPrepRows], xq[kPrepRows];
+#pragma unroll
+  for (int k = 0; k < kPrepRows; ++k) {
+    const int e = e0 + k;
+    const int r = e % kRows;
+    int rest = e / kRows;
+    const int tile = rest % prm.ntiles;
+    rest /= prm.ntiles;
+    const int hb = rest % prm.HB;
+    rest /= prm.HB;
+    const int hk = rest % prm.Hkv;
+    const int b = rest / prm.Hkv;
+    const int pos = tile * prm.P + r / prm.Gt, gh = hb * prm.Gt + r % prm.Gt;
+    ok[k] = e < rows && r < prm.P * prm.Gt && pos < prm.Sq && gh < prm.G;
+    const int h = hk * prm.G + gh;
+    row[k] = (static_cast<size_t>(b) * prm.Sq + pos) * Hq + h;
+    l[k] = 0.f;
+    xo[k] = xd[k] = xq[k] = make_uint4(0, 0, 0, 0);
+    if (ok[k]) {
+      l[k] = lse[(static_cast<size_t>(b) * Hq + h) * prm.Sq + pos];
+      if (has_chunk) {
+        xo[k] = *reinterpret_cast<const uint4*>(o + row[k] * Dh + 8 * lane);
+        xd[k] = *reinterpret_cast<const uint4*>(dout + row[k] * Dh + 8 * lane);
+        if (qs != nullptr)
+          xq[k] = *reinterpret_cast<const uint4*>(q + row[k] * Dh + 8 * lane);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPrepRows; ++k) {
+    const int e = e0 + k;
+    if (e >= rows) break;
+    const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&xo[k]);
+    const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&xd[k]);
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(x2[i]);
+      const float2 c = __bfloat1622float2(y2[i]);
+      acc += a.x * c.x + a.y * c.y;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (ok[k] && qs != nullptr && has_chunk) {
+      __nv_bfloat16* x = reinterpret_cast<__nv_bfloat16*>(&xq[k]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        x[i] = __float2bfloat16_rn(__bfloat162float(x[i]) * scale);
+      *reinterpret_cast<uint4*>(qs + row[k] * Dh + 8 * lane) = xq[k];
+    }
+    if (lane == 0) {  // rows that are no real row: p and ds come out 0
+      lse2[e] = ok[k] ? l[k] * kLog2e : INFINITY;
+      delta[e] = ok[k] ? acc : 0.f;
+    }
+  }
+}
+
+// ----------------------------------------------- dk, dv (wgmma) CTA ----
+template <int DH>
+__device__ __forceinline__ void dkdv_cta(unsigned char* smem, int cta,
+                                         const CUtensorMap& tq,
+                                         const CUtensorMap& tdo,
+                                         const CUtensorMap& tk,
+                                         const CUtensorMap& tv,
+                                         const WgParams& prm) {
+  using T = WgTile<DH>;
+  using L = DkdvSmem<DH>;
+  constexpr int NC = T::kChunks, ST = L::kStages;
+  float* stat = reinterpret_cast<float*>(smem + L::kStat);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* q_full = kv_full + 1;
+  uint64_t* q_empty = q_full + ST;
+
+  // This CTA's key tile: causal grids take the lowest (the heaviest) first.
+  const int per = prm.B * prm.Hkv;
+  const int kt = cta / per;
+  const int hk = (cta % per) % prm.Hkv;
+  const int b = (cta % per) / prm.Hkv;
+  const int j0 = kt * kKeys;
+  const int j_last = min(j0 + kKeys, prm.Sk) - 1;
+  // the positions that see a key of the tile, and their tiles
+  const int lo = prm.causal ? j0 : 0;
+  long long hi = prm.Sq - 1;
+  if (prm.window > 0)
+    hi = min(hi, static_cast<long long>(j_last) + prm.window - 1);
+  const int t_lo = lo / prm.P;
+  const int nt = hi < lo ? 0 : static_cast<int>(hi / prm.P) - t_lo + 1;
+  const int n = nt * prm.HB;  // (Q, dO) stages: every head block's tiles
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&q_full[s], 1);
+      hopper::mbar_init(&q_empty[s], 2 * 128);  // every consumer thread
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every load ----
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0 && n > 0) {
+      hopper::mbar_expect_tx(kv_full, 2 * T::kBytes);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        hopper::tma_load_4d(smem + L::kK + c * kBox, &tk, kv_full, 64 * c, hk,
+                            j0, b);
+        hopper::tma_load_4d(smem + L::kV + c * kBox, &tv, kv_full, 64 * c, hk,
+                            j0, b);
+      }
+      const uint32_t box = NC * 128 * prm.Gt * prm.P;  // bytes of one tile
+      for (int i = 0; i < n; ++i) {
+        const int hb = i / nt, t = t_lo + i % nt, st = i % ST;
+        hopper::mbar_wait(&q_empty[st], ((i / ST) & 1) ^ 1);
+        hopper::mbar_expect_tx(&q_full[st], 2 * box + 2 * kRows * 4);
+        unsigned char* qs = smem + L::kQ + 2 * st * T::kBytes;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          hopper::tma_load_5d(qs + c * kBox, &tq, &q_full[st], 64 * c,
+                              hb * prm.Gt, hk, t * prm.P, b);
+          hopper::tma_load_5d(qs + T::kBytes + c * kBox, &tdo, &q_full[st],
+                              64 * c, hb * prm.Gt, hk, t * prm.P, b);
+        }
+        const size_t row =
+            ((static_cast<size_t>(b) * prm.Hkv + hk) * prm.HB + hb) *
+                prm.ntiles + t;
+        hopper::bulk_load(stat + st * 2 * kRows, prm.lse2 + row * kRows,
+                          kRows * 4, &q_full[st]);
+        hopper::bulk_load(stat + st * 2 * kRows + kRows,
+                          prm.delta + row * kRows, kRows * 4, &q_full[st]);
+      }
+    }
+  } else {
+    // ---- consumers: 0 makes P^T and owns dV, 1 makes dS^T and owns dK --
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int w = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int r0 = 16 * (tid / 32) + lane / 4;  // keys r0 and r0 + 8
+    const int cb = 2 * (lane & 3);  // first query column of each 8-block
+
+    // Rows of a tile that no TMA box fills (64 is not a multiple of Gt) are
+    // zeroed once: a 0 of P^T or dS^T must meet finite values there.
+    const int used = prm.P * prm.Gt;
+    if (used < kRows) {
+      const int per_box = (kRows - used) * 128 / 16;
+      for (int e = threadIdx.x - 128; e < 2 * ST * NC * per_box; e += 256)
+        *reinterpret_cast<uint4*>(smem + L::kQ + (e / per_box) * kBox +
+                                  used * 128 + (e % per_box) * 16) =
+            make_uint4(0, 0, 0, 0);
+      hopper::fence_proxy_async();
+    }
+    hopper::named_sync(1, 256);
+
+    float acc[NC][32];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+    const uint32_t k_base = hopper::smem_addr(smem + L::kK);
+    const uint32_t v_base = hopper::smem_addr(smem + L::kV);
+    const uint32_t ring = hopper::smem_addr(smem + L::kQ);
+    float4* X = reinterpret_cast<float4*>(smem + L::kX);
+
+    if (n > 0) hopper::mbar_wait(kv_full, 0);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % ST, xb = i & 1;
+      const int pp0 = (t_lo + i % nt) * prm.P;  // the tile's first position
+      const uint32_t q_base = ring + 2 * st * T::kBytes;
+      const uint32_t do_base = q_base + T::kBytes;
+      const float* lse2 = stat + st * 2 * kRows;
+      hopper::mbar_wait(&q_full[st], (i / ST) & 1);
+      // S^T = K Q^T (consumer 0) or dP^T = V dO^T (consumer 1)
+      float s[32];
+      issue_ss<DH>(s, w ? v_base : k_base, w ? do_base : q_base);
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) hopper::reg_fence(s[e]);
+      if (w == 0) {
+        // p = 2^(s c - lse2) where key and query row see each other, else 0
+        const bool all_seen =
+            j0 + kKeys <= prm.Sk && (!prm.causal || j0 + kKeys - 1 <= pp0) &&
+            (prm.window <= 0 || pp0 + prm.P - 1 - j0 < prm.window);
+        // key j sees the rows (columns) [clo, chi) of the tile: position
+        // pp0 + col / Gt in [j, j + window) (causal), or below j + window
+        int clo[2], chi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const long long j = j0 + r0 + 8 * r;
+          const long long lo = prm.causal ? prm.Gt * (j - pp0) : -1;
+          const long long hi =
+              j >= prm.Sk ? -1
+              : prm.window > 0 ? prm.Gt * (j + prm.window - pp0) : kRows;
+          clo[r] = static_cast<int>(max(-1ll, min(lo, 64ll)));
+          chi[r] = static_cast<int>(max(-1ll, min(hi, 64ll)));
+        }
+#pragma unroll
+        for (int nn = 0; nn < 8; ++nn) {
+          const float2 l =
+              *reinterpret_cast<const float2*>(lse2 + 8 * nn + cb);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = hopper::ex2(
+                fmaf(s[4 * nn + e], prm.c, -(e & 1 ? l.y : l.x)));
+            if (!all_seen) {
+              const int col = 8 * nn + cb + (e & 1), r = e >> 1;
+              p = col >= clo[r] && col < chi[r] ? p : 0.f;
+            }
+            s[4 * nn + e] = p;
+          }
+        }
+        // the f32 P^T to consumer 1, in two tiles: it reads tile i & 1
+        // while this consumer writes the other
+        if (i >= 2) hopper::named_sync(2 + xb, 256);
+#pragma unroll
+        for (int nn = 0; nn < 8; ++nn)
+          X[xb * 1024 + nn * 128 + tid] = make_float4(
+              s[4 * nn], s[4 * nn + 1], s[4 * nn + 2], s[4 * nn + 3]);
+        hopper::named_arrive(4 + xb, 256);
+      } else {
+        // dS^T = P^T (dP^T - D)
+        const float* dl = lse2 + kRows;
+        hopper::named_sync(4 + xb, 256);
+#pragma unroll
+        for (int nn = 0; nn < 8; ++nn) {
+          const float4 p = X[xb * 1024 + nn * 128 + tid];
+          const float2 d = *reinterpret_cast<const float2*>(dl + 8 * nn + cb);
+          s[4 * nn] = p.x * (s[4 * nn] - d.x);
+          s[4 * nn + 1] = p.y * (s[4 * nn + 1] - d.y);
+          s[4 * nn + 2] = p.z * (s[4 * nn + 2] - d.x);
+          s[4 * nn + 3] = p.w * (s[4 * nn + 3] - d.y);
+        }
+        if (i + 2 < n) hopper::named_arrive(2 + xb, 256);
+      }
+      // dV += P^T dO (consumer 0), dK += dS^T Q (consumer 1)
+      uint32_t a[4][4];
+      hopper::acc_to_a(s, a);
+      hopper::wgmma_rs_tile<NC>(acc, a, w ? q_base : do_base);
+      wait_all<NC>(acc);
+      hopper::mbar_arrive(&q_empty[st]);
+    }
+
+    const float mul = w ? prm.dk_mul : 1.f;
+    __nv_bfloat16* out = w ? prm.dk : prm.dv;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = j0 + r0 + 8 * r;
+      if (j >= prm.Sk) continue;
+      __nv_bfloat16* row =
+          out + ((static_cast<size_t>(b) * prm.Sk + j) * prm.Hkv + hk) * DH;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int nn = 0; nn < 8; ++nn)
+          *reinterpret_cast<uint32_t*>(row + 64 * c + 8 * nn + cb) =
+              pack_bf16(acc[c][4 * nn + 2 * r] * mul,
+                        acc[c][4 * nn + 2 * r + 1] * mul);
+    }
+  }
+}
+
+// --------------------------------------------------- dq (wgmma) CTA ----
+// Two neighbouring 64-row query tiles, one per consumer; both walk the key
+// tiles either tile can see, so each K and V tile is loaded once for 128
+// rows.
+template <int DH>
+__device__ __forceinline__ void dq_cta(unsigned char* smem, int cta,
+                                       const CUtensorMap& tq,
+                                       const CUtensorMap& tdo,
+                                       const CUtensorMap& tk,
+                                       const CUtensorMap& tv,
+                                       const WgParams& prm) {
+  using T = WgTile<DH>;
+  using L = DqSmem<DH>;
+  constexpr int NC = T::kChunks, KS = L::kKStages, VS = L::kVStages;
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* k_full = qd_full + 1;
+  uint64_t* k_empty = k_full + KS;
+  uint64_t* v_full = k_empty + KS;
+  uint64_t* v_empty = v_full + VS;
+
+  // This CTA's tiles 2 u and 2 u + 1: causal grids take the last (the
+  // heaviest) first.
+  const int per = prm.B * prm.Hkv * prm.HB;
+  const int pairs = (prm.ntiles + 1) / 2;
+  const int x = cta % per;
+  const int uu = cta / per;
+  const int u = prm.causal ? pairs - 1 - uu : uu;
+  const int hb = x % prm.HB;
+  const int hk = (x / prm.HB) % prm.Hkv;
+  const int b = x / (prm.HB * prm.Hkv);
+  const int tiles = min(2, prm.ntiles - 2 * u);  // 1 for an odd last pair
+  const int p0 = 2 * u * prm.P;
+  const int p_last = min(p0 + tiles * prm.P - 1, prm.Sq - 1);
+  // the key tiles some row of the CTA can see
+  int hi = prm.Sk - 1;
+  if (prm.causal) hi = min(hi, p_last);
+  const int lo = prm.window > 0 ? max(0, p0 - prm.window + 1) : 0;
+  const int t_lo = lo / kKeys;
+  const int n = hi < lo ? 0 : hi / kKeys - t_lo + 1;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qd_full, 1);
+    for (int s = 0; s < KS; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&k_empty[s], 2 * 128);  // every consumer thread
+    }
+    for (int s = 0; s < VS; ++s) {
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&v_empty[s], 2 * 128);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every load ----
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0 && n > 0) {
+      hopper::mbar_expect_tx(qd_full, tiles * 2 * NC * 128 * prm.Gt * prm.P);
+      for (int w = 0; w < tiles; ++w)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int pw = p0 + w * prm.P;
+          hopper::tma_load_5d(smem + L::kQ + w * T::kBytes + c * kBox, &tq,
+                              qd_full, 64 * c, hb * prm.Gt, hk, pw, b);
+          hopper::tma_load_5d(smem + L::kDo + w * T::kBytes + c * kBox, &tdo,
+                              qd_full, 64 * c, hb * prm.Gt, hk, pw, b);
+        }
+      for (int i = 0; i < n; ++i) {
+        const int j0 = (t_lo + i) * kKeys, ks = i % KS, vs = i % VS;
+        hopper::mbar_wait(&v_empty[vs], ((i / VS) & 1) ^ 1);
+        hopper::mbar_expect_tx(&v_full[vs], T::kBytes);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          hopper::tma_load_4d(smem + L::kV + vs * T::kBytes + c * kBox, &tv,
+                              &v_full[vs], 64 * c, hk, j0, b);
+        hopper::mbar_wait(&k_empty[ks], ((i / KS) & 1) ^ 1);
+        hopper::mbar_expect_tx(&k_full[ks], T::kBytes);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          hopper::tma_load_4d(smem + L::kK + ks * T::kBytes + c * kBox, &tk,
+                              &k_full[ks], 64 * c, hk, j0, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 rows each, every key tile of the CTA ----
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int w = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int r0 = 16 * (tid / 32) + lane / 4, r1 = r0 + 8;
+    const int cb = 2 * (lane & 3);
+    const int tile = 2 * u + w;
+    const bool real = w < tiles;  // an odd last pair has no second tile
+    const int pt = tile * prm.P;  // the tile's first position
+    const size_t srow =
+        (((static_cast<size_t>(b) * prm.Hkv + hk) * prm.HB + hb) *
+             prm.ntiles + tile) * kRows;
+    const float l0 = real ? prm.lse2[srow + r0] : INFINITY;
+    const float l1 = real ? prm.lse2[srow + r1] : INFINITY;
+    const float d0 = real ? prm.delta[srow + r0] : 0.f;
+    const float d1 = real ? prm.delta[srow + r1] : 0.f;
+    const int pos0 = pt + r0 / prm.Gt, pos1 = pt + r1 / prm.Gt;
+    // keys [jlo, jhi) are visible to a row
+    const int jlo0 = prm.window > 0 ? pos0 - prm.window + 1 : INT_MIN;
+    const int jlo1 = prm.window > 0 ? pos1 - prm.window + 1 : INT_MIN;
+    const int jhi0 = prm.causal ? min(prm.Sk, pos0 + 1) : prm.Sk;
+    const int jhi1 = prm.causal ? min(prm.Sk, pos1 + 1) : prm.Sk;
+    // every row of the tile sees all keys in [lo_all, hi_all)
+    const int pt_last = min(pt + prm.P - 1, prm.Sq - 1);
+    const int lo_all = prm.window > 0 ? pt_last - prm.window + 1 : INT_MIN;
+    const int hi_all = prm.causal ? min(prm.Sk, pt + 1) : prm.Sk;
+
+    float acc[NC][32];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+    const uint32_t q_base = hopper::smem_addr(smem + L::kQ + w * T::kBytes);
+    const uint32_t do_base = hopper::smem_addr(smem + L::kDo + w * T::kBytes);
+
+    if (n > 0) hopper::mbar_wait(qd_full, 0);
+    for (int i = 0; i < n; ++i) {
+      const int ks = i % KS, vs = i % VS, j0 = (t_lo + i) * kKeys;
+      const uint32_t k_st = hopper::smem_addr(smem + L::kK + ks * T::kBytes);
+      float s[32], dp[32];
+      hopper::mbar_wait(&v_full[vs], (i / VS) & 1);
+      issue_ss<DH>(dp, do_base,
+                   hopper::smem_addr(smem + L::kV + vs * T::kBytes));
+      hopper::mbar_wait(&k_full[ks], (i / KS) & 1);
+      issue_ss<DH>(s, q_base, k_st);
+      hopper::wgmma_wait<1>();  // dP: the V tile is free
+#pragma unroll
+      for (int e = 0; e < 32; ++e) hopper::reg_fence(dp[e]);
+      hopper::mbar_arrive(&v_empty[vs]);
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) hopper::reg_fence(s[e]);
+      // dS = P (dP - D), p = 2^(s c - lse2) where the key is visible
+      const bool masked = j0 < lo_all || j0 + kKeys > hi_all;
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool hi_row = e >= 2;
+          float p =
+              hopper::ex2(fmaf(s[4 * nn + e], prm.c, -(hi_row ? l1 : l0)));
+          if (masked) {
+            const int j = j0 + 8 * nn + cb + (e & 1);
+            const bool vis = hi_row ? (j >= jlo1 && j < jhi1)
+                                    : (j >= jlo0 && j < jhi0);
+            p = vis ? p : 0.f;
+          }
+          s[4 * nn + e] = p * (dp[4 * nn + e] - (hi_row ? d1 : d0));
+        }
+      // dQ += dS K
+      uint32_t a[4][4];
+      hopper::acc_to_a(s, a);
+      hopper::wgmma_rs_tile<NC>(acc, a, k_st);
+      wait_all<NC>(acc);
+      hopper::mbar_arrive(&k_empty[ks]);
+    }
+
+    // dq = dQ * scale, for the tile's real rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? r1 : r0;
+      const int pos = r ? pos1 : pos0, gh = hb * prm.Gt + row % prm.Gt;
+      if (!real || row >= prm.P * prm.Gt || pos >= prm.Sq || gh >= prm.G)
+        continue;
+      __nv_bfloat16* out =
+          prm.dq + ((static_cast<size_t>(b) * prm.Sq + pos) * prm.Hkv *
+                        prm.G + hk * prm.G + gh) * DH + cb;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int nn = 0; nn < 8; ++nn)
+          *reinterpret_cast<uint32_t*>(out + 64 * c + 8 * nn) =
+              pack_bf16(acc[c][4 * nn + 2 * r] * prm.dq_mul,
+                        acc[c][4 * nn + 2 * r + 1] * prm.dq_mul);
+    }
+  }
+}
+
+// One launch for both: the first dkdv_ctas CTAs own a key tile each, the
+// rest two query tiles each, so the SMs that finish their dk/dv tiles take
+// dq tiles while the last dk/dv tiles run.
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const WgParams prm) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const int cta = static_cast<int>(blockIdx.x);
+  if (cta < prm.dkdv_ctas)
+    dkdv_cta<DH>(smem, cta, tq, tdo, tk, tv, prm);
+  else
+    dq_cta<DH>(smem, cta - prm.dkdv_ctas, tq, tdo, tk, tv, prm);
+}
+
+// Device scratch (bytes) a launch on `route` needs: on mma.sync (1) D, B *
+// Hq * Sq floats; on wgmma (0) lse2 and D for each packed row (B * Hkv *
+// ceil(G / 64) * ceil(Sq / P) * 64 rows, P = 64 / min(G, 64)) and, when the
+// scale is not a power of two, bf16(q * scale).
+long long scratch_need(int route, int B, int Sq, int Hq, int Hkv, int Dh,
+                       float scale) {
+  if (route == 1) return 4LL * B * Sq * Hq;
+  const int G = Hq / Hkv, gt = min(G, kRows), P = kRows / gt;
+  const long long rows = static_cast<long long>(B) * Hkv *
+                         ((G + gt - 1) / gt) * ((Sq + P - 1) / P) * kRows;
+  int ex;
+  const bool pow2 = frexpf(scale, &ex) == 0.5f;  // exact to fold
+  return 8 * rows + (pow2 ? 0 : 2LL * B * Sq * Hq * Dh);
+}
+
+template <int DH>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* o, const void* dout, const float* lse,
+                         void* scratch, long long scratch_bytes, void* dq,
+                         void* dk, void* dv, int B, int Sq, int Sk, int Hq,
+                         int Hkv, int causal, int window, float scale,
+                         cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const int G = Hq / Hkv;
+  WgParams prm;
+  prm.B = B;
+  prm.Sq = Sq;
+  prm.Sk = Sk;
+  prm.Hkv = Hkv;
+  prm.G = G;
+  prm.Gt = min(G, kRows);
+  prm.HB = (G + prm.Gt - 1) / prm.Gt;
+  prm.P = kRows / prm.Gt;
+  prm.ntiles = (Sq + prm.P - 1) / prm.P;
+  prm.causal = causal;
+  prm.window = window;
+  int ex;
+  const bool pow2 = frexpf(scale, &ex) == 0.5f;  // exact to fold
+  prm.c = pow2 ? scale * kLog2e : kLog2e;
+  prm.dk_mul = pow2 ? scale : 1.f;
+  prm.dq_mul = scale;
+  // scratch: lse2 and D (4 bytes each per packed row), then bf16(q * scale)
+  // when the scale is not a power of two
+  const long long rows = static_cast<long long>(B) * Hkv * prm.HB *
+                         prm.ntiles * kRows;
+  if (scratch_bytes < scratch_need(0, B, Sq, Hq, Hkv, DH, scale))
+    return cudaErrorInvalidValue;
+  float* lse2 = static_cast<float*>(scratch);
+  float* delta = lse2 + rows;
+  bf* qs = pow2 ? nullptr : reinterpret_cast<bf*>(delta + rows);
+  prm.lse2 = lse2;
+  prm.delta = delta;
+  prm.dq = static_cast<bf*>(dq);
+  prm.dk = static_cast<bf*>(dk);
+  prm.dv = static_cast<bf*>(dv);
+  const long long nkt = (Sk + kKeys - 1) / kKeys;
+  const long long dkdv_ctas = static_cast<long long>(B) * Hkv * nkt;
+  const long long grid = dkdv_ctas + static_cast<long long>(B) * Hkv *
+                                         prm.HB * ((prm.ntiles + 1) / 2);
+  const long long prep_blocks =
+      ((rows + kPrepRows - 1) / kPrepRows * 32 + kThreads - 1) / kThreads;
+  if (grid > INT_MAX || rows + kPrepRows > INT_MAX)
+    return cudaErrorInvalidConfiguration;
+  prm.dkdv_ctas = static_cast<int>(dkdv_ctas);
+  // TMA and the bulk copies read 16-byte aligned global memory
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+       reinterpret_cast<uintptr_t>(scratch)) % 16)
+    return cudaErrorMisalignedAddress;
+
+  flash_bwd_prep<<<static_cast<unsigned>(prep_blocks), kThreads, 0,
+                   stream>>>(static_cast<const bf*>(q),
+                             static_cast<const bf*>(o),
+                             static_cast<const bf*>(dout), lse, lse2, delta,
+                             qs, rows, prm, DH, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // q (or bf16(q * scale)) and do viewed as (B, Sq, Hkv, G, Dh): a box is
+  // P positions x Gt heads x 64 columns; k and v as (B, Sk, Hkv, Dh): 64
+  // keys x 64 columns.
+  const cuuint64_t e = 2, Dh = DH;
+  CUtensorMap tq, tdo, tk, tv;
+  const cuuint64_t qdim[5] = {Dh, static_cast<cuuint64_t>(G),
+                              static_cast<cuuint64_t>(Hkv),
+                              static_cast<cuuint64_t>(Sq),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t qstr[4] = {Dh * e, G * Dh * e, Hq * Dh * e,
+                              static_cast<cuuint64_t>(Sq) * Hq * Dh * e};
+  const cuuint32_t qbox[5] = {64, static_cast<cuuint32_t>(prm.Gt), 1,
+                              static_cast<cuuint32_t>(prm.P), 1};
+  const cuuint64_t kdim[4] = {Dh, static_cast<cuuint64_t>(Hkv),
+                              static_cast<cuuint64_t>(Sk),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t kstr[3] = {Dh * e, Hkv * Dh * e,
+                              static_cast<cuuint64_t>(Sk) * Hkv * Dh * e};
+  const cuuint32_t kbox[4] = {64, 1, kKeys, 1};
+  if (!hopper::encode_bf16(&tq, pow2 ? q : qs, 5, qdim, qstr, qbox) ||
+      !hopper::encode_bf16(&tdo, dout, 5, qdim, qstr, qbox) ||
+      !hopper::encode_bf16(&tk, k, 4, kdim, kstr, kbox) ||
+      !hopper::encode_bf16(&tv, v, 4, kdim, kstr, kbox))
+    return cudaErrorInvalidValue;
+
+  const int smem = max(DkdvSmem<DH>::kSmem, DqSmem<DH>::kSmem);
+  err = cudaFuncSetAttribute(flash_bwd_wgmma<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_wgmma<DH><<<static_cast<unsigned>(grid), kWgThreads, smem,
+                        stream>>>(tq, tdo, tk, tv, prm);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// The route (dtype, Dh) takes: 0 = wgmma (bf16, Dh 64, 128 or 256), 1 =
+// mma.sync (bf16, other head dims), -1 = none (the card has no f32
+// backward).  kernels/flash_attention.py's flash_bwd_route states the same
+// rule.
+extern "C" int flash_attention_bwd_route(int dtype, int Dh) {
+  if (dtype != 1) return -1;
+  return Dh == 64 || Dh == 128 || Dh == 256 ? 0 : 1;
+}
+
+// The device scratch a launch on `route` (0 = wgmma, 1 = mma.sync) needs,
+// in *bytes: the rule flash_attention_bwd checks its scratch against.
+// kernels/flash_attention.py's bwd_scratch_bytes asks here.
+extern "C" int flash_attention_bwd_scratch_bytes(int route, int B, int Sq,
+                                                 int Hq, int Hkv, int Dh,
+                                                 float scale,
+                                                 long long* bytes) {
+  if ((route != 0 && route != 1) || B < 0 || Sq < 0 || Hkv < 1 ||
+      Hq % Hkv)
+    return cudaErrorInvalidValue;
+  *bytes = scratch_need(route, B, Sq, Hq, Hkv, Dh, scale);
+  return cudaSuccess;
+}
+
 // bf16 only; Dh a multiple of 16 up to 256, every pointer 16-byte aligned
-// (the wrapper checks); window <= 0 means unbounded.  delta is scratch of
-// B * Hq * Sq floats.  Launches the three kernels on `stream` and returns
-// the first launch error.
+// (the wrapper checks); window <= 0 means unbounded.  route: the wrapper's
+// choice (flash_bwd_route), refused where it does not apply.  scratch:
+// scratch_bytes of device memory, at least what
+// flash_attention_bwd_scratch_bytes gives.  Launches the route's kernels
+// (three on mma.sync, two on wgmma) on `stream` and returns the first
+// launch error.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const float* lse,
-                                   float* delta, void* dq, void* dk, void* dv,
+                                   void* scratch, long long scratch_bytes,
+                                   void* dq, void* dk, void* dv, int route,
                                    int B, int Sq, int Sk, int Hq, int Hkv,
                                    int Dh, int causal, int window, float scale,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0) return cudaSuccess;
+  if (route == 0) {
+    if (flash_attention_bwd_route(1, Dh) != 0) return cudaErrorInvalidValue;
+    if (Dh == 64)
+      return launch_wgmma<64>(q, k, v, o, dout, lse, scratch, scratch_bytes,
+                              dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, window,
+                              scale, st);
+    if (Dh == 128)
+      return launch_wgmma<128>(q, k, v, o, dout, lse, scratch, scratch_bytes,
+                               dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, window,
+                               scale, st);
+    return launch_wgmma<256>(q, k, v, o, dout, lse, scratch, scratch_bytes,
+                             dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, window,
+                             scale, st);
+  }
+  if (route != 1) return cudaErrorInvalidValue;
   const long long rows = static_cast<long long>(B) * Sq * Hq;
+  if (scratch_bytes < scratch_need(1, B, Sq, Hq, Hkv, Dh, scale))
+    return cudaErrorInvalidValue;
+  float* delta = static_cast<float*>(scratch);
   const long long blocks = (rows * 32 + kThreads - 1) / kThreads;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   flash_bwd_delta<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(

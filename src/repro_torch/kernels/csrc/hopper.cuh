@@ -9,6 +9,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,6 +81,17 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
           smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory, counted on `bar` like a TMA tile load.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -297,6 +309,63 @@ __device__ __forceinline__ void wgmma_rs_m64n256k16_tb(float (&d)[4][32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+
+// 2^x, approximate, subnormals flushed to zero.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A 64 x 64 f32 tile in the accumulator layout (s[4n + e]: row r0 (e < 2)
+// or r0 + 8, column 8n + 2 (lane % 4) + e % 2) rounded to bf16 as the A
+// operand of a product over its 64 columns: two neighbouring 8-column
+// blocks are one 16-wide A fragment.
+__device__ __forceinline__ void acc_to_a(const float (&s)[32],
+                                         uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// D (64 x 64 NC, f32) += A (64 x 64, bf16 registers from acc_to_a) B (64
+// rows x 64 NC: NC 64-row boxes of 64 columns, 8 KB apart, read
+// transposed, MN-major), one wgmma m64n{64 NC}k16 per 16 rows (2048 bytes
+// of a box); issued and committed, not waited for.
+template <int NC>
+__device__ __forceinline__ void wgmma_rs_tile(float (&d)[NC][32],
+                                              const uint32_t (&a)[4][4],
+                                              uint32_t b) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) reg_fence(d[c][i]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = sw128_desc(b + kk * 2048, 64 * 128);
+    if constexpr (NC == 4)
+      wgmma_rs_m64n256k16_tb(d, a[kk], db);
+    else if constexpr (NC == 2)
+      wgmma_rs_m64n128k16_tb(d, a[kk], db);
+    else
+      wgmma_rs_m64n64k16_tb(d[0], a[kk], db);
+  }
+  wgmma_commit();
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) reg_fence(d[c][i]);
+}
 
 // ------------------------------------------------------ tensor maps ----
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so that

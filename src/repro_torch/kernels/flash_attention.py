@@ -13,8 +13,11 @@ heads packed into one tile), ``mma_sync`` (bf16, other head dims) or
 Under autograd (grad mode on and q, k or v requiring grad) the call is a
 ``torch.autograd.Function``: its forward also writes each row's
 log-sum-exp and saves q, k, v, the output and the lse; its backward is
-``flash_attention_bwd``, the hand-written kernel of
-``csrc/flash_attention_bwd.cu`` (bf16, counted on ``BWD_KERNEL``).  On CPU
+``flash_attention_bwd``, the hand-written kernels of
+``csrc/flash_attention_bwd.cu`` (bf16, counted on ``BWD_KERNEL``), on the
+route ``flash_bwd_route(dtype, Dh)`` gives: ``wgmma`` (Dh 64, 128 or 256:
+TMA, wgmma, warp-specialised, GQA heads packed into 64-row tiles) or
+``mma_sync`` (other head dims).  On CPU
 tensors both directions run the plain versions (``ref.flash_attention``
 with ``return_lse``, ``ref.flash_attention_bwd``).  The card has no f32
 backward yet: an f32 call on the card under autograd raises rather than
@@ -36,13 +39,17 @@ KERNEL = CudaKernel(
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                   ctypes.c_void_p],
     routes=ROUTES)
-BWD_ROUTES = ("mma_sync",)  # bf16, every head dim
+BWD_ROUTES = ("wgmma", "mma_sync")  # the C entry's route codes, in order
 BWD_KERNEL = CudaKernel(
     "flash_attention_bwd", "csrc/flash_attention_bwd.cu",
     "flash_attention_bwd",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                   ctypes.c_void_p],
-    routes=BWD_ROUTES)
+    [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p],
+    routes=BWD_ROUTES,
+    symbols={"flash_attention_bwd_route": [ctypes.c_int, ctypes.c_int],
+             "flash_attention_bwd_scratch_bytes":
+                 [ctypes.c_int] * 6 + [ctypes.c_float,
+                                       ctypes.POINTER(ctypes.c_int64)]})
 F32_BACKWARD = ("ROADMAP queue 2: the f32 backward of flash_attention on "
                 "the card")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,6 +63,31 @@ def flash_route(dtype: torch.dtype, head_dim: int) -> str:
     if dtype != torch.bfloat16:
         return "simt"
     return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def flash_bwd_route(dtype: torch.dtype, head_dim: int) -> str | None:
+    """The backward kernel a CUDA call launches, by (dtype, Dh) alone — the
+    rule ``flash_attention_bwd_route`` in ``csrc/flash_attention_bwd.cu``
+    applies too: ``wgmma`` for bf16 with Dh 64, 128 or 256, ``mma_sync``
+    for other bf16 head dims, None for f32 (no backward on the card:
+    ``F32_BACKWARD``)."""
+    if dtype != torch.bfloat16:
+        return None
+    return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def bwd_scratch_bytes(route: str, B: int, Sq: int, Hq: int, Hkv: int,
+                      Dh: int, scale: float) -> int:
+    """Device scratch a backward launch on ``route`` needs, by the rule of
+    ``flash_attention_bwd_scratch_bytes`` in ``csrc/flash_attention_bwd.cu``
+    (the one the launch checks): D on ``mma_sync``; on ``wgmma`` lse * log2
+    e and D for each GQA-packed row and, when the scale is not a power of
+    two (Dh 128), bf16(q * scale).  Builds the library on first use."""
+    nbytes = ctypes.c_int64()
+    BWD_KERNEL.check(BWD_KERNEL.fn("flash_attention_bwd_scratch_bytes")(
+        BWD_ROUTES.index(route), B, Sq, Hq, Hkv, Dh, scale,
+        ctypes.byref(nbytes)))
+    return nbytes.value
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -185,9 +217,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradient (dq, dk, dv) of ``flash_attention(q, k, v)`` at output
     gradient ``do``, from its output ``o`` and log-sum-exp ``lse``
     (B, Hq, Sq) f32, natural log.  On CUDA tensors one call of the
-    hand-written kernel (three launches: D = rowsum(do * o), dk and dv, dq;
-    bf16 only, no atomics, so repeated calls give the same bits); on CPU
-    tensors ``ref.flash_attention_bwd`` (``block_kv`` its key block)."""
+    hand-written kernels on the route ``flash_bwd_route`` gives (a
+    pre-pass with D = rowsum(do * o), then dk and dv, and dq: three
+    launches on ``mma_sync``, two on ``wgmma``, whose dk/dv and dq CTAs
+    share one; bf16 only, no atomics, so repeated calls give the same bits;
+    counted once, under its route); on CPU tensors
+    ``ref.flash_attention_bwd`` (``block_kv`` its key block)."""
     _check(q, k, v)
     B, Sq, Hq, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -217,16 +252,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    route = flash_bwd_route(q.dtype, Dh)
+    nbytes = bwd_scratch_bytes(route, B, Sq, Hq, Hkv, Dh, scale)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
     fn = BWD_KERNEL.fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq,
-                 Hkv, Dh, int(causal), int(window), scale, stream)
+                 do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), nbytes,
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 BWD_ROUTES.index(route), B, Sq, Sk, Hq, Hkv, Dh,
+                 int(causal), int(window), scale, stream)
     BWD_KERNEL.check(err)
-    BWD_KERNEL.count_launch("mma_sync")
+    BWD_KERNEL.count_launch(route)
     return dq, dk, dv
 
 

@@ -24,15 +24,20 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.utils import resolve_device
+
 # the ROADMAP item that brings --ckpt / --resume
 CHECKPOINT_ITEM = "ROADMAP queue 1, item 6: resilience, with checkpoint and resume"
 
 
 def make_batch(cfg, batch: int, seq: int, seed: int, step: int,
-               device="cpu") -> dict:
+               device="cuda") -> dict:
     """Step ``step``'s synthetic batch, the reference's draw: tokens
     (batch, seq + 1) from ``default_rng(seed + step)`` over the vocabulary,
-    ``tokens[:, :-1]`` in and ``tokens[:, 1:]`` as labels (int64)."""
+    ``tokens[:, :-1]`` in and ``tokens[:, 1:]`` as labels (int64), on
+    ``device`` (the card unless the caller asks for the CPU; raises
+    without one)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed + step)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                          size=(batch, seq + 1)))
@@ -63,7 +68,7 @@ def train_lm(args):
     from repro_torch.models.params import init_from_defs
     from repro_torch.train.optimizer import adamw
     from repro_torch.train.pipeline import StragglerMonitor
-    from repro_torch.utils import resolve_device, synchronize
+    from repro_torch.utils import synchronize
 
     if args.ckpt or args.resume:
         raise NotImplementedError(f"--ckpt / --resume are not ported yet "

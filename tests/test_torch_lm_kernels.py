@@ -363,6 +363,185 @@ def test_return_lse_is_the_logsumexp_of_the_masked_scores(window, causal,
     assert o3.shape == q[:, :, 0].shape and lse3.shape == (2, 37)
 
 
+@pytest.mark.parametrize("dtype,Dh,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 16, "mma_sync"),
+    (torch.bfloat16, 80, "mma_sync"), (torch.bfloat16, 96, "mma_sync"),
+    (torch.float32, 64, None), (torch.float32, 256, None),
+])
+def test_flash_bwd_route_depends_on_dtype_and_head_dim_only(dtype, Dh, route):
+    """gemma3 (256), qwen2.5 and minitron (128) and Dh 64 take the wgmma
+    backward in bf16; stablelm's 80, the smoke configs' 16 and other head
+    dims the mma.sync one; f32 none (the card has no f32 backward)."""
+    assert fa.flash_bwd_route(dtype, Dh) == route
+    assert set(fa.BWD_KERNEL.route_launches) == set(fa.BWD_ROUTES)
+    assert route is None or route in fa.BWD_ROUTES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,shape,scale,want", [
+    # D for every (b, h, i)
+    ("mma_sync", (2, 77, 4, 1, 80), 80 ** -0.5, 4 * 2 * 4 * 77),
+    # G = 4: 16 positions a tile, 5 tiles of 64 rows; the scale is folded
+    ("wgmma", (2, 77, 4, 1, 256), 0.0625, 8 * 2 * 5 * 64),
+    # G = 3: 21 positions (63 rows) a tile, 4 tiles per kv head; Dh 128's
+    # scale is not a power of two, so bf16(q * scale) is kept too
+    ("wgmma", (1, 77, 6, 2, 128), 0.08837890625,
+     8 * 2 * 4 * 64 + 2 * 77 * 6 * 128),
+    # G = 80: two head blocks of 64 heads, one position a tile
+    ("wgmma", (1, 3, 80, 1, 64), 0.125, 8 * 2 * 3 * 64),
+])
+def test_bwd_scratch_bytes(cuda_device, route, shape, scale, want):
+    """The CUDA source's scratch rule (``flash_attention_bwd_scratch_bytes``,
+    which ``bwd_scratch_bytes`` asks and the launch checks) on a table."""
+    B, Sq, Hq, Hkv, Dh = shape
+    assert fa.bwd_scratch_bytes(route, B, Sq, Hq, Hkv, Dh, scale) == want
+
+
+def _emulate_wgmma_bwd(q, k, v, o, lse, do, *, causal, window, stats=None):
+    """The wgmma backward route's tile arithmetic in plain PyTorch.  Query
+    rows are GQA-packed (row = position * G + head within a head block of
+    min(G, 64) heads), 64 rows a tile (64 // G positions, the rest of the
+    tile empty), keys 64 a tile.  q is multiplied by the bf16 scale and
+    rounded to bf16 when the scale is not a power of two; else the scale is
+    folded into c = log2(e) * scale and into dk's and dq's epilogues.  From
+    lse2 = lse * log2(e) (f32) and D = rowsum(do * o): p = 2^(s c - lse2),
+    0 where the key is not visible and on rows that are no real row (lse2 =
+    +inf, D = 0); p rounded to bf16 for dv += p^T do; ds = p (dp - D)
+    rounded to bf16 for dk += ds^T q and dq += ds k.  dk and dv: one
+    (key tile) walk over every head block's query tiles that can see it,
+    in order; dq: query tiles in pairs (2 u, 2 u + 1) as a dq CTA owns
+    them, each tile summing, in one sum in key-tile order, every key tile
+    that some row of the pair can see.  ``stats`` counts the dq rows whose
+    first visited key tile is all masked."""
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    Gt = min(G, 64)
+    HB, P, T = -(-G // Gt), 64 // Gt, 64
+    scale = torch.tensor(Dh ** -0.5, dtype=q.dtype)
+    folded = math.frexp(float(scale))[0] == 0.5
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    c = log2e * float(scale) if folded else log2e
+    dk_mul, dq_mul = (float(scale) if folded else 1.0), float(scale)
+    qt = (q if folded else q * scale).float()
+    lse2 = lse.float() * log2e                                  # (B, Hq, Sq)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)   # (B, Hq, Sq)
+    pad = (-Sk) % T
+    kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)).float()
+              for t in (k, v))
+    dof = do.float()
+
+    def rows(b, hk, hb, t):
+        """A query tile's 64 packed rows: Q, dO, lse2, D, positions."""
+        r = torch.arange(64)
+        pos, gh = t * P + r // Gt, hb * Gt + r % Gt
+        ok = (r < P * Gt) & (pos < Sq) & (gh < G)
+        pos_c, h = pos.clamp_max(Sq - 1), hk * G + gh.clamp_max(G - 1)
+        Q = torch.where(ok[:, None], qt[b, pos_c, h], 0.0)
+        dO = torch.where(ok[:, None], dof[b, pos_c, h], 0.0)
+        l2 = torch.where(ok, lse2[b, h, pos_c], torch.inf)
+        D = torch.where(ok, delta[b, h, pos_c], 0.0)
+        return Q, dO, l2, D, pos, ok
+
+    def visible(pos, j):
+        vis = (j < Sk)[None, :].expand(len(pos), len(j))
+        if causal:
+            vis = vis & (j[None, :] <= pos[:, None])
+        if window > 0:
+            vis = vis & (pos[:, None] - j[None, :] < window)
+        return vis
+
+    def bf(x):
+        return x.to(torch.bfloat16).float()
+
+    dq = torch.zeros((B, Sq, Hq, Dh))
+    dk = torch.zeros((B, Sk + pad, Hkv, Dh))
+    dv = torch.zeros((B, Sk + pad, Hkv, Dh))
+    for b in range(B):
+        for hk in range(Hkv):
+            for j0 in range(0, Sk, T):
+                K, V = kp[b, j0:j0 + T, hk], vp[b, j0:j0 + T, hk]
+                j = torch.arange(j0, j0 + T)
+                lo = j0 if causal else 0
+                hi = Sq - 1
+                if window > 0:
+                    hi = min(hi, min(j0 + T, Sk) - 1 + window - 1)
+                acc_k, acc_v = torch.zeros((T, Dh)), torch.zeros((T, Dh))
+                for hb in range(HB):
+                    for t in range(lo // P, hi // P + 1 if hi >= lo else 0):
+                        Q, dO, l2, D, pos, _ = rows(b, hk, hb, t)
+                        p = torch.exp2(K @ Q.T * c - l2[None, :])
+                        p = torch.where(visible(pos, j).T, p, 0.0)
+                        acc_v += bf(p) @ dO
+                        ds = p * (V @ dO.T - D[None, :])
+                        acc_k += bf(ds) @ Q
+                dk[b, j0:j0 + T, hk] = acc_k * dk_mul
+                dv[b, j0:j0 + T, hk] = acc_v
+            for hb in range(HB):
+                for t in range(-(-Sq // P)):
+                    Q, dO, l2, D, pos, ok = rows(b, hk, hb, t)
+                    p0 = (t - t % 2) * P  # the pair's first position
+                    p_last = min(p0 + 2 * P, Sq) - 1
+                    hi = min(Sk - 1, p_last) if causal else Sk - 1
+                    lo = max(0, p0 - window + 1) if window > 0 else 0
+                    acc = torch.zeros((64, Dh))
+                    tiles = range(lo // T, hi // T + 1 if hi >= lo else 0)
+                    for i, kt in enumerate(tiles):
+                        K = kp[b, kt * T:kt * T + T, hk]
+                        V = vp[b, kt * T:kt * T + T, hk]
+                        vis = visible(pos, torch.arange(kt * T, kt * T + T))
+                        if stats is not None and i == 0:
+                            stats["masked_first"] = stats.get(
+                                "masked_first", 0) + int((ok & ~vis.any(1))
+                                                         .sum())
+                        p = torch.where(vis, torch.exp2(
+                            Q @ K.T * c - l2[:, None]), 0.0)
+                        ds = p * (dO @ V.T - D[:, None])
+                        acc += bf(ds) @ K
+                    out = acc * dq_mul
+                    for r in torch.nonzero(ok).flatten().tolist():
+                        dq[b, t * P + r // Gt, hk * G + hb * Gt + r % Gt] = \
+                            out[r]
+    return (dq.to(q.dtype), dk[:, :Sk].to(k.dtype), dv[:, :Sk].to(v.dtype))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,Dh,window,causal", [
+    (1, 150, 150, 6, 2, 64, 0, True),      # G = 3: 21 positions, 63 rows
+    (1, 130, 130, 2, 2, 128, 64, True),    # G = 1, Dh 128 (q * scale kept)
+    (1, 200, 200, 4, 1, 256, 64, True),    # window 64: a row's first key
+                                           # tile all masked
+    (1, 100, 200, 4, 1, 256, 0, True),     # Sq < Sk
+    (1, 200, 90, 8, 2, 128, 0, False),     # Sq > Sk, not causal
+    (2, 77, 77, 4, 1, 64, 0, False),       # not causal, ragged
+    (1, 90, 90, 12, 4, 256, 40, False),    # G = 3, window, not causal
+])
+def test_wgmma_bwd_arithmetic_matches_the_exact_gradient(B, Sq, Sk, Hq, Hkv,
+                                                         Dh, window, causal):
+    """The emulation against the f64 exact gradient by the card's rule:
+    per gradient, max error over max |g| within twice the plain version's
+    plus 1e-3 (both round q * scale, p and the outputs to bf16; the route
+    also rounds ds, takes exp2 of lse * log2(e) and sums its tiles in
+    another order)."""
+    q, k, v = _qkv(Sq + Dh + Hq, B, Sq, Hq, Hkv, Dh, torch.bfloat16, Sk=Sk)
+    do = _randn(np.random.default_rng(Sk), tuple(q.shape), torch.bfloat16)
+    o, lse = tref.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    stats = {}
+    got = _emulate_wgmma_bwd(q, k, v, o, lse, do, causal=causal,
+                             window=window, stats=stats)
+    plain = tref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                     window=window)
+    exact = _exact_grads(q, k, v, do, causal, window)
+    for g, p, e in zip(got, plain, exact):
+        assert g.dtype == torch.bfloat16 and g.shape == p.shape
+        assert bool(torch.isfinite(g.float()).all())
+        assert _max_err(g, e) <= 2 * _max_err(p, e) + 1e-3
+    if window == 64 and causal:  # the tile at position 112 visits keys
+        # 49-127 from key tile 0: row 127 sees 64-127 only
+        assert stats["masked_first"] > 0
+
+
 def test_flash_bwd_wrapper_checks_its_arguments():
     q, k, v = _qkv(0, 1, 8, 4, 1, 16, torch.float32)
     o, lse = tref.flash_attention(q, k, v, return_lse=True)
@@ -380,7 +559,7 @@ def test_flash_bwd_wrapper_checks_its_arguments():
         fa.flash_attention_bwd(q, k, v, o, lse, o[:, :4])
     assert (fa.BWD_KERNEL.launches,
             dict(fa.BWD_KERNEL.route_launches)) == before
-    assert fa.BWD_ROUTES == ("mma_sync",)
+    assert fa.BWD_ROUTES == ("wgmma", "mma_sync")
 
 
 @pytest.mark.parametrize("N,D,B,F", [(64, 128, 8, 5), (128, 256, 16, 10),
@@ -663,6 +842,8 @@ def _max_err(a, exact) -> float:
     (1, 200, 8, 2, 64, 0, True, None),
     (1, 100, 4, 1, 256, 0, True, 300),       # Sq < Sk
     (1, 300, 8, 2, 128, 0, False, 100),      # Sq > Sk, not causal
+    (1, 500, 12, 4, 256, 0, True, None),     # G = 3: a 64-row tile holds 63
+    (1, 333, 10, 2, 64, 64, True, None),     # G = 5: 60 rows a tile
 ])
 def test_cuda_flash_bwd_matches_plain_version_and_exact_gradient(
         cuda_device, B, S, Hq, Hkv, Dh, window, causal, Sk):
@@ -670,22 +851,36 @@ def test_cuda_flash_bwd_matches_plain_version_and_exact_gradient(
     max error over max |g| within twice the plain version's plus 1e-3 (both
     round q * scale, p and the outputs to bf16; the kernel also rounds ds
     and sums in another order: measured at most 1.6x the plain version's
-    on an H100 80GB HBM3 at 700 W).  o and lse come from the forward kernel, as in training.
-    Two calls give the same bits; one call counts one launch."""
+    on an H100 80GB HBM3 at 700 W).  o and lse come from the forward
+    kernel, as in training, within the forward's tolerances of the plain
+    forward's; the plain backward reads the plain forward's, so a wrong lse
+    fails the limit rather than raise it.  Two calls give the same bits;
+    one call counts
+    one launch, under the route ``flash_bwd_route`` gives (wgmma at Dh 64,
+    128 and 256, mma_sync at 16 and 80)."""
     q, k, v = _qkv(S + Dh, B, S, Hq, Hkv, Dh, torch.bfloat16,
                    device=cuda_device, Sk=Sk)
     do = _randn(np.random.default_rng(S), tuple(q.shape), torch.bfloat16,
                 device=cuda_device)
     o, lse = fa._forward_cuda(q, k, v, causal, window, True)
-    before = fa.BWD_KERNEL.launches
+    route = fa.flash_bwd_route(torch.bfloat16, Dh)
+    assert route == ("wgmma" if Dh in (64, 128, 256) else "mma_sync")
+    before = (fa.BWD_KERNEL.launches, dict(fa.BWD_KERNEL.route_launches))
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                  window=window)
     again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                    window=window)
     torch.cuda.synchronize()
-    assert fa.BWD_KERNEL.launches == before + 2
+    assert fa.BWD_KERNEL.launches == before[0] + 2
+    assert fa.BWD_KERNEL.route_launches == {
+        r: n + 2 * (r == route) for r, n in before[1].items()}
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    plain = tref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+    ro, rlse = tref.flash_attention(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    torch.testing.assert_close(o.float(), ro.float(),
+                               **CUDA_TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+    plain = tref.flash_attention_bwd(q, k, v, ro, rlse, do, causal=causal,
                                      window=window)
     exact = _exact_grads(q, k, v, do, causal, window)
     for g, p, e in zip(got, plain, exact):
@@ -694,14 +889,16 @@ def test_cuda_flash_bwd_matches_plain_version_and_exact_gradient(
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Dh", [64, 80, 256])
+@pytest.mark.parametrize("Dh,Hq", [(64, 8), (80, 8), (256, 8), (128, 6),
+                                   (64, 10)])
 def test_cuda_flash_forward_lse_is_deterministic_and_matches_plain(
-        cuda_device, Dh):
-    """The forward's lse (wgmma at Dh 64 and 256, mma_sync at 80) within
-    1e-4 of the plain version's, and the same bits in a second call (the
-    backward's recompute under remat relies on it); the output is the same
-    bits with and without lse."""
-    q, k, v = _qkv(Dh, 2, 333, 8, 2, Dh, torch.bfloat16, device=cuda_device)
+        cuda_device, Dh, Hq):
+    """The forward's lse (wgmma at Dh 64, 128 and 256, mma_sync at 80;
+    G = 4, and G = 3 and 5, where 128 packed rows leave 2 and 3 of a tile
+    empty) within 1e-4 of the plain version's, and the same bits in a
+    second call (the backward's recompute under remat relies on it); the
+    output is the same bits with and without lse."""
+    q, k, v = _qkv(Dh, 2, 333, Hq, 2, Dh, torch.bfloat16, device=cuda_device)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     outs = []
     for _ in range(2):

@@ -61,7 +61,7 @@ def _reference_params(arch: str):
 
 
 def _batch(cfg, step: int = 0):
-    return tlaunch.make_batch(cfg, B, S, SEED, step)
+    return tlaunch.make_batch(cfg, B, S, SEED, step, device="cpu")
 
 
 def _jbatch(batch):
@@ -96,10 +96,22 @@ def test_make_batch_is_the_references_draw():
     for step in (0, 3):
         toks = np.random.default_rng(SEED + step).integers(
             0, cfg.vocab_size, size=(B, S + 1))
-        got = tlaunch.make_batch(cfg, B, S, SEED, step)
+        got = tlaunch.make_batch(cfg, B, S, SEED, step, device="cpu")
         np.testing.assert_array_equal(got["tokens"].numpy(), toks[:, :-1])
         np.testing.assert_array_equal(got["labels"].numpy(), toks[:, 1:])
         assert got["tokens"].dtype == torch.int64
+
+
+def test_make_batch_defaults_to_the_card():
+    """Like every entry point of the port, the batch goes to the card
+    unless the caller asks for the CPU; without a card that raises
+    instead of falling back."""
+    cfg = tconfigs.get_config("gemma3-1b", smoke=True)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tlaunch.make_batch(cfg, B, S, SEED, 0)
+    else:
+        assert tlaunch.make_batch(cfg, B, S, SEED, 0)["tokens"].is_cuda
 
 
 @pytest.mark.parametrize("arch", DENSE)

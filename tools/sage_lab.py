@@ -114,7 +114,7 @@ def main() -> int:
 
     def run(variant, table, idx, w):
         if isinstance(variant, str):
-            with chip_smoke.forced_route(sage_agg, variant):
+            with chip_smoke.forced_route(sage_agg, "sage_route", variant):
                 return sage_agg.sage_aggregate(table, idx, w)
         (N, D), (B, F) = table.shape, idx.shape
         out = torch.empty((B, D), dtype=table.dtype, device=table.device)
