@@ -77,6 +77,36 @@ result line):
    within 1e-4, accuracies within 1e-6, identical traffic and refreshes),
    two sharded runs bitwise equal, and one step's per-position batches
    bitwise equal to the device backend's fused finalize of the same specs.
+10b. Store and telemetry in training: the PA feature table written to an
+   ``.npy`` file in a temporary directory (deleted after 10c; it stays in
+   the page cache, so the store's "ssd" reads time an mmap copy), then 8
+   device-backend steps at paper width, batch 8000, a refresh every 4
+   steps replanning on any drift, on fresh copies of the one-GPU plan:
+   features in RAM (loaded from the file); in RAM with ``Telemetry``
+   (JSONL + Chrome trace, window 4); only in the file behind a
+   ``FeatureStore`` of 200,000 host rows (20% of the table) with
+   lookahead 4 and telemetry; the same store with lookahead 0; in RAM
+   again.  Losses bitwise equal across all five; feature requests equal;
+   every tally of the telemetry, lookahead-0 and repeated runs equal to
+   the RAM run's (with lookahead 4 the refresh at step 4 has observed the
+   window's batches too, as in the reference, so it may admit other rows);
+   the store's HBM tallies equal the traffic counter's; both streams
+   validate (``validate_stream``), telescope, close with no open span and
+   8 ``device_step`` spans, and their traces hold span tracks of at least
+   2 threads; ``repro_torch.obs.report.digest`` runs on them; the store
+   run filled rows from the file, hit its host tier and announced 8
+   batches; per run 8 ``fused_gather_overlay`` launches, one sampling
+   chain per spec build and ``scatter_rows`` once per admitting refresh.
+   Step times, host build totals, walls, store tallies, ``read_us`` and
+   ``stall_us`` printed; then a 2-step telemetry run under
+   ``torch.profiler`` (all threads) must show the ``device_step``,
+   ``spec_build`` and ``finalize`` ranges.
+10c. Store and telemetry in serving: ``GNNServer`` over the file-backed
+   table with a ``FeatureStore`` (lookahead 0) and telemetry answers
+   phase 5's 200 requests with the oracle check on: 0 mismatches, the
+   final snapshot's ``serve.*`` and ``traffic.*`` totals equal
+   ``summary()`` and the counter, one fused launch and one sampling chain
+   per micro-batch.
 
 11. LM kernel: ``gemma3-1b`` at full width and depth (26 layers, d_model
    1152, 4 query heads over 1 kv head of 256, vocab 262,144, windows of 512
@@ -138,8 +168,9 @@ result line):
    within atol 2e-3.
 
 Every kernel's launch count is zeroed just before each of the serve,
-train, parity, unfused, shard, shard-parity, lm-serve, lm-parity, lm-train
-and lm-train-parity phases and read just after, with the launches by route; ``sage_aggregate``'s stay
+train, parity, unfused, shard, shard-parity, store-train (each of its 5
+runs), store-serve, lm-serve, lm-parity, lm-train and lm-train-parity
+phases and read just after, with the launches by route; ``sage_aggregate``'s stay
 0 (no path runs it), and ``routed_neighbor_sample`` launches once per
 device-sampling spec build, on its ``chain`` route, never per hop.
 The last three lines are the card's name and power limit, the
@@ -152,9 +183,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -178,6 +212,10 @@ SHARD_PARITY_STEPS = 8
 PARITY_BATCH = 1024
 PARITY_STEPS = 12
 UNFUSED_STEPS = 4
+STORE_STEPS = 8            # phase 10b: each run's steps
+STORE_REFRESH = 4          # refresh interval there (replans on any drift)
+STORE_HOST_ROWS = 200_000  # the store's host tier: 20% of the table
+STORE_LOOKAHEAD = 4
 PROFILE_STEPS = 8        # the profiled run; its steps 2..6 are the window
 PROFILE_WINDOW = (2, 5)  # (first step, steps)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
@@ -1225,13 +1263,16 @@ def device_share(torch, np, builder, cfg, params, n: int):
 
 # ---- training (phases 6-8) -------------------------------------------------
 
-def fresh_copy(plan):
+def fresh_copy(plan, g=None):
     """A plan whose caches start from ``plan``'s residency as built (a
-    refresh mutates its plan in place; every training run gets its own)."""
+    refresh mutates its plan in place; every training run gets its own),
+    over graph ``g`` (default: the plan's own; another feature source of
+    the same graph gives the same rows)."""
     from repro_torch.core.unified_cache import CliqueCache
 
-    caches = [CliqueCache(c.g, c.devices, c.feat_ids_by_device(),
-                          c.topo_ids_per_dev, topology_mode=c.topology_mode)
+    caches = [CliqueCache(c.g if g is None else g, c.devices,
+                          c.feat_ids_by_device(), c.topo_ids_per_dev,
+                          topology_mode=c.topology_mode)
               for c in plan.caches]
     return dataclasses.replace(plan, stats=list(plan.stats),
                                cslp=list(plan.cslp),
@@ -1344,6 +1385,307 @@ def step_window_share(torch, prof, first: int, count: int):
         return None
     busy, top = busy_and_top(rows)
     return busy / (w1 - w0), (w1 - w0) / 1e3, top, by_category(rows)
+
+
+# ---- the tiered store and telemetry (phases 10b and 10c) -------------------
+
+def check_stream(jsonl: str, trace: str = None, steps: int = None) -> tuple:
+    """A telemetry stream as ``repro_torch.obs`` promises it: every line
+    valid (``load_stream``, then ``validate_stream`` on the whole), every
+    integer counter's window deltas summing to its final total (the float
+    ones within rounding), no dangling span,
+    ``steps`` device_step spans when given, and the Chrome trace loadable
+    with span tracks from at least two threads.  Returns (final snapshot,
+    digest)."""
+    from repro_torch.obs import sum_counter_deltas, validate_stream
+    from repro_torch.obs.report import digest, load_stream
+
+    lines = load_stream(jsonl)
+    kinds = validate_stream(lines)
+    snaps = [ln for ln in lines if ln["kind"] == "snapshot"]
+    sums = sum_counter_deltas(snaps)
+    # integer counters telescope exactly; the float ones (prefetch.*_s,
+    # host seconds) up to float rounding of the differences
+    bad = {k: (sums[k], c["total"]) for k, c in snaps[-1]["counters"].items()
+           if (sums[k] != c["total"] if isinstance(c["total"], int)
+               else abs(sums[k] - c["total"]) > 1e-9 * abs(c["total"]))}
+    if bad:
+        raise AssertionError(f"{jsonl}: deltas do not telescope: {bad}")
+    if any(ln["kind"] == "event" and ln["name"] == "dangling_spans"
+           for ln in lines):
+        raise AssertionError(f"{jsonl}: dangling spans")
+    n_steps = sum(1 for ln in lines if ln["kind"] == "span"
+                  and ln["name"] == "device_step")
+    if steps is not None and n_steps != steps:
+        raise AssertionError(f"{jsonl}: {n_steps} device_step spans, "
+                             f"expected {steps}")
+    if trace is not None:
+        with open(trace) as f:
+            ev = json.load(f)["traceEvents"]
+        tids = {e["tid"] for e in ev if e.get("ph") == "X"}
+        if len(tids) < 2:
+            raise AssertionError(f"{trace}: span tracks from {len(tids)} "
+                                 "thread(s)")
+    return snaps[-1], digest(lines), kinds
+
+
+def store_tallies(s: dict) -> str:
+    return (f"hbm {s['hbm_hits']}/{s['hbm_requests']} hits, host_ram "
+            f"{s['host_hits']}/{s['host_requests']} hits, ssd fill rows "
+            f"{s['ssd_fill_rows']} ({s['ssd_fills_async']} from prefetched "
+            f"reads), evictions {s['evictions']} ({s['evictions_in_window']} "
+            f"with a next use in the window), announced "
+            f"{s['announced_batches']}, prefetched {s['prefetched_batches']}")
+
+
+def profiled_span_names(torch, fn) -> set:
+    """The CPU-side range names a ``torch.profiler`` run of ``fn`` records
+    on every thread (the spans' record_function bridge opens them on the
+    coordinator and build threads too)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=cfg) as prof:
+        fn()
+    return {e.name for e in prof.events()}
+
+
+def store_phases(torch, np, g, plan, params, card: str,
+                 phase_launches: dict, phase_routes: dict,
+                 device: str = "cuda") -> None:
+    """Phases 10b (training) and 10c (serving): the tiered feature store
+    and telemetry on the one-GPU plan, each phase's launches recorded in
+    ``phase_launches``/``phase_routes``."""
+    from repro_torch.configs.legion_gnn import GRAPHSAGE
+    from repro_torch.core.cache_manager import RefreshConfig
+    from repro_torch.core.feature_store import FeatureStore, TieredStoreConfig
+    from repro_torch.core.unified_cache import TrafficCounter
+    from repro_torch.kernels import KERNELS
+    from repro_torch.obs import Telemetry, TelemetryConfig
+    from repro_torch.serve import GNNServer, ServeConfig
+    from repro_torch.train.loop import train_gnn
+
+    # ---- 10b. the tiered store and telemetry in training --------------------
+    # the feature table in a file of a temporary directory, deleted at the
+    # end of 10c; the file stays in the page cache, so the store's "ssd"
+    # reads time an mmap copy here, not a disk
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        fpath = os.path.join(tmp, "features.npy")
+        t0 = time.perf_counter()
+        g.save_feature_file(fpath)
+        t_write = time.perf_counter() - t0
+        g_ram = dataclasses.replace(g, features=np.load(fpath))
+        g_file = dataclasses.replace(g, feature_file=fpath)
+        print(f"[store] feature table {g.n} x {g.feat_dim} f32 "
+              f"({os.path.getsize(fpath) / 1e6:.1f} MB) written in "
+              f"{t_write:.1f}s and loaded into RAM in "
+              f"{time.perf_counter() - t0 - t_write:.1f}s | {card}")
+        store_kw = dict(backend="device", device=device, seed=0,
+                        params=params, steps=STORE_STEPS,
+                        refresh_config=RefreshConfig(interval=STORE_REFRESH,
+                                                     drift_threshold=1.0))
+        # (name, graph, store lookahead or None, telemetry); the ram run
+        # again at the end gives the spread of the host times
+        arms = (("ram", g_ram, None, False),
+                ("ram+telemetry", g_ram, None, True),
+                ("file+store", g_file, STORE_LOOKAHEAD, True),
+                ("file+store lookahead 0", g_file, 0, False),
+                ("ram again", g_ram, None, False))
+        runs, walls = {}, {}
+        for name, graph, la, on in arms:
+            tele = None
+            if on:
+                stem = os.path.join(tmp, name.replace("+", "_"))
+                tele = Telemetry(TelemetryConfig(
+                    jsonl_path=stem + ".jsonl", trace_path=stem + ".json",
+                    window=4, run=name))
+            store = (None if la is None else FeatureStore(
+                graph, TieredStoreConfig(host_rows=STORE_HOST_ROWS,
+                                         lookahead=la)))
+            c = TrafficCounter.for_plan(plan)
+            tplan = fresh_copy(plan, graph)
+            zero_launches(KERNELS)
+            t0 = time.perf_counter()
+            res = train_gnn(graph, tplan, GRAPHSAGE, counter=c,
+                            telemetry=tele, feature_store=store, **store_kw)
+            walls[name] = time.perf_counter() - t0
+            phase = f"store-train {name}"
+            phase_launches[phase] = read_launches(KERNELS)
+            phase_routes[phase] = read_routes(KERNELS)
+            admitting = sum(1 for e in res.refresh["events"]
+                            if e["admitted"] > 0)
+            want = expect({"fused_gather_overlay": STORE_STEPS,
+                           "scatter_rows": admitting,
+                           "routed_neighbor_sample": STORE_STEPS})
+            if phase_launches[phase] != want or res.refresh["refreshes"] < 1:
+                raise AssertionError(f"{phase}: launches "
+                                     f"{phase_launches[phase]}, expected "
+                                     f"{want}; refresh {res.refresh}")
+            expect_chains(phase, phase_routes[phase], STORE_STEPS)
+            runs[name] = (res, c, tele, store)
+            del tplan
+        a = runs["ram"][0]
+        for name, (res, c, tele, store) in runs.items():
+            if res.losses != a.losses or res.accs != a.accs:
+                raise AssertionError(f"{name} losses {res.losses} != ram "
+                                     f"{a.losses}")
+            if c.feature_requests != runs["ram"][1].feature_requests:
+                raise AssertionError(f"{name}: feature requests differ")
+        # without sampling ahead every tally is the storeless run's; with
+        # it the refresh at step 4 has observed the window's batches too
+        # (as in the reference), so it may admit other rows
+        for name in ("ram+telemetry", "file+store lookahead 0", "ram again"):
+            for t in ("feature_requests", "feature_hits", "topo_requests",
+                      "topo_hits", "pcie_transactions"):
+                if getattr(runs[name][1], t) != getattr(runs["ram"][1], t):
+                    raise AssertionError(f"{name}: counter {t} differs from "
+                                         "the ram run's")
+        for name, (res, c, tele, store) in runs.items():
+            st = np.array(res.step_times) * 1e3
+            p = res.pipeline
+            line = (f"[store] {name}: {STORE_STEPS} steps in "
+                    f"{walls[name]:.3f}s wall; step median "
+                    f"{np.median(st):.2f} ms (min {st.min():.2f}, max "
+                    f"{st.max():.2f}); host build total "
+                    f"{p['host_build_s_total']:.3f}s (sampled-ahead builds "
+                    f"included), fill total {p['fill_s_total']:.3f}s; "
+                    f"feature hits {c.feature_hits}/{c.feature_requests}, "
+                    f"topo hits {c.topo_hits}/{c.topo_requests}")
+            print(line + f" | {card}")
+            if store is not None:
+                s = res.store
+                if s["hbm_requests"] != c.feature_requests \
+                        or s["hbm_hits"] != c.feature_hits \
+                        or s["host_requests"] != (s["hbm_requests"]
+                                                  - s["hbm_hits"]):
+                    raise AssertionError(f"{name}: store tallies {s} vs "
+                                         f"counter {c}")
+                print(f"[store] {name}: {store_tallies(s)}; read_us "
+                      f"{int(s['ssd_read_s'] * 1e6)} stall_us "
+                      f"{int(s['stall_s'] * 1e6)} (page-cache reads) "
+                      f"| {card}")
+            if tele is None:
+                continue
+            if res.telemetry["open_spans"] != 0:
+                raise AssertionError(f"{name}: open spans {res.telemetry}")
+            final, dig, kinds = check_stream(tele.config.jsonl_path,
+                                             tele.config.trace_path,
+                                             STORE_STEPS)
+            fc = final["counters"]
+            if fc["traffic.feature_hits"]["total"] != c.feature_hits:
+                raise AssertionError(f"{name}: stream feature hits differ")
+            if store is not None:
+                if not (fc["store.fill_rows{tier=ssd}"]["total"] > 0
+                        and fc["store.hits{tier=host_ram}"]["total"] > 0
+                        and fc["store.announced_batches"]["total"]
+                        == STORE_STEPS):
+                    raise AssertionError(f"{name}: store counters {fc}")
+            spans = dig["spans"]
+            print(f"[store] {name} stream: {kinds}; spans "
+                  + ", ".join(f"{k} x{v['count']} {v['mean_s'] * 1e3:.2f} ms"
+                              for k, v in sorted(spans.items()))
+                  + f"; queue dry {dig['queue_dry_s']:.3f}s | {card}")
+        # with a window of 4 over 8 steps the last 4 builds sample nothing
+        # (the window sampled them during the first builds), so the step
+        # median flatters the lookahead run: the host build total and the
+        # wall count all of its work
+        for metric, v in (
+                ("step median", {k: float(np.median(r[0].step_times))
+                                 for k, r in runs.items()}),
+                ("host build total", {k: r[0].pipeline["host_build_s_total"]
+                                      for k, r in runs.items()}),
+                ("wall", walls)):
+            print(f"[store] {metric} against ram: ram again "
+                  f"{v['ram again'] / v['ram']:.4f}x, telemetry "
+                  f"{v['ram+telemetry'] / v['ram']:.4f}x, file+store "
+                  f"lookahead {STORE_LOOKAHEAD} "
+                  f"{v['file+store'] / v['ram']:.4f}x, lookahead 0 "
+                  f"{v['file+store lookahead 0'] / v['ram']:.4f}x | {card}")
+        names = profiled_span_names(torch, lambda: train_gnn(
+            g_ram, fresh_copy(plan, g_ram), GRAPHSAGE,
+            telemetry=TelemetryConfig(), **dict(store_kw, steps=2)))
+        missing = {"device_step", "spec_build", "finalize"} - names
+        if missing:
+            raise AssertionError(f"profiled telemetry run lacks the ranges "
+                                 f"{missing}")
+        print(f"[store] a profiled 2-step run with telemetry shows the "
+              f"record_function ranges device_step, spec_build, finalize "
+              f"| {card}")
+        del runs, a, g_ram
+
+        # ---- 10c. the tiered store and telemetry in serving ----------------
+        jsonl = os.path.join(tmp, "serve.jsonl")
+        tele = Telemetry(TelemetryConfig(jsonl_path=jsonl, run="serve"))
+        store = FeatureStore(g_file, TieredStoreConfig(
+            host_rows=STORE_HOST_ROWS, lookahead=0))
+        srv = GNNServer(g_file, fresh_copy(plan, g_file), GRAPHSAGE, params,
+                        device=device, telemetry=tele, feature_store=store,
+                        config=ServeConfig(max_batch=MAX_BATCH,
+                                           oracle_check=True), seed=0)
+        tele.add_source("traffic", srv.counter.publish_metrics)
+        tele.add_source("store", store.publish_metrics)
+        req_rng = np.random.default_rng(1)
+        requests = [req_rng.integers(0, g.n, int(n))
+                    for n in req_rng.integers(1, MAX_BATCH + 1, N_REQUESTS)]
+        zero_launches(KERNELS)
+        srv.warmup()
+        srv.start()
+        t0 = time.perf_counter()
+        futs = [srv.submit(r) for r in requests]
+        results = [f.result(timeout=900) for f in futs]
+        wall = time.perf_counter() - t0
+        srv.stop()
+        store.close()
+        tele.close()
+        phase_launches["store-serve"] = read_launches(KERNELS)
+        phase_routes["store-serve"] = read_routes(KERNELS)
+        s = srv.summary()
+        if phase_launches["store-serve"] != expect(
+                {"fused_gather_overlay": s["batches"],
+                 "routed_neighbor_sample": s["batches"]}):
+            raise AssertionError(f"store-serve launches "
+                                 f"{phase_launches['store-serve']} for "
+                                 f"{s['batches']} micro-batches")
+        expect_chains("store-serve", phase_routes["store-serve"],
+                      s["batches"])
+        if s["oracle_mismatches"] or s["oracle_checks"] != s["batches"]:
+            raise AssertionError(f"store-serve oracle check failed: {s}")
+        for req, res in zip(requests, results):
+            if res.logits.shape != (len(req), GRAPHSAGE.n_classes) \
+                    or not np.isfinite(res.logits).all():
+                raise AssertionError(f"bad reply for request "
+                                     f"{res.request_id}")
+        final, dig, kinds = check_stream(jsonl)
+        fc, c = final["counters"], srv.counter
+        for key in ("requests", "replies", "batches", "seeds", "pad_seeds",
+                    "flush_full", "flush_deadline", "oracle_checks",
+                    "oracle_mismatches", "forward_us"):
+            if fc[f"serve.{key}"]["total"] != s[key]:
+                raise AssertionError(f"serve.{key} {fc[f'serve.{key}']} != "
+                                     f"summary {s[key]}")
+        for t in ("feature_requests", "feature_hits", "topo_requests",
+                  "topo_hits", "pcie_transactions"):
+            if fc[f"traffic.{t}"]["total"] != getattr(c, t):
+                raise AssertionError(f"traffic.{t} != the counter's")
+        lat = np.array([r.latency_s for r in results]) * 1e3
+        ss = store.summary()
+        print(f"[store-serve] {N_REQUESTS} requests in {s['batches']} "
+              f"micro-batches over the file-backed table: "
+              f"{N_REQUESTS / wall:.2f} req/s, latency p50 "
+              f"{np.percentile(lat, 50):.2f} ms p99 "
+              f"{np.percentile(lat, 99):.2f} ms (closed burst, oracle check "
+              f"on, telemetry on); oracle mismatches 0 of "
+              f"{s['oracle_checks']}; stream {kinds} | {card}")
+        print(f"[store-serve] {store_tallies(ss)}; read_us "
+              f"{int(ss['ssd_read_s'] * 1e6)} stall_us "
+              f"{int(ss['stall_s'] * 1e6)}; serve.latency_s p50 "
+              f"{dig['histograms']['serve.latency_s']['p50'] * 1e3:.2f} ms "
+              f"(interpolated) | {card}")
+        del srv, store, g_file
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---- the sharded executor (phases 4, 9 and 10) ------------------------------
@@ -2582,7 +2924,12 @@ def main() -> int:
           f"{s1.refresh['admitted']}; per-position batches bitwise equal to "
           f"the fused finalize | {card}")
     print(f"[shard-parity] sharded losses {s1.losses} | {card}")
-    del splan, plan, g
+    del splan
+
+    # ---- 10b and 10c. the tiered store and telemetry ------------------------
+    store_phases(torch, np, g, plan, params, card, phase_launches,
+                 phase_routes)
+    del plan, g
 
     # ---- 11. LM: gemma3-1b at full width, its attention kernel -------------
     lm = get_config(LM_ARCH)

@@ -339,3 +339,25 @@ class OnlineCacheManager:
 
     def summary(self) -> dict:
         return self.stats.summary()
+
+    def publish_metrics(self, reg, base: Optional[dict] = None) -> None:
+        """Refresh-loop tallies for the telemetry registry
+        (repro_torch.obs): monotonic counters for checks, refreshes and
+        admissions plus the latest drift overlap as a gauge.  Pulled at
+        snapshot boundaries only — the refresh loop itself is untouched.
+        ``base`` adds the totals of a replaced manager, keyed by
+        ``summary()`` names, so counters stay monotonic across a swap."""
+        s = self.stats
+        b = base or {}
+        reg.counter("refresh.checks").set_total(s.checks + b.get("checks", 0))
+        reg.counter("refresh.refreshes").set_total(
+            s.refreshes + b.get("refreshes", 0))
+        reg.counter("refresh.admitted").set_total(
+            s.admitted + b.get("admitted", 0))
+        reg.counter("refresh.evicted").set_total(
+            s.evicted + b.get("evicted", 0))
+        reg.counter("refresh.topo_rebuilds").set_total(
+            s.topo_rebuilds + b.get("topo_rebuilds", 0))
+        reg.counter("refresh.bytes_h2d").set_total(
+            s.refresh_bytes_h2d + b.get("refresh_bytes_h2d", 0))
+        reg.gauge("refresh.last_overlap").set(s.last_overlap)

@@ -127,6 +127,41 @@ class TrafficCounter:
                             self.bytes_matrix[devs, -1].sum())})
         return out
 
+    def publish_metrics(self, reg) -> None:
+        """Mirror the live tallies into a telemetry ``MetricsRegistry``
+        (repro_torch.obs) — pulled at snapshot boundaries, so accounting
+        hot paths pay nothing.  One consistent capture under the lock, then
+        monotonic ``set_total`` per counter: the registry's window deltas
+        telescope to these exact totals.  Byte matrices publish both as
+        per-tier aggregates (local diagonal / intra-clique peer / PCIe
+        column) and as per-``(dst, src)`` pair counters for every pair
+        that has ever moved a byte."""
+        with self.lock:
+            bm = self.bytes_matrix.copy()
+            tm = self.topo_bytes_matrix.copy()
+            scalars = {
+                "traffic.feature_requests": self.feature_requests,
+                "traffic.feature_hits": self.feature_hits,
+                "traffic.topo_requests": self.topo_requests,
+                "traffic.topo_hits": self.topo_hits,
+                "traffic.pcie_transactions": self.pcie_transactions,
+                "traffic.host_sample_syncs": self.host_sample_syncs,
+                "traffic.host_sampled_edges": self.host_sampled_edges,
+            }
+        for name, v in scalars.items():
+            reg.counter(name).set_total(int(v))
+        for name, m in (("traffic.feat_bytes", bm),
+                        ("traffic.topo_bytes", tm)):
+            dev = m[:, :-1]
+            reg.counter(name, tier="local").set_total(int(np.trace(dev)))
+            reg.counter(name, tier="peer").set_total(
+                int(dev.sum() - np.trace(dev)))
+            reg.counter(name, tier="pcie").set_total(int(m[:, -1].sum()))
+            for dst, src in zip(*np.nonzero(m)):
+                src_lbl = "host" if src == self.n_devices else int(src)
+                reg.counter(f"{name}_pair", dst=int(dst),
+                            src=src_lbl).set_total(int(m[dst, src]))
+
 
 class CliqueCache:
     """One clique's unified cache."""
@@ -559,11 +594,14 @@ class CliqueCache:
         the cache's device.
         """
         # upload before any early return: the first call happens at
-        # spec-build time, serialized with refreshes
+        # spec-build time, serialized with refreshes.  Every topology array
+        # below comes from this one snapshot (replace_topology swaps the
+        # dict whole), never from the live attributes
         da = self.device_arrays()
         dev = self.device
         seeds = torch.as_tensor(seeds, device=dev).to(torch.int64)
-        if len(self.cache_indices) == 0:
+        n_idx = int(da["cache_indices"].shape[0])
+        if n_idx == 0:
             # empty topology cache: every row is a host fill
             return (torch.full(tuple(seeds.shape) + (fanout,), -1,
                                dtype=torch.int32, device=dev),
@@ -586,8 +624,7 @@ class CliqueCache:
             start = da["cache_indptr"][safe]
             deg = da["cache_indptr"][safe + 1] - start
             offs = r % deg.clamp_min(1)[:, None]
-            idx = (start[:, None] + offs).clamp_max(
-                max(len(self.cache_indices) - 1, 0))
+            idx = (start[:, None] + offs).clamp_max(max(n_idx - 1, 0))
             out = da["cache_indices"][idx]
         ok = hit & (deg > 0)
         return torch.where(ok[:, None], out.to(torch.int32), -1), hit
@@ -693,18 +730,29 @@ class CliqueCache:
                           np.asarray(self.devices), row_bytes * cnt)
 
     def extract_features(self, ids: np.ndarray, requester_dev: int,
-                         counter: Optional[TrafficCounter] = None
-                         ) -> np.ndarray:
+                         counter: Optional[TrafficCounter] = None,
+                         store=None, step: Optional[int] = None) -> np.ndarray:
         """Gather rows for `ids` (unique sampled vertices of one batch) from
         the host mirror, accounting hits (local/peer) and misses (CPU over
-        PCIe)."""
+        PCIe).
+
+        ``store`` routes the misses through a tiered
+        :class:`~repro_torch.core.feature_store.FeatureStore` (host-RAM
+        cache over a file-resident table) instead of the direct
+        ``g.get_features`` fill; ``step`` keys the store's lookahead and
+        prefetch state.  Rows are bitwise identical either way."""
         ids = np.asarray(ids, dtype=np.int64)
         pos, hit = self.split_hits(ids)
         out = np.empty((len(ids), self.g.feat_dim), dtype=np.float32)
         if hit.any():
             out[hit] = self.feat_cache[pos[hit]]
         if (~hit).any():
-            out[~hit] = self.g.get_features(ids[~hit])
+            miss_ids = ids[~hit]
+            out[~hit] = (store.gather(miss_ids, step=step, dev=requester_dev)
+                         if store is not None
+                         else self.g.get_features(miss_ids))
+        if store is not None:
+            store.record_hbm(len(ids), int(hit.sum()))
         if counter is not None:
             self.account_feature_gather(pos, hit, requester_dev, counter)
         return out
@@ -749,6 +797,15 @@ class CliqueCache:
                 else:
                     counter.topo_bytes_matrix[
                         requester_dev, requester_dev] += hb * int(hit.sum())
+
+
+    def publish_metrics(self, reg, clique: int = 0) -> None:
+        """Residency gauges for the telemetry registry (repro_torch.obs):
+        cached feature/topology rows and the refresh epoch, labeled per
+        clique.  Pulled at snapshot boundaries only."""
+        reg.gauge("cache.feat_rows", clique=clique).set(len(self.feat_ids))
+        reg.gauge("cache.topo_rows", clique=clique).set(len(self.topo_ids))
+        reg.gauge("cache.epoch", clique=clique).set(self.epoch)
 
 
 def stack_hierarchical_shards(caches: Sequence[CliqueCache],

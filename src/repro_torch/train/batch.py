@@ -3,7 +3,9 @@
 One batch is produced in two phases with a hard boundary between them:
 
   sample_spec() / fill_spec()   host: seed sampling, hit/miss split,
-                                miss-row fetch, traffic accounting.
+                                miss-row fetch (straight off the graph,
+                                or through the tiered feature store),
+                                traffic accounting.
                                 Produces a backend-agnostic ``BatchSpec``
                                 (numpy, plus a pinned staging tensor).
   finalize()                    turns a spec into the torch tensors the
@@ -188,7 +190,14 @@ class BatchBuilder:
     (``OnlineCacheManager.observer_for``) is fed every sampled batch's
     level tensors; it only records, so attaching one changes neither
     batches nor accounting.  ``fill_s`` totals the host time of
-    ``fill_spec``."""
+    ``fill_spec``.
+
+    Two taps are attached by the train loop or the server after
+    construction: ``telemetry`` (a ``repro_torch.obs.Telemetry``: finalize
+    and staging spans) and ``store`` (a
+    ``repro_torch.core.feature_store.FeatureStore``: the miss rows come
+    through its host-RAM and file tiers instead of ``g.get_features``).
+    Neither changes a batch: the store's rows are bitwise the graph's."""
 
     backend: str = "?"
 
@@ -206,18 +215,36 @@ class BatchBuilder:
         self.fill_s = 0.0
         # telemetry tap: a shared no-op context while None
         self.telemetry = None
+        # tiered feature store tap: misses fill through it when set
+        self.store = None
 
     # -- phase 1: host ---------------------------------------------------
     # sample_spec() draws this step's randomness and samples the batch (all
     # RNG consumption happens here, in step order); fill_spec() splits
     # against the device cache at the *current* epoch and fetches the miss
-    # rows (RNG-free).
+    # rows (RNG-free, so the store's lookahead window may run it several
+    # sample_spec calls later).  ``step`` keys the store's lookahead and
+    # prefetch state.
     def sample_spec(self, seeds: np.ndarray,
                     rng: np.random.Generator) -> BatchSpec:
         raise NotImplementedError
 
-    def fill_spec(self, spec: BatchSpec) -> BatchSpec:
+    def fill_spec(self, spec: BatchSpec,
+                  step: Optional[int] = None) -> BatchSpec:
         raise NotImplementedError
+
+    def store_request_ids(self, spec: BatchSpec) -> np.ndarray:
+        """The ids ``fill_spec`` will request from the tiered store — the
+        sampled uniques minus the *current* device-cached set.  Read-only
+        (no accounting, no epoch pin): it feeds the store's lookahead
+        announce/prefetch hints, which stay hints — an online refresh
+        between announce and fill only degrades eviction quality, never
+        correctness."""
+        ids = spec.ids[:spec.n_ids]
+        if self.cache is None or len(self.cache.feat_ids) == 0:
+            return ids
+        _, hit = self.cache.split_hits(ids)
+        return ids[~hit]
 
     def build_spec(self, seeds: np.ndarray,
                    rng: np.random.Generator) -> BatchSpec:
@@ -266,12 +293,16 @@ class HostBatchBuilder(BatchBuilder):
                          ids=ids, level_pos=_level_positions(ids, levels),
                          n_ids=len(ids))
 
-    def fill_spec(self, spec):
+    def fill_spec(self, spec, step=None):
         t0 = time.perf_counter()
         ids = spec.ids
-        spec.host_feats = (
-            self.cache.extract_features(ids, self.dev, self.counter)
-            if self.cache is not None else self.g.get_features(ids))
+        if self.cache is not None:
+            spec.host_feats = self.cache.extract_features(
+                ids, self.dev, self.counter, store=self.store, step=step)
+        elif self.store is not None:
+            spec.host_feats = self.store.gather(ids, step=step, dev=self.dev)
+        else:
+            spec.host_feats = self.g.get_features(ids)
         self.fill_s += time.perf_counter() - t0
         return spec
 
@@ -349,7 +380,7 @@ class DeviceBatchBuilder(BatchBuilder):
                          level_pos=_level_positions(ids, levels),
                          n_ids=len(ids))
 
-    def fill_spec(self, spec):
+    def fill_spec(self, spec, step=None):
         # the hit/miss split runs HERE, so the spec pins the *current*
         # cache epoch regardless of how far ahead it was sampled
         t0 = time.perf_counter()
@@ -358,6 +389,8 @@ class DeviceBatchBuilder(BatchBuilder):
         if self.counter is not None:
             self.cache.account_feature_gather(cache_pos, hit, self.dev,
                                               self.counter)
+        if self.store is not None:
+            self.store.record_hbm(n_ids, int(hit.sum()))
         n_miss = int((~hit).sum())
         # bucket-rounded layout: pad rows are inert (-1 / False) and never
         # referenced by level_pos, so every downstream shape is stable
@@ -375,7 +408,12 @@ class DeviceBatchBuilder(BatchBuilder):
         host = staging.numpy()  # shares the (pinned) buffer's memory
         D = self.g.feat_dim
         if n_miss:
-            host[:n_miss, :D] = self.g.get_features(ids[~hit])
+            # one copy into the staging buffer, from the store's fresh f32
+            # rows or straight off the graph
+            miss_ids = ids[~hit]
+            host[:n_miss, :D] = (
+                self.store.gather(miss_ids, step=step, dev=self.dev)
+                if self.store is not None else self.g.get_features(miss_ids))
         host[n_miss:, :D] = 0.0
         spec.ids = ids_p
         spec.cache_pos = pos_p
@@ -505,8 +543,8 @@ class ShardedBatchBuilder(DeviceBatchBuilder):
             self._routing_epoch = ep
         return self._routing
 
-    def fill_spec(self, spec):
-        spec = super().fill_spec(spec)
+    def fill_spec(self, spec, step=None):
+        spec = super().fill_spec(spec, step=step)
         owner, local = self._routing_for_epoch()
         if len(owner) == 0:  # empty feature cache: every id is a host fill
             spec.owner = np.full(len(spec.ids), -1, dtype=np.int32)

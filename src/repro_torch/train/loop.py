@@ -27,6 +27,12 @@ threads: the Prefetcher's (device sampling, and the online refresh's
 scatter), the build pool's, and the consumer's (finalize and the step).
 One stream orders them; the consumer reads its step's loss once per step,
 after the next batch's finalize is queued.
+
+``telemetry=`` instruments the run (``repro_torch.obs``): spans on the
+consumer, coordinator and build threads, windowed metric snapshots, a JSONL
+stream and a Perfetto trace.  ``feature_store=`` routes every device-cache
+miss through the tiered store (``core/feature_store.py``) with a lookahead
+window of sampled-ahead batches (``train.pipeline.LookaheadWindow``).
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cache_manager import OnlineCacheManager, RefreshConfig
+from repro_torch.core.feature_store import FeatureStore
 from repro_torch.core.planner import LegionPlan
 from repro_torch.core.unified_cache import (TrafficCounter,
                                            stack_hierarchical_shards)
@@ -48,10 +55,12 @@ from repro_torch.models.gnn import GNNConfig, defs as gnn_defs
 from repro_torch.models.gnn import forward as gnn_forward
 from repro_torch.models.gnn import loss_fn as gnn_loss
 from repro_torch.models.params import init_from_defs
+from repro_torch.obs import Telemetry, maybe_span
 from repro_torch.train.batch import make_batch_builder, pack_sharded_specs
 from repro_torch.train.optimizer import (adamw, apply_updates, tree_leaves,
                                          tree_map)
-from repro_torch.train.pipeline import Prefetcher, StragglerMonitor
+from repro_torch.train.pipeline import (LookaheadWindow, Prefetcher,
+                                        StragglerMonitor)
 from repro_torch.utils import device_context, resolve_device
 
 # options of the reference's train_gnn that this package does not run yet,
@@ -61,9 +70,6 @@ _NOT_PORTED = {
     "resume": "resilience (checkpoint and resume)",
     "mesh": "gradient compression (an explicit data-parallel mesh)",
     "compress_grads": "gradient compression",
-    "telemetry": "telemetry beyond maybe_span",
-    "feature_store": "the tiered feature store",
-    "lookahead": "the tiered feature store",
     "resilience": "resilience",
 }
 
@@ -85,6 +91,12 @@ class GNNTrainResult:
     # host wall time of every step (dispatch, the next batch's finalize and
     # the wait on this step's loss)
     step_times: List[float] = dataclasses.field(default_factory=list)
+    # telemetry digest (repro_torch.obs): sink paths + span/snapshot counts
+    # when train_gnn ran with telemetry, {} otherwise
+    telemetry: dict = dataclasses.field(default_factory=dict)
+    # tiered feature store digest (FeatureStore.summary()): per-tier
+    # hit/fill/eviction tallies when train_gnn ran with one, {} otherwise
+    store: dict = dataclasses.field(default_factory=dict)
 
 
 def _make_train_step(cfg: GNNConfig, opt):
@@ -195,6 +207,8 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
               fused: bool = True, bucket: int = 256, sampler: str = "chain",
               refresh_interval: Optional[int] = None,
               refresh_config: Optional[RefreshConfig] = None,
+              telemetry=None, feature_store=None,
+              lookahead: Optional[int] = None,
               **not_ported) -> GNNTrainResult:
     """Train SAGE/GCN with the Legion pipeline (see module doc).
     ``shuffle='global'`` ignores tablets and draws seeds from the full
@@ -227,11 +241,41 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
     delta-refreshed in place; ``refresh_config`` sets the other knobs.  The
     interval must exceed ``prefetch_depth``.
 
+    ``telemetry`` (a ``repro_torch.obs.Telemetry`` or ``TelemetryConfig``)
+    instruments the run: spans around the refresh hook, each step's build
+    (``prefetch_build``; ``spec_build`` per device on the build threads),
+    pack, ``prefetch_get``, finalize and H2D staging, each
+    ``device_step``; windowed metric snapshots every ``config.window``
+    steps pulled from the TrafficCounter, Prefetcher, OnlineCacheManager,
+    CliqueCaches, the store and the straggler monitor; the ``step.time_s``
+    and ``straggler.step_time_s`` histograms; a JSONL stream and a
+    Perfetto trace.  Span times are host wall clock; with
+    ``profiler_annotations`` every span is also a
+    ``torch.profiler.record_function`` range, which is where a profiler
+    trace shows the device work under it.  The telemetry object is closed
+    (final snapshot, sinks flushed) when this returns.  ``telemetry=None``
+    runs no telemetry code and gives bitwise the same losses.
+
+    ``feature_store`` (a ``repro_torch.core.feature_store.FeatureStore``,
+    or a ``TieredStoreConfig`` to build one over ``g``) routes every
+    device-cache miss through the store's host-RAM and file tiers instead
+    of a direct host-array read: the layout that trains a graph whose
+    feature table is only on disk (``g.feature_file`` set, ``g.features``
+    None).  ``lookahead`` sets how many batches each device samples ahead
+    of its feature fill (default: the store config's ``lookahead``; it
+    needs a store): the future batches' store-request sets feed the
+    store's next-use eviction index and their reads prefetch on the
+    store's I/O pool.  Sampling stays in strict step order, so batches and
+    losses are bitwise those of the storeless run.  The online manager's
+    observer sees a sampled-ahead batch when it is sampled, as in the
+    reference, so with refreshes inside the window the refreshed residency
+    (and so the hit tallies) may differ from the storeless run's.
+
     The reference's ``checkpoint_dir``, ``resume``, ``mesh``,
-    ``compress_grads``, ``telemetry``, ``feature_store``, ``lookahead`` and
-    ``resilience``, and ``sampler="stepwise"``, are not ported yet and
-    raise ``NotImplementedError``; ``backend="sharded"`` with ``mesh=`` or
-    ``compress_grads=`` raises ``ValueError``, as in the reference.
+    ``compress_grads`` and ``resilience``, and ``sampler="stepwise"``, are
+    not ported yet and raise ``NotImplementedError``;
+    ``backend="sharded"`` with ``mesh=`` or ``compress_grads=`` raises
+    ``ValueError``, as in the reference.
     """
     for name in not_ported:
         if name not in _NOT_PORTED:
@@ -305,6 +349,20 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
                 "refresh would gather from a released buffer")
         manager = OnlineCacheManager(g, plan, rc, counter=counter)
 
+    tele = telemetry
+    if tele is not None and not hasattr(tele, "span"):
+        # a TelemetryConfig: build the Telemetry here
+        tele = Telemetry(tele)
+    store = feature_store
+    if store is not None and not hasattr(store, "gather"):
+        # a TieredStoreConfig: build the FeatureStore over the graph here
+        store = FeatureStore(g, store, counter=counter)
+    if lookahead is not None and store is None:
+        raise ValueError("lookahead= needs a feature_store to feed "
+                         "(announce/prefetch hints go to the store)")
+    window = (lookahead if lookahead is not None
+              else (store.config.lookahead if store is not None else 0))
+
     per_dev = max(cfg.batch_size // max(n_dev, 1), 16)
     builders = {}
     for d in devices:
@@ -315,19 +373,41 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
             kw["observer"] = manager.observer_for(d)
         builders[d] = make_batch_builder(backend, g, cache, cfg.fanouts,
                                          counter, d, device=dev, **kw)
+        builders[d].telemetry = tele
+        builders[d].store = store
 
     def make_spec_fn(d: int):
         """Host phase of one device's part of a synchronized step; the
         Prefetcher's pool may build the devices' parts concurrently, each
-        owning its RNG stream and builder."""
+        owning its RNG stream and builder.  With a store, a lookahead
+        window samples up to ``window`` steps ahead (strict step order:
+        the same RNG sequence), announces their store-request sets and
+        prefetches their reads, then fills the front spec."""
         rng, builder = rngs[d], builders[d]
         tablet = (plan.partition.tablets[d]
                   if (plan is not None and shuffle == "local") else all_train)
 
-        def build(step: int):
-            seeds = tablet[rng.integers(0, len(tablet), size=per_dev)]
-            return builder.build_spec(seeds, rng)
-        return build
+        if store is not None:
+            def sample_one(step: int):
+                seeds = tablet[rng.integers(0, len(tablet), size=per_dev)]
+                return builder.sample_spec(seeds, rng)
+
+            build = LookaheadWindow(builder, store, sample_one,
+                                    window=window, limit=steps, dev=d).build
+        else:
+            def build(step: int):
+                seeds = tablet[rng.integers(0, len(tablet), size=per_dev)]
+                return builder.build_spec(seeds, rng)
+
+        if tele is None:
+            return build
+
+        def spec_fn(step: int):
+            # runs on a build thread: the span makes the pool's
+            # concurrency visible in the trace
+            with tele.span("spec_build", step=step, dev=d):
+                return build(step)
+        return spec_fn
 
     sharded_step = pack_fn = None
     if backend == "sharded":
@@ -394,40 +474,87 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
                           if backend == "sharded" else None),
         workers=prefetch_workers, depth=prefetch_depth, limit=steps,
         pre_batch_hook=(manager.on_step if manager is not None else None),
-        pack_fn=pack_fn, extra_summary=pipeline_summary)
+        pack_fn=pack_fn, extra_summary=pipeline_summary, telemetry=tele)
 
     monitor = StragglerMonitor()
+    if tele is not None:
+        # metric sources pulled at every windowed snapshot: components
+        # mirror their own tallies, nothing extra runs on hot paths
+        tele.add_source("traffic", counter.publish_metrics)
+        tele.add_source("prefetch", prefetcher.publish_metrics)
+        if store is not None:
+            tele.add_source("store", store.publish_metrics)
+        if manager is not None:
+            tele.add_source("refresh", manager.publish_metrics)
+        if plan is not None:
+
+            def publish_caches(reg):
+                for ci, c in enumerate(plan.caches):
+                    c.publish_metrics(reg, clique=ci)
+            tele.add_source("caches", publish_caches)
+        tele.add_source("straggler", monitor.publish_metrics)
+        h_step = tele.registry.histogram("step.time_s")
+        h_flag = tele.registry.histogram("straggler.step_time_s")
     losses, accs, epoch_times, step_times = [], [], [], []
     steps_per_epoch = max(len(all_train) // max(cfg.batch_size, 1), 1)
     t_epoch = time.perf_counter()
     try:
         with device_context(dev):
-            next_batch = (finalize_batch(prefetcher.get())
-                          if steps > 0 else None)
-            for step in range(steps):
-                t0 = time.perf_counter()
-                with torch.profiler.record_function("device_step"):
-                    if sharded_step is not None:
-                        params, opt_state, loss, acc = sharded_step(
-                            params, opt_state, *next_batch)
-                    else:
-                        params, opt_state, loss, acc = train_step(
-                            params, opt_state, next_batch)
-                    # queue batch i+1's finalize behind step i, then wait
-                    # on step i's loss: the one host sync of the step
-                    next_batch = (finalize_batch(prefetcher.get())
-                                  if step + 1 < steps else None)
-                    loss_v, acc_v = torch.stack([loss, acc]).tolist()
-                dt = time.perf_counter() - t0
-                monitor.record(dt)
-                step_times.append(dt)
-                losses.append(loss_v)
-                accs.append(acc_v)
-                if (step + 1) % steps_per_epoch == 0:
-                    epoch_times.append(time.perf_counter() - t_epoch)
-                    t_epoch = time.perf_counter()
+            # the priming fetch is pipeline warm-up (first build, cold
+            # workers), so it gets its own span; train_loop is the
+            # steady-state loop that the device_step spans tile
+            with maybe_span(tele, "pipeline_prime"):
+                next_batch = (finalize_batch(prefetcher.get())
+                              if steps > 0 else None)
+            with maybe_span(tele, "train_loop"):
+                for step in range(steps):
+                    t0 = time.perf_counter()
+                    # the span (a record_function range of the same name
+                    # under profiler_annotations) covers dispatch, the
+                    # next batch's finalize and the wait on this loss
+                    with (tele.span("device_step", step=step)
+                          if tele is not None
+                          else torch.profiler.record_function("device_step")):
+                        if sharded_step is not None:
+                            params, opt_state, loss, acc = sharded_step(
+                                params, opt_state, *next_batch)
+                        else:
+                            params, opt_state, loss, acc = train_step(
+                                params, opt_state, next_batch)
+                        # queue batch i+1's finalize behind step i, then
+                        # wait on step i's loss: the one host sync a step
+                        next_batch = (finalize_batch(prefetcher.get())
+                                      if step + 1 < steps else None)
+                        loss_v, acc_v = torch.stack([loss, acc]).tolist()
+                    dt = time.perf_counter() - t0
+                    flagged = monitor.record(dt)
+                    step_times.append(dt)
+                    losses.append(loss_v)
+                    accs.append(acc_v)
+                    if tele is not None:
+                        h_step.observe(dt)
+                        if flagged:
+                            h_flag.observe(dt)
+                        if (step + 1) % tele.config.window == 0:
+                            tele.snapshot(step + 1)
+                    if (step + 1) % steps_per_epoch == 0:
+                        epoch_times.append(time.perf_counter() - t_epoch)
+                        t_epoch = time.perf_counter()
     finally:
-        prefetcher.close()
+        # close() may re-raise a worker exception; the final snapshot
+        # (exact totals need every build and every store read counted)
+        # happens either way
+        try:
+            prefetcher.close()
+        finally:
+            try:
+                if store is not None:
+                    # drain the store's I/O pool before the final snapshot
+                    # so its read/stall totals are complete
+                    store.close()
+            finally:
+                if tele is not None:
+                    tele.close(final_step=steps)
 
     return GNNTrainResult(losses=losses, accs=accs, epoch_times=epoch_times,
                           counter=counter, straggler=monitor.summary(),
@@ -440,4 +567,12 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
                               "host_sampled_edges":
                                   counter.host_sampled_edges,
                               "topo_hit_rate": counter.topo_hit_rate},
-                          step_times=step_times)
+                          step_times=step_times,
+                          telemetry=({} if tele is None else {
+                              "jsonl_path": tele.config.jsonl_path,
+                              "trace_path": tele.config.trace_path,
+                              "spans": tele.span_count,
+                              "open_spans": tele.open_spans,
+                              "window": tele.config.window}),
+                          store=(store.summary() if store is not None
+                                 else {}))

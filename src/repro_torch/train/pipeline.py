@@ -23,6 +23,11 @@ straggler monitor.
   ``summary()`` reports per-batch host build and pack time and queue-dry
   time: how long ``get()`` waited on an empty queue, the time the device
   would have stalled for host work.
+* ``LookaheadWindow``: the sample-ahead loop behind the tiered feature
+  store's Ginex-style eviction — decouples a builder's sampling sub-phase
+  from its feature fill so batch ``N``'s fill runs with batches
+  ``N+1..N+W`` already sampled, their store-request sets announced (the
+  next-use index eviction reads) and their file reads prefetching.
 * ``StragglerMonitor``: EWMA step-time tracker flagging outlier steps.
 """
 from __future__ import annotations
@@ -31,6 +36,7 @@ import os
 import queue
 import threading
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Callable, List, Optional
 
@@ -48,7 +54,7 @@ class Prefetcher:
                  part_group_sizes: Optional[List[int]] = None,
                  workers: Optional[int] = None,
                  extra_summary: Optional[Callable[[], dict]] = None,
-                 start_step: int = 0):
+                 telemetry=None, start_step: int = 0):
         """``limit`` bounds the number of batches produced (the train loop
         passes its step count): without it the worker keeps building ahead
         until ``close()``, and side effects of building (traffic
@@ -76,6 +82,13 @@ class Prefetcher:
 
         ``extra_summary`` is a zero-argument callable merged into
         ``summary()``; a key that collides with a build stat raises.
+
+        ``telemetry`` (a ``repro_torch.obs.Telemetry``) instruments the
+        pipeline: spans around each step's refresh hook, build and pack (on
+        the coordinator thread) and around every ``get()`` (consumer
+        thread), plus the ``prefetch.build_s`` and ``prefetch.dry_s``
+        histograms.  With the default ``None`` not one telemetry
+        instruction runs.
 
         ``start_step`` is the first step built; ``limit`` counts batches
         from there."""
@@ -111,6 +124,10 @@ class Prefetcher:
         self._hook = pre_batch_hook
         self._pack_fn = pack_fn
         self._extra_summary = extra_summary
+        self._tele = telemetry
+        if telemetry is not None:
+            self._h_build = telemetry.registry.histogram("prefetch.build_s")
+            self._h_dry = telemetry.registry.histogram("prefetch.dry_s")
         self._build_s = 0.0
         self._pack_s = 0.0
         self._built = 0
@@ -118,7 +135,8 @@ class Prefetcher:
         self._gets = 0
         self._exc: Optional[BaseException] = None
         self._exc_raised = False
-        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name="prefetch-coordinator")
         self._thread.start()
 
     def _regroup(self, parts: List[object]) -> List[object]:
@@ -151,18 +169,32 @@ class Prefetcher:
             self._exc = e  # surfaced on the next get() or at close()
 
     def _worker_loop(self):
+        tele = self._tele
         while not self._stop.is_set():
             if self._limit is not None \
                     and self._step - self._start >= self._limit:
                 return
             if self._hook is not None:
-                self._hook(self._step)
+                if tele is not None:
+                    with tele.span("refresh_hook", step=self._step):
+                        self._hook(self._step)
+                else:
+                    self._hook(self._step)
             t0 = time.perf_counter()
-            batch = self._build(self._step)
+            if tele is not None:
+                with tele.span("prefetch_build", step=self._step):
+                    batch = self._build(self._step)
+                self._h_build.observe(time.perf_counter() - t0)
+            else:
+                batch = self._build(self._step)
             self._build_s += time.perf_counter() - t0
             if self._pack_fn is not None:
                 t0 = time.perf_counter()
-                batch = self._pack_fn(batch)
+                if tele is not None:
+                    with tele.span("prefetch_pack", step=self._step):
+                        batch = self._pack_fn(batch)
+                else:
+                    batch = self._pack_fn(batch)
                 self._pack_s += time.perf_counter() - t0
             self._built += 1
             self._step += 1
@@ -176,7 +208,19 @@ class Prefetcher:
     def get(self, timeout: float = 60.0):
         """Next prefetched batch.  Polls in short intervals so a worker
         exception surfaces promptly even while this thread is blocked on an
-        empty queue.  Time spent in here accumulates as queue-dry time."""
+        empty queue.  Time spent in here accumulates as queue-dry time
+        (and, with telemetry, a consumer-thread span and the queue-dry
+        histogram)."""
+        if self._tele is None:
+            return self._get(timeout)
+        t0 = time.perf_counter()
+        with self._tele.span("prefetch_get"):
+            try:
+                return self._get(timeout)
+            finally:
+                self._h_dry.observe(time.perf_counter() - t0)
+
+    def _get(self, timeout: float):
         t0 = time.perf_counter()
         deadline = t0 + timeout
         try:
@@ -218,6 +262,30 @@ class Prefetcher:
             out.update(extra)
         return out
 
+    def publish_metrics(self, reg, base: Optional[dict] = None) -> None:
+        """Queue and build tallies for the telemetry registry
+        (repro_torch.obs), pulled at snapshot boundaries: totals mirror
+        ``summary()`` (the per-observation histograms are fed live from the
+        hot path when telemetry is attached).  ``base`` adds the totals of
+        closed predecessor prefetchers, keyed by ``summary()`` names, so
+        the registry counters stay monotonic across a pipeline swap."""
+        b = base or {}
+
+        def tot(key, v):
+            return v + b.get(key, 0)
+
+        reg.counter("prefetch.batches_built").set_total(
+            tot("batches_built", self._built))
+        reg.counter("prefetch.gets").set_total(tot("gets", self._gets))
+        reg.counter("prefetch.build_s").set_total(
+            tot("host_build_s_total", self._build_s))
+        reg.counter("prefetch.pack_s").set_total(
+            tot("host_pack_s_total", self._pack_s))
+        reg.counter("prefetch.queue_dry_s").set_total(
+            tot("queue_dry_s_total", self._dry_s))
+        reg.gauge("prefetch.queue_depth").set(self._q.qsize())
+        reg.gauge("prefetch.build_workers").set(self._workers)
+
     def close(self):
         """Stop the worker.  A worker exception never surfaced through
         ``get()`` re-raises here: a failure in the last prefetched batches
@@ -229,6 +297,61 @@ class Prefetcher:
         if self._exc is not None and not self._exc_raised:
             self._exc_raised = True
             raise self._exc
+
+
+class LookaheadWindow:
+    """One device's sample-ahead window over a split batch builder.
+
+    ``build(step)`` is a drop-in replacement for ``builder.build_spec(...)``
+    inside a Prefetcher part function, except that before filling step
+    ``N`` it tops the window up through step ``N+window``: each future step
+    is *sampled* (``sample_fn(step)`` — the per-step seed draw plus
+    ``builder.sample_spec``, i.e. ALL of that step's RNG consumption, still
+    executed strictly in step order, so batches stay bitwise identical to
+    the unwindowed pipeline), its store-request set is announced to the
+    tiered store (feeding the next-use index the lookahead eviction policy
+    reads) and its file read is prefetched onto the store's I/O pool.  Only
+    then does the front spec get its RNG-free ``fill_spec`` — with
+    ``window`` batches of future knowledge banked.
+
+    ``limit`` caps sampling at the run's final step (exclusive, absolute)
+    so the window never draws (or accounts, or launches a sampling chain
+    for) steps nobody will consume.  ``start`` is the first step the window
+    samples.  One window per device part function: the Prefetcher pool may
+    run devices concurrently, but each window is only ever driven by its
+    own device's strictly sequential steps."""
+
+    def __init__(self, builder, store, sample_fn: Callable[[int], object],
+                 window: int = 4, limit: Optional[int] = None, dev: int = 0,
+                 start: int = 0):
+        if window < 0:
+            raise ValueError(f"window must be >= 0, got {window}")
+        self.builder = builder
+        self.store = store
+        self.sample_fn = sample_fn
+        self.window = int(window)
+        self.limit = limit
+        self.dev = dev
+        self._pending: deque = deque()  # (step, sampled spec) in step order
+        self._next = int(start)  # next step to sample
+
+    def build(self, step: int):
+        while (self._next <= step + self.window
+               and (self.limit is None or self._next < self.limit)):
+            s = self._next
+            spec = self.sample_fn(s)
+            ids = self.builder.store_request_ids(spec)
+            self.store.announce(s, ids)
+            self.store.prefetch(s, ids, dev=self.dev)
+            self._pending.append((s, spec))
+            self._next += 1
+        got, spec = self._pending.popleft()
+        if got != step:
+            raise RuntimeError(
+                f"LookaheadWindow fed out of order: asked for step {step}, "
+                f"front of window is {got} (one window per device; steps "
+                "must arrive sequentially)")
+        return self.builder.fill_spec(spec, step=step)
 
 
 class StragglerMonitor:
@@ -257,3 +380,14 @@ class StragglerMonitor:
     def summary(self) -> dict:
         return {"steps": self.steps, "ewma_s": self.ewma,
                 "stragglers": self.stragglers, "worst_s": self.worst}
+
+    def publish_metrics(self, reg) -> None:
+        """Straggler verdicts for the telemetry registry (repro_torch.obs):
+        flagged/observed step counters (monotonic, so windowed deltas
+        telescope) plus the EWMA and worst step time as gauges.  The
+        per-step time *histograms* are fed live by the train loop
+        (``step.time_s`` / ``straggler.step_time_s``)."""
+        reg.counter("straggler.flagged").set_total(self.stragglers)
+        reg.counter("straggler.steps").set_total(self.steps)
+        reg.gauge("straggler.ewma_s").set(self.ewma or 0.0)
+        reg.gauge("straggler.worst_s").set(self.worst)

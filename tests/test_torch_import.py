@@ -1,6 +1,9 @@
 """The PyTorch port stands alone: importing every ``repro_torch`` module
 pulls in neither ``jax`` nor anything of the reference package ``repro``,
-and no port source (nor ``chip_smoke.py``) names either in an import."""
+and no port source (nor ``chip_smoke.py``) names either in an import.
+The telemetry layer and the tiered store import with both blocked, and
+importing ``repro_torch.obs`` loads not even ``torch`` until a span opens
+its profiler range."""
 import ast
 import os
 import subprocess
@@ -70,3 +73,34 @@ def test_port_sources_name_no_jax_or_reference_import():
             else:
                 continue
             assert not any(_forbidden(n) for n in names), (path, names)
+
+
+_OBS_AND_STORE = """
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name in ("jax", "repro") or name.startswith(("jax.", "repro.")):
+            raise ImportError(f"blocked: {name}")
+sys.meta_path.insert(0, Block())
+import repro_torch.obs
+import repro_torch.obs.report
+# the profiler bridge resolves on the first annotated span, not at import
+assert "torch" not in sys.modules, "repro_torch.obs imported torch"
+tele = repro_torch.obs.Telemetry(repro_torch.obs.TelemetryConfig())
+with tele.span("s"):
+    pass
+assert "torch" in sys.modules
+import repro_torch.core.feature_store
+import repro_torch.train.pipeline
+import repro_torch.serve.server
+print(tele.span_count)
+"""
+
+
+def test_obs_and_store_import_with_jax_and_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _OBS_AND_STORE], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "1"

@@ -6,7 +6,8 @@ atol = 1e-5 (float32 sums run in another order under XLA and PyTorch, and
 the difference compounds over the steps), the refresh summaries (events and
 overlaps included) and the traffic tallies are identical.  In the port
 alone: host and device backends give bitwise-equal losses, so do the fused
-and unfused finalize, and the options not ported yet raise."""
+and unfused finalize, the options not ported yet raise, and so does
+``lookahead=`` without a feature store, as in the reference."""
 import jax
 import numpy as np
 import pytest
@@ -141,14 +142,20 @@ def test_refresh_interval_must_exceed_prefetch_depth():
 
 @pytest.mark.parametrize("kw", [
     {"checkpoint_dir": "ckpt"}, {"resume": True}, {"mesh": object()},
-    {"compress_grads": True}, {"telemetry": object()},
-    {"feature_store": object()}, {"lookahead": 2}, {"resilience": object()},
+    {"compress_grads": True}, {"resilience": object()},
     {"backend": "sharded", "mesh": object()}, {"sampler": "stepwise"}])
 def test_options_not_ported_yet_raise(kw):
     g = t_graph(500, 4, seed=1, feat_dim=8)
     cfg = GNNConfig(feat_dim=8, hidden=8, batch_size=16, fanouts=(2, 2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_gnn(g, None, cfg, steps=1, device="cpu", **kw)
+
+
+def test_lookahead_without_a_store_raises():
+    g = t_graph(500, 4, seed=1, feat_dim=8)
+    cfg = GNNConfig(feat_dim=8, hidden=8, batch_size=16, fanouts=(2, 2))
+    with pytest.raises(ValueError, match="feature_store"):
+        train_gnn(g, None, cfg, steps=1, device="cpu", lookahead=2)
 
 
 def test_unknown_option_and_missing_card_raise():
