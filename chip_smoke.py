@@ -78,7 +78,7 @@ result line):
    two sharded runs bitwise equal, and one step's per-position batches
    bitwise equal to the device backend's fused finalize of the same specs.
 10b. Store and telemetry in training: the PA feature table written to an
-   ``.npy`` file in a temporary directory (deleted after 10c; it stays in
+   ``.npy`` file in a temporary directory (deleted after 10d; it stays in
    the page cache, so the store's "ssd" reads time an mmap copy), then 8
    device-backend steps at paper width, batch 8000, a refresh every 4
    steps replanning on any drift, on fresh copies of the one-GPU plan:
@@ -107,6 +107,39 @@ result line):
    final snapshot's ``serve.*`` and ``traffic.*`` totals equal
    ``summary()`` and the counter, one fused launch and one sampling chain
    per micro-batch.
+10d. Resilience: (a) on fresh copies of the one-GPU plan, device backend,
+   batch 8000, a refresh every 4 steps replanning on any drift, the
+   features only in 10b's file behind a 200,000-row ``FeatureStore`` with
+   lookahead 2 and serial builds: 8 steps uninterrupted, 4 steps with a
+   checkpoint every 2, then ``resume=True`` to 8; the stitched losses
+   bitwise the uninterrupted run's, resumed from step 4 with its runtime
+   state; the restore's wall time as the resumed run measured it
+   (``restore_s``: checkpoint load, the manager's reapply, the store's
+   refill), the caller-side time of one ``save()`` of the restored state
+   and the checkpoint's size.  (b) The same 8 steps with a ``FaultPlan``
+   (``prefetch_build`` at step 3, ``checkpoint_write`` at call 0,
+   ``ssd_read`` at call 3 twice, ``ssd_stall`` at call 8 for 10 ms) and
+   telemetry: losses bitwise (a)'s, each injection and recovery tallied as
+   planned, the final snapshot's ``fault.*``, ``recovery.*`` and
+   ``checkpoint.*`` totals equal to the result's, the report's
+   faults/recovery line printed.  (c) On fresh copies of the 2 x 2 plan,
+   device 3 lost at step 4 of 8: at batch 1024 the host backend, the
+   device backend and the device backend again bitwise equal (losses,
+   events but for ``remesh_s`` and the backend), steps 0-3 bitwise a
+   fault-free device run's; the old pipeline has run ahead of the loss by
+   a timing-dependent number of batches, which the remesh discards and
+   the traffic tallies count, so the tallies are held host against device
+   with the loss at the last of 5 steps, where it has built every batch;
+   at batch 8000 with ``backend="sharded"`` steps 0-3 bitwise a
+   fault-free sharded run's, then the device backend on 3 survivors;
+   ``remesh_s`` (closing the old pipeline, the replan at 1M vertices, a
+   fresh pipeline) and the step medians before and after printed.  (d) On the
+   card, ``launch.train.main`` for the gemma3 smoke config and for the GNN
+   at 2000 vertices: ``--ckpt`` for 2 steps, then ``--resume`` to 4,
+   losses bitwise a 4-step run's.  Each run's launches as its phase
+   expects, the work a remesh discards included (the old pipeline's
+   builds through the lost step and past it, from its ``batches_built``;
+   the lost step's finalized batch is dropped).
 
 11. LM kernel: ``gemma3-1b`` at full width and depth (26 layers, d_model
    1152, 4 query heads over 1 kv head of 256, vocab 262,144, windows of 512
@@ -169,8 +202,9 @@ result line):
 
 Every kernel's launch count is zeroed just before each of the serve,
 train, parity, unfused, shard, shard-parity, store-train (each of its 5
-runs), store-serve, lm-serve, lm-parity, lm-train and lm-train-parity
-phases and read just after, with the launches by route; ``sage_aggregate``'s stay
+runs), store-serve, resil-* (each run of 10d), lm-serve, lm-parity,
+lm-train and lm-train-parity phases and read just after, with the launches
+by route; ``sage_aggregate``'s stay
 0 (no path runs it), and ``routed_neighbor_sample`` launches once per
 device-sampling spec build, on its ``chain`` route, never per hop.
 The last three lines are the card's name and power limit, the
@@ -216,6 +250,12 @@ STORE_STEPS = 8            # phase 10b: each run's steps
 STORE_REFRESH = 4          # refresh interval there (replans on any drift)
 STORE_HOST_ROWS = 200_000  # the store's host tier: 20% of the table
 STORE_LOOKAHEAD = 4
+# phase 10d: kill and resume, faults, the device-loss remesh
+RESIL_STEPS = 8            # each run's steps (the killed run: half)
+RESIL_LOOKAHEAD = 2        # the store's lookahead there
+RESIL_LOSS = (4, 3)        # (step, device): device 3 of the 2 x 2 plan
+RESIL_CLI_STEPS = (2, 4)   # the CLIs: killed after, resumed to
+RESIL_CLI_VERTICES = 2000  # the GNN CLI's --max-vertices
 PROFILE_STEPS = 8        # the profiled run; its steps 2..6 are the window
 PROFILE_WINDOW = (2, 5)  # (first step, steps)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
@@ -1452,11 +1492,13 @@ def profiled_span_names(torch, fn) -> set:
 
 
 def store_phases(torch, np, g, plan, params, card: str,
-                 phase_launches: dict, phase_routes: dict,
-                 device: str = "cuda") -> None:
+                 phase_launches: dict, phase_routes: dict, tmp: str,
+                 device: str = "cuda") -> str:
     """Phases 10b (training) and 10c (serving): the tiered feature store
     and telemetry on the one-GPU plan, each phase's launches recorded in
-    ``phase_launches``/``phase_routes``."""
+    ``phase_launches``/``phase_routes``.  The feature table's file is
+    written into the directory ``tmp`` (the caller deletes it, after phase
+    10d has trained from it too); returns its path."""
     from repro_torch.configs.legion_gnn import GRAPHSAGE
     from repro_torch.core.cache_manager import RefreshConfig
     from repro_torch.core.feature_store import FeatureStore, TieredStoreConfig
@@ -1467,225 +1509,578 @@ def store_phases(torch, np, g, plan, params, card: str,
     from repro_torch.train.loop import train_gnn
 
     # ---- 10b. the tiered store and telemetry in training --------------------
-    # the feature table in a file of a temporary directory, deleted at the
-    # end of 10c; the file stays in the page cache, so the store's "ssd"
-    # reads time an mmap copy here, not a disk
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
-    try:
-        fpath = os.path.join(tmp, "features.npy")
-        t0 = time.perf_counter()
-        g.save_feature_file(fpath)
-        t_write = time.perf_counter() - t0
-        g_ram = dataclasses.replace(g, features=np.load(fpath))
-        g_file = dataclasses.replace(g, feature_file=fpath)
-        print(f"[store] feature table {g.n} x {g.feat_dim} f32 "
-              f"({os.path.getsize(fpath) / 1e6:.1f} MB) written in "
-              f"{t_write:.1f}s and loaded into RAM in "
-              f"{time.perf_counter() - t0 - t_write:.1f}s | {card}")
-        store_kw = dict(backend="device", device=device, seed=0,
-                        params=params, steps=STORE_STEPS,
-                        refresh_config=RefreshConfig(interval=STORE_REFRESH,
-                                                     drift_threshold=1.0))
-        # (name, graph, store lookahead or None, telemetry); the ram run
-        # again at the end gives the spread of the host times
-        arms = (("ram", g_ram, None, False),
-                ("ram+telemetry", g_ram, None, True),
-                ("file+store", g_file, STORE_LOOKAHEAD, True),
-                ("file+store lookahead 0", g_file, 0, False),
-                ("ram again", g_ram, None, False))
-        runs, walls = {}, {}
-        for name, graph, la, on in arms:
-            tele = None
-            if on:
-                stem = os.path.join(tmp, name.replace("+", "_"))
-                tele = Telemetry(TelemetryConfig(
-                    jsonl_path=stem + ".jsonl", trace_path=stem + ".json",
-                    window=4, run=name))
-            store = (None if la is None else FeatureStore(
-                graph, TieredStoreConfig(host_rows=STORE_HOST_ROWS,
-                                         lookahead=la)))
-            c = TrafficCounter.for_plan(plan)
-            tplan = fresh_copy(plan, graph)
-            zero_launches(KERNELS)
-            t0 = time.perf_counter()
-            res = train_gnn(graph, tplan, GRAPHSAGE, counter=c,
-                            telemetry=tele, feature_store=store, **store_kw)
-            walls[name] = time.perf_counter() - t0
-            phase = f"store-train {name}"
-            phase_launches[phase] = read_launches(KERNELS)
-            phase_routes[phase] = read_routes(KERNELS)
-            admitting = sum(1 for e in res.refresh["events"]
-                            if e["admitted"] > 0)
-            want = expect({"fused_gather_overlay": STORE_STEPS,
-                           "scatter_rows": admitting,
-                           "routed_neighbor_sample": STORE_STEPS})
-            if phase_launches[phase] != want or res.refresh["refreshes"] < 1:
-                raise AssertionError(f"{phase}: launches "
-                                     f"{phase_launches[phase]}, expected "
-                                     f"{want}; refresh {res.refresh}")
-            expect_chains(phase, phase_routes[phase], STORE_STEPS)
-            runs[name] = (res, c, tele, store)
-            del tplan
-        a = runs["ram"][0]
-        for name, (res, c, tele, store) in runs.items():
-            if res.losses != a.losses or res.accs != a.accs:
-                raise AssertionError(f"{name} losses {res.losses} != ram "
-                                     f"{a.losses}")
-            if c.feature_requests != runs["ram"][1].feature_requests:
-                raise AssertionError(f"{name}: feature requests differ")
-        # without sampling ahead every tally is the storeless run's; with
-        # it the refresh at step 4 has observed the window's batches too
-        # (as in the reference), so it may admit other rows
-        for name in ("ram+telemetry", "file+store lookahead 0", "ram again"):
-            for t in ("feature_requests", "feature_hits", "topo_requests",
-                      "topo_hits", "pcie_transactions"):
-                if getattr(runs[name][1], t) != getattr(runs["ram"][1], t):
-                    raise AssertionError(f"{name}: counter {t} differs from "
-                                         "the ram run's")
-        for name, (res, c, tele, store) in runs.items():
-            st = np.array(res.step_times) * 1e3
-            p = res.pipeline
-            line = (f"[store] {name}: {STORE_STEPS} steps in "
-                    f"{walls[name]:.3f}s wall; step median "
-                    f"{np.median(st):.2f} ms (min {st.min():.2f}, max "
-                    f"{st.max():.2f}); host build total "
-                    f"{p['host_build_s_total']:.3f}s (sampled-ahead builds "
-                    f"included), fill total {p['fill_s_total']:.3f}s; "
-                    f"feature hits {c.feature_hits}/{c.feature_requests}, "
-                    f"topo hits {c.topo_hits}/{c.topo_requests}")
-            print(line + f" | {card}")
-            if store is not None:
-                s = res.store
-                if s["hbm_requests"] != c.feature_requests \
-                        or s["hbm_hits"] != c.feature_hits \
-                        or s["host_requests"] != (s["hbm_requests"]
-                                                  - s["hbm_hits"]):
-                    raise AssertionError(f"{name}: store tallies {s} vs "
-                                         f"counter {c}")
-                print(f"[store] {name}: {store_tallies(s)}; read_us "
-                      f"{int(s['ssd_read_s'] * 1e6)} stall_us "
-                      f"{int(s['stall_s'] * 1e6)} (page-cache reads) "
-                      f"| {card}")
-            if tele is None:
-                continue
-            if res.telemetry["open_spans"] != 0:
-                raise AssertionError(f"{name}: open spans {res.telemetry}")
-            final, dig, kinds = check_stream(tele.config.jsonl_path,
-                                             tele.config.trace_path,
-                                             STORE_STEPS)
-            fc = final["counters"]
-            if fc["traffic.feature_hits"]["total"] != c.feature_hits:
-                raise AssertionError(f"{name}: stream feature hits differ")
-            if store is not None:
-                if not (fc["store.fill_rows{tier=ssd}"]["total"] > 0
-                        and fc["store.hits{tier=host_ram}"]["total"] > 0
-                        and fc["store.announced_batches"]["total"]
-                        == STORE_STEPS):
-                    raise AssertionError(f"{name}: store counters {fc}")
-            spans = dig["spans"]
-            print(f"[store] {name} stream: {kinds}; spans "
-                  + ", ".join(f"{k} x{v['count']} {v['mean_s'] * 1e3:.2f} ms"
-                              for k, v in sorted(spans.items()))
-                  + f"; queue dry {dig['queue_dry_s']:.3f}s | {card}")
-        # with a window of 4 over 8 steps the last 4 builds sample nothing
-        # (the window sampled them during the first builds), so the step
-        # median flatters the lookahead run: the host build total and the
-        # wall count all of its work
-        for metric, v in (
-                ("step median", {k: float(np.median(r[0].step_times))
-                                 for k, r in runs.items()}),
-                ("host build total", {k: r[0].pipeline["host_build_s_total"]
-                                      for k, r in runs.items()}),
-                ("wall", walls)):
-            print(f"[store] {metric} against ram: ram again "
-                  f"{v['ram again'] / v['ram']:.4f}x, telemetry "
-                  f"{v['ram+telemetry'] / v['ram']:.4f}x, file+store "
-                  f"lookahead {STORE_LOOKAHEAD} "
-                  f"{v['file+store'] / v['ram']:.4f}x, lookahead 0 "
-                  f"{v['file+store lookahead 0'] / v['ram']:.4f}x | {card}")
-        names = profiled_span_names(torch, lambda: train_gnn(
-            g_ram, fresh_copy(plan, g_ram), GRAPHSAGE,
-            telemetry=TelemetryConfig(), **dict(store_kw, steps=2)))
-        missing = {"device_step", "spec_build", "finalize"} - names
-        if missing:
-            raise AssertionError(f"profiled telemetry run lacks the ranges "
-                                 f"{missing}")
-        print(f"[store] a profiled 2-step run with telemetry shows the "
-              f"record_function ranges device_step, spec_build, finalize "
-              f"| {card}")
-        del runs, a, g_ram
-
-        # ---- 10c. the tiered store and telemetry in serving ----------------
-        jsonl = os.path.join(tmp, "serve.jsonl")
-        tele = Telemetry(TelemetryConfig(jsonl_path=jsonl, run="serve"))
-        store = FeatureStore(g_file, TieredStoreConfig(
-            host_rows=STORE_HOST_ROWS, lookahead=0))
-        srv = GNNServer(g_file, fresh_copy(plan, g_file), GRAPHSAGE, params,
-                        device=device, telemetry=tele, feature_store=store,
-                        config=ServeConfig(max_batch=MAX_BATCH,
-                                           oracle_check=True), seed=0)
-        tele.add_source("traffic", srv.counter.publish_metrics)
-        tele.add_source("store", store.publish_metrics)
-        req_rng = np.random.default_rng(1)
-        requests = [req_rng.integers(0, g.n, int(n))
-                    for n in req_rng.integers(1, MAX_BATCH + 1, N_REQUESTS)]
+    # the feature table in a file of a temporary directory, deleted after
+    # 10d; the file stays in the page cache, so the store's "ssd" reads
+    # time an mmap copy here, not a disk
+    fpath = os.path.join(tmp, "features.npy")
+    t0 = time.perf_counter()
+    g.save_feature_file(fpath)
+    t_write = time.perf_counter() - t0
+    g_ram = dataclasses.replace(g, features=np.load(fpath))
+    g_file = dataclasses.replace(g, feature_file=fpath)
+    print(f"[store] feature table {g.n} x {g.feat_dim} f32 "
+          f"({os.path.getsize(fpath) / 1e6:.1f} MB) written in "
+          f"{t_write:.1f}s and loaded into RAM in "
+          f"{time.perf_counter() - t0 - t_write:.1f}s | {card}")
+    store_kw = dict(backend="device", device=device, seed=0,
+                    params=params, steps=STORE_STEPS,
+                    refresh_config=RefreshConfig(interval=STORE_REFRESH,
+                                                 drift_threshold=1.0))
+    # (name, graph, store lookahead or None, telemetry); the ram run
+    # again at the end gives the spread of the host times
+    arms = (("ram", g_ram, None, False),
+            ("ram+telemetry", g_ram, None, True),
+            ("file+store", g_file, STORE_LOOKAHEAD, True),
+            ("file+store lookahead 0", g_file, 0, False),
+            ("ram again", g_ram, None, False))
+    runs, walls = {}, {}
+    for name, graph, la, on in arms:
+        tele = None
+        if on:
+            stem = os.path.join(tmp, name.replace("+", "_"))
+            tele = Telemetry(TelemetryConfig(
+                jsonl_path=stem + ".jsonl", trace_path=stem + ".json",
+                window=4, run=name))
+        store = (None if la is None else FeatureStore(
+            graph, TieredStoreConfig(host_rows=STORE_HOST_ROWS,
+                                     lookahead=la)))
+        c = TrafficCounter.for_plan(plan)
+        tplan = fresh_copy(plan, graph)
         zero_launches(KERNELS)
-        srv.warmup()
-        srv.start()
         t0 = time.perf_counter()
-        futs = [srv.submit(r) for r in requests]
-        results = [f.result(timeout=900) for f in futs]
-        wall = time.perf_counter() - t0
-        srv.stop()
-        store.close()
-        tele.close()
-        phase_launches["store-serve"] = read_launches(KERNELS)
-        phase_routes["store-serve"] = read_routes(KERNELS)
-        s = srv.summary()
-        if phase_launches["store-serve"] != expect(
-                {"fused_gather_overlay": s["batches"],
-                 "routed_neighbor_sample": s["batches"]}):
-            raise AssertionError(f"store-serve launches "
-                                 f"{phase_launches['store-serve']} for "
-                                 f"{s['batches']} micro-batches")
-        expect_chains("store-serve", phase_routes["store-serve"],
-                      s["batches"])
-        if s["oracle_mismatches"] or s["oracle_checks"] != s["batches"]:
-            raise AssertionError(f"store-serve oracle check failed: {s}")
-        for req, res in zip(requests, results):
-            if res.logits.shape != (len(req), GRAPHSAGE.n_classes) \
-                    or not np.isfinite(res.logits).all():
-                raise AssertionError(f"bad reply for request "
-                                     f"{res.request_id}")
-        final, dig, kinds = check_stream(jsonl)
-        fc, c = final["counters"], srv.counter
-        for key in ("requests", "replies", "batches", "seeds", "pad_seeds",
-                    "flush_full", "flush_deadline", "oracle_checks",
-                    "oracle_mismatches", "forward_us"):
-            if fc[f"serve.{key}"]["total"] != s[key]:
-                raise AssertionError(f"serve.{key} {fc[f'serve.{key}']} != "
-                                     f"summary {s[key]}")
+        res = train_gnn(graph, tplan, GRAPHSAGE, counter=c,
+                        telemetry=tele, feature_store=store, **store_kw)
+        walls[name] = time.perf_counter() - t0
+        phase = f"store-train {name}"
+        phase_launches[phase] = read_launches(KERNELS)
+        phase_routes[phase] = read_routes(KERNELS)
+        admitting = sum(1 for e in res.refresh["events"]
+                        if e["admitted"] > 0)
+        want = expect({"fused_gather_overlay": STORE_STEPS,
+                       "scatter_rows": admitting,
+                       "routed_neighbor_sample": STORE_STEPS})
+        if phase_launches[phase] != want or res.refresh["refreshes"] < 1:
+            raise AssertionError(f"{phase}: launches "
+                                 f"{phase_launches[phase]}, expected "
+                                 f"{want}; refresh {res.refresh}")
+        expect_chains(phase, phase_routes[phase], STORE_STEPS)
+        runs[name] = (res, c, tele, store)
+        del tplan
+    a = runs["ram"][0]
+    for name, (res, c, tele, store) in runs.items():
+        if res.losses != a.losses or res.accs != a.accs:
+            raise AssertionError(f"{name} losses {res.losses} != ram "
+                                 f"{a.losses}")
+        if c.feature_requests != runs["ram"][1].feature_requests:
+            raise AssertionError(f"{name}: feature requests differ")
+    # without sampling ahead every tally is the storeless run's; with
+    # it the refresh at step 4 has observed the window's batches too
+    # (as in the reference), so it may admit other rows
+    for name in ("ram+telemetry", "file+store lookahead 0", "ram again"):
         for t in ("feature_requests", "feature_hits", "topo_requests",
                   "topo_hits", "pcie_transactions"):
-            if fc[f"traffic.{t}"]["total"] != getattr(c, t):
-                raise AssertionError(f"traffic.{t} != the counter's")
-        lat = np.array([r.latency_s for r in results]) * 1e3
-        ss = store.summary()
-        print(f"[store-serve] {N_REQUESTS} requests in {s['batches']} "
-              f"micro-batches over the file-backed table: "
-              f"{N_REQUESTS / wall:.2f} req/s, latency p50 "
-              f"{np.percentile(lat, 50):.2f} ms p99 "
-              f"{np.percentile(lat, 99):.2f} ms (closed burst, oracle check "
-              f"on, telemetry on); oracle mismatches 0 of "
-              f"{s['oracle_checks']}; stream {kinds} | {card}")
-        print(f"[store-serve] {store_tallies(ss)}; read_us "
-              f"{int(ss['ssd_read_s'] * 1e6)} stall_us "
-              f"{int(ss['stall_s'] * 1e6)}; serve.latency_s p50 "
-              f"{dig['histograms']['serve.latency_s']['p50'] * 1e3:.2f} ms "
-              f"(interpolated) | {card}")
-        del srv, store, g_file
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+            if getattr(runs[name][1], t) != getattr(runs["ram"][1], t):
+                raise AssertionError(f"{name}: counter {t} differs from "
+                                     "the ram run's")
+    for name, (res, c, tele, store) in runs.items():
+        st = np.array(res.step_times) * 1e3
+        p = res.pipeline
+        line = (f"[store] {name}: {STORE_STEPS} steps in "
+                f"{walls[name]:.3f}s wall; step median "
+                f"{np.median(st):.2f} ms (min {st.min():.2f}, max "
+                f"{st.max():.2f}); host build total "
+                f"{p['host_build_s_total']:.3f}s (sampled-ahead builds "
+                f"included), fill total {p['fill_s_total']:.3f}s; "
+                f"feature hits {c.feature_hits}/{c.feature_requests}, "
+                f"topo hits {c.topo_hits}/{c.topo_requests}")
+        print(line + f" | {card}")
+        if store is not None:
+            s = res.store
+            if s["hbm_requests"] != c.feature_requests \
+                    or s["hbm_hits"] != c.feature_hits \
+                    or s["host_requests"] != (s["hbm_requests"]
+                                              - s["hbm_hits"]):
+                raise AssertionError(f"{name}: store tallies {s} vs "
+                                     f"counter {c}")
+            print(f"[store] {name}: {store_tallies(s)}; read_us "
+                  f"{int(s['ssd_read_s'] * 1e6)} stall_us "
+                  f"{int(s['stall_s'] * 1e6)} (page-cache reads) "
+                  f"| {card}")
+        if tele is None:
+            continue
+        if res.telemetry["open_spans"] != 0:
+            raise AssertionError(f"{name}: open spans {res.telemetry}")
+        final, dig, kinds = check_stream(tele.config.jsonl_path,
+                                         tele.config.trace_path,
+                                         STORE_STEPS)
+        fc = final["counters"]
+        if fc["traffic.feature_hits"]["total"] != c.feature_hits:
+            raise AssertionError(f"{name}: stream feature hits differ")
+        if store is not None:
+            if not (fc["store.fill_rows{tier=ssd}"]["total"] > 0
+                    and fc["store.hits{tier=host_ram}"]["total"] > 0
+                    and fc["store.announced_batches"]["total"]
+                    == STORE_STEPS):
+                raise AssertionError(f"{name}: store counters {fc}")
+        spans = dig["spans"]
+        print(f"[store] {name} stream: {kinds}; spans "
+              + ", ".join(f"{k} x{v['count']} {v['mean_s'] * 1e3:.2f} ms"
+                          for k, v in sorted(spans.items()))
+              + f"; queue dry {dig['queue_dry_s']:.3f}s | {card}")
+    # with a window of 4 over 8 steps the last 4 builds sample nothing
+    # (the window sampled them during the first builds), so the step
+    # median flatters the lookahead run: the host build total and the
+    # wall count all of its work
+    for metric, v in (
+            ("step median", {k: float(np.median(r[0].step_times))
+                             for k, r in runs.items()}),
+            ("host build total", {k: r[0].pipeline["host_build_s_total"]
+                                  for k, r in runs.items()}),
+            ("wall", walls)):
+        print(f"[store] {metric} against ram: ram again "
+              f"{v['ram again'] / v['ram']:.4f}x, telemetry "
+              f"{v['ram+telemetry'] / v['ram']:.4f}x, file+store "
+              f"lookahead {STORE_LOOKAHEAD} "
+              f"{v['file+store'] / v['ram']:.4f}x, lookahead 0 "
+              f"{v['file+store lookahead 0'] / v['ram']:.4f}x | {card}")
+    names = profiled_span_names(torch, lambda: train_gnn(
+        g_ram, fresh_copy(plan, g_ram), GRAPHSAGE,
+        telemetry=TelemetryConfig(), **dict(store_kw, steps=2)))
+    missing = {"device_step", "spec_build", "finalize"} - names
+    if missing:
+        raise AssertionError(f"profiled telemetry run lacks the ranges "
+                             f"{missing}")
+    print(f"[store] a profiled 2-step run with telemetry shows the "
+          f"record_function ranges device_step, spec_build, finalize "
+          f"| {card}")
+    del runs, a, g_ram
+
+    # ---- 10c. the tiered store and telemetry in serving ----------------
+    jsonl = os.path.join(tmp, "serve.jsonl")
+    tele = Telemetry(TelemetryConfig(jsonl_path=jsonl, run="serve"))
+    store = FeatureStore(g_file, TieredStoreConfig(
+        host_rows=STORE_HOST_ROWS, lookahead=0))
+    srv = GNNServer(g_file, fresh_copy(plan, g_file), GRAPHSAGE, params,
+                    device=device, telemetry=tele, feature_store=store,
+                    config=ServeConfig(max_batch=MAX_BATCH,
+                                       oracle_check=True), seed=0)
+    tele.add_source("traffic", srv.counter.publish_metrics)
+    tele.add_source("store", store.publish_metrics)
+    req_rng = np.random.default_rng(1)
+    requests = [req_rng.integers(0, g.n, int(n))
+                for n in req_rng.integers(1, MAX_BATCH + 1, N_REQUESTS)]
+    zero_launches(KERNELS)
+    srv.warmup()
+    srv.start()
+    t0 = time.perf_counter()
+    futs = [srv.submit(r) for r in requests]
+    results = [f.result(timeout=900) for f in futs]
+    wall = time.perf_counter() - t0
+    srv.stop()
+    store.close()
+    tele.close()
+    phase_launches["store-serve"] = read_launches(KERNELS)
+    phase_routes["store-serve"] = read_routes(KERNELS)
+    s = srv.summary()
+    if phase_launches["store-serve"] != expect(
+            {"fused_gather_overlay": s["batches"],
+             "routed_neighbor_sample": s["batches"]}):
+        raise AssertionError(f"store-serve launches "
+                             f"{phase_launches['store-serve']} for "
+                             f"{s['batches']} micro-batches")
+    expect_chains("store-serve", phase_routes["store-serve"],
+                  s["batches"])
+    if s["oracle_mismatches"] or s["oracle_checks"] != s["batches"]:
+        raise AssertionError(f"store-serve oracle check failed: {s}")
+    for req, res in zip(requests, results):
+        if res.logits.shape != (len(req), GRAPHSAGE.n_classes) \
+                or not np.isfinite(res.logits).all():
+            raise AssertionError(f"bad reply for request "
+                                 f"{res.request_id}")
+    final, dig, kinds = check_stream(jsonl)
+    fc, c = final["counters"], srv.counter
+    for key in ("requests", "replies", "batches", "seeds", "pad_seeds",
+                "flush_full", "flush_deadline", "oracle_checks",
+                "oracle_mismatches", "forward_us"):
+        if fc[f"serve.{key}"]["total"] != s[key]:
+            raise AssertionError(f"serve.{key} {fc[f'serve.{key}']} != "
+                                 f"summary {s[key]}")
+    for t in ("feature_requests", "feature_hits", "topo_requests",
+              "topo_hits", "pcie_transactions"):
+        if fc[f"traffic.{t}"]["total"] != getattr(c, t):
+            raise AssertionError(f"traffic.{t} != the counter's")
+    lat = np.array([r.latency_s for r in results]) * 1e3
+    ss = store.summary()
+    print(f"[store-serve] {N_REQUESTS} requests in {s['batches']} "
+          f"micro-batches over the file-backed table: "
+          f"{N_REQUESTS / wall:.2f} req/s, latency p50 "
+          f"{np.percentile(lat, 50):.2f} ms p99 "
+          f"{np.percentile(lat, 99):.2f} ms (closed burst, oracle check "
+          f"on, telemetry on); oracle mismatches 0 of "
+          f"{s['oracle_checks']}; stream {kinds} | {card}")
+    print(f"[store-serve] {store_tallies(ss)}; read_us "
+          f"{int(ss['ssd_read_s'] * 1e6)} stall_us "
+          f"{int(ss['stall_s'] * 1e6)}; serve.latency_s p50 "
+          f"{dig['histograms']['serve.latency_s']['p50'] * 1e3:.2f} ms "
+          f"(interpolated) | {card}")
+    del srv, store, g_file
+    return fpath
+
+
+# ---- resilience (phase 10d) -------------------------------------------------
+
+def resilience_tallies(res) -> dict:
+    """What a run's result says its faults and recoveries were, under the
+    telemetry counters' names."""
+    p, s, r = res.pipeline, res.store, res.resilience
+    out = {"fault.worker_deaths": p["worker_deaths"],
+           "recovery.worker_restarts": p["worker_restarts"],
+           "recovery.remesh_events": r["remesh_events"],
+           "recovery.devices_lost": r["devices_lost"],
+           "recovery.remesh_us": int(r["remesh_s"] * 1e6),
+           "recovery.restore_us": int(r["restore_s"] * 1e6),
+           "recovery.cache_rebuilds": r["cache_rebuilds"],
+           "recovery.runtime_restores": int(r["runtime_restored"])}
+    if s:
+        out["fault.ssd_read_errors"] = s["read_errors"]
+        out["recovery.ssd_read_retries"] = s["read_retries"]
+    if "checkpoint" in r:
+        c = r["checkpoint"]
+        out["checkpoint.saves"] = c["saves"]
+        out["fault.checkpoint_write_errors"] = c["write_errors"]
+        out["recovery.checkpoint_retries"] = c["retries_used"]
+    if "faults" in r:
+        injected = {k[len("injected_"):]: v for k, v in r["faults"].items()}
+        for site, n in injected.items():
+            out[f"fault.injected{{site={site}}}"] = n
+        out["fault.injected_total"] = sum(injected.values())
+    return out
+
+
+def resilience_phases(torch, np, g, plan, splan, params, fpath: str,
+                      card: str, phase_launches: dict, phase_routes: dict,
+                      tmp: str, device: str = "cuda") -> None:
+    """Phase 10d: kill and resume, injected faults and the device-loss
+    remesh in ``train_gnn``, then ``--ckpt``/``--resume`` of both CLIs,
+    each run's launches recorded in ``phase_launches``/``phase_routes``."""
+    import io
+
+    from repro_torch.configs.legion_gnn import GRAPHSAGE
+    from repro_torch.core.cache_manager import RefreshConfig
+    from repro_torch.core.feature_store import TieredStoreConfig
+    from repro_torch.core.unified_cache import TrafficCounter
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.obs import Telemetry, TelemetryConfig
+    from repro_torch.obs.report import print_report
+    from repro_torch.train.checkpoint import (AsyncCheckpointer,
+                                              latest_checkpoint,
+                                              restore_checkpoint)
+    from repro_torch.train.loop import train_gnn
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.resilience import (FaultPlan, FaultSpec,
+                                              ResilienceConfig)
+
+    def record(phase):
+        phase_launches[phase] = read_launches(KERNELS)
+        phase_routes[phase] = read_routes(KERNELS)
+
+    def admitting(res, since: int = 0) -> int:
+        return sum(1 for e in res.refresh["events"]
+                   if e["admitted"] > 0 and e["step"] >= since)
+
+    def check_launches(phase, want, chains):
+        if phase_launches[phase] != expect(want):
+            raise AssertionError(f"{phase}: launches {phase_launches[phase]}"
+                                 f", expected {expect(want)}")
+        expect_chains(phase, phase_routes[phase], chains)
+
+    # ---- (a) kill and resume at paper width, the table only in the file --
+    N, half = RESIL_STEPS, RESIL_STEPS // 2
+    g_file = dataclasses.replace(g, feature_file=fpath)
+    rc = RefreshConfig(interval=STORE_REFRESH, drift_threshold=1.0)
+    store_cfg = TieredStoreConfig(host_rows=STORE_HOST_ROWS,
+                                  lookahead=RESIL_LOOKAHEAD)
+    kw = dict(backend="device", device=device, seed=0, params=params,
+              refresh_config=rc, feature_store=store_cfg, prefetch_workers=1)
+    ck = os.path.join(tmp, "ckpt")
+    runs = {}
+    for name, over in (("uninterrupted", dict(steps=N)),
+                       ("killed", dict(steps=half, checkpoint_dir=ck,
+                                       checkpoint_every=2)),
+                       ("resumed", dict(steps=N, checkpoint_dir=ck,
+                                        resume=True))):
+        tplan = fresh_copy(plan, g_file)
+        zero_launches(KERNELS)
+        t0 = time.perf_counter()
+        runs[name] = train_gnn(g_file, tplan, GRAPHSAGE, **kw, **over)
+        wall = time.perf_counter() - t0
+        record(f"resil-{name}")
+        res = runs[name]
+        print(f"[resil] {name}: {len(res.losses)} steps in {wall:.3f}s "
+              f"wall, step median "
+              f"{np.median(res.step_times) * 1e3:.2f} ms; refreshes "
+              f"{[(e['step'], e['admitted']) for e in res.refresh['events']]}"
+              f" | {card}")
+        del tplan
+    full, killed, resumed = (runs[k] for k in ("uninterrupted", "killed",
+                                                "resumed"))
+    if killed.losses + resumed.losses != full.losses:
+        raise AssertionError(f"kill and resume: {killed.losses} + "
+                             f"{resumed.losses} != {full.losses}")
+    r = resumed.resilience
+    if r["resumed_from_step"] != half or r["runtime_restored"] is not True \
+            or resumed.steps != N - half:
+        raise AssertionError(f"resume: {r}, steps {resumed.steps}")
+    # one fused gather and one sampling chain a consumed step (one device),
+    # a scatter per admitting refresh (the killed run stops before its
+    # first); the restore's reapply runs before the builders upload the
+    # fresh plan copy's cache, so it changes the host mirror only
+    for name, steps, scatter_n in (
+            ("uninterrupted", N, admitting(full)), ("killed", half, 0),
+            ("resumed", N - half, admitting(resumed, since=half))):
+        check_launches(f"resil-{name}",
+                       {"fused_gather_overlay": steps,
+                        "routed_neighbor_sample": steps,
+                        "scatter_rows": scatter_n}, steps)
+    # the restore as the resumed run timed it (the file's load, the
+    # manager's reapply, the store's refill); then one save() of the
+    # restored state, timed on the caller (a separate save, of the same
+    # tree and runtime payload as the run's)
+    path = latest_checkpoint(ck)
+    like = (params, adamw(GRAPHSAGE.lr).init(params))  # a template only
+    step, tree, rt = restore_checkpoint(path, like, with_runtime=True)
+    ck2 = AsyncCheckpointer(os.path.join(tmp, "ckpt_save"))
+    t0 = time.perf_counter()
+    ck2.save(step, tree, runtime=rt)
+    t_save = time.perf_counter() - t0
+    ck2.close()
+    t_write = time.perf_counter() - t0 - t_save
+    with np.load(path) as data:
+        rt_bytes = data["__runtime"].nbytes
+    print(f"[resil] kill at step {half} and resume: losses bitwise the "
+          f"uninterrupted run's over {N} steps at batch "
+          f"{GRAPHSAGE.batch_size}; restore in the resumed run "
+          f"{r['restore_s']:.3f}s (the file's load, the manager's reapply, "
+          f"the store's refill); a save() of the restored state "
+          f"{t_save * 1e3:.3f} ms on the caller (the write {t_write:.3f}s "
+          f"in the background); checkpoint "
+          f"{os.path.getsize(path) / 1e6:.3f} MB ({rt_bytes / 1e6:.3f} MB "
+          f"of it runtime state) | {card}")
+    del tree, rt, like
+
+    # ---- (b) faults are transparent --------------------------------------
+    fp = FaultPlan([FaultSpec("prefetch_build", step=3),
+                    FaultSpec("checkpoint_write", at_call=0),
+                    FaultSpec("ssd_read", at_call=3, times=2),
+                    FaultSpec("ssd_stall", at_call=8, stall_s=0.01)])
+    jsonl = os.path.join(tmp, "faults.jsonl")
+    tele = Telemetry(TelemetryConfig(jsonl_path=jsonl, window=4,
+                                     run="faults"))
+    zero_launches(KERNELS)
+    t0 = time.perf_counter()
+    res = train_gnn(g_file, fresh_copy(plan, g_file), GRAPHSAGE, **kw,
+                    steps=N, checkpoint_dir=os.path.join(tmp, "ckpt_faults"),
+                    checkpoint_every=half, telemetry=tele,
+                    resilience=ResilienceConfig(fault_plan=fp))
+    wall = time.perf_counter() - t0
+    record("resil-faults")
+    if res.losses != full.losses:
+        raise AssertionError(f"faults: losses {res.losses} != "
+                             f"{full.losses}")
+    r, p, s = res.resilience, res.pipeline, res.store
+    want = {"injected_prefetch_build": 1, "injected_checkpoint_write": 1,
+            "injected_ssd_read": 2, "injected_ssd_stall": 1}
+    got = {"worker_deaths": p["worker_deaths"],
+           "worker_restarts": p["worker_restarts"],
+           "read_errors": s["read_errors"], "read_retries": s["read_retries"],
+           "write_errors": r["checkpoint"]["write_errors"],
+           "retries_used": r["checkpoint"]["retries_used"]}
+    if r["faults"] != want or got != dict.fromkeys(got, 1) | {
+            "read_errors": 2, "read_retries": 2}:
+        raise AssertionError(f"faults: injected {r['faults']}, recovered "
+                             f"{got}")
+    check_launches("resil-faults",
+                   {"fused_gather_overlay": N, "routed_neighbor_sample": N,
+                    "scatter_rows": admitting(res)}, N)
+    final, dig, _ = check_stream(jsonl, steps=N)
+    tele_totals = {k: c["total"] for k, c in final["counters"].items()
+                   if k.startswith(("fault.", "recovery.", "checkpoint."))}
+    if tele_totals != resilience_tallies(res):
+        raise AssertionError(f"telemetry {tele_totals} != the result's "
+                             f"{resilience_tallies(res)}")
+    out = io.StringIO()
+    print_report(dig, out=out)
+    line = [ln for ln in out.getvalue().splitlines()
+            if ln.startswith("faults/recovery: ")]
+    if len(line) != 1:
+        raise AssertionError("the report prints no faults/recovery line")
+    print(f"[resil] faults: {N} steps in {wall:.3f}s, losses bitwise the "
+          f"uninterrupted run's; injected {r['faults']}; recovered {got}; "
+          f"saves {r['checkpoint']['saves']}; store stall_us "
+          f"{int(s['stall_s'] * 1e6)} | {card}")
+    print(f"[resil] report: {line[0]} | {card}")
+
+    # ---- (c) the device-loss remesh on the 2 x 2 plan ---------------------
+    at, dead = RESIL_LOSS
+    n_pos = sum(len(c) for c in splan.partition.cliques)
+    cfg_p = dataclasses.replace(GRAPHSAGE, batch_size=PARITY_BATCH)
+    tallies = ("feature_requests", "feature_hits", "topo_requests",
+               "topo_hits", "pcie_transactions", "host_sample_syncs",
+               "host_sampled_edges")
+
+    def lose(backend, cfg, fault=True, steps=N):
+        c = TrafficCounter.for_plan(splan)
+        fp = FaultPlan([FaultSpec("device_loss", step=at, dev=dead)])
+        res = train_gnn(g, fresh_copy(splan), cfg, steps=steps, counter=c,
+                        backend=backend, device=device, seed=0,
+                        params=params,
+                        resilience=(ResilienceConfig(fault_plan=fp)
+                                    if fault else None))
+        return res, c
+
+    def events(res):
+        return [{k: v for k, v in e.items() if k not in ("remesh_s",
+                                                          "backend")}
+                for e in res.resilience["events"]]
+
+    def old_builds(res, steps=N):
+        """Batches the pipeline before the loss built: every step's batch
+        through the lost one, and the ones it had run ahead by when the
+        loss was seen (the new pipeline builds steps at..steps-1)."""
+        return res.pipeline["batches_built"] - (steps - at)
+
+    clean, _ = lose("device", cfg_p, fault=False)
+    host, _ = lose("host", cfg_p)
+    zero_launches(KERNELS)
+    dev1, _ = lose("device", cfg_p)
+    dev2, _ = lose("device", cfg_p)
+    record("resil-remesh-parity")
+    if host.losses != dev1.losses or dev1.losses != dev2.losses \
+            or events(host) != events(dev1) or events(dev1) != events(dev2):
+        raise AssertionError(f"remesh parity: host {host.losses} "
+                             f"{events(host)}, device {dev1.losses} "
+                             f"{events(dev1)}, again {dev2.losses}")
+    if dev1.losses[:at] != clean.losses[:at]:
+        raise AssertionError(f"steps before the loss {dev1.losses[:at]} != "
+                             f"the fault-free run's {clean.losses[:at]}")
+    ev = dev1.resilience["events"]
+    if ev[0]["survivors"] != n_pos - 1 or dev1.backend != "device":
+        raise AssertionError(f"remesh events {ev}")
+    ahead = [old_builds(r) - (at + 1) for r in (host, dev1, dev2)]
+    if min(ahead) < 0:
+        raise AssertionError(f"remesh: old pipelines built {ahead} batches "
+                             f"past the lost step")
+    # per run: one fused gather a device and consumed step (4 devices before
+    # the loss, 3 after) plus the discarded step's 4; one chain a spec
+    # build: 4 a batch the old pipeline built (through the lost step, and
+    # those it ran ahead by), 3 a batch of the new one
+    fused = n_pos * at + n_pos + (n_pos - 1) * (N - at)
+    chains = sum(n_pos * old_builds(r) + (n_pos - 1) * (N - at)
+                 for r in (dev1, dev2))
+    check_launches("resil-remesh-parity",
+                   {"fused_gather_overlay": 2 * fused,
+                    "routed_neighbor_sample": chains}, chains)
+    # the traffic tallies count the run-ahead builds' sampling and fills,
+    # so they are held where the old pipeline has built every batch: a
+    # loss at the last step
+    last = at + 1
+    host_l, hc = lose("host", cfg_p, steps=last)
+    zero_launches(KERNELS)
+    dev_l, dc = lose("device", cfg_p, steps=last)
+    record("resil-remesh-last")
+    if host_l.losses != dev_l.losses or events(host_l) != events(dev_l) \
+            or dev_l.pipeline["batches_built"] != last + 1:
+        raise AssertionError(f"remesh at the last step: host "
+                             f"{host_l.losses}, device {dev_l.losses}, "
+                             f"built {dev_l.pipeline['batches_built']}")
+    for t in tallies:
+        if getattr(hc, t) != getattr(dc, t):
+            raise AssertionError(f"remesh at the last step: counter {t} "
+                                 f"differs")
+    check_launches("resil-remesh-last",
+                   {"fused_gather_overlay": n_pos * last + (n_pos - 1),
+                    "routed_neighbor_sample": n_pos * last + (n_pos - 1)},
+                   n_pos * last + (n_pos - 1))
+    print(f"[resil] remesh at batch {PARITY_BATCH}: device {dead} lost at "
+          f"step {at} of {N}; host == device == device again bitwise "
+          f"(losses, events); steps 0-{at - 1} bitwise the fault-free "
+          f"run's; the old pipelines had built {ahead} batches past the "
+          f"lost step (host, device, device), discarded with it; lost at "
+          f"the last of {last} steps, host == device bitwise in the traffic "
+          f"tallies too; remesh_s host "
+          f"{host.resilience['remesh_s']:.3f}, device "
+          f"{dev1.resilience['remesh_s']:.3f} and "
+          f"{dev2.resilience['remesh_s']:.3f} | {card}")
+    del host, dev1, dev2, clean, host_l, dev_l
+
+    clean, _ = lose("sharded", GRAPHSAGE, fault=False)
+    zero_launches(KERNELS)
+    t0 = time.perf_counter()
+    res, _ = lose("sharded", GRAPHSAGE)
+    wall = time.perf_counter() - t0
+    record("resil-remesh-sharded")
+    r = res.resilience
+    if res.losses[:at] != clean.losses[:at] or res.backend != "device" \
+            or r["remesh_events"] != 1 or r["events"][0]["survivors"] != 3 \
+            or len(res.losses) != N or not np.isfinite(res.losses).all() \
+            or old_builds(res) < at + 1:
+        raise AssertionError(f"sharded remesh: {res.losses} vs "
+                             f"{clean.losses}, backend {res.backend}, {r}, "
+                             f"built {res.pipeline['batches_built']}")
+    # the sharded steps before the loss: a routed gather a position and
+    # step; the discarded batches (packed uploads) launch nothing; after
+    # the loss the device backend on the 3 survivors
+    builds = n_pos * old_builds(res) + (n_pos - 1) * (N - at)
+    check_launches("resil-remesh-sharded",
+                   {"routed_gather": n_pos * at,
+                    "fused_gather_overlay": (n_pos - 1) * (N - at),
+                    "routed_neighbor_sample": builds}, builds)
+    st = np.array(res.step_times) * 1e3
+    print(f"[resil] remesh at batch {GRAPHSAGE.batch_size}, sharded 2 x 2: "
+          f"device {dead} lost at step {at}; steps 0-{at - 1} bitwise the "
+          f"fault-free sharded run's; then the device backend on "
+          f"{r['events'][0]['survivors']} survivors; the old pipeline had "
+          f"built {old_builds(res) - at - 1} batches past the lost step; "
+          f"remesh_s {r['remesh_s']:.3f} (closing the old pipeline, the "
+          f"replan at {g.n} vertices, a fresh pipeline); step median "
+          f"before {np.median(st[:at]):.2f} ms, after "
+          f"{np.median(st[at:]):.2f} ms; {N} steps in {wall:.3f}s "
+          f"wall | {card}")
+    del res, clean
+
+    # ---- (d) the CLIs: --ckpt, then --resume, on the card ----------------
+    first, total = RESIL_CLI_STEPS
+    for name, argv in (
+            ("lm", ["--arch", LM_ARCH, "--smoke"]),
+            ("gnn", ["--gnn", "sage", "--max-vertices",
+                     str(RESIL_CLI_VERTICES)])):
+        d = os.path.join(tmp, f"cli_{name}")
+        argv = argv + ["--device", device]
+        zero_launches(KERNELS)
+        out = [tlaunch.main(argv + ["--steps", str(total)]),
+               tlaunch.main(argv + ["--steps", str(first), "--ckpt", d]),
+               tlaunch.main(argv + ["--steps", str(total), "--ckpt", d,
+                                    "--resume"])]
+        record(f"resil-cli-{name}")
+        full_l, a, b = (o if isinstance(o, list) else o.losses for o in out)
+        if a + b != full_l or len(full_l) != total:
+            raise AssertionError(f"{name} CLI: {a} + {b} != {full_l}")
+        if name == "lm":
+            from repro_torch.configs import get_config
+
+            L = get_config(LM_ARCH, smoke=True).n_layers
+            want = {"flash_attention": 2 * total * L,
+                    "flash_attention_bwd": 2 * total * L}
+        else:
+            want = {}  # the CLI trains on the host backend: no kernel
+        if phase_launches[f"resil-cli-{name}"] != expect(want):
+            raise AssertionError(f"{name} CLI launches "
+                                 f"{phase_launches[f'resil-cli-{name}']}, "
+                                 f"expected {expect(want)}")
+        print(f"[resil] {name} CLI on {device}: --ckpt for {first} steps, "
+              f"--resume to {total}: losses {a} + {b} bitwise the "
+              f"{total}-step run's | {card}")
 
 
 # ---- the sharded executor (phases 4, 9 and 10) ------------------------------
@@ -2924,12 +3319,17 @@ def main() -> int:
           f"{s1.refresh['admitted']}; per-position batches bitwise equal to "
           f"the fused finalize | {card}")
     print(f"[shard-parity] sharded losses {s1.losses} | {card}")
-    del splan
 
-    # ---- 10b and 10c. the tiered store and telemetry ------------------------
-    store_phases(torch, np, g, plan, params, card, phase_launches,
-                 phase_routes)
-    del plan, g
+    # ---- 10b, 10c and 10d. the tiered store, telemetry, resilience --------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        fpath = store_phases(torch, np, g, plan, params, card, phase_launches,
+                             phase_routes, tmp)
+        resilience_phases(torch, np, g, plan, splan, params, fpath, card,
+                          phase_launches, phase_routes, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del plan, splan, g
 
     # ---- 11. LM: gemma3-1b at full width, its attention kernel -------------
     lm = get_config(LM_ARCH)

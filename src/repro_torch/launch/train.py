@@ -14,7 +14,12 @@ It runs on the card unless ``--device cpu`` is given.  LM weights are
 random, drawn from ``--seed`` with a CPU ``torch.Generator`` (the
 reference's can be carried over with ``models.convert.params_from_jax``);
 batches are numpy draws from ``--seed + step``, as in the reference.
-``--ckpt`` and ``--resume`` are not ported yet.
+
+``--ckpt DIR`` writes checkpoints there (every ``--ckpt-every`` steps and
+at the end; the reference's file format, ``train/checkpoint.py``);
+``--resume`` restarts from the newest one and continues the per-step batch
+sequence.  For the GNN they are ``train_gnn``'s ``checkpoint_dir`` and
+``resume``, which also restore the sampler, cache-manager and store state.
 """
 from __future__ import annotations
 
@@ -25,9 +30,6 @@ import numpy as np
 import torch
 
 from repro_torch.utils import resolve_device
-
-# the ROADMAP item that brings --ckpt / --resume
-CHECKPOINT_ITEM = "ROADMAP queue 1, item 6: resilience, with checkpoint and resume"
 
 
 def make_batch(cfg, batch: int, seq: int, seed: int, step: int,
@@ -63,34 +65,58 @@ def train_step(cfg, params: dict, opt, opt_state: dict, batch: dict):
 
 
 def train_lm(args):
+    """The LM loop; returns the losses of the steps it ran."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_module
     from repro_torch.models.params import init_from_defs
+    from repro_torch.train.checkpoint import (AsyncCheckpointer,
+                                              latest_checkpoint,
+                                              restore_checkpoint)
     from repro_torch.train.optimizer import adamw
     from repro_torch.train.pipeline import StragglerMonitor
     from repro_torch.utils import synchronize
 
-    if args.ckpt or args.resume:
-        raise NotImplementedError(f"--ckpt / --resume are not ported yet "
-                                  f"({CHECKPOINT_ITEM})")
     cfg = get_config(args.arch, smoke=args.smoke)
     dev = resolve_device(args.device)
     params = init_from_defs(get_module(cfg).defs(cfg),
                             torch.Generator().manual_seed(args.seed), dev)
     opt = adamw(args.lr)
     opt_state = opt.init(params)
+    step0 = 0
+    ckpt = AsyncCheckpointer(args.ckpt) if args.ckpt else None
+    if ckpt and args.resume:
+        path = latest_checkpoint(args.ckpt)
+        if path:
+            step0, (params, opt_state) = restore_checkpoint(
+                path, (params, opt_state))
+            print(f"resumed from step {step0}")
     mon = StragglerMonitor()
     losses = []
-    for step in range(args.steps):
-        t0 = time.perf_counter()
-        batch = make_batch(cfg, args.batch, args.seq, args.seed, step, dev)
-        params, opt_state, loss = train_step(cfg, params, opt, opt_state,
-                                             batch)
-        synchronize(dev)
-        mon.record(time.perf_counter() - t0)
-        losses.append(float(loss))
-        if step % max(args.steps // 10, 1) == 0:
-            print(f"step {step:5d} loss {losses[-1]:.4f}")
+    reached = step0
+    try:
+        for step in range(step0, args.steps):
+            t0 = time.perf_counter()
+            batch = make_batch(cfg, args.batch, args.seq, args.seed, step,
+                               dev)
+            new_params, new_opt, loss = train_step(cfg, params, opt,
+                                                   opt_state, batch)
+            synchronize(dev)
+            # the step is done: its state and the step count move together,
+            # so after an exception before here (a Ctrl-C in the wait) the
+            # final checkpoint is labelled with this step and holds the
+            # parameters before it
+            params, opt_state, reached = new_params, new_opt, step + 1
+            mon.record(time.perf_counter() - t0)
+            losses.append(float(loss))
+            if step % max(args.steps // 10, 1) == 0:
+                print(f"step {step:5d} loss {losses[-1]:.4f}")
+            if ckpt and (step + 1) % args.ckpt_every == 0:
+                ckpt.save(step + 1, (params, opt_state))
+    finally:
+        if ckpt:
+            # the step actually reached, never one the run did not get to
+            ckpt.save(reached, (params, opt_state))
+            ckpt.close()
     print("straggler summary:", mon.summary())
     return losses
 
@@ -102,9 +128,6 @@ def train_gnn_cli(args):
     from repro_torch.models.gnn import GNNConfig
     from repro_torch.train.loop import train_gnn
 
-    if args.ckpt or args.resume:
-        raise NotImplementedError(f"--ckpt / --resume are not ported yet "
-                                  f"({CHECKPOINT_ITEM})")
     g = synthetic_instance(args.dataset, max_vertices=args.max_vertices,
                            seed=args.seed)
     print(f"dataset {args.dataset}: |V|={g.n} |E|={g.nnz} D={g.feat_dim}")
@@ -117,9 +140,13 @@ def train_gnn_cli(args):
     cfg = GNNConfig(model=args.gnn, feat_dim=g.feat_dim, hidden=args.hidden,
                     batch_size=args.batch, fanouts=(25, 10), lr=args.lr)
     res = train_gnn(g, plan, cfg, steps=args.steps, seed=args.seed,
-                    device=args.device)
-    print(f"loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}  "
-          f"acc {res.accs[-1]:.3f}")
+                    device=args.device, checkpoint_dir=args.ckpt,
+                    checkpoint_every=args.ckpt_every, resume=args.resume)
+    if res.resilience.get("resumed_from_step") is not None:
+        print(f"resumed from step {res.resilience['resumed_from_step']}")
+    if res.losses:
+        print(f"loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}  "
+              f"acc {res.accs[-1]:.3f}")
     print(f"feature hit rate {res.counter.feature_hit_rate:.3f}  "
           f"topology hit rate {res.counter.topo_hit_rate:.3f}  "
           f"PCIe tx {res.counter.pcie_transactions}")
@@ -150,11 +177,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.gnn:
-        train_gnn_cli(args)
-    elif args.arch:
-        train_lm(args)
-    else:
-        raise SystemExit("pass --arch <id> or --gnn sage|gcn")
+        return train_gnn_cli(args)
+    if args.arch:
+        return train_lm(args)
+    raise SystemExit("pass --arch <id> or --gnn sage|gcn")
 
 
 if __name__ == "__main__":

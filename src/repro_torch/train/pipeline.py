@@ -54,7 +54,8 @@ class Prefetcher:
                  part_group_sizes: Optional[List[int]] = None,
                  workers: Optional[int] = None,
                  extra_summary: Optional[Callable[[], dict]] = None,
-                 telemetry=None, start_step: int = 0):
+                 telemetry=None, start_step: int = 0,
+                 max_restarts: int = 0, fault_plan=None):
         """``limit`` bounds the number of batches produced (the train loop
         passes its step count): without it the worker keeps building ahead
         until ``close()``, and side effects of building (traffic
@@ -90,8 +91,18 @@ class Prefetcher:
         histograms.  With the default ``None`` not one telemetry
         instruction runs.
 
-        ``start_step`` is the first step built; ``limit`` counts batches
-        from there."""
+        ``start_step`` is the first step built (a resumed run passes its
+        checkpoint boundary); ``limit`` counts batches from there.
+
+        ``max_restarts`` bounds worker respawns: when the coordinator
+        thread dies of an ordinary ``Exception`` a fresh thread re-enters
+        the loop at the *same* step (``self._step`` advances only on
+        success, and the injected-fault site sits before the hook and the
+        build consume any RNG, so a respawned build replays nothing).  Past
+        the bound, or on a ``BaseException``, the exception surfaces
+        through ``get()``/``close()``.  ``fault_plan`` (a
+        ``repro_torch.train.resilience.FaultPlan``) injects
+        ``prefetch_build`` faults at the step boundary."""
         if (batch_fn is None) == (part_fns is None):
             raise ValueError("pass exactly one of batch_fn / part_fns")
         self._batch_fn = batch_fn
@@ -121,6 +132,10 @@ class Prefetcher:
         self._step = int(start_step)
         self._start = int(start_step)
         self._limit = limit
+        self._max_restarts = int(max_restarts)
+        self._fault_plan = fault_plan
+        self.worker_deaths = 0
+        self.worker_restarts = 0
         self._hook = pre_batch_hook
         self._pack_fn = pack_fn
         self._extra_summary = extra_summary
@@ -163,10 +178,26 @@ class Prefetcher:
         return self._regroup([f.result() for f in futs])
 
     def _worker(self):
+        """Thread target: run the build loop, respawning (bounded) on an
+        ordinary Exception.  The loop re-enters at the step that failed:
+        ``self._step`` advances only after a successful build and enqueue,
+        and the injection site fires before the hook or the build run, so a
+        respawned attempt replays no RNG draw and no accounting."""
         try:
             self._worker_loop()
         except Exception as e:
-            self._exc = e  # surfaced on the next get() or at close()
+            self.worker_deaths += 1
+            if (self.worker_restarts < self._max_restarts
+                    and not self._stop.is_set()):
+                self.worker_restarts += 1
+                t = threading.Thread(target=self._worker, daemon=True,
+                                     name="prefetch-coordinator")
+                self._thread = t
+                t.start()
+            else:
+                self._exc = e  # surfaced on the next get() or at close()
+        except BaseException as e:  # never restarted
+            self._exc = e
 
     def _worker_loop(self):
         tele = self._tele
@@ -174,6 +205,8 @@ class Prefetcher:
             if self._limit is not None \
                     and self._step - self._start >= self._limit:
                 return
+            if self._fault_plan is not None:
+                self._fault_plan.raise_if("prefetch_build", step=self._step)
             if self._hook is not None:
                 if tele is not None:
                     with tele.span("refresh_hook", step=self._step):
@@ -251,7 +284,9 @@ class Prefetcher:
                "host_pack_s_mean": self._pack_s / max(self._built, 1),
                "queue_dry_s_total": self._dry_s,
                "queue_dry_s_mean": self._dry_s / max(self._gets, 1),
-               "build_workers": self._workers}
+               "build_workers": self._workers,
+               "worker_deaths": self.worker_deaths,
+               "worker_restarts": self.worker_restarts}
         if self._extra_summary is not None:
             extra = self._extra_summary()
             clash = sorted(set(extra) & set(out))
@@ -283,6 +318,10 @@ class Prefetcher:
             tot("host_pack_s_total", self._pack_s))
         reg.counter("prefetch.queue_dry_s").set_total(
             tot("queue_dry_s_total", self._dry_s))
+        reg.counter("fault.worker_deaths").set_total(
+            tot("worker_deaths", self.worker_deaths))
+        reg.counter("recovery.worker_restarts").set_total(
+            tot("worker_restarts", self.worker_restarts))
         reg.gauge("prefetch.queue_depth").set(self._q.qsize())
         reg.gauge("prefetch.build_workers").set(self._workers)
 
@@ -291,7 +330,11 @@ class Prefetcher:
         ``get()`` re-raises here: a failure in the last prefetched batches
         (or in a refresh hook) must not vanish at shutdown."""
         self._stop.set()
-        self._thread.join(timeout=5)
+        t = self._thread
+        t.join(timeout=5)
+        if self._thread is not t:
+            # a respawn raced the stop flag: join the replacement too
+            self._thread.join(timeout=5)
         if self._pool is not None:
             self._pool.shutdown(wait=False)
         if self._exc is not None and not self._exc_raised:

@@ -104,3 +104,28 @@ def test_obs_and_store_import_with_jax_and_reference_blocked():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "1"
+
+
+_RESILIENCE = """
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name in ("jax", "repro") or name.startswith(("jax.", "repro.")):
+            raise ImportError(f"blocked: {name}")
+sys.meta_path.insert(0, Block())
+import repro_torch.train.checkpoint as ck
+import repro_torch.train.resilience as rs
+import repro_torch.core.planner as pl
+plan = rs.FaultPlan([rs.FaultSpec("prefetch_build", step=1)])
+print(ck.MANIFEST_VERSION, callable(pl.replan_on_topology_change),
+      plan.summary())
+"""
+
+
+def test_checkpoint_and_resilience_import_with_jax_and_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _RESILIENCE], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "1 True {'injected_prefetch_build': 0}"

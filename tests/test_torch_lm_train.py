@@ -249,13 +249,69 @@ def test_train_cli_runs_gnn_on_the_cpu(capsys):
     assert "dataset PR" in out and "feature hit rate" in out
 
 
-@pytest.mark.parametrize("argv", [
-    ["--arch", "gemma3-1b", "--smoke", "--ckpt", "ck"],
-    ["--arch", "gemma3-1b", "--smoke", "--resume"],
-    ["--gnn", "sage", "--max-vertices", "2000", "--ckpt", "ck"]])
-def test_train_cli_checkpoint_options_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        tlaunch.main(argv + ["--steps", "1", "--device", "cpu"])
+LM_ARGV = ["--arch", "gemma3-1b", "--smoke", "--device", "cpu"]
+GNN_ARGV = ["--gnn", "sage", "--max-vertices", "2000", "--device", "cpu"]
+
+
+def _cli_losses(out):
+    return out if isinstance(out, list) else out.losses
+
+
+@pytest.mark.parametrize("argv, first, total", [
+    (LM_ARGV, 2, 4), (LM_ARGV, 4, 4), (GNN_ARGV, 2, 4), (GNN_ARGV, 3, 3)])
+def test_train_cli_checkpoint_then_resume(tmp_path, capsys, argv, first,
+                                          total):
+    """--ckpt for ``first`` steps, then --resume to ``total``: the stitched
+    losses are bitwise the uninterrupted run's (the LM's per-step batches
+    continue from the step; the GNN's sampler RNGs come back from the
+    checkpoint's runtime state).  A checkpoint at ``total`` resumes to an
+    empty run."""
+    full = _cli_losses(tlaunch.main(argv + ["--steps", str(total)]))
+    ck = str(tmp_path / "ck")
+    a = _cli_losses(tlaunch.main(argv + ["--steps", str(first), "--ckpt",
+                                         ck, "--ckpt-every", "1"]))
+    capsys.readouterr()
+    b = _cli_losses(tlaunch.main(argv + ["--steps", str(total), "--ckpt",
+                                         ck, "--resume"]))
+    assert f"resumed from step {first}" in capsys.readouterr().out
+    assert len(a) == first and len(b) == total - first
+    assert a + b == full
+
+
+class _Interrupt(Exception):
+    """Stands for a Ctrl-C that lands while the host waits on a step."""
+
+
+def test_train_cli_interrupted_mid_step_resumes_to_the_same_losses(
+        tmp_path, monkeypatch):
+    """An exception in the wait on step 2 (after ``train_step`` has made
+    that step's parameters): the final checkpoint is at step 2 with the
+    parameters after step 1, so --resume replays step 2 once and the
+    stitched losses are bitwise the uninterrupted run's."""
+    from repro_torch import utils
+
+    full = tlaunch.main(LM_ARGV + ["--steps", "4"])
+    ck = str(tmp_path / "ck")
+    calls = []
+    sync = utils.synchronize
+
+    def interrupt_third(dev):
+        calls.append(dev)
+        if len(calls) == 3:
+            raise _Interrupt
+        sync(dev)
+
+    monkeypatch.setattr(utils, "synchronize", interrupt_third)
+    with pytest.raises(_Interrupt):
+        tlaunch.main(LM_ARGV + ["--steps", "4", "--ckpt", ck,
+                                "--ckpt-every", "100"])
+    monkeypatch.setattr(utils, "synchronize", sync)
+    from repro_torch.train.checkpoint import latest_checkpoint
+
+    assert latest_checkpoint(ck).endswith("ckpt_00000002.npz")
+    rest = tlaunch.main(LM_ARGV + ["--steps", "4", "--ckpt", ck,
+                                   "--resume"])
+    assert full[:2] + rest == full
 
 
 def test_train_cli_defaults_to_the_card():

@@ -141,8 +141,7 @@ def test_refresh_interval_must_exceed_prefetch_depth():
 
 
 @pytest.mark.parametrize("kw", [
-    {"checkpoint_dir": "ckpt"}, {"resume": True}, {"mesh": object()},
-    {"compress_grads": True}, {"resilience": object()},
+    {"mesh": object()}, {"compress_grads": True},
     {"backend": "sharded", "mesh": object()}, {"sampler": "stepwise"}])
 def test_options_not_ported_yet_raise(kw):
     g = t_graph(500, 4, seed=1, feat_dim=8)

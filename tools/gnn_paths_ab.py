@@ -10,10 +10,11 @@ checkout's ``src``; another tree's ``src`` compares that tree), on
 GraphSAGE at paper width from seed 0: serves ``chip_smoke.py``'s 200
 requests (phase 5: ``max_batch`` 256, oracle check on, a closed burst),
 then trains ``--steps`` steps on the device backend at batch 8000 with a
-refresh every 5 steps (phase 6), and prints one JSON line: requests/s,
-latency p50/p99, the training step median/min/max, the mean host build and
-the fill total.  To compare trees, run it in turns (A, B, B, A) in one
-call.
+refresh every 5 steps (phase 6), then ``SHARDED_STEPS`` steps of the
+sharded executor on the 2 x 2 plan (phase 10), and prints one JSON line:
+requests/s, latency p50/p99, the training step median/min/max, the mean
+host build, the fill total, the sharded step median and both runs'
+losses.  To compare trees, run it in turns (A, B, B, A) in one call.
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402  (puts this checkout's src on the path)
+
+SHARDED_STEPS = 8
 
 
 def main(argv=None) -> int:
@@ -90,6 +93,13 @@ def main(argv=None) -> int:
                     refresh_config=RefreshConfig(interval=5,
                                                  drift_threshold=1.0))
     st = np.array(res.step_times) * 1e3
+    del plan
+    splan = build_plan(g, topology_matrix(*cs.SHARD_TOPOLOGY),
+                       mem_per_device=cs.SHARD_MEM_PER_DEVICE,
+                       fanouts=GRAPHSAGE.fanouts, batch_size=1024, seed=0)
+    sres = train_gnn(g, splan, GRAPHSAGE, steps=SHARDED_STEPS,
+                     backend="sharded", device="cuda", seed=0)
+    sst = np.array(sres.step_times) * 1e3
     print(json.dumps({
         "src": src, "card": card,
         "serve_req_per_s": cs.N_REQUESTS / wall,
@@ -102,7 +112,10 @@ def main(argv=None) -> int:
         "train_step_max_ms": float(st.max()),
         "train_host_build_mean_ms": res.pipeline["host_build_s_mean"] * 1e3,
         "train_fill_s_total": res.pipeline["fill_s_total"],
-        "losses": res.losses}))
+        "losses": res.losses,
+        "sharded_steps": SHARDED_STEPS,
+        "sharded_step_median_ms": float(np.median(sst)),
+        "sharded_losses": sres.losses}))
     return 0
 
 
