@@ -153,8 +153,12 @@ result line):
    Pallas tests' (BH, S, Dh) shapes in f32, causal and not, and ragged
    S = 77, 1000 with window 1, 64 (a row's first visited tile all masked),
    512 and >= S, not causal, Sq != Sk, G = 1, 3, 4, 5 and 8, Dh 64, 80,
-   128 and 256; then timed at the two prefill shapes beside its bound (bf16
-   operations at 989 TFLOP/s or bytes, the larger) and SDPA; on the card
+   128 and 256, and the MoE configs' layer shapes at a 4 x 4096 prefill
+   (phi3.5-moe: 32 q heads over 8 kv heads of 128, G 4; dbrx: 48 over 8,
+   G 6; causal), where the forward kernel's lse is also held to the plain
+   forward's (rtol = atol = 1e-4); then timed at the two gemma3 prefill
+   shapes and the two MoE shapes beside its bound (bf16 operations at 989
+   TFLOP/s or bytes, the larger) and SDPA; on the card
    an f32 call autograd would differentiate must raise (there is no f32
    backward), and a bf16 one must give gradients through the backward.
 11b. LM backward: ``flash_attention_bwd`` on q, k, v, o, lse and do
@@ -199,15 +203,53 @@ result line):
    (kernels, forward and backward on ``mma_sync``: head dim 16) and on the
    CPU (plain versions) from the same seed-0 weights and batches, losses
    within atol 2e-3.
+16. Compressed data parallelism (run after 10d, while the graph is
+   built): ``train_gnn`` on the device backend at paper width (batch
+   8000, fanouts (25, 10), the one-GPU plan) over a 4-position data mesh
+   on the card (``make_data_mesh``) with ``compress_grads=True`` (int8
+   error feedback, one residual per position), 12 steps, beside the plain
+   run from the same seed and parameters: finite losses, the last below
+   the first + 0.1, the accuracy 0.0 (as the reference reports it), step
+   0's loss within 1e-5 of the plain run's, every traffic tally bitwise
+   the plain run's, one ``fused_gather_overlay`` launch and one sampling
+   chain per step in each run; median step times and the analytic wire
+   bytes printed.
+17. Stepwise sampling (after 16): 4 spec samples of 8000 seeds with each
+   sampler from one seed, levels bitwise equal, the sample phase timed in
+   turns; then 8 device-backend steps with ``sampler="stepwise"`` and 8
+   with ``"chain"``: losses, accuracies and every tally bitwise equal; the
+   ``hop`` route launches exactly builds x 2 hops times and the chain
+   route 0 times in the stepwise run (the chain run the other way round).
+18. MoE serving: ``phi3.5-moe-42b-a6.6b`` at full width (d_model 4096, 32
+   heads over 8 kv heads of 128, d_ff 6400, 16 experts top-2, vocab
+   32,064), 8 of its 32 layers (the depth cut so that one card holds the
+   f32 weights: 10.67 B parameters, 42.7 GB, drawn from seed 0 on the
+   card's generator; the time of one expert leaf drawn on a CPU generator
+   printed beside it), after a warm-up generation, ``generate`` of 32
+   greedy tokens after 4 prompts of 4096: prefill ms, decode ms per step
+   (CUDA events), peak memory, one ``flash_attention`` launch per layer of
+   the prefill, all ``wgmma``; the (token, expert) pairs the prefill's
+   capacity path dropped by layer and the kept load of each expert; a
+   profiled prefill's device time by kind and the busy share of 5 profiled
+   decode steps.  Then the phi3.5-moe and dbrx smoke
+   configs generated on the CPU and teacher-forced on the card with every
+   layer's routing recorded on both: routing flips counted, the logits of
+   the positions routed the same way (a prefill row needs every token's
+   kept experts equal: one flip moves later tokens' capacity ranks) and
+   the aux loss of a forward within the CPU tests' LM logits tolerance
+   (atol 6e-2 + rtol 3e-2).
 
 Every kernel's launch count is zeroed just before each of the serve,
 train, parity, unfused, shard, shard-parity, store-train (each of its 5
-runs), store-serve, resil-* (each run of 10d), lm-serve, lm-parity,
-lm-train and lm-train-parity phases and read just after, with the launches
-by route; ``sage_aggregate``'s stay
-0 (no path runs it), and ``routed_neighbor_sample`` launches once per
-device-sampling spec build, on its ``chain`` route, never per hop.
-The last three lines are the card's name and power limit, the
+runs), store-serve, resil-* (each run of 10d), dp-plain, dp-compress,
+sampler-chain, sampler-stepwise, lm-serve, lm-parity, lm-train,
+lm-train-parity, moe-serve and moe-parity phases and read just after, with
+the launches by route; ``sage_aggregate``'s stay 0 (no path runs it), and
+``routed_neighbor_sample`` launches once per device-sampling spec build,
+on its ``chain`` route, except in the stepwise run, where it launches once
+per hop on its ``hop`` route.
+A ``[time]`` line gives each phase's start on the host clock.  The last
+three lines are the card's name and power limit, the
 ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the rest of the repository beside it, the script
 fails.
@@ -272,6 +314,28 @@ LM_TRAIN_STEPS = 8
 LM_TRAIN_CHUNK = 512
 LM_TRAIN_LR = 1e-3  # launch/train.py's default
 LM_TRAIN_SMOKE = (4, 64, 4)  # batch, seq, steps: smoke config, card vs CPU
+# phase 16: compressed data parallelism on a data mesh of 4 positions on the
+# one card, at paper width; its step 0 against the plain run's: the same
+# parameters, and the mean of equal-size chunk means is the batch mean, so
+# only the order of the float sums differs
+DP_STEPS = 12
+DP_POSITIONS = 4
+DP_STEP0_ATOL = 1e-5
+# phase 17: the stepwise sampler against the chain
+STEPWISE_STEPS = 8
+STEPWISE_SAMPLES = 4  # spec samples of each sampler, timed in turns
+# phase 18: MoE serving at full width; 8 of phi3.5-moe's 32 layers are
+# 10.67 B f32 parameters (42.7 GB), which one 80 GB card holds with the
+# prefill's activations; all 32 would be 167 GB
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_LAYERS = 8
+MOE_PARITY = ("phi3.5-moe-42b-a6.6b", "dbrx-132b")  # smoke configs
+# the MoE smoke configs' logits card vs CPU: the LM logits tolerance of the
+# CPU tests (XLA against torch, tests/test_torch_lm.py); the expert
+# products and the bf16 combine round at other points on the card, and the
+# smoke configs' untied head gives logits of order 1 (phi3.5 smoke:
+# 0.0234 at most on an H100 80GB HBM3 at 700 W)
+MOE_SMOKE_TOL = {"atol": 6e-2, "rtol": 3e-2}
 # the backward kernel against the f64 exact gradient: per gradient, max
 # |kernel - exact| / max |exact| within twice the plain version's plus this
 # floor (both round q * scale, p and each gradient to bf16; the kernel
@@ -1027,7 +1091,9 @@ def flash_attention_cases(torch, ctx, seed: int = 6):
     tests' (BH, S, Dh) shapes in f32, causal and not; ragged S = 77 and
     1000 with windows 1, 64 (the tile at position 96 visits keys 0-63, all
     masked for its row 127), 512 and >= S, not causal, Sq != Sk, G = 1, 3,
-    4, 5 and 8, Dh 64, 80, 128 and 256."""
+    4, 5 and 8, Dh 64, 80, 128 and 256; and the MoE layer shapes of a 4 x
+    4096 prefill, phi3.5-moe's (32 q heads over 8 kv heads of 128, G 4)
+    and dbrx's (48 over 8, G 6), timed (the plain version 10 launches)."""
     import torch.nn.functional as F
 
     dev = ctx["lm"][0][0].device
@@ -1086,6 +1152,21 @@ def flash_attention_cases(torch, ctx, seed: int = 6):
             ("s1000_window_ge_s_g1_dh256", (1, 1000, 2, 2, 256),
              {"window": 1 << 30})):
         cases[name] = (*qkv(*shape, torch.bfloat16), kw)
+    # the MoE configs' layer shapes at the 4 x 4096 prefill, causal, no
+    # window: phi3.5-moe (G 4) and dbrx (G 6), both Dh 128
+    for name, shape in (("phi35_moe_g4_dh128", (4, 4096, 32, 8, 128)),
+                        ("dbrx_g6_dh128", (4, 4096, 48, 8, 128))):
+        q, k, v = qkv(*shape, torch.bfloat16)
+        cases[name] = (q, k, v, {"window": 0})
+        nbytes, flops = flash_work(q, k, 0)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def sdpa(qt=qt, kt=kt, vt=vt):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        timed.append((name, cases[name], nbytes,
+                      ("F.scaled_dot_product_attention(enable_gqa=True, "
+                       "is_causal=True)", sdpa), flops, BWD_TIMED_PLAIN))
     for name, shape, Sk, kw in (
             ("sq100_sk300_g4_dh256", (1, 100, 4, 1, 256), 300, {}),
             ("sq300_sk100_full_g4_dh128", (1, 300, 8, 2, 128), 100,
@@ -1159,14 +1240,16 @@ def check_and_time(torch, np, k, ctx, flush, card) -> dict:
                      else "") + f" | {card}")
     out = {"max_abs_err": max(errs.values()), "timed": {},
            "errs": errs, "routes": routes}
-    for shape, args, nbytes, lib, *flops in timed:
+    for shape, args, nbytes, lib, *rest in timed:
+        flops = rest[:1]  # the case's operations, where it counts them
+        n_plain = rest[1] if len(rest) > 1 else TIMED_LAUNCHES
         a, kw = _split(args)
         runs = []
         for _ in range(2):  # kernel, plain, library; twice
             r = [time_ms(torch, functools.partial(k.wrapper, **kw), a,
                          TIMED_LAUNCHES, flush),
                  time_ms(torch, functools.partial(k.plain, **kw), a,
-                         TIMED_LAUNCHES, flush)]
+                         n_plain, flush)]
             if lib is not None:
                 r.append(time_ms(torch, lib[1], (), TIMED_LAUNCHES, flush))
             runs.append(r)
@@ -2083,6 +2166,460 @@ def resilience_phases(torch, np, g, plan, splan, params, fpath: str,
               f"{total}-step run's | {card}")
 
 
+# ---- compressed data parallelism and the stepwise sampler (16, 17) ---------
+
+TALLIES = ("pcie_transactions", "feature_requests", "feature_hits",
+           "topo_requests", "topo_hits", "host_sample_syncs",
+           "host_sampled_edges")
+
+
+def tallies_equal(a, b) -> bool:
+    """Two traffic counters' tallies and byte matrices, bit for bit."""
+    return (all(getattr(a, n) == getattr(b, n) for n in TALLIES)
+            and bool((a.bytes_matrix == b.bytes_matrix).all())
+            and bool((a.topo_bytes_matrix == b.topo_bytes_matrix).all()))
+
+
+def compressed_phase(torch, np, g, plan, params, card: str,
+                     phase_launches: dict, phase_routes: dict,
+                     device: str = "cuda", steps: int = DP_STEPS,
+                     n_data: int = DP_POSITIONS, cfg=None) -> None:
+    """Phase 16: ``train_gnn`` on the device backend over a data mesh of
+    ``n_data`` positions on the one card with the int8 error-feedback
+    gradient all-reduce, beside the plain run from the same seed and
+    parameters; each run's launches recorded."""
+    from repro_torch.configs.legion_gnn import GRAPHSAGE
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.train.compression import wire_bytes_saved
+    from repro_torch.train.loop import train_gnn
+
+    cfg = cfg or GRAPHSAGE
+    kw = dict(backend="device", device=device, seed=0, params=params,
+              steps=steps)
+    mesh = make_data_mesh(n_data, devices=[device] * n_data)
+    runs = {}
+    for name, extra in (("dp-plain", {}),
+                        ("dp-compress", {"mesh": mesh,
+                                         "compress_grads": True})):
+        zero_launches(KERNELS)
+        runs[name] = train_gnn(g, fresh_copy(plan), cfg, **kw, **extra)
+        phase_launches[name] = read_launches(KERNELS)
+        phase_routes[name] = read_routes(KERNELS)
+        builds = runs[name].pipeline["batches_built"]
+        want = expect({"fused_gather_overlay": steps,
+                       "routed_neighbor_sample": builds})
+        if phase_launches[name] != want or builds != steps:
+            raise AssertionError(f"{name}: launches {phase_launches[name]} "
+                                 f"for {builds} builds, expected {want}")
+        expect_chains(name, phase_routes[name], builds)
+    plain, comp = runs["dp-plain"], runs["dp-compress"]
+    losses = np.array(comp.losses)
+    if len(losses) != steps or not np.isfinite(losses).all() \
+            or not losses[-1] < losses[0] + 0.1:
+        raise AssertionError(f"compressed losses {comp.losses}")
+    if comp.accs != [0.0] * steps:
+        raise AssertionError(f"compressed accuracies {comp.accs}: the "
+                             "reference reports 0.0")
+    d0 = abs(comp.losses[0] - plain.losses[0])
+    if not d0 <= DP_STEP0_ATOL:
+        raise AssertionError(f"step-0 loss {comp.losses[0]} against the "
+                             f"plain run's {plain.losses[0]}")
+    if not tallies_equal(comp.counter, plain.counter):
+        raise AssertionError("compressed run's traffic tallies differ from "
+                             "the plain run's")
+    med = {n: float(np.median(r.step_times)) * 1e3 for n, r in runs.items()}
+    w = wire_bytes_saved(params)
+    print(f"[dp-compress] {cfg.name} batch {cfg.batch_size} fanouts "
+          f"{tuple(cfg.fanouts)}, {n_data} data positions on one card, int8"
+          f" error feedback, {steps} steps: losses finite, last "
+          f"{losses[-1]:.6f} < first {losses[0]:.6f} + 0.1; step 0 "
+          f"{comp.losses[0]!r} vs the plain run's {plain.losses[0]!r} "
+          f"(|diff| {d0:.3e} <= {DP_STEP0_ATOL}); every tally equal to the "
+          f"plain run's | {card}")
+    print(f"[dp-compress] median step {med['dp-compress']:.3f} ms "
+          f"(compressed, {n_data} positions in turn) vs {med['dp-plain']:.3f}"
+          f" ms (plain); wire bytes per sync {w['f32_bytes']} f32 vs "
+          f"{w['int8_bytes']} int8 (ratio {w['ratio']}, analytic); "
+          f"fused_gather_overlay {steps}, routed_neighbor_sample {steps} "
+          f"chain launches each run | {card}")
+    print(f"[dp-compress] losses {comp.losses} | {card}")
+
+
+def stepwise_phase(torch, np, g, plan, params, card: str,
+                   phase_launches: dict, phase_routes: dict,
+                   device: str = "cuda", steps: int = STEPWISE_STEPS,
+                   cfg=None) -> None:
+    """Phase 17: the stepwise sampler (one ``hop`` launch and one sync per
+    hop) against the chain (one launch per spec build): the same specs'
+    levels from one builder each, then ``train_gnn`` with each sampler from
+    one seed; each run's launches recorded."""
+    from repro_torch.configs.legion_gnn import GRAPHSAGE
+    from repro_torch.kernels import KERNELS
+    from repro_torch.train.batch import DeviceBatchBuilder
+    from repro_torch.train.loop import train_gnn
+
+    cfg = cfg or GRAPHSAGE
+    modes = ("chain", "stepwise")
+    cache = plan.cache_for_device(0)
+    builders = {m: DeviceBatchBuilder(g, cache, cfg.fanouts, None, 0,
+                                      device=device, sampler=m)
+                for m in modes}
+    rngs = {m: np.random.default_rng(11) for m in modes}
+    tablet = plan.partition.tablets[0]
+    seeds = np.random.default_rng(12).integers(
+        0, len(tablet), (STEPWISE_SAMPLES, cfg.batch_size))
+    sample_ms = {m: [] for m in modes}
+    for i in range(STEPWISE_SAMPLES):
+        levels = {}
+        for m in (modes if i % 2 == 0 else modes[::-1]):
+            if device != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            levels[m] = builders[m].sample_spec(tablet[seeds[i]],
+                                                rngs[m]).levels
+            sample_ms[m].append((time.perf_counter() - t0) * 1e3)
+        if any(not np.array_equal(a, b) for a, b in zip(levels["chain"],
+                                                        levels["stepwise"])):
+            raise AssertionError(f"stepwise levels differ from the chain's "
+                                 f"at sample {i}")
+    del builders
+    kw = dict(backend="device", device=device, seed=0, params=params,
+              steps=steps)
+    runs = {}
+    for m in modes:
+        name = f"sampler-{m}"
+        zero_launches(KERNELS)
+        runs[m] = train_gnn(g, fresh_copy(plan), cfg, sampler=m, **kw)
+        phase_launches[name] = read_launches(KERNELS)
+        phase_routes[name] = read_routes(KERNELS)
+        builds = runs[m].pipeline["batches_built"]
+        per = len(cfg.fanouts) if m == "stepwise" else 1
+        want = expect({"fused_gather_overlay": steps,
+                       "routed_neighbor_sample": builds * per})
+        want_routes = ({"hop": builds * per, "chain": 0} if m == "stepwise"
+                       else {"hop": 0, "chain": builds})
+        if phase_launches[name] != want or builds != steps or \
+                phase_routes[name]["routed_neighbor_sample"] != want_routes:
+            raise AssertionError(
+                f"{name}: launches {phase_launches[name]} by route "
+                f"{phase_routes[name]} for {builds} builds, expected {want}"
+                f", routes {want_routes}")
+    a, b = runs["chain"], runs["stepwise"]
+    if a.losses != b.losses or a.accs != b.accs \
+            or not tallies_equal(a.counter, b.counter):
+        raise AssertionError(f"stepwise run differs from the chain's: "
+                             f"losses {b.losses} vs {a.losses}")
+    print(f"[stepwise] {STEPWISE_SAMPLES} spec samples of {cfg.batch_size} "
+          f"seeds, fanouts {tuple(cfg.fanouts)}: levels bitwise equal; "
+          f"median sample phase stepwise "
+          f"{np.median(sample_ms['stepwise']):.3f} ms vs chain "
+          f"{np.median(sample_ms['chain']):.3f} ms (host wall, in turns) "
+          f"| {card}")
+    sampling = {m: phase_routes[f"sampler-{m}"]["routed_neighbor_sample"]
+                for m in modes}
+    print(f"[stepwise] train_gnn {steps} steps, device backend: losses, "
+          f"accuracies and every tally bitwise equal to the chain run's; "
+          f"routed_neighbor_sample by route {sampling['stepwise']} (= "
+          f"{steps} builds x {len(cfg.fanouts)} hops) vs chain "
+          f"{sampling['chain']}; "
+          f"median step {np.median(b.step_times) * 1e3:.3f} ms vs "
+          f"{np.median(a.step_times) * 1e3:.3f} ms | {card}")
+
+
+# ---- MoE serving (phase 18) -------------------------------------------------
+
+@contextlib.contextmanager
+def recorded_routes(moe, record: list):
+    """Every ``moe._route`` call's top-k ids appended to ``record`` (the
+    tensors as computed, no sync), in call order: the prefill's layers,
+    then each decode step's."""
+    inner = moe._route
+
+    def route(cfg, p, x):
+        out = inner(cfg, p, x)
+        record.append(out[0])
+        return out
+
+    moe._route = route
+    try:
+        yield record
+    finally:
+        moe._route = inner
+
+
+def expert_sets(torch, idx, E: int, keep=None):
+    """(..., E) membership: which experts each token of ``idx`` (..., K;
+    a token's K ids are distinct) went to, or with ``keep`` (..., K) which
+    kept it; a token's K ids in any order are one routing."""
+    flat = idx.reshape(-1, idx.shape[-1])
+    src = (torch.ones_like(flat, dtype=torch.bool) if keep is None
+           else keep.reshape(flat.shape))
+    out = torch.zeros((flat.shape[0], E), dtype=torch.bool,
+                      device=idx.device).scatter_(1, flat, src)
+    return out.reshape(idx.shape[:-1] + (E,))
+
+
+def moe_serve_phase(torch, np, card: str, phase_launches: dict,
+                    phase_routes: dict, cfg=None, batch: int = LM_BATCH,
+                    prompt: int = LM_PROMPT, new: int = LM_NEW,
+                    device: str = "cuda") -> None:
+    """Phase 18a: ``MOE_ARCH`` at full width, ``MOE_LAYERS`` of its layers
+    (the depth cut so that one card holds the f32 weights), seed-0 weights
+    drawn on the card; ``generate`` of ``new`` greedy tokens after
+    ``batch`` x ``prompt`` prompts, every layer's routing recorded."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.serve_lm import generate
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.params import init_from_defs
+    from repro_torch.train.optimizer import tree_leaves
+
+    full = get_config(MOE_ARCH)
+    cfg = cfg or dataclasses.replace(full, n_layers=MOE_LAYERS)
+    on_card = device != "cpu"
+    t0 = time.perf_counter()
+    params = init_from_defs(transformer.defs(cfg),
+                            torch.Generator(device=device).manual_seed(0),
+                            device)
+    if on_card:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    leaf = params["layers"]["w_gate"][0]
+    t0 = time.perf_counter()
+    torch.randn(leaf.shape, generator=torch.Generator().manual_seed(0))
+    cpu_leaf_s = time.perf_counter() - t0
+    print(f"[moe-serve] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers"
+          f" (depth cut so one card holds the f32 weights), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} q heads over {cfg.n_kv_heads} kv "
+          f"heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
+          f"{cfg.capacity_factor}, vocab {cfg.vocab_size}; "
+          f"{n_params / 1e9:.4f} B f32 parameters ({n_params * 4 / 1e9:.2f} "
+          f"GB) drawn from seed 0 on the {device} generator in {init_s:.2f}s"
+          f" (one {tuple(leaf.shape)} expert leaf drawn on a CPU generator: "
+          f"{cpu_leaf_s:.2f}s, so about "
+          f"{cpu_leaf_s * n_params / leaf.numel():.0f}s for the whole "
+          f"model) | {card}")
+    del leaf
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                                (batch, prompt))
+    fa = next(k for k in KERNELS if k.name == "flash_attention")
+    # warm-up: the first prefill at these shapes pays for the allocator's
+    # growth and the matrix products' first launches
+    generate(cfg, params, prompts, 2, device=device)
+    zero_launches(KERNELS)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recorded_routes(moe, []) as routes:
+        if on_card:
+            gen, step = timed_decode_steps(
+                torch, transformer,
+                lambda: generate(cfg, params, prompts, new, device=device))
+        else:
+            gen, step = generate(cfg, params, prompts, new,
+                                 device=device), [0.0]
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    phase_launches["moe-serve"] = read_launches(KERNELS)
+    phase_routes["moe-serve"] = read_routes(KERNELS)
+    L = cfg.n_layers
+    fa_routes = phase_routes["moe-serve"][fa.name]
+    want = expect({"flash_attention": L})
+    if on_card and (phase_launches["moe-serve"] != want or fa_routes != {
+            "wgmma": L, "mma_sync": 0, "simt": 0}):
+        raise AssertionError(f"moe-serve launches {phase_launches['moe-serve']}"
+                             f" by route {fa_routes}, expected {want}, all "
+                             f"on the wgmma route")
+    V = cfg.vocab_size
+    toks = gen.tokens.cpu().numpy()
+    if toks.shape != (batch, new) or toks.min() < 0 or toks.max() >= V \
+            or gen.logits.shape != (batch, new, V) \
+            or not bool(torch.isfinite(gen.logits).all()):
+        raise AssertionError(f"bad generation: tokens {toks.shape}, logits "
+                             f"{tuple(gen.logits.shape)}")
+    if len(routes) != L * new:
+        raise AssertionError(f"{len(routes)} routing calls, expected "
+                             f"{L} x {new}")
+    T, E = batch * prompt, cfg.n_experts
+    cap = moe.capacity(cfg, T)
+    dropped, load = [], torch.zeros(E, dtype=torch.int64, device=device)
+    for idx in routes[:L]:
+        flat = idx.reshape(T, -1)
+        keep = moe._dispatch(flat, E, cap)[1]
+        dropped.append(int((~keep).sum()))
+        load += torch.bincount(flat[keep], minlength=E)
+    load = load.cpu().tolist()
+    dec_load = torch.bincount(torch.cat([r.reshape(-1) for r in routes[L:]]),
+                              minlength=E).cpu().tolist()
+    step = np.array(step)
+    print(f"[moe-serve] batch {batch} x prompt {prompt}, {new} greedy tokens:"
+          f" prefill {gen.prefill_s * 1e3:.3f} ms ({T / gen.prefill_s:.0f} "
+          f"prompt tokens/s), decode median {np.median(step):.3f} ms/step "
+          f"between steps' ends on CUDA events (min {step.min():.3f}, max "
+          f"{step.max():.3f}), decode loop {gen.decode_s * 1e3:.3f} ms host "
+          f"wall, {batch * (new - 1) / gen.decode_s:.1f} tokens/s decoding "
+          f"(wall {wall:.3f}s); peak device memory {peak / 2**30:.3f} GiB; "
+          f"flash_attention launches {phase_launches['moe-serve'][fa.name]} "
+          f"= {L} layers x 1 prefill, by route {fa_routes} (Dh "
+          f"{cfg.resolved_head_dim}, G {cfg.n_heads // cfg.n_kv_heads}) "
+          f"| {card}")
+    print(f"[moe-serve] capacity path (prefill): capacity {cap} rows per "
+          f"expert for {T} tokens x top-{cfg.top_k}; dropped (token, expert)"
+          f" pairs by layer {dropped} (total {sum(dropped)} of "
+          f"{T * cfg.top_k * L}); kept load per expert over the layers "
+          f"{load}; decode (dense dispatch, nothing dropped) routes per "
+          f"expert {dec_load} | {card}")
+    print(f"[moe-serve] tokens of sequence 0: {toks[0].tolist()} | {card}")
+    del gen
+    if on_card:
+        moe_profiles(torch, cfg, params, prompts, card)
+    del params
+
+
+def moe_profiles(torch, cfg, params, prompts, card: str) -> None:
+    """Phase 18a's prefill under ``torch.profiler`` (device ms by kind and
+    by operation), then the busy share of 5 decode steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve_lm import generate
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts, acc_events=True) as prof:
+        pre = generate(cfg, params, prompts, 1, device="cuda")
+    rows = device_rows(torch, prof.events())
+    if not rows:
+        print("[moe-serve] prefill device time: not measured (torch.profiler"
+              " saw no device time)")
+    else:
+        busy, top = busy_and_top(rows, k=10)
+        cats = ", ".join(f"{k} {v:.3f}" for k, v in by_category(rows).items())
+        print(f"[moe-serve] profiled prefill: device busy {busy / 1e3:.3f} ms"
+              f" of {pre.prefill_s * 1e3:.3f} ms host wall (profiler on); "
+              f"device ms by kind: {cats}; by operation: | {card}")
+        for us, name, count in top:
+            print(f"[moe-serve]   {us / 1e3:9.3f} ms  x{count:<5d} "
+                  f"{name[:70]} | {card}")
+    del prof, pre
+    with profile(activities=acts, acc_events=True) as prof:
+        generate(cfg, params, prompts, LM_PROFILE_NEW + 1, device="cuda")
+    share = step_window_share(torch, prof, *PROFILE_WINDOW)
+    if share is None:
+        print("[moe-serve] device busy share: not measured (torch.profiler "
+              "saw no device time in the window)")
+    else:
+        print(f"[moe-serve] device busy share {share[0]:.4f} over decode "
+              f"steps {PROFILE_WINDOW[0]}-{sum(PROFILE_WINDOW) - 1} "
+              f"({share[1]:.1f} ms, profiler on; idle {1 - share[0]:.4f}); "
+              f"device ms by kind: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in share[3].items()) + f" | {card}")
+        for us, name, count in share[2]:
+            print(f"[moe-serve]   {us / 1e3:9.3f} ms  x{count:<5d} "
+                  f"{name[:70]} | {card}")
+
+
+def moe_parity_phase(torch, np, card: str, phase_launches: dict,
+                     phase_routes: dict) -> None:
+    """Phase 18b: each MoE smoke config generated on the CPU (plain
+    attention) and teacher-forced with its tokens on the card (kernels),
+    every layer's routing recorded on both; the routing flips counted, and
+    the logits of the rows routed the same way and the aux loss of a
+    forward held within ``MOE_SMOKE_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.serve_lm import generate
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.params import init_from_defs
+
+    B, P, N = LM_SMOKE
+    zero_launches(KERNELS)
+    flash = 0
+    for arch in MOE_PARITY:
+        small = get_config(arch, smoke=True)
+        L, E = small.n_layers, small.n_experts
+        sp = init_from_defs(transformer.defs(small),
+                            torch.Generator().manual_seed(0), "cpu")
+        cp = {k: (v.cuda() if isinstance(v, torch.Tensor)
+                  else {n: t.cuda() for n, t in v.items()})
+              for k, v in sp.items()}
+        prompts = np.random.default_rng(1).integers(0, small.vocab_size,
+                                                    (B, P))
+        with recorded_routes(moe, []) as cpu_routes:
+            on_cpu = generate(small, sp, prompts, N, device="cpu")
+        with recorded_routes(moe, []) as card_routes:
+            on_card = teacher_forced(
+                torch, transformer, small, cp,
+                torch.from_numpy(prompts).cuda(),
+                on_cpu.tokens.cuda()).float().cpu()
+        cap = moe.capacity(small, B * P)
+        rows = torch.ones(B, dtype=torch.bool)
+        flips = 0
+        for a, b in zip(cpu_routes[:L], card_routes[:L]):
+            b = b.cpu()
+            same = (expert_sets(torch, a, E) == expert_sets(torch, b, E)
+                    ).all(-1)
+            flips += int((~same).sum())
+            # a flip anywhere moves the capacity ranks of later tokens, so
+            # a row also needs every token's kept experts to agree
+            ka = moe._dispatch(a.reshape(B * P, -1), E, cap)[1]
+            kb = moe._dispatch(b.reshape(B * P, -1), E, cap)[1]
+            kept = (expert_sets(torch, a, E, ka)
+                    == expert_sets(torch, b, E, kb)).all(-1)
+            rows &= same.all(-1) & kept.all(-1)
+        ok = [rows.clone()]
+        cur = rows.clone()
+        for i in range(N - 1):
+            for a, b in zip(cpu_routes[L * (1 + i):L * (2 + i)],
+                            card_routes[L * (1 + i):L * (2 + i)]):
+                same = (expert_sets(torch, a, E)
+                        == expert_sets(torch, b.cpu(), E)).all(-1)[:, 0]
+                flips += int((~same).sum())
+                cur &= same
+            ok.append(cur.clone())
+        ok = torch.stack(ok, 1)  # (B, N): position routed the same way
+        want = on_cpu.logits.float()
+        if not bool(ok.any()):
+            raise AssertionError(f"{arch} smoke: no position routed the same "
+                                 f"way on the card and the CPU")
+        torch.testing.assert_close(
+            on_card[ok], want[ok], **MOE_SMOKE_TOL,
+            msg=lambda m: f"{arch} smoke card vs CPU, positions routed the "
+            f"same way: {m}")
+        diff = (on_card - want).abs().amax(-1)
+        toks = torch.from_numpy(prompts)
+        with torch.inference_mode():
+            _, aux_cpu = transformer.forward(small, sp, toks)
+            _, aux_card = transformer.forward(small, cp, toks.cuda())
+        aux_diff = abs(float(aux_card) - float(aux_cpu))
+        if not aux_diff <= MOE_SMOKE_TOL["atol"] + MOE_SMOKE_TOL["rtol"] * \
+                abs(float(aux_cpu)):
+            raise AssertionError(f"{arch} smoke aux loss card {float(aux_card)}"
+                                 f" vs CPU {float(aux_cpu)}")
+        flash += 2 * L  # the teacher-forced prefill and the forward
+        print(f"[moe-parity] {small.name} ({E} experts, top-{small.top_k}) "
+              f"batch {B} x prompt {P}, {N} tokens: card (kernels, "
+              f"teacher-forced with the CPU's tokens) vs CPU (plain "
+              f"versions): routing flips {flips} of "
+              f"{L * (B * P + B * (N - 1))} (layer, token) routings; "
+              f"positions routed the same way {int(ok.sum())} of {ok.numel()}"
+              f", their max |logit diff| {float(diff[ok].max()):.4e} "
+              f"({MOE_SMOKE_TOL}; median |logit| "
+              f"{float(want.abs().median()):.4e}); aux loss "
+              f"{float(aux_card):.6f} vs {float(aux_cpu):.6f} (|diff| "
+              f"{aux_diff:.3e}) | {card}")
+    phase_launches["moe-parity"] = read_launches(KERNELS)
+    phase_routes["moe-parity"] = read_routes(KERNELS)
+    want = expect({"flash_attention": flash})
+    if phase_launches["moe-parity"] != want or phase_routes["moe-parity"][
+            "flash_attention"]["mma_sync"] != flash:
+        raise AssertionError(f"moe-parity launches "
+                             f"{phase_launches['moe-parity']} by route "
+                             f"{phase_routes['moe-parity']}, expected {want} "
+                             f"on mma_sync (head dim 16)")
+
+
 # ---- the sharded executor (phases 4, 9 and 10) ------------------------------
 
 def sharded_specs(np, g, plan, cfg, seed: int):
@@ -2359,6 +2896,35 @@ def by_category(rows) -> dict:
             key = "other"
         out[key] += (t - s) / 1e3
     return out
+
+
+def moe_attention_lse(torch, fam, card, seed: int = 13) -> None:
+    """The forward kernel's o and lse at the MoE layer shapes (phi3.5-moe,
+    G 4, and dbrx, G 6; Dh 128, 4 x 4096, causal) against the plain
+    forward's: o within ``TOLERANCE``, lse within ``BWD_LSE_TOL``."""
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name, (B, S, Hq, Hkv, Dh) in (
+            ("phi35_moe_g4_dh128", (4, 4096, 32, 8, 128)),
+            ("dbrx_g6_dh128", (4, 4096, 48, 8, 128))):
+        q = torch.randn((B, S, Hq, Dh), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        k, v = (torch.randn((B, S, Hkv, Dh), generator=gen, device="cuda"
+                            ).to(torch.bfloat16) for _ in range(2))
+        o, lse = fam._forward_cuda(q, k, v, True, 0, True)
+        ro, rlse = ref.flash_attention(q, k, v, causal=True, window=0,
+                                       return_lse=True)
+        for what, got, want, tol in (
+                ("o", o, ro, TOLERANCE["flash_attention"]["bfloat16"]),
+                ("lse", lse, rlse, BWD_LSE_TOL)):
+            torch.testing.assert_close(
+                got.float(), want.float(), **tol,
+                msg=lambda m: f"flash_attention {name}: {what}: {m}")
+        print(f"[kernel] flash_attention case {name} with lse: max |o err| "
+              f"{float((o.float() - ro.float()).abs().max()):.4e}, max |lse "
+              f"err| {float((lse - rlse).abs().max()):.4e} ({BWD_LSE_TOL}), "
+              f"route {fam.flash_route(q.dtype, Dh)} | {card}")
 
 
 def route_rule_agrees(torch, fa) -> None:
@@ -2850,6 +3416,14 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def clock(phase: str) -> None:
+        """Where the run's time goes: each phase's start on the host clock
+        (the phases' order, not their numbers, is the run's order)."""
+        print(f"[time] phase {phase} starts {time.perf_counter() - t_start:.1f}"
+              f" s into the run")
+
     card = smi()
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {card} | torch {torch.__version__} cuda "
@@ -2874,6 +3448,7 @@ def main() -> int:
             if "warning" in line.lower():
                 print(f"[build] {k.name}: {line.strip()}")
 
+    clock("3")
     # ---- 3. graph + plan ---------------------------------------------------
     t0 = time.perf_counter()
     g = synthetic_instance("PA", max_vertices=N_VERTICES, seed=0)
@@ -2899,6 +3474,7 @@ def main() -> int:
     if [len(c) for c in cliques] != [2, 2]:
         raise AssertionError(f"expected a 2 x 2 hierarchy, got {cliques}")
 
+    clock("4")
     # ---- 4. kernels vs plain versions, at the paths' real shapes -----------
     slots, cap = 1, 1
     for f in GRAPHSAGE.fanouts:
@@ -2953,6 +3529,7 @@ def main() -> int:
                              card)
     del ctx, chains
 
+    clock("4b")
     # ---- 4b. where the time goes (serving layers, one batch at a time) ----
     params = init_from_defs(gnn_defs(GRAPHSAGE),
                             torch.Generator().manual_seed(0), "cuda")
@@ -2972,6 +3549,7 @@ def main() -> int:
             print(f"[layers]   {us / 1e3:9.3f} ms  x{count:<5d} {name[:70]} "
                   f"| {card}")
 
+    clock("5")
     # ---- 5. serve ----------------------------------------------------------
     phase_launches = {}
     phase_routes = {}  # each phase's launches by route (read_routes)
@@ -3017,6 +3595,7 @@ def main() -> int:
           f" us/batch, oracle mismatches 0 of {s['oracle_checks']} | {card}")
     del srv, builder
 
+    clock("6")
     # ---- 6. train at paper width with online refresh ------------------------
     train_kw = dict(backend="device", device="cuda", seed=0,
                     refresh_config=RefreshConfig(interval=5,
@@ -3115,6 +3694,7 @@ def main() -> int:
                   f"| {card}")
     del prof, pplan
 
+    clock("7")
     # ---- 7. parity: host and device backends across refreshes --------------
     cfg_p = dataclasses.replace(GRAPHSAGE, batch_size=PARITY_BATCH)
     par_kw = dict(device="cuda", seed=0, params=params,
@@ -3151,6 +3731,7 @@ def main() -> int:
           f"{dev_run.refresh['refreshes']} refreshes, admitted "
           f"{dev_run.refresh['admitted']}, hit tallies equal | {card}")
 
+    clock("8")
     # ---- 8. the unfused finalize -------------------------------------------
     zero_launches(KERNELS)
     unfused = train_gnn(g, fresh_copy(plan), cfg_p, steps=UNFUSED_STEPS,
@@ -3169,6 +3750,7 @@ def main() -> int:
     print(f"[unfused] fused=False == fused over {UNFUSED_STEPS} steps, "
           f"gather_rows launched {UNFUSED_STEPS} times | {card}")
 
+    clock("9")
     # ---- 9. the sharded clique executor on the 2 x 2 hierarchy ---------------
     n_pos = sum(len(c) for c in cliques)
     shard_kw = dict(backend="sharded", device="cuda", seed=0, params=params,
@@ -3252,6 +3834,7 @@ def main() -> int:
                   f"{name[:70]} | {card}")
     del prof, pplan
 
+    clock("10")
     # ---- 10. sharded parity against the device backend ----------------------
     groups, builders = sharded_specs(np, g, splan, cfg_p, seed=8)
     stack, packed, _ = upload_packed(torch, np, splan, groups, g.feat_dim)
@@ -3320,6 +3903,7 @@ def main() -> int:
           f"the fused finalize | {card}")
     print(f"[shard-parity] sharded losses {s1.losses} | {card}")
 
+    clock("10b, 10c, 10d")
     # ---- 10b, 10c and 10d. the tiered store, telemetry, resilience --------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
     try:
@@ -3329,8 +3913,17 @@ def main() -> int:
                           phase_launches, phase_routes, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    clock("16, 17")
+    # ---- 16 and 17. compressed data parallelism, the stepwise sampler -----
+    # (numbered after the LM phases, run here while the graph is built)
+    compressed_phase(torch, np, g, plan, params, card, phase_launches,
+                     phase_routes)
+    stepwise_phase(torch, np, g, plan, params, card, phase_launches,
+                   phase_routes)
     del plan, splan, g
 
+    clock("11")
     # ---- 11. LM: gemma3-1b at full width, its attention kernel -------------
     lm = get_config(LM_ARCH)
     V = lm.vocab_size
@@ -3351,6 +3944,7 @@ def main() -> int:
                                  LM_CAPTURE)
     measured[fa.name] = check_and_time(torch, np, fa, {"lm": captured}, flush,
                                        card)
+    moe_attention_lse(torch, fam, card)
     route_rule_agrees(torch, fa)
     flash_refuses_autograd(torch, fa, card)
     prefill_routes = {c: r for c, r in measured[fa.name]["routes"].items()
@@ -3361,6 +3955,7 @@ def main() -> int:
                              f"expected wgmma")
     del captured
 
+    clock("11b")
     # ---- 11b. LM kernel: the attention backward at a training step's shapes
     bwd = next(k for k in KERNELS if k.name == "flash_attention_bwd")
     tcfg = dataclasses.replace(lm, remat=True, loss_chunk=LM_TRAIN_CHUNK)
@@ -3384,6 +3979,7 @@ def main() -> int:
                                                 flush, card)
     del bcases, flush
 
+    clock("12")
     # ---- 12. LM serve: prefill 4 x 4096, 32 greedy tokens ------------------
     zero_launches(KERNELS)
     torch.cuda.reset_peak_memory_stats()
@@ -3457,6 +4053,7 @@ def main() -> int:
                   f"| {card}")
     del prof, gen
 
+    clock("13")
     # ---- 13. LM parity ------------------------------------------------------
     zero_launches(KERNELS)
     tokens = torch.from_numpy(np.random.default_rng(2).integers(
@@ -3532,6 +4129,7 @@ def main() -> int:
           f"{float(on_cpu.logits.float().abs().median()):.4e}), greedy "
           f"tokens equal at {same:.4f} of the positions | {card}")
 
+    clock("14")
     # ---- 14. LM train: gemma3-1b, 4 x 4096, remat, CE in chunks of 512 ----
     zero_launches(KERNELS)
     torch.cuda.empty_cache()
@@ -3601,6 +4199,7 @@ def main() -> int:
     del profiled, lm_params
     torch.cuda.empty_cache()
 
+    clock("15")
     # ---- 15. LM train parity: the smoke config on the card and the CPU ----
     zero_launches(KERNELS)
     B, S, N = LM_TRAIN_SMOKE
@@ -3634,6 +4233,13 @@ def main() -> int:
           f"(kernels) {card_losses} vs CPU (plain versions) {cpu_losses}, max"
           f" |loss diff| {tdiff:.4e} (atol {LM_TRAIN_SMOKE_ATOL}) | {card}")
 
+    clock("18")
+    # ---- 18. MoE serving: phi3.5-moe at full width, 8 of 32 layers ---------
+    torch.cuda.empty_cache()
+    moe_serve_phase(torch, np, card, phase_launches, phase_routes)
+    torch.cuda.empty_cache()
+    moe_parity_phase(torch, np, card, phase_launches, phase_routes)
+
     record = {"kernels": []}
     for k in KERNELS:
         m = measured[k.name]
@@ -3663,6 +4269,7 @@ def main() -> int:
             "library_ms": first_timed["library_ms"],
             "library_call": first_timed["library_call"], "shape": shape,
             "timed": m["timed"]})
+    clock("record")
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-The port carries the dense language-model configurations (the LM serving
-path runs them through ``models/transformer.py``); the reference package's
-other architectures wait for their model families and raise
+The port carries the dense and MoE language-model configurations (the LM
+serving path runs them through ``models/transformer.py``); the reference
+package's other architectures wait for their model families and raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -16,6 +16,8 @@ __all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "applicable_shapes",
            "ARCH_IDS", "get_config"]
 
 _ARCH_MODULES = {
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "dbrx-132b": "dbrx",
     "stablelm-3b": "stablelm",
     "minitron-4b": "minitron",
     "gemma3-1b": "gemma3",
@@ -24,8 +26,6 @@ _ARCH_MODULES = {
 
 # the reference's other architectures -> the ROADMAP item that ports them
 _NOT_PORTED = {
-    "phi3.5-moe-42b-a6.6b": "ROADMAP queue 1: the MoE family",
-    "dbrx-132b": "ROADMAP queue 1: the MoE family",
     "seamless-m4t-large-v2": "ROADMAP queue 1: the encdec/audio family",
     "zamba2-1.2b": "ROADMAP queue 1: the SSM and hybrid families",
     "mamba2-780m": "ROADMAP queue 1: the SSM and hybrid families",

@@ -1,5 +1,6 @@
-"""The hierarchical ``(pod, clique)`` execution mesh of the sharded clique
-executor (paper §4.1).
+"""The execution meshes: the hierarchical ``(pod, clique)`` mesh of the
+sharded clique executor (paper §4.1), and the one-axis ``("data",)`` mesh
+of plain data parallelism (``train_gnn(mesh=, compress_grads=)``).
 
 Axes ``("pod", "clique")``: one row per NVLink clique of the
 ``PartitionPlan``, one column per device within its clique.  All cache and
@@ -24,6 +25,7 @@ from repro_torch.utils import resolve_device
 
 CLIQUE_AXIS = "clique"
 POD_AXIS = "pod"
+DATA_AXIS = "data"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,3 +93,47 @@ def make_hierarchical_mesh(cliques: Sequence[Sequence[int]],
             "ported (ROADMAP: the multi-card sharded executor)")
     grid = tuple(tuple(devs[ci * k_g:(ci + 1) * k_g]) for ci in range(k_c))
     return HierarchicalMesh(grid)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataMesh:
+    """A one-axis ``("data",)`` mesh: ``devices[i]`` runs data position
+    ``i``, which trains on the ``i``-th of ``size`` equal chunks of every
+    batch (the reference's ``jax.make_mesh((n,), ("data",))``)."""
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str] = (DATA_AXIS,)
+
+    @property
+    def shape(self) -> Tuple[int]:
+        return (len(self.devices),)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def device(self, i: int) -> torch.device:
+        return self.devices[i]
+
+
+def make_data_mesh(n: int, devices: Optional[Sequence] = None) -> DataMesh:
+    """A data mesh of ``n`` positions.  ``devices`` binds them in order
+    (anything ``torch.device`` takes); the default binds every position to
+    ``cuda:0``, and the positions then run one after another on that card.
+    A mesh spanning several cards raises ``NotImplementedError``: that is
+    ROADMAP queue 1, item 4 (the sharded executor across cards)."""
+    if n < 1:
+        raise ValueError(f"make_data_mesh: need at least one position, "
+                         f"got {n}")
+    if devices is None:
+        devices = [resolve_device("cuda:0")] * n
+    if len(devices) != n:
+        raise ValueError(f"make_data_mesh: {len(devices)} devices pinned "
+                         f"for {n} positions")
+    devs = tuple(resolve_device(d) for d in devices)
+    if len(set(devs)) > 1:
+        raise NotImplementedError(
+            f"make_data_mesh: the positions span "
+            f"{sorted(map(str, set(devs)))}; only a single-card mesh is "
+            "ported (ROADMAP queue 1, item 4: the sharded executor across "
+            "cards)")
+    return DataMesh(devs)

@@ -14,7 +14,6 @@ from repro_torch.models import transformer
 
 # families not ported yet -> the ROADMAP item that ports them
 _NOT_PORTED = {
-    "moe": "ROADMAP queue 1: the MoE family",
     "ssm": "ROADMAP queue 1: the SSM and hybrid families",
     "hybrid": "ROADMAP queue 1: the SSM and hybrid families",
     "encdec": "ROADMAP queue 1: the encdec/audio family",
@@ -23,7 +22,7 @@ _NOT_PORTED = {
 
 
 def get_module(cfg: ModelConfig):
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return transformer
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "

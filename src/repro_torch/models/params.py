@@ -40,17 +40,21 @@ def init_from_defs(defs: Any, generator: torch.Generator, device,
                    param_dtype: torch.dtype = torch.float32) -> Any:
     """Materialize real parameter tensors on ``device``.
 
-    Leaves are drawn in sorted-key order from ``generator`` (a CPU
-    generator, so the values do not depend on the device).  The draws are
-    torch's, not ``jax.random``'s: to start from the reference package's
-    weights, convert them with ``models.convert.params_from_jax``."""
+    Leaves are drawn in sorted-key order from ``generator``, on the
+    generator's own device.  A CPU generator gives values that do not
+    depend on ``device``; a CUDA generator draws on the card (tens of GB of
+    weights in seconds), and the values then are that generator's, not a
+    CPU generator's of the same seed.  The draws are torch's, not
+    ``jax.random``'s: to start from the reference package's weights,
+    convert them with ``models.convert.params_from_jax``."""
     if isinstance(defs, Def):
         dt = defs.dtype or param_dtype
         if defs.init == "zeros":
             return torch.zeros(defs.shape, dtype=dt, device=device)
         if defs.init == "ones":
             return torch.ones(defs.shape, dtype=dt, device=device)
-        w = torch.randn(defs.shape, generator=generator, dtype=torch.float32)
-        return (w * _std(defs)).to(dtype=dt, device=device)
+        w = torch.randn(defs.shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return w.mul_(_std(defs)).to(dtype=dt, device=device)
     return {k: init_from_defs(defs[k], generator, device, param_dtype)
             for k in sorted(defs)}

@@ -1,5 +1,7 @@
-"""Decoder-only LM of the dense family (and the vlm family's early-fusion
-text path, which is the same network).
+"""Decoder-only LM of the dense and MoE families (and the vlm family's
+early-fusion text path, which is the same network).  A config with
+``n_experts > 0`` puts a mixture-of-experts FFN (``models/moe.py``) where
+the dense layers have their SwiGLU MLP.
 
 Parameters keep the reference's stacked layout: every per-layer weight has
 a leading (L, ...) dim, and a Python loop over the layers takes the place
@@ -25,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import flash_attention, rms_norm, rope, swiglu_mlp
 from repro_torch.models.params import Def
 from repro_torch.utils import resolve_device
@@ -33,19 +36,20 @@ BIG_WINDOW = 1 << 30  # "no window": the global layers' window
 
 
 def defs(cfg: ModelConfig) -> dict:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers are not ported yet "
-            "(ROADMAP queue 1: the MoE family)")
     L, D, V = cfg.n_layers, cfg.d_model, cfg.padded_vocab
     layer = {
         "attn_norm": Def((L, D), ("layers", "embed"), init="zeros"),
         "mlp_norm": Def((L, D), ("layers", "embed"), init="zeros"),
         **attn.attn_defs(cfg, stack=L),
-        "w_gate": Def((L, D, cfg.d_ff), ("layers", "embed", "ff")),
-        "w_up": Def((L, D, cfg.d_ff), ("layers", "embed", "ff")),
-        "w_down": Def((L, cfg.d_ff, D), ("layers", "ff", "embed")),
     }
+    if cfg.n_experts > 0:
+        layer.update(moe_mod.moe_defs(cfg, stack=L))
+    else:
+        layer.update({
+            "w_gate": Def((L, D, cfg.d_ff), ("layers", "embed", "ff")),
+            "w_up": Def((L, D, cfg.d_ff), ("layers", "embed", "ff")),
+            "w_down": Def((L, cfg.d_ff, D), ("layers", "ff", "embed")),
+        })
     out = {
         "embed": Def((V, D), ("vocab", "embed"), scale=0.02),
         "layers": layer,
@@ -91,42 +95,55 @@ def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
-def _mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def _mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor, mode: str):
+    """The FFN behind its pre-norm and residual add: (x + ffn, aux).  The
+    MoE FFN runs its ``mode``'s dispatch and gives its router loss; the
+    dense MLP gives aux 0.0."""
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-    return x + swiglu_mlp(p, h)
+    if cfg.n_experts > 0:
+        y, aux = moe_mod.moe_block(cfg, p, h, mode=mode)
+        return x + y, aux
+    return x + swiglu_mlp(p, h), 0.0
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
-    """Full-sequence forward.  Returns (logits (B, S, V), aux loss 0.0)."""
+    """Full-sequence forward.  Returns (logits (B, S, V), aux loss: the
+    layers' mean router loss, 0.0 for a dense config)."""
     x, aux = forward_hidden(cfg, params, tokens)
     return unembed(cfg, params, x), aux
 
 
 def _block(cfg: ModelConfig, p: dict, x: torch.Tensor, window: int,
-           theta: float) -> torch.Tensor:
-    """One decoder layer: attention and MLP, each behind a pre-norm and a
-    residual add."""
+           theta: float, mode: str):
+    """One decoder layer: attention and FFN, each behind a pre-norm and a
+    residual add.  Returns (x, the layer's aux loss)."""
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     x = x + attn.self_attention(cfg, p, h, window=window, theta=theta)
-    return _mlp_block(cfg, p, x)
+    return _mlp_block(cfg, p, x, mode)
 
 
 def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                    mode: str = "train"):
-    """Forward up to the final norm (pre-unembed); (hidden, aux 0.0).  With
-    ``cfg.remat`` and ``mode == "train"`` each layer is checkpointed when
-    autograd records (nothing to recompute otherwise)."""
+    """Forward up to the final norm (pre-unembed); (hidden, aux), aux the
+    layers' summed router loss over the number of layers, as the
+    reference's (0.0 for a dense config).  ``mode`` picks the MoE
+    dispatch (``"train"``/``"prefill"``: capacity buffers; ``"decode"``:
+    dense).  With ``cfg.remat`` and ``mode == "train"`` each layer is
+    checkpointed when autograd records (nothing to recompute otherwise)."""
     x = embed_tokens(cfg, params, tokens)
     window, theta = layer_flags(cfg)
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    aux = 0.0
     for l in range(cfg.n_layers):
         p = _layer(params, l)
         if remat:
-            x = checkpoint(_block, cfg, p, x, window[l], theta[l],
-                           use_reentrant=False)
+            x, a = checkpoint(_block, cfg, p, x, window[l], theta[l], mode,
+                              use_reentrant=False)
         else:
-            x = _block(cfg, p, x, window[l], theta[l])
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), 0.0
+            x, a = _block(cfg, p, x, window[l], theta[l], mode)
+        aux = aux + a
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, aux / cfg.n_layers
 
 
 def _ce(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -142,7 +159,8 @@ def _ce(cfg: ModelConfig, params: dict, x: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     """Next-token CE (labels = tokens shifted by the caller; labels < 0
-    masked).  Returns (loss, {"ce", "aux"}); aux is 0.0 (dense).
+    masked) plus 0.01 times the router loss.  Returns (loss, {"ce",
+    "aux"}); aux is 0.0 for a dense config.
 
     With ``cfg.loss_chunk`` > 0 dividing S (and S > the chunk), the CE is
     summed chunk by chunk along the sequence, in order, as the reference's
@@ -205,7 +223,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         a, _ = attn.decode_self_attention(
             cfg, p, h, {"k": cache["k"][l], "v": cache["v"][l]}, pos,
             window=window[l], theta=theta[l])
-        x = _mlp_block(cfg, p, x + a)
+        x, _ = _mlp_block(cfg, p, x + a, "decode")
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x), cache
 
@@ -227,7 +245,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         q = rope(q, positions, theta[l])
         k = rope(k, positions, theta[l])
         o = flash_attention(q, k, v, causal=True, window=window[l])
-        x = _mlp_block(cfg, p, x + attn._out(cfg, p, o))
+        x, _ = _mlp_block(cfg, p, x + attn._out(cfg, p, o), "prefill")
         cache["k"][l, :, :S] = k
         cache["v"][l, :, :S] = v
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

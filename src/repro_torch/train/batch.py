@@ -62,7 +62,8 @@ import torch
 
 from repro_torch.core.unified_cache import CliqueCache, TrafficCounter
 from repro_torch.graph.csr import CSRGraph
-from repro_torch.graph.sampling import (cache_sample_dispatch,
+from repro_torch.graph.sampling import (cache_sample_batch,
+                                        cache_sample_dispatch,
                                         host_sample_batch, unique_vertices)
 from repro_torch.kernels import fused_batch, gather
 from repro_torch.obs import maybe_span
@@ -337,22 +338,28 @@ class DeviceBatchBuilder(BatchBuilder):
     version (the device of the tensors decides).
 
     ``bucket`` sets the shape quantum of the spec layout (see module doc).
+    ``sampler="stepwise"`` samples hop by hop (one sampling launch and one
+    sync per hop, ``cache_sample_batch(chain=False)``) instead of the whole
+    chain in one launch: the per-hop parity oracle, bitwise the same specs.
     """
 
     backend = "device"
 
     def __init__(self, g, cache, fanouts, counter=None, dev=0, *,
                  device="cuda", observer=None, fused: bool = True,
-                 bucket: int = DEFAULT_BUCKET):
+                 bucket: int = DEFAULT_BUCKET, sampler: str = "chain"):
         if cache is None:
             raise ValueError("DeviceBatchBuilder needs a unified cache "
                              "(build a LegionPlan, or use HostBatchBuilder)")
         super().__init__(g, cache, fanouts, counter, dev, device=device,
                          observer=observer)
+        if sampler not in ("chain", "stepwise"):
+            raise ValueError(f"unknown sampler mode {sampler!r}")
         if bucket < 1:
             raise ValueError(f"bucket must be >= 1, got {bucket}")
         self.fused = fused
         self.bucket = int(bucket)
+        self.sampler = sampler
         self._staging = _StagingPool(pin=self.device.type == "cuda")
         # upload the cache's device half now, on the builder's device
         cache.device_arrays(device=self.device)
@@ -364,16 +371,23 @@ class DeviceBatchBuilder(BatchBuilder):
         return CliqueCache._lane_padded(self.g.feat_dim)
 
     def sample_spec(self, seeds, rng):
-        # queue the whole device chain, then fetch labels while it is in
-        # flight; resolve() pays the single sync and repairs stale-parent /
-        # host-miss rows (see cache_sample_dispatch).  Specs are built on
+        # chain: queue the whole device chain, then fetch labels while it
+        # is in flight; resolve() pays the single sync and repairs
+        # stale-parent / host-miss rows (see cache_sample_dispatch).
+        # stepwise: one hop and one sync at a time.  Specs are built on
         # prefetch threads: the current device and the grad mode are per
         # thread, so both are set here.
         with device_context(self.device), torch.no_grad():
-            resolve = cache_sample_dispatch(self.g, self.cache, seeds,
-                                            self.fanouts, rng)
-            labels = self.g.get_labels(seeds)
-            levels, _topo_hits = resolve(counter=self.counter)
+            if self.sampler == "chain":
+                resolve = cache_sample_dispatch(self.g, self.cache, seeds,
+                                                self.fanouts, rng)
+                labels = self.g.get_labels(seeds)
+                levels, _topo_hits = resolve(counter=self.counter)
+            else:
+                levels, _topo_hits = cache_sample_batch(
+                    self.g, self.cache, seeds, self.fanouts, rng,
+                    chain=False, counter=self.counter)
+                labels = self.g.get_labels(seeds)
         self._account_sampling(levels)
         ids = unique_vertices(levels)
         return BatchSpec(labels=labels, levels=levels, ids=ids,

@@ -22,6 +22,11 @@ the routed gather (its own shard and its clique peers', never another
 clique's), and runs its own forward and backward; the positions' gradient
 sums combine in a fixed order before one AdamW update.
 
+``mesh=`` (a one-axis ``("data",)`` mesh) with ``compress_grads=True``
+splits each step's batch over the mesh's positions, run one after another,
+and averages their gradients through the int8 error-feedback all-reduce of
+``train/compression.py``, as the reference's ``shard_map`` does.
+
 Device work is queued on the GPU's current (default) stream from three
 threads: the Prefetcher's (device sampling, and the online refresh's
 scatter), the build pool's, and the consumer's (finalize and the step).
@@ -60,13 +65,16 @@ from repro_torch.core.unified_cache import (TrafficCounter,
                                            stack_hierarchical_shards)
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels import gather
-from repro_torch.launch.mesh import HierarchicalMesh, make_hierarchical_mesh
+from repro_torch.launch.mesh import (DataMesh, HierarchicalMesh,
+                                     make_hierarchical_mesh)
 from repro_torch.models.gnn import GNNConfig, defs as gnn_defs
 from repro_torch.models.gnn import forward as gnn_forward
 from repro_torch.models.gnn import loss_fn as gnn_loss
 from repro_torch.models.params import init_from_defs
 from repro_torch.obs import Telemetry, maybe_span
 from repro_torch.train.batch import make_batch_builder, pack_sharded_specs
+from repro_torch.train.compression import (init_error_feedback,
+                                          make_compressed_grad_fn)
 from repro_torch.train.checkpoint import (AsyncCheckpointer,
                                           latest_resumable_checkpoint,
                                           restore_checkpoint)
@@ -77,14 +85,6 @@ from repro_torch.train.pipeline import (LookaheadWindow, Prefetcher,
 from repro_torch.train.resilience import (ResilienceConfig, ResilienceStats,
                                           RngJournal, topology_from_partition)
 from repro_torch.utils import device_context, resolve_device
-
-# options of the reference's train_gnn that this package does not run yet,
-# with the ROADMAP item that brings each
-_NOT_PORTED = {
-    "mesh": "queue 1, item 2: gradient compression (an explicit "
-            "data-parallel mesh)",
-    "compress_grads": "queue 1, item 2: gradient compression",
-}
 
 # pipeline/refresh summary keys folded into the monotonic base totals when
 # a remesh replaces the Prefetcher (and its builders) or the
@@ -147,6 +147,26 @@ def _make_train_step(cfg: GNNConfig, opt):
         updates, opt_state = opt.update(grads, opt_state, params)
         params = apply_updates(params, updates)
         return params, opt_state, loss.detach(), metrics["acc"]
+
+    return step
+
+
+def _make_compressed_step(cfg: GNNConfig, opt, mesh: DataMesh):
+    """The data-parallel step over a ``("data",)`` mesh with the int8
+    error-feedback gradient all-reduce (``train/compression.py``): the
+    batch splits into equal chunks, one per position, and each position's
+    gradients are compressed against its own residual before the mean and
+    one AdamW update.  The accuracy is 0.0, as in the reference (the
+    compressed gradient function returns no metrics)."""
+    grad_fn = make_compressed_grad_fn(
+        lambda p, b: gnn_loss(cfg, p, b)[0], mesh)
+
+    def step(params, opt_state, efs, batch):
+        loss, grads, efs = grad_fn(params, batch, efs)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        return (params, opt_state, efs, loss,
+                torch.zeros((), dtype=torch.float32, device=loss.device))
 
     return step
 
@@ -239,14 +259,15 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
               checkpoint_every: int = 50, resume: bool = False,
               prefetch_depth: int = 2,
               prefetch_workers: Optional[int] = None,
-              shuffle: str = "local", backend: str = "host",
+              shuffle: str = "local", mesh: Optional[DataMesh] = None,
+              compress_grads: bool = False, backend: str = "host",
               fused: bool = True, bucket: int = 256, sampler: str = "chain",
               refresh_interval: Optional[int] = None,
               refresh_config: Optional[RefreshConfig] = None,
               telemetry=None, feature_store=None,
               lookahead: Optional[int] = None,
-              resilience: Optional[ResilienceConfig] = None,
-              **not_ported) -> GNNTrainResult:
+              resilience: Optional[ResilienceConfig] = None
+              ) -> GNNTrainResult:
     """Train SAGE/GCN with the Legion pipeline (see module doc).
     ``shuffle='global'`` ignores tablets and draws seeds from the full
     training set.
@@ -337,37 +358,44 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
     (``prefetch_build``, ``ssd_read``, ``ssd_stall`` under the store's
     retry loop, ``checkpoint_write``, ``device_loss``).
 
-    The reference's ``mesh`` and ``compress_grads``, and
-    ``sampler="stepwise"``, are not ported yet and raise
-    ``NotImplementedError``; ``backend="sharded"`` with ``mesh=`` or
-    ``compress_grads=`` raises ``ValueError``, as in the reference.
+    ``sampler``: ``"chain"`` samples every hop of a device spec build in
+    one launch of the sampling chain; ``"stepwise"`` is the per-hop path
+    (one ``routed_neighbor_sample`` launch and one sync per hop,
+    ``cache_sample_batch(chain=False)``), kept as a parity oracle: both
+    give bitwise the same batches.  The host backend ignores it.
+
+    ``mesh`` (a ``launch.mesh.DataMesh``) with ``compress_grads=True``
+    runs the step as explicit data parallelism over the mesh's positions
+    with the int8 error-feedback gradient all-reduce
+    (``train/compression.py``): the concatenated batch splits into
+    ``mesh.size`` equal chunks (``cfg.batch_size`` must be a multiple of
+    the mesh size), every position keeps its own residual, and the
+    reported accuracy is 0.0, as in the reference.  The residuals are not
+    checkpointed, as in the reference: a resumed run starts them at zero.
+    ``mesh`` alone, or ``compress_grads`` alone, runs the plain step.
+    ``backend="sharded"`` with either raises ``ValueError``, and so does a
+    ``device_loss`` fault with ``mesh``, as in the reference.
     """
-    for name in not_ported:
-        if name not in _NOT_PORTED:
-            raise TypeError(f"train_gnn() got an unexpected keyword "
-                            f"argument {name!r}")
-    if backend == "sharded" and plan is not None and (
-            not_ported.get("mesh") is not None
-            or not_ported.get("compress_grads")):
+    backend = backend if plan is not None else "host"
+    if backend == "sharded" and (mesh is not None or compress_grads):
         raise ValueError(
             "backend='sharded' builds its own hierarchical (pod, clique) "
             "mesh and combines gradients over both axes; it does not "
             "compose with mesh=/compress_grads= (use backend='device' for "
             "the DP-mesh path)")
-    asked = [k for k, v in not_ported.items() if v not in (None, False)]
-    if asked:
-        raise NotImplementedError(
-            f"{asked[0]}= is not ported yet (ROADMAP "
-            f"{_NOT_PORTED[asked[0]]})")
-    if sampler != "chain":
-        raise NotImplementedError(
-            f"sampler={sampler!r} is not ported yet (ROADMAP queue 1, "
-            "item 3: the stepwise sampler)")
+    if mesh is not None and compress_grads \
+            and cfg.batch_size % mesh.size:
+        raise ValueError(
+            f"batch_size {cfg.batch_size} does not split over the "
+            f"{mesh.size} positions of the data mesh")
     dev = resolve_device(device)
+    if mesh is not None and compress_grads and set(mesh.devices) != {dev}:
+        raise ValueError(f"the data mesh's positions live on "
+                         f"{sorted(map(str, set(mesh.devices)))}, the model "
+                         f"on {dev}")
     if devices is None:
         devices = sorted(plan.partition.tablets) if plan is not None else [0]
     devices = list(devices)
-    backend = backend if plan is not None else "host"
     exec_clique_ids, exec_cliques = None, None
     if backend == "sharded":
         # devices must cover whole cliques (each clique's cache is
@@ -390,10 +418,13 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
     resil = resilience
     fplan = resil.fault_plan if resil is not None else None
     rstats = ResilienceStats()
-    if fplan is not None and plan is None and any(
+    if fplan is not None and any(
             s.site == "device_loss" for s in fplan._specs):
-        raise ValueError("device_loss recovery needs a LegionPlan to replan "
-                         "from")
+        if plan is None or mesh is not None:
+            raise ValueError(
+                "device_loss recovery needs a LegionPlan to replan from "
+                "and does not compose with an explicit mesh= (the remesh "
+                "rebuilds the executor itself)")
 
     tele = telemetry
     if tele is not None and not hasattr(tele, "span"):
@@ -409,6 +440,9 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
     opt_state = opt.init(params)
     train_step = _make_train_step(cfg, opt)
     step0 = 0
+    efs = None
+    if mesh is not None and compress_grads:
+        compressed_step = _make_compressed_step(cfg, opt, mesh)
 
     ckpt = None
     runtime0 = None
@@ -428,6 +462,9 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
                     path, (params, opt_state), with_runtime=True)
                 rstats.restore_s += time.perf_counter() - t0
                 rstats.resumed_from_step = step0
+    if mesh is not None and compress_grads:
+        # one zero residual tree per data position, never checkpointed
+        efs = init_error_feedback(params, mesh.size)
 
     rngs = {d: np.random.default_rng(seed + 17 * d) for d in devices}
     # RNG journal: boundary states at each step, so a checkpoint captures
@@ -522,7 +559,7 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
         builders = {}
         for d in devs:
             cache = plan_l.cache_for_device(d) if plan_l is not None else None
-            kw = ({"fused": fused, "bucket": bucket}
+            kw = ({"fused": fused, "bucket": bucket, "sampler": sampler}
                   if backend_l in ("device", "sharded") else {})
             if manager_l is not None:
                 kw["observer"] = manager_l.observer_for(d)
@@ -766,7 +803,12 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
                     with (tele.span("device_step", step=step)
                           if tele is not None
                           else torch.profiler.record_function("device_step")):
-                        if st["backend"] == "sharded":
+                        new_efs = efs
+                        if efs is not None:
+                            new_params, new_opt, new_efs, loss, acc = \
+                                compressed_step(params, opt_state, efs,
+                                                next_batch)
+                        elif st["backend"] == "sharded":
                             new_params, new_opt, loss, acc = \
                                 st["sharded_step"](params, opt_state,
                                                    *next_batch)
@@ -783,6 +825,7 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
                     # Ctrl-C in the wait) the final checkpoint is labelled
                     # with this step and holds the parameters before it
                     params, opt_state, reached = new_params, new_opt, step + 1
+                    efs = new_efs
                     dt = time.perf_counter() - t0
                     flagged = monitor.record(dt)
                     step_times.append(dt)

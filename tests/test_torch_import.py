@@ -48,17 +48,23 @@ class Block:
 sys.meta_path.insert(0, Block())
 import repro_torch.launch.mesh as m
 import repro_torch.train.loop
+import repro_torch.train.compression as c
+import repro_torch.models.moe
+import repro_torch.configs.phi35_moe
+import repro_torch.configs.dbrx
 mesh = m.make_hierarchical_mesh([[0, 1], [2, 3]], devices=["cpu"] * 4)
-print(mesh.shape)
+data = m.make_data_mesh(4, devices=["cpu"] * 4)
+print(mesh.shape, data.shape, callable(c.compressed_psum_mean))
 """
 
 
 def test_mesh_and_sharded_loop_import_with_jax_and_reference_blocked():
+    """Also the data mesh, compression and the MoE modules and configs."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _BLOCKED], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "(2, 2)"
+    assert out.stdout.strip() == "(2, 2) (4,) True"
 
 
 def test_port_sources_name_no_jax_or_reference_import():

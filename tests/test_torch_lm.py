@@ -31,6 +31,8 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.models.params import Def
 
 DENSE = ("stablelm-3b", "minitron-4b", "gemma3-1b", "qwen2.5-14b")
+MOE = ("phi3.5-moe-42b-a6.6b", "dbrx-132b")  # tests/test_torch_moe.py
+PORTED = MOE + DENSE
 DIST = Distribution.single_device()
 B, PROMPT, NEW, FORCED = 4, 24, 16, 8
 # bf16 activations over 2-3 layers: XLA computes fused bf16 elementwise
@@ -63,7 +65,7 @@ def _flatten(tree, prefix=()):
 # ---------------------------------------------------------------- configs --
 
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_configs_equal_field_for_field(arch, smoke):
     mine = tconfigs.get_config(arch, smoke=smoke)
     theirs = jconfigs.get_config(arch, smoke=smoke)
@@ -76,27 +78,23 @@ def test_configs_equal_field_for_field(arch, smoke):
 
 
 def test_registry_ports_the_dense_archs_and_names_the_rest():
-    assert tconfigs.ARCH_IDS == DENSE
-    assert set(DENSE) < set(jconfigs.ARCH_IDS)
+    assert tconfigs.ARCH_IDS == PORTED
+    assert set(PORTED) < set(jconfigs.ARCH_IDS)
     assert {k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()} \
         == {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
-    for arch in set(jconfigs.ARCH_IDS) - set(DENSE):
+    for arch in set(jconfigs.ARCH_IDS) - set(PORTED):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tconfigs.get_config(arch)
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "encdec",
-                                    "audio"])
+@pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec", "audio"])
 def test_unported_families_raise_naming_their_roadmap_item(family):
     cfg = dataclasses.replace(tconfigs.get_config("gemma3-1b", smoke=True),
                               family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_module(cfg)
-    moe = dataclasses.replace(cfg, family="dense", n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.defs(moe)
 
 
 def test_vlm_family_runs_through_the_transformer():
@@ -105,7 +103,7 @@ def test_vlm_family_runs_through_the_transformer():
     assert get_module(cfg) is transformer
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_defs_and_layer_flags_match_reference(arch):
     for smoke in (False, True):
         cfg = tconfigs.get_config(arch, smoke=smoke)

@@ -384,19 +384,6 @@ def test_fault_and_recovery_counters_reach_telemetry(tmp_path, setup):
     assert "faults/recovery: " in out.getvalue()
 
 
-# ---- what only the port has ---------------------------------------------
-
-
-@pytest.mark.parametrize("kw, item", [
-    ({"mesh": object()}, "queue 1, item 2"),
-    ({"compress_grads": True}, "queue 1, item 2"),
-    ({"sampler": "stepwise"}, "queue 1, item 3")])
-def test_options_still_to_port_name_their_queue_item(setup, kw, item):
-    g, plan = setup
-    with pytest.raises(NotImplementedError, match=item):
-        _train(g, plan, _cfg(), steps=1, checkpoint_dir=None, **kw)
-
-
 # ---- the port against the reference ------------------------------------
 
 

@@ -6,8 +6,8 @@ atol = 1e-5 (float32 sums run in another order under XLA and PyTorch, and
 the difference compounds over the steps), the refresh summaries (events and
 overlaps included) and the traffic tallies are identical.  In the port
 alone: host and device backends give bitwise-equal losses, so do the fused
-and unfused finalize, the options not ported yet raise, and so does
-``lookahead=`` without a feature store, as in the reference."""
+and unfused finalize, and ``lookahead=`` without a feature store raises,
+as in the reference."""
 import jax
 import numpy as np
 import pytest
@@ -138,16 +138,6 @@ def test_refresh_interval_must_exceed_prefetch_depth():
     with pytest.raises(ValueError, match="prefetch_depth"):
         train_gnn(g, plan, cfg, steps=4, device="cpu", refresh_interval=2,
                   prefetch_depth=4)
-
-
-@pytest.mark.parametrize("kw", [
-    {"mesh": object()}, {"compress_grads": True},
-    {"backend": "sharded", "mesh": object()}, {"sampler": "stepwise"}])
-def test_options_not_ported_yet_raise(kw):
-    g = t_graph(500, 4, seed=1, feat_dim=8)
-    cfg = GNNConfig(feat_dim=8, hidden=8, batch_size=16, fanouts=(2, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_gnn(g, None, cfg, steps=1, device="cpu", **kw)
 
 
 def test_lookahead_without_a_store_raises():
