@@ -32,8 +32,9 @@ result line):
    bitwise against its plain version at the sharded position's 2000 seeds
    and a one-GPU training batch of 8000 seeds, with 1 and 3 hops, seeds
    of -1, uncached seeds, degree-0 rows, all misses, an empty topology
-   cache, draws near 2^31 and out-of-range routing, then timed beside its
-   byte bound, the two per-hop kernels on the same draws, and the per-hop
+   cache, draws near 2^31 and out-of-range routing, then timed (at those
+   two shapes and at a 256-seed serving micro-batch) beside its byte
+   bound, the two per-hop kernels on the same draws, and the per-hop
    (``device_sample_cached`` looped) and chain (``device_sample_chain``)
    compositions;
    ``sage_aggregate``, which no path runs, at a GraphSAGE first-layer shape
@@ -153,12 +154,17 @@ result line):
    Pallas tests' (BH, S, Dh) shapes in f32, causal and not, and ragged
    S = 77, 1000 with window 1, 64 (a row's first visited tile all masked),
    512 and >= S, not causal, Sq != Sk, G = 1, 3, 4, 5 and 8, Dh 64, 80,
-   128 and 256, and the MoE configs' layer shapes at a 4 x 4096 prefill
-   (phi3.5-moe: 32 q heads over 8 kv heads of 128, G 4; dbrx: 48 over 8,
-   G 6; causal), where the forward kernel's lse is also held to the plain
-   forward's (rtol = atol = 1e-4); then timed at the two gemma3 prefill
-   shapes and the two MoE shapes beside its bound (bf16 operations at 989
-   TFLOP/s or bytes, the larger) and SDPA; on the card
+   128 and 256, and the model layers' shapes at a 4 x 4096 prefill
+   (``LAYER_SHAPES``: phi3.5-moe, 32 q heads over 8 kv heads of 128, G 4;
+   dbrx, 48 over 8, G 6; zamba2's shared block, 32 heads of 64, causal;
+   seamless's encoder, 16 heads of 64, not causal, its decoder's causal
+   self attention over 512 queries, and its cross attention, 512 queries
+   over 4096 keys, not causal; chameleon, 64 q
+   heads over 8 kv heads of 128, G 8, causal), where the forward kernel's
+   lse is also held to the plain forward's (rtol = atol = 1e-4); then
+   timed at the two gemma3 prefill shapes and the layer shapes beside its
+   bound (bf16 operations at 989 TFLOP/s or bytes, the larger) and SDPA;
+   on the card
    an f32 call autograd would differentiate must raise (there is no f32
    backward), and a bf16 one must give gradients through the backward.
 11b. LM backward: ``flash_attention_bwd`` on q, k, v, o, lse and do
@@ -239,11 +245,43 @@ result line):
    the aux loss of a forward within the CPU tests' LM logits tolerance
    (atol 6e-2 + rtol 3e-2).
 
+19. SSM and hybrid serving: ``mamba2-780m`` (48 layers, d_model 1536, 48
+   SSD heads of 64, state 128; 0.858 B f32 parameters) and
+   ``zamba2-1.2b`` (38 Mamba2 layers, d_model 2048, state 64, and a shared
+   attention block of 32 heads of 64 after every 6 of them; 1.170 B) at
+   full width and depth, seed-0 weights drawn on the card; after a
+   warm-up, ``generate`` of 32 greedy tokens after 4 prompts of 4096:
+   prefill ms, decode ms a step (CUDA events), peak memory,
+   ``flash_attention`` launches (0 for mamba2, 6 a prefill for zamba2, all
+   ``wgmma``); a profiled prefill's device time by kind; layer 0's mixer
+   piece by piece on CUDA events (projections, convolutions,
+   ``ssd_chunked`` and what it allocates, the whole mixer), the SSD's
+   share of the prefill and a profile of ``ssd_chunked`` by kind (its
+   einsums, exp/cumsum, copies, the rest); the busy share of 5 profiled
+   decode steps.
+20. Encoder-decoder serving: ``seamless-m4t-large-v2`` (24 encoder + 24
+   decoder layers, d_model 1024, 16 heads of 64, d_ff 8192, vocab
+   256,206; 2.036 B) at full width, frames (4, 4096, 1024) from numpy seed
+   0 and 512-token prompts (``target_len``), 32 greedy tokens: the same
+   figures, 72 ``flash_attention`` launches a prefill (24 encoder, 24
+   decoder self, 24 cross), all ``wgmma``.
+21. ``chameleon-34b`` at full width (d_model 8192, 64 q heads over 8 kv
+   heads of 128, d_ff 22016, qk-norm), 8 of its 48 layers (the depth cut
+   so that one card holds the f32 weights: 6.6 B parameters, 26.4 GB; all
+   48 are 137 GB): the same figures, 8 launches a prefill on ``wgmma``
+   (Dh 128, G 8).  Then the four configs' smoke configs generated on the
+   CPU and teacher-forced with those tokens on the card and the CPU:
+   logits within the tolerance the CPU tests hold each to the reference
+   with (atol 6e-2 + rtol 3e-2; twice the atol for zamba2-smoke and
+   seamless-smoke), the final SSM state ``h`` within 1e-5 of its largest
+   entry for mamba2-smoke and 3e-2 for zamba2-smoke.
+
 Every kernel's launch count is zeroed just before each of the serve,
 train, parity, unfused, shard, shard-parity, store-train (each of its 5
 runs), store-serve, resil-* (each run of 10d), dp-plain, dp-compress,
 sampler-chain, sampler-stepwise, lm-serve, lm-parity, lm-train,
-lm-train-parity, moe-serve and moe-parity phases and read just after, with
+lm-train-parity, moe-serve, moe-parity, ssm-serve, hybrid-serve,
+audio-serve, vlm-serve and family-parity phases and read just after, with
 the launches by route; ``sage_aggregate``'s stay 0 (no path runs it), and
 ``routed_neighbor_sample`` launches once per device-sampling spec build,
 on its ``chain`` route, except in the stepwise run, where it launches once
@@ -336,6 +374,30 @@ MOE_PARITY = ("phi3.5-moe-42b-a6.6b", "dbrx-132b")  # smoke configs
 # smoke configs' untied head gives logits of order 1 (phi3.5 smoke:
 # 0.0234 at most on an H100 80GB HBM3 at 700 W)
 MOE_SMOKE_TOL = {"atol": 6e-2, "rtol": 3e-2}
+# phases 19-21: the SSM, hybrid and encoder-decoder families and chameleon
+# at full width from seed-0 weights; chameleon cut to 8 of its 48 layers
+# (6.6 B f32 parameters, 26.4 GB; all 48 are 137 GB)
+SSM_ARCHS = ("mamba2-780m", "zamba2-1.2b")
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+VLM_ARCH = "chameleon-34b"
+VLM_LAYERS = 8
+FAMILY_PARITY = SSM_ARCHS + (ENCDEC_ARCH, VLM_ARCH)  # smoke configs
+# their smoke configs card vs CPU: the logits tolerance the CPU tests hold
+# each to the reference with (tests/test_torch_{ssm,encdec,lm}.py): the LM
+# tolerance, twice its atol for zamba2-smoke (its shared block's bf16
+# chains round a step apart at 40-50% of the entries and the Mamba layers
+# after it carry that on: 0.078 card vs CPU at one of 32,768 logits on an
+# H100 80GB HBM3 at 700 W) and for seamless-smoke's decode steps.  The SSM
+# state h (f32 sums over the prompt of bf16 activations) within 1e-5 of its
+# largest entry for mamba2-smoke (3.9e-8 card vs CPU on that H100; an SSD
+# run in bf16 is 4e-3 to 1e-2 off) and 3e-2 for zamba2-smoke, whose shared
+# block rounds apart (0.0134), as tests/test_torch_ssm.py holds them
+FAMILY_SMOKE_TOL = {"mamba2-780m": {"atol": 6e-2, "rtol": 3e-2},
+                    "zamba2-1.2b": {"atol": 1.2e-1, "rtol": 3e-2},
+                    "seamless-m4t-large-v2": {"atol": 1.2e-1, "rtol": 3e-2},
+                    "chameleon-34b": {"atol": 6e-2, "rtol": 3e-2}}
+H_TOL_OF_MAX = {"mamba2-780m": 1e-5, "zamba2-1.2b": 3e-2}
+SSD_PROFILED = 3  # ssd_chunked calls profiled after a warm-up call
 # the backward kernel against the f64 exact gradient: per gradient, max
 # |kernel - exact| / max |exact| within twice the plain version's plus this
 # floor (both round q * scale, p and each gradient to bf16; the kernel
@@ -1077,12 +1139,32 @@ def causal_pairs(S: int, window: int) -> int:
     return sum(min(i + 1, w) for i in range(S))
 
 
-def flash_work(q, k, window: int) -> tuple:
-    """(bytes, flops) of one causal attention call: q, k, v and out once
-    each; 4 * Dh flops per visible pair and query head."""
+def flash_work(q, k, window: int, causal: bool = True) -> tuple:
+    """(bytes, flops) of one attention call: q, k, v and out once each;
+    4 * Dh flops per visible (query, key) pair and query head (every pair
+    when not causal)."""
     B, S, Hq, Dh = q.shape
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return nbytes, 4 * Dh * B * Hq * causal_pairs(S, window)
+    pairs = causal_pairs(S, window) if causal else S * k.shape[1]
+    return nbytes, 4 * Dh * B * Hq * pairs
+
+
+# the model layers' attention shapes at a 4 x 4096 prefill, no window:
+# (name, (B, Sq, Hq, Hkv, Dh), Sk (None: Sq), causal).  The MoE configs
+# (phi3.5-moe G 4, dbrx G 6, Dh 128); zamba2's shared block (32 heads of
+# 64, G 1); seamless's encoder self attention (16 heads of 64, not causal),
+# its decoder's causal self attention over the 512-token prompt and its
+# cross attention (that prompt over the 4096 encoder frames, not causal);
+# chameleon's layer (64 q heads over 8 kv heads of 128, G 8)
+LAYER_SHAPES = (
+    ("phi35_moe_g4_dh128", (4, 4096, 32, 8, 128), None, True),
+    ("dbrx_g6_dh128", (4, 4096, 48, 8, 128), None, True),
+    ("zamba2_shared_g1_dh64", (4, 4096, 32, 32, 64), None, True),
+    ("seamless_encoder_full_g1_dh64", (4, 4096, 16, 16, 64), None, False),
+    ("seamless_decoder_self_sq512_g1_dh64", (4, 512, 16, 16, 64), None,
+     True),
+    ("seamless_cross_sq512_sk4096_dh64", (4, 512, 16, 16, 64), 4096, False),
+    ("chameleon_g8_dh128", (4, 4096, 64, 8, 128), None, True))
 
 
 def flash_attention_cases(torch, ctx, seed: int = 6):
@@ -1091,9 +1173,10 @@ def flash_attention_cases(torch, ctx, seed: int = 6):
     tests' (BH, S, Dh) shapes in f32, causal and not; ragged S = 77 and
     1000 with windows 1, 64 (the tile at position 96 visits keys 0-63, all
     masked for its row 127), 512 and >= S, not causal, Sq != Sk, G = 1, 3,
-    4, 5 and 8, Dh 64, 80, 128 and 256; and the MoE layer shapes of a 4 x
-    4096 prefill, phi3.5-moe's (32 q heads over 8 kv heads of 128, G 4)
-    and dbrx's (48 over 8, G 6), timed (the plain version 10 launches)."""
+    4, 5 and 8, Dh 64, 80, 128 and 256; and the model layers' shapes of a
+    4 x 4096 prefill (``LAYER_SHAPES``: the MoE configs', zamba2's shared
+    block, seamless's encoder, decoder and cross attention, chameleon's),
+    timed (the plain version 10 launches)."""
     import torch.nn.functional as F
 
     dev = ctx["lm"][0][0].device
@@ -1152,21 +1235,19 @@ def flash_attention_cases(torch, ctx, seed: int = 6):
             ("s1000_window_ge_s_g1_dh256", (1, 1000, 2, 2, 256),
              {"window": 1 << 30})):
         cases[name] = (*qkv(*shape, torch.bfloat16), kw)
-    # the MoE configs' layer shapes at the 4 x 4096 prefill, causal, no
-    # window: phi3.5-moe (G 4) and dbrx (G 6), both Dh 128
-    for name, shape in (("phi35_moe_g4_dh128", (4, 4096, 32, 8, 128)),
-                        ("dbrx_g6_dh128", (4, 4096, 48, 8, 128))):
-        q, k, v = qkv(*shape, torch.bfloat16)
-        cases[name] = (q, k, v, {"window": 0})
-        nbytes, flops = flash_work(q, k, 0)
+    # the model layers' shapes at the 4 x 4096 prefill (LAYER_SHAPES)
+    for name, shape, Sk, causal in LAYER_SHAPES:
+        q, k, v = qkv(*shape, torch.bfloat16, Sk=Sk)
+        cases[name] = (q, k, v, {"window": 0, "causal": causal})
+        nbytes, flops = flash_work(q, k, 0, causal)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
-        def sdpa(qt=qt, kt=kt, vt=vt):
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
+        def sdpa(qt=qt, kt=kt, vt=vt, causal=causal):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
         timed.append((name, cases[name], nbytes,
                       ("F.scaled_dot_product_attention(enable_gqa=True, "
-                       "is_causal=True)", sdpa), flops, BWD_TIMED_PLAIN))
+                       f"is_causal={causal})", sdpa), flops, BWD_TIMED_PLAIN))
     for name, shape, Sk, kw in (
             ("sq100_sk300_g4_dh256", (1, 100, 4, 1, 256), 300, {}),
             ("sq300_sk100_full_g4_dh128", (1, 300, 8, 2, 128), 100,
@@ -1334,7 +1415,8 @@ def device_rows(torch, events, w0=None, w1=None):
     out = []
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA \
-                or e.name in ("device_step", "composition", "lm_optimizer"):
+                or e.name in ("device_step", "composition", "lm_optimizer",
+                              "ssd_call"):
             continue
         s, t = e.time_range.start, e.time_range.end
         if w0 is not None:
@@ -2552,7 +2634,7 @@ def moe_parity_phase(torch, np, card: str, phase_launches: dict,
             on_card = teacher_forced(
                 torch, transformer, small, cp,
                 torch.from_numpy(prompts).cuda(),
-                on_cpu.tokens.cuda()).float().cpu()
+                on_cpu.tokens.cuda())[0].float().cpu()
         cap = moe.capacity(small, B * P)
         rows = torch.ones(B, dtype=torch.bool)
         flips = 0
@@ -2618,6 +2700,394 @@ def moe_parity_phase(torch, np, card: str, phase_launches: dict,
                              f"{phase_launches['moe-parity']} by route "
                              f"{phase_routes['moe-parity']}, expected {want} "
                              f"on mma_sync (head dim 16)")
+
+
+# ---- the SSM, hybrid and encoder-decoder families, chameleon (19-21) -------
+
+def flash_per_prefill(cfg) -> int:
+    """``flash_attention`` launches of one prefill of ``cfg``: one per
+    layer (decoder-only), one per place of the shared block (hybrid), none
+    (SSM), encoder self + decoder self + cross per layer (encoder-decoder).
+    Decode runs none."""
+    from repro_torch.models import ssm_lm
+
+    if cfg.family in ("ssm", "hybrid"):
+        return ssm_lm._n_groups(cfg)[0]
+    if cfg.family in ("encdec", "audio"):
+        return cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    return cfg.n_layers
+
+
+def serving_inputs(torch, np, cfg, batch: int, prompt: int, device):
+    """The prompts (numpy, seed 1) and, for the encoder-decoder families,
+    frames (batch, prompt, d_model) from ``default_rng(0)`` with prompts
+    of ``target_len(cfg, prompt)`` tokens (the serving CLI's draws)."""
+    from repro_torch.launch.serve_lm import ENCDEC_FAMILIES, target_len
+
+    frames, P = None, prompt
+    if cfg.family in ENCDEC_FAMILIES:
+        frames = torch.from_numpy(np.random.default_rng(0).normal(
+            size=(batch, prompt, cfg.d_model)).astype(np.float32)).to(device)
+        P = target_len(cfg, prompt)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                                (batch, P))
+    return prompts, frames
+
+
+def event_ms(torch, fn, n: int = 5) -> float:
+    """Median device ms of ``fn()`` over ``n`` calls after one warm-up,
+    CUDA events around each call."""
+    fn()
+    times = []
+    for _ in range(n):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[n // 2]
+
+
+def defs_count(defs) -> int:
+    """Parameters of a ``Def`` tree, without materializing it."""
+    if isinstance(defs, dict):
+        return sum(defs_count(v) for v in defs.values())
+    n = 1
+    for d in defs.shape:
+        n *= d
+    return n
+
+
+def ssd_kinds(rows) -> dict:
+    """Device ms of a profiled ``ssd_chunked`` by kind: its einsums
+    (cuBLAS batched products), exp and cumsum, copies and casts, the rest
+    (masks, products and sums of the (B, c, H, Q, Q) tensors)."""
+    out = {"einsum": 0.0, "exp/cumsum": 0.0, "copy/cast": 0.0, "other": 0.0}
+    for s, t, name in rows:
+        n = name.lower()
+        if any(w in n for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+            key = "einsum"
+        elif "exp" in n or "scan" in n or "cumsum" in n:
+            key = "exp/cumsum"
+        elif "copy" in n or "memcpy" in n or "memset" in n:
+            key = "copy/cast"
+        else:
+            key = "other"
+        out[key] += (t - s) / 1e3
+    return out
+
+
+def mixer_breakdown(torch, np, cfg, params, prompts, prefill_ms: float,
+                    tag: str, card: str) -> None:
+    """One Mamba2 layer of the prefill (layer 0's mixer input: the first
+    entry of the schedule, after the embedding and its pre-norm) piece by
+    piece on CUDA events: the five projections, the three causal
+    convolutions, ``ssd_chunked`` (and what it allocates beyond its
+    inputs), the whole mixer; the SSD's share of the prefill over all
+    layers; then ``ssd_chunked`` alone under torch.profiler by kind."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import mamba2, ssm_lm
+    from repro_torch.models.layers import rms_norm
+
+    p = {n: a[0] for n, a in params["layers"].items()}
+    B, S = prompts.shape
+    H, P_, N, G = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state, \
+        cfg.ssm_ngroups
+    with torch.inference_mode():
+        x = rms_norm(ssm_lm._embed(params, torch.from_numpy(prompts).cuda()),
+                     p["pre_norm"], cfg.norm_eps)
+        z, xr, Br, Cr, dt = mamba2._project(cfg, p, x)
+        convs = [(t, p[f"conv_{n}_w"], p[f"conv_{n}_b"])
+                 for t, n in ((xr, "x"), (Br, "B"), (Cr, "C"))]
+        xc, Bc, Cc = (mamba2.causal_conv(*a) for a in convs)
+        A = -torch.exp(p["A_log"].float())
+        args = (xc.reshape(B, S, H, P_), dt, A, Bc.reshape(B, S, G, N),
+                Cc.reshape(B, S, G, N), p["D"], cfg.ssd_chunk)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mamba2.ssd_chunked(*args)
+        torch.cuda.synchronize()
+        ssd_bytes = torch.cuda.max_memory_allocated() - before
+        ms = {"projections": event_ms(torch, lambda: mamba2._project(cfg, p,
+                                                                     x)),
+              "convs": event_ms(torch, lambda: [mamba2.causal_conv(*a)
+                                                for a in convs]),
+              "ssd_chunked": event_ms(torch,
+                                      lambda: mamba2.ssd_chunked(*args)),
+              "mamba_block": event_ms(torch,
+                                      lambda: mamba2.mamba_block(cfg, p, x))}
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts, acc_events=True) as prof:
+            for _ in range(SSD_PROFILED + 1):  # the first: warm-up
+                with torch.profiler.record_function("ssd_call"):
+                    mamba2.ssd_chunked(*args)
+                    torch.cuda.synchronize()
+    events = prof.events()
+    calls = sorted((e for e in events if e.name == "ssd_call" and
+                    e.device_type == torch.autograd.DeviceType.CPU),
+                   key=lambda e: e.time_range.start)
+    rows = (device_rows(torch, events, calls[1].time_range.start,
+                        calls[-1].time_range.end)
+            if len(calls) == SSD_PROFILED + 1 else [])
+    L = cfg.n_layers
+    c = -(-S // cfg.ssd_chunk)
+    print(f"{tag} one Mamba2 layer of the prefill ({B} x {S}, {H} heads of "
+          f"{P_}, state {N}, chunk {cfg.ssd_chunk}: {c} chunks) on CUDA "
+          f"events, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; ssd_chunked allocates {ssd_bytes / 2**30:.3f} GiB beyond its "
+          f"inputs (one (B, c, H, Q, Q) f32 tensor is "
+          f"{B * c * H * cfg.ssd_chunk ** 2 * 4 / 2**30:.3f} GiB); over {L} "
+          f"layers the SSD is {L * ms['ssd_chunked']:.3f} ms, "
+          f"{L * ms['ssd_chunked'] / prefill_ms:.4f} of the {prefill_ms:.3f}"
+          f" ms prefill, the mixers {L * ms['mamba_block']:.3f} ms | {card}")
+    busy, top = busy_and_top(rows, k=8)
+    seen = busy / 1e3 / SSD_PROFILED / ms["ssd_chunked"]
+    if seen < 0.9:  # the trace lost kernels: no breakdown from it
+        print(f"{tag} profiled ssd_chunked (layer 0) by kind: not measured "
+              f"(the trace holds {seen:.3f} of the CUDA-event time) | {card}")
+        return
+    print(f"{tag} profiled ssd_chunked (layer 0), ms a call over "
+          f"{SSD_PROFILED} calls: device busy {busy / 1e3 / SSD_PROFILED:.3f}"
+          f" ({seen:.3f} of the CUDA-event time); by kind: " + ", ".join(
+              f"{k} {v / SSD_PROFILED:.3f}"
+              for k, v in ssd_kinds(rows).items())
+          + f"; by operation (summed over the calls): | {card}")
+    for us, name, count in top:
+        print(f"{tag}   {us / 1e3:9.3f} ms  x{count:<5d} {name[:70]} "
+              f"| {card}")
+
+
+def family_profiles(torch, np, cfg, params, prompts, frames, prefill_ms,
+                    tag: str, card: str) -> None:
+    """A profiled prefill's device time by kind and by operation (and, for
+    the Mamba2 families, ``mixer_breakdown``), then the busy share of 5
+    profiled decode steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve_lm import generate
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts, acc_events=True) as prof:
+        pre = generate(cfg, params, prompts, 1, frames=frames, device="cuda")
+    rows = device_rows(torch, prof.events())
+    if not rows:
+        print(f"{tag} prefill device time: not measured (torch.profiler saw "
+              f"no device time)")
+    else:
+        busy, top = busy_and_top(rows, k=10)
+        cats = ", ".join(f"{k} {v:.3f}" for k, v in by_category(rows).items())
+        print(f"{tag} profiled prefill: device busy {busy / 1e3:.3f} ms of "
+              f"{pre.prefill_s * 1e3:.3f} ms host wall (profiler on); device"
+              f" ms by kind: {cats}; by operation: | {card}")
+        for us, name, count in top:
+            print(f"{tag}   {us / 1e3:9.3f} ms  x{count:<5d} {name[:70]} "
+                  f"| {card}")
+    del prof, pre
+    if cfg.family in ("ssm", "hybrid"):
+        mixer_breakdown(torch, np, cfg, params, prompts, prefill_ms, tag,
+                        card)
+    with profile(activities=acts, acc_events=True) as prof:
+        generate(cfg, params, prompts, LM_PROFILE_NEW + 1, frames=frames,
+                 device="cuda")
+    share = step_window_share(torch, prof, *PROFILE_WINDOW)
+    if share is None:
+        print(f"{tag} device busy share: not measured (torch.profiler saw no"
+              f" device time in the window)")
+    else:
+        print(f"{tag} device busy share {share[0]:.4f} over decode steps "
+              f"{PROFILE_WINDOW[0]}-{sum(PROFILE_WINDOW) - 1} ({share[1]:.1f}"
+              f" ms, profiler on; idle {1 - share[0]:.4f}); device ms by "
+              f"kind: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                    share[3].items()) + f" | {card}")
+        for us, name, count in share[2]:
+            print(f"{tag}   {us / 1e3:9.3f} ms  x{count:<5d} {name[:70]} "
+                  f"| {card}")
+
+
+def family_serve_phase(torch, np, card: str, phase_launches: dict,
+                       phase_routes: dict, arch: str, n_layers: int = 0,
+                       cfg=None, batch: int = LM_BATCH,
+                       prompt: int = LM_PROMPT, new: int = LM_NEW,
+                       device: str = "cuda") -> None:
+    """Phases 19-21: ``arch`` at full width (``n_layers`` of its layers
+    when given: a depth cut, named in the output), seed-0 weights drawn on
+    the card; after a warm-up, ``generate`` of ``new`` greedy tokens after
+    ``batch`` x ``prompt`` prompts (the encoder-decoder: ``prompt``
+    frames and ``target_len`` prompt tokens): prefill ms, decode ms a step,
+    peak memory, ``flash_attention`` launches (``flash_per_prefill``, all
+    on ``wgmma``) and, on the card, ``family_profiles``.  ``cfg`` (a smoke
+    config) and ``device="cpu"`` make a CPU dry run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.serve_lm import generate
+    from repro_torch.models import get_module
+    from repro_torch.models.params import init_from_defs
+    from repro_torch.train.optimizer import tree_leaves
+
+    full = get_config(arch)
+    cfg = cfg or (dataclasses.replace(full, n_layers=n_layers) if n_layers
+                  else full)
+    mod = get_module(cfg)
+    on_card = device != "cpu"
+    phase = f"{cfg.family}-serve"
+    tag = f"[{phase}]"
+    t0 = time.perf_counter()
+    params = init_from_defs(mod.defs(cfg),
+                            torch.Generator(device=device).manual_seed(0),
+                            device)
+    if on_card:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if cfg.n_layers != full.n_layers and cfg.name == full.name:
+        depth = (f"{cfg.n_layers} of {full.n_layers} layers (the depth cut "
+                 f"so that one card holds the f32 weights: all "
+                 f"{full.n_layers} are {defs_count(mod.defs(full)) * 4 / 1e9:.1f}"
+                 f" GB)")
+    else:
+        depth = f"{cfg.n_layers} layers"
+    if cfg.family in ("encdec", "audio"):
+        depth += f": {cfg.n_enc_layers} encoder + {cfg.n_dec_layers} decoder"
+    print(f"{tag} {cfg.name}: {depth}, d_model {cfg.d_model}, "
+          + (f"{cfg.ssm_nheads} SSD heads of {cfg.ssm_headdim}, state "
+             f"{cfg.ssm_state}, chunk {cfg.ssd_chunk}, "
+             if cfg.family in ("ssm", "hybrid") else "")
+          + (f"{cfg.n_heads} q heads over {cfg.n_kv_heads} kv heads of "
+             f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+             if cfg.n_heads else "")
+          + f"vocab {cfg.vocab_size}; {n_params / 1e9:.4f} B f32 parameters"
+          f" ({n_params * 4 / 1e9:.2f} GB) drawn from seed 0 on the {device}"
+          f" generator in {init_s:.2f}s | {card}")
+    prompts, frames = serving_inputs(torch, np, cfg, batch, prompt, device)
+    want_flash = flash_per_prefill(cfg)
+    generate(cfg, params, prompts, 2, frames=frames, device=device)
+    zero_launches(KERNELS)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if on_card:
+        gen, step = timed_decode_steps(
+            torch, mod, lambda: generate(cfg, params, prompts, new,
+                                         frames=frames, device=device))
+    else:
+        gen, step = generate(cfg, params, prompts, new, frames=frames,
+                             device=device), [0.0]
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    phase_launches[phase] = read_launches(KERNELS)
+    phase_routes[phase] = read_routes(KERNELS)
+    fa_routes = phase_routes[phase]["flash_attention"]
+    want = expect({"flash_attention": want_flash})
+    if on_card and (phase_launches[phase] != want or fa_routes != {
+            "wgmma": want_flash, "mma_sync": 0, "simt": 0}):
+        raise AssertionError(f"{phase} launches {phase_launches[phase]} by "
+                             f"route {fa_routes}, expected {want}, all on "
+                             f"the wgmma route")
+    V = cfg.vocab_size
+    toks = gen.tokens.cpu().numpy()
+    if toks.shape != (batch, new) or toks.min() < 0 or toks.max() >= V \
+            or gen.logits.shape != (batch, new, V) \
+            or not bool(torch.isfinite(gen.logits).all()):
+        raise AssertionError(f"bad generation: tokens {toks.shape}, logits "
+                             f"{tuple(gen.logits.shape)}")
+    step = np.array(step)
+    P = prompts.shape[1]
+    what = (f"{prompt} frames and {P}-token prompts" if frames is not None
+            else f"prompt {P}")
+    print(f"{tag} batch {batch} x {what}, {new} greedy tokens: prefill "
+          f"{gen.prefill_s * 1e3:.3f} ms ({batch * prompt / gen.prefill_s:.0f}"
+          f" {'frames' if frames is not None else 'prompt tokens'}/s), decode"
+          f" median {np.median(step):.3f} ms/step between steps' ends on CUDA"
+          f" events (min {step.min():.3f}, max {step.max():.3f}), decode "
+          f"loop {gen.decode_s * 1e3:.3f} ms host wall, "
+          f"{batch * (new - 1) / gen.decode_s:.1f} tokens/s decoding (wall "
+          f"{wall:.3f}s); peak device memory {peak / 2**30:.3f} GiB; "
+          f"flash_attention launches {phase_launches[phase]['flash_attention']}"
+          f" = {want_flash} a prefill, by route {fa_routes} | {card}")
+    print(f"{tag} tokens of sequence 0: {toks[0].tolist()} | {card}")
+    prefill_ms = gen.prefill_s * 1e3
+    del gen
+    if on_card:
+        family_profiles(torch, np, cfg, params, prompts, frames, prefill_ms,
+                        tag, card)
+    del params
+
+
+def to_device(tree, device):
+    """A nested dict of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def family_parity_phase(torch, np, card: str, phase_launches: dict,
+                        phase_routes: dict) -> None:
+    """The smoke configs of ``FAMILY_PARITY`` generated on the CPU (plain
+    attention) and teacher-forced with those tokens on the card (kernels)
+    and on the CPU: logits within ``FAMILY_SMOKE_TOL[arch]`` and, for the SSM
+    families, the final state ``h`` within ``H_TOL_OF_MAX[arch]`` of its
+    largest entry; one prefill's ``flash_attention`` launches per config,
+    on ``mma_sync`` (head dim 16)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.serve_lm import generate
+    from repro_torch.models import get_module
+    from repro_torch.models.params import init_from_defs
+
+    B, P, N = LM_SMOKE
+    zero_launches(KERNELS)
+    flash = 0
+    for arch in FAMILY_PARITY:
+        small = get_config(arch, smoke=True)
+        mod = get_module(small)
+        sp = init_from_defs(mod.defs(small), torch.Generator().manual_seed(0),
+                            "cpu")
+        prompts, frames = serving_inputs(torch, np, small, B, P, "cpu")
+        on_cpu = generate(small, sp, prompts, N, frames=frames, device="cpu")
+        inputs = torch.from_numpy(prompts)
+        if frames is not None:
+            inputs = {"frames": frames, "tokens": inputs}
+        cpu_logits, cpu_state = teacher_forced(torch, mod, small, sp, inputs,
+                                               on_cpu.tokens)
+        card_logits, card_state = teacher_forced(
+            torch, mod, small, to_device(sp, "cuda"),
+            to_device(inputs, "cuda"), on_cpu.tokens.cuda())
+        flash += flash_per_prefill(small)
+        card_logits = card_logits.float().cpu()
+        tol = FAMILY_SMOKE_TOL[arch]
+        torch.testing.assert_close(
+            card_logits, cpu_logits.float(), **tol,
+            msg=lambda m: f"{arch} smoke card vs CPU: {m}")
+        diff = float((card_logits - cpu_logits.float()).abs().max())
+        same = float((card_logits.argmax(-1) == on_cpu.tokens).float().mean())
+        h_err = ""
+        if "h" in cpu_state:
+            hc, hg = cpu_state["h"], card_state["h"].cpu()
+            err = float((hg - hc).abs().max()) / float(hc.abs().max())
+            if not err <= H_TOL_OF_MAX[arch]:
+                raise AssertionError(f"{arch} smoke card vs CPU: state h "
+                                     f"max |diff| / max |h| {err:.4e}")
+            h_err = (f"; final state h max |diff| / max |h| {err:.4e} "
+                     f"({H_TOL_OF_MAX[arch]})")
+        print(f"[family-parity] {small.name} batch {B} x prompt "
+              f"{prompts.shape[1]}{' (after ' + str(P) + ' frames)' if frames is not None else ''}"
+              f", {N} tokens: card (kernels, teacher-forced with the CPU's "
+              f"tokens) vs CPU (plain versions): max |logit diff| "
+              f"{diff:.4e} ({tol}; median |logit| "
+              f"{float(cpu_logits.float().abs().median()):.4e}), greedy "
+              f"tokens equal at {same:.4f} of the positions{h_err} | {card}")
+    phase_launches["family-parity"] = read_launches(KERNELS)
+    phase_routes["family-parity"] = read_routes(KERNELS)
+    want = expect({"flash_attention": flash})
+    if phase_launches["family-parity"] != want or phase_routes[
+            "family-parity"]["flash_attention"]["mma_sync"] != flash:
+        raise AssertionError(f"family-parity launches "
+                             f"{phase_launches['family-parity']} by route "
+                             f"{phase_routes['family-parity']}, expected "
+                             f"{want} on mma_sync (head dim 16)")
 
 
 # ---- the sharded executor (phases 4, 9 and 10) ------------------------------
@@ -2840,19 +3310,22 @@ def log_softmax_gap(torch, a, b, vocab: int, chunk: int = 100):
     return torch.cat(gaps).cpu().numpy(), ok
 
 
-def teacher_forced(torch, transformer, cfg, params, prompts, tokens):
+def teacher_forced(torch, mod, cfg, params, inputs, tokens):
     """The logits ``generate`` gives when its decode steps are fed
-    ``tokens`` (B, new) instead of its own argmaxes."""
-    P, V = prompts.shape[1], cfg.vocab_size
+    ``tokens`` (B, new) instead of its own argmaxes, and the cache (or
+    state) after the last step; ``inputs`` is what ``mod.prefill`` takes
+    (the prompts, or the encoder-decoder's ``{"frames", "tokens"}``)."""
+    P = (inputs["tokens"] if isinstance(inputs, dict) else inputs).shape[1]
+    V = cfg.vocab_size
     with torch.inference_mode():
-        logits, cache = transformer.prefill(cfg, params, prompts,
-                                            max_len=P + tokens.shape[1])
+        logits, cache = mod.prefill(cfg, params, inputs,
+                                    max_len=P + tokens.shape[1])
         outs = [logits[:, -1:, :V]]
         for i in range(tokens.shape[1] - 1):
-            logits, cache = transformer.decode_step(
+            logits, cache = mod.decode_step(
                 cfg, params, cache, tokens[:, i:i + 1], P + i)
             outs.append(logits[:, :, :V])
-    return torch.cat(outs, dim=1)
+    return torch.cat(outs, dim=1), cache
 
 
 def timed_decode_steps(torch, transformer, run):
@@ -2898,22 +3371,21 @@ def by_category(rows) -> dict:
     return out
 
 
-def moe_attention_lse(torch, fam, card, seed: int = 13) -> None:
-    """The forward kernel's o and lse at the MoE layer shapes (phi3.5-moe,
-    G 4, and dbrx, G 6; Dh 128, 4 x 4096, causal) against the plain
-    forward's: o within ``TOLERANCE``, lse within ``BWD_LSE_TOL``."""
+def layer_attention_lse(torch, fam, card, seed: int = 13) -> None:
+    """The forward kernel's o and lse at the model layers' shapes
+    (``LAYER_SHAPES``) against the plain forward's: o within
+    ``TOLERANCE``, lse within ``BWD_LSE_TOL``."""
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for name, (B, S, Hq, Hkv, Dh) in (
-            ("phi35_moe_g4_dh128", (4, 4096, 32, 8, 128)),
-            ("dbrx_g6_dh128", (4, 4096, 48, 8, 128))):
+    for name, (B, S, Hq, Hkv, Dh), Sk, causal in LAYER_SHAPES:
         q = torch.randn((B, S, Hq, Dh), generator=gen, device="cuda"
                         ).to(torch.bfloat16)
-        k, v = (torch.randn((B, S, Hkv, Dh), generator=gen, device="cuda"
-                            ).to(torch.bfloat16) for _ in range(2))
-        o, lse = fam._forward_cuda(q, k, v, True, 0, True)
-        ro, rlse = ref.flash_attention(q, k, v, causal=True, window=0,
+        k, v = (torch.randn((B, Sk or S, Hkv, Dh), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        o, lse = fam._forward_cuda(q, k, v, causal, 0, True)
+        ro, rlse = ref.flash_attention(q, k, v, causal=causal, window=0,
                                        return_lse=True)
         for what, got, want, tol in (
                 ("o", o, ro, TOLERANCE["flash_attention"]["bfloat16"]),
@@ -3514,9 +3986,14 @@ def main() -> int:
            .contiguous(),
            "shard": shard_context(torch, np, g, splan, GRAPHSAGE, card)}
     train_seeds = tablet[rng.integers(0, len(tablet), GRAPHSAGE.batch_size)]
+    # the serving micro-batch's chain: MAX_BATCH seeds (the 200 requests'
+    # micro-batches hold 1-256)
+    serve_seeds = np.random.default_rng(10).integers(0, g.n, MAX_BATCH)
     chains = {"position": ctx["shard"]["sample"],
               "train": chain_context(torch, np, cache, train_seeds,
-                                     GRAPHSAGE.fanouts, seed=9)}
+                                     GRAPHSAGE.fanouts, seed=9),
+              "serve": chain_context(torch, np, cache, serve_seeds,
+                                     GRAPHSAGE.fanouts, seed=11)}
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     measured = {k.name: check_and_time(torch, np, k, ctx, flush, card)
                 for k in KERNELS
@@ -3944,7 +4421,7 @@ def main() -> int:
                                  LM_CAPTURE)
     measured[fa.name] = check_and_time(torch, np, fa, {"lm": captured}, flush,
                                        card)
-    moe_attention_lse(torch, fam, card)
+    layer_attention_lse(torch, fam, card)
     route_rule_agrees(torch, fa)
     flash_refuses_autograd(torch, fa, card)
     prefill_routes = {c: r for c, r in measured[fa.name]["routes"].items()
@@ -4106,7 +4583,7 @@ def main() -> int:
         torch, transformer, small,
         {k: (v.cuda() if isinstance(v, torch.Tensor)
              else {n: t.cuda() for n, t in v.items()}) for k, v in sp.items()},
-        torch.from_numpy(sprompts).cuda(), on_cpu.tokens.cuda()).float().cpu()
+        torch.from_numpy(sprompts).cuda(), on_cpu.tokens.cuda())[0].float().cpu()
     torch.testing.assert_close(on_card, on_cpu.logits.float(), rtol=0,
                                atol=LM_SMOKE_ATOL)
     sdiff = float((on_card - on_cpu.logits.float()).abs().max())
@@ -4239,6 +4716,26 @@ def main() -> int:
     moe_serve_phase(torch, np, card, phase_launches, phase_routes)
     torch.cuda.empty_cache()
     moe_parity_phase(torch, np, card, phase_launches, phase_routes)
+
+    clock("19")
+    # ---- 19. SSM and hybrid serving: mamba2-780m, zamba2-1.2b -------------
+    for arch in SSM_ARCHS:
+        torch.cuda.empty_cache()
+        family_serve_phase(torch, np, card, phase_launches, phase_routes,
+                           arch)
+    clock("20")
+    # ---- 20. encoder-decoder serving: seamless-m4t-large-v2 ---------------
+    torch.cuda.empty_cache()
+    family_serve_phase(torch, np, card, phase_launches, phase_routes,
+                       ENCDEC_ARCH)
+    clock("21")
+    # ---- 21. chameleon-34b, 8 of 48 layers ---------------------------------
+    torch.cuda.empty_cache()
+    family_serve_phase(torch, np, card, phase_launches, phase_routes,
+                       VLM_ARCH, n_layers=VLM_LAYERS)
+    clock("19-21 parity")
+    torch.cuda.empty_cache()
+    family_parity_phase(torch, np, card, phase_launches, phase_routes)
 
     record = {"kernels": []}
     for k in KERNELS:

@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-The port carries the dense and MoE language-model configurations (the LM
-serving path runs them through ``models/transformer.py``); the reference
-package's other architectures wait for their model families and raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The reference package's ten language-model architectures, field for field:
+the dense, MoE and vlm configs run through ``models/transformer.py``, the
+SSM and hybrid ones through ``models/ssm_lm.py``, the encoder-decoder
+(audio) one through ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -18,28 +18,20 @@ __all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "applicable_shapes",
 _ARCH_MODULES = {
     "phi3.5-moe-42b-a6.6b": "phi35_moe",
     "dbrx-132b": "dbrx",
+    "seamless-m4t-large-v2": "seamless",
     "stablelm-3b": "stablelm",
     "minitron-4b": "minitron",
     "gemma3-1b": "gemma3",
     "qwen2.5-14b": "qwen25",
-}
-
-# the reference's other architectures -> the ROADMAP item that ports them
-_NOT_PORTED = {
-    "seamless-m4t-large-v2": "ROADMAP queue 1: the encdec/audio family",
-    "zamba2-1.2b": "ROADMAP queue 1: the SSM and hybrid families",
-    "mamba2-780m": "ROADMAP queue 1: the SSM and hybrid families",
-    "chameleon-34b": "ROADMAP queue 1: the remaining dense/vlm configs",
+    "zamba2-1.2b": "zamba2",
+    "mamba2-780m": "mamba2_780m",
+    "chameleon-34b": "chameleon",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet ({_NOT_PORTED[arch]}); "
-            f"ported: {ARCH_IDS}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")

@@ -1,6 +1,7 @@
 """Serve a language model with batched requests: prefill the prompts once,
-then decode greedily with the growing KV cache (the port of the reference's
-``examples/serve_lm.py``).
+then decode greedily with the growing KV cache or recurrent state (the
+port of the reference's ``examples/serve_lm.py``), for every family of
+the zoo: decoder-only (dense, MoE, vlm), SSM and hybrid, encoder-decoder.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch gemma3-1b \\
         [--smoke] [--batch 4] [--prompt 24] [--new 16] [--seed 0] \\
@@ -9,7 +10,12 @@ then decode greedily with the growing KV cache (the port of the reference's
 Weights are random, drawn from ``--seed`` with a CPU ``torch.Generator``
 (the reference's checkpoints can be carried over with
 ``models.convert.params_from_jax``); prompts are drawn with numpy from
-``--seed + 1``.  It runs on the card unless ``--device cpu`` is given.
+``--seed + 1``.  For the encoder-decoder (audio) families ``--prompt`` is
+the number of frames S: the frames (B, S, d_model) are a normal draw from
+``default_rng(--seed)`` (the audio frontend is a stub, as in the
+reference), and the decoder's prompts have ``St = max(S //
+target_ratio, 16)`` tokens.  It runs on the card unless ``--device cpu``
+is given.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import get_module
 from repro_torch.models.params import init_from_defs
+from repro_torch.train.optimizer import tree_leaves
 from repro_torch.utils import resolve_device, synchronize
 
 
@@ -35,30 +42,47 @@ class Generation:
     decode_s: float        # host wall time of the decode loop, synchronized
 
 
+ENCDEC_FAMILIES = ("encdec", "audio")
+
+
+def target_len(cfg: ModelConfig, frames: int) -> int:
+    """The decoder's prompt length for ``frames`` encoder frames, as the
+    reference's launch specs cut it: ``max(frames // target_ratio, 16)``."""
+    return max(frames // cfg.target_ratio, 16)
+
+
 def generate(cfg: ModelConfig, params: dict, prompts, new_tokens: int, *,
-             device="cuda") -> Generation:
+             frames=None, device="cuda") -> Generation:
     """Greedy generation of ``new_tokens`` tokens after ``prompts`` (B, P).
 
-    Prefill with a cache of ``P + new_tokens`` slots, take the argmax of the
-    last position's logits over the real vocabulary (``cfg.vocab_size``, not
-    the padded one), then ``decode_step`` ``new_tokens - 1`` times, each
-    fed the previous argmax.  ``params`` must live on ``device``.  The
-    device is synchronized once after the prefill and once after the decode
-    loop; each decode step is a ``device_step`` profiler range (free when no
-    profiler runs)."""
+    Prefill with a cache (or state) of ``P + new_tokens`` slots, take the
+    argmax of the last position's logits over the real vocabulary
+    (``cfg.vocab_size``, not the padded one), then ``decode_step``
+    ``new_tokens - 1`` times, each fed the previous argmax.  The
+    encoder-decoder families need ``frames`` (B, S, d_model), which the
+    prefill encodes; the others take none.  ``params`` must live on
+    ``device``.  The device is synchronized once after the prefill and once
+    after the decode loop; each decode step is a ``device_step`` profiler
+    range (free when no profiler runs)."""
     dev = resolve_device(device)
-    if params["embed"].device != dev:
-        raise ValueError(f"params live on {params['embed'].device}, "
-                         f"generation asked for {dev}")
+    where = tree_leaves(params)[0].device
+    if where != dev:
+        raise ValueError(f"params live on {where}, generation asked for "
+                         f"{dev}")
     mod = get_module(cfg)
     prompts = torch.as_tensor(prompts, device=dev)
     B, P = prompts.shape
     if new_tokens < 1:
         raise ValueError(f"new_tokens must be >= 1, got {new_tokens}")
+    if (frames is not None) != (cfg.family in ENCDEC_FAMILIES):
+        raise ValueError(f"family {cfg.family!r}: frames are "
+                         + ("required" if frames is None else "not taken"))
+    inputs = prompts if frames is None else {
+        "frames": torch.as_tensor(frames, device=dev), "tokens": prompts}
     V = cfg.vocab_size
     with torch.inference_mode():
         t0 = time.perf_counter()
-        logits, cache = mod.prefill(cfg, params, prompts,
+        logits, cache = mod.prefill(cfg, params, inputs,
                                     max_len=P + new_tokens)
         tok = logits[:, -1:, :V].argmax(dim=-1)
         synchronize(dev)
@@ -94,14 +118,21 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     params = init_from_defs(get_module(cfg).defs(cfg),
                             torch.Generator().manual_seed(args.seed), dev)
+    frames, P = None, args.prompt
+    if cfg.family in ENCDEC_FAMILIES:
+        frames = torch.from_numpy(np.random.default_rng(args.seed).normal(
+            size=(args.batch, args.prompt, cfg.d_model)).astype(np.float32))
+        P = target_len(cfg, args.prompt)
     prompts = np.random.default_rng(args.seed + 1).integers(
-        0, cfg.vocab_size, (args.batch, args.prompt))
-    gen = generate(cfg, params, prompts, args.new, device=dev)
+        0, cfg.vocab_size, (args.batch, P))
+    gen = generate(cfg, params, prompts, args.new, frames=frames, device=dev)
     print("generated token ids:\n", gen.tokens.cpu().numpy())
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
     print(f"{cfg.name} on {where}: prefill {gen.prefill_s * 1e3:.1f} ms "
-          f"(batch {args.batch} x {args.prompt}), "
+          f"(batch {args.batch} x {args.prompt}"
+          + (f" frames, {P}-token prompts" if frames is not None else "")
+          + "), "
           + (f"{(args.new - 1) * args.batch / gen.decode_s:.1f} tokens/s "
              "decode" if args.new > 1 else "no decode steps"))
     return 0

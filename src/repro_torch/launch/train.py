@@ -1,6 +1,7 @@
 """Training entry point (the port of the reference's ``launch/train.py``).
 
-LM (the dense architectures, synthetic next-token data):
+LM (any of the zoo's architectures, synthetic next-token data; the
+encoder-decoder ones also get synthetic frames):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
         --smoke --steps 20 --batch 4 --seq 128 [--device cuda]
@@ -38,17 +39,28 @@ def make_batch(cfg, batch: int, seq: int, seed: int, step: int,
     (batch, seq + 1) from ``default_rng(seed + step)`` over the vocabulary,
     ``tokens[:, :-1]`` in and ``tokens[:, 1:]`` as labels (int64), on
     ``device`` (the card unless the caller asks for the CPU; raises
-    without one)."""
+    without one).  The encoder-decoder families also get ``frames``
+    (batch, seq, d_model) f32, a normal draw from the same generator after
+    the tokens, and their tokens and labels cut to the decoder's ``St =
+    max(seq // target_ratio, 16)``."""
+    from repro_torch.launch.serve_lm import ENCDEC_FAMILIES, target_len
+
     device = resolve_device(device)
     rng = np.random.default_rng(seed + step)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                          size=(batch, seq + 1)))
-    return {"tokens": toks[:, :-1].to(device),
-            "labels": toks[:, 1:].to(device)}
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family in ENCDEC_FAMILIES:
+        out["frames"] = torch.from_numpy(
+            rng.normal(size=(batch, seq, cfg.d_model)).astype(np.float32))
+        St = target_len(cfg, seq)
+        out["tokens"], out["labels"] = out["tokens"][:, :St], \
+            out["labels"][:, :St]
+    return {k: v.to(device) for k, v in out.items()}
 
 
 def train_step(cfg, params: dict, opt, opt_state: dict, batch: dict):
-    """One step: loss and gradients through ``transformer.loss_fn``, then
+    """One step: loss and gradients through the family's ``loss_fn``, then
     AdamW.  Functional, like the reference's: returns (new params, new
     optimizer state, loss) and leaves ``params`` as they were."""
     from repro_torch.models import get_module

@@ -1,9 +1,10 @@
-"""GQA self-attention block of the decoder-only language models.
+"""GQA attention blocks of the language models: self attention (causal in
+the decoders, bidirectional in the encoder-decoder's encoder) and the
+encoder-decoder's cross attention.
 
 The reference shards q, k and v differently per mode (train / prefill /
 decode) over its mesh; on one device those constraints are no-ops, so the
-port has one layout.  Cross attention comes with the encoder-decoder family
-(ROADMAP queue 1).
+port has one layout.
 """
 from __future__ import annotations
 
@@ -67,16 +68,47 @@ def _out(cfg: ModelConfig, p: dict, o: torch.Tensor) -> torch.Tensor:
 
 
 def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-                   window: int = 0,
-                   theta: Optional[float] = None) -> torch.Tensor:
-    """Full-sequence causal self attention (train / prefill)."""
+                   window: int = 0, theta: Optional[float] = None,
+                   causal: bool = True) -> torch.Tensor:
+    """Full-sequence self attention (train / prefill), rope'd q and k;
+    ``causal=False`` for the encoder."""
     positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _project(cfg, p, x)
     if theta is None:
         theta = cfg.rope_theta
     q = layers.rope(q, positions, theta)
     k = layers.rope(k, positions, theta)
-    o = layers.flash_attention(q, k, v, causal=True, window=window)
+    o = layers.flash_attention(q, k, v, causal=causal, window=window)
+    return _out(cfg, p, o)
+
+
+def make_cross_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor) -> tuple:
+    """The cross attention's k and v (B, S_enc, Hkv, Dh) from the encoder's
+    output, in its type (no bias, no norm, no rope)."""
+    B, S, _ = enc_out.shape
+    Dh = cfg.resolved_head_dim
+    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(B, S, cfg.n_kv_heads, Dh)
+    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(B, S, cfg.n_kv_heads, Dh)
+    return k, v
+
+
+def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    enc_kv: tuple, *, mode: str) -> torch.Tensor:
+    """Encoder-decoder cross attention: no rope, every encoder slot
+    visible.  ``mode`` "train" / "prefill" runs the flash-attention kernel
+    (not causal, Sq != Sk); "decode" runs ``decode_attention`` with each
+    query placed after the last encoder slot, as the reference's."""
+    B, S, _ = x.shape
+    Dh = cfg.resolved_head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, Dh)
+    k, v = enc_kv
+    if mode == "decode":
+        S_enc = k.shape[1]
+        k_pos = torch.arange(S_enc, device=x.device)
+        q_pos = torch.full((S,), S_enc, dtype=torch.int64, device=x.device)
+        o = layers.decode_attention(q, k, v, q_pos, k_pos)
+    else:
+        o = layers.flash_attention(q, k, v, causal=False)
     return _out(cfg, p, o)
 
 

@@ -26,7 +26,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import NEG_INF, attn_mask
 
 __all__ = ["NEG_INF", "rms_norm", "rope", "attn_mask", "flash_attention",
-           "decode_attention", "swiglu_mlp"]
+           "decode_attention", "swiglu_mlp", "masked_ce"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -85,3 +85,13 @@ def swiglu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
     return (F.silu(h) * u) @ p["w_down"].to(x.dtype)
+
+
+def masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy from f32 logits over the unmasked
+    labels (labels < 0 are masked), the reference's ``loss_fn`` CE."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - ll) * mask).sum() / mask.sum().clamp_min(1.0)

@@ -135,3 +135,33 @@ def test_checkpoint_and_resilience_import_with_jax_and_reference_blocked():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "1 True {'injected_prefetch_build': 0}"
+
+
+_MODEL_FAMILIES = """
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name in ("jax", "repro") or name.startswith(("jax.", "repro.")):
+            raise ImportError(f"blocked: {name}")
+sys.meta_path.insert(0, Block())
+import repro_torch.models.mamba2
+import repro_torch.models.ssm_lm
+import repro_torch.models.encdec
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models import get_module
+print(sorted({get_module(get_config(a, smoke=True)).__name__
+              for a in ARCH_IDS}), len(ARCH_IDS))
+"""
+
+
+def test_ssm_and_encdec_families_import_with_jax_and_reference_blocked():
+    """Every architecture's config and model module, the SSM, hybrid and
+    encoder-decoder ones included."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _MODEL_FAMILIES], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == (
+        "['repro_torch.models.encdec', 'repro_torch.models.ssm_lm', "
+        "'repro_torch.models.transformer'] 10")

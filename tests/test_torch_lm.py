@@ -26,13 +26,16 @@ from repro.models.params import init_from_defs as jinit_from_defs
 from repro.models.sharding import Distribution
 from repro_torch import configs as tconfigs
 from repro_torch.launch import serve_lm
-from repro_torch.models import get_module, layers, transformer
+from repro_torch.models import attention, get_module, layers, transformer
 from repro_torch.models.convert import params_from_jax
-from repro_torch.models.params import Def
+from repro_torch.models.params import Def, init_from_defs
 
-DENSE = ("stablelm-3b", "minitron-4b", "gemma3-1b", "qwen2.5-14b")
+DENSE = ("stablelm-3b", "minitron-4b", "gemma3-1b", "qwen2.5-14b",
+         "chameleon-34b")  # chameleon: the vlm family, the same network
 MOE = ("phi3.5-moe-42b-a6.6b", "dbrx-132b")  # tests/test_torch_moe.py
-PORTED = MOE + DENSE
+# tests/test_torch_ssm.py and tests/test_torch_encdec.py
+SSM_ENCDEC = ("mamba2-780m", "zamba2-1.2b", "seamless-m4t-large-v2")
+PORTED = MOE + DENSE + SSM_ENCDEC
 DIST = Distribution.single_device()
 B, PROMPT, NEW, FORCED = 4, 24, 16, 8
 # bf16 activations over 2-3 layers: XLA computes fused bf16 elementwise
@@ -78,23 +81,32 @@ def test_configs_equal_field_for_field(arch, smoke):
 
 
 def test_registry_ports_the_dense_archs_and_names_the_rest():
-    assert tconfigs.ARCH_IDS == PORTED
-    assert set(PORTED) < set(jconfigs.ARCH_IDS)
+    """Every architecture of the reference, in its order; the shapes."""
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert set(PORTED) == set(jconfigs.ARCH_IDS)
     assert {k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()} \
         == {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
-    for arch in set(jconfigs.ARCH_IDS) - set(PORTED):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tconfigs.get_config(arch)
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec", "audio"])
-def test_unported_families_raise_naming_their_roadmap_item(family):
+@pytest.mark.parametrize("family", ["dense", "moe", "vlm", "ssm", "hybrid",
+                                    "encdec", "audio"])
+def test_get_module_maps_each_family_as_the_reference(family):
     cfg = dataclasses.replace(tconfigs.get_config("gemma3-1b", smoke=True),
                               family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_module(cfg)
+    jcfg = dataclasses.replace(jconfigs.get_config("gemma3-1b", smoke=True),
+                               family=family)
+    assert get_module(cfg).__name__.rsplit(".", 1)[1] \
+        == jget_module(jcfg).__name__.rsplit(".", 1)[1]
+
+
+def test_get_module_refuses_the_gnn_and_unknown_families():
+    cfg = tconfigs.get_config("gemma3-1b", smoke=True)
+    with pytest.raises(ValueError, match="dedicated API"):
+        get_module(dataclasses.replace(cfg, family="gnn"))
+    with pytest.raises(KeyError):
+        get_module(dataclasses.replace(cfg, family="no-such-family"))
 
 
 def test_vlm_family_runs_through_the_transformer():
@@ -103,7 +115,33 @@ def test_vlm_family_runs_through_the_transformer():
     assert get_module(cfg) is transformer
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", MOE + DENSE)
+def test_self_attention_defaults_to_the_causal_path_bit_for_bit(arch):
+    """The encoder-decoder's ``causal`` switch leaves the decoder-only
+    configs' attention as it was: the default is the causal call, bit for
+    bit, and the bidirectional one differs."""
+    cfg = tconfigs.get_config(arch, smoke=True)
+    p = {k: v[0] for k, v in init_from_defs(
+        transformer.defs(cfg), torch.Generator().manual_seed(0),
+        "cpu")["layers"].items()}
+    x = torch.randn((2, 12, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)).bfloat16()
+    window, theta = transformer.layer_flags(cfg)
+    kw = {"window": window[0], "theta": theta[0]}
+    default = attention.self_attention(cfg, p, x, **kw)
+    assert torch.equal(default,
+                       attention.self_attention(cfg, p, x, causal=True, **kw))
+    q, k, v = attention._project(cfg, p, x)
+    pos = torch.arange(12)
+    o = layers.flash_attention(layers.rope(q, pos, theta[0]),
+                               layers.rope(k, pos, theta[0]), v, causal=True,
+                               window=window[0])
+    assert torch.equal(default, attention._out(cfg, p, o))
+    assert not torch.equal(
+        default, attention.self_attention(cfg, p, x, causal=False, **kw))
+
+
+@pytest.mark.parametrize("arch", MOE + DENSE)
 def test_defs_and_layer_flags_match_reference(arch):
     for smoke in (False, True):
         cfg = tconfigs.get_config(arch, smoke=smoke)

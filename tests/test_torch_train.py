@@ -108,16 +108,20 @@ def test_refresh_summary_of_the_gpu_training_test_matches_reference():
     ``test_torch_kernels.py`` (8 steps, a drift check at step 4 that
     replans on any drift), on the CPU: the port's device backend makes the
     reference's refresh, event for event (one check, one refresh, 329 rows
-    admitted and 345 evicted)."""
+    admitted and 345 evicted).  Both runs build their two devices' parts
+    serially (``prefetch_workers=1``), as the other parity tests with a
+    shared manager do: with two build threads this test failed once under
+    a loaded full run and passed alone."""
     cfg = dict(CFG)
     g = j_graph(4000, 8, seed=4, feat_dim=32)
     want = j_train(g, j_build_plan(g, j_topo("nv2", 2), **PLAN),
                    JConfig(**cfg), steps=8, seed=0, backend="device",
-                   refresh_config=JRefresh(**REFRESH))
+                   refresh_config=JRefresh(**REFRESH), prefetch_workers=1)
     gt = t_graph(4000, 8, seed=4, feat_dim=32)
     got = train_gnn(gt, t_build_plan(gt, t_topo("nv2", 2), **PLAN),
                     GNNConfig(**cfg), steps=8, seed=0, backend="device",
-                    device="cpu", refresh_config=RefreshConfig(**REFRESH))
+                    device="cpu", refresh_config=RefreshConfig(**REFRESH),
+                    prefetch_workers=1)
     assert got.refresh == want.refresh
     assert (got.refresh["checks"], got.refresh["refreshes"],
             got.refresh["admitted"], got.refresh["evicted"]) == (1, 1, 329,
