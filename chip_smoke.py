@@ -183,7 +183,12 @@ result line):
    and lse bits; then the two routes timed in turns at the two captured
    shapes beside the bound (5 products at the bf16 rate), the plain
    version and SDPA's backward, with the forward timed with and without
-   lse.
+   lse.  The same checks (the f64 gradient one (batch row, kv head) at a
+   time) at the six training shapes of phases 22-23 at the full batch
+   (``BWD_FAMILY_SHAPES``: zamba2's shared block, seamless's encoder,
+   decoder self and cross attention, phi3.5-moe's G 4 and chameleon's
+   G 8, all on ``wgmma``), each timed on its route beside the bound, the
+   plain version and SDPA's backward.
 12. LM serve: ``generate`` for 4 prompts of 4096 tokens (numpy, seed 1),
    then 32 greedy tokens: prefill ms, decode ms per step (CUDA events
    after each step; ``generate`` syncs only after the loop), tokens/s, peak
@@ -199,7 +204,7 @@ result line):
    on the card (kernel), logits within atol 5e-3.
 14. LM train: ``launch.train.train_step`` on the same gemma3-1b weights at
    4 x 4096 (numpy batches, seed 0) with remat and the CE in chunks of
-   512, AdamW, 8 steps (the first is warm-up): finite losses, step ms host
+   512, AdamW, 4 steps (the first is warm-up): finite losses, step ms host
    wall and tokens/s, forward, backward and AdamW ms on CUDA events, peak
    device memory, exactly 26 forward, 26 recompute and 26 backward
    launches a step, all on ``wgmma``; then one profiled step's device time
@@ -250,7 +255,7 @@ result line):
    ``zamba2-1.2b`` (38 Mamba2 layers, d_model 2048, state 64, and a shared
    attention block of 32 heads of 64 after every 6 of them; 1.170 B) at
    full width and depth, seed-0 weights drawn on the card; after a
-   warm-up, ``generate`` of 32 greedy tokens after 4 prompts of 4096:
+   warm-up, ``generate`` of 16 greedy tokens after 4 prompts of 4096:
    prefill ms, decode ms a step (CUDA events), peak memory,
    ``flash_attention`` launches (0 for mamba2, 6 a prefill for zamba2, all
    ``wgmma``); a profiled prefill's device time by kind; layer 0's mixer
@@ -262,7 +267,7 @@ result line):
 20. Encoder-decoder serving: ``seamless-m4t-large-v2`` (24 encoder + 24
    decoder layers, d_model 1024, 16 heads of 64, d_ff 8192, vocab
    256,206; 2.036 B) at full width, frames (4, 4096, 1024) from numpy seed
-   0 and 512-token prompts (``target_len``), 32 greedy tokens: the same
+   0 and 512-token prompts (``target_len``), 16 greedy tokens: the same
    figures, 72 ``flash_attention`` launches a prefill (24 encoder, 24
    decoder self, 24 cross), all ``wgmma``.
 21. ``chameleon-34b`` at full width (d_model 8192, 64 q heads over 8 kv
@@ -275,13 +280,46 @@ result line):
    with (atol 6e-2 + rtol 3e-2; twice the atol for zamba2-smoke and
    seamless-smoke), the final SSM state ``h`` within 1e-5 of its largest
    entry for mamba2-smoke and 3e-2 for zamba2-smoke.
+22. Family training at full size: ``launch.train.train_step`` for
+   ``mamba2-780m``, ``zamba2-1.2b`` and ``seamless-m4t-large-v2`` (4 x 4096
+   frames and a 512-token target) at batch 4 x 4096, remat on, AdamW lr
+   1e-3 with the optimizer state handed over (``donate=True``), 3 steps
+   from the serving phases' seed-0 weights (the same draw): finite losses,
+   the median step of steps 2-3 and tokens/s, forward, backward and AdamW
+   ms on CUDA events, peak memory, the attention launches of every step
+   by route (mamba2 none; zamba2 6 forward, 6 recomputed, 6 backward;
+   seamless 72, 72 and 72; all ``wgmma``), one profiled step's device ms
+   by kind (matmul, attention forward and backward, exp and cumsum, copies
+   and casts, the rest, AdamW), and for the SSM families layer 0's
+   ``ssd_chunked`` forward and backward at the training batch on CUDA
+   events with the SSD's share of the step.
+23. MoE and VLM training at full width on 2 layers: ``phi3.5-moe-42b-a6.6b``
+   (2 of 32 layers, 2.865 B parameters) and ``chameleon-34b`` (2 of 48,
+   2.458 B), the CE in chunks of 512: the same figures, 2 + 2 forward and
+   2 backward launches a step on ``wgmma``; for phi3.5-moe first two
+   identical forward + backward passes with the same loss and gradient
+   bits, every layer's routing in the remat recompute equal to the
+   forward's (experts, ranks, kept pairs, slots) and the share of dropped
+   (token, expert) pairs, and after training layer 0's MoE block backward
+   by autograd node (``index_add_``, the combine's gather, the experts'
+   ``bmm``).
+24. Training parity: the phi3.5-moe, mamba2, zamba2, seamless and
+   chameleon smoke configs trained 4 steps on the card (kernels on
+   ``mma_sync``: head dim 16) and the CPU (plain versions) from the same
+   seed-0 weights and numpy batches, losses within atol 2e-3, and the
+   first step's gradients per leaf within 5e-2 (Frobenius, relative), with
+   exactly the expected forward and backward launches; then ``python -m
+   repro_torch.launch.train --arch <arch> --smoke --steps 2`` for
+   seamless and phi3.5-moe as subprocesses: exit 0, finite losses.
 
 Every kernel's launch count is zeroed just before each of the serve,
 train, parity, unfused, shard, shard-parity, store-train (each of its 5
 runs), store-serve, resil-* (each run of 10d), dp-plain, dp-compress,
 sampler-chain, sampler-stepwise, lm-serve, lm-parity, lm-train,
 lm-train-parity, moe-serve, moe-parity, ssm-serve, hybrid-serve,
-audio-serve, vlm-serve and family-parity phases and read just after, with
+audio-serve, vlm-serve, family-parity, ssm-train, hybrid-train,
+audio-train, moe-train, vlm-train and train-parity phases and read just
+after, with
 the launches by route; ``sage_aggregate``'s stay 0 (no path runs it), and
 ``routed_neighbor_sample`` launches once per device-sampling spec build,
 on its ``chain`` route, except in the stepwise run, where it launches once
@@ -297,6 +335,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -348,7 +387,9 @@ LM_PARITY_LEN = 600  # crosses the local layers' window of 512
 LM_SMOKE = (4, 24, 16)  # batch, prompt, new: the reference's serve_lm loop
 # LM training: gemma3-1b at 4 x 4096 with remat and the CE in chunks of 512
 # (the unchunked f32 logits would be 17.2 GB); the first step is warm-up
-LM_TRAIN_STEPS = 8
+# 4 steps, the first warm-up (8 until the family training phases pushed the
+# whole run past 1000 s)
+LM_TRAIN_STEPS = 4
 LM_TRAIN_CHUNK = 512
 LM_TRAIN_LR = 1e-3  # launch/train.py's default
 LM_TRAIN_SMOKE = (4, 64, 4)  # batch, seq, steps: smoke config, card vs CPU
@@ -378,6 +419,9 @@ MOE_SMOKE_TOL = {"atol": 6e-2, "rtol": 3e-2}
 # at full width from seed-0 weights; chameleon cut to 8 of its 48 layers
 # (6.6 B f32 parameters, 26.4 GB; all 48 are 137 GB)
 SSM_ARCHS = ("mamba2-780m", "zamba2-1.2b")
+# their decode tokens (32 until the family training phases pushed the whole
+# run past 1000 s)
+FAMILY_NEW = 16
 ENCDEC_ARCH = "seamless-m4t-large-v2"
 VLM_ARCH = "chameleon-34b"
 VLM_LAYERS = 8
@@ -398,6 +442,41 @@ FAMILY_SMOKE_TOL = {"mamba2-780m": {"atol": 6e-2, "rtol": 3e-2},
                     "chameleon-34b": {"atol": 6e-2, "rtol": 3e-2}}
 H_TOL_OF_MAX = {"mamba2-780m": 1e-5, "zamba2-1.2b": 3e-2}
 SSD_PROFILED = 3  # ssd_chunked calls profiled after a warm-up call
+# phases 22-23: the families trained through launch.train.train_step at 4 x
+# 4096 (seamless: 4096 frames and a 512-token target), remat on (the
+# configs' default), AdamW at LM_TRAIN_LR with the optimizer state handed
+# over (train_step's donate=True: one copy of the state), 3 steps, the first
+# warm-up.  mamba2, zamba2 and seamless at full size; phi3.5-moe and
+# chameleon at full width on 2 of their layers (params, gradients, m and v
+# in f32 are 16 bytes a parameter: 2 layers are 2.865 B and 2.458 B
+# parameters, 45.8 GB and 39.3 GB, which one card holds with the new params
+# and the activations; 3 layers of phi3.5-moe, 66.6 GB, would not), with
+# the CE in chunks of LM_TRAIN_CHUNK as phase 14 trains gemma3-1b
+FAMILY_TRAIN_STEPS = 3
+FAMILY_TRAIN_FULL = SSM_ARCHS + (ENCDEC_ARCH,)
+FAMILY_TRAIN_CUT = ((MOE_ARCH, 2), (VLM_ARCH, 2))  # (arch, layers kept)
+# phase 24: the smoke configs trained on the card and the CPU (LM_TRAIN_SMOKE
+# steps from the same weights and batches, losses within
+# LM_TRAIN_SMOKE_ATOL) and their first step's gradients, per leaf |g_card -
+# g_cpu| / |g_cpu| (Frobenius norms) within TRAIN_GRAD_REL, the limit
+# tests/test_torch_lm_train.py holds the port's gradients to the
+# reference's with
+TRAIN_PARITY = (MOE_ARCH,) + FAMILY_TRAIN_FULL + (VLM_ARCH,)
+# where those defaults do not hold under rounding alone, the configs get
+# what tests/test_torch_train_spread.py measures and prints: zamba2-smoke's
+# and seamless-smoke's losses spread by up to 7.13e-3 and 5.52e-3 between
+# the reference's own jit and op-by-op runs of these 4 steps (as their
+# logits do: ROADMAP section 3, finding 12), so 8e-3; chameleon-smoke's
+# losses by 2.45e-3 and zamba2-smoke's first-step A_log gradient by 6.68e-2
+# between two CPU runs of the port whose attention sums in another order
+# (AdamW's first updates are about lr times each gradient entry's sign), so
+# 4e-3 and 1e-1
+TRAIN_GRAD_REL = {None: 5e-2, "zamba2-1.2b": 1e-1}
+TRAIN_SMOKE_ATOL = {"zamba2-1.2b": 8e-3, "seamless-m4t-large-v2": 8e-3,
+                    "chameleon-34b": 4e-3}
+# the training CLI on the card, as a user runs it (a subprocess each)
+TRAIN_CLI = (ENCDEC_ARCH, MOE_ARCH)
+TRAIN_CLI_STEPS = 2
 # the backward kernel against the f64 exact gradient: per gradient, max
 # |kernel - exact| / max |exact| within twice the plain version's plus this
 # floor (both round q * scale, p and each gradient to bf16; the kernel
@@ -407,6 +486,9 @@ BWD_F64_FLOOR = 1e-3
 # forward's, as tests/test_torch_lm_kernels.py holds it
 BWD_LSE_TOL = {"rtol": 1e-4, "atol": 1e-4}
 BWD_TIMED_PLAIN = 10  # the plain backward's timed launches (tens of ms each)
+# at the families' shapes (phase 11b): fewer launches, of 0.06-9 ms each
+# (the plain backward's 1-235 ms)
+BWD_FAMILY_TIMED, BWD_FAMILY_PLAIN = 30, 3
 # kernels held to their plain version within rtol + atol (the rest
 # bitwise): flash attention sums in another order and rounds p to bf16
 # against another running max; in bf16 the output's own rounding (one step
@@ -1165,6 +1247,11 @@ LAYER_SHAPES = (
      True),
     ("seamless_cross_sq512_sk4096_dh64", (4, 512, 16, 16, 64), 4096, False),
     ("chameleon_g8_dh128", (4, 4096, 64, 8, 128), None, True))
+# the attention backward's cases at the families' training shapes (phase
+# 11b): the layer shapes of every trained config (all but dbrx's), held
+# and timed at the full batch
+BWD_FAMILY_SHAPES = tuple(s for s in LAYER_SHAPES
+                          if not s[0].startswith("dbrx"))
 
 
 def flash_attention_cases(torch, ctx, seed: int = 6):
@@ -1424,6 +1511,28 @@ def device_rows(torch, events, w0=None, w1=None):
         if t > s:
             out.append((s, t, e.name))
     return out
+
+
+def kineto_rows(torch, prof, marks=("lm_optimizer",)):
+    """``device_rows``' rows, and the start (us) of every CPU range named in
+    ``marks``, read from the profiler's raw events: for a profile run with
+    ``acc_events=False`` whose ``prof.events()`` is never called, this skips
+    building an event object per operation (seconds per hundred thousand
+    events, as many as a training step of a 48-layer SSM makes)."""
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    rows, at = [], {m: [] for m in marks}
+    for e in res.events():
+        name = e.name()
+        s = (e.start_ns() - t0) / 1e3
+        t = s + e.duration_ns() / 1e3
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if name not in ("device_step", "composition", "lm_optimizer",
+                            "ssd_call") and t > s:
+                rows.append((s, t, name))
+        elif name in at:
+            at[name].append(s)
+    return rows, at
 
 
 def busy_and_top(rows, k: int = 8):
@@ -2910,7 +3019,7 @@ def family_profiles(torch, np, cfg, params, prompts, frames, prefill_ms,
 def family_serve_phase(torch, np, card: str, phase_launches: dict,
                        phase_routes: dict, arch: str, n_layers: int = 0,
                        cfg=None, batch: int = LM_BATCH,
-                       prompt: int = LM_PROMPT, new: int = LM_NEW,
+                       prompt: int = LM_PROMPT, new: int = FAMILY_NEW,
                        device: str = "cuda") -> None:
     """Phases 19-21: ``arch`` at full width (``n_layers`` of its layers
     when given: a depth cut, named in the output), seed-0 weights drawn on
@@ -3088,6 +3197,491 @@ def family_parity_phase(torch, np, card: str, phase_launches: dict,
                              f"{phase_launches['family-parity']} by route "
                              f"{phase_routes['family-parity']}, expected "
                              f"{want} on mma_sync (head dim 16)")
+
+
+# ---- family training (phases 22-24) -----------------------------------------
+
+def flat_named(tree, prefix: str = "") -> list:
+    """(path, tensor) of a nested dict of tensors in sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in flat_named(tree[k], f"{prefix}{k}/")]
+    return [(prefix.rstrip("/"), tree)]
+
+
+def loss_and_grads(torch, mod, cfg, params, batch):
+    """The family's ``loss_fn`` and its gradients at ``params`` (left as
+    they were): (loss, {path: gradient}), a zero gradient for a leaf the
+    loss does not reach."""
+    from repro_torch.train.optimizer import tree_map
+
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = mod.loss_fn(cfg, leaves, batch)
+    loss.backward()
+    return loss.detach(), {k: (p.grad if p.grad is not None
+                               else torch.zeros_like(p))
+                           for k, p in flat_named(leaves)}
+
+
+def moe_checks(torch, cfg, params, batch, card: str, tag: str) -> str:
+    """The MoE cell's checks before it trains: two forward + backward
+    passes from the same weights and batch, bit for bit the same loss and
+    gradients (the overflow row's gradient is a sum over colliding slots in
+    an order the card does not fix, but the row is discarded); in the
+    first, every layer's routing recorded in the forward and again in the
+    remat recompute: the same top-k ids, capacity ranks, kept pairs and
+    slots.  Returns the share of (token, expert) pairs the forward
+    dropped, for the cell's line."""
+    from repro_torch.models import moe, transformer
+
+    routes = []
+    with recorded_routes(moe, routes):
+        loss_a, grads_a = loss_and_grads(torch, transformer, cfg, params,
+                                         batch)
+    loss_b, grads_b = loss_and_grads(torch, transformer, cfg, params, batch)
+    L, E, K = cfg.n_layers, cfg.n_experts, cfg.top_k
+    if len(routes) != 2 * L:
+        raise AssertionError(f"{tag} {len(routes)} routing calls in one "
+                             f"training pass, expected {L} + {L} recomputed")
+    T = routes[0].numel() // K
+    cap = moe.capacity(cfg, T)
+    dropped = 0
+    for layer, (fwd, again) in enumerate(zip(routes[:L], routes[L:][::-1])):
+        a = moe._dispatch(fwd.reshape(T, K), E, cap)
+        b = moe._dispatch(again.reshape(T, K), E, cap)
+        if not (torch.equal(fwd, again)
+                and all(torch.equal(x, y) for x, y in zip(a, b))):
+            raise AssertionError(f"{tag} layer {layer}: the remat recompute "
+                                 f"routed other experts or slots than the "
+                                 f"forward")
+        dropped += int((~a[1]).sum())
+    differ = [k for k in grads_a if not torch.equal(grads_a[k], grads_b[k])]
+    if not torch.equal(loss_a, loss_b) or differ:
+        raise AssertionError(f"{tag} two identical passes differ: loss "
+                             f"{float(loss_a)} vs {float(loss_b)}, gradients "
+                             f"{differ}")
+    share = dropped / (T * K * L)
+    print(f"{tag} MoE routing: the remat recompute of each of the {L} layers"
+          f" routed every one of {T} tokens to the same top-{K} experts, "
+          f"ranks, kept pairs and slots as the forward; two identical "
+          f"forward + backward passes gave the same loss bits "
+          f"({float(loss_a):.6f}) and the same bits in all {len(grads_a)} "
+          f"gradients; dropped (token, expert) pairs {dropped} of "
+          f"{T * K * L} ({share:.4f}; capacity {cap} rows per expert) "
+          f"| {card}")
+    return f"{share:.4f} of the (token, expert) pairs dropped"
+
+
+def moe_backward_by_op(torch, cfg, params, tokens, card: str,
+                       tag: str, n: int = 3) -> None:
+    """Layer 0's MoE block (its input captured from a forward of the
+    batch) forward and backward ``n`` times after a warm-up, on CUDA events
+    and under torch.profiler: the backward's device ms by autograd node
+    (the ``index_add_`` into the expert buffers, the combine's gather, the
+    experts' ``bmm``s, the rest)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import moe, transformer
+
+    seen, inner = [], moe.moe_block
+
+    def capture(cfg_, p, x, **kw):
+        if not seen:
+            seen.append(x.detach().clone())
+        return inner(cfg_, p, x, **kw)
+
+    moe.moe_block = capture
+    try:
+        with torch.no_grad():
+            transformer.forward_hidden(cfg, params, tokens)
+    finally:
+        moe.moe_block = inner
+    x = seen[0].requires_grad_()
+    p = {k: params["layers"][k][0].detach().requires_grad_()
+         for k in ("router", "w_gate", "w_up", "w_down")}
+    dout = torch.randn(x.shape, generator=torch.Generator(
+        device="cuda").manual_seed(14), device="cuda").to(x.dtype)
+
+    def run():
+        out, aux = moe.moe_block(cfg, p, x, mode="train")
+        torch.autograd.backward((out, aux), (dout, torch.ones_like(aux)))
+
+    def fwd():
+        with torch.no_grad():
+            moe.moe_block(cfg, p, x, mode="train")
+
+    whole, forward = event_ms(torch, run), event_ms(torch, fwd)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    nodes = {}
+    for e in prof.key_averages():
+        if e.key.startswith("autograd::engine::evaluate_function: "):
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            node = e.key.split(": ", 1)[1]
+            nodes[node] = nodes.get(node, 0.0) + us / 1e3 / n
+    named = {"IndexAddBackward0": "index_add_ (a gather of the buffers' "
+             "gradient)", "IndexBackward0": "the combine's gather (an "
+             "index_put_ with accumulation)",
+             "BmmBackward0": "the experts' 3 bmm"}
+    total = sum(nodes.values())
+    if total <= 0:
+        print(f"{tag} layer 0's MoE block backward by op: not measured "
+              f"(torch.profiler attributed no device time to the autograd "
+              f"nodes); forward + backward {whole:.3f} ms, forward "
+              f"{forward:.3f} ms on CUDA events | {card}")
+        return
+    parts = [f"{what} {nodes.get(k, 0.0):.3f}" for k, what in named.items()]
+    rest = total - sum(nodes.get(k, 0.0) for k in named)
+    top = sorted(((v, k) for k, v in nodes.items() if k not in named),
+                 reverse=True)[:4]
+    print(f"{tag} layer 0's MoE block ({tuple(x.shape)} in, capacity "
+          f"{moe.capacity(cfg, x.shape[0] * x.shape[1])}) on CUDA events: "
+          f"forward + backward {whole:.3f} ms, forward {forward:.3f} ms, so "
+          f"backward about {whole - forward:.3f} ms; the backward's device "
+          f"ms by autograd node (profiled, {n} runs): " + ", ".join(parts)
+          + f", the rest {rest:.3f} (" + ", ".join(
+              f"{k} {v:.3f}" for v, k in top) + f"); nodes in all "
+          f"{total:.3f} | {card}")
+
+
+def ssd_train_share(torch, cfg, params, tokens, step_ms: float, tag: str,
+                    card: str) -> None:
+    """Layer 0's ``ssd_chunked`` at the training batch (its inputs from the
+    embedding, pre-norm, projections and convolutions of ``tokens``) on
+    CUDA events: the forward alone, and forward + backward at a random
+    output gradient.  A remat step runs the SSD forward twice (the
+    checkpointed forward, the recompute) and its backward once a layer, so
+    over the layers the backward is L x (both - forward) and the SSD in all
+    L x (forward + both), each printed as a share of ``step_ms`` (the
+    step's median on CUDA events)."""
+    from repro_torch.models import mamba2, ssm_lm
+    from repro_torch.models.layers import rms_norm
+
+    p = {n: a[0] for n, a in params["layers"].items()}
+    B, S = tokens.shape
+    H, P_, N, G = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state, \
+        cfg.ssm_ngroups
+    with torch.no_grad():
+        x = rms_norm(ssm_lm._embed(params, tokens), p["pre_norm"],
+                     cfg.norm_eps)
+        _, xr, Br, Cr, dt = mamba2._project(cfg, p, x)
+        xc, Bc, Cc = (mamba2.causal_conv(t, p[f"conv_{n}_w"], p[f"conv_{n}_b"])
+                      for t, n in ((xr, "x"), (Br, "B"), (Cr, "C")))
+        A = -torch.exp(p["A_log"].float())
+    ins = [t.detach().requires_grad_() for t in (
+        xc.reshape(B, S, H, P_), dt, A, Bc.reshape(B, S, G, N),
+        Cc.reshape(B, S, G, N), p["D"])]
+    del x, xr, Br, Cr, dt, xc, Bc, Cc
+    dy = torch.randn((B, S, H, P_), generator=torch.Generator(
+        device="cuda").manual_seed(15), device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            mamba2.ssd_chunked(*ins, cfg.ssd_chunk)
+
+    def both():
+        y, _ = mamba2.ssd_chunked(*ins, cfg.ssd_chunk)
+        torch.autograd.grad(y, ins, dy)
+
+    fwd, fb = event_ms(torch, forward), event_ms(torch, both)
+    y, _ = mamba2.ssd_chunked(*ins, cfg.ssd_chunk)
+    grads = torch.autograd.grad(y, ins, dy)
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError(f"{tag} ssd_chunked's gradients at chunk "
+                             f"{cfg.ssd_chunk} are not finite")
+    del y, grads
+    L = cfg.n_layers
+    print(f"{tag} layer 0's ssd_chunked at the training batch ({B} x {S}, "
+          f"chunk {cfg.ssd_chunk}; its gradients for x, dt, A, B, C and D "
+          f"all finite) on"
+          f" CUDA events: forward {fwd:.3f} ms, forward + backward {fb:.3f} "
+          f"ms; over {L} layers the SSD's backward {L * (fb - fwd):.3f} ms, "
+          f"{L * (fb - fwd) / step_ms:.4f} of the {step_ms:.3f} ms step, and"
+          f" the SSD with its forward and recompute {L * (fwd + fb):.3f} ms, "
+          f"{L * (fwd + fb) / step_ms:.4f} | {card}")
+
+
+def family_train_phase(torch, np, card: str, phase_launches: dict,
+                       phase_routes: dict, arch: str, n_layers: int = 0,
+                       loss_chunk: int = 0, cfg=None, batch: int = LM_BATCH,
+                       seq: int = LM_PROMPT,
+                       steps: int = FAMILY_TRAIN_STEPS,
+                       device: str = "cuda") -> None:
+    """Phases 22-23: ``arch`` at full width (``n_layers`` of its layers
+    when given, a depth cut named in the output; ``loss_chunk`` > 0 sums the
+    CE in chunks) from seed-0 weights drawn on the card's generator, as the
+    serving phases draw them; ``steps`` of ``train_step`` at ``batch`` x
+    ``seq`` (the encoder-decoder: ``seq`` frames and ``target_len`` target
+    tokens), remat on, AdamW with the state handed over: finite losses,
+    the median step of steps 2.. (host wall), tokens/s, forward, backward
+    and AdamW ms on CUDA events, peak memory, the attention kernels'
+    launches each step by route (``flash_per_prefill`` forward, again in the
+    recompute, once backward, all ``wgmma``), then one profiled step by kind.
+    The MoE config first runs ``moe_checks``, and after training
+    ``moe_backward_by_op``.  ``cfg`` (a smoke config) and ``device="cpu"``
+    make a CPU dry run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import flash_attention as fam
+    from repro_torch.launch.serve_lm import ENCDEC_FAMILIES, target_len
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import get_module
+    from repro_torch.models.params import init_from_defs
+
+    full = get_config(arch)
+    cfg = cfg or dataclasses.replace(full, n_layers=n_layers or full.n_layers,
+                                     loss_chunk=loss_chunk)
+    mod = get_module(cfg)
+    on_card = device != "cpu"
+    phase = f"{cfg.family}-train"
+    tag = f"[{phase}]"
+    n_params = defs_count(mod.defs(cfg))
+    if cfg.n_layers != full.n_layers and cfg.name == full.name:
+        depth = (f"{cfg.n_layers} of {full.n_layers} layers (the depth cut so"
+                 f" that one card holds the f32 params, gradients, AdamW's m"
+                 f" and v and the new params: all {full.n_layers} layers are"
+                 f" {defs_count(mod.defs(full)) * 16 / 1e9:.1f} GB at 16 bytes"
+                 f" a parameter)")
+    else:
+        depth = f"{cfg.n_layers} layers"
+    if cfg.family in ENCDEC_FAMILIES:
+        depth += f": {cfg.n_enc_layers} encoder + {cfg.n_dec_layers} decoder"
+        what = (f"{seq} frames and a {target_len(cfg, seq)}-token target")
+        tokens = batch * target_len(cfg, seq)
+    else:
+        what, tokens = f"seq {seq}", batch * seq
+    t0 = time.perf_counter()
+    params = init_from_defs(mod.defs(cfg),
+                            torch.Generator(device=device).manual_seed(0),
+                            device)
+    if on_card:
+        torch.cuda.synchronize()
+    print(f"{tag} {cfg.name}: {depth}, d_model {cfg.d_model}; "
+          f"{n_params / 1e9:.4f} B f32 parameters ({n_params * 16 / 1e9:.2f} "
+          f"GB with gradients, m and v) from seed 0 on the {device} generator"
+          f" (the serving phases' draw) in {time.perf_counter() - t0:.2f}s; "
+          f"batch {batch} x {what}, remat {cfg.remat}, loss chunk "
+          f"{cfg.loss_chunk or 'none'}, AdamW lr {LM_TRAIN_LR} with the "
+          f"state handed over, {steps} steps (the first warm-up) | {card}")
+    moe_note = ""
+    if cfg.n_experts:
+        moe_note = "; " + moe_checks(
+            torch, cfg, params, make_batch(cfg, batch, seq, 0, 0, device),
+            card, tag)
+    n_flash = flash_per_prefill(cfg)
+    zero_launches(KERNELS)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    marks = [] if on_card else None
+    held = [params]
+    del params  # the steps hold the only reference: one copy at a time
+    losses, walls, params = lm_train(torch, np, fam, cfg, held.pop(), batch,
+                                     seq, steps, device, marks=marks,
+                                     donate=True)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    phase_launches[phase] = read_launches(KERNELS)
+    phase_routes[phase] = read_routes(KERNELS)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} losses {losses}")
+    on_wgmma = {"wgmma": n_flash, "mma_sync": 0, "simt": 0}
+    again = n_flash if cfg.remat else 0
+    if on_card:
+        for i, m in enumerate(marks):
+            (f0, b0), (f1, b1), (f2, b2) = (m["start_routes"],
+                                            m["fwd_routes"], m["end_routes"])
+            got = ({r: f1[r] - f0[r] for r in f0},
+                   {r: f2[r] - f1[r] for r in f0},
+                   {r: b2[r] - b1[r] for r in b0}, b1 == b0)
+            want = (on_wgmma, {"wgmma": again, "mma_sync": 0, "simt": 0},
+                    {"wgmma": n_flash, "mma_sync": 0}, True)
+            if got != want:
+                raise AssertionError(f"{tag} step {i}: forward, recompute, "
+                                     f"backward launches {got[:3]}, "
+                                     f"expected {want[:3]}")
+        want = expect({"flash_attention": (n_flash + again) * steps,
+                       "flash_attention_bwd": n_flash * steps})
+        if phase_launches[phase] != want:
+            raise AssertionError(f"{tag} launches {phase_launches[phase]}, "
+                                 f"expected {want}")
+    walls = np.array(walls[1:] or walls) * 1e3  # the first is warm-up
+    dev = ({k: np.median([m[a].elapsed_time(m[b]) for m in marks[1:]])
+            for k, a, b in (("forward", "start", "fwd"),
+                            ("backward", "fwd", "opt"),
+                            ("optimizer", "opt", "end"),
+                            ("step", "start", "end"))}
+           if on_card else dict.fromkeys(("forward", "backward", "optimizer",
+                                          "step"), 0.0))
+    unit = "target tokens" if cfg.family in ENCDEC_FAMILIES else "tokens"
+    extra = (f", {batch * seq / np.median(walls) * 1e3:.0f} frames/s"
+             if cfg.family in ENCDEC_FAMILIES else "")
+    print(f"{tag} {cfg.name}: median step {np.median(walls):.3f} ms host wall"
+          f" over steps 2-{steps} (min {walls.min():.3f}, max "
+          f"{walls.max():.3f}), {tokens / np.median(walls) * 1e3:.0f} {unit}/s"
+          f"{extra}; on CUDA events (median) forward {dev['forward']:.3f} ms,"
+          f" backward {dev['backward']:.3f} ms, AdamW {dev['optimizer']:.3f} "
+          f"ms, step {dev['step']:.3f} ms; peak device memory "
+          f"{peak / 2**30:.3f} GiB; per step flash_attention {n_flash} "
+          f"forward + {again} recompute, flash_attention_bwd {n_flash}, all on"
+          f" wgmma (the {steps} steps by route: flash_attention "
+          f"{phase_routes[phase]['flash_attention']}, flash_attention_bwd "
+          f"{phase_routes[phase]['flash_attention_bwd']}){moe_note} | {card}")
+    print(f"{tag} losses {losses} | {card}")
+    if on_card:
+        profiled = profile_train_step(torch, np, fam, cfg, params, batch, seq,
+                                      donate=True, exp_scan=True)
+        if profiled is None:
+            print(f"{tag} profiled step: not measured (torch.profiler saw no "
+                  f"device time)")
+        else:
+            wall_us, rows, cats = profiled
+            busy, top = busy_and_top(rows, k=10)
+            print(f"{tag} profiled step: device busy {busy / 1e3:.3f} ms of "
+                  f"{wall_us / 1e3:.3f} ms host wall (profiler on, a "
+                  f"synchronize before AdamW; busy share "
+                  f"{busy / wall_us:.4f}); device ms by kind: " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in cats.items())
+                  + f"; by operation: | {card}")
+            for us, name, count in top:
+                print(f"{tag}   {us / 1e3:9.3f} ms  x{count:<5d} "
+                      f"{name[:70]} | {card}")
+        del profiled
+        if cfg.family in ("ssm", "hybrid"):
+            ssd_train_share(torch, cfg, params, make_batch(
+                cfg, batch, seq, 0, 0, device)["tokens"], dev["step"], tag,
+                card)
+        if cfg.n_experts:
+            moe_backward_by_op(torch, cfg, params, make_batch(
+                cfg, batch, seq, 0, 0, device)["tokens"], card, tag)
+    del params
+
+
+def family_train_parity_phase(torch, np, card: str, phase_launches: dict,
+                              phase_routes: dict) -> None:
+    """Phase 24: each ``TRAIN_PARITY`` smoke config trained
+    ``LM_TRAIN_SMOKE`` steps on the CPU (plain versions) and on the card
+    (kernels, on ``mma_sync``: head dim 16) from the same seed-0 weights
+    and numpy batches, losses within ``TRAIN_SMOKE_ATOL`` (for the MoE
+    config, from its first step with a routing flip on, ``MOE_SMOKE_TOL``);
+    and the first step's gradients on both, per leaf within
+    ``TRAIN_GRAD_REL``.  Every config is printed before any is failed.
+    Exactly ``flash_per_prefill`` forward and backward launches a step on
+    the card (the smoke configs do not remat)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import flash_attention as fam
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import get_module
+    from repro_torch.models.params import init_from_defs
+
+    B, S, N = LM_TRAIN_SMOKE
+    zero_launches(KERNELS)
+    flash, failed = 0, []
+    for arch in TRAIN_PARITY:
+        small = get_config(arch, smoke=True)
+        mod = get_module(small)
+        sp = init_from_defs(mod.defs(small), torch.Generator().manual_seed(0),
+                            "cpu")
+        moe_cfg = small.n_experts > 0
+        cpu_routes, card_routes = ([], []) if moe_cfg else (None, None)
+        cpu_losses, _, _ = lm_train(torch, np, fam, small, sp, B, S, N, "cpu",
+                                    routes=cpu_routes)
+        card_losses, _, _ = lm_train(torch, np, fam, small,
+                                     to_device(sp, "cuda"), B, S, N, "cuda",
+                                     routes=card_routes)
+        diffs = np.abs(np.subtract(card_losses, cpu_losses))
+        # a (layer, token) routed to other experts on the card than on the
+        # CPU (a near-tie of the bf16 router logits, rounded in another
+        # order) moves the capacity ranks of the tokens after it and that
+        # token's whole FFN output: from the first step with such a flip on
+        # the losses are held to the MoE card-vs-CPU tolerance of phase 18b
+        flips = [sum(int((~(expert_sets(torch, a, small.n_experts)
+                           == expert_sets(torch, b.cpu(), small.n_experts)
+                           ).all(-1)).sum()) for a, b in zip(ca, ga))
+                 for ca, ga in zip(cpu_routes, card_routes)] if moe_cfg \
+            else [0] * N
+        first = next((i for i, f in enumerate(flips) if f), N)
+        atol = TRAIN_SMOKE_ATOL.get(arch, LM_TRAIN_SMOKE_ATOL)
+        limit = [atol if i < first else
+                 MOE_SMOKE_TOL["atol"] + MOE_SMOKE_TOL["rtol"] * abs(c)
+                 for i, c in enumerate(cpu_losses)]
+        flip_note = (f"; routing flips card vs CPU by step {flips} of "
+                     f"{small.n_layers * B * S} (layer, token) routings each"
+                     + (f", so steps {first}-{N - 1} are held to "
+                        f"{MOE_SMOKE_TOL} (phase 18b's), the max |loss diff| "
+                        f"before step {first} "
+                        f"{float(diffs[:first].max(initial=0.0)):.4e}"
+                        if first < N else "")) if moe_cfg else ""
+        batch = make_batch(small, B, S, 0, 0, "cpu")
+        _, g_cpu = loss_and_grads(torch, mod, small, sp, batch)
+        _, g_card = loss_and_grads(torch, mod, small, to_device(sp, "cuda"),
+                                   to_device(batch, "cuda"))
+        rel = {}
+        for k, want in g_cpu.items():
+            got = g_card[k].cpu()
+            den = float(want.norm())
+            rel[k] = (float((got - want).norm()) / den if den
+                      else float(got.norm()))
+        worst = max(rel, key=rel.get)
+        grad_rel = TRAIN_GRAD_REL.get(arch, TRAIN_GRAD_REL[None])
+        flash += flash_per_prefill(small) * (N + 1)
+        print(f"[train-parity] {small.name} batch {B} x seq {S}, {N} AdamW "
+              f"steps from the same seed-0 weights and numpy batches: card "
+              f"(kernels) {card_losses} vs CPU (plain versions) {cpu_losses},"
+              f" |loss diff| by step {[float(f'{d:.4e}') for d in diffs]} "
+              f"(atol {atol}){flip_note}; first-step gradients, per leaf "
+              f"|g_card - g_cpu| / |g_cpu|: max {rel[worst]:.4e} at {worst}, "
+              f"median {float(np.median(list(rel.values()))):.4e} over "
+              f"{len(rel)} leaves ({grad_rel}) | {card}")
+        if not all(d <= lim for d, lim in zip(diffs, limit)):
+            failed.append(f"{small.name} losses card vs CPU beyond {limit}")
+        if not rel[worst] <= grad_rel:
+            failed.append(f"{small.name} first-step gradient {worst} "
+                          f"{rel[worst]:.4e}")
+    if failed:
+        raise AssertionError(f"training card vs CPU: {'; '.join(failed)}")
+    phase = "train-parity"
+    phase_launches[phase] = read_launches(KERNELS)
+    phase_routes[phase] = read_routes(KERNELS)
+    want = expect({"flash_attention": flash, "flash_attention_bwd": flash})
+    routes = phase_routes[phase]
+    if phase_launches[phase] != want \
+            or routes["flash_attention"]["mma_sync"] != flash \
+            or routes["flash_attention_bwd"]["mma_sync"] != flash:
+        raise AssertionError(f"{phase} launches {phase_launches[phase]} by "
+                             f"route {routes}, expected {want}, forward and "
+                             f"backward on mma_sync (head dim 16)")
+
+
+def train_cli_phase(card: str) -> None:
+    """The training CLI as a user runs it, one subprocess per
+    ``TRAIN_CLI`` arch: ``python -m repro_torch.launch.train --arch <arch>
+    --smoke --steps TRAIN_CLI_STEPS`` on the card (its default), exit 0 and
+    a finite loss printed for every step.  (Its kernels launch in the
+    subprocess, whose counts this process does not see.)"""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    for arch in TRAIN_CLI:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               arch, "--smoke", "--steps", str(TRAIN_CLI_STEPS)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                             text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        losses = [float(x) for x in
+                  re.findall(r"^step\s+\d+ loss (\S+)$", res.stdout, re.M)]
+        if res.returncode != 0 or len(losses) != TRAIN_CLI_STEPS \
+                or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{' '.join(cmd[1:])}: exit "
+                                 f"{res.returncode}, losses {losses}; "
+                                 f"{res.stdout[-800:]} {res.stderr[-1500:]}")
+        print(f"[train-cli] {' '.join(cmd[1:])}: exit 0 in {wall:.1f}s, "
+              f"losses {losses} | {card}")
 
 
 # ---- the sharded executor (phases 4, 9 and 10) ------------------------------
@@ -3349,12 +3943,15 @@ def timed_decode_steps(torch, transformer, run):
     return res, [a.elapsed_time(b) for a, b in zip(events, events[1:])]
 
 
-def by_category(rows) -> dict:
+def by_category(rows, exp_scan: bool = False) -> dict:
     """Device ms by kind of operation: the flash kernels (forward, and the
     backward's three launches), matrix products (cuBLAS), copies and casts,
-    and the rest (elementwise, reductions)."""
+    and the rest (elementwise, reductions); with ``exp_scan`` the exp and
+    cumsum kernels (the SSD's decays, by ``ssd_kinds``' rule) apart from
+    the rest."""
     out = {"flash_attention": 0.0, "flash_attention_bwd": 0.0, "matmul": 0.0,
-           "copy/cast": 0.0, "other": 0.0}
+           "copy/cast": 0.0} | ({"exp/cumsum": 0.0} if exp_scan else {}) \
+        | {"other": 0.0}
     for s, t, name in rows:
         n = name.lower()
         if "flash_fwd" in n:
@@ -3365,6 +3962,8 @@ def by_category(rows) -> dict:
             key = "matmul"
         elif "copy" in n or "memcpy" in n or "memset" in n:
             key = "copy/cast"
+        elif exp_scan and ("exp" in n or "scan" in n or "cumsum" in n):
+            key = "exp/cumsum"
         else:
             key = "other"
         out[key] += (t - s) / 1e3
@@ -3507,10 +4106,12 @@ def capture_backward(torch, fa, transformer, cfg, params, batch, layers):
 
 def exact_grads(torch, q, k, v, do, causal: bool, window: int):
     """The f64 gradient of attention over q * the bf16-rounded scale (the
-    product not rounded), k and v at output gradient ``do``, one batch row
-    at a time (the f64 scores of a 4096-token row are 537 MB a head
-    group)."""
-    Dh, G = q.shape[-1], q.shape[2] // k.shape[2]
+    product not rounded), k and v at output gradient ``do``, one (batch
+    row, kv head) at a time: its G query heads against its one kv head
+    (the f64 scores of a 4096-token row are 134 MB a query head, so a
+    chameleon row of 64 heads would need 8.6 GB a tensor at once)."""
+    B, Dh, Hkv = q.shape[0], q.shape[-1], k.shape[2]
+    G = q.shape[2] // Hkv
     scale = float(torch.tensor(Dh ** -0.5, dtype=q.dtype))
     i = torch.arange(q.shape[1], device=q.device)[:, None]
     j = torch.arange(k.shape[1], device=q.device)[None, :]
@@ -3520,19 +4121,27 @@ def exact_grads(torch, q, k, v, do, causal: bool, window: int):
         seen &= j <= i
     if window > 0:
         seen &= i - j < window
-    out = [[], [], []]
-    for b in range(q.shape[0]):
-        qd, kd, vd = (t[b:b + 1].double().requires_grad_() for t in (q, k, v))
-        s = torch.einsum("bqhd,bkhd->bhqk", qd * scale,
-                         kd.repeat_interleave(G, 2))
-        o = torch.einsum("bhqk,bkhd->bqhd",
-                         s.masked_fill(~seen, float("-inf")).softmax(-1),
-                         vd.repeat_interleave(G, 2))
-        for acc, g in zip(out, torch.autograd.grad(o, (qd, kd, vd),
-                                                   do[b:b + 1].double())):
-            acc.append(g)
-        del s, o
-    return [torch.cat(g) for g in out]
+    out = [torch.empty(t.shape, dtype=torch.float64, device=t.device)
+           for t in (q, k, v)]
+    for b in range(B):
+        for h in range(Hkv):
+            heads = slice(h * G, (h + 1) * G)
+            qd = q[b:b + 1, :, heads].double().requires_grad_()
+            kd, vd = (t[b:b + 1, :, h:h + 1].double().requires_grad_()
+                      for t in (k, v))
+            s = torch.einsum("bqhd,bkhd->bhqk", qd * scale,
+                             kd.expand(-1, -1, G, -1))
+            o = torch.einsum(
+                "bhqk,bkhd->bqhd",
+                s.masked_fill(~seen, float("-inf")).softmax(-1),
+                vd.expand(-1, -1, G, -1))
+            gq, gk, gv = torch.autograd.grad(o, (qd, kd, vd),
+                                             do[b:b + 1, :, heads].double())
+            out[0][b:b + 1, :, heads] = gq
+            out[1][b:b + 1, :, h:h + 1] = gk
+            out[2][b:b + 1, :, h:h + 1] = gv
+            del s, o, gq, gk, gv
+    return out
 
 
 def bwd_cases(torch, fa, captured, seed: int = 12):
@@ -3541,7 +4150,9 @@ def bwd_cases(torch, fa, captured, seed: int = 12):
     forward kernel: Dh 16, 64, 80, 128 and 256, windows 64, 512 and none,
     G = 1, 2, 3, 4 and 5 (3 and 5 leave rows of the wgmma route's 64-row
     tiles, and of the forward's 128-row tiles, empty), causal and not,
-    ragged Sq (77, 130, 333, 1000), Sq != Sk."""
+    ragged Sq (77, 130, 333, 1000), Sq != Sk; and, named ``fam_<shape>``,
+    the families' training shapes at the full batch (``BWD_FAMILY_SHAPES``:
+    G up to 8, not causal at 4096 keys, Sq 512 over Sk 4096)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cases = {}
     for layer, (q, k, v, o, lse, do, kw) in sorted(captured.items()):
@@ -3565,7 +4176,9 @@ def bwd_cases(torch, fa, captured, seed: int = 12):
             ("s333_window64_g5_dh256", (1, 333, 5, 1, 256), None,
              {"window": 64}),
             ("s333_full_g5_dh64", (1, 333, 10, 2, 64), None,
-             {"window": 0, "causal": False})):
+             {"window": 0, "causal": False}),
+            *((f"fam_{name}", shape, Sk, {"window": 0, "causal": causal})
+              for name, shape, Sk, causal in BWD_FAMILY_SHAPES)):
         Sk = Sq if Sk is None else Sk
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                        .bfloat16() for shape in
@@ -3747,6 +4360,79 @@ def time_backward(torch, np, fa, k, cases, flush, card) -> dict:
     return out
 
 
+def time_family_backward(torch, np, fa, cases, flush, card) -> dict:
+    """At the families' training shapes (the ``fam_`` cases, full batch):
+    the backward kernel on its route (``wgmma``), its plain version and
+    SDPA's backward (k and v expanded to the query heads, ``is_causal`` or
+    no mask; (forward + backward) - forward), in two rounds, beside the
+    bound (5 products of 2 Dh flops per visible pair and query head at the
+    bf16 rate, or the bytes of q, k, v, o, do, lse in and dq, dk, dv out,
+    the larger)."""
+    import functools
+
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+
+    out = {}
+    for name, (q, kk, v, o, lse, do, kw) in cases.items():
+        if not name.startswith("fam_"):
+            continue
+        B, Sq, Hq, Dh = q.shape
+        Sk, G = kk.shape[1], Hq // kk.shape[2]
+        causal = kw["causal"]
+        pairs = causal_pairs(Sq, 0) if causal else Sq * Sk
+        flops = 10 * Dh * B * Hq * pairs
+        nbytes = 4 * (q.numel() + kk.numel()) * q.element_size() \
+            + lse.numel() * 4
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kt, vt = (t.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+                  .requires_grad_() for t in (kk, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+        a = (q, kk, v, o, lse, do)
+        route = fa.flash_bwd_route(q.dtype, Dh)
+        runs = []
+        for _ in range(2):
+            runs.append([
+                time_ms(torch, functools.partial(fa.flash_attention_bwd, **kw),
+                        a, BWD_FAMILY_TIMED, flush),
+                time_ms(torch, functools.partial(ref.flash_attention_bwd,
+                                                 **kw), a, BWD_FAMILY_PLAIN,
+                        flush),
+                time_ms(torch, sdpa_fwd_bwd, (), BWD_FAMILY_TIMED, flush)
+                - time_ms(torch, sdpa, (), BWD_FAMILY_TIMED, flush)])
+        m = np.mean(runs, axis=0)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        call = (f"F.scaled_dot_product_attention backward, k/v expanded to "
+                f"the query heads, {'is_causal' if causal else 'no mask'}, "
+                f"(forward + backward) - forward")
+        out[name] = {"ms": float(m[0]), "route": route,
+                     "plain_ms": float(m[1]), "library_ms": float(m[2]),
+                     "library_call": call,
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "operations" if ops_ms > bytes_ms
+                     else "bytes", "bytes": int(nbytes), "flops": int(flops)}
+        r = out[name]
+        print(f"[lm-bwd] {name} @ q {tuple(q.shape)} k {tuple(kk.shape)} "
+              f"{kw}: backward kernel on {route} {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, SDPA backward {r['library_ms']:.4f} "
+              f"ms ({call}), bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
+              f" ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB): "
+              f"{r['bound_ms'] / r['ms']:.3f} of the bound, "
+              f"{r['ms'] / r['library_ms']:.3f}x SDPA's backward; runs "
+              f"(kernel, plain, SDPA) {runs} | {card}")
+        del qt, kt, vt, dot
+    return out
+
+
 def lse_under_recompute(torch, fa, cases, card) -> None:
     """The forward kernel, run again on a captured call's q, k, v (as remat
     runs it again in the backward), gives the same o and lse bits as the
@@ -3764,26 +4450,33 @@ def lse_under_recompute(torch, fa, cases, card) -> None:
           f"lse bitwise equal to the saved ones | {card}")
 
 
-def lm_train(torch, np, fa, transformer, cfg, params, batch: int, seq: int,
-             steps: int, device, lr: float = LM_TRAIN_LR, marks=None,
-             split_optimizer: bool = False):
+def lm_train(torch, np, fa, cfg, params, batch: int, seq: int, steps: int,
+             device, lr: float = LM_TRAIN_LR, marks=None,
+             split_optimizer: bool = False, donate: bool = False,
+             routes=None):
     """``steps`` of ``launch.train.train_step`` from ``params`` on numpy
-    batches (seed 0): per step the loss, the host wall time (synchronized)
-    and, with ``marks``, CUDA events at the step's start, after the loss
-    (the forward), where AdamW starts (after the backward) and at its end,
-    and the flash kernels' launches by route after the forward and at the
-    end.  ``split_optimizer`` synchronizes before AdamW and opens the
-    profiler range ``lm_optimizer`` there, so that every device operation
-    after its start is the optimizer's.  Returns (losses, wall seconds,
-    final params)."""
+    batches (seed 0), through the family's ``loss_fn`` (``get_module(cfg)``,
+    patched for the run): per step the loss, the host wall time
+    (synchronized) and, with ``marks``, CUDA events at the step's start,
+    after the loss (the forward), where AdamW starts (after the backward)
+    and at its end, and the flash kernels' launches by route after the
+    forward and at the end.  ``split_optimizer`` synchronizes before AdamW
+    and opens the profiler range ``lm_optimizer`` there, so that every
+    device operation after its start is the optimizer's.  ``donate`` hands
+    the optimizer state to each step (``train_step(donate=True)``).  With
+    ``routes`` (a list), a list of each step's ``moe._route`` top-k ids is
+    appended to it (the forward's layers, then any remat recompute's).
+    Returns (losses, wall seconds, final params)."""
     from repro_torch.launch.train import make_batch, train_step
+    from repro_torch.models import get_module, moe
     from repro_torch.train.optimizer import AdamW, adamw
 
     opt = adamw(lr)
     state = opt.init(params)
-    inner_loss, step_marks = transformer.loss_fn, {}
+    mod = get_module(cfg)
+    inner_loss, step_marks = mod.loss_fn, {}
 
-    def routes():
+    def launches():
         return (dict(fa.KERNEL.route_launches),
                 dict(fa.BWD_KERNEL.route_launches))
 
@@ -3795,58 +4488,69 @@ def lm_train(torch, np, fa, transformer, cfg, params, batch: int, seq: int,
     def loss_fn(*a, **kw):
         out = inner_loss(*a, **kw)
         if marks is not None:
-            step_marks["fwd"], step_marks["fwd_routes"] = event(), routes()
+            step_marks["fwd"], step_marks["fwd_routes"] = event(), launches()
         return out
 
-    def update(*a, **kw):
-        if marks is not None:
-            step_marks["opt"] = event()
-        if split_optimizer:
-            torch.cuda.synchronize()
-            with torch.profiler.record_function("lm_optimizer"):
-                return opt.update(*a, **kw)
-        return opt.update(*a, **kw)
+    def optimizer(fn):
+        def run(*a, **kw):
+            if marks is not None:
+                step_marks["opt"] = event()
+            if split_optimizer:
+                torch.cuda.synchronize()
+                with torch.profiler.record_function("lm_optimizer"):
+                    return fn(*a, **kw)
+            return fn(*a, **kw)
+        return run
 
-    timed = AdamW(opt.init, update)
-    transformer.loss_fn = loss_fn
+    # without donate, the optimizer and train_step as an older tree has
+    # them (tools/lm_train_steps.py --src times other trees through here)
+    timed = (AdamW(opt.init, optimizer(opt.update), optimizer(opt.step))
+             if donate else AdamW(opt.init, optimizer(opt.update)))
+    kw = {"donate": True} if donate else {}
+    mod.loss_fn = loss_fn
     losses, walls = [], []
     try:
         for step in range(steps):
             b = make_batch(cfg, batch, seq, 0, step, device)
             if marks is not None:
-                step_marks = {"start": event(), "start_routes": routes()}
+                step_marks = {"start": event(), "start_routes": launches()}
             t0 = time.perf_counter()
-            params, state, loss = train_step(cfg, params, timed, state, b)
+            if routes is not None:
+                routes.append([])
+            with (recorded_routes(moe, routes[-1]) if routes is not None
+                  else contextlib.nullcontext()):
+                params, state, loss = train_step(cfg, params, timed, state, b,
+                                                 **kw)
             if marks is not None:
-                step_marks["end"], step_marks["end_routes"] = event(), routes()
+                step_marks["end"], step_marks["end_routes"] = (event(),
+                                                               launches())
                 marks.append(step_marks)
             losses.append(float(loss))  # synchronizes
             walls.append(time.perf_counter() - t0)
     finally:
-        transformer.loss_fn = inner_loss
+        mod.loss_fn = inner_loss
     return losses, walls, params
 
 
-def profile_train_step(torch, np, fa, transformer, cfg, params, batch: int,
-                       seq: int):
+def profile_train_step(torch, np, fa, cfg, params, batch: int, seq: int,
+                       donate: bool = False, exp_scan: bool = False):
     """One step of ``lm_train`` under ``torch.profiler`` with a synchronize
     before AdamW: (host wall us, device rows, device ms by kind with the
-    optimizer's apart), or None where the profiler saw no device time."""
+    optimizer's apart; ``exp_scan`` splits exp and cumsum off the rest), or
+    None where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+                 acc_events=False) as prof:
         t0 = time.perf_counter()
-        lm_train(torch, np, fa, transformer, cfg, params, batch, seq, 1,
-                 "cuda", split_optimizer=True)
+        lm_train(torch, np, fa, cfg, params, batch, seq, 1, "cuda",
+                 split_optimizer=True, donate=donate)
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.events()
-    rows = device_rows(torch, events)
-    opt_at = [e.time_range.start for e in events if e.name == "lm_optimizer"
-              and e.device_type == torch.autograd.DeviceType.CPU]
+    rows, at = kineto_rows(torch, prof)
+    opt_at = at["lm_optimizer"]
     if not rows or len(opt_at) != 1:
         return None
-    cats = by_category([r for r in rows if r[0] < opt_at[0]])
+    cats = by_category([r for r in rows if r[0] < opt_at[0]], exp_scan)
     cats["optimizer"] = sum(t - s for s, t, _ in rows if s >= opt_at[0]) / 1e3
     return wall_us, rows, cats
 
@@ -4452,8 +5156,16 @@ def main() -> int:
     if len(train_routes) != 2 or set(train_routes.values()) != {"wgmma"}:
         raise AssertionError(f"captured backward calls' routes "
                              f"{train_routes}, expected wgmma")
+    fam_routes = {c: r[0] for c, r in measured[bwd.name]["routes"].items()
+                  if c.startswith("fam_")}
+    if len(fam_routes) != len(BWD_FAMILY_SHAPES) \
+            or set(fam_routes.values()) != {"wgmma"}:
+        raise AssertionError(f"the families' training shapes' backward "
+                             f"routes {fam_routes}, expected wgmma")
     measured[bwd.name]["timed"] = time_backward(torch, np, fam, bwd, bcases,
                                                 flush, card)
+    measured[bwd.name]["timed"] |= time_family_backward(torch, np, fam,
+                                                        bcases, flush, card)
     del bcases, flush
 
     clock("12")
@@ -4612,8 +5324,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     marks = []
-    losses, walls, _ = lm_train(torch, np, fam, transformer, tcfg, lm_params,
-                                LM_BATCH, LM_PROMPT, LM_TRAIN_STEPS, "cuda",
+    losses, walls, _ = lm_train(torch, np, fam, tcfg, lm_params, LM_BATCH,
+                                LM_PROMPT, LM_TRAIN_STEPS, "cuda",
                                 marks=marks)
     peak = torch.cuda.max_memory_allocated()
     phase_launches["lm-train"] = read_launches(KERNELS)
@@ -4657,8 +5369,8 @@ def main() -> int:
           f"{L} forward + {L} recompute on wgmma, flash_attention_bwd {L} on "
           f"wgmma | {card}")
     print(f"[lm-train] losses {losses} | {card}")
-    profiled = profile_train_step(torch, np, fam, transformer, tcfg,
-                                  lm_params, LM_BATCH, LM_PROMPT)
+    profiled = profile_train_step(torch, np, fam, tcfg, lm_params, LM_BATCH,
+                                  LM_PROMPT)
     if profiled is None:
         print("[lm-train] profiled step: not measured (torch.profiler saw no "
               "device time)")
@@ -4682,10 +5394,9 @@ def main() -> int:
     B, S, N = LM_TRAIN_SMOKE
     sp = init_from_defs(transformer.defs(small),
                         torch.Generator().manual_seed(0), "cpu")
-    cpu_losses, _, _ = lm_train(torch, np, fam, transformer, small, sp, B, S,
-                                N, "cpu")
+    cpu_losses, _, _ = lm_train(torch, np, fam, small, sp, B, S, N, "cpu")
     card_losses, _, _ = lm_train(
-        torch, np, fam, transformer, small,
+        torch, np, fam, small,
         {k: (v.cuda() if isinstance(v, torch.Tensor)
              else {n: t.cuda() for n, t in v.items()}) for k, v in sp.items()},
         B, S, N, "cuda")
@@ -4736,6 +5447,23 @@ def main() -> int:
     clock("19-21 parity")
     torch.cuda.empty_cache()
     family_parity_phase(torch, np, card, phase_launches, phase_routes)
+
+    clock("22")
+    # ---- 22. family training at full size: mamba2, zamba2, seamless -------
+    for arch in FAMILY_TRAIN_FULL:
+        torch.cuda.empty_cache()
+        family_train_phase(torch, np, card, phase_launches, phase_routes, arch)
+    clock("23")
+    # ---- 23. MoE and VLM training at full width on 2 layers ----------------
+    for arch, layers in FAMILY_TRAIN_CUT:
+        torch.cuda.empty_cache()
+        family_train_phase(torch, np, card, phase_launches, phase_routes,
+                           arch, n_layers=layers, loss_chunk=LM_TRAIN_CHUNK)
+    clock("24")
+    # ---- 24. training parity: the smoke configs on the card and the CPU ---
+    torch.cuda.empty_cache()
+    family_train_parity_phase(torch, np, card, phase_launches, phase_routes)
+    train_cli_phase(card)
 
     record = {"kernels": []}
     for k in KERNELS:

@@ -59,10 +59,19 @@ def make_batch(cfg, batch: int, seq: int, seed: int, step: int,
     return {k: v.to(device) for k, v in out.items()}
 
 
-def train_step(cfg, params: dict, opt, opt_state: dict, batch: dict):
+def train_step(cfg, params: dict, opt, opt_state: dict, batch: dict, *,
+               donate: bool = False):
     """One step: loss and gradients through the family's ``loss_fn``, then
     AdamW.  Functional, like the reference's: returns (new params, new
-    optimizer state, loss) and leaves ``params`` as they were."""
+    optimizer state, loss) and leaves ``params`` as they were.
+
+    ``donate=True`` hands ``opt_state`` over, as a jitted step's
+    ``donate_argnums`` would: AdamW's ``step`` updates its moments in place
+    and frees each gradient once its leaf is done (the same bits), so the
+    step holds one copy of the parameters, the gradients, m and v and the
+    new parameters, where the functional update also holds the old
+    moments, the scaled gradients and the updates.  The caller must not
+    use the ``opt_state`` it passed again."""
     from repro_torch.models import get_module
     from repro_torch.train.optimizer import apply_updates, tree_map
 
@@ -72,6 +81,9 @@ def train_step(cfg, params: dict, opt, opt_state: dict, batch: dict):
     grads = tree_map(lambda p: p.grad if p.grad is not None
                      else torch.zeros_like(p), leaves)
     del leaves
+    if donate:
+        new, opt_state = opt.step(grads, opt_state, params)
+        return new, opt_state, loss.detach()
     updates, opt_state = opt.update(grads, opt_state, params)
     return apply_updates(params, updates), opt_state, loss.detach()
 

@@ -7,8 +7,12 @@ square root, the norm summed over leaves in sorted-key order (JAX's tree
 order); bias corrections ``1 - b**count``; and the decoupled update
 ``-lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)`` added to the float32
 parameters.  ``torch.optim.AdamW`` and ``clip_grad_norm_`` place eps and the
-clip epsilon elsewhere, so they are not used.  Updates are functional: every
-step returns new tensors and mutates nothing it was given.
+clip epsilon elsewhere, so they are not used.  ``update`` is functional:
+it returns new tensors and mutates nothing it was given.  ``step`` is the
+same update and ``apply_updates`` for a caller that hands over its
+gradients and state (as a jitted step donates its buffers): bit for bit
+the functional result, with one copy of the state alive instead of two
+and no tree of scaled gradients or updates.
 """
 from __future__ import annotations
 
@@ -36,6 +40,18 @@ def tree_map(fn: Callable, tree, *rest):
 class AdamW(NamedTuple):
     init: Callable
     update: Callable
+    step: Callable = None
+
+
+def _slots(tree) -> list:
+    """(dict, key) of every leaf of a nested dict, in sorted-key order."""
+    out = []
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out += _slots(tree[k])
+        else:
+            out.append((tree, k))
+    return out
 
 
 def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
@@ -74,7 +90,49 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
         updates = tree_map(upd, m, v, params)
         return updates, {"m": m, "v": v, "count": count}
 
-    return AdamW(init, update)
+    @torch.no_grad()
+    def step(grads, state, params):
+        """``apply_updates(params, update(grads, state, params)[0])`` and
+        the new state, bit for bit (the same operations in the same order,
+        in place), leaf by leaf: each gradient is scaled in place and
+        dropped from ``grads`` once its leaf is done, and m and v are
+        updated in place, so ``grads`` and ``state`` are consumed (their
+        tensors must not be used again).  Beside the state, the gradients
+        and the two parameter trees, two leaves of scratch are alive.
+        ``params`` are left as they were."""
+        slots = _slots(grads)
+        for tree, k in slots:
+            tree[k] = tree[k].to(torch.float32)
+        if grad_clip > 0:
+            total = 0
+            for tree, k in slots:
+                total = total + torch.sum(tree[k] * tree[k])
+            gnorm = torch.sqrt(total + 1e-12)
+            scale = torch.clamp(grad_clip / gnorm, max=1.0)
+        count = state["count"] + 1
+        c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
+        c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
+        new = tree_map(lambda p: None, params)
+        for (gt, k), (mt, _), (vt, _), (pt, _), (nt, _) in zip(
+                slots, _slots(state["m"]), _slots(state["v"]),
+                _slots(params), _slots(new)):
+            g, m, v, p = gt.pop(k), mt[k], vt[k], pt[k]
+            if grad_clip > 0:
+                g.mul_(scale)
+            s1, s2 = torch.empty_like(m), torch.empty_like(m)
+            m.mul_(b1).add_(torch.mul(g, 1 - b1, out=s1))
+            v.mul_(b2).add_(torch.mul(g, 1 - b2, out=s1).mul_(g))
+            del g
+            torch.div(m, c1, out=s1)
+            torch.div(v, c2, out=s2).sqrt_().add_(eps)
+            s1.div_(s2)
+            s1.add_(torch.mul(p.to(torch.float32), weight_decay, out=s2))
+            s1.mul_(-lr)
+            nt[k] = torch.add(p.to(torch.float32), s1).to(p.dtype)
+            del s1, s2
+        return new, {"m": state["m"], "v": state["v"], "count": count}
+
+    return AdamW(init, update, step)
 
 
 @torch.no_grad()

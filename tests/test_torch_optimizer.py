@@ -101,3 +101,34 @@ def test_grad_clip_keeps_huge_gradients_finite():
     p = {"w": torch.tensor([0.0])}
     upd, _ = opt.update({"w": torch.tensor([1e6])}, opt.init(p), p)
     assert torch.isfinite(upd["w"]).all()
+
+
+@pytest.mark.parametrize("grad_clip,grad_scale", [(1.0, 1.0), (1.0, 1e-3),
+                                                  (0.0, 1.0)])
+def test_adamw_step_is_the_functional_update_bit_for_bit(grad_clip,
+                                                         grad_scale):
+    """``step`` (gradients and state handed over, moments updated in
+    place) gives the functional ``update`` + ``apply_updates`` result and
+    state bit for bit over 5 steps, leaves the params it was given as they
+    were, and consumes the gradients it was given."""
+    kw = dict(lr=1e-2, weight_decay=0.01, grad_clip=grad_clip)
+    opt = adamw(**kw)
+    p_fun = p_don = _torch(_tree(0))
+    s_fun, s_don = opt.init(p_fun), opt.init(p_don)
+    for step in range(5):
+        grads = _tree(100 + step, scale=grad_scale)
+        upd, s_fun = opt.update(_torch(grads), s_fun, p_fun)
+        p_fun = apply_updates(p_fun, upd)
+        before = [t.clone() for t in tree_leaves(p_don)]
+        given = _torch(grads)
+        new, s_don = opt.step(given, s_don, p_don)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(before, tree_leaves(p_don)))
+        assert tree_leaves(given) == []  # every gradient dropped
+        p_don = new
+        for a, b in zip(tree_leaves(p_fun), tree_leaves(p_don)):
+            assert a.dtype == b.dtype == torch.float32 and torch.equal(a, b)
+        for key in ("m", "v"):
+            for a, b in zip(tree_leaves(s_fun[key]), tree_leaves(s_don[key])):
+                assert torch.equal(a, b), key
+        assert s_fun["count"] == s_don["count"] == step + 1

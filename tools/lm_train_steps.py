@@ -54,13 +54,11 @@ def main(argv=None) -> int:
                             torch.Generator().manual_seed(0), "cuda")
     batch, seq = cs.LM_BATCH, cs.LM_PROMPT
     marks = []
-    losses, walls, params = cs.lm_train(torch, np, fa, transformer, cfg,
-                                        params, batch, seq, args.steps,
-                                        "cuda", marks=marks)
+    losses, walls, params = cs.lm_train(torch, np, fa, cfg, params, batch,
+                                        seq, args.steps, "cuda", marks=marks)
     walls = [w * 1e3 for w in walls]
     events = [m["start"].elapsed_time(m["end"]) for m in marks]
-    profiled = cs.profile_train_step(torch, np, fa, transformer, cfg, params,
-                                     batch, seq)
+    profiled = cs.profile_train_step(torch, np, fa, cfg, params, batch, seq)
     busy = bwd = None
     if profiled is not None:
         busy = cs.busy_and_top(profiled[1])[0] / 1e3
