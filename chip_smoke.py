@@ -311,6 +311,23 @@ result line):
    exactly the expected forward and backward launches; then ``python -m
    repro_torch.launch.train --arch <arch> --smoke --steps 2`` for
    seamless and phi3.5-moe as subprocesses: exit 0, finite losses.
+25. Dry-run (``repro_torch.launch.dryrun``) held to the card: the cells
+   below accounted at full size on the meta device (flops, bytes, peak,
+   fits, the roofline's dominant term); then gemma3-1b's four shape cells
+   at their full sequence lengths and reduced batches (train_4k 4 x 4096
+   with the chunked_loss variant, prefill_32k 1 x 32768, decode_32k 4 x
+   32,768 slots, long_500k 1 x 524,288 slots) and dbrx-132b at full width
+   on 2 of its 40 layers (prefill_32k 1 x 32768, or 1 x 16384 where the
+   accounting puts it above 90% of the card; decode_32k 4 x 32,768), each
+   through ``run_cell(..., device="cuda")``: the flops counted on the card
+   equal to the meta count, the measured peak within the larger of 10% and
+   0.5 GiB of the accounted one, the attention launches exactly as
+   expected (train: forward, recompute and backward per layer; prefill:
+   forward; decode: none), finite losses and logits, the roofline time
+   over the measured step printed; the backward's scratch rule's Python
+   copy equal to the library's at every backward shape the run launched;
+   ``flash_attention`` at the prefill_32k global layer's shape against its
+   plain version, timed beside SDPA and its bound.
 
 Every kernel's launch count is zeroed just before each of the serve,
 train, parity, unfused, shard, shard-parity, store-train (each of its 5
@@ -318,8 +335,8 @@ runs), store-serve, resil-* (each run of 10d), dp-plain, dp-compress,
 sampler-chain, sampler-stepwise, lm-serve, lm-parity, lm-train,
 lm-train-parity, moe-serve, moe-parity, ssm-serve, hybrid-serve,
 audio-serve, vlm-serve, family-parity, ssm-train, hybrid-train,
-audio-train, moe-train, vlm-train and train-parity phases and read just
-after, with
+audio-train, moe-train, vlm-train, train-parity and dryrun-* (each cell of
+phase 25) phases and read just after, with
 the launches by route; ``sage_aggregate``'s stay 0 (no path runs it), and
 ``routed_neighbor_sample`` launches once per device-sampling spec build,
 on its ``chain`` route, except in the stepwise run, where it launches once
@@ -348,7 +365,12 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
+# the card's rates (H100 SXM data sheet) and the attention's work formula,
+# from their one definition in the package
+from repro_torch.kernels.flash_attention import flash_work  # noqa: E402
+from repro_torch.launch.dryrun import (BF16_FLOPS_PER_S,  # noqa: E402
+                                       HBM_BYTES_PER_S)
+
 SPIN_CYCLES = 2_000_000    # time_ms's device spin: about 1 ms at 1.98 GHz
 N_VERTICES = 1_000_000
 MEM_PER_DEVICE = 300e6
@@ -377,7 +399,6 @@ RESIL_CLI_STEPS = (2, 4)   # the CLIs: killed after, resumed to
 RESIL_CLI_VERTICES = 2000  # the GNN CLI's --max-vertices
 PROFILE_STEPS = 8        # the profiled run; its steps 2..6 are the window
 PROFILE_WINDOW = (2, 5)  # (first step, steps)
-BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 SAGE_SHAPE = (416_768, 128, 200_000, 10)  # table rows, D, rows out, fanout
 LM_ARCH = "gemma3-1b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 4096, 32
@@ -477,6 +498,28 @@ TRAIN_SMOKE_ATOL = {"zamba2-1.2b": 8e-3, "seamless-m4t-large-v2": 8e-3,
 # the training CLI on the card, as a user runs it (a subprocess each)
 TRAIN_CLI = (ENCDEC_ARCH, MOE_ARCH)
 TRAIN_CLI_STEPS = 2
+# phase 25: the dry-run (launch/dryrun.py) held to the card.  gemma3-1b's
+# four shape cells at their full sequence lengths and reduced batches (batch
+# 256, 32, 128 and 1 in SHAPES), train_4k as phase 14 trains it (the
+# chunked_loss variant: the unchunked f32 logits alone would be 17.2 GB);
+# dbrx-132b at full width on 2 of its 40 layers, its prefill at 1 x 16384
+# where the accounting puts 1 x 32768 above DRYRUN_MEM_SHARE of the card
+DRYRUN_GEMMA = (("train_4k", 4, "chunked_loss"), ("prefill_32k", 1, "baseline"),
+                ("decode_32k", 4, "baseline"), ("long_500k", 1, "baseline"))
+DRYRUN_DBRX = (("prefill_32k", 1), ("decode_32k", 4))
+DRYRUN_DBRX_LAYERS = 2
+DRYRUN_DBRX_CUT_SEQ = 16384
+DRYRUN_MEM_SHARE = 0.9
+# timed calls after the counted one (decode: that many more positions)
+DRYRUN_STEPS = {"train": 2, "prefill": 2, "decode": 4}
+# the measured peak against the accounted one: within the larger of 10% and
+# 0.5 GiB
+DRYRUN_PEAK_REL, DRYRUN_PEAK_ABS = 0.10, 0.5 * 2 ** 30
+# the prefill_32k cell's global-layer attention (1 x 32768, 4 q heads over
+# 1 kv head of 256, causal, no window): a kernel shape no other phase runs,
+# timed as phase 4 times the others (the plain version: 3 launches)
+GLOBAL_32K = (1, 32768, 4, 1, 256)
+GLOBAL_32K_PLAIN = 3
 # the backward kernel against the f64 exact gradient: per gradient, max
 # |kernel - exact| / max |exact| within twice the plain version's plus this
 # floor (both round q * scale, p and each gradient to bf16; the kernel
@@ -1212,23 +1255,6 @@ def sage_routes_side_by_side(torch, np, k, measured, flush, card) -> None:
           f"no-reuse bytes {bf_no_reuse / 1e6:.1f} MB, "
           f"{bf_no_reuse / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s | "
           f"{card}")
-
-
-def causal_pairs(S: int, window: int) -> int:
-    """Visible (query, key) pairs of one head of causal attention over S
-    positions with a window (<= 0: unbounded)."""
-    w = window if 0 < window < S else S
-    return sum(min(i + 1, w) for i in range(S))
-
-
-def flash_work(q, k, window: int, causal: bool = True) -> tuple:
-    """(bytes, flops) of one attention call: q, k, v and out once each;
-    4 * Dh flops per visible (query, key) pair and query head (every pair
-    when not causal)."""
-    B, S, Hq, Dh = q.shape
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    pairs = causal_pairs(S, window) if causal else S * k.shape[1]
-    return nbytes, 4 * Dh * B * Hq * pairs
 
 
 # the model layers' attention shapes at a 4 x 4096 prefill, no window:
@@ -3684,6 +3710,206 @@ def train_cli_phase(card: str) -> None:
               f"losses {losses} | {card}")
 
 
+# ---- the dry-run on the card (phase 25) ------------------------------------
+
+def dryrun_runs() -> list:
+    """Phase 25a: the accounting at full size of the cells phase 25 runs
+    (the whole sweep takes over a minute on a host, so PERF.md quotes it
+    from ``python -m repro_torch.launch.dryrun --all``), printed per cell;
+    returns the runs: (arch, shape name, run ShapeConfig, variant, config
+    overrides)."""
+    from repro_torch.configs.base import SHAPES, ShapeConfig
+    from repro_torch.launch import dryrun
+
+    def show(rec, what):
+        m, r = rec["memory"], rec["roofline"]
+        print(f"[dryrun] accounted on the meta device for one H100: "
+              f"{rec['arch']} {rec['shape']} {what}: flops "
+              f"{rec['flops_per_device']:.4e} bytes "
+              f"{rec['bytes_per_device']:.4e} peak "
+              f"{m['peak_bytes'] / 2 ** 30:.3f} GiB (arguments "
+              f"{m['argument_bytes'] / 2 ** 30:.3f}) fits {rec['fits']} "
+              f"dominant {r['dominant']} (compute {r['compute_s']:.6f} s, "
+              f"memory {r['memory_s']:.6f} s) useful "
+              f"{r['useful_flops_ratio']:.4f} ({rec['compile_s']:.2f} s)")
+
+    t0 = time.perf_counter()
+    for arch, names in (("gemma3-1b", [g[0] for g in DRYRUN_GEMMA]),
+                        ("dbrx-132b", [d[0] for d in DRYRUN_DBRX])):
+        for name in names:
+            show(dryrun.run_cell(arch, name), "full size")
+    print(f"[dryrun] full-size accounting of the run cells: "
+          f"{time.perf_counter() - t0:.1f} s on the host")
+    runs = [("gemma3-1b", n, ShapeConfig(n, SHAPES[n].seq_len, b,
+                                         SHAPES[n].kind), v, None)
+            for n, b, v in DRYRUN_GEMMA]
+    over = {"n_layers": DRYRUN_DBRX_LAYERS}
+    for n, b in DRYRUN_DBRX:
+        full = SHAPES[n]
+        shape = ShapeConfig(n, full.seq_len, b, full.kind)
+        if full.kind == "prefill":
+            rec = dryrun.run_cell("dbrx-132b", n, shape=shape, overrides=over)
+            show(rec, f"({', '.join(rec['reduced'])})")
+            share = rec["memory"]["peak_bytes"] / rec["device_bytes"]
+            if share > DRYRUN_MEM_SHARE:
+                shape = ShapeConfig(n, DRYRUN_DBRX_CUT_SEQ, b, full.kind)
+                print(f"[dryrun] dbrx-132b {n}: accounted peak {share:.3f} of"
+                      f" the card's memory at 1 x {full.seq_len}, above "
+                      f"{DRYRUN_MEM_SHARE}: run at 1 x {DRYRUN_DBRX_CUT_SEQ}")
+        runs.append(("dbrx-132b", n, shape, "baseline", over))
+    return runs
+
+
+def dryrun_phase(torch, card: str, phase_launches: dict,
+                 phase_routes: dict) -> dict:
+    """Phase 25: each run of ``dryrun_runs`` through ``dryrun.run_cell(...,
+    device="cuda")``: accounted on ``meta`` at its run shape, then one
+    counted call on the card and ``DRYRUN_STEPS`` timed ones.  Held: the
+    flops counted on the card equal the meta count; the measured peak
+    (``max_memory_allocated`` over a timed call, less what was allocated
+    before it, plus its arguments) within the larger of DRYRUN_PEAK_REL and
+    DRYRUN_PEAK_ABS of the accounted ``peak_bytes``; the attention launches
+    exactly as expected (train: a forward, a recompute and a backward per
+    layer and call; prefill: a forward; decode: none, ``decode_attention``
+    is plain), all ``wgmma``; finite losses and logits.  The roofline time
+    over the measured step is printed, not held.  Then the backward's
+    scratch rule: ``scratch_rule`` equals the library's answer at every
+    backward shape this run launched (``SCRATCH_ASKED``).  Returns
+    ``time_global_32k``'s entry."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import flash_attention as fam
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.variants import apply_variant
+
+    for arch, name, shape, variant, over in dryrun_runs():
+        torch.cuda.empty_cache()
+        kind = shape.kind
+        steps = DRYRUN_STEPS[kind]
+        zero_launches(KERNELS)
+        rec = dryrun.run_cell(arch, name, variant=variant, shape=shape,
+                              overrides=over, device="cuda", steps=steps)
+        phase = f"dryrun-{arch}-{name}"
+        phase_launches[phase] = read_launches(KERNELS)
+        phase_routes[phase] = read_routes(KERNELS)
+        cfg = dataclasses.replace(apply_variant(get_config(arch), variant),
+                                  **(over or {}))
+        calls, L = 1 + steps, cfg.n_layers
+        want = {"train": {"flash_attention": 2 * L * calls,
+                          "flash_attention_bwd": L * calls},
+                "prefill": {"flash_attention": L * calls},
+                "decode": {}}[kind]
+        routes = phase_routes[phase]
+        if phase_launches[phase] != expect(want) or any(
+                sum(r.values()) != r.get("wgmma", 0)
+                for n, r in routes.items() if n.startswith("flash")):
+            raise AssertionError(f"{phase}: launches {phase_launches[phase]} "
+                                 f"by route {routes}, expected {want} on "
+                                 f"wgmma")
+        run, acc = rec["run"], rec["memory"]["peak_bytes"]
+        measured = run["measured_peak_bytes"]
+        band = max(DRYRUN_PEAK_REL * acc, DRYRUN_PEAK_ABS)
+        if run["counts"]["flops"] != rec["counts"]["flops"] \
+                or abs(measured - acc) > band or not run["finite"]:
+            raise AssertionError(
+                f"{phase}: flops on the card {run['counts']['flops']} vs "
+                f"meta {rec['counts']['flops']}; peak measured {measured} vs "
+                f"accounted {acc} (band {band:.0f}); finite {run['finite']}")
+        r = rec["roofline"]
+        bound = max(r["compute_s"], r["memory_s"])
+        gib = 2 ** 30
+        on_card, share = run["memory"]["peak_bytes"] / gib, \
+            bound / run["step_s"]
+        print(f"[dryrun] {arch} {name} at {shape.global_batch} x "
+              f"{shape.seq_len}, variant {variant} "
+              f"({'; '.join(rec['reduced'])}): flops on the card "
+              f"{run['counts']['flops']:.6e} = meta (bytes "
+              f"{run['counts']['bytes']:.6e}, meta "
+              f"{rec['counts']['bytes']:.6e}); peak measured "
+              f"{measured / gib:.3f} GiB vs accounted {acc / gib:.3f} GiB "
+              f"(the counter on the card {on_card:.3f}; band "
+              f"{band / gib:.3f}); step {run['step_s'] * 1e3:.3f} ms (median "
+              f"of {steps}), roofline {bound * 1e3:.3f} ms ({r['dominant']}):"
+              f" {share:.4f} of the step; attention launches "
+              f"{phase_launches[phase]['flash_attention']} + backward "
+              f"{phase_launches[phase]['flash_attention_bwd']} over {calls} "
+              f"calls | {card}")
+        if arch == "dbrx-132b" and kind == "prefill":
+            print(f"[dryrun] dbrx-132b attention (Dh "
+                  f"{cfg.resolved_head_dim}, G {cfg.n_heads // cfg.n_kv_heads}"
+                  f"): {phase_launches[phase]['flash_attention']} launches, "
+                  f"{routes['flash_attention']} | {card}")
+    timed = time_global_32k(torch, card)
+    asked = dict(fam.SCRATCH_ASKED)
+    bad = {k: (v, fam.scratch_rule(*k)) for k, v in asked.items()
+           if fam.scratch_rule(*k) != v}
+    if not asked or bad:
+        raise AssertionError(f"scratch rule: {len(asked)} backward shapes "
+                             f"asked, Python copy differs at {bad}")
+    print(f"[dryrun] scratch rule: the Python copy equals the library's at "
+          f"all {len(asked)} backward shapes this run launched "
+          f"({sorted(set(k[0] for k in asked))}) | {card}")
+    return timed
+
+
+def time_global_32k(torch, card: str) -> dict:
+    """``flash_attention`` at ``GLOBAL_32K`` (bf16, from a seed): held to
+    its plain version within ``TOLERANCE``, then the kernel, the plain
+    version and SDPA (``is_causal``, ``enable_gqa``) timed twice in turns
+    with CUDA events, L2 flushed before each launch, beside the bound.
+    Returns the kernels line's ``timed`` entry."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fam
+    from repro_torch.kernels import ref
+
+    B, S, Hq, Hkv, Dh = GLOBAL_32K
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    q, k, v = (torch.randn((B, S, h, Dh), generator=gen, device="cuda")
+               .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    window = 1 << 30  # transformer.BIG_WINDOW: a global layer
+    got = fam.flash_attention(q, k, v, window=window)
+    want = ref.flash_attention(q, k, v, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOLERANCE["flash_attention"]["bfloat16"])
+    err = float((got.float() - want.float()).abs().max())
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    runs = []
+    for _ in range(2):
+        runs.append([
+            time_ms(torch, lambda: fam.flash_attention(q, k, v, window=window),
+                    (), TIMED_LAUNCHES, flush),
+            time_ms(torch, lambda: ref.flash_attention(q, k, v, window=window),
+                    (), GLOBAL_32K_PLAIN, flush),
+            time_ms(torch, sdpa, (), TIMED_LAUNCHES, flush)])
+    nbytes, flops = flash_work(q, k, window)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    res = {"ms": sum(r[0] for r in runs) / 2,
+           "plain_ms": sum(r[1] for r in runs) / 2,
+           "library_ms": sum(r[2] for r in runs) / 2,
+           "library_call": "F.scaled_dot_product_attention(enable_gqa=True, "
+                           "is_causal=True)",
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+           "bytes": int(nbytes), "flops": int(flops), "route": "wgmma",
+           "max_abs_err": err}
+    print(f"[dryrun] flash_attention @ gemma3 prefill_32k global layer "
+          f"{GLOBAL_32K}: kernel {res['ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.4f} ms, SDPA {res['library_ms']:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms by {res['bound_by']} ({nbytes / 1e6:.1f}"
+          f" MB, {flops / 1e9:.2f} GFLOP); max |err| vs plain {err:.4e}; "
+          f"runs {runs} | {card}")
+    return res
+
+
 # ---- the sharded executor (phases 4, 9 and 10) ------------------------------
 
 def sharded_specs(np, g, plan, cfg, seed: int):
@@ -4284,10 +4510,7 @@ def time_backward(torch, np, fa, k, cases, flush, card) -> dict:
             continue
         B, S, Hq, Dh = q.shape
         G = Hq // kk.shape[2]
-        flops = 10 * Dh * B * Hq * causal_pairs(S, kw["window"])
-        # q, o, do in and dq out; k, v in and dk, dv out; lse in
-        nbytes = 4 * (q.numel() + kk.numel()) * q.element_size() \
-            + lse.numel() * 4
+        nbytes, flops = flash_work(q, kk, kw["window"], backward=True)
         mask = None
         if kw["window"] < S:
             i = torch.arange(S, device="cuda")
@@ -4380,10 +4603,7 @@ def time_family_backward(torch, np, fa, cases, flush, card) -> dict:
         B, Sq, Hq, Dh = q.shape
         Sk, G = kk.shape[1], Hq // kk.shape[2]
         causal = kw["causal"]
-        pairs = causal_pairs(Sq, 0) if causal else Sq * Sk
-        flops = 10 * Dh * B * Hq * pairs
-        nbytes = 4 * (q.numel() + kk.numel()) * q.element_size() \
-            + lse.numel() * 4
+        nbytes, flops = flash_work(q, kk, 0, causal, backward=True)
         qt = q.transpose(1, 2).contiguous().requires_grad_()
         kt, vt = (t.repeat_interleave(G, 2).transpose(1, 2).contiguous()
                   .requires_grad_() for t in (kk, v))
@@ -5464,6 +5684,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     family_train_parity_phase(torch, np, card, phase_launches, phase_routes)
     train_cli_phase(card)
+    clock("25")
+    # ---- 25. the dry-run held to the card: gemma3-1b, dbrx-132b -----------
+    measured["flash_attention"]["timed"]["gemma3_prefill_32k_global"] = \
+        dryrun_phase(torch, card, phase_launches, phase_routes)
 
     record = {"kernels": []}
     for k in KERNELS:

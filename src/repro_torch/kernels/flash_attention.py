@@ -23,14 +23,22 @@ with ``return_lse``, ``ref.flash_attention_bwd``).  The card has no f32
 backward yet: an f32 call on the card under autograd raises rather than
 differentiate the plain version.  Without autograd (serving, under
 ``inference_mode``) no lse is written.
+
+On ``meta`` tensors (the dry-run's accounting, ``launch/dryrun.py``) both
+directions check their inputs as on the card and return empty outputs of
+the card's shapes and types, the backward's scratch allocated beside them.
+Where a cost counter of the inputs' device is in force
+(``accounting.counter``), each call of either direction records the work
+``flash_cost`` gives, whatever the device; with none, no cost is built.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import accounting, ref
 from repro_torch.kernels._build import CudaKernel
 
 ROUTES = ("wgmma", "mma_sync", "simt")
@@ -55,6 +63,59 @@ F32_BACKWARD = ("ROADMAP queue 2: the f32 backward of flash_attention on "
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 128, 256)
+BWD_ROWS = 64  # kRows of csrc/flash_attention_bwd.cu: packed rows per tile
+# every answer of the library's scratch rule, by (route, B, Sq, Hq, Hkv, Dh,
+# scale): what ``bwd_scratch_bytes`` asked on the card
+SCRATCH_ASKED: dict = {}
+
+
+def causal_pairs(S: int, window: int) -> int:
+    """Visible (query, key) pairs of one head of causal attention over S
+    positions with a window (<= 0: unbounded)."""
+    w = window if 0 < window < S else S
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def flash_work(q, k, window: int, causal: bool = True, *,
+               backward: bool = False, lse: bool = False) -> tuple:
+    """(bytes, flops) one call needs at least, its bound's terms.  Forward:
+    q, k, v and out once each (and the lse written, with ``lse``); 4 * Dh
+    flops per visible (query, key) pair and query head (every pair when not
+    causal).  Backward: q, o, do in and dq out, k, v in and dk, dv out, lse
+    in; 10 * Dh flops per pair (5 products)."""
+    B, Sq, Hq, Dh = q.shape
+    pairs = causal_pairs(Sq, window) if causal else Sq * k.shape[1]
+    es = q.element_size()
+    if backward:
+        return (4 * (q.numel() + k.numel()) * es + 4 * B * Hq * Sq,
+                10 * Dh * B * Hq * pairs)
+    return ((2 * q.numel() + 2 * k.numel()) * es
+            + (4 * B * Hq * Sq if lse else 0), 4 * Dh * B * Hq * pairs)
+
+
+def scan_flops(q, k, block_kv: int = 1024) -> int:
+    """Matrix-product flops of the reference's forward
+    (``src/repro/models/layers.py:75``) as its HLO counts them: two products
+    of 2 * Dh flops per (query, key) pair and query head, over every key
+    block of its ``lax.scan`` (the keys padded to a multiple of
+    ``min(block_kv, Sk)``), whatever the mask."""
+    B, Sq, Hq, Dh = q.shape
+    Sk = k.shape[1]
+    block = min(block_kv, Sk)
+    padded = -(-Sk // block) * block if block else 0
+    return 4 * B * Hq * Sq * padded * Dh
+
+
+def flash_cost(q, k, causal: bool, window: int, block_kv: int, *,
+               backward: bool = False, lse: bool = False) -> dict:
+    """One call's work for ``op_cost.OpCounter.kernel``: the bytes and the
+    visible-pair flops of ``flash_work``, and the reference's HLO count
+    (twice the forward's for the backward, as differentiating its scan
+    gives)."""
+    nbytes, flops = flash_work(q, k, window, causal, backward=backward,
+                               lse=lse)
+    return {"flops": flops, "nbytes": nbytes, "dtype": q.dtype,
+            "hlo_flops": scan_flops(q, k, block_kv) * (2 if backward else 1)}
 
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -82,12 +143,30 @@ def bwd_scratch_bytes(route: str, B: int, Sq: int, Hq: int, Hkv: int,
     ``flash_attention_bwd_scratch_bytes`` in ``csrc/flash_attention_bwd.cu``
     (the one the launch checks): D on ``mma_sync``; on ``wgmma`` lse * log2
     e and D for each GQA-packed row and, when the scale is not a power of
-    two (Dh 128), bf16(q * scale).  Builds the library on first use."""
-    nbytes = ctypes.c_int64()
-    BWD_KERNEL.check(BWD_KERNEL.fn("flash_attention_bwd_scratch_bytes")(
-        BWD_ROUTES.index(route), B, Sq, Hq, Hkv, Dh, scale,
-        ctypes.byref(nbytes)))
-    return nbytes.value
+    two (Dh 128), bf16(q * scale).  Builds the library on first use; each
+    answer is kept in ``SCRATCH_ASKED``."""
+    key = (route, B, Sq, Hq, Hkv, Dh, scale)
+    if key not in SCRATCH_ASKED:
+        nbytes = ctypes.c_int64()
+        BWD_KERNEL.check(BWD_KERNEL.fn("flash_attention_bwd_scratch_bytes")(
+            BWD_ROUTES.index(route), B, Sq, Hq, Hkv, Dh, scale,
+            ctypes.byref(nbytes)))
+        SCRATCH_ASKED[key] = nbytes.value
+    return SCRATCH_ASKED[key]
+
+
+def scratch_rule(route: str, B: int, Sq: int, Hq: int, Hkv: int, Dh: int,
+                 scale: float) -> int:
+    """``bwd_scratch_bytes`` without the library: a copy of
+    ``scratch_need`` in ``csrc/flash_attention_bwd.cu`` (the meta device's
+    answer; ``chip_smoke.py`` holds it to the library's)."""
+    if route == "mma_sync":
+        return 4 * B * Sq * Hq
+    G = Hq // Hkv
+    gt = min(G, BWD_ROWS)
+    rows = B * Hkv * -(-G // gt) * -(-Sq // (BWD_ROWS // gt)) * BWD_ROWS
+    pow2 = math.frexp(scale)[0] == 0.5  # exact to fold into the exponent
+    return 8 * rows + (0 if pow2 else 2 * B * Sq * Hq * Dh)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -112,7 +191,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     devices = {t.device for t in (q, k, v)}
     if len(devices) != 1:
         raise ValueError(f"q, k, v must share one device, got {devices}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
 
 
@@ -155,6 +234,39 @@ def _forward_cuda(q, k, v, causal: bool, window: int, with_lse: bool):
     return out, lse
 
 
+def _forward(q, k, v, causal: bool, window: int, block_kv: int,
+             with_lse: bool):
+    """One forward on q's device, its work recorded by the counter in
+    force: (out, lse or None)."""
+    c = accounting.counter(q.device)
+    if c is None:
+        return _forward_on(q, k, v, causal, window, block_kv, with_lse)
+    with c.kernel("flash_attention", **flash_cost(q, k, causal, window,
+                                                  block_kv, lse=with_lse)):
+        return _forward_on(q, k, v, causal, window, block_kv, with_lse)
+
+
+def _forward_on(q, k, v, causal: bool, window: int, block_kv: int,
+                with_lse: bool):
+    """The kernel on CUDA, the plain version on the CPU (its outputs made
+    contiguous, as the kernel's are, so that the ops after it are the
+    card's), empty outputs on ``meta``."""
+    if q.device.type == "cpu":
+        out = ref.flash_attention(q, k, v, causal=causal, window=window,
+                                  block_kv=block_kv, return_lse=with_lse)
+        if with_lse:
+            return out[0].contiguous(), out[1].contiguous()
+        return out.contiguous(), None
+    if q.device.type == "meta":
+        if not all(t.is_contiguous() for t in (q, k, v)):
+            raise ValueError("flash_attention needs contiguous inputs")
+        B, Sq, Hq, _ = q.shape
+        return torch.empty_like(q), (
+            torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+            if with_lse else None)
+    return _forward_cuda(q, k, v, causal, window, with_lse)
+
+
 class _Attention(torch.autograd.Function):
     """The kernel (or, on the CPU, the plain version) forward with its lse
     saved, and the backward kernel (or its plain version) as the
@@ -162,12 +274,7 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, block_kv):
-        if q.device.type == "cpu":
-            out, lse = ref.flash_attention(q, k, v, causal=causal,
-                                           window=window, block_kv=block_kv,
-                                           return_lse=True)
-        else:
-            out, lse = _forward_cuda(q, k, v, causal, window, True)
+        out, lse = _forward(q, k, v, causal, window, block_kv, True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = {"causal": causal, "window": window, "block_kv": block_kv}
         return out
@@ -197,17 +304,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     _check(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if q.device.type == "cuda" and q.dtype != torch.bfloat16:
+        if q.device.type != "cpu" and q.dtype != torch.bfloat16:
             raise RuntimeError(
                 f"flash_attention on CUDA has a backward kernel for bf16 "
                 f"only, so it cannot give {q.dtype} q, k or v a gradient "
                 f"({F32_BACKWARD}): call it in bf16, or under "
                 f"torch.no_grad() or torch.inference_mode()")
         return _Attention.apply(q, k, v, causal, window, block_kv)
-    if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, window=window,
-                                   block_kv=block_kv)
-    return _forward_cuda(q, k, v, causal, window, False)[0]
+    return _forward(q, k, v, causal, window, block_kv, False)[0]
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -222,10 +326,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches on ``mma_sync``, two on ``wgmma``, whose dk/dv and dq CTAs
     share one; bf16 only, no atomics, so repeated calls give the same bits;
     counted once, under its route); on CPU tensors
-    ``ref.flash_attention_bwd`` (``block_kv`` its key block)."""
+    ``ref.flash_attention_bwd`` (``block_kv`` its key block); on ``meta``
+    tensors the card's empty outputs."""
     _check(q, k, v)
-    B, Sq, Hq, Dh = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    B, Sq, Hq, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
         raise ValueError(f"o and do must be {tuple(q.shape)} {q.dtype}, got "
@@ -236,16 +340,35 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(lse.shape)} {lse.dtype}")
     if {t.device for t in (o, lse, do)} != {q.device}:
         raise ValueError("q, k, v, o, lse and do must share one device")
+    c = accounting.counter(q.device)
+    if c is None:
+        return _backward_on(q, k, v, o, lse, do, causal, window, block_kv)
+    with c.kernel("flash_attention_bwd", **flash_cost(
+            q, k, causal, window, block_kv, backward=True)):
+        return _backward_on(q, k, v, o, lse, do, causal, window, block_kv)
+
+
+def _backward_on(q, k, v, o, lse, do, causal: bool, window: int,
+                 block_kv: int):
     if q.device.type == "cpu":
         return ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                        window=window, block_kv=block_kv)
+    return _backward_device(q, k, v, o, lse, do, causal, window)
+
+
+def _backward_device(q, k, v, o, lse, do, causal: bool, window: int):
+    """The backward on the card (a launch) or on ``meta`` (the card's
+    outputs and scratch, empty)."""
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     if q.dtype != torch.bfloat16:
         raise RuntimeError(f"flash_attention_bwd on CUDA takes bf16 only, "
                            f"got {q.dtype} ({F32_BACKWARD})")
     ts = (q, k, v, o, do, lse)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("flash_attention_bwd needs contiguous inputs")
-    if any(t.data_ptr() % 16 for t in ts if t.numel()):
+    meta = q.device.type == "meta"
+    if not meta and any(t.data_ptr() % 16 for t in ts if t.numel()):
         raise ValueError("flash_attention_bwd reads 16-byte chunks and needs "
                          "its inputs 16-byte aligned")
     scale = _cuda_args(q, k, window)
@@ -253,8 +376,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     route = flash_bwd_route(q.dtype, Dh)
-    nbytes = bwd_scratch_bytes(route, B, Sq, Hq, Hkv, Dh, scale)
+    nbytes = (scratch_rule if meta else bwd_scratch_bytes)(
+        route, B, Sq, Hq, Hkv, Dh, scale)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+    if meta:
+        return dq, dk, dv
     fn = BWD_KERNEL.fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

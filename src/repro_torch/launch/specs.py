@@ -1,0 +1,168 @@
+"""Per-(arch x shape) cell construction: the step function and its
+arguments, for one card (the port of the reference's ``launch/specs.py``).
+
+``build_cell`` returns what the dry-run (and a real run) needs: the step
+function and its arguments, ``meta`` tensors by default (shapes and types,
+nothing allocated) or real tensors on a device the caller names.  The
+reference also pins output shardings over a mesh; one card has none, so
+``out_shardings`` is None and a mesh raises.
+
+* **train**: ``launch.train.train_step(..., donate=True)`` with
+  ``adamw(lr)``: the state (params, AdamW's m, v and count, the step) is
+  handed over, as the reference's dry-run donates it;
+* **prefill**: the family's ``prefill`` (for the audio and encoder-decoder
+  families ``encdec.prefill`` over ``frames`` and ``tokens``);
+* **decode**: ``decode_step`` over a cache that is handed over and written
+  in place; bf16, but the SSM state ``h`` in f32, as in the reference.
+
+Tokens are int64 (the reference's are int32); AdamW's ``count`` and the
+step are host ints (the reference's are int32 scalars), and so is the
+decode position.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.launch.serve_lm import ENCDEC_FAMILIES, target_len
+from repro_torch.models import encdec, get_module, ssm_lm, transformer
+from repro_torch.models.params import init_from_defs, specs_from_defs
+
+MULTI_CARD = ("ROADMAP queue 1, item 4: the sharded executor across cards "
+              "(a cell on a mesh)")
+
+
+@dataclasses.dataclass
+class Cell:
+    name: str
+    fn: Callable
+    args: tuple  # meta or real tensor trees (and host ints)
+    out_shardings: Any  # None: one card
+    meta: dict
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(f"a cell on a mesh is not ported yet "
+                                  f"({MULTI_CARD})")
+
+
+def _tokens(shape: tuple, vocab: int, device, rng) -> torch.Tensor:
+    if rng is None:
+        return torch.empty(shape, dtype=torch.int64, device="meta")
+    return torch.from_numpy(rng.integers(0, vocab, size=shape)).to(device)
+
+
+def _token_specs(cfg: ModelConfig, shape: ShapeConfig, with_labels=True, *,
+                 device="meta", rng=None) -> dict:
+    """The batch: tokens (and labels) (B, S) int64; the encoder-decoder's
+    ``frames`` (B, S, d_model) bf16 and its tokens (B, St).  Meta tensors,
+    or draws from the numpy ``rng`` on ``device``."""
+    B, S = shape.global_batch, shape.seq_len
+    V = cfg.vocab_size
+    out = {}
+    if cfg.family in ENCDEC_FAMILIES:
+        if rng is None:
+            out["frames"] = torch.empty((B, S, cfg.d_model),
+                                        dtype=torch.bfloat16, device="meta")
+        else:
+            out["frames"] = torch.from_numpy(rng.normal(
+                size=(B, S, cfg.d_model)).astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        S = target_len(cfg, S)
+    out["tokens"] = _tokens((B, S), V, device, rng)
+    if with_labels:
+        out["labels"] = _tokens((B, S), V, device, rng)
+    return out
+
+
+def _serve_cache_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                       device="meta") -> dict:
+    """The decode cache of this cell (bf16 KV, f32 SSM state ``h``): meta
+    tensors, or zeros on ``device``."""
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.family in ENCDEC_FAMILIES:
+        defs = encdec.cache_defs(cfg, B, S, target_len(cfg, S))
+    elif cfg.family in ("ssm", "hybrid"):
+        defs = {k: (dataclasses.replace(d, dtype=torch.float32) if k == "h"
+                    else d) for k, d in ssm_lm.state_defs(cfg, B, S).items()}
+    else:
+        defs = transformer.cache_defs(cfg, B, S)
+    specs = specs_from_defs(defs, torch.bfloat16)
+    if torch.device(device).type == "meta":
+        return specs
+    return {k: torch.zeros(t.shape, dtype=t.dtype, device=device)
+            for k, t in specs.items()}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> tuple:
+    """Meta-tensor stand-ins for every argument of this cell's step
+    function (nothing allocated)."""
+    return build_cell(cfg, shape, mesh).args
+
+
+def _params(cfg: ModelConfig, device, seed: int) -> dict:
+    defs = get_module(cfg).defs(cfg)
+    if torch.device(device).type == "meta":
+        return specs_from_defs(defs, torch.float32)
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return init_from_defs(defs, gen, device)
+
+
+def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
+               lr: float = 3e-4, device="meta", seed: int = 0) -> Cell:
+    """The cell of ``cfg`` at ``shape`` on one card.  ``device="meta"``
+    gives meta arguments; another device gives real ones there: f32
+    parameters drawn from ``seed`` by a ``torch.Generator`` of that device,
+    zero optimizer state and caches, and tokens (and frames) drawn from
+    ``numpy.random.default_rng(seed)``."""
+    from repro_torch.launch.train import train_step
+    from repro_torch.train.optimizer import adamw
+
+    _no_mesh(mesh)
+    mod = get_module(cfg)
+    rng = None if torch.device(device).type == "meta" \
+        else np.random.default_rng(seed)
+    params = _params(cfg, device, seed)
+    name = f"{cfg.name}__{shape.name}"
+
+    if shape.kind == "train":
+        opt = adamw(lr)
+
+        def train_fn(state, batch):
+            new, opt_state, loss = train_step(cfg, state["params"], opt,
+                                              state["opt"], batch,
+                                              donate=True)
+            return ({"params": new, "opt": opt_state,
+                     "step": state["step"] + 1}, {"loss": loss})
+
+        state = {"params": params, "opt": opt.init(params), "step": 0}
+        batch = _token_specs(cfg, shape, device=device, rng=rng)
+        return Cell(name, train_fn, (state, batch), None, {"kind": "train"})
+
+    if shape.kind == "prefill":
+        batch = _token_specs(cfg, shape, with_labels=False, device=device,
+                             rng=rng)
+        if cfg.family in ENCDEC_FAMILIES:
+            def prefill_fn(params, batch):
+                return encdec.prefill(cfg, params, batch)
+        else:
+            def prefill_fn(params, batch):
+                return mod.prefill(cfg, params, batch["tokens"])
+        return Cell(name, prefill_fn, (params, batch), None,
+                    {"kind": "prefill"})
+
+    # ---- decode ----
+    cache = _serve_cache_specs(cfg, shape, device=device)
+    tokens = _tokens((shape.global_batch, 1), cfg.vocab_size, device, rng)
+
+    def serve_step(params, cache, tokens, pos):
+        return mod.decode_step(cfg, params, cache, tokens, pos)
+
+    return Cell(name, serve_step, (params, cache, tokens, 0), None,
+                {"kind": "decode"})

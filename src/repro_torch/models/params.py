@@ -1,6 +1,7 @@
 """Parameter definitions: models declare their parameters once as a nested
-dict of :class:`Def` leaves (shape + logical axes + init rule), and
-``init_from_defs`` materializes them as tensors."""
+dict of :class:`Def` leaves (shape + logical axes + init rule).
+``init_from_defs`` materializes them as tensors; ``specs_from_defs`` gives
+their shapes and types as ``meta`` tensors (the dry-run's arguments)."""
 from __future__ import annotations
 
 import dataclasses
@@ -58,3 +59,13 @@ def init_from_defs(defs: Any, generator: torch.Generator, device,
         return w.mul_(_std(defs)).to(dtype=dt, device=device)
     return {k: init_from_defs(defs[k], generator, device, param_dtype)
             for k in sorted(defs)}
+
+
+def specs_from_defs(defs: Any, dtype: torch.dtype = torch.float32) -> Any:
+    """The same tree of ``meta``-device tensors: each ``Def``'s shape, in its
+    own dtype or ``dtype``.  Allocates nothing and draws nothing (the
+    reference's ``specs_from_defs`` without a mesh)."""
+    if isinstance(defs, Def):
+        return torch.empty(defs.shape, dtype=defs.dtype or dtype,
+                           device="meta")
+    return {k: specs_from_defs(defs[k], dtype) for k in sorted(defs)}

@@ -38,7 +38,8 @@ def stable_hash_u32(x: np.ndarray, salt: int = 0) -> np.ndarray:
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device`` with an explicit index.  A CUDA
     device without a usable card raises: the port never falls back to the
-    CPU on its own; callers ask for ``"cpu"`` explicitly."""
+    CPU on its own; callers ask for ``"cpu"`` explicitly.  ``"meta"``
+    (shapes and types, no storage) is the dry-run's accounting device."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -46,8 +47,9 @@ def resolve_device(device) -> torch.device:
                                "available; pass device='cpu' to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r} (expected cuda or cpu)")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r} (expected cuda, cpu "
+                         "or meta)")
     return dev
 
 
