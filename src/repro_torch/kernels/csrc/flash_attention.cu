@@ -25,9 +25,11 @@
 // gemma3-1b layer at 4 x 4096, 0.14 ms at 989 TFLOP/s) rather than bytes
 // (84 MB, 0.025 ms).  So the design is about keeping the tensor cores fed.
 //
-// Three routes, chosen by (dtype, Dh) alone (flash_attention_route):
+// Three routes, chosen by (dtype, Dh) alone (flash_attention_route; the
+// wrapper passes its choice, and may force mma.sync on any bf16 call):
 //
-// wgmma (bf16, Dh 64, 128 or 256: gemma3, qwen2.5, minitron).  A CTA of
+// wgmma (bf16, Dh 64, 80, 128 or 256: gemma3, stablelm, qwen2.5,
+//   minitron).  A CTA of
 //   three warpgroups owns 128 packed query rows of one kv head: GQA's G
 //   query heads of a position are neighbouring rows (row = position *
 //   G + head), so one K/V tile serves all of them (gemma3: 32 positions x 4
@@ -36,22 +38,26 @@
 //   q viewed as (B, Sq, Hkv, G, Dh)), then K and V tiles of 64 keys (4-D
 //   maps over (B, Sk, Hkv, Dh)) into a ring of stages with full and empty
 //   mbarriers, so loads stay in flight while the tensor cores work.  Boxes
-//   are 64 columns wide (128-byte swizzle), Dh / 64 boxes per tile, and
-//   TMA's zero fill covers ragged Sq and Sk inside each batch row.
+//   are 64 columns wide (128-byte swizzle), Dh / 64 boxes per tile; at Dh
+//   80 the last 16 columns are one more box of 32-byte rows (32-byte
+//   swizzle, maps of their own).  TMA's zero fill covers ragged Sq and Sk
+//   inside each batch row.
 //   Warpgroups 1 and 2 are consumers of 64 rows each: S = Q K^T by wgmma
-//   m64n64k16 from shared memory, scaled into the exp2 domain (log2 e, and
-//   the scale when it is a power of two; for Dh 128 the consumers round
-//   q * scale into shared memory once, as the reference rounds it), the
+//   m64n64k16 from shared memory (the tail: one more k-step), scaled into
+//   the exp2 domain (log2 e, and the scale when it is a power of two; for
+//   Dh 80 and 128 the consumers round q * scale into shared memory once,
+//   as the reference rounds it), the
 //   online softmax in registers, P rounded to bf16 in registers and O +=
 //   P V by wgmma with P as the register operand and V read transposed.
-//   P V is one wgmma m64n{Dh}k16 per 16 keys.  The next tile's Q K^T is
+//   P V is one wgmma m64n{Dh}k16 per 16 keys (Dh 80: an m64n64k16 and an
+//   m64n16k16 into an accumulator of its own).  The next tile's Q K^T is
 //   issued before the softmax of the current one, and the two consumers
 //   take turns issuing their products (named barriers), so the tensor
 //   cores work while a softmax runs.  The output goes through the Q tile's
 //   shared memory to one TMA store per box.  A CTA visits only the key
 //   tiles its rows can see, and causal CTAs start heaviest first.
 //
-// mma.sync (bf16, other Dh: stablelm's 80, the smoke configs' 16): one CTA
+// mma.sync (bf16, other Dh: the smoke configs' 16): one CTA
 //   of 4 warps per (64-query tile, query head), mma.sync m16n8k16, K and V
 //   tiles staged through padded shared memory.
 //
@@ -381,10 +387,15 @@ constexpr float kLn2 = 0.6931471805599453f;
 template <int DH>
 struct WgTile {
   static constexpr int kChunks = DH / 64;  // 64-column boxes per row
+  // the columns past them: 0, or 16 (Dh 80) in a box of 32-byte rows
+  static constexpr int kTail = DH % 64;
+  static_assert(kTail == 0 || kTail == 16, "Dh is 64 n or 64 n + 16");
   // K and V tiles in flight: 64 KB of Q and 2 x (32 + 32) KB at Dh 256
   static constexpr int kStages = DH == 256 ? 2 : 4;
-  static constexpr int kQBytes = kChunks * kRowsPerCta * 128;
-  static constexpr int kKvBytes = kChunks * kBoxBytes;  // one K or V stage
+  static constexpr int kQTail = kChunks * kRowsPerCta * 128;  // Q's tail box
+  static constexpr int kQBytes = kQTail + kRowsPerCta * kTail * 2;
+  static constexpr int kKvTail = kChunks * kBoxBytes;  // in a K or V stage
+  static constexpr int kKvBytes = kKvTail + kKeys * kTail * 2;  // one stage
   static constexpr int kBarOffset = kQBytes + 2 * kStages * kKvBytes;
   // tiles, 1 + 4 * stages barriers, and slack to align the base to 1024
   static constexpr int kSmem = kBarOffset + (1 + 4 * kStages) * 8 + 1024;
@@ -406,21 +417,26 @@ struct WgParams {
 
 // S (this warpgroup's 64 rows x 64 keys) = Q K^T over Dh, from shared
 // memory: the k-th 16 columns of a 64-column box start 32 bytes further
-// inside each 128-byte swizzled row.
+// inside each 128-byte swizzled row; a 16-column tail (q_tail: this
+// warpgroup's rows of Q's tail box) is one more k-step.
 template <int DH>
 __device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t q_base,
-                                         uint32_t k_base) {
+                                         uint32_t q_tail, uint32_t k_base) {
+  using T = WgTile<DH>;
 #pragma unroll
   for (int i = 0; i < 32; ++i) hopper::reg_fence(s[i]);
   hopper::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
+  for (int kk = 0; kk < 4 * T::kChunks; ++kk) {
     const uint32_t off = (kk % 4) * 32;
     hopper::wgmma_ss_m64n64k16(
         s,
         hopper::sw128_desc(q_base + (kk / 4) * kRowsPerCta * 128 + off, 16),
         hopper::sw128_desc(k_base + (kk / 4) * kBoxBytes + off, 16), kk > 0);
   }
+  if constexpr (T::kTail != 0)
+    hopper::wgmma_ss_m64n64k16(s, hopper::sw32_desc(q_tail),
+                               hopper::sw32_desc(k_base + T::kKvTail), 1);
   hopper::wgmma_commit();
 #pragma unroll
   for (int i = 0; i < 32; ++i) hopper::reg_fence(s[i]);
@@ -470,14 +486,21 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], bool masked,
   }
 }
 
+// The maps: q, k, v, out over their first 64 NC columns (64-column boxes,
+// 128B swizzle), then (Dh 80) the same four over the 16-column tail (32B
+// swizzle; unused otherwise).
 template <int DH>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                const __grid_constant__ CUtensorMap to, const WgParams prm) {
+                const __grid_constant__ CUtensorMap to,
+                const __grid_constant__ CUtensorMap tq_t,
+                const __grid_constant__ CUtensorMap tk_t,
+                const __grid_constant__ CUtensorMap tv_t,
+                const __grid_constant__ CUtensorMap to_t, const WgParams prm) {
   using T = WgTile<DH>;
-  constexpr int NC = T::kChunks, ST = T::kStages;
+  constexpr int NC = T::kChunks, ST = T::kStages, TL = T::kTail;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -524,26 +547,38 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     // ---- producer warpgroup: one thread issues every TMA load ----
     hopper::setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      hopper::mbar_expect_tx(q_full, NC * 128 * prm.Gt * prm.P);
+      hopper::mbar_expect_tx(q_full,
+                             (NC * 128 + TL * 2) * prm.Gt * prm.P);
 #pragma unroll
       for (int c = 0; c < NC; ++c)
         hopper::tma_load_5d(Qs + c * kRowsPerCta * 128, &tq, q_full, 64 * c,
                             hb * prm.Gt, hk, p0, b);
+      if constexpr (TL != 0)
+        hopper::tma_load_5d(Qs + T::kQTail, &tq_t, q_full, 64 * NC,
+                            hb * prm.Gt, hk, p0, b);
       for (int i = 0; i < n; ++i) {
         const int j0 = (t_lo + i) * kKeys, st = i % ST;
         const uint32_t ph = ((i / ST) & 1) ^ 1;  // the first pass is free
+        unsigned char* ks = Ks + st * T::kKvBytes;
+        unsigned char* vs = Vs + st * T::kKvBytes;
         hopper::mbar_wait(&k_empty[st], ph);
         hopper::mbar_expect_tx(&k_full[st], T::kKvBytes);
 #pragma unroll
         for (int c = 0; c < NC; ++c)
-          hopper::tma_load_4d(Ks + st * T::kKvBytes + c * kBoxBytes, &tk,
-                              &k_full[st], 64 * c, hk, j0, b);
+          hopper::tma_load_4d(ks + c * kBoxBytes, &tk, &k_full[st], 64 * c,
+                              hk, j0, b);
+        if constexpr (TL != 0)
+          hopper::tma_load_4d(ks + T::kKvTail, &tk_t, &k_full[st], 64 * NC,
+                              hk, j0, b);
         hopper::mbar_wait(&v_empty[st], ph);
         hopper::mbar_expect_tx(&v_full[st], T::kKvBytes);
 #pragma unroll
         for (int c = 0; c < NC; ++c)
-          hopper::tma_load_4d(Vs + st * T::kKvBytes + c * kBoxBytes, &tv,
-                              &v_full[st], 64 * c, hk, j0, b);
+          hopper::tma_load_4d(vs + c * kBoxBytes, &tv, &v_full[st], 64 * c,
+                              hk, j0, b);
+        if constexpr (TL != 0)
+          hopper::tma_load_4d(vs + T::kKvTail, &tv_t, &v_full[st], 64 * NC,
+                              hk, j0, b);
       }
     }
   } else {
@@ -564,6 +599,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     const int hi_all = prm.causal ? min(prm.Sk, p0 + 1) : prm.Sk;
 
     const uint32_t q_base = hopper::smem_addr(Qs) + w * 64 * 128;
+    const uint32_t q_tail = hopper::smem_addr(Qs + T::kQTail) + w * 64 * TL * 2;
     const uint32_t k_base = hopper::smem_addr(Ks);
     const uint32_t v_base = hopper::smem_addr(Vs);
 
@@ -584,19 +620,58 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
           rows[e] = val;
         }
       }
+      if constexpr (TL != 0) {
+        uint4* rows = reinterpret_cast<uint4*>(Qs + T::kQTail +
+                                               w * 64 * TL * 2);
+        for (int e = tid; e < 64 * TL * 2 / 16; e += 128) {
+          uint4 val = rows[e];
+          __nv_bfloat16* x = reinterpret_cast<__nv_bfloat16*>(&val);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            x[i] = __float2bfloat16_rn(__bfloat162float(x[i]) * prm.scale);
+          rows[e] = val;
+        }
+      }
       hopper::fence_proxy_async();
       hopper::named_sync(1 + w, 128);
     }
 
-    float o[NC][32];
+    float o[NC][32], ot[8];  // ot: the tail's 16 columns (Dh 80)
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ot[i] = 0.f;
     float s[32];
     uint32_t p[4][4];
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     float alpha[2] = {1.f, 1.f}, sum[2];
+    // O *= alpha, row by row (the accumulator layout's rows r0 and r0 + 8)
+    auto rescale = [&] {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) o[c][e] *= alpha[(e >> 1) & 1];
+      if constexpr (TL != 0)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) ot[e] *= alpha[(e >> 1) & 1];
+    };
+    // O += P V from stage vs (issued, not waited for)
+    auto issue_pv = [&](int vs) {
+      const uint32_t vb = v_base + vs * T::kKvBytes;
+      hopper::wgmma_rs_tile<NC, TL != 0>(o, ot, p, vb, vb + T::kKvTail);
+    };
+    // the products into O are done
+    auto wait_o = [&] {
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) hopper::reg_fence(o[c][e]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) hopper::reg_fence(ot[e]);
+    };
 
     // The two consumer warpgroups take turns issuing their products
     // (named barriers 3 and 4, consumer 0 first), so that one's softmax
@@ -609,7 +684,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       // tile 0: S, softmax, P
       hopper::mbar_wait(&k_full[0], 0);
       turn_begin();
-      issue_qk<DH>(s, q_base, k_base);
+      issue_qk<DH>(s, q_base, q_tail, k_base);
       turn_end();
       hopper::wgmma_wait<0>();
 #pragma unroll
@@ -626,14 +701,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         // S of tile i on the tensor cores ...
         hopper::mbar_wait(&k_full[ks], (i / ST) & 1);
         turn_begin();
-        issue_qk<DH>(s, q_base, k_base + ks * T::kKvBytes);
+        issue_qk<DH>(s, q_base, q_tail, k_base + ks * T::kKvBytes);
         // ... O rescaled for tile i - 1 and its P V behind it ...
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-#pragma unroll
-          for (int e = 0; e < 32; ++e) o[c][e] *= alpha[(e >> 1) & 1];
+        rescale();
         hopper::mbar_wait(&v_full[vs], ((i - 1) / ST) & 1);
-        hopper::wgmma_rs_tile<NC>(o, p, v_base + vs * T::kKvBytes);
+        issue_pv(vs);
         turn_end();
         // ... while the softmax of tile i runs once its S is in
         hopper::wgmma_wait<1>();
@@ -643,30 +715,19 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         j0 = (t_lo + i) * kKeys;
         softmax_tile(s, masked(j0), j0, jlo0, jhi0, jlo1, jhi1, prm.c, m,
                      alpha, sum);
-        hopper::wgmma_wait<0>();
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-#pragma unroll
-          for (int e = 0; e < 32; ++e) hopper::reg_fence(o[c][e]);
+        wait_o();
         hopper::mbar_arrive(&v_empty[vs]);
         l[0] = l[0] * alpha[0] + sum[0];
         l[1] = l[1] * alpha[1] + sum[1];
         hopper::acc_to_a(s, p);
       }
       const int vs = (n - 1) % ST;
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int e = 0; e < 32; ++e) o[c][e] *= alpha[(e >> 1) & 1];
+      rescale();
       hopper::mbar_wait(&v_full[vs], ((n - 1) / ST) & 1);
       turn_begin();
-      hopper::wgmma_rs_tile<NC>(o, p, v_base + vs * T::kKvBytes);
+      issue_pv(vs);
       turn_end();
-      hopper::wgmma_wait<0>();
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int e = 0; e < 32; ++e) hopper::reg_fence(o[c][e]);
+      wait_o();
       hopper::mbar_arrive(&v_empty[vs]);
     }
     if (w == 0) hopper::named_sync(3, 256);  // the other's last turn_end
@@ -707,6 +768,20 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         *reinterpret_cast<uint32_t*>(chunk + r1 * 128) =
             pack_bf16(o[c][4 * nn + 2] * inv[1], o[c][4 * nn + 3] * inv[1]);
       }
+    if constexpr (TL != 0) {
+      // the tail box's 32-byte rows: 16-byte chunk nn sits at nn ^ bit 2
+      // of the row (the 32B swizzle)
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r ? r1 : r0;
+          *reinterpret_cast<uint32_t*>(
+              Qs + T::kQTail + row * 32 + ((nn ^ ((row >> 2) & 1)) * 16) +
+              4 * (lane & 3)) = pack_bf16(ot[4 * nn + 2 * r] * inv[r],
+                                          ot[4 * nn + 2 * r + 1] * inv[r]);
+        }
+    }
     hopper::fence_proxy_async();
     hopper::named_sync(5, 256);
     if (threadIdx.x == 128) {
@@ -714,6 +789,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int c = 0; c < NC; ++c)
         hopper::tma_store_5d(&to, Qs + c * kRowsPerCta * 128, 64 * c,
                              hb * prm.Gt, hk, p0, b);
+      if constexpr (TL != 0)
+        hopper::tma_store_5d(&to_t, Qs + T::kQTail, 64 * NC, hb * prm.Gt, hk,
+                             p0, b);
       hopper::tma_store_wait();
     }
   }
@@ -770,18 +848,33 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t kstr[3] = {Dh * e, Hkv * Dh * e, sk * Hkv * Dh * e};
   const cuuint32_t kbox[4] = {64, 1, kKeys, 1};
+  const void* kp = Sk > 0 ? k : q;
+  const void* vp = Sk > 0 ? v : q;
   if (!hopper::encode_bf16(&tq, q, 5, qdim, qstr, qbox) ||
       !hopper::encode_bf16(&to, out, 5, qdim, qstr, qbox) ||
-      !hopper::encode_bf16(&tk, Sk > 0 ? k : q, 4, kdim, kstr, kbox) ||
-      !hopper::encode_bf16(&tv, Sk > 0 ? v : q, 4, kdim, kstr, kbox))
+      !hopper::encode_bf16(&tk, kp, 4, kdim, kstr, kbox) ||
+      !hopper::encode_bf16(&tv, vp, 4, kdim, kstr, kbox))
     return cudaErrorInvalidValue;
+  // Dh 80: the last 16 columns through maps of their own, 32B-swizzled
+  CUtensorMap tq_t = tq, tk_t = tk, tv_t = tv, to_t = to;
+  if (T::kTail != 0) {
+    const cuuint32_t qbox_t[5] = {T::kTail, qbox[1], 1, qbox[3], 1};
+    const cuuint32_t kbox_t[4] = {T::kTail, 1, kKeys, 1};
+    const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_32B;
+    if (!hopper::encode_bf16(&tq_t, q, 5, qdim, qstr, qbox_t, sw) ||
+        !hopper::encode_bf16(&to_t, out, 5, qdim, qstr, qbox_t, sw) ||
+        !hopper::encode_bf16(&tk_t, kp, 4, kdim, kstr, kbox_t, sw) ||
+        !hopper::encode_bf16(&tv_t, vp, 4, kdim, kstr, kbox_t, sw))
+      return cudaErrorInvalidValue;
+  }
 
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       T::kSmem);
   if (err != cudaSuccess) return err;
   flash_fwd_wgmma<DH><<<static_cast<unsigned>(grid), kWgThreads, T::kSmem,
-                        stream>>>(tq, tk, tv, to, prm);
+                        stream>>>(tq, tk, tv, to, tq_t, tk_t, tv_t, to_t,
+                                  prm);
   return cudaGetLastError();
 }
 
@@ -806,26 +899,36 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 }  // namespace
 
 // The route (dtype, Dh) takes: 0 = SIMT (f32), 1 = mma.sync (bf16),
-// 2 = wgmma (bf16, Dh 64, 128 or 256).  kernels/flash_attention.py's
+// 2 = wgmma (bf16, Dh 64, 80, 128 or 256).  kernels/flash_attention.py's
 // flash_route states the same rule.
 extern "C" int flash_attention_route(int dtype, int Dh) {
   if (dtype != 1) return 0;
-  return Dh == 64 || Dh == 128 || Dh == 256 ? 2 : 1;
+  return Dh == 64 || Dh == 80 || Dh == 128 || Dh == 256 ? 2 : 1;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Dh a multiple of 16 up to 256 (the
-// wrapper checks); window <= 0 means unbounded; lse null or (B, Hq, Sq)
-// f32.  Returns the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16.  route: the wrapper's choice
+// (flash_route), refused where it does not apply: SIMT takes f32 only,
+// mma.sync any bf16 head dim (so a caller may force it where the rule
+// gives wgmma), wgmma the bf16 head dims of the rule.  Dh a multiple of 16
+// up to 256 (the wrapper checks); window <= 0 means unbounded; lse null or
+// (B, Hq, Sq) f32.  Returns the launch's cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, float* lse, int dtype, int B, int Sq,
-                               int Sk, int Hq, int Hkv, int Dh, int causal,
-                               int window, float scale, void* stream) {
+                               void* out, float* lse, int dtype, int route,
+                               int B, int Sq, int Sk, int Hq, int Hkv, int Dh,
+                               int causal, int window, float scale,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((route == 0) != (dtype == 0) || route < 0 || route > 2 ||
+      (route == 2 && flash_attention_route(dtype, Dh) != 2))
+    return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
-  switch (flash_attention_route(dtype, Dh)) {
+  switch (route) {
     case 2:
       if (Dh == 64)
         return launch_wgmma<64>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv,
+                                causal, window, scale, st);
+      if (Dh == 80)
+        return launch_wgmma<80>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv,
                                 causal, window, scale, st);
       if (Dh == 128)
         return launch_wgmma<128>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv,

@@ -36,17 +36,21 @@
 // fixed-order dq sum inside the dk/dv work would move a 64 x 256 f32
 // partial per (key tile, query tile) pair, gigabytes at 4 x 4096.
 //
-// wgmma (bf16, Dh 64, 128 or 256: gemma3, qwen2.5, minitron).  Two
-// launches.  Query rows are GQA-packed as in the forward: the G query heads
-// of a position are neighbouring rows (row = position * G + head), 64 rows
-// to a tile (64 / G positions; a 5-D tensor map over q viewed as (B, Sq,
-// Hkv, G, Dh)), so one K/V tile serves all G heads.
+// wgmma (bf16, Dh 64, 80, 128 or 256: gemma3, stablelm, qwen2.5,
+// minitron).  Two launches.  Query rows are GQA-packed as in the forward:
+// the G query heads of a position are neighbouring rows (row = position *
+// G + head), 64 rows to a tile (64 / G positions; a 5-D tensor map over q
+// viewed as (B, Sq, Hkv, G, Dh)), so one K/V tile serves all G heads.  A
+// tile is Dh / 64 boxes of 64 columns (128-byte swizzle) and, at Dh 80, a
+// box of the last 16 columns (32-byte rows, 32-byte swizzle, tensor maps
+// of their own): one more k-step in the products over Dh, and an m64n16k16
+// into an accumulator of its own beside each m64n64k16 over Dh.
 //
 // 1. flash_bwd_prep, one warp per two packed rows: D = rowsum(do * o) and
 //    lse * log2 e in the packed order (64 floats a tile, so a stage loads
 //    them with one bulk copy; rows that are no real (position, head) get
 //    lse2 = +inf and D = 0, so their p and ds are 0), and, when the scale
-//    is not a power of two (Dh 128), bf16(q * scale) once for both
+//    is not a power of two (Dh 80, 128), bf16(q * scale) once for both
 //    products that read q.  Otherwise the scale is folded into the exp2
 //    constant c and into the dk and dq epilogues, which is exact.
 //    p = 2^(s c - lse2).
@@ -84,9 +88,8 @@
 // KB a CTA may use (+ barriers and 1 KB to align); a dq CTA 128 KB of Q and
 // dO + 2 K tiles + 1 V tile = 224 KB.
 //
-// mma.sync (bf16, other Dh: stablelm's 80, the smoke configs' 16), the
-// first design, three launches on mma.sync.m16n8k16 bf16 with f32
-// accumulators:
+// mma.sync (bf16, other Dh: the smoke configs' 16), the first design,
+// three launches on mma.sync.m16n8k16 bf16 with f32 accumulators:
 //
 // 1. flash_bwd_delta: D = rowsum(do * o) in f32, one warp per row.
 // 2. flash_bwd_dkdv: one CTA of 8 warps per (b, kv head, 64-key tile).  K
@@ -550,10 +553,16 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
+// A 64-row tile: DH / 64 boxes of 64 columns, then (Dh 80) a box of the
+// last 16 columns, 64 rows of 32 bytes (32B swizzle).
 template <int DH>
 struct WgTile {
   static constexpr int kChunks = DH / 64;        // 64-column boxes per row
-  static constexpr int kBytes = kChunks * kBox;  // one 64-row tile
+  static constexpr int kTail = DH % 64;          // 0 or 16 columns
+  static_assert(kTail == 0 || kTail == 16, "Dh is 64 n or 64 n + 16");
+  static constexpr int kTailAt = kChunks * kBox;  // the tail box's offset
+  static constexpr int kBytes = kTailAt + kRows * kTail * 2;  // one tile
+  static constexpr int kRowBytes = kChunks * 128 + kTail * 2;  // bf16 row
 };
 
 // A dk/dv CTA's shared memory: K, V, the (Q, dO) ring, two P^T tiles (64 x
@@ -616,33 +625,73 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 }
 
 // D (64 x 64) = A (64 rows x DH) B^T (B: 64 rows x DH), both 64-row tiles
-// of DH / 64 swizzled boxes in shared memory (K-major): the k-th 16
-// columns of a box start 32 bytes further inside each 128-byte row.
+// (WgTile) in shared memory (K-major): the k-th 16 columns of a box start
+// 32 bytes further inside each 128-byte row; the tail is one more k-step.
 template <int DH>
 __device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a,
                                          uint32_t b) {
+  using T = WgTile<DH>;
 #pragma unroll
   for (int i = 0; i < 32; ++i) hopper::reg_fence(d[i]);
   hopper::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
+  for (int kk = 0; kk < 4 * T::kChunks; ++kk) {
     const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
     hopper::wgmma_ss_m64n64k16(d, hopper::sw128_desc(a + off, 16),
                                hopper::sw128_desc(b + off, 16), kk > 0);
   }
+  if constexpr (T::kTail != 0)
+    hopper::wgmma_ss_m64n64k16(d, hopper::sw32_desc(a + T::kTailAt),
+                               hopper::sw32_desc(b + T::kTailAt), 1);
   hopper::wgmma_commit();
 #pragma unroll
   for (int i = 0; i < 32; ++i) hopper::reg_fence(d[i]);
 }
 
-// Every product this warpgroup issued is done; d may be read.
+// Every product this warpgroup issued is done; d and the tail's dt may be
+// read.
 template <int NC>
-__device__ __forceinline__ void wait_all(float (&d)[NC][32]) {
+__device__ __forceinline__ void wait_all(float (&d)[NC][32], float (&dt)[8]) {
   hopper::wgmma_wait<0>();
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) hopper::reg_fence(d[c][i]);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) hopper::reg_fence(dt[i]);
+}
+
+// d (+)= A B with B a 64-row tile (WgTile) read transposed: its boxes and
+// its tail, one group of products, issued and not waited for.
+template <int DH>
+__device__ __forceinline__ void issue_rs(float (&d)[DH / 64][32],
+                                         float (&dt)[8],
+                                         const uint32_t (&a)[4][4],
+                                         uint32_t b) {
+  using T = WgTile<DH>;
+  hopper::wgmma_rs_tile<T::kChunks, T::kTail != 0>(d, dt, a, b,
+                                                    b + T::kTailAt);
+}
+
+// Row j of a (.., DH) bf16 output from the accumulators of its 64-column
+// boxes and its tail, times mul: this thread's columns 8 nn + cb, cb + 1
+// of every 8 (half r of the accumulator layout: rows r0, r0 + 8).
+template <int DH>
+__device__ __forceinline__ void store_row(__nv_bfloat16* row,
+                                          const float (&d)[DH / 64][32],
+                                          const float (&dt)[8], int r,
+                                          int cb, float mul) {
+#pragma unroll
+  for (int c = 0; c < DH / 64; ++c)
+#pragma unroll
+    for (int nn = 0; nn < 8; ++nn)
+      *reinterpret_cast<uint32_t*>(row + 64 * c + 8 * nn + cb) =
+          pack_bf16(d[c][4 * nn + 2 * r] * mul, d[c][4 * nn + 2 * r + 1] * mul);
+  if constexpr (DH % 64 != 0)
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn)
+      *reinterpret_cast<uint32_t*>(row + DH / 64 * 64 + 8 * nn + cb) =
+          pack_bf16(dt[4 * nn + 2 * r] * mul, dt[4 * nn + 2 * r + 1] * mul);
 }
 
 // Row statistics in the wgmma route's packed order, and bf16(q * scale)
@@ -726,14 +775,11 @@ flash_bwd_prep(const __nv_bfloat16* __restrict__ q,
 // ----------------------------------------------- dk, dv (wgmma) CTA ----
 template <int DH>
 __device__ __forceinline__ void dkdv_cta(unsigned char* smem, int cta,
-                                         const CUtensorMap& tq,
-                                         const CUtensorMap& tdo,
-                                         const CUtensorMap& tk,
-                                         const CUtensorMap& tv,
+                                         const CUtensorMap* maps,
                                          const WgParams& prm) {
   using T = WgTile<DH>;
   using L = DkdvSmem<DH>;
-  constexpr int NC = T::kChunks, ST = L::kStages;
+  constexpr int NC = T::kChunks, ST = L::kStages, TL = T::kTail;
   float* stat = reinterpret_cast<float*>(smem + L::kStat);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
   uint64_t* q_full = kv_full + 1;
@@ -771,24 +817,28 @@ __device__ __forceinline__ void dkdv_cta(unsigned char* smem, int cta,
     if (threadIdx.x == 0 && n > 0) {
       hopper::mbar_expect_tx(kv_full, 2 * T::kBytes);
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        hopper::tma_load_4d(smem + L::kK + c * kBox, &tk, kv_full, 64 * c, hk,
-                            j0, b);
-        hopper::tma_load_4d(smem + L::kV + c * kBox, &tv, kv_full, 64 * c, hk,
-                            j0, b);
+      for (int c = 0; c < NC + (TL != 0); ++c) {  // the boxes, the tail
+        const int x = c < NC ? 0 : 4;  // the tail's maps follow the four
+        hopper::tma_load_4d(smem + L::kK + c * kBox, &maps[2 + x], kv_full,
+                            64 * c, hk, j0, b);
+        hopper::tma_load_4d(smem + L::kV + c * kBox, &maps[3 + x], kv_full,
+                            64 * c, hk, j0, b);
       }
-      const uint32_t box = NC * 128 * prm.Gt * prm.P;  // bytes of one tile
+      // bytes of one (Q or dO) tile
+      const uint32_t box = T::kRowBytes * prm.Gt * prm.P;
       for (int i = 0; i < n; ++i) {
         const int hb = i / nt, t = t_lo + i % nt, st = i % ST;
         hopper::mbar_wait(&q_empty[st], ((i / ST) & 1) ^ 1);
         hopper::mbar_expect_tx(&q_full[st], 2 * box + 2 * kRows * 4);
         unsigned char* qs = smem + L::kQ + 2 * st * T::kBytes;
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          hopper::tma_load_5d(qs + c * kBox, &tq, &q_full[st], 64 * c,
+        for (int c = 0; c < NC + (TL != 0); ++c) {
+          const int x = c < NC ? 0 : 4;
+          hopper::tma_load_5d(qs + c * kBox, &maps[x], &q_full[st], 64 * c,
                               hb * prm.Gt, hk, t * prm.P, b);
-          hopper::tma_load_5d(qs + T::kBytes + c * kBox, &tdo, &q_full[st],
-                              64 * c, hb * prm.Gt, hk, t * prm.P, b);
+          hopper::tma_load_5d(qs + T::kBytes + c * kBox, &maps[1 + x],
+                              &q_full[st], 64 * c, hb * prm.Gt, hk, t * prm.P,
+                              b);
         }
         const size_t row =
             ((static_cast<size_t>(b) * prm.Hkv + hk) * prm.HB + hb) *
@@ -812,20 +862,31 @@ __device__ __forceinline__ void dkdv_cta(unsigned char* smem, int cta,
     // zeroed once: a 0 of P^T or dS^T must meet finite values there.
     const int used = prm.P * prm.Gt;
     if (used < kRows) {
+      // 16-byte chunks of the rows past `used`, in each of a tile's boxes
+      // (128-byte rows) and in its tail box (TL * 2-byte rows)
       const int per_box = (kRows - used) * 128 / 16;
-      for (int e = threadIdx.x - 128; e < 2 * ST * NC * per_box; e += 256)
-        *reinterpret_cast<uint4*>(smem + L::kQ + (e / per_box) * kBox +
-                                  used * 128 + (e % per_box) * 16) =
-            make_uint4(0, 0, 0, 0);
+      const int per_tail = (kRows - used) * TL * 2 / 16;
+      const int per_tile = NC * per_box + per_tail;
+      for (int e = threadIdx.x - 128; e < 2 * ST * per_tile; e += 256) {
+        const int x = e % per_tile;
+        unsigned char* tile = smem + L::kQ + (e / per_tile) * T::kBytes;
+        unsigned char* at =
+            x < NC * per_box
+                ? tile + (x / per_box) * kBox + used * 128 + (x % per_box) * 16
+                : tile + T::kTailAt + used * TL * 2 + (x - NC * per_box) * 16;
+        *reinterpret_cast<uint4*>(at) = make_uint4(0, 0, 0, 0);
+      }
       hopper::fence_proxy_async();
     }
     hopper::named_sync(1, 256);
 
-    float acc[NC][32];
+    float acc[NC][32], acc_t[8];  // acc_t: the tail's 16 columns (Dh 80)
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc_t[i] = 0.f;
     const uint32_t k_base = hopper::smem_addr(smem + L::kK);
     const uint32_t v_base = hopper::smem_addr(smem + L::kV);
     const uint32_t ring = hopper::smem_addr(smem + L::kQ);
@@ -904,8 +965,8 @@ __device__ __forceinline__ void dkdv_cta(unsigned char* smem, int cta,
       // dV += P^T dO (consumer 0), dK += dS^T Q (consumer 1)
       uint32_t a[4][4];
       hopper::acc_to_a(s, a);
-      hopper::wgmma_rs_tile<NC>(acc, a, w ? q_base : do_base);
-      wait_all<NC>(acc);
+      issue_rs<DH>(acc, acc_t, a, w ? q_base : do_base);
+      wait_all<NC>(acc, acc_t);
       hopper::mbar_arrive(&q_empty[st]);
     }
 
@@ -915,15 +976,9 @@ __device__ __forceinline__ void dkdv_cta(unsigned char* smem, int cta,
     for (int r = 0; r < 2; ++r) {
       const int j = j0 + r0 + 8 * r;
       if (j >= prm.Sk) continue;
-      __nv_bfloat16* row =
-          out + ((static_cast<size_t>(b) * prm.Sk + j) * prm.Hkv + hk) * DH;
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int nn = 0; nn < 8; ++nn)
-          *reinterpret_cast<uint32_t*>(row + 64 * c + 8 * nn + cb) =
-              pack_bf16(acc[c][4 * nn + 2 * r] * mul,
-                        acc[c][4 * nn + 2 * r + 1] * mul);
+      store_row<DH>(
+          out + ((static_cast<size_t>(b) * prm.Sk + j) * prm.Hkv + hk) * DH,
+          acc, acc_t, r, cb, mul);
     }
   }
 }
@@ -934,14 +989,12 @@ __device__ __forceinline__ void dkdv_cta(unsigned char* smem, int cta,
 // rows.
 template <int DH>
 __device__ __forceinline__ void dq_cta(unsigned char* smem, int cta,
-                                       const CUtensorMap& tq,
-                                       const CUtensorMap& tdo,
-                                       const CUtensorMap& tk,
-                                       const CUtensorMap& tv,
+                                       const CUtensorMap* maps,
                                        const WgParams& prm) {
   using T = WgTile<DH>;
   using L = DqSmem<DH>;
-  constexpr int NC = T::kChunks, KS = L::kKStages, VS = L::kVStages;
+  constexpr int NC = T::kChunks, KS = L::kKStages, VS = L::kVStages,
+                TL = T::kTail;
   uint64_t* qd_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
   uint64_t* k_full = qd_full + 1;
   uint64_t* k_empty = k_full + KS;
@@ -986,30 +1039,35 @@ __device__ __forceinline__ void dq_cta(unsigned char* smem, int cta,
     // ---- producer warpgroup: one thread issues every load ----
     hopper::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0 && n > 0) {
-      hopper::mbar_expect_tx(qd_full, tiles * 2 * NC * 128 * prm.Gt * prm.P);
+      hopper::mbar_expect_tx(qd_full,
+                             tiles * 2 * T::kRowBytes * prm.Gt * prm.P);
       for (int w = 0; w < tiles; ++w)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int pw = p0 + w * prm.P;
-          hopper::tma_load_5d(smem + L::kQ + w * T::kBytes + c * kBox, &tq,
-                              qd_full, 64 * c, hb * prm.Gt, hk, pw, b);
-          hopper::tma_load_5d(smem + L::kDo + w * T::kBytes + c * kBox, &tdo,
-                              qd_full, 64 * c, hb * prm.Gt, hk, pw, b);
+        for (int c = 0; c < NC + (TL != 0); ++c) {  // the boxes, the tail
+          const int pw = p0 + w * prm.P, x = c < NC ? 0 : 4;
+          hopper::tma_load_5d(smem + L::kQ + w * T::kBytes + c * kBox,
+                              &maps[x], qd_full, 64 * c, hb * prm.Gt, hk, pw,
+                              b);
+          hopper::tma_load_5d(smem + L::kDo + w * T::kBytes + c * kBox,
+                              &maps[1 + x], qd_full, 64 * c, hb * prm.Gt, hk,
+                              pw, b);
         }
       for (int i = 0; i < n; ++i) {
         const int j0 = (t_lo + i) * kKeys, ks = i % KS, vs = i % VS;
         hopper::mbar_wait(&v_empty[vs], ((i / VS) & 1) ^ 1);
         hopper::mbar_expect_tx(&v_full[vs], T::kBytes);
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
-          hopper::tma_load_4d(smem + L::kV + vs * T::kBytes + c * kBox, &tv,
-                              &v_full[vs], 64 * c, hk, j0, b);
+        for (int c = 0; c < NC + (TL != 0); ++c)
+          hopper::tma_load_4d(smem + L::kV + vs * T::kBytes + c * kBox,
+                              &maps[c < NC ? 3 : 7], &v_full[vs], 64 * c, hk,
+                              j0, b);
         hopper::mbar_wait(&k_empty[ks], ((i / KS) & 1) ^ 1);
         hopper::mbar_expect_tx(&k_full[ks], T::kBytes);
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
-          hopper::tma_load_4d(smem + L::kK + ks * T::kBytes + c * kBox, &tk,
-                              &k_full[ks], 64 * c, hk, j0, b);
+        for (int c = 0; c < NC + (TL != 0); ++c)
+          hopper::tma_load_4d(smem + L::kK + ks * T::kBytes + c * kBox,
+                              &maps[c < NC ? 2 : 6], &k_full[ks], 64 * c, hk,
+                              j0, b);
       }
     }
   } else {
@@ -1041,11 +1099,13 @@ __device__ __forceinline__ void dq_cta(unsigned char* smem, int cta,
     const int lo_all = prm.window > 0 ? pt_last - prm.window + 1 : INT_MIN;
     const int hi_all = prm.causal ? min(prm.Sk, pt + 1) : prm.Sk;
 
-    float acc[NC][32];
+    float acc[NC][32], acc_t[8];  // acc_t: the tail's 16 columns (Dh 80)
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc_t[i] = 0.f;
     const uint32_t q_base = hopper::smem_addr(smem + L::kQ + w * T::kBytes);
     const uint32_t do_base = hopper::smem_addr(smem + L::kDo + w * T::kBytes);
 
@@ -1086,8 +1146,8 @@ __device__ __forceinline__ void dq_cta(unsigned char* smem, int cta,
       // dQ += dS K
       uint32_t a[4][4];
       hopper::acc_to_a(s, a);
-      hopper::wgmma_rs_tile<NC>(acc, a, k_st);
-      wait_all<NC>(acc);
+      issue_rs<DH>(acc, acc_t, a, k_st);
+      wait_all<NC>(acc, acc_t);
       hopper::mbar_arrive(&k_empty[ks]);
     }
 
@@ -1098,16 +1158,9 @@ __device__ __forceinline__ void dq_cta(unsigned char* smem, int cta,
       const int pos = r ? pos1 : pos0, gh = hb * prm.Gt + row % prm.Gt;
       if (!real || row >= prm.P * prm.Gt || pos >= prm.Sq || gh >= prm.G)
         continue;
-      __nv_bfloat16* out =
-          prm.dq + ((static_cast<size_t>(b) * prm.Sq + pos) * prm.Hkv *
-                        prm.G + hk * prm.G + gh) * DH + cb;
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int nn = 0; nn < 8; ++nn)
-          *reinterpret_cast<uint32_t*>(out + 64 * c + 8 * nn) =
-              pack_bf16(acc[c][4 * nn + 2 * r] * prm.dq_mul,
-                        acc[c][4 * nn + 2 * r + 1] * prm.dq_mul);
+      store_row<DH>(prm.dq + ((static_cast<size_t>(b) * prm.Sq + pos) *
+                                  prm.Hkv * prm.G + hk * prm.G + gh) * DH,
+                    acc, acc_t, r, cb, prm.dq_mul);
     }
   }
 }
@@ -1115,20 +1168,23 @@ __device__ __forceinline__ void dq_cta(unsigned char* smem, int cta,
 // One launch for both: the first dkdv_ctas CTAs own a key tile each, the
 // rest two query tiles each, so the SMs that finish their dk/dv tiles take
 // dq tiles while the last dk/dv tiles run.
+// The tensor maps: q (or bf16(q * scale)), do, k, v over their 64-column
+// boxes (128B swizzle), then (Dh 80) the same four over the 16-column tail
+// (32B swizzle; copies of the first four otherwise, unused).
+struct WgMaps {
+  CUtensorMap m[8];
+};
+
 template <int DH>
 __global__ void __launch_bounds__(kWgThreads, 1)
-flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq,
-                const __grid_constant__ CUtensorMap tdo,
-                const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv,
-                const WgParams prm) {
+flash_bwd_wgmma(const __grid_constant__ WgMaps maps, const WgParams prm) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const int cta = static_cast<int>(blockIdx.x);
   if (cta < prm.dkdv_ctas)
-    dkdv_cta<DH>(smem, cta, tq, tdo, tk, tv, prm);
+    dkdv_cta<DH>(smem, cta, maps.m, prm);
   else
-    dq_cta<DH>(smem, cta - prm.dkdv_ctas, tq, tdo, tk, tv, prm);
+    dq_cta<DH>(smem, cta - prm.dkdv_ctas, maps.m, prm);
 }
 
 // Device scratch (bytes) a launch on `route` needs: on mma.sync (1) D, B *
@@ -1213,7 +1269,6 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   // P positions x Gt heads x 64 columns; k and v as (B, Sk, Hkv, Dh): 64
   // keys x 64 columns.
   const cuuint64_t e = 2, Dh = DH;
-  CUtensorMap tq, tdo, tk, tv;
   const cuuint64_t qdim[5] = {Dh, static_cast<cuuint64_t>(G),
                               static_cast<cuuint64_t>(Hkv),
                               static_cast<cuuint64_t>(Sq),
@@ -1228,11 +1283,26 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const cuuint64_t kstr[3] = {Dh * e, Hkv * Dh * e,
                               static_cast<cuuint64_t>(Sk) * Hkv * Dh * e};
   const cuuint32_t kbox[4] = {64, 1, kKeys, 1};
-  if (!hopper::encode_bf16(&tq, pow2 ? q : qs, 5, qdim, qstr, qbox) ||
+  const void* qp = pow2 ? q : qs;
+  WgMaps maps;
+  CUtensorMap &tq = maps.m[0], &tdo = maps.m[1], &tk = maps.m[2],
+              &tv = maps.m[3];
+  if (!hopper::encode_bf16(&tq, qp, 5, qdim, qstr, qbox) ||
       !hopper::encode_bf16(&tdo, dout, 5, qdim, qstr, qbox) ||
       !hopper::encode_bf16(&tk, k, 4, kdim, kstr, kbox) ||
       !hopper::encode_bf16(&tv, v, 4, kdim, kstr, kbox))
     return cudaErrorInvalidValue;
+  for (int i = 0; i < 4; ++i) maps.m[4 + i] = maps.m[i];
+  if (WgTile<DH>::kTail != 0) {  // Dh 80: the last 16 columns, 32B-swizzled
+    const cuuint32_t qbox_t[5] = {WgTile<DH>::kTail, qbox[1], 1, qbox[3], 1};
+    const cuuint32_t kbox_t[4] = {WgTile<DH>::kTail, 1, kKeys, 1};
+    const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_32B;
+    if (!hopper::encode_bf16(&maps.m[4], qp, 5, qdim, qstr, qbox_t, sw) ||
+        !hopper::encode_bf16(&maps.m[5], dout, 5, qdim, qstr, qbox_t, sw) ||
+        !hopper::encode_bf16(&maps.m[6], k, 4, kdim, kstr, kbox_t, sw) ||
+        !hopper::encode_bf16(&maps.m[7], v, 4, kdim, kstr, kbox_t, sw))
+      return cudaErrorInvalidValue;
+  }
 
   const int smem = max(DkdvSmem<DH>::kSmem, DqSmem<DH>::kSmem);
   err = cudaFuncSetAttribute(flash_bwd_wgmma<DH>,
@@ -1240,19 +1310,19 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                              smem);
   if (err != cudaSuccess) return err;
   flash_bwd_wgmma<DH><<<static_cast<unsigned>(grid), kWgThreads, smem,
-                        stream>>>(tq, tdo, tk, tv, prm);
+                        stream>>>(maps, prm);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The route (dtype, Dh) takes: 0 = wgmma (bf16, Dh 64, 128 or 256), 1 =
+// The route (dtype, Dh) takes: 0 = wgmma (bf16, Dh 64, 80, 128 or 256), 1 =
 // mma.sync (bf16, other head dims), -1 = none (the card has no f32
 // backward).  kernels/flash_attention.py's flash_bwd_route states the same
 // rule.
 extern "C" int flash_attention_bwd_route(int dtype, int Dh) {
   if (dtype != 1) return -1;
-  return Dh == 64 || Dh == 128 || Dh == 256 ? 0 : 1;
+  return Dh == 64 || Dh == 80 || Dh == 128 || Dh == 256 ? 0 : 1;
 }
 
 // The device scratch a launch on `route` (0 = wgmma, 1 = mma.sync) needs,
@@ -1290,6 +1360,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     if (flash_attention_bwd_route(1, Dh) != 0) return cudaErrorInvalidValue;
     if (Dh == 64)
       return launch_wgmma<64>(q, k, v, o, dout, lse, scratch, scratch_bytes,
+                              dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, window,
+                              scale, st);
+    if (Dh == 80)
+      return launch_wgmma<80>(q, k, v, o, dout, lse, scratch, scratch_bytes,
                               dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, window,
                               scale, st);
     if (Dh == 128)

@@ -5,7 +5,10 @@
 // row is 64 bf16 (128 bytes), 8 rows form a 1024-byte swizzle atom, and a
 // tile's base is 1024-byte aligned.  The wgmma descriptors below describe
 // exactly that layout (layout type 1 = 128B swizzle, 1024 bytes between
-// 8-row groups).
+// 8-row groups).  A head dim that is not a multiple of 64 (80) keeps its
+// last 16 columns in a box of their own with 32-byte swizzling: rows of 32
+// bytes, 8 rows a 256-byte atom (layout type 3 = 32B swizzle, 256 bytes
+// between 8-row groups).
 #pragma once
 
 #include <cuda.h>
@@ -149,6 +152,15 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// Descriptor of a 32B-swizzled 16-column tile (rows of 32 bytes): one
+// swizzle atom spans the 16 columns, so the leading byte offset is unused
+// in both majors; stride byte offset 256 (between 8-row groups).
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -210,6 +222,21 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 16, f32) += A (64 x 16 bf16 in registers) B (16 x 16 from shared
+// memory, MN-major, hence transposed): the 16-column tail of a tile.
+__device__ __forceinline__ void wgmma_rs_m64n16k16_tb(float (&d)[8],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -340,15 +367,21 @@ __device__ __forceinline__ void acc_to_a(const float (&s)[32],
 // D (64 x 64 NC, f32) += A (64 x 64, bf16 registers from acc_to_a) B (64
 // rows x 64 NC: NC 64-row boxes of 64 columns, 8 KB apart, read
 // transposed, MN-major), one wgmma m64n{64 NC}k16 per 16 rows (2048 bytes
-// of a box); issued and committed, not waited for.
-template <int NC>
+// of a box); with TAIL, also Dt (64 x 16) += A Bt, Bt the 16-column tail
+// box (32B-swizzled, 64 rows of 32 bytes at bt), one m64n16k16 per 16 rows
+// (512 bytes).  Issued as one group and committed, not waited for.
+template <int NC, bool TAIL>
 __device__ __forceinline__ void wgmma_rs_tile(float (&d)[NC][32],
+                                              float (&dt)[8],
                                               const uint32_t (&a)[4][4],
-                                              uint32_t b) {
+                                              uint32_t b, uint32_t bt) {
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) reg_fence(d[c][i]);
+  if constexpr (TAIL)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) reg_fence(dt[i]);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
@@ -359,12 +392,17 @@ __device__ __forceinline__ void wgmma_rs_tile(float (&d)[NC][32],
       wgmma_rs_m64n128k16_tb(d, a[kk], db);
     else
       wgmma_rs_m64n64k16_tb(d[0], a[kk], db);
+    if constexpr (TAIL)
+      wgmma_rs_m64n16k16_tb(dt, a[kk], sw32_desc(bt + kk * 512));
   }
   wgmma_commit();
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) reg_fence(d[c][i]);
+  if constexpr (TAIL)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) reg_fence(dt[i]);
 }
 
 // ------------------------------------------------------ tensor maps ----
@@ -395,16 +433,19 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // A bf16 tensor map of `rank` dimensions (innermost first; strides in bytes
-// for dimensions 1..rank-1), 128B-swizzled boxes, zero fill out of bounds.
+// for dimensions 1..rank-1), swizzled boxes (128B: 64 columns; 32B: the
+// 16-column tail), zero fill out of bounds.
 inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,
                         const cuuint64_t* dims, const cuuint64_t* strides,
-                        const cuuint32_t* box) {
+                        const cuuint32_t* box,
+                        CUtensorMapSwizzle swizzle =
+                            CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
             const_cast<void*>(base), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -5,18 +5,20 @@
 and ``flash_attention_bhsd`` the TPU kernel's (BH, S, Dh).  On CUDA tensors
 they launch one of the hand-written Hopper kernels of
 ``csrc/flash_attention.cu``, chosen by ``flash_route(dtype, Dh)`` alone:
-``wgmma`` (bf16 with Dh 64, 128 or 256: TMA, wgmma, warp-specialised, GQA
-heads packed into one tile), ``mma_sync`` (bf16, other head dims) or
-``simt`` (f32).  On CPU tensors they run the plain version in
-``kernels/ref.py``.  There is no other fallback.
+``wgmma`` (bf16 with Dh 64, 80, 128 or 256: TMA, wgmma, warp-specialised,
+GQA heads packed into one tile; Dh 80 as a 64-column box and a 16-column
+one), ``mma_sync`` (bf16, other head dims) or ``simt`` (f32).  The wrapper
+passes the route to the kernel, which refuses one that does not apply
+(``mma_sync`` takes any bf16 head dim).  On CPU tensors they run the plain
+version in ``kernels/ref.py``.  There is no other fallback.
 
 Under autograd (grad mode on and q, k or v requiring grad) the call is a
 ``torch.autograd.Function``: its forward also writes each row's
 log-sum-exp and saves q, k, v, the output and the lse; its backward is
 ``flash_attention_bwd``, the hand-written kernels of
 ``csrc/flash_attention_bwd.cu`` (bf16, counted on ``BWD_KERNEL``), on the
-route ``flash_bwd_route(dtype, Dh)`` gives: ``wgmma`` (Dh 64, 128 or 256:
-TMA, wgmma, warp-specialised, GQA heads packed into 64-row tiles) or
+route ``flash_bwd_route(dtype, Dh)`` gives: ``wgmma`` (Dh 64, 80, 128 or
+256: TMA, wgmma, warp-specialised, GQA heads packed into 64-row tiles) or
 ``mma_sync`` (other head dims).  On CPU
 tensors both directions run the plain versions (``ref.flash_attention``
 with ``return_lse``, ``ref.flash_attention_bwd``).  The card has no f32
@@ -42,10 +44,11 @@ from repro_torch.kernels import accounting, ref
 from repro_torch.kernels._build import CudaKernel
 
 ROUTES = ("wgmma", "mma_sync", "simt")
+ROUTE_CODES = {"simt": 0, "mma_sync": 1, "wgmma": 2}  # the C entry's codes
 KERNEL = CudaKernel(
     "flash_attention", "csrc/flash_attention.cu", "flash_attention",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float,
-                                                  ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                                   ctypes.c_void_p],
     routes=ROUTES)
 BWD_ROUTES = ("wgmma", "mma_sync")  # the C entry's route codes, in order
 BWD_KERNEL = CudaKernel(
@@ -62,7 +65,7 @@ F32_BACKWARD = ("ROADMAP queue 2: the f32 backward of flash_attention on "
                 "the card")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-WGMMA_HEAD_DIMS = (64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 80, 128, 256)
 BWD_ROWS = 64  # kRows of csrc/flash_attention_bwd.cu: packed rows per tile
 # every answer of the library's scratch rule, by (route, B, Sq, Hq, Hkv, Dh,
 # scale): what ``bwd_scratch_bytes`` asked on the card
@@ -129,7 +132,7 @@ def flash_route(dtype: torch.dtype, head_dim: int) -> str:
 def flash_bwd_route(dtype: torch.dtype, head_dim: int) -> str | None:
     """The backward kernel a CUDA call launches, by (dtype, Dh) alone — the
     rule ``flash_attention_bwd_route`` in ``csrc/flash_attention_bwd.cu``
-    applies too: ``wgmma`` for bf16 with Dh 64, 128 or 256, ``mma_sync``
+    applies too: ``wgmma`` for bf16 with Dh 64, 80, 128 or 256, ``mma_sync``
     for other bf16 head dims, None for f32 (no backward on the card:
     ``F32_BACKWARD``)."""
     if dtype != torch.bfloat16:
@@ -143,7 +146,7 @@ def bwd_scratch_bytes(route: str, B: int, Sq: int, Hq: int, Hkv: int,
     ``flash_attention_bwd_scratch_bytes`` in ``csrc/flash_attention_bwd.cu``
     (the one the launch checks): D on ``mma_sync``; on ``wgmma`` lse * log2
     e and D for each GQA-packed row and, when the scale is not a power of
-    two (Dh 128), bf16(q * scale).  Builds the library on first use; each
+    two (Dh 80, 128), bf16(q * scale).  Builds the library on first use; each
     answer is kept in ``SCRATCH_ASKED``."""
     key = (route, B, Sq, Hq, Hkv, Dh, scale)
     if key not in SCRATCH_ASKED:
@@ -227,8 +230,9 @@ def _forward_cuda(q, k, v, causal: bool, window: int, with_lse: bool):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr() if with_lse else None, _DTYPES[q.dtype], B,
-                 Sq, Sk, Hq, Hkv, Dh, int(causal), int(window), scale, stream)
+                 lse.data_ptr() if with_lse else None, _DTYPES[q.dtype],
+                 ROUTE_CODES[route], B, Sq, Sk, Hq, Hkv, Dh, int(causal),
+                 int(window), scale, stream)
     KERNEL.check(err)
     KERNEL.count_launch(route)
     return out, lse

@@ -15,6 +15,15 @@ It runs on the card unless ``--device cpu`` is given.  LM weights are
 random, drawn from ``--seed`` with a CPU ``torch.Generator`` (the
 reference's can be carried over with ``models.convert.params_from_jax``);
 batches are numpy draws from ``--seed + step``, as in the reference.
+``--layers N`` keeps the config's first N layers at full width (a depth
+cut, so that one card holds a large config's f32 parameters, gradients
+and AdamW state).  A config without a ``loss_chunk`` sums its CE over
+chunks of ``LM_LOSS_CHUNK`` positions where the sequence has more (no
+full logits).  Without ``--ckpt`` each step is handed AdamW's state
+(``train_step(donate=True)``: 5 f32 copies of the parameters at the
+step's peak, not the functional step's 9, the same bits); with it the
+step is functional, since the checkpoint of an interrupted step needs
+the state the step was given.
 
 ``--ckpt DIR`` writes checkpoints there (every ``--ckpt-every`` steps and
 at the end; the reference's file format, ``train/checkpoint.py``);
@@ -25,12 +34,16 @@ sequence.  For the GNN they are ``train_gnn``'s ``checkpoint_dir`` and
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.utils import resolve_device
+
+# the CE's chunk (positions) for an LM config that sets none
+LM_LOSS_CHUNK = 512
 
 
 def make_batch(cfg, batch: int, seq: int, seed: int, step: int,
@@ -101,6 +114,8 @@ def train_lm(args):
     from repro_torch.utils import synchronize
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers,
+                              loss_chunk=cfg.loss_chunk or LM_LOSS_CHUNK)
     dev = resolve_device(args.device)
     params = init_from_defs(get_module(cfg).defs(cfg),
                             torch.Generator().manual_seed(args.seed), dev)
@@ -123,7 +138,8 @@ def train_lm(args):
             batch = make_batch(cfg, args.batch, args.seq, args.seed, step,
                                dev)
             new_params, new_opt, loss = train_step(cfg, params, opt,
-                                                   opt_state, batch)
+                                                   opt_state, batch,
+                                                   donate=not args.ckpt)
             synchronize(dev)
             # the step is done: its state and the step count move together,
             # so after an exception before here (a Ctrl-C in the wait) the
@@ -178,7 +194,8 @@ def train_gnn_cli(args):
     return res
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """The CLI's arguments (``main`` runs them)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", help="LM architecture id")
     ap.add_argument("--gnn", choices=["sage", "gcn"], help="GNN model")
@@ -187,6 +204,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="LM: keep the first N layers (0: all)")
     ap.add_argument("--hidden", type=int, default=256)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
@@ -199,7 +218,11 @@ def main(argv=None):
     ap.add_argument("--mem-per-device", default="64e6")
     ap.add_argument("--max-vertices", type=int, default=100_000)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if args.gnn:
         return train_gnn_cli(args)
     if args.arch:

@@ -243,11 +243,13 @@ def test_decode_attention_matches_reference(Hkv, window, dtype):
 # --------------------------------------------------- the serving path ------
 
 @functools.lru_cache(maxsize=None)
-def _reference_run(arch: str):
+def _reference_run(arch: str, overrides: tuple = ()):
     """The reference's ``examples/serve_lm.py`` loop on ``arch``'s smoke
-    config (B 4, prompt 24, 16 new tokens), with its prefill cache and every
-    step's logits kept."""
-    cfg = jconfigs.get_config(arch, smoke=True)
+    config (B 4, prompt 24, 16 new tokens; ``overrides``: (field, value)
+    pairs replaced in the config), with its prefill cache and every step's
+    logits kept."""
+    cfg = dataclasses.replace(jconfigs.get_config(arch, smoke=True),
+                              **dict(overrides))
     mod = jget_module(cfg)
     params = jinit_from_defs(mod.defs(cfg), jax.random.PRNGKey(0))
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size,
@@ -440,6 +442,53 @@ def test_decode_matches_the_port_forward(arch):
     pd = torch.log_softmax(torch.cat(outs, 1).float()[..., :V], -1)
     pf = torch.log_softmax(full.float()[..., :V], -1)
     np.testing.assert_allclose(pd.numpy(), pf.numpy(), rtol=5e-2, atol=5e-2)
+
+
+# stablelm's smoke config at its real head dim, as chip_smoke.py phase 27
+# runs it (NARROW_STABLELM there): its attention takes the Dh 80 tile
+NARROW_STABLELM = (("n_layers", 2), ("n_heads", 4), ("n_kv_heads", 4),
+                   ("head_dim", 80), ("d_model", 320))
+# chip_smoke.py's NARROW_STABLELM_TOL and LM_SMOKE_ATOL
+NARROW_STABLELM_ATOL, LM_SMOKE_ATOL = 6e-2, 5e-3
+
+
+def test_narrow_stablelm_logit_spread():
+    """The limit ``chip_smoke.py`` phase 27 holds the narrow stablelm's
+    card logits to (against the CPU's): rounding alone, here the reference
+    against the port from the same weights, spreads the logits beyond
+    LM_SMOKE_ATOL and within NARROW_STABLELM_ATOL (measured 0.047 at most,
+    18,779 of 32,768 beyond 5e-3), while a Dh 80 attention whose last 16
+    columns (the tile's tail box) come out zero puts most logits outside
+    it (28,198 of them, 2.76 at most)."""
+    ref = _reference_run("stablelm-3b", NARROW_STABLELM)
+    cfg = dataclasses.replace(tconfigs.get_config("stablelm-3b", smoke=True),
+                              **dict(NARROW_STABLELM))
+    assert cfg.resolved_head_dim == 80
+    params = _port_params(ref)
+
+    def spread(attend):
+        inner = transformer.flash_attention
+        transformer.flash_attention = attend
+        try:
+            got = _teacher_forced(cfg, params, ref["prompts"], ref["tokens"])
+        finally:
+            transformer.flash_attention = inner
+        return np.abs(_f32(got) - ref["logits"])
+
+    def tail_zero(*a, **kw):
+        o = layers.flash_attention(*a, **kw).clone()
+        o[..., 64:] = 0
+        return o
+
+    d, broken = spread(layers.flash_attention), spread(tail_zero)
+    print(f"narrow stablelm, reference vs port: max |logit diff| "
+          f"{d.max():.4e}, {(d > LM_SMOKE_ATOL).sum()} of {d.size} beyond "
+          f"{LM_SMOKE_ATOL}; with the Dh 80 tail zeroed {broken.max():.4e}, "
+          f"{(broken > NARROW_STABLELM_ATOL).sum()} beyond "
+          f"{NARROW_STABLELM_ATOL}")
+    assert d.max() <= NARROW_STABLELM_ATOL
+    assert (d > LM_SMOKE_ATOL).sum() > d.size // 4
+    assert (broken > NARROW_STABLELM_ATOL).sum() > d.size // 2
 
 
 def test_generate_defaults_to_the_card_and_raises_without_one():

@@ -127,18 +127,37 @@ def test_plain_flash_matches_lm_path_attention(Hkv, causal, Dh, window,
 
 @pytest.mark.parametrize("dtype,Dh,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 256, "wgmma"),
-    (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 80, "mma_sync"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 80, "wgmma"),
+    (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 96, "mma_sync"),
     (torch.float32, 16, "simt"), (torch.float32, 64, "simt"),
     (torch.float32, 128, "simt"), (torch.float32, 256, "simt"),
 ])
 def test_flash_route_depends_on_dtype_and_head_dim_only(dtype, Dh, route):
-    """gemma3 (256), qwen2.5 and minitron (128) and Dh 64 take the wgmma
-    kernel in bf16; stablelm's 80 and the smoke configs' 16 the mma.sync
-    kernel; f32 the SIMT kernel."""
+    """gemma3 (256), qwen2.5 and minitron (128), stablelm (80: a 64-column
+    box and a 16-column one) and Dh 64 take the wgmma kernel in bf16; the
+    smoke configs' 16 and other head dims the mma.sync kernel; f32 the SIMT
+    kernel."""
     assert fa.flash_route(dtype, Dh) == route
     assert route in fa.ROUTES and set(fa.KERNEL.route_launches) == set(
         fa.ROUTES)
+
+
+def _dh_dot(a, b):
+    """a (m, Dh) b^T (n, Dh) in f32 as the wgmma tiles sum it: over the
+    64-column boxes, then (Dh 80) plus the 16-column tail box's k-step."""
+    main = a.shape[1] - a.shape[1] % 64
+    s = a[:, :main] @ b[:, :main].T
+    return s + a[:, main:] @ b[:, main:].T if main < a.shape[1] else s
+
+
+def _dh_acc(acc, a, b):
+    """acc (m, Dh) + a (m, n) b (n, Dh) as the wgmma tiles add it: the
+    64-column boxes' accumulator and (Dh 80) the tail's, each its own."""
+    main = b.shape[1] - b.shape[1] % 64
+    parts = [acc[:, :main] + a @ b[:, :main]]
+    if main < b.shape[1]:
+        parts.append(acc[:, main:] + a @ b[:, main:])
+    return torch.cat(parts, 1)
 
 
 def _emulate_wgmma(q, k, v, *, causal, window, stats=None):
@@ -150,8 +169,10 @@ def _emulate_wgmma(q, k, v, *, causal, window, stats=None):
     a power of two, else the scale is folded into c = log2(e) * scale;
     scores q . k * c, masked to -1e30 in that exp2 domain; m the running
     max, alpha = 2^(m_old - m_new), p = 2^(s - m_new) rounded to bf16 for
-    p . v while l sums the f32 p; out = o / max(l, 1e-30).  ``stats``
-    counts the rows whose first visited tile is fully masked."""
+    p . v while l sums the f32 p; out = o / max(l, 1e-30).  Dh 80 is a
+    64-column box and a 16-column one: one more k-step of q . k, and o
+    in two accumulators (``_dh_dot``, ``_dh_acc``).  ``stats`` counts the
+    rows whose first visited tile is fully masked."""
     B, Sq, Hq, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -183,7 +204,7 @@ def _emulate_wgmma(q, k, v, *, causal, window, stats=None):
                 seen = torch.zeros(len(pos), dtype=torch.bool)
                 for t in range(lo // T, hi // T + 1 if hi >= lo else 0):
                     j = torch.arange(t * T, t * T + T)
-                    s = qt @ kp[b, t * T:t * T + T, hk].T * c
+                    s = _dh_dot(qt, kp[b, t * T:t * T + T, hk]) * c
                     vis = (j < Sk)[None, :].expand(len(pos), T)
                     if causal:
                         vis = vis & (j[None, :] <= pos[:, None])
@@ -198,8 +219,8 @@ def _emulate_wgmma(q, k, v, *, causal, window, stats=None):
                     alpha = torch.exp2(m - m_new)
                     pr = torch.exp2(s - m_new[:, None])
                     l = l * alpha + pr.sum(1)
-                    o = o * alpha[:, None] + pr.to(v.dtype).float() @ \
-                        vp[b, t * T:t * T + T, hk].float()
+                    o = _dh_acc(o * alpha[:, None], pr.to(v.dtype).float(),
+                                vp[b, t * T:t * T + T, hk].float())
                     m = m_new
                 o = o / l.clamp_min(1e-30)[:, None]
                 out[b, p0:p_last + 1, hk * G:(hk + 1) * G] = o.reshape(
@@ -216,6 +237,13 @@ def _emulate_wgmma(q, k, v, *, causal, window, stats=None):
     (1, 90, 50, 4, 4, 128, 48, True),     # G = 1, Sq > Sk (every row sees a
                                           # key: the contract leaves one
                                           # that sees none undefined)
+    # Dh 80 (stablelm): a 64-column box and a 16-column tail, q * scale
+    # rounded first
+    (1, 77, 77, 4, 4, 80, 0, True),       # G = 1, ragged S
+    (2, 130, 130, 4, 2, 80, 64, True),    # G = 2, window 64
+    (1, 100, 100, 4, 1, 80, 8, True),     # G = 4, a first tile all masked
+    (1, 50, 90, 8, 2, 80, 0, False),      # G = 4, Sq != Sk, not causal
+    (1, 90, 70, 2, 1, 80, 64, True),      # G = 2, Sq > Sk, window 64
 ])
 def test_wgmma_route_arithmetic_matches_the_plain_version(B, Sq, Sk, Hq, Hkv,
                                                           Dh, window, causal):
@@ -366,12 +394,12 @@ def test_return_lse_is_the_logsumexp_of_the_masked_scores(window, causal,
 @pytest.mark.parametrize("dtype,Dh,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 16, "mma_sync"),
-    (torch.bfloat16, 80, "mma_sync"), (torch.bfloat16, 96, "mma_sync"),
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 96, "mma_sync"),
     (torch.float32, 64, None), (torch.float32, 256, None),
 ])
 def test_flash_bwd_route_depends_on_dtype_and_head_dim_only(dtype, Dh, route):
-    """gemma3 (256), qwen2.5 and minitron (128) and Dh 64 take the wgmma
-    backward in bf16; stablelm's 80, the smoke configs' 16 and other head
+    """gemma3 (256), qwen2.5 and minitron (128), stablelm (80) and Dh 64
+    take the wgmma backward in bf16; the smoke configs' 16 and other head
     dims the mma.sync one; f32 none (the card has no f32 backward)."""
     assert fa.flash_bwd_route(dtype, Dh) == route
     assert set(fa.BWD_KERNEL.route_launches) == set(fa.BWD_ROUTES)
@@ -390,6 +418,10 @@ def test_flash_bwd_route_depends_on_dtype_and_head_dim_only(dtype, Dh, route):
      8 * 2 * 4 * 64 + 2 * 77 * 6 * 128),
     # G = 80: two head blocks of 64 heads, one position a tile
     ("wgmma", (1, 3, 80, 1, 64), 0.125, 8 * 2 * 3 * 64),
+    # Dh 80, G = 2: 32 positions a tile, 3 tiles per kv head; the scale is
+    # not a power of two, so bf16(q * scale) is kept
+    ("wgmma", (2, 77, 4, 2, 80), 0.11181640625,
+     8 * 2 * 2 * 3 * 64 + 2 * 2 * 77 * 4 * 80),
 ])
 def test_bwd_scratch_bytes(cuda_device, route, shape, scale, want):
     """The CUDA source's scratch rule (``flash_attention_bwd_scratch_bytes``,
@@ -413,7 +445,10 @@ def _emulate_wgmma_bwd(q, k, v, o, lse, do, *, causal, window, stats=None):
     in order; dq: query tiles in pairs (2 u, 2 u + 1) as a dq CTA owns
     them, each tile summing, in one sum in key-tile order, every key tile
     that some row of the pair can see.  ``stats`` counts the dq rows whose
-    first visited key tile is all masked."""
+    first visited key tile is all masked.  Dh 80 is a 64-column box and a
+    16-column one: products over Dh take one more k-step (``_dh_dot``),
+    products into dq, dk, dv a tail accumulator of their own
+    (``_dh_acc``)."""
     B, Sq, Hq, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -471,11 +506,11 @@ def _emulate_wgmma_bwd(q, k, v, o, lse, do, *, causal, window, stats=None):
                 for hb in range(HB):
                     for t in range(lo // P, hi // P + 1 if hi >= lo else 0):
                         Q, dO, l2, D, pos, _ = rows(b, hk, hb, t)
-                        p = torch.exp2(K @ Q.T * c - l2[None, :])
+                        p = torch.exp2(_dh_dot(K, Q) * c - l2[None, :])
                         p = torch.where(visible(pos, j).T, p, 0.0)
-                        acc_v += bf(p) @ dO
-                        ds = p * (V @ dO.T - D[None, :])
-                        acc_k += bf(ds) @ Q
+                        acc_v = _dh_acc(acc_v, bf(p), dO)
+                        ds = p * (_dh_dot(V, dO) - D[None, :])
+                        acc_k = _dh_acc(acc_k, bf(ds), Q)
                 dk[b, j0:j0 + T, hk] = acc_k * dk_mul
                 dv[b, j0:j0 + T, hk] = acc_v
             for hb in range(HB):
@@ -496,9 +531,9 @@ def _emulate_wgmma_bwd(q, k, v, o, lse, do, *, causal, window, stats=None):
                                 "masked_first", 0) + int((ok & ~vis.any(1))
                                                          .sum())
                         p = torch.where(vis, torch.exp2(
-                            Q @ K.T * c - l2[:, None]), 0.0)
-                        ds = p * (dO @ V.T - D[:, None])
-                        acc += bf(ds) @ K
+                            _dh_dot(Q, K) * c - l2[:, None]), 0.0)
+                        ds = p * (_dh_dot(dO, V) - D[:, None])
+                        acc = _dh_acc(acc, bf(ds), K)
                     out = acc * dq_mul
                     for r in torch.nonzero(ok).flatten().tolist():
                         dq[b, t * P + r // Gt, hk * G + hb * Gt + r % Gt] = \
@@ -515,6 +550,12 @@ def _emulate_wgmma_bwd(q, k, v, o, lse, do, *, causal, window, stats=None):
     (1, 200, 90, 8, 2, 128, 0, False),     # Sq > Sk, not causal
     (2, 77, 77, 4, 1, 64, 0, False),       # not causal, ragged
     (1, 90, 90, 12, 4, 256, 40, False),    # G = 3, window, not causal
+    # Dh 80 (stablelm): a 64-column box and a 16-column tail
+    (1, 150, 150, 4, 4, 80, 0, True),      # G = 1, ragged S
+    (1, 130, 130, 4, 2, 80, 64, True),     # G = 2, window 64
+    (1, 200, 200, 4, 1, 80, 64, True),     # G = 4, window 64: a first key
+                                           # tile all masked
+    (1, 100, 77, 8, 2, 80, 0, False),      # G = 4, Sq != Sk, not causal
 ])
 def test_wgmma_bwd_arithmetic_matches_the_exact_gradient(B, Sq, Sk, Hq, Hkv,
                                                          Dh, window, causal):
@@ -734,9 +775,40 @@ def test_cuda_flash_matches_plain_version(cuda_device, B, S, Hq, Hkv, Dh,
     routes[route] += 1
     assert fa.KERNEL.route_launches == routes
     assert route == ("simt" if dtype == torch.float32 else
-                     "wgmma" if Dh in (64, 128, 256) else "mma_sync")
+                     "wgmma" if Dh in (64, 80, 128, 256) else "mma_sync")
     want = tref.flash_attention(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+
+
+def test_route_codes_name_every_forward_route():
+    """The C entry takes the route by code: every route has one, and the
+    codes are the C rule's (0 SIMT, 1 mma.sync, 2 wgmma)."""
+    assert set(fa.ROUTE_CODES) == set(fa.ROUTES)
+    assert fa.ROUTE_CODES == {"simt": 0, "mma_sync": 1, "wgmma": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh", [80, 128])
+def test_cuda_flash_forced_mma_sync_runs_where_the_rule_gives_wgmma(
+        cuda_device, monkeypatch, Dh):
+    """A call forced onto mma_sync through the route rule (as the smoke
+    times the old route) runs and is counted there, within the bf16
+    tolerance of the plain version; the C entry refuses wgmma at a head
+    dim it has no tile for."""
+    q, k, v = _qkv(Dh, 2, 130, 8, 2, Dh, torch.bfloat16, device=cuda_device)
+    monkeypatch.setattr(fa, "flash_route", lambda *_: "mma_sync")
+    before = dict(fa.KERNEL.route_launches)
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.route_launches == {
+        r: n + (r == "mma_sync") for r, n in before.items()}
+    want = tref.flash_attention(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **CUDA_TOL[torch.bfloat16])
+    q, k, v = _qkv(0, 1, 64, 4, 1, 96, torch.bfloat16, device=cuda_device)
+    monkeypatch.setattr(fa, "flash_route", lambda *_: "wgmma")
+    with pytest.raises(RuntimeError):
+        fa.flash_attention(q, k, v)
 
 
 @pytest.mark.gpu
@@ -857,14 +929,14 @@ def test_cuda_flash_bwd_matches_plain_version_and_exact_gradient(
     fails the limit rather than raise it.  Two calls give the same bits;
     one call counts
     one launch, under the route ``flash_bwd_route`` gives (wgmma at Dh 64,
-    128 and 256, mma_sync at 16 and 80)."""
+    80, 128 and 256, mma_sync at 16)."""
     q, k, v = _qkv(S + Dh, B, S, Hq, Hkv, Dh, torch.bfloat16,
                    device=cuda_device, Sk=Sk)
     do = _randn(np.random.default_rng(S), tuple(q.shape), torch.bfloat16,
                 device=cuda_device)
     o, lse = fa._forward_cuda(q, k, v, causal, window, True)
     route = fa.flash_bwd_route(torch.bfloat16, Dh)
-    assert route == ("wgmma" if Dh in (64, 128, 256) else "mma_sync")
+    assert route == ("wgmma" if Dh in (64, 80, 128, 256) else "mma_sync")
     before = (fa.BWD_KERNEL.launches, dict(fa.BWD_KERNEL.route_launches))
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                  window=window)
@@ -893,7 +965,7 @@ def test_cuda_flash_bwd_matches_plain_version_and_exact_gradient(
                                    (64, 10)])
 def test_cuda_flash_forward_lse_is_deterministic_and_matches_plain(
         cuda_device, Dh, Hq):
-    """The forward's lse (wgmma at Dh 64, 128 and 256, mma_sync at 80;
+    """The forward's lse (wgmma at Dh 64, 80, 128 and 256;
     G = 4, and G = 3 and 5, where 128 packed rows leave 2 and 3 of a tile
     empty) within 1e-4 of the plain version's, and the same bits in a
     second call (the backward's recompute under remat relies on it); the

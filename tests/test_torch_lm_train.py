@@ -318,6 +318,37 @@ def test_train_cli_runs_lm_on_the_cpu(capsys):
     assert "step     0 loss" in out and "straggler summary" in out
 
 
+def test_train_cli_cuts_depth_chunks_the_loss_and_donates(capsys,
+                                                         monkeypatch,
+                                                         tmp_path):
+    """``--layers`` keeps the first N layers at full width, a config with
+    no ``loss_chunk`` gets ``LM_LOSS_CHUNK``, and AdamW's state is handed
+    to each step unless ``--ckpt`` needs it: the config and the flag
+    train_step sees, and the same losses both ways (the donated step is
+    the same bits)."""
+    seen = []
+    inner = tlaunch.train_step
+
+    def step(cfg, *a, **kw):
+        seen.append((cfg.n_layers, cfg.loss_chunk, cfg.d_model,
+                     kw.get("donate")))
+        return inner(cfg, *a, **kw)
+
+    monkeypatch.setattr(tlaunch, "train_step", step)
+    argv = ["--arch", "stablelm-3b", "--smoke", "--steps", "2", "--layers",
+            "1", "--seq", "64", "--device", "cpu"]
+    donated = tlaunch.train_lm(tlaunch.parse_args(argv))
+    functional = tlaunch.train_lm(tlaunch.parse_args(
+        argv + ["--ckpt", str(tmp_path)]))
+    full = tconfigs.get_config("stablelm-3b", smoke=True)
+    assert full.loss_chunk == 0
+    chunk = tlaunch.LM_LOSS_CHUNK
+    assert seen == ([(1, chunk, full.d_model, True)] * 2
+                    + [(1, chunk, full.d_model, False)] * 2)
+    assert functional == donated
+    assert "step     0 loss" in capsys.readouterr().out
+
+
 def test_train_cli_runs_gnn_on_the_cpu(capsys):
     tlaunch.main(["--gnn", "sage", "--max-vertices", "2000", "--steps", "2",
                   "--device", "cpu"])

@@ -332,6 +332,8 @@ def test_attention_work_formulas():
     ("wgmma", (1, 77, 6, 2, 128), 0.08837890625,
      8 * 2 * 4 * 64 + 2 * 77 * 6 * 128),
     ("wgmma", (1, 3, 80, 1, 64), 0.125, 8 * 2 * 3 * 64),
+    ("wgmma", (2, 77, 4, 2, 80), 0.11181640625,
+     8 * 2 * 2 * 3 * 64 + 2 * 2 * 77 * 4 * 80),
 ])
 def test_scratch_rule_gives_the_c_rules_worked_cases(route, shape, scale,
                                                      want):
@@ -470,7 +472,8 @@ def test_scratch_rule_equals_the_librarys(cuda_device):
     for route in fa.BWD_ROUTES:
         for B, Sq, Hq, Hkv, Dh in ((2, 77, 4, 1, 256), (1, 77, 6, 2, 128),
                                    (4, 4096, 48, 8, 128), (1, 3, 80, 1, 64),
-                                   (4, 4096, 4, 1, 256)):
+                                   (4, 4096, 4, 1, 256), (2, 77, 4, 2, 80),
+                                   (4, 4096, 32, 32, 80)):
             scale = float(torch.tensor(Dh ** -0.5, dtype=torch.bfloat16))
             assert fa.scratch_rule(route, B, Sq, Hq, Hkv, Dh, scale) == \
                 fa.bwd_scratch_bytes(route, B, Sq, Hq, Hkv, Dh, scale)
