@@ -377,6 +377,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -893,8 +894,8 @@ def routed_gather_bytes(shards, owner, local) -> int:
     read once, every output row written."""
     import torch
 
-    k, R, D = shards.shape
-    row = D * shards.element_size()
+    k, (R, D) = len(shards), shards[0].shape
+    row = D * shards[0].element_size()
     hit = owner >= 0
     flat = (owner[hit].clamp_max(k - 1).to(torch.int64) * R
             + local[hit].clamp(0, R - 1).to(torch.int64))
@@ -908,8 +909,9 @@ def routed_sample_bytes(indptr, indices, owner, local, rand) -> int:
     neighbor id sampled read once, the output written."""
     import torch
 
+    indptr = torch.stack(list(indptr))  # the shards' rows, for counting
     k, R1 = indptr.shape
-    E = indices.shape[1]
+    E = indices[0].shape[0]
     n, f = rand.shape
     own = owner >= 0
     o = owner[own].clamp_max(k - 1).to(torch.int64)
@@ -924,17 +926,27 @@ def routed_sample_bytes(indptr, indices, owner, local, rand) -> int:
     return n * 8 + entries * 8 + n * f * 8 + reads * 4 + n * f * 4
 
 
+def separate_copies(torch, shards, step: int):
+    """Each shard copied into an allocation of its own, shard ``i`` at
+    ``i * step`` bytes (mod 16) past a 16-byte boundary (``offset_copy``)."""
+    return [offset_copy(torch, t, i * step % 16)
+            for i, t in enumerate(shards)]
+
+
 def routed_gather_cases(torch, ctx, seed: int = 3):
     """One mesh position's routed gather of the real sharded step (clique
-    0's shard stack, position (0, 0)'s routing), in bf16, at D = 100, all
-    misses, every hit owned by one shard, and owners and slots past the
-    end."""
+    0's shards, one allocation each, position (0, 0)'s routing), in bf16,
+    at D = 100, all misses, every hit owned by one shard, owners and slots
+    past the end, the shards copied to separate allocations at other
+    16-byte boundaries and at 4-byte offsets (the kernel's 4-byte copies),
+    and the shard table in a shuffled order."""
     sh = ctx["shard"]
     shards, owner, local = sh["shards"], sh["owner"], sh["local"]
-    k, R, D = shards.shape
-    dev = shards.device
+    k, (R, D) = len(shards), shards[0].shape
+    dev = owner.device
     gen = torch.Generator(device=dev).manual_seed(seed)
-    s100 = torch.randn((k, 50_000, 100), generator=gen, device=dev)
+    s100 = [torch.randn((50_000, 100), generator=gen, device=dev)
+            for _ in range(k)]
     one = torch.where(owner >= 0, torch.full_like(owner, k - 1), owner)
     bad_o, bad_l = owner.clone(), local.clone()
     bad_o[1::97] = k + 1
@@ -942,18 +954,25 @@ def routed_gather_cases(torch, ctx, seed: int = 3):
     bad_l[2::89] = -3
     cases = {
         "position_f32": (shards, owner, local),
-        "position_bf16": (shards.to(torch.bfloat16), owner, local),
+        "position_bf16": ([s.to(torch.bfloat16) for s in shards], owner,
+                          local),
         "d100_f32": (s100, owner, local % 50_000),
         "all_misses": (shards, torch.full_like(owner, -1), local),
         "one_owner": (shards, one, local),
         "out_of_range": (shards, bad_o, bad_l),
+        "separate_allocations": (separate_copies(torch, shards, 0), owner,
+                                 local),
+        "separate_4B_offsets": (separate_copies(torch, shards, 4), owner,
+                                local),
+        "shuffled_table": (shards[::-1], owner, local),
     }
-    flat = shards.reshape(k * R, D)
+    # the stacked form, for the library call: one index_select
+    flat = torch.cat(shards)
     lib_idx = (owner.clamp(0, k - 1).to(torch.int64) * R
                + local.clamp(0, R - 1).to(torch.int64))
     timed = [("position", cases["position_f32"],
               routed_gather_bytes(shards, owner, local),
-              ("torch.index_select(shards.reshape(-1, D), 0, flat_idx)",
+              ("torch.index_select(stacked_shards, 0, flat_idx)",
                lambda: torch.index_select(flat, 0, lib_idx)))]
     return cases, timed
 
@@ -965,7 +984,7 @@ def routed_neighbor_sample_cases(torch, ctx, seed: int = 4):
     sh = ctx["shard"]
     ip, ix = sh["indptr"], sh["indices"]
     (o1, l1, r1), hop0 = sh["hop1"], sh["hop0"]
-    k, R1 = ip.shape
+    k, R1 = len(ip), ip[0].shape[0]
     near = r1.clone()
     near[::3] = (1 << 31) - 1 - torch.arange(
         near[::3].shape[0], device=near.device)[:, None]
@@ -979,6 +998,9 @@ def routed_neighbor_sample_cases(torch, ctx, seed: int = 4):
         "draws_near_2^31": (ip, ix, o1, l1, near),
         "out_of_range": (ip, ix, bad_o, bad_l, r1),
         "all_misses": (ip, ix, torch.full_like(o1, -1), l1, r1),
+        "separate_offsets": (separate_copies(torch, ip, 8),
+                             separate_copies(torch, ix, 4), o1, l1, r1),
+        "shuffled_table": (ip[::-1], ix[::-1], o1, l1, r1),
     }
     timed = [("hop1", cases["hop1"], routed_sample_bytes(*cases["hop1"]),
               None),
@@ -998,6 +1020,7 @@ def routed_chain_bytes(indptr, indices, topo_owner, topo_local, seeds,
 
     from repro_torch.kernels import ref
 
+    indptr, indices = torch.stack(list(indptr)), torch.stack(list(indices))
     k, R1 = indptr.shape
     E = indices.shape[1]
     N = topo_owner.shape[0]
@@ -1032,11 +1055,12 @@ def routed_chain_bytes(indptr, indices, topo_owner, topo_local, seeds,
 def chain_edge_cases(torch, np, sample, seed: int = 7) -> dict:
     """The chain at the sharded position's shape with 1 and 3 hops, seeds
     of -1, uncached seeds, degree-0 rows (every slot routed to the pad
-    row), all misses, an empty topology cache, draws near 2^31, and owners
-    and slots out of range."""
+    row), all misses, an empty topology cache, draws near 2^31, owners
+    and slots out of range, the CSR shards copied to separate allocations
+    at other offsets, and the shard table in a shuffled order."""
     ip, ix, owner, local, seeds, (r0, r1) = sample["chain"]
     dev = seeds.device
-    k, R1 = ip.shape
+    k, R1 = len(ip), ip[0].shape[0]
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def draws(n, fanouts):
@@ -1075,21 +1099,27 @@ def chain_edge_cases(torch, np, sample, seed: int = 7) -> dict:
         "all_misses": (ip, ix, torch.full_like(owner, -1), local, seeds,
                        [r0, r1]),
         "empty_topology_cache": (
-            torch.zeros((k, 1), dtype=torch.int64, device=dev),
-            torch.zeros((k, 1), dtype=torch.int32, device=dev),
+            [torch.zeros(1, dtype=torch.int64, device=dev)] * k,
+            [torch.zeros(1, dtype=torch.int32, device=dev)] * k,
             torch.full_like(owner, -1), local, seeds, [r0, r1]),
         "draws_near_2^31": (ip, ix, owner, local, seeds, [near0, near1]),
         "out_of_range": (ip, ix, bad_o, bad_l, seeds, [r0, r1]),
+        "separate_offsets": (separate_copies(torch, ip, 8),
+                             separate_copies(torch, ix, 4), owner, local,
+                             seeds, [r0, r1]),
+        "shuffled_table": (ip[::-1], ix[::-1], owner, local, seeds,
+                           [r0, r1]),
     }
 
 
-def per_hop_composition(cache, seeds, fanouts, rands):
+def per_hop_composition(cache, seeds, fanouts, rands, position=None):
     """The chain as it ran before the chain kernel: ``device_sample_cached``
     hop after hop (routing glue, pageable upload of the draws, the per-hop
     kernel), each hop fed the previous hop's device output."""
     frontier = seeds
     for f, r in zip(fanouts, rands):
-        out, _ = cache.device_sample_cached(frontier, f, rand=r)
+        out, _ = cache.device_sample_cached(frontier, f, rand=r,
+                                            position=position)
         frontier = out.reshape(-1)
 
 
@@ -1141,17 +1171,16 @@ def check_and_time_chain(torch, np, k, measured, contexts, flush,
     for shape, c in contexts.items():
         cases[f"chain_{shape}"] = c["chain"]
     for name, args in cases.items():
-        snap = [t.clone() for t in args[:5]] + [r.clone() for r in args[5]]
+        snap = [t.clone() for t in _tensors(args)]
         got_o, got_h = gather.routed_neighbor_sample_chain(*args)
-        want_o, want_h = ref.routed_neighbor_sample_chain(*args)
+        want_o, want_h = ref.routed_neighbor_sample_chain_peer(*args)
         torch.cuda.synchronize()
         if len(got_o) != len(args[5]) or not all(
                 a.dtype == b.dtype and torch.equal(a, b)
                 for a, b in zip(got_o + got_h, want_o + want_h)):
             raise AssertionError(f"routed_neighbor_sample_chain != plain "
                                  f"version on case {name}")
-        if not all(torch.equal(a, b)
-                   for a, b in zip(list(args[:5]) + list(args[5]), snap)):
+        if not all(torch.equal(a, b) for a, b in zip(_tensors(args), snap)):
             raise AssertionError("routed_neighbor_sample_chain wrote one of "
                                  f"its inputs (case {name})")
         measured["errs"][f"chain:{name}"] = 0.0
@@ -1167,7 +1196,7 @@ def check_and_time_chain(torch, np, k, measured, contexts, flush,
         for _ in range(2):  # kernel, plain, per-hop kernels, first hop
             r = [time_ms(torch, gather.routed_neighbor_sample_chain, args,
                          TIMED_LAUNCHES, flush),
-                 time_ms(torch, ref.routed_neighbor_sample_chain, args,
+                 time_ms(torch, ref.routed_neighbor_sample_chain_peer, args,
                          TIMED_LAUNCHES, flush),
                  sum(time_ms(torch, gather.routed_neighbor_sample, h,
                              TIMED_LAUNCHES, flush) for h in c["hops"]),
@@ -1175,9 +1204,13 @@ def check_and_time_chain(torch, np, k, measured, contexts, flush,
                          TIMED_LAUNCHES, flush)]
             runs.append(r)
         mean = [float(np.mean([r[i] for r in runs])) for i in range(4)]
-        per_hop = composition_cost(torch, per_hop_composition, n_args, flush)
-        chain = composition_cost(torch, c["cache"].device_sample_chain,
-                                 n_args[1:], flush)
+        per_hop = composition_cost(
+            torch, functools.partial(per_hop_composition,
+                                     position=c["position"]), n_args, flush)
+        chain = composition_cost(
+            torch, functools.partial(c["cache"].device_sample_chain,
+                                     position=c["position"]), n_args[1:],
+            flush)
         nbytes = routed_chain_bytes(*args)
         res = {"ms": mean[0], "plain_ms": mean[1], "library_ms": None,
                "library_call": None,
@@ -1476,6 +1509,18 @@ def _split(args) -> tuple:
     return args, {}
 
 
+def _tensors(args) -> list:
+    """Every tensor among a case's positional arguments, those in a list
+    (a clique's shards, a chain's draws) included."""
+    out = []
+    for a in args:
+        if isinstance(a, (list, tuple)):
+            out += _tensors(a)
+        elif hasattr(a, "clone"):
+            out.append(a)
+    return out
+
+
 def check_and_time(torch, np, k, ctx, flush, card) -> dict:
     """Checks of one kernel against its plain version on every case —
     bitwise, or within ``TOLERANCE[name][dtype]`` (rtol + atol) for the
@@ -1489,7 +1534,7 @@ def check_and_time(torch, np, k, ctx, flush, card) -> dict:
     cases, timed = KERNEL_CASES[k.name](torch, ctx)
     tol = TOLERANCE.get(k.name)
     snapshots = {id(t): t.clone() for args in cases.values()
-                 for t in _split(args)[0]}
+                 for t in _tensors(_split(args)[0])}
     errs, routes = {}, {}
     for name, args in cases.items():
         a, kw = _split(args)
@@ -1556,7 +1601,7 @@ def check_and_time(torch, np, k, ctx, flush, card) -> dict:
               + (f", {flops[0] / 1e9:.2f} GFLOP" if flops else "")
               + f") runs {runs} | {card}")
     for args in cases.values():
-        for t in _split(args)[0]:
+        for t in _tensors(_split(args)[0]):
             if not torch.equal(t, snapshots[id(t)]):
                 raise AssertionError(f"{k.name} wrote one of its inputs")
     if tol is None and k.kernel.route_launches:
@@ -4356,37 +4401,44 @@ def sharded_specs(np, g, plan, cfg, seed: int):
 
 
 def upload_packed(torch, np, plan, groups, feat_dim: int):
-    """pack_sharded_specs -> (the hierarchical shard stack, the packed
-    arrays on the card, host bytes of miss_rows)."""
-    from repro_torch.core.unified_cache import stack_hierarchical_shards
+    """pack_sharded_specs -> (each clique's epoch-pinned shards, each mesh
+    position's slice of the packed arrays on its card (the one-card mesh),
+    host bytes of miss_rows), as ``train_gnn``'s finalize resolves them."""
+    from repro_torch.launch.mesh import make_hierarchical_mesh
     from repro_torch.train.batch import pack_sharded_specs
+    from repro_torch.train.loop import position_parts
 
     packed = pack_sharded_specs(groups, feat_dim)
     epochs = [int(e) for e in packed.pop("cache_epochs")]
-    stack = stack_hierarchical_shards(plan.caches, epochs)
+    shards = [c.sharded_device_arrays(e)["feat_shards"]
+              for c, e in zip(plan.caches, epochs)]
     miss_bytes = packed["miss_rows"].nbytes
-    return stack, {k: torch.from_numpy(v).cuda()
-                   for k, v in packed.items()}, miss_bytes
+    mesh = make_hierarchical_mesh(plan.partition.cliques)
+    return shards, position_parts(packed, mesh), miss_bytes
 
 
-def chain_context(torch, np, cache, seeds, fanouts, seed: int) -> dict:
+def chain_context(torch, np, cache, seeds, fanouts, seed: int,
+                  position=None) -> dict:
     """Inputs of one sampling chain on ``cache`` (sharded topology mode):
     the seeds and the sampler's draws (numpy, as ``cache_sample_dispatch``
     draws them: int64 in [0, 2^31)), the chain kernel's arguments on the
     card, and each hop's arguments of the per-hop kernel on the same draws
     (the routing glue of ``device_sample_cached``, hop 1's frontier sampled
-    with the plain version)."""
+    with the plain version).  ``position``: a clique position of the
+    sharded residency (its CSR shards, one allocation each, and its
+    routing copy), else the flat residency's stacked CSR rows."""
     from repro_torch.kernels import ref
 
-    da = cache.device_arrays()
     rng = np.random.default_rng(seed)
     seeds = np.asarray(seeds, dtype=np.int64)
     rands, n = [], len(seeds)
     for f in fanouts:
         rands.append(rng.integers(0, 1 << 31, size=(n, f)))
         n *= f
-    ip, ix = da["topo_shard_indptr"], da["topo_shard_indices"]
-    routing = (ip, ix, da["topo_owner"], da["topo_local"])
+    _, ip, ix, topo_owner, topo_local = cache._position_topology(position)
+    ip, ix = list(ip), list(ix)
+    da = {"topo_owner": topo_owner, "topo_local": topo_local}
+    routing = (ip, ix, topo_owner, topo_local)
     chain = (*routing, torch.from_numpy(seeds).cuda(),
              [torch.from_numpy(r).cuda() for r in rands])
     hops, frontier = [], chain[4]
@@ -4395,32 +4447,36 @@ def chain_context(torch, np, cache, seeds, fanouts, seed: int) -> dict:
         owner = torch.where(frontier >= 0, da["topo_owner"][safe], -1)
         local = da["topo_local"][safe].to(torch.int32)
         hops.append((ip, ix, owner.contiguous(), local.contiguous(), r))
-        frontier = ref.routed_neighbor_sample_dense(*hops[-1]).reshape(-1) \
+        frontier = ref.routed_neighbor_sample_peer(*hops[-1]).reshape(-1) \
             .to(torch.int64)
     return {"cache": cache, "seeds": seeds, "rands": rands,
-            "fanouts": tuple(fanouts), "chain": chain, "hops": hops}
+            "fanouts": tuple(fanouts), "chain": chain, "hops": hops,
+            "position": position}
 
 
 def shard_context(torch, np, g, plan, cfg, card) -> dict:
     """Kernel inputs taken from a real sharded step at paper width: clique
-    0's shard stack and position (0, 0)'s routing for ``routed_gather``;
-    clique 0's CSR shards, position (0, 0)'s 2000 seeds and the sampler's
-    draws (2000 x 25, then 50,000 x 10) for ``routed_neighbor_sample``: the
-    chain, and its hop 0 and hop 1 on the per-hop kernel."""
+    0's shards (one allocation each) and position (0, 0)'s routing for
+    ``routed_gather``; clique 0's CSR shards, position (0, 0)'s 2000 seeds
+    and the sampler's draws (2000 x 25, then 50,000 x 10) for
+    ``routed_neighbor_sample``: the chain, and its hop 0 and hop 1 on the
+    per-hop kernel."""
     groups, _ = sharded_specs(np, g, plan, cfg, seed=5)
-    stack, packed, _ = upload_packed(torch, np, plan, groups, g.feat_dim)
+    shards, parts, _ = upload_packed(torch, np, plan, groups, g.feat_dim)
     sample = chain_context(torch, np, plan.caches[0],
-                           groups[0][0].levels[0], cfg.fanouts, seed=6)
+                           groups[0][0].levels[0], cfg.fanouts, seed=6,
+                           position=0)
     hop0, hop1 = (h[2:] for h in sample["hops"])
-    ctx = {"shards": stack[0], "owner": packed["owner"][0, 0],
-           "local": packed["local"][0, 0], "indptr": sample["chain"][0],
+    ctx = {"shards": list(shards[0]), "owner": parts[0, 0]["owner"],
+           "local": parts[0, 0]["local"], "indptr": sample["chain"][0],
            "indices": sample["chain"][1], "hop0": hop0, "hop1": hop1,
            "sample": sample}
     s = groups[0][0]
     n = s.n_ids
     peer = int((s.owner[:n] >= 0).sum() - (s.owner[:n] == 0).sum())
     print(f"[kernel] sharded step, position (0, 0): n_pad="
-          f"{ctx['owner'].numel()} stack={tuple(stack.shape)} unique={n} "
+          f"{ctx['owner'].numel()} shards="
+          f"{[tuple(t.shape) for t in shards[0]]} unique={n} "
           f"local hits={int((s.owner[:n] == 0).sum())} peer hits={peer} "
           f"misses={s.n_miss}; hop 0 {tuple(hop0[2].shape)}, hop 1 "
           f"{tuple(hop1[2].shape)} | {card}")
@@ -4444,11 +4500,10 @@ def shard_breakdown(torch, np, g, plan, cfg, params, n: int):
     step and one mesh position after the other (the pipeline runs the four
     positions' sample and fill on four threads), each layer closed by a
     device synchronize.  Returns (layer ms, host bytes of miss_rows)."""
-    from repro_torch.core.unified_cache import stack_hierarchical_shards
     from repro_torch.launch.mesh import make_hierarchical_mesh
     from repro_torch.train.batch import (ShardedBatchBuilder,
                                          pack_sharded_specs)
-    from repro_torch.train.loop import sharded_position_batch
+    from repro_torch.train.loop import position_parts, sharded_position_batch
     from repro_torch.train.optimizer import (adamw, apply_updates,
                                              tree_leaves, tree_map)
 
@@ -4484,12 +4539,13 @@ def shard_breakdown(torch, np, g, plan, cfg, params, n: int):
             builders[d].release_spec(specs[d])
         miss_bytes = packed["miss_rows"].nbytes
         t.append(time.perf_counter())
-        stack = stack_hierarchical_shards(
-            bplan.caches, [int(e) for e in packed.pop("cache_epochs")])
-        pt = {k: torch.from_numpy(v).cuda() for k, v in packed.items()}
+        shards = [c.sharded_device_arrays(int(e))["feat_shards"]
+                  for c, e in zip(bplan.caches, packed.pop("cache_epochs"))]
+        parts = position_parts(packed, mesh)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        batches = [sharded_position_batch(stack[ci], pt, ci, gi, g.feat_dim)
+        batches = [sharded_position_batch(shards[ci], parts[ci, gi],
+                                          g.feat_dim)
                    for ci, gi in mesh.positions()]
         torch.cuda.synchronize()
         t.append(time.perf_counter())
@@ -4508,6 +4564,73 @@ def shard_breakdown(torch, np, g, plan, cfg, params, n: int):
         for k, a, c in zip(times, t, t[1:]):
             times[k].append((c - a) * 1e3)
     return {k: float(np.median(v)) for k, v in times.items()}, miss_bytes
+
+
+def shard_binding(caches) -> str:
+    """The cards a sharded run's caches span and, per card, the shard
+    allocations there (feature and CSR shards: count and MB)."""
+    per = {}
+    for ci, c in enumerate(caches):
+        sa = c.sharded_device_arrays()
+        for k in ("feat_shards", "topo_shard_indptr", "topo_shard_indices"):
+            for t in sa.get(k, ()):
+                n, b = per.get(str(t.device), (0, 0))
+                per[str(t.device)] = (n + 1,
+                                      b + t.numel() * t.element_size())
+    cards = sorted(per)
+    bound = [[str(d) for d in c.shard_devices] for c in caches]
+    return (f"clique positions on {bound} ({len(cards)} card(s)); shard "
+            f"allocations per card "
+            + ", ".join(f"{d}: {n} ({b / 1e6:.1f} MB)"
+                        for d, (n, b) in per.items()))
+
+
+def epoch_change_steps(np, res) -> str:
+    """The step times of a run around its refreshes, against the run's
+    median: a refresh labelled step s runs as batch s is built, so step
+    s - 1 waits for it and finalizes the first batch of the new epoch;
+    then steps s, s + 1."""
+    st = np.array(res.step_times) * 1e3
+    near = sorted({i for e in res.refresh.get("events", [])
+                   for i in range(e["step"] - 1, e["step"] + 2)
+                   if 0 <= i < len(st)})
+    return (f"step median {np.median(st):.2f} ms; steps around the "
+            f"refreshes " + ", ".join(f"{i}: {st[i]:.2f} ms" for i in near))
+
+
+def cross_card_phase(torch, np, g, splan, cfg, kw, one_card, card,
+                     phase_launches, phase_routes) -> None:
+    """Phase 10's sharded run again with each clique's positions on
+    distinct cards (all four on their own where the host has four), its
+    losses and accuracies held bitwise to the one-card run ``one_card``;
+    with one card, says that it was not run and why."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.train.loop import train_gnn
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"[cross-card] not run: this host has {n} CUDA card; the "
+              f"2 x 2 mesh across cards needs two or more (the one-card "
+              f"run above bound every position to cuda:0) | {card}")
+        return
+    binding = ([f"cuda:{i}" for i in range(4)] if n >= 4
+               else ["cuda:0", "cuda:1", "cuda:0", "cuda:1"])
+    cplan = fresh_copy(splan)
+    zero_launches(KERNELS)
+    res = train_gnn(g, cplan, cfg, steps=SHARD_PARITY_STEPS,
+                    backend="sharded", **dict(kw, device=binding))
+    phase_launches["cross-card"] = read_launches(KERNELS)
+    phase_routes["cross-card"] = read_routes(KERNELS)
+    if res.losses != one_card.losses or res.accs != one_card.accs:
+        raise AssertionError(f"across cards {res.losses} != one card "
+                             f"{one_card.losses}")
+    n_pos = sum(len(c) for c in splan.partition.cliques)
+    expect_chains("cross-card", phase_routes["cross-card"],
+                  n_pos * SHARD_PARITY_STEPS)
+    print(f"[cross-card] phase 10 with positions on {binding}: losses and "
+          f"accuracies bitwise the one-card run's; "
+          f"{shard_binding(cplan.caches)}; {epoch_change_steps(np, res)} "
+          f"| {card}")
 
 
 # ---- the LM serving path (phases 11-13) -------------------------------------
@@ -5648,6 +5771,9 @@ def main() -> int:
                                                  drift_threshold=1.0))
     rplan = fresh_copy(splan)
     sc = TrafficCounter.for_plan(rplan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     zero_launches(KERNELS)
     t0 = time.perf_counter()
     res = train_gnn(g, rplan, GRAPHSAGE, steps=SHARD_STEPS, counter=sc,
@@ -5655,6 +5781,8 @@ def main() -> int:
     wall = time.perf_counter() - t0
     phase_launches["shard"] = read_launches(KERNELS)
     phase_routes["shard"] = read_routes(KERNELS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
     if len(res.losses) != SHARD_STEPS or not np.isfinite(res.losses).all():
         raise AssertionError(f"sharded losses: {res.losses}")
     ref = res.refresh
@@ -5690,6 +5818,10 @@ def main() -> int:
               f"{e['evicted']} topo_rebuilt {e['topo_rebuilt']} | {card}")
     print(f"[shard] cache epochs {[c.epoch for c in rplan.caches]}; launches "
           f"{phase_launches['shard']} | {card}")
+    print(f"[shard] binding: {shard_binding(rplan.caches)} | {card}")
+    print(f"[shard] device memory at the run's peak {peak / 2**30:.3f} GiB "
+          f"above the {held / 2**30:.3f} GiB held before it; "
+          f"{epoch_change_steps(np, res)} | {card}")
     print(f"[shard] cross-clique bytes: features {cross[0]}, topology "
           f"{cross[1]}; per clique (local, peer, host-fill) bytes "
           f"{[(x['local_bytes'], x['peer_bytes'], x['host_fill_bytes']) for x in split]}"
@@ -5727,17 +5859,17 @@ def main() -> int:
     clock("10")
     # ---- 10. sharded parity against the device backend ----------------------
     groups, builders = sharded_specs(np, g, splan, cfg_p, seed=8)
-    stack, packed, _ = upload_packed(torch, np, splan, groups, g.feat_dim)
+    shards, parts, _ = upload_packed(torch, np, splan, groups, g.feat_dim)
     for ci, clique in enumerate(cliques):
         for gi, d in enumerate(clique):
-            got = sharded_position_batch(stack[ci], packed, ci, gi,
+            got = sharded_position_batch(shards[ci], parts[ci, gi],
                                          g.feat_dim)
             want = builders[d].finalize(groups[ci][gi])
             if set(got) != set(want) or not all(
                     torch.equal(got[k], want[k]) for k in want):
                 raise AssertionError(f"position ({ci}, {gi}) batch != the "
                                      "device backend's finalize")
-    del stack, packed, builders, groups
+    del shards, parts, builders, groups
     sp_kw = dict(device="cuda", seed=0, params=params,
                  refresh_config=RefreshConfig(interval=4,
                                               drift_threshold=1.0))
@@ -5745,15 +5877,18 @@ def main() -> int:
     dev_run = train_gnn(g, fresh_copy(splan), cfg_p, steps=SHARD_PARITY_STEPS,
                         backend="device", counter=dc, **sp_kw)
     zero_launches(KERNELS)
-    runs = []
+    runs, runs_plans = [], []
     for _ in range(2):
         c = TrafficCounter.for_plan(splan)
-        runs.append((train_gnn(g, fresh_copy(splan), cfg_p,
+        runs_plans.append(fresh_copy(splan))
+        runs.append((train_gnn(g, runs_plans[-1], cfg_p,
                                steps=SHARD_PARITY_STEPS, backend="sharded",
                                counter=c, **sp_kw), c))
     phase_launches["shard-parity"] = read_launches(KERNELS)
     phase_routes["shard-parity"] = read_routes(KERNELS)
     (s1, c1), (s2, _) = runs
+    print(f"[shard-parity] binding: {shard_binding(runs_plans[-1].caches)}; "
+          f"{epoch_change_steps(np, s1)} | {card}")
     if s1.losses != s2.losses or s1.accs != s2.accs:
         raise AssertionError(f"sharded reruns differ: {s1.losses} vs "
                              f"{s2.losses}")
@@ -5792,6 +5927,12 @@ def main() -> int:
           f"{s1.refresh['admitted']}; per-position batches bitwise equal to "
           f"the fused finalize | {card}")
     print(f"[shard-parity] sharded losses {s1.losses} | {card}")
+    del runs_plans
+
+    clock("10x")
+    # ---- 10x. phase 10's sharded run with positions on distinct cards -----
+    cross_card_phase(torch, np, g, splan, cfg_p, sp_kw, s1, card,
+                     phase_launches, phase_routes)
 
     clock("10b, 10c, 10d")
     # ---- 10b, 10c and 10d. the tiered store, telemetry, resilience --------

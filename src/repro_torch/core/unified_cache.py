@@ -9,7 +9,9 @@ Structures (per clique):
 
 The host mirrors are numpy; ``device_arrays`` uploads them once as torch
 tensors on one explicit device (the GPU's HBM, or the CPU when a caller
-asks for it).  ``TrafficCounter`` accounts every miss in PCIe transactions
+asks for it), and ``sharded_device_arrays`` once more in the partitioned
+form of the sharded executor, each shard on the card of the mesh position
+that owns it.  ``TrafficCounter`` accounts every miss in PCIe transactions
 with the same CLS granularity as the cost model, and every intra-clique
 remote hit as NVLink traffic.
 """
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +33,16 @@ from repro_torch.utils import device_context, resolve_device
 # CSR stacks), present only in sharded mode
 _SHARD_TOPO_KEYS = ("topo_owner", "topo_local", "topo_shard_indptr",
                     "topo_shard_indices")
+
+
+def _per_card(host: np.ndarray, devs) -> tuple:
+    """A host array uploaded once to every distinct device of ``devs``, as
+    a tuple indexed like ``devs`` (positions sharing a card share a copy)."""
+    copies = {}
+    for d in devs:
+        if d not in copies:
+            copies[d] = torch.tensor(host, device=d)
+    return tuple(copies[d] for d in devs)
 
 
 @dataclasses.dataclass
@@ -208,6 +220,9 @@ class CliqueCache:
         # in-flight batch specs keep gathering from the buffer they indexed
         self.epoch = 0
         self.device: Optional[torch.device] = None  # fixed at first upload
+        # the sharded form's binding: shard gi on shard_devices[gi], fixed
+        # at its first upload
+        self.shard_devices: Optional[Tuple[torch.device, ...]] = None
         self._device_arrays = None
         self._prev_device_arrays = None
         self._sharded_arrays = None
@@ -397,20 +412,45 @@ class CliqueCache:
         return int(np.bincount(self.feat_owner,
                                minlength=len(self.devices)).max())
 
-    def sharded_device_arrays(self, epoch: Optional[int] = None, device=None):
-        """The cache's *partitioned* device residency: the feature table
-        restacked as one shard per clique device, ``feat_shards`` of shape
-        ``(k_g, R, D_padded)`` — row ``local_slot[s]`` of shard
-        ``owner[s]`` is global slot ``s`` — plus the routing tables
-        (``slot_owner``, ``slot_local``) and, in sharded topology mode, the
-        per-shard CSR stacks (the same tensors as ``device_arrays``').
+    def resolve_shard_devices(self, devices) -> Tuple[torch.device, ...]:
+        """``devices`` (one device for every shard, or one per clique
+        position; default ``"cuda"``) as K_g ``torch.device``s."""
+        k_g = len(self.devices)
+        if devices is None or isinstance(devices, (str, torch.device)):
+            devices = ["cuda" if devices is None else devices] * k_g
+        devs = tuple(resolve_device(d) for d in devices)
+        if len(devs) != k_g:
+            raise ValueError(f"{len(devs)} devices bound to the {k_g} shards "
+                             "of one clique")
+        return devs
 
-        Uploaded once, lazily, on the cache's device (``device`` as in
-        ``device_arrays``, whose flat arrays this uploads first).  Every
-        mesh position of a clique reads its own shard and its peers' from
-        this stack.  Same double-buffered epoch pinning as
-        ``device_arrays``: specs built before a refresh finalize against
-        the stack they indexed."""
+    def sharded_device_arrays(self, epoch: Optional[int] = None,
+                              devices=None):
+        """The cache's *partitioned* device residency, one entry per clique
+        position ``gi`` (clique-local device ``gi``), each its own
+        allocation on the card bound to that position:
+
+        * ``feat_shards``: K_g tensors ``(R, D_padded)``, shard ``gi`` on
+          ``devices[gi]``; row ``local_slot[s]`` of shard ``owner[s]`` is
+          global slot ``s`` (every shard pads to the clique's largest R);
+        * ``slot_owner``, ``slot_local``: the routing tables, a copy on
+          every card of the clique (entry ``gi`` on ``devices[gi]``);
+        * in sharded topology mode, ``topo_owner``/``topo_local`` (a copy
+          per card, as the routing) and the per-shard CSR
+          ``topo_shard_indptr`` (K_g of (R+1,) int64) and
+          ``topo_shard_indices`` (K_g of (E,) int32), shard ``gi`` on
+          ``devices[gi]``.
+
+        ``devices``: one device for every shard, or one per position;
+        default ``"cuda"``, which raises without a card.  It fixes the
+        binding on the first call (which also uploads the flat arrays of
+        ``device_arrays`` on ``devices[0]``, the refresh's scatter target);
+        later calls may omit it, and another binding raises.  Each position
+        reads its own shard and its peers' through their base pointers
+        (``kernels.gather.routed_gather``).  Same double-buffered epoch
+        pinning as ``device_arrays``: specs built before a refresh
+        finalize against the shards they indexed, which the retained epoch
+        keeps alive."""
         if self._sharded_arrays is None:
             with self._mat_lock:
                 if self._sharded_arrays is None:
@@ -419,34 +459,69 @@ class CliqueCache:
                             "sharded_device_arrays needs a materialized "
                             "cache (build the plan with "
                             "materialize_caches=True)")
-                    flat = self.device_arrays(device=device)
-                    dev = self.device
-                    k_g = len(self.devices)
+                    devs = (self.resolve_shard_devices(devices)
+                            if self.shard_devices is None
+                            else self.shard_devices)
+                    self.device_arrays(device=devs[0])
                     owner, local = self.shard_routing()
                     R = self.shard_row_count()
                     fc = self.feat_cache
                     D = fc.shape[1]
                     Dp = self._lane_padded(D)
-                    shards = np.zeros((k_g, R, Dp), dtype=np.float32)
+                    shards = np.zeros((len(devs), R, Dp), dtype=np.float32)
                     if len(owner):
                         shards[owner, local, :D] = fc
-                    # copies: owner/local derive from feat_owner, which a
-                    # refresh mutates in place
-                    with device_context(dev):
-                        arrays = {
-                            "feat_shards": torch.from_numpy(shards).to(dev),
-                            "slot_owner": torch.tensor(owner, device=dev),
-                            "slot_local": torch.tensor(local, device=dev),
-                        }
-                    arrays.update({k: flat[k] for k in _SHARD_TOPO_KEYS
-                                   if k in flat})
+                    # copies (torch.tensor always copies): owner/local
+                    # derive from feat_owner, which a refresh mutates in
+                    # place
+                    arrays = {"feat_shards": tuple(
+                        torch.tensor(shards[gi], device=d)
+                        for gi, d in enumerate(devs))}
+                    arrays["slot_owner"] = _per_card(owner, devs)
+                    arrays["slot_local"] = _per_card(local, devs)
+                    arrays.update(self._sharded_topology(devs))
+                    self.shard_devices = devs
                     self._sharded_arrays = arrays
-        if device is not None and resolve_device(device) != self.device:
-            raise ValueError(f"cache arrays live on {self.device}, not "
-                             f"{device}")
+        if devices is not None \
+                and self.resolve_shard_devices(devices) != self.shard_devices:
+            raise ValueError(f"cache shards live on "
+                             f"{[str(d) for d in self.shard_devices]}, not "
+                             f"{devices}")
         return self._epoch_view(self._sharded_arrays,
                                 self._prev_sharded_arrays, epoch,
                                 " in sharded form")
+
+    def _sharded_topology(self, devs) -> dict:
+        """The sharded topology layout bound to ``devs``: the routing tables
+        copied to every card, CSR shard ``gi`` uploaded to ``devs[gi]`` (its
+        own allocation); nothing outside sharded mode."""
+        if self.topo_owner is None or self.topo_shard_indptr is None:
+            return {}
+        out = {k: _per_card(getattr(self, k), devs)
+               for k in ("topo_owner", "topo_local")}
+        for k in ("topo_shard_indptr", "topo_shard_indices"):
+            stack = getattr(self, k)
+            out[k] = tuple(torch.tensor(stack[gi], device=d)
+                           for gi, d in enumerate(devs))
+        return out
+
+    def _position_topology(self, position: Optional[int]) -> tuple:
+        """The topology a sampling chain reads: (device, indptr shards,
+        indices shards, topo_owner, topo_local).  ``position=None`` is the
+        flat residency on ``self.device`` (the device backend: the stacked
+        CSR's rows); a clique position reads the sharded form, its routing
+        copy on its own card and the CSR shards wherever they lie."""
+        if position is None:
+            da = self.device_arrays()
+            return (self.device, da["topo_shard_indptr"].unbind(0),
+                    da["topo_shard_indices"].unbind(0), da["topo_owner"],
+                    da["topo_local"])
+        sa = self._sharded_arrays
+        if sa is None:
+            sa = self.sharded_device_arrays()
+        return (self.shard_devices[position], sa["topo_shard_indptr"],
+                sa["topo_shard_indices"], sa["topo_owner"][position],
+                sa["topo_local"][position])
 
     # ---- online refresh (cache manager API) ----
     def begin_epoch(self) -> int:
@@ -527,9 +602,10 @@ class CliqueCache:
                 new["feat_pos"] = torch.tensor(self.feat_pos, device=dev)
             self._device_arrays = new
         # partitioned view: the routing changed, so drop the memo and, if
-        # the shard stack was uploaded, rebuild it *here*, on the refresh
-        # thread (serialized with spec builds), so consumers only ever see
-        # epoch-pinned stacks.  begin_epoch kept the previous one.
+        # the shards were uploaded, rebuild them *here*, on the refresh
+        # thread (serialized with spec builds), on the same cards, so
+        # consumers only ever see epoch-pinned shards.  begin_epoch kept
+        # the previous epoch's.
         self._shard_routing = None
         if self._sharded_arrays is not None:
             self._sharded_arrays = None
@@ -557,8 +633,7 @@ class CliqueCache:
         if self._sharded_arrays is not None:
             new = {k: v for k, v in self._sharded_arrays.items()
                    if k not in _SHARD_TOPO_KEYS}
-            new.update({k: self._device_arrays[k] for k in _SHARD_TOPO_KEYS
-                        if k in self._device_arrays})
+            new.update(self._sharded_topology(self.shard_devices))
             self._sharded_arrays = new
 
     def feat_ids_by_device(self) -> List[np.ndarray]:
@@ -569,7 +644,8 @@ class CliqueCache:
         return [self.feat_ids[live & (self.feat_owner == gi)]
                 for gi in range(len(self.devices))]
 
-    def device_sample_cached(self, seeds, fanout: int, rand) -> tuple:
+    def device_sample_cached(self, seeds, fanout: int, rand,
+                             position: Optional[int] = None) -> tuple:
         """Fixed-fanout neighbor sampling *on the device* from the
         device-resident topology cache (Legion's GPU sampling).
 
@@ -587,18 +663,27 @@ class CliqueCache:
         exchange, ``kernels.gather.routed_neighbor_sample``: its CUDA kernel
         on a card, its plain version on the CPU.  ``seeds`` may be a numpy
         array or a device tensor (the chained sampler's previous hop).
+        ``position`` (a clique position of the sharded executor) samples
+        on that position's card from the sharded form
+        (``sharded_device_arrays``); ``None`` on ``self.device`` from the
+        flat residency.
         Every index of the replicated path is clamped into range before it
         is used: a CUDA gather asserts on an out-of-range index where XLA
         would clamp.
         Returns (neighbors (B, fanout) int32, hit_mask (B,) bool), both on
-        the cache's device.
+        the sampling device.
         """
         # upload before any early return: the first call happens at
         # spec-build time, serialized with refreshes.  Every topology array
         # below comes from this one snapshot (replace_topology swaps the
         # dict whole), never from the live attributes
         da = self.device_arrays()
-        dev = self.device
+        sharded = self.topology_mode == "sharded"
+        if sharded:
+            dev, ip, ix, topo_owner, topo_local = \
+                self._position_topology(position)
+        else:
+            dev = self.device
         seeds = torch.as_tensor(seeds, device=dev).to(torch.int64)
         n_idx = int(da["cache_indices"].shape[0])
         if n_idx == 0:
@@ -609,13 +694,11 @@ class CliqueCache:
         valid = seeds >= 0
         safe_seed = torch.where(valid, seeds, 0)
         r = torch.as_tensor(np.asarray(rand, dtype=np.int64), device=dev)
-        if self.topology_mode == "sharded":
+        if sharded:
             # the owner is -1 for an invalid seed as for an uncached one
-            owner = torch.where(valid, da["topo_owner"][safe_seed], -1)
-            local = da["topo_local"][safe_seed].to(torch.int32)
-            out = gather.routed_neighbor_sample(
-                da["topo_shard_indptr"], da["topo_shard_indices"], owner,
-                local, r)
+            owner = torch.where(valid, topo_owner[safe_seed], -1)
+            local = topo_local[safe_seed].to(torch.int32)
+            out = gather.routed_neighbor_sample(ip, ix, owner, local, r)
             return out, owner >= 0
         else:
             pos = da["topo_pos"][safe_seed]
@@ -630,7 +713,8 @@ class CliqueCache:
         return torch.where(ok[:, None], out.to(torch.int32), -1), hit
 
     def device_sample_chain(self, seeds, fanouts: Sequence[int],
-                            rands: Sequence[np.ndarray]):
+                            rands: Sequence[np.ndarray],
+                            position: Optional[int] = None):
         """Enqueue every hop's device half back-to-back — *no host sync*.
 
         Hop ``k`` samples directly from hop ``k-1``'s device output, so the
@@ -652,25 +736,30 @@ class CliqueCache:
         on a card, routing included): the seeds and every hop's draws go
         up in one pinned, non-blocking copy, and the results are views of
         one packed buffer, which ``graph.sampling`` reads back with one
-        copy.  The replicated mode samples hop by hop.
+        copy.  ``position`` runs it on that clique position's card against
+        the sharded form, as ``device_sample_cached``.  The replicated mode
+        samples hop by hop.
         """
         if self.topology_mode == "sharded":
-            return self._sharded_chain(seeds, fanouts, rands)
+            return self._sharded_chain(seeds, fanouts, rands, position)
         outs, hits = [], []
         frontier = np.asarray(seeds)
         for f, r in zip(fanouts, rands):
-            out, hit = self.device_sample_cached(frontier, f, rand=r)
+            out, hit = self.device_sample_cached(frontier, f, rand=r,
+                                                 position=position)
             outs.append(out)
             hits.append(hit)
             frontier = out.reshape(-1)
         return outs, hits
 
     def _sharded_chain(self, seeds, fanouts: Sequence[int],
-                       rands: Sequence[np.ndarray]):
+                       rands: Sequence[np.ndarray],
+                       position: Optional[int] = None):
         """``device_sample_chain`` of a sharded topology cache: one upload
-        of the seeds and draws, one chain kernel."""
-        da = self.device_arrays()
-        dev = self.device
+        of the seeds and draws, one chain kernel, on ``position``'s card
+        (``_position_topology``)."""
+        dev, ip, ix, topo_owner, topo_local = \
+            self._position_topology(position)
         seeds = np.asarray(seeds, dtype=np.int64).reshape(-1)
         n = len(seeds)
         parts = [seeds]
@@ -686,12 +775,12 @@ class CliqueCache:
         bounds = np.cumsum([0] + [len(p) for p in parts])
         for p, a, b in zip(parts, bounds, bounds[1:]):
             host[a:b].copy_(torch.from_numpy(p))  # torch's threaded copy
-        up = host.to(dev, non_blocking=True)
-        views = [up[a:b] for a, b in zip(bounds, bounds[1:])]
-        draws = [v.view(-1, f) for v, f in zip(views[1:], fanouts)]
-        return gather.routed_neighbor_sample_chain(
-            da["topo_shard_indptr"], da["topo_shard_indices"],
-            da["topo_owner"], da["topo_local"], views[0], draws)
+        with device_context(dev):
+            up = host.to(dev, non_blocking=True)
+            views = [up[a:b] for a, b in zip(bounds, bounds[1:])]
+            draws = [v.view(-1, f) for v, f in zip(views[1:], fanouts)]
+            return gather.routed_neighbor_sample_chain(
+                ip, ix, topo_owner, topo_local, views[0], draws)
 
     # ---- accounting + extraction ----
     def split_hits(self, ids: np.ndarray):
@@ -806,34 +895,6 @@ class CliqueCache:
         reg.gauge("cache.feat_rows", clique=clique).set(len(self.feat_ids))
         reg.gauge("cache.topo_rows", clique=clique).set(len(self.topo_ids))
         reg.gauge("cache.epoch", clique=clique).set(self.epoch)
-
-
-def stack_hierarchical_shards(caches: Sequence[CliqueCache],
-                              epochs: Sequence[int]) -> torch.Tensor:
-    """Stack every clique's partitioned feature residency into the one
-    tensor the hierarchical executor indexes by ``(pod, clique)`` mesh
-    position: shape ``(K_c, K_g, R_max, D_padded)`` — row ``ci`` is clique
-    ``ci``'s ``sharded_device_arrays(epochs[ci])["feat_shards"]``.
-
-    Each clique plans its own cache, so per-clique row counts differ;
-    shorter stacks zero-pad to the tallest clique's ``R``.  The pad rows
-    are unreachable: every routing entry indexes within its own clique's
-    real rows.  ``epochs`` pins each clique's refresh generation
-    independently (refreshes fire per clique, so one synchronized step may
-    combine different epochs across cliques — never within one)."""
-    if len(caches) != len(epochs):
-        raise ValueError(f"{len(caches)} caches but {len(epochs)} epochs")
-    k_gs = {len(c.devices) for c in caches}
-    if len(k_gs) != 1:
-        raise ValueError(f"ragged clique sizes {sorted(k_gs)}: the "
-                         "hierarchical shard stack needs one uniform K_g")
-    stacks = [c.sharded_device_arrays(int(e))["feat_shards"]
-              for c, e in zip(caches, epochs)]
-    R = max(s.shape[1] for s in stacks)
-    padded = [s if s.shape[1] == R
-              else torch.nn.functional.pad(s, (0, 0, 0, R - s.shape[1]))
-              for s in stacks]
-    return torch.stack(padded)
 
 
 def plan_cache_contents(g: CSRGraph, k_g: int, cslp_res, cost_plan: dict,

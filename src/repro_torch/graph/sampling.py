@@ -59,18 +59,21 @@ def host_sample_batch(g: CSRGraph, seeds: np.ndarray, fanouts: Sequence[int],
 
 
 def cache_sample_level(g: CSRGraph, cache, seeds: np.ndarray, fanout: int,
-                       rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
+                       rng: np.random.Generator, position=None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
     """One sampling level through the unified cache: topology-cache hits
     sample on the device from the cache CSR; only the miss rows fall back
     to the host CSR.  Both halves consume the same random draw, and the
     cache CSR stores adjacency in host order, so the composed level is
-    bit-identical to ``host_sample_level``.
+    bit-identical to ``host_sample_level``.  ``position`` (a clique
+    position of the sharded executor) samples on that position's card.
 
     Returns (neighbors (B, fanout) int64, topo_hit_mask (B,) bool).
     """
     seeds = np.asarray(seeds, dtype=np.int64)
     r = rng.integers(0, 1 << 31, size=(len(seeds), fanout))
-    dev_out, hit = cache.device_sample_cached(seeds, fanout, rand=r)
+    dev_out, hit = cache.device_sample_cached(seeds, fanout, rand=r,
+                                              position=position)
     out, hit = _to_host([dev_out], [hit])
     out, hit = out[0].astype(np.int64), hit[0]
     if (~hit).any():
@@ -133,7 +136,8 @@ def _mirror_sample_level(cache, seeds: np.ndarray, fanout: int,
 
 
 def cache_sample_dispatch(g: CSRGraph, cache, seeds: np.ndarray,
-                          fanouts: Sequence[int], rng: np.random.Generator):
+                          fanouts: Sequence[int], rng: np.random.Generator,
+                          position=None):
     """Phase 1 of the chained cache-aware sampler: draw every hop's
     randomness in host-sampler order and enqueue the whole device chain
     (``CliqueCache.device_sample_chain``) *without reading anything back*.
@@ -156,7 +160,9 @@ def cache_sample_dispatch(g: CSRGraph, cache, seeds: np.ndarray,
     All three replay the exact draws the device half consumed, so the
     composed levels stay bit-identical to ``host_sample_batch``.
     ``counter`` (a ``TrafficCounter``) gets ``host_sample_syncs += 1`` iff
-    the batch touched the host CSR at all.
+    the batch touched the host CSR at all.  ``position`` (a clique
+    position of the sharded executor) runs the chain on that position's
+    card.
     """
     seeds = np.asarray(seeds, dtype=np.int64)
     rands = []
@@ -164,7 +170,8 @@ def cache_sample_dispatch(g: CSRGraph, cache, seeds: np.ndarray,
     for f in fanouts:
         rands.append(rng.integers(0, 1 << 31, size=(n_flat, f)))
         n_flat *= f
-    dev_outs, dev_hits = cache.device_sample_chain(seeds, fanouts, rands)
+    dev_outs, dev_hits = cache.device_sample_chain(seeds, fanouts, rands,
+                                                   position=position)
 
     def resolve(counter=None):
         levels = [seeds]
@@ -213,7 +220,7 @@ def cache_sample_dispatch(g: CSRGraph, cache, seeds: np.ndarray,
 
 def cache_sample_batch(g: CSRGraph, cache, seeds: np.ndarray,
                        fanouts: Sequence[int], rng: np.random.Generator,
-                       chain: bool = True, counter=None
+                       chain: bool = True, counter=None, position=None
                        ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
     """Cache-aware multi-hop sample (device backend of the batch pipeline).
 
@@ -226,11 +233,12 @@ def cache_sample_batch(g: CSRGraph, cache, seeds: np.ndarray,
     ``chain=False`` is the per-hop path (one device sync per hop via
     ``cache_sample_level``), the reference the chained path is tested
     against.  ``counter`` tallies ``host_sample_syncs`` — one per batch
-    whose resolution touched the host CSR, either path.
+    whose resolution touched the host CSR, either path.  ``position`` as
+    for ``cache_sample_dispatch``.
     """
     if chain:
-        return cache_sample_dispatch(g, cache, seeds, fanouts, rng)(
-            counter=counter)
+        return cache_sample_dispatch(g, cache, seeds, fanouts, rng,
+                                     position=position)(counter=counter)
     levels = [np.asarray(seeds, dtype=np.int64)]
     hits: List[np.ndarray] = []
     frontier = levels[0]
@@ -238,7 +246,8 @@ def cache_sample_batch(g: CSRGraph, cache, seeds: np.ndarray,
     touched_host = False
     for f in fanouts:
         flat = frontier.reshape(-1)
-        nxt, hit = cache_sample_level(g, cache, flat, f, rng)
+        nxt, hit = cache_sample_level(g, cache, flat, f, rng,
+                                      position=position)
         touched_host |= bool((~hit & (flat >= 0)).any())
         hits.append(hit)
         shape = shape + (f,)

@@ -10,7 +10,11 @@ may hold several entries, counted by route: ``routed_neighbor_sample``'s
 has the per-hop entry (the wrapper listed here, route ``hop``) and
 ``gather.routed_neighbor_sample_chain`` (route ``chain``), which the
 device-sampling paths run; ``sage_aggregate``'s wrapper takes route
-``vec`` or ``scalar`` by ``sage_agg.sage_route``.
+``vec`` or ``scalar`` by ``sage_agg.sage_route``.  The two routed
+kernels take a clique's shards as separate tensors (a table of base
+pointers, peer cards' included); their plain versions are the ``_peer``
+forms, each bit for bit the reference's dense oracle over the stacked
+shards.
 
 One entry stands for a gradient, not a Pallas kernel: ``flash_attention_bwd``
 (``csrc/flash_attention_bwd.cu``) is the backward of the LM path's
@@ -55,9 +59,9 @@ KERNELS = (
     PortedKernel(scatter.KERNEL, scatter.scatter_rows, ref.scatter_rows,
                  "src/repro/kernels/scatter.py:36"),
     PortedKernel(gather.ROUTED_KERNEL, gather.routed_gather,
-                 ref.routed_gather_dense, "src/repro/kernels/gather.py:80"),
+                 ref.routed_gather_peer, "src/repro/kernels/gather.py:80"),
     PortedKernel(gather.SAMPLE_KERNEL, gather.routed_neighbor_sample,
-                 ref.routed_neighbor_sample_dense,
+                 ref.routed_neighbor_sample_peer,
                  "src/repro/kernels/gather.py:119"),
     PortedKernel(flash_attention.KERNEL, flash_attention.flash_attention,
                  ref.flash_attention,

@@ -148,3 +148,29 @@ class CudaKernel:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {err}")
 
+
+
+# peer access between the cards of one clique (csrc/peer_access.cu): no
+# kernel, one C entry point, built at its first use
+PEER_ACCESS = CudaKernel("peer_access", "csrc/peer_access.cu",
+                         "enable_peer_access", [ctypes.c_int, ctypes.c_int])
+_PEERS_ENABLED: set = set()
+_PEERS_LOCK = threading.Lock()
+
+
+def enable_peer_access(device: int, peer: int) -> None:
+    """Let kernels running on CUDA card ``device`` read card ``peer``'s
+    memory through a plain pointer: one ``cudaDeviceEnablePeerAccess`` per
+    ordered pair for the life of the process (an access PyTorch enabled
+    already counts as enabled).  Raises if the runtime refuses."""
+    key = (int(device), int(peer))
+    if key[0] == key[1]:
+        return
+    with _PEERS_LOCK:
+        if key in _PEERS_ENABLED:
+            return
+        err = PEER_ACCESS.fn()(*key)
+        if err != 0:
+            raise RuntimeError(f"peer access from cuda:{key[0]} to "
+                               f"cuda:{key[1]} refused: cudaError {err}")
+        _PEERS_ENABLED.add(key)

@@ -7,14 +7,18 @@
 // device all-gathers the clique's frontier, samples the rows it owns from
 // its own CSR shard (the Pallas row gather on a D = 1 int32 column), and one
 // `psum` of the +1-shifted samples delivers them to the requesters.  Here
-// the whole clique's CSR stacks are addressable from one process, so the
-// exchange is one pass that decodes the routing itself, per (row i, draw j):
+// each CSR shard is its own pair of allocations on the card of the mesh
+// position that owns it, and the sampling position reads its own shard and
+// its peers' through a table of base pointers (the K_g `indptr` and the K_g
+// `indices` bases: a peer card's memory over NVLink once peer access is on;
+// on one card, plain device memory), so the exchange is one pass that
+// decodes the routing itself, per (row i, draw j):
 //
 //   o     = min(owner[i], K_g - 1)
 //   l     = clamp(local[i], 0, R)          (indptr rows are R + 1 long)
-//   start = indptr[o, l]
-//   deg   = indptr[o, min(l + 1, R)] - start
-//   out[i, j] = indices[o, clamp(start + rand[i, j] mod deg, 0, E - 1)]
+//   start = indptr[o][l]
+//   deg   = indptr[o][min(l + 1, R)] - start
+//   out[i, j] = indices[o][clamp(start + rand[i, j] mod deg, 0, E - 1)]
 //                       if owner[i] >= 0 and deg > 0
 //             = -1      otherwise (a topology miss, or an isolated vertex)
 //
@@ -22,9 +26,12 @@
 // NumPy, JAX and PyTorch compute `%`; the draws are in [0, 2^31), where it
 // equals C's `%`.  The clamps are the reference's (its dense oracle
 // `routed_neighbor_sample_dense`, XLA's clamping gather), and the plain
-// version in kernels/ref.py makes the same ones, so the three agree bit for
-// bit on any input.  Each shard stores its vertices' adjacency in host
-// order, so owned rows equal `host_sample_level` on the same draws.
+// versions in kernels/ref.py (`routed_neighbor_sample_peer`, and the dense
+// form over the stacked shards) make the same ones, so they agree bit for
+// bit on any input.  Every shard of a clique has the clique's common R + 1
+// and E, as each device's array does under the reference's shard_map.
+// Each shard stores its vertices' adjacency in host order, so owned rows
+// equal `host_sample_level` on the same draws.
 //
 // What bounds it: device-memory bytes.  It does integer arithmetic only, a
 // few operations per output.  Per row it reads the routing (8 bytes) and two
@@ -35,7 +42,12 @@
 //
 // Design: one thread per output (i, j), grid-stride; a row's routing and
 // indptr loads are repeated by its f threads, which read neighbouring
-// addresses and hit in L1.  Integer-only, so the result is exact.
+// addresses and hit in L1.  Integer-only, so the result is exact.  The
+// shard table (at most kMaxShards pairs of base pointers) is a
+// `__grid_constant__` kernel argument: it lives in the parameter space and
+// costs no memory trip; threads of one warp that route to different shards
+// read different entries, which the constant cache serves one after the
+// other (at most K_g of them).
 //
 // The chain entry, `routed_neighbor_sample_chain`, runs every hop of one
 // device-sampling chain (`CliqueCache.device_sample_chain`) in ONE launch
@@ -53,6 +65,10 @@
 // (every owner -1) gives all -1.  Each hop's neighbors (n_k, f_k) int32 and
 // its hit flags (n_k,) uint8 go to one packed buffer, which the caller reads
 // back with one copy.
+// The routing tables (`topo_owner`, `topo_local`: every card of the clique
+// holds a copy) and the packed buffer lie on the sampling position's card;
+// the CSR shards are read through the same shard table as the per-hop
+// entry's, a member of the chain's `__grid_constant__` arguments.
 //
 // What bounds the chain: latency.  Each seed's sampling tree is
 // independent, and at fanouts (25, 10) a whole chain is 7 dependent memory
@@ -84,11 +100,21 @@ constexpr int kThreads = 256;
 // Grid cap, in blocks per SM: each output waits on a chain of dependent
 // loads (routing, indptr, neighbor id), so many threads in flight hide it.
 constexpr int kBlocksPerSm = 16;
+// The most shards one table holds: the largest NVLink clique of one host.
+constexpr int kMaxShards = 8;
+
+// One clique's CSR shards: shard gi's (R + 1) offsets at indptr[gi] and its
+// E neighbor ids at indices[gi]; passed by value as a `__grid_constant__`
+// argument (the per-hop kernel's, and a member of the chain's).
+struct CsrTable {
+  const int64_t* indptr[kMaxShards];
+  const int32_t* indices[kMaxShards];
+};
 
 __global__ void routed_neighbor_sample_kernel(
-    const int64_t* __restrict__ indptr, const int32_t* __restrict__ indices,
-    const int32_t* __restrict__ owner, const int32_t* __restrict__ local,
-    const int64_t* __restrict__ rand, int32_t* __restrict__ out, int64_t n,
+    const __grid_constant__ CsrTable csr, const int32_t* __restrict__ owner,
+    const int32_t* __restrict__ local, const int64_t* __restrict__ rand,
+    int32_t* __restrict__ out, int64_t n,
     int64_t f, int64_t k_g, int64_t indptr_len, int64_t n_indices) {
   const int64_t total = n * f;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -102,7 +128,7 @@ __global__ void routed_neighbor_sample_kernel(
       int64_t l = local[i];
       l = l < 0 ? 0 : (l >= indptr_len ? indptr_len - 1 : l);
       const int64_t l1 = l + 1 < indptr_len ? l + 1 : indptr_len - 1;
-      const int64_t* row = indptr + o * indptr_len;
+      const int64_t* row = csr.indptr[o];
       const int64_t start = row[l];
       const int64_t deg = row[l1] - start;
       if (deg > 0) {
@@ -110,7 +136,7 @@ __global__ void routed_neighbor_sample_kernel(
         if (r < 0) r += deg;
         int64_t idx = start + r;
         idx = idx < 0 ? 0 : (idx >= n_indices ? n_indices - 1 : idx);
-        v = indices[o * n_indices + idx];
+        v = csr.indices[o][idx];
       }
     }
     out[t] = v;
@@ -122,8 +148,7 @@ constexpr int kChainThreads = 256;
 constexpr int kChunk = 4;  // last-hop outputs per thread, at most
 
 struct ChainArgs {
-  const int64_t* indptr;
-  const int32_t* indices;
+  CsrTable csr;
   const int32_t* topo_owner;
   const int64_t* topo_local;
   const int64_t* seeds;
@@ -153,7 +178,7 @@ __device__ __forceinline__ Route route(const ChainArgs& a, int64_t v) {
   const int64_t R = a.indptr_len - 1;
   r.o = o < a.k_g ? o : (int32_t)(a.k_g - 1);
   l = l < 0 ? 0 : (l > R ? R : l);
-  const int64_t* row = a.indptr + (int64_t)r.o * a.indptr_len;
+  const int64_t* row = a.csr.indptr[r.o];
   r.start = __ldg(row + l);
   r.deg = __ldg(row + (l + 1 < R ? l + 1 : R)) - r.start;
   return r;
@@ -172,7 +197,7 @@ __device__ __forceinline__ int32_t neighbor(const ChainArgs& a,
   if (r.o < 0 || r.deg <= 0) return -1;
   int64_t i = r.start + floored_mod(draw, r.deg);
   i = i < 0 ? 0 : (i >= a.n_indices ? a.n_indices - 1 : i);
-  return __ldg(a.indices + (int64_t)r.o * a.n_indices + i);
+  return __ldg(a.csr.indices[r.o] + i);
 }
 
 // `__grid_constant__`: the helpers take the arguments by reference, which
@@ -235,18 +260,37 @@ cudaError_t launch_chain(const ChainArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The shard table from host arrays of k_g base pointers; false when k_g is
+// out of [1, kMaxShards].
+bool csr_table(CsrTable* t, const void* const* indptr,
+               const void* const* indices, int64_t k_g) {
+  if (k_g < 1 || k_g > kMaxShards) return false;
+  for (int64_t gi = 0; gi < k_g; ++gi) {
+    t->indptr[gi] = static_cast<const int64_t*>(indptr[gi]);
+    t->indices[gi] = static_cast<const int32_t*>(indices[gi]);
+  }
+  return true;
+}
+
 }  // namespace
 
-// C entry point, loaded with ctypes.  Returns the cudaError_t of the launch
-// (0 = cudaSuccess); the caller raises on anything else.  k_g, indptr_len
-// (R + 1) and n_indices (E) must be >= 1; the caller checks shapes, types and
+// C entry point, loaded with ctypes.  `indptr` and `indices` are host arrays
+// of the k_g shards' base pointers (device addresses, on this card or on a
+// peer card with peer access on), 1 <= k_g <= kMaxShards.  Returns the
+// cudaError_t of the launch (0 = cudaSuccess; cudaErrorInvalidValue for k_g
+// out of range); the caller raises on anything else.  indptr_len (R + 1) and
+// n_indices (E) must be >= 1; the caller checks shapes, types and
 // contiguity.
-extern "C" int routed_neighbor_sample(const void* indptr, const void* indices,
+extern "C" int routed_neighbor_sample(const void* const* indptr,
+                                      const void* const* indices,
                                       const void* owner, const void* local,
                                       const void* rand, void* out, int64_t n,
                                       int64_t f, int64_t k_g,
                                       int64_t indptr_len, int64_t n_indices,
                                       void* stream) {
+  CsrTable csr{};
+  if (!csr_table(&csr, indptr, indices, k_g))
+    return (int)cudaErrorInvalidValue;
   const int64_t total = n * f;
   if (total == 0) return (int)cudaSuccess;
   int dev = 0, sms = 0;
@@ -259,31 +303,35 @@ extern "C" int routed_neighbor_sample(const void* indptr, const void* indices,
   const int blocks = (int)(want < cap ? want : cap);
   routed_neighbor_sample_kernel<<<blocks, kThreads, 0,
                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(indptr), static_cast<const int32_t*>(indices),
-      static_cast<const int32_t*>(owner), static_cast<const int32_t*>(local),
-      static_cast<const int64_t*>(rand), static_cast<int32_t*>(out), n, f, k_g,
-      indptr_len, n_indices);
+      csr, static_cast<const int32_t*>(owner),
+      static_cast<const int32_t*>(local), static_cast<const int64_t*>(rand),
+      static_cast<int32_t*>(out), n, f, k_g, indptr_len, n_indices);
   return (int)cudaGetLastError();
 }
 
-// C entry point of the chain, loaded with ctypes.  `rands` and `fanouts` are
-// host arrays of `hops` entries (1 <= hops <= 4): the device pointer of hop
+// C entry point of the chain, loaded with ctypes.  `indptr` and `indices`
+// are host arrays of the k_g shards' base pointers, as for the per-hop
+// entry; `topo_owner` and `topo_local` lie on this card.  `rands` and
+// `fanouts` are host arrays of `hops` entries (1 <= hops <= 4): the device
+// pointer of hop
 // k's (n_k, f_k) int64 draws and f_k.  `out` gets every hop's (n_k, f_k)
 // int32 neighbors one after the other, `hit` every hop's (n_k,) uint8 hit
 // flags.  Returns the cudaError_t of the launch (cudaErrorInvalidValue when
-// the last hop's rows times threads per row reach 2^31: the caller checks
-// that first, with shapes, types and contiguity).
+// k_g is out of [1, kMaxShards] or the last hop's rows times threads per row
+// reach 2^31: the caller checks both first, with shapes, types and
+// contiguity).
 extern "C" int routed_neighbor_sample_chain(
-    const void* indptr, const void* indices, const void* topo_owner,
-    const void* topo_local, const void* seeds, const void* const* rands,
+    const void* const* indptr, const void* const* indices,
+    const void* topo_owner, const void* topo_local, const void* seeds,
+    const void* const* rands,
     const int32_t* fanouts, int32_t hops, void* out, void* hit,
     int64_t n_seeds, int64_t n_vertices, int64_t k_g, int64_t indptr_len,
     int64_t n_indices, void* stream) {
   if (hops < 1 || hops > kMaxHops) return (int)cudaErrorInvalidValue;
-  if (n_seeds == 0) return (int)cudaSuccess;
   ChainArgs a{};
-  a.indptr = static_cast<const int64_t*>(indptr);
-  a.indices = static_cast<const int32_t*>(indices);
+  if (!csr_table(&a.csr, indptr, indices, k_g))
+    return (int)cudaErrorInvalidValue;
+  if (n_seeds == 0) return (int)cudaSuccess;
   a.topo_owner = static_cast<const int32_t*>(topo_owner);
   a.topo_local = static_cast<const int64_t*>(topo_local);
   a.seeds = static_cast<const int64_t*>(seeds);

@@ -113,6 +113,111 @@ def routed_neighbor_sample_chain(indptr_shards: torch.Tensor,
     return outs, hits
 
 
+def _take(t: torch.Tensor, idx: torch.Tensor, device) -> torch.Tensor:
+    """``t.index_select(0, idx)`` read where ``t`` lives (a shard may lie on
+    a peer card) and returned on ``device``."""
+    return t.index_select(0, idx.to(t.device)).to(device)
+
+
+def _check_peer_shards(shards, what: str) -> None:
+    if not len(shards) or any(s.shape != shards[0].shape
+                              or s.dtype != shards[0].dtype for s in shards):
+        raise ValueError(f"{what}: need one or more shards of one shape and "
+                         "type")
+
+
+def routed_gather_peer(shards, owner: torch.Tensor,
+                       local_slot: torch.Tensor) -> torch.Tensor:
+    """``routed_gather_dense`` over the clique's shards as separate tensors
+    (each (R, D), of one shape and type, possibly on different devices):
+    ``out[...] = shards[owner][local_slot]`` on the routing's device, zeros
+    where ``owner < 0``, owners and slots clamped as the dense form clamps
+    them.  Bit for bit ``routed_gather_dense(torch.stack(shards), ...)``."""
+    _check_peer_shards(shards, "routed_gather_peer")
+    k, (R, D) = len(shards), shards[0].shape
+    dev = owner.device
+    o = owner.reshape(-1).to(torch.int64).clamp(0, k - 1)
+    sl = local_slot.reshape(-1).to(torch.int64).clamp(0, R - 1)
+    out = torch.empty((o.shape[0], D), dtype=shards[0].dtype, device=dev)
+    for gi, s in enumerate(shards):
+        rows = torch.nonzero(o == gi).reshape(-1)
+        out[rows] = _take(s, sl[rows], dev)
+    out = out.reshape(tuple(owner.shape) + (D,))
+    return torch.where((owner >= 0)[..., None], out, 0).to(shards[0].dtype)
+
+
+def _peer_rows(indptr_shards, owner, local):
+    """Each row's clamped owner, CSR start and degree, read from its
+    owner's indptr shard."""
+    k, R1 = len(indptr_shards), indptr_shards[0].shape[0]
+    dev = owner.device
+    o = owner.to(torch.int64).clamp(0, k - 1)
+    lo = local.to(torch.int64).clamp(0, R1 - 1)
+    l1 = (lo + 1).clamp_max(R1 - 1)
+    start = torch.zeros_like(lo)
+    end = torch.zeros_like(lo)
+    for gi, ip in enumerate(indptr_shards):
+        rows = torch.nonzero(o == gi).reshape(-1)
+        start[rows] = _take(ip, lo[rows], dev)
+        end[rows] = _take(ip, l1[rows], dev)
+    return o, start, end - start
+
+
+def routed_neighbor_sample_peer(indptr_shards, indices_shards,
+                                owner: torch.Tensor, local: torch.Tensor,
+                                rand: torch.Tensor) -> torch.Tensor:
+    """``routed_neighbor_sample_dense`` over the clique's CSR shards as
+    separate tensors (``indptr_shards[gi]`` (R+1,) int64 and
+    ``indices_shards[gi]`` (E,) int32, each list of one shape, possibly on
+    different devices), for routing (n,) and draws (n, f) on one device:
+    int32 neighbor ids on that device, -1 at misses and degree 0, every
+    clamp the dense form's.  Bit for bit the dense form over
+    ``torch.stack`` of the same shards."""
+    _check_peer_shards(indptr_shards, "routed_neighbor_sample_peer")
+    _check_peer_shards(indices_shards, "routed_neighbor_sample_peer")
+    if len(indptr_shards) != len(indices_shards):
+        raise ValueError("routed_neighbor_sample_peer: indptr and indices "
+                         "shards differ in number")
+    E = indices_shards[0].shape[0]
+    dev = owner.device
+    o, start, deg = _peer_rows(indptr_shards, owner, local)
+    offs = rand.to(torch.int64) % deg.clamp_min(1)[:, None]
+    idx = (start[:, None] + offs).clamp(0, E - 1)
+    out = torch.empty(idx.shape, dtype=torch.int32, device=dev)
+    for gi, ix in enumerate(indices_shards):
+        rows = torch.nonzero(o == gi).reshape(-1)
+        out[rows] = _take(ix, idx[rows].reshape(-1), dev).reshape(
+            -1, idx.shape[1]).to(torch.int32)
+    ok = (owner >= 0) & (deg > 0)
+    return torch.where(ok[:, None], out, -1)
+
+
+def routed_neighbor_sample_chain_peer(indptr_shards, indices_shards,
+                                      topo_owner: torch.Tensor,
+                                      topo_local: torch.Tensor,
+                                      seeds: torch.Tensor, rands) -> tuple:
+    """``routed_neighbor_sample_chain`` over separate CSR shards (as for
+    ``routed_neighbor_sample_peer``), the routing tables and the seeds on
+    the sampling position's device: the same glue, hop ``k + 1`` sampling
+    from hop ``k``'s flattened output with the peer form.  Bit for bit the
+    dense chain over ``torch.stack`` of the same shards."""
+    R1 = indptr_shards[0].shape[0]
+    N = topo_owner.shape[0]
+    outs, hits = [], []
+    frontier = seeds.to(torch.int64)
+    for rand in rands:
+        valid = frontier >= 0
+        safe = torch.where(valid, frontier, 0).clamp_max(N - 1)
+        owner = torch.where(valid, topo_owner[safe], -1)
+        local = topo_local[safe].clamp(0, R1 - 1).to(torch.int32)
+        out = routed_neighbor_sample_peer(indptr_shards, indices_shards,
+                                          owner, local, rand)
+        outs.append(out)
+        hits.append(owner >= 0)
+        frontier = out.reshape(-1).to(torch.int64)
+    return outs, hits
+
+
 NEG_INF = -1e30  # the reference's masked score
 
 

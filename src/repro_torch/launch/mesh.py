@@ -10,9 +10,13 @@ crosses cliques); gradient synchronization additionally combines over
 the degenerate ``K_c=1`` case of the same mesh.
 
 The executor runs the whole mesh in one process, as the reference runs it
-under one ``shard_map``: every position is bound to a ``torch.device`` and
-the trainer visits the positions in clique-major order.  This module knows
-nothing of JAX; it only validates the clique list and binds devices.
+under one ``shard_map``: every position is bound to a ``torch.device``
+(its own card, or one card for all) and the trainer visits the positions
+in clique-major order.  This module knows nothing of JAX; it validates the
+clique list, checks every named card against the cards this host has, and
+enables peer access between the distinct cards of each clique row (the
+routed kernels read a peer's shard through a plain pointer).  Cliques never
+read each other's memory, so no access is enabled across rows.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels._build import enable_peer_access
 from repro_torch.utils import resolve_device
 
 CLIQUE_AXIS = "clique"
@@ -52,6 +57,25 @@ class HierarchicalMesh:
                 yield ci, gi
 
 
+def bind_devices(devices: Sequence, where: str) -> list:
+    """``devices`` as ``torch.device``s with explicit indices, every CUDA
+    card among this host's ``torch.cuda.device_count()`` and all of one
+    type: a mesh never mixes the CPU with cards, and nothing falls back to
+    the CPU or to one card unasked.  Raises otherwise."""
+    devs = [resolve_device(d) for d in devices]
+    kinds = {d.type for d in devs}
+    if len(kinds) > 1:
+        raise ValueError(f"{where}: positions bound to "
+                         f"{sorted(map(str, set(devs)))} mix device types")
+    if "cuda" in kinds:
+        count = torch.cuda.device_count()
+        missing = sorted({d.index for d in devs if d.index >= count})
+        if missing:
+            raise ValueError(f"{where}: cuda:{missing} named, but this host "
+                             f"has {count} CUDA device(s)")
+    return devs
+
+
 def make_hierarchical_mesh(cliques: Sequence[Sequence[int]],
                            devices: Optional[Sequence] = None
                            ) -> HierarchicalMesh:
@@ -61,13 +85,15 @@ def make_hierarchical_mesh(cliques: Sequence[Sequence[int]],
     Row ``ci`` is clique ``ci``; within a row, column ``gi`` is the
     clique-local device that owns cache partition ``gi``.  ``devices``
     binds the positions in clique-major order (anything ``torch.device``
-    takes); the default binds every position to ``cuda:0``.  The clique
-    list must be uniform: a 2-D mesh cannot express ragged cliques.
+    takes): each position on its own card, or several on one; the default
+    binds every position to ``cuda:0``.  The clique list must be uniform: a
+    2-D mesh cannot express ragged cliques.
 
-    All positions must share one card: a grid spanning several cards needs
-    the peer-access form of the routed kernels and a cross-card gradient
-    sum, which is ROADMAP work (the multi-card sharded executor) and
-    raises ``NotImplementedError`` here.
+    A card the host does not have raises, and so does a binding that mixes
+    the CPU with cards.  For every pair of distinct cards within one row,
+    ``torch.cuda.can_device_access_peer`` must hold both ways (else
+    ``ValueError``), and peer access is enabled both ways, once per pair
+    (``kernels._build.enable_peer_access``); rows get none between them.
     """
     sizes = sorted({len(c) for c in cliques})
     if not cliques or sizes[0] == 0:
@@ -85,13 +111,19 @@ def make_hierarchical_mesh(cliques: Sequence[Sequence[int]],
         raise ValueError(
             f"make_hierarchical_mesh: {len(devices)} devices pinned for a "
             f"{k_c}x{k_g} mesh (need exactly {n})")
-    devs = [resolve_device(d) for d in devices]
-    if len(set(devs)) > 1:
-        raise NotImplementedError(
-            f"make_hierarchical_mesh: the positions span "
-            f"{sorted(map(str, set(devs)))}; only a single-card mesh is "
-            "ported (ROADMAP: the multi-card sharded executor)")
+    devs = bind_devices(devices, "make_hierarchical_mesh")
     grid = tuple(tuple(devs[ci * k_g:(ci + 1) * k_g]) for ci in range(k_c))
+    for row in grid:
+        cards = sorted({d.index for d in row if d.type == "cuda"})
+        pairs = [(a, b) for a in cards for b in cards if a != b]
+        for a, b in pairs:
+            if not torch.cuda.can_device_access_peer(a, b):
+                raise ValueError(
+                    f"make_hierarchical_mesh: cuda:{a} cannot access "
+                    f"cuda:{b}'s memory; the cards of one clique must be "
+                    "peers (one NVLink clique)")
+        for a, b in pairs:
+            enable_peer_access(a, b)
     return HierarchicalMesh(grid)
 
 
@@ -117,10 +149,12 @@ class DataMesh:
 
 def make_data_mesh(n: int, devices: Optional[Sequence] = None) -> DataMesh:
     """A data mesh of ``n`` positions.  ``devices`` binds them in order
-    (anything ``torch.device`` takes); the default binds every position to
-    ``cuda:0``, and the positions then run one after another on that card.
-    A mesh spanning several cards raises ``NotImplementedError``: that is
-    ROADMAP queue 1, item 4 (the sharded executor across cards)."""
+    (anything ``torch.device`` takes): each on its own card, or several on
+    one, where they run one after another; the default binds every
+    position to ``cuda:0``.  A card the host does not have raises, and so
+    does a binding that mixes the CPU with cards.  The positions exchange
+    only explicit copies (their gradients, to position 0), so no peer
+    access is needed."""
     if n < 1:
         raise ValueError(f"make_data_mesh: need at least one position, "
                          f"got {n}")
@@ -129,11 +163,4 @@ def make_data_mesh(n: int, devices: Optional[Sequence] = None) -> DataMesh:
     if len(devices) != n:
         raise ValueError(f"make_data_mesh: {len(devices)} devices pinned "
                          f"for {n} positions")
-    devs = tuple(resolve_device(d) for d in devices)
-    if len(set(devs)) > 1:
-        raise NotImplementedError(
-            f"make_data_mesh: the positions span "
-            f"{sorted(map(str, set(devs)))}; only a single-card mesh is "
-            "ported (ROADMAP queue 1, item 4: the sharded executor across "
-            "cards)")
-    return DataMesh(devs)
+    return DataMesh(tuple(bind_devices(devices, "make_data_mesh")))

@@ -32,8 +32,8 @@ from repro_torch.launch.serve_lm import ENCDEC_FAMILIES, target_len
 from repro_torch.models import encdec, get_module, ssm_lm, transformer
 from repro_torch.models.params import init_from_defs, specs_from_defs
 
-MULTI_CARD = ("ROADMAP queue 1, item 4: the sharded executor across cards "
-              "(a cell on a mesh)")
+MULTI_CARD = ("ROADMAP queue 1, items 10-11: a cell on a mesh across "
+              "cards")
 
 
 @dataclasses.dataclass

@@ -14,7 +14,7 @@ outputs combine by routing weight; no token is dropped.
 The reference also runs the train/prefill path expert-parallel (a
 ``shard_map`` with an ``all_to_all`` over the expert axis,
 ``src/repro/models/moe.py:131-161``); that is multi-card work, ROADMAP
-queue 1, item 4, and not here.  Its single-device path is this module's.
+queue 1, item 9, and not here.  Its single-device path is this module's.
 """
 from __future__ import annotations
 

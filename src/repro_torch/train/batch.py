@@ -361,8 +361,14 @@ class DeviceBatchBuilder(BatchBuilder):
         self.bucket = int(bucket)
         self.sampler = sampler
         self._staging = _StagingPool(pin=self.device.type == "cuda")
-        # upload the cache's device half now, on the builder's device
-        cache.device_arrays(device=self.device)
+        # the clique position whose card samples (the sharded builder's);
+        # None samples from the flat residency on the cache's device
+        self.position = None
+        self._upload()
+
+    def _upload(self) -> None:
+        """Upload the cache's device half now, on the builder's device."""
+        self.cache.device_arrays(device=self.device)
 
     def _staging_width(self) -> int:
         """Miss rows stage at the cache table's padded device width so the
@@ -380,13 +386,15 @@ class DeviceBatchBuilder(BatchBuilder):
         with device_context(self.device), torch.no_grad():
             if self.sampler == "chain":
                 resolve = cache_sample_dispatch(self.g, self.cache, seeds,
-                                                self.fanouts, rng)
+                                                self.fanouts, rng,
+                                                position=self.position)
                 labels = self.g.get_labels(seeds)
                 levels, _topo_hits = resolve(counter=self.counter)
             else:
                 levels, _topo_hits = cache_sample_batch(
                     self.g, self.cache, seeds, self.fanouts, rng,
-                    chain=False, counter=self.counter)
+                    chain=False, counter=self.counter,
+                    position=self.position)
                 labels = self.g.get_labels(seeds)
         self._account_sampling(levels)
         ids = unique_vertices(levels)
@@ -525,22 +533,45 @@ class ShardedBatchBuilder(DeviceBatchBuilder):
     hit/miss split, same accounting: bit-identical specs), plus the
     ownership routing read off ``CliqueCache.shard_routing``: per cached
     id, which clique device's shard holds the row and at which local slot.
-    The routing and the shard-stack upload are resolved **once per cache
+    It samples on its own position's card (``device``, the card the mesh
+    binds to clique position ``cache.devices.index(dev)``), from the
+    sharded residency: the routing copy on that card and the clique's CSR
+    shards wherever they lie.  ``shard_devices`` binds the clique's
+    positions (default: every one on ``device``, the one-card mesh).
+    The routing and the shard upload are resolved **once per cache
     epoch**, not per spec: the first spec build of an epoch reads the
-    routing and uploads the per-device shard stack on the build thread,
+    routing and uploads the per-position shards on the build thread,
     serialized with refresh hooks, so the consumer only ever sees
     epoch-pinned buffers.  The *joint* finalize (routed gather across the
     clique, miss overlay, the gradient sum over the mesh) is the train
     loop's sharded step; ``pack_sharded_specs`` stacks the per-clique spec
     groups into the arrays it consumes.  ``finalize`` on this builder is
-    the single-device gather (identical rows)."""
+    the single-device gather from the flat residency (identical rows; it
+    needs the builder on the cache's flat device, ``shard_devices[0]``)."""
 
     backend = "sharded"
 
-    def __init__(self, *args, **kw):
+    def __init__(self, *args, shard_devices=None, **kw):
+        self._shard_devices = shard_devices
         super().__init__(*args, **kw)
         self._routing_epoch = -1
         self._routing = None
+
+    def _upload(self) -> None:
+        """Bind this builder to its clique position and upload the
+        sharded residency on the clique's cards (the flat arrays go to the
+        first position's card)."""
+        cache = self.cache
+        self.position = cache.devices.index(self.dev)
+        self.shard_devices = cache.resolve_shard_devices(
+            self.device if self._shard_devices is None
+            else self._shard_devices)
+        if self.shard_devices[self.position] != self.device:
+            raise ValueError(
+                f"device {self.dev} is clique position {self.position}, "
+                f"bound to {self.shard_devices[self.position]}, but the "
+                f"builder runs on {self.device}")
+        cache.sharded_device_arrays(devices=self.shard_devices)
 
     def _routing_for_epoch(self):
         """Per-epoch memo of (owner, local_slot); re-derived only after an
@@ -549,10 +580,11 @@ class ShardedBatchBuilder(DeviceBatchBuilder):
         if self._routing_epoch != ep:
             owner, local = self.cache.shard_routing()
             if len(owner):
-                # upload the shard stack *here*, on the build thread
+                # upload the shards *here*, on the build thread
                 # (serialized with refresh hooks), once per epoch
                 with device_context(self.device):
-                    self.cache.sharded_device_arrays(device=self.device)
+                    self.cache.sharded_device_arrays(
+                        devices=self.shard_devices)
             self._routing = (owner, local)
             self._routing_epoch = ep
         return self._routing

@@ -17,15 +17,19 @@ is synchronous data parallelism with the gradients averaged.
 ``backend="sharded"`` is the hierarchical clique-parallel executor over the
 2-D ``(pod, clique)`` mesh (``launch/mesh.py``), run in one process as the
 reference runs it under one ``shard_map``: every mesh position is bound to
-a device, holds its clique's cache partition, gathers its batch through
-the routed gather (its own shard and its clique peers', never another
-clique's), and runs its own forward and backward; the positions' gradient
-sums combine in a fixed order before one AdamW update.
+a device (its own card, or one card for all), holds its clique's cache
+partition there, samples there, gathers its batch through the routed
+gather (its own shard and its clique peers', read over NVLink where they
+lie on other cards, never another clique's), and runs its own forward and
+backward on a copy of the parameters; the positions' gradient sums are
+copied to position (0, 0)'s card and combine there in a fixed order before
+one AdamW update.
 
 ``mesh=`` (a one-axis ``("data",)`` mesh) with ``compress_grads=True``
-splits each step's batch over the mesh's positions, run one after another,
-and averages their gradients through the int8 error-feedback all-reduce of
-``train/compression.py``, as the reference's ``shard_map`` does.
+splits each step's batch over the mesh's positions, each run on its own
+device one after another, and averages their gradients through the int8
+error-feedback all-reduce of ``train/compression.py``, as the reference's
+``shard_map`` does.
 
 Device work is queued on the GPU's current (default) stream from three
 threads: the Prefetcher's (device sampling, and the online refresh's
@@ -47,7 +51,8 @@ device loss, replan onto the survivors with ``replan_on_topology_change``,
 and launch a fresh pipeline at the current step; telemetry sources
 re-register by name with folded base totals, so the registry counters stay
 monotonic across the swap.  A simulated device is a mesh position (a tablet
-stream and its builder) on the one card, as everywhere else in the port.
+stream and its builder) on the card the binding gives it (one card for all
+unless ``device`` lists one per position).
 """
 from __future__ import annotations
 
@@ -61,12 +66,11 @@ import torch
 from repro_torch.core.cache_manager import OnlineCacheManager, RefreshConfig
 from repro_torch.core.feature_store import FeatureStore
 from repro_torch.core.planner import LegionPlan, replan_on_topology_change
-from repro_torch.core.unified_cache import (TrafficCounter,
-                                           stack_hierarchical_shards)
+from repro_torch.core.unified_cache import TrafficCounter
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels import gather
 from repro_torch.launch.mesh import (DataMesh, HierarchicalMesh,
-                                     make_hierarchical_mesh)
+                                     bind_devices, make_hierarchical_mesh)
 from repro_torch.models.gnn import GNNConfig, defs as gnn_defs
 from repro_torch.models.gnn import forward as gnn_forward
 from repro_torch.models.gnn import loss_fn as gnn_loss
@@ -171,29 +175,41 @@ def _make_compressed_step(cfg: GNNConfig, opt, mesh: DataMesh):
     return step
 
 
-def sharded_position_batch(shard: torch.Tensor, packed: dict, ci: int,
-                           gi: int, feat_dim: int) -> dict:
-    """The batch of mesh position ``(ci, gi)``: its clique's shard stack
-    ``shard`` (K_g, R, Dp) gathered by the position's routing
-    (``kernels.gather.routed_gather``: local hits from its own shard, peer
-    hits from its clique peers'), the host-staged miss rows added, then
-    per-level positioning and pad masking.  ``packed`` holds the
-    ``pack_sharded_specs`` arrays as tensors on the position's device.
-    The add stays outside the kernel, as in the reference; it also turns a
-    -0.0 in a cached row into +0.0, as the reference's psum does."""
+def position_parts(packed: dict, mesh: HierarchicalMesh) -> dict:
+    """``pack_sharded_specs``' host arrays cut per mesh position: ``(ci,
+    gi)`` -> its slice ``packed[k][ci, gi]`` of every array, uploaded to
+    that position's device."""
+    parts = {}
+    for ci, gi in mesh.positions():
+        dev = mesh.device(ci, gi)
+        with device_context(dev):
+            parts[ci, gi] = {k: torch.from_numpy(v[ci, gi]).to(dev)
+                             for k, v in packed.items()}
+    return parts
+
+
+def sharded_position_batch(shards, part: dict, feat_dim: int) -> dict:
+    """The batch of one mesh position: its clique's shards ``shards`` (K_g
+    tensors (R, Dp), each on its position's device) gathered by the
+    position's routing (``kernels.gather.routed_gather``: local hits from
+    its own shard, peer hits from its clique peers'), the host-staged miss
+    rows added, then per-level positioning and pad masking.  ``part`` holds
+    the position's slice of the ``pack_sharded_specs`` arrays as tensors on
+    its device (``position_parts``), where the batch lies.  The add stays
+    outside the kernel, as in the reference; it also turns a -0.0 in a
+    cached row into +0.0, as the reference's psum does."""
     D = feat_dim
-    miss = packed["miss_rows"][ci, gi]
-    if shard.shape[1] == 0:  # empty cache: every row is a host fill
+    miss = part["miss_rows"]
+    if shards[0].shape[0] == 0:  # empty cache: every row is a host fill
         feats = miss
     else:
-        feats = gather.routed_gather(shard, packed["owner"][ci, gi],
-                                     packed["local"][ci, gi])
+        feats = gather.routed_gather(shards, part["owner"], part["local"])
         feats = feats[:, :D] + miss
-    batch = {"labels": packed["labels"][ci, gi]}
+    batch = {"labels": part["labels"]}
     li = 0
-    while f"pos_{li}" in packed:
-        valid = packed[f"valid_{li}"][ci, gi]
-        f = feats.index_select(0, packed[f"pos_{li}"][ci, gi]).reshape(
+    while f"pos_{li}" in part:
+        valid = part[f"valid_{li}"]
+        f = feats.index_select(0, part[f"pos_{li}"]).reshape(
             tuple(valid.shape) + (D,))
         batch[f"feats_{li}"] = f * valid[..., None].to(f.dtype)
         if li > 0:
@@ -217,30 +233,41 @@ def _make_sharded_step(cfg: GNNConfig, opt, mesh: HierarchicalMesh,
                        n_total: int, feat_dim: int):
     """The hierarchical (clique-parallel x data-parallel) train step over
     the ``(pod, clique)`` mesh, the reference's ``shard_map`` body written
-    out as a loop.  For each position ``(ci, gi)`` in clique-major order,
-    on its device: the routed gather from clique ``ci``'s shard stack (no
+    out as a loop.  The master parameters and AdamW's state live on
+    position (0, 0)'s device; each step copies the parameters to every
+    other device of the mesh (nothing is copied where a position shares
+    that device).  For each position ``(ci, gi)`` in clique-major order,
+    on its device: the routed gather from clique ``ci``'s shards (no
     feature row crosses a clique), the forward, and the gradients of the
     position's *summed* loss.  The gradients, losses and correct counts
-    are summed over the positions in that fixed order and divided by the
-    mesh-wide batch ``n_total``, so the math is the single-device mean over
-    the concatenated batch, and a rerun is bitwise identical; then one
-    AdamW update."""
+    are copied to (0, 0)'s device, summed over the positions in that fixed
+    order and divided by the mesh-wide batch ``n_total``, so the math is
+    the single-device mean over the concatenated batch, a rerun is bitwise
+    identical, and a one-card mesh gives the bits of a run whose positions
+    all share the card; then one AdamW update."""
+    master = mesh.device(0, 0)
 
-    def step(params, opt_state, shards, packed):
+    def step(params, opt_state, shards, parts):
         params = tree_map(lambda p: p.detach().requires_grad_(), params)
-        leaves = tree_leaves(params)
+        copies = {master: params}
         grad_sum, loss_sum, acc_sum = None, None, None
         for ci, gi in mesh.positions():
-            with device_context(mesh.device(ci, gi)):
-                batch = sharded_position_batch(shards[ci], packed, ci, gi,
+            dev = mesh.device(ci, gi)
+            if dev not in copies:
+                copies[dev] = tree_map(
+                    lambda p: p.detach().to(dev).requires_grad_(), params)
+            with device_context(dev):
+                batch = sharded_position_batch(shards[ci], parts[ci, gi],
                                                feat_dim)
-                loss, acc = _sum_loss(cfg, params, batch)
-                grads = torch.autograd.grad(loss, leaves)
+                loss, acc = _sum_loss(cfg, copies[dev], batch)
+                grads = torch.autograd.grad(loss, tree_leaves(copies[dev]))
+            grads = [g.to(master) for g in grads]
+            loss, acc = loss.detach().to(master), acc.to(master)
             if grad_sum is None:
-                grad_sum, loss_sum, acc_sum = list(grads), loss.detach(), acc
+                grad_sum, loss_sum, acc_sum = list(grads), loss, acc
             else:
                 grad_sum = [a + b for a, b in zip(grad_sum, grads)]
-                loss_sum = loss_sum + loss.detach()
+                loss_sum = loss_sum + loss
                 acc_sum = acc_sum + acc
         it = iter([g / n_total for g in grad_sum])
         grads = tree_map(lambda _: next(it), params)
@@ -281,15 +308,23 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
     cover whole cliques of equal size (the default, every plan device, runs
     the full hierarchy; one clique is the ``K_c=1`` mesh), each clique's
     cache is partitioned across its devices
-    (``CliqueCache.sharded_device_arrays``, stacked per clique by
-    ``stack_hierarchical_shards``), and every mesh position is bound to
-    ``device``.  Its losses equal the device backend's up to the order of
-    the float sums.  Without a plan the run falls back to the host
-    pipeline.
+    (``CliqueCache.sharded_device_arrays``: one shard per position, on
+    its position's device), and every mesh position is bound to
+    ``device``, or to its own entry of a ``device`` list.  Its losses equal
+    the device backend's up to the order of the float sums.  Without a
+    plan the run falls back to the host pipeline.
 
     ``device`` is where the model trains and the cache lives (default
     ``"cuda"``, which raises without a card; pass ``"cpu"`` to run on the
-    CPU).  ``params`` are the initial parameters (a nested dict of tensors,
+    CPU).  With ``backend="sharded"`` it may list one device per mesh
+    position in clique-major order (``[d_00, d_01, d_10, d_11]`` for a
+    2 x 2 mesh): each position then samples, gathers and trains on its own
+    card, the master parameters and AdamW's state live on the first, and
+    the gradients are summed there in position order, so a binding of
+    distinct cards gives the losses of a one-card binding bit for bit.  A
+    card the host does not have, a list of another length, or a list with
+    another backend raises; nothing moves to the CPU or to one card
+    unasked.  ``params`` are the initial parameters (a nested dict of tensors,
     e.g. ``models.convert.params_from_jax`` of the reference's); the default
     is ``init_from_defs`` from a torch generator seeded with ``seed``.
 
@@ -388,11 +423,22 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
         raise ValueError(
             f"batch_size {cfg.batch_size} does not split over the "
             f"{mesh.size} positions of the data mesh")
-    dev = resolve_device(device)
-    if mesh is not None and compress_grads and set(mesh.devices) != {dev}:
+    binding = None
+    if isinstance(device, (list, tuple)):
+        if backend != "sharded":
+            raise ValueError(
+                f"a device list binds the positions of backend='sharded' "
+                f"(this run's backend is {backend!r}); pass one device")
+        binding = bind_devices(device, "train_gnn")
+        dev = binding[0]
+    else:
+        dev = resolve_device(device)
+    if mesh is not None and compress_grads and (
+            mesh.device(0) != dev
+            or {d.type for d in mesh.devices} != {dev.type}):
         raise ValueError(f"the data mesh's positions live on "
-                         f"{sorted(map(str, set(mesh.devices)))}, the model "
-                         f"on {dev}")
+                         f"{sorted(map(str, set(mesh.devices)))}; position "
+                         f"0 must hold the model, on {dev}")
     if devices is None:
         devices = sorted(plan.partition.tablets) if plan is not None else [0]
     devices = list(devices)
@@ -409,9 +455,15 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
                 f"(pod, clique) mesh; cliques {exec_clique_ids} have sizes "
                 f"{[len(c) for c in exec_cliques]} — run ragged cliques as "
                 "separate jobs or replan with replan_on_topology_change")
-        # clique-major order == shard stacking order == mesh position
+        # clique-major order == shard order == mesh position
         devices = [d for c in exec_cliques for d in c]
     n_dev = len(devices)
+    if binding is not None and len(binding) != n_dev:
+        raise ValueError(f"train_gnn: {len(binding)} devices bound to the "
+                         f"{n_dev} positions of the (pod, clique) mesh")
+    # each plan device's card: its binding entry, else the model's device
+    card_of = dict(zip(devices, binding if binding is not None
+                       else [dev] * n_dev))
     counter = (counter if counter is not None
                else TrafficCounter.for_devices(devices))
 
@@ -463,8 +515,9 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
                 rstats.restore_s += time.perf_counter() - t0
                 rstats.resumed_from_step = step0
     if mesh is not None and compress_grads:
-        # one zero residual tree per data position, never checkpointed
-        efs = init_error_feedback(params, mesh.size)
+        # one zero residual tree per data position, on its device, never
+        # checkpointed
+        efs = init_error_feedback(params, mesh.size, devices=mesh.devices)
 
     rngs = {d: np.random.default_rng(seed + 17 * d) for d in devices}
     # RNG journal: boundary states at each step, so a checkpoint captures
@@ -556,6 +609,10 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
         devs, plan_l = st["devices"], st["plan"]
         backend_l, manager_l = st["backend"], st["manager"]
         per_dev = st["per_dev"]
+        mesh = None
+        if backend_l == "sharded":
+            mesh = make_hierarchical_mesh(
+                st["exec_cliques"], devices=[card_of[d] for d in devs])
         builders = {}
         for d in devs:
             cache = plan_l.cache_for_device(d) if plan_l is not None else None
@@ -563,8 +620,15 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
                   if backend_l in ("device", "sharded") else {})
             if manager_l is not None:
                 kw["observer"] = manager_l.observer_for(d)
+            # a builder runs on its own card (sharded), or on the card of
+            # its cache's first device, where the clique's flat residency
+            # lives (the device backend after a remesh of a bound mesh)
+            card = dev if cache is None else card_of.get(
+                d if backend_l == "sharded" else cache.devices[0], dev)
+            if backend_l == "sharded":
+                kw["shard_devices"] = [card_of[x] for x in cache.devices]
             builders[d] = make_batch_builder(backend_l, g, cache, cfg.fanouts,
-                                             counter, d, device=dev, **kw)
+                                             counter, d, device=card, **kw)
             builders[d].telemetry = tele
             builders[d].store = store
         st["builders"] = builders
@@ -618,26 +682,10 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
 
         pack_fn = None
         if backend_l == "sharded":
-            exec_cl = st["exec_cliques"]
-            mesh = make_hierarchical_mesh(exec_cl, devices=[dev] * len(devs))
             st["sharded_step"] = _make_sharded_step(
                 cfg, opt, mesh, n_total=per_dev * len(devs),
                 feat_dim=g.feat_dim)
             clique_caches = [plan_l.caches[ci] for ci in exec_clique_ids]
-            shard_stack_memo = {}
-
-            def hierarchical_shards(epochs):
-                """The (K_c, K_g, R, Dp) stack for one per-clique epoch
-                vector, memoized: cliques refresh independently, so it is
-                restacked only when some clique's epoch moves.  Two entries
-                are kept, the caches' double-buffer horizon, so queued steps
-                straddling a refresh keep their stack."""
-                if epochs not in shard_stack_memo:
-                    while len(shard_stack_memo) >= 2:
-                        shard_stack_memo.pop(next(iter(shard_stack_memo)))
-                    shard_stack_memo[epochs] = stack_hierarchical_shards(
-                        clique_caches, epochs)
-                return shard_stack_memo[epochs]
 
             def pack_fn(spec_groups):
                 """Second host phase, on the Prefetcher's coordinator: the
@@ -652,19 +700,24 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
             st["sharded_step"] = None
 
         def finalize_batch(item):
-            """Device phase: finalize every part and concatenate (== DP).
-            The sharded backend dequeues an already-packed hierarchical
-            batch: here it only uploads it and resolves the epoch-pinned
-            shard stack its routing indexes into."""
+            """Device phase: finalize every part and concatenate on the
+            model's device (== DP).  The sharded backend dequeues an
+            already-packed hierarchical batch: here it uploads each
+            position's slice to that position's device and resolves each
+            clique's epoch-pinned shards, which the cache's double buffer
+            keeps alive (cliques refresh independently, so the epochs may
+            differ between cliques, never within one)."""
             if backend_l == "sharded":
                 packed = dict(item)
-                epochs = tuple(int(e) for e in packed.pop("cache_epochs"))
-                return hierarchical_shards(epochs), {
-                    k: torch.from_numpy(v).to(dev) for k, v in packed.items()}
+                epochs = [int(e) for e in packed.pop("cache_epochs")]
+                shards = [c.sharded_device_arrays(e)["feat_shards"]
+                          for c, e in zip(clique_caches, epochs)]
+                return shards, position_parts(packed, mesh)
             parts = [builders[d].finalize(s) for d, s in zip(devs, item)]
             if len(parts) == 1:
-                return parts[0]
-            return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+                return {k: v.to(dev) for k, v in parts[0].items()}
+            return {k: torch.cat([p[k].to(dev) for p in parts])
+                    for k in parts[0]}
 
         if journal is not None:
             for d in devs:
@@ -692,7 +745,9 @@ def train_gnn(g: CSRGraph, plan: Optional[LegionPlan], cfg: GNNConfig, *,
         survivors: ``replan_on_topology_change``), and launch a fresh
         pipeline at the current step.  The sharded mesh cannot shrink in
         place, so that backend falls back to the device backend (the
-        concatenated batch is the same synchronous DP).  Survivor RNG
+        concatenated batch is the same synchronous DP); its survivors keep
+        the cards they were bound to, each clique's residency on its first
+        survivor's card, the batches concatenated on the model's.  Survivor RNG
         streams re-seed from (seed, step, device), so a run with a fixed
         fault plan is reproducible end to end."""
         t0 = time.perf_counter()

@@ -8,3 +8,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "gpu: needs a CUDA card; skips (decided in a fixture) "
                    "where torch.cuda.is_available() is false")
+    config.addinivalue_line(
+        "markers", "multigpu: needs two CUDA cards or more; skips (decided "
+                   "in a fixture) where torch.cuda.device_count() < 2")

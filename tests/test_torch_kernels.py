@@ -619,9 +619,9 @@ def test_cuda_training_runs_the_kernels_and_matches_the_host_backend(
 # ---------------- routed_gather and routed_neighbor_sample ----------------
 
 def _routed_gather_case(k, R, D, n, dtype, seed=0, device="cpu"):
-    """A shard stack and routing with misses (-1), owners past K_g - 1 and
-    slots outside [0, R): the clamps the kernel shares with its plain
-    version."""
+    """A shard stack (its rows are the shards; the wrapper takes them as a
+    list) and routing with misses (-1), owners past K_g - 1 and slots
+    outside [0, R): the clamps the kernel shares with its plain version."""
     rng = np.random.default_rng(seed)
     shards = _to_torch(rng.standard_normal((k, R, D), dtype=np.float32),
                        dtype)
@@ -651,6 +651,8 @@ def _csr_stack(k, R, max_deg, seed=0):
 
 
 def _sample_case(k, R, n, f, seed=0, device="cpu"):
+    """Stacked CSR shards and routing: ``_as_shards`` gives the wrapper's
+    form, the stacks are the dense oracle's."""
     indptr, indices = _csr_stack(k, R, 40, seed)
     rng = np.random.default_rng(seed + 1)
     owner = rng.integers(-1, k, size=n).astype(np.int32)
@@ -664,20 +666,37 @@ def _sample_case(k, R, n, f, seed=0, device="cpu"):
         torch.from_numpy(rand)))
 
 
+def _as_shards(*stacks):
+    """Each stack's rows as separate contiguous tensors (the routed
+    wrappers' form: one allocation per shard)."""
+    out = tuple([t.clone() for t in stack.unbind(0)] for stack in stacks)
+    return out if len(out) > 1 else out[0]
+
+
 @pytest.mark.parametrize("bad", ["owner_dtype", "local_shape", "rank",
-                                 "empty_shard", "device"])
+                                 "empty_shard", "device", "stacked",
+                                 "ragged", "mixed_dtype", "too_many"])
 def test_routed_gather_wrapper_rejects_what_the_kernel_does_not_take(bad):
-    shards, owner, local = _routed_gather_case(2, 4, 8, 5, torch.float32)
+    stack, owner, local = _routed_gather_case(2, 4, 8, 5, torch.float32)
+    shards = _as_shards(stack)
     if bad == "owner_dtype":
         owner = owner.to(torch.int64)
     elif bad == "local_shape":
         local = local[:3]
     elif bad == "rank":
-        shards = shards[0]
+        shards = [s[0] for s in shards]
     elif bad == "empty_shard":
-        shards = shards[:, :0]
+        shards = [s[:0] for s in shards]
+    elif bad == "device":
+        shards = [s.to("meta") for s in shards]
+    elif bad == "stacked":  # the stacked entry is gone
+        shards = stack
+    elif bad == "ragged":
+        shards = [shards[0], shards[1][:3]]
+    elif bad == "mixed_dtype":
+        shards = [shards[0], shards[1].to(torch.bfloat16)]
     else:
-        shards = shards.to("meta")
+        shards = shards * (gather.MAX_SHARDS // 2 + 1)
     with pytest.raises((TypeError, ValueError)):
         gather.routed_gather(shards, owner, local)
 
@@ -686,8 +705,9 @@ def test_routed_gather_wrapper_rejects_what_the_kernel_does_not_take(bad):
                                  "k_mismatch", "empty_indices"])
 def test_routed_sample_wrapper_rejects_what_the_kernel_does_not_take(bad):
     indptr, indices, owner, local, rand = _sample_case(2, 6, 4, 3)
+    indptr, indices = _as_shards(indptr, indices)
     if bad == "indptr_dtype":
-        indptr = indptr.to(torch.int32)
+        indptr = [t.to(torch.int32) for t in indptr]
     elif bad == "rand_dtype":
         rand = rand.to(torch.int32)
     elif bad == "rand_rows":
@@ -695,7 +715,7 @@ def test_routed_sample_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "k_mismatch":
         indices = indices[:1]
     else:
-        indices = indices[:, :0]
+        indices = [t[:0] for t in indices]
     with pytest.raises((TypeError, ValueError)):
         gather.routed_neighbor_sample(indptr, indices, owner, local, rand)
 
@@ -727,11 +747,12 @@ def test_launch_count_is_exact_under_concurrent_launches():
 
 def test_routed_kernels_on_cpu_count_no_launches_and_empty_is_empty():
     before = (gather.ROUTED_KERNEL.launches, gather.SAMPLE_KERNEL.launches)
-    shards, owner, local = _routed_gather_case(2, 4, 8, 5, torch.float32)
+    stack, owner, local = _routed_gather_case(2, 4, 8, 5, torch.float32)
+    shards = _as_shards(stack)
     got = gather.routed_gather(shards, owner, local)
-    assert torch.equal(got, tref.routed_gather_dense(shards, owner, local))
+    assert torch.equal(got, tref.routed_gather_dense(stack, owner, local))
     case = _sample_case(2, 6, 4, 3)
-    got = gather.routed_neighbor_sample(*case)
+    got = gather.routed_neighbor_sample(*_as_shards(*case[:2]), *case[2:])
     assert torch.equal(got, tref.routed_neighbor_sample_dense(*case))
     assert tuple(gather.routed_gather(shards, owner[:0], local[:0]).shape) \
         == (0, 8)
@@ -747,12 +768,15 @@ def test_cuda_routed_gather_matches_plain_version(cuda_device, k, R, D, n,
                                                   dtype):
     args = _routed_gather_case(k, R, D, n, dtype, device=cuda_device)
     snap = [a.clone() for a in args]
+    shards = _as_shards(args[0])
     before = gather.ROUTED_KERNEL.launches
-    got = gather.routed_gather(*args)
+    got = gather.routed_gather(shards, *args[1:])
     torch.cuda.synchronize()
     assert gather.ROUTED_KERNEL.launches == before + 1
     assert torch.equal(got, tref.routed_gather_dense(*args))
-    assert all(torch.equal(a, b) for a, b in zip(args, snap))
+    assert torch.equal(got, tref.routed_gather_peer(shards, *args[1:]))
+    assert all(torch.equal(a, b) for a, b in zip(shards, snap[0]))
+    assert all(torch.equal(a, b) for a, b in zip(args[1:], snap[1:]))
 
 
 @pytest.mark.gpu
@@ -761,24 +785,33 @@ def test_cuda_routed_gather_matches_plain_version(cuda_device, k, R, D, n,
                                      (2, 200_000, 50_000, 10)])
 def test_cuda_routed_sample_matches_plain_version(cuda_device, k, R, n, f):
     args = _sample_case(k, R, n, f, device=cuda_device)
+    shards = _as_shards(*args[:2])
     before = gather.SAMPLE_KERNEL.launches
     hops = gather.SAMPLE_KERNEL.route_launches["hop"]
-    got = gather.routed_neighbor_sample(*args)
+    got = gather.routed_neighbor_sample(*shards, *args[2:])
     torch.cuda.synchronize()
     assert gather.SAMPLE_KERNEL.launches == before + 1
     assert gather.SAMPLE_KERNEL.route_launches["hop"] == hops + 1
     assert torch.equal(got, tref.routed_neighbor_sample_dense(*args))
+    assert torch.equal(got, tref.routed_neighbor_sample_peer(*shards,
+                                                             *args[2:]))
 
 
 @pytest.mark.gpu
-def test_cuda_mesh_spanning_two_cards_is_not_ported(cuda_device):
-    from repro_torch.launch.mesh import make_hierarchical_mesh
+def test_cuda_mesh_binds_existing_cards_and_refuses_missing_ones(
+        cuda_device):
+    from repro_torch.launch.mesh import make_data_mesh, make_hierarchical_mesh
 
     mesh = make_hierarchical_mesh([[0, 1], [2, 3]])
     assert {mesh.device(ci, gi) for ci, gi in mesh.positions()} == \
         {torch.device("cuda", 0)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_hierarchical_mesh([[0, 1]], devices=["cuda:0", "cuda:1"])
+    missing = f"cuda:{torch.cuda.device_count()}"
+    with pytest.raises(ValueError, match="CUDA device"):
+        make_hierarchical_mesh([[0, 1]], devices=["cuda:0", missing])
+    with pytest.raises(ValueError, match="CUDA device"):
+        make_data_mesh(2, devices=["cuda:0", missing])
+    with pytest.raises(ValueError, match="mix device types"):
+        make_data_mesh(2, devices=["cuda:0", "cpu"])
 
 
 @pytest.mark.gpu

@@ -426,7 +426,7 @@ def test_variant_records_have_their_own_file(tmp_path, monkeypatch):
     assert {n: r["variant"] for n, r in recs.items()} == {
         "mamba2-780m__decode_32k__single.json": "baseline",
         "mamba2-780m__decode_32k__single__chunked_loss.json": "chunked_loss"}
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1, items 10-11"):
         dryrun.main(["--all", "--mesh", "both"])
 
 
@@ -438,8 +438,8 @@ def test_cli_refuses_a_mesh(tmp_path):
                        cwd=ROOT, env=env, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode != 0
-    assert "queue 1, item 4" in r.stderr
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    assert "queue 1, items 10-11" in r.stderr
+    with pytest.raises(NotImplementedError, match="queue 1, items 10-11"):
         specs.build_cell(get_config("gemma3-1b", smoke=True),
                          ShapeConfig("p", 8, 1, "prefill"), mesh=object())
 

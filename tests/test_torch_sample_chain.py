@@ -109,9 +109,18 @@ def _per_hop(cache, seeds, fanouts, rands):
 
 
 def _routing(cache):
+    """The flat residency's routing and stacked CSR shards (the dense
+    oracle's arguments)."""
     da = cache.device_arrays()
     return (da["topo_shard_indptr"], da["topo_shard_indices"],
             da["topo_owner"], da["topo_local"])
+
+
+def _peer(args):
+    """Dense-oracle chain arguments in the wrapper's form: each stacked
+    CSR's rows as separate tensors (one allocation per shard)."""
+    return ([t.clone() for t in args[0].unbind(0)],
+            [t.clone() for t in args[1].unbind(0)], *args[2:])
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -125,9 +134,10 @@ def test_plain_chain_equals_the_per_hop_composition(graph, case):
     args = (*_routing(cache), torch.from_numpy(seeds),
             [torch.from_numpy(r) for r in rands])
     got_o, got_h = tref.routed_neighbor_sample_chain(*args)
-    wrap_o, wrap_h = gather.routed_neighbor_sample_chain(*args)
+    peer_o, peer_h = tref.routed_neighbor_sample_chain_peer(*_peer(args))
+    wrap_o, wrap_h = gather.routed_neighbor_sample_chain(*_peer(args))
     chain_o, chain_h = cache.device_sample_chain(seeds, fanouts, rands)
-    for outs, hits in ((got_o, got_h), (wrap_o, wrap_h),
+    for outs, hits in ((got_o, got_h), (peer_o, peer_h), (wrap_o, wrap_h),
                        (chain_o, chain_h)):
         assert len(outs) == len(hits) == len(fanouts)
         for a, b in zip(outs, want_o):
@@ -169,8 +179,8 @@ def test_chain_rejects_draws_of_the_wrong_shape(graph):
 
 
 def _chain_case(k=2, R=6, N=20, n=5, fanouts=(3, 2)):
-    indptr, indices = torch.zeros((k, R + 1), dtype=torch.int64), \
-        torch.zeros((k, 8), dtype=torch.int32)
+    indptr = [torch.zeros(R + 1, dtype=torch.int64) for _ in range(k)]
+    indices = [torch.zeros(8, dtype=torch.int32) for _ in range(k)]
     owner = torch.zeros(N, dtype=torch.int32)
     local = torch.zeros(N, dtype=torch.int64)
     seeds = torch.zeros(n, dtype=torch.int64)
@@ -185,7 +195,8 @@ def _chain_case(k=2, R=6, N=20, n=5, fanouts=(3, 2)):
     "no_hops", "five_hops", "indptr_dtype", "owner_dtype", "local_dtype",
     "seeds_dtype", "rand_dtype", "rand_rows", "next_hop_rows", "seeds_rank",
     "k_mismatch", "empty_indices", "empty_routing", "routing_lengths",
-    "too_many_rows", "mixed_devices"])
+    "too_many_rows", "mixed_devices", "stacked_shards", "ragged_shards",
+    "too_many_shards"])
 def test_chain_wrapper_rejects_what_the_kernel_does_not_take(bad):
     indptr, indices, owner, local, seeds, rands = _chain_case()
     if bad == "no_hops":
@@ -194,7 +205,7 @@ def test_chain_wrapper_rejects_what_the_kernel_does_not_take(bad):
         indptr, indices, owner, local, seeds, rands = _chain_case(
             fanouts=(1,) * 5)
     elif bad == "indptr_dtype":
-        indptr = indptr.to(torch.int32)
+        indptr = [t.to(torch.int32) for t in indptr]
     elif bad == "owner_dtype":
         owner = owner.to(torch.int64)
     elif bad == "local_dtype":
@@ -212,7 +223,14 @@ def test_chain_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "k_mismatch":
         indices = indices[:1]
     elif bad == "empty_indices":
-        indices = indices[:, :0]
+        indices = [t[:0] for t in indices]
+    elif bad == "stacked_shards":  # the stacked entry is gone
+        indptr, indices = torch.stack(indptr), torch.stack(indices)
+    elif bad == "ragged_shards":
+        indices = [indices[0], indices[1][:5]]
+    elif bad == "too_many_shards":
+        indptr = indptr * (gather.MAX_SHARDS // 2 + 1)
+        indices = indices * (gather.MAX_SHARDS // 2 + 1)
     elif bad == "empty_routing":
         owner, local = owner[:0], local[:0]
     elif bad == "routing_lengths":
@@ -322,7 +340,7 @@ def test_cuda_chain_matches_plain_version_in_one_launch(cuda_device, k, R, N,
     args.append([r.to(cuda_device) for r in rands])
     snap = [t.clone() for t in args[:5]] + [r.clone() for r in args[5]]
     before = dict(gather.SAMPLE_KERNEL.route_launches)
-    outs, hits = gather.routed_neighbor_sample_chain(*args)
+    outs, hits = gather.routed_neighbor_sample_chain(*_peer(args))
     torch.cuda.synchronize()
     assert gather.SAMPLE_KERNEL.route_launches == {
         "hop": before["hop"], "chain": before["chain"] + (n > 0)}

@@ -3,10 +3,11 @@ on the ``(pod, clique)`` mesh) against the reference package, on the CPU.
 
 Same numpy inputs on both sides, a 2 x 2 hierarchy (``dgx-v100`` with four
 GPUs: two cliques of two).  Bit for bit: the shard routing, the sharded
-residency and the hierarchical shard stack, the sharded specs' routing, the
-packed mesh batch, the two routed kernels' plain versions against the
-reference's dense oracles, and every position's gathered batch against the
-reference's device-backend batch of the same spec.  Within stated
+residency (one tensor per shard, stacked here to meet the reference's), the
+sharded specs' routing, the packed mesh batch, the two routed kernels' plain
+versions against the reference's dense oracles, and every position's
+gathered batch against the reference's device-backend batch of the same
+spec.  Within stated
 tolerances: ``train_gnn`` losses against the reference's device backend
 (atol 1e-4, the reference's own sharded tolerance: the mesh sums the
 positions' float32 gradients in another order) and against the reference's
@@ -28,8 +29,6 @@ import torch
 from repro.core.cache_manager import RefreshConfig as JRefresh
 from repro.core.cliques import topology_matrix as j_topo
 from repro.core.planner import build_plan as j_build_plan
-from repro.core.unified_cache import \
-    stack_hierarchical_shards as j_stack
 from repro.graph.csr import powerlaw_graph as j_graph
 from repro.graph.sampling import host_sample_level as j_host_sample_level
 from repro.kernels import ref as jref
@@ -45,8 +44,6 @@ from repro_torch.core.cache_manager import RefreshConfig
 from repro_torch.core.cliques import topology_matrix as t_topo
 from repro_torch.core.planner import build_plan as t_build_plan
 from repro_torch.core.unified_cache import TrafficCounter
-from repro_torch.core.unified_cache import \
-    stack_hierarchical_shards as t_stack
 from repro_torch.graph.csr import powerlaw_graph as t_graph
 from repro_torch.kernels import gather
 from repro_torch.kernels import ref as tref
@@ -55,7 +52,8 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.models.gnn import GNNConfig
 from repro_torch.train.batch import ShardedBatchBuilder, make_batch_builder
 from repro_torch.train.batch import pack_sharded_specs as t_pack
-from repro_torch.train.loop import sharded_position_batch, train_gnn
+from repro_torch.train.loop import (position_parts, sharded_position_batch,
+                                   train_gnn)
 
 ROOT = Path(__file__).resolve().parents[1]
 GRAPH = dict(n=3000, avg_degree=8, seed=9, feat_dim=16)
@@ -64,6 +62,8 @@ PLAN = dict(mem_per_device=30_000, batch_size=64, seed=0, fanouts=FANOUTS)
 CFG = dict(feat_dim=16, hidden=32, batch_size=64, fanouts=FANOUTS, lr=3e-3)
 REFRESH = dict(interval=4, drift_threshold=1.0)
 STEPS = 8
+# the sharded residency's per-card copies (the others are one per shard)
+PER_CARD = ("slot_owner", "slot_local", "topo_owner", "topo_local")
 TALLIES = ("pcie_transactions", "feature_requests", "feature_hits",
            "topo_requests", "topo_hits", "host_sample_syncs",
            "host_sampled_edges")
@@ -114,37 +114,20 @@ def test_shard_routing_and_sharded_residency_match_reference(setup, ci):
         _assert_bitwise(a, b, "routing")
     assert ct.shard_row_count() == cj.shard_row_count() > 0
     sj = cj.sharded_device_arrays()
-    st = ct.sharded_device_arrays(device="cpu")
+    st = ct.sharded_device_arrays(devices="cpu")
     assert set(st) == set(sj)
     for k in sj:
-        _assert_bitwise(st[k], sj[k], k)
-    # the topology stacks are the flat residency's tensors, not copies
-    assert st["topo_shard_indptr"] is ct.device_arrays()["topo_shard_indptr"]
-
-
-def test_stack_hierarchical_shards_matches_reference():
-    """Both cliques at epoch 0, then clique 1 at a refreshed epoch in which
-    four rows moved from shard 0 to shard 1: the taller shard sets R and
-    the other clique's stack is zero-padded, bit for bit as the reference
-    stacks it (fresh plans: the refresh mutates them)."""
-    gj, gt = _graphs()
-    pj, pt = _plans(gj, gt)
-    for c in pt.caches:
-        c.sharded_device_arrays(device="cpu")
-    _assert_bitwise(t_stack(pt.caches, [0, 0]), j_stack(pj.caches, [0, 0]),
-                    "stack at epochs (0, 0)")
-    for c in (pj.caches[1], pt.caches[1]):
-        evict = c.feat_ids[c.feat_owner == 0][:4].copy()
-        admit = np.flatnonzero(c.feat_pos < 0)[:4]
-        c.begin_epoch()
-        c.apply_feature_delta(evict, admit, np.ones(4, np.int32))
-    got = t_stack(pt.caches, [0, 1])
-    _assert_bitwise(got, j_stack(pj.caches, [0, 1]), "stack at (0, 1)")
-    rows = [c.shard_row_count() for c in pt.caches]
-    assert rows[1] == rows[0] + 4 and got.shape[2] == rows[1]
-    assert (got[0, :, rows[0]:] == 0).all()
-    with pytest.raises(ValueError, match="epochs"):
-        t_stack(pt.caches, [0])
+        # one tensor per clique position: a shard each, or (the routing
+        # tables) a copy on each position's card
+        assert len(st[k]) == len(ct.devices)
+        got = st[k][0] if k in PER_CARD else torch.stack(st[k])
+        _assert_bitwise(got, sj[k], k)
+    # the topology shards are uploaded anew, not views of the flat stacks
+    da = ct.device_arrays()
+    for k in ("topo_shard_indptr", "topo_shard_indices"):
+        assert torch.equal(torch.stack(st[k]), da[k])
+        assert not {t.untyped_storage().data_ptr() for t in st[k]} & {
+            da[k].untyped_storage().data_ptr()}
 
 
 # ---- the routed kernels' plain versions ---------------------------------
@@ -160,7 +143,7 @@ def test_routed_gather_plain_matches_reference_dense(k, R, D, n, dtype):
                                                   dtype=np.float32)).to(dtype)
     owner = rng.integers(-2, k + 2, size=n).astype(np.int32)
     local = rng.integers(-3, R + 3, size=n).astype(np.int32)
-    got = gather.routed_gather(shards, torch.from_numpy(owner),
+    got = gather.routed_gather(list(shards), torch.from_numpy(owner),
                                torch.from_numpy(local))
     if dtype == torch.bfloat16:
         jshards = jnp.asarray(shards.view(torch.int16).numpy()
@@ -198,8 +181,9 @@ def test_routed_neighbor_sample_plain_matches_reference_dense(setup, seed):
     rand[5] = (1 << 31) - 1
     ip, ix = cache.topo_shard_indptr, cache.topo_shard_indices
     got = gather.routed_neighbor_sample(
-        torch.from_numpy(ip), torch.from_numpy(ix), torch.from_numpy(owner),
-        torch.from_numpy(local), torch.from_numpy(rand))
+        torch.from_numpy(ip).unbind(0), torch.from_numpy(ix).unbind(0),
+        torch.from_numpy(owner), torch.from_numpy(local),
+        torch.from_numpy(rand))
     want = np.asarray(jref.routed_neighbor_sample_dense(
         jnp.asarray(ip), jnp.asarray(ix), jnp.asarray(owner),
         jnp.asarray(local), jnp.asarray(rand)))
@@ -307,12 +291,14 @@ def test_sharded_position_batches_match_reference_device_batches(setup):
     js, ts = _sharded_specs(setup, 60)
     D = GRAPH["feat_dim"]
     packed = t_pack(ts, D, bucket=64)
-    epochs = tuple(int(e) for e in packed.pop("cache_epochs"))
-    stack = t_stack(pt.caches, epochs)
-    packed = {k: torch.from_numpy(v) for k, v in packed.items()}
+    epochs = [int(e) for e in packed.pop("cache_epochs")]
+    shards = [c.sharded_device_arrays(e)["feat_shards"]
+              for c, e in zip(pt.caches, epochs)]
+    parts = position_parts(packed, t_mesh(pt.partition.cliques,
+                                          devices=["cpu"] * 4))
     for ci, clique in enumerate(pt.partition.cliques):
         for gi, d in enumerate(clique):
-            got = sharded_position_batch(stack[ci], packed, ci, gi, D)
+            got = sharded_position_batch(shards[ci], parts[ci, gi], D)
             bj = JDevice(gj, pj.cache_for_device(d), FANOUTS, None, d,
                          gather="xla")
             tab = pt.partition.tablets[d]
@@ -339,9 +325,9 @@ def test_routing_and_stack_resolved_once_per_epoch(setup):
         calls["routing"] += 1
         return orig_routing()
 
-    def counting_stack(epoch=None, device=None):
+    def counting_stack(epoch=None, devices=None):
         calls["stack"] += 1
-        return orig_stack(epoch, device)
+        return orig_stack(epoch, devices)
 
     cache.shard_routing = counting_routing
     cache.sharded_device_arrays = counting_stack
@@ -367,25 +353,31 @@ def test_routing_and_stack_resolved_once_per_epoch(setup):
 
 
 def test_sharded_epoch_pinning(setup):
-    """The partitioned stack keeps the flat arrays' double-buffer contract:
-    specs built before a refresh finalize against the stack they indexed;
-    two refreshes back raises (``tests/_sharded_checks.py``)."""
+    """The partitioned shards keep the flat arrays' double-buffer contract:
+    specs built before a refresh finalize against the shards they indexed,
+    which stay alive; two refreshes back raises
+    (``tests/_sharded_checks.py``)."""
     _, _, gt, _ = setup
     plan = t_build_plan(gt, t_topo("nv8", 4), mem_per_device=200_000,
                         batch_size=256, seed=0)
     cache = plan.caches[0]
     e0 = cache.epoch
-    old = cache.sharded_device_arrays(device="cpu")["feat_shards"].clone()
+    live = cache.sharded_device_arrays(devices="cpu")["feat_shards"]
+    old = [t.clone() for t in live]
     cache.begin_epoch()
     cache.apply_feature_delta(cache.feat_ids[:2].copy(),
                               np.asarray([], np.int64),
                               np.asarray([], np.int32))
-    assert torch.equal(cache.sharded_device_arrays(e0)["feat_shards"], old)
+    pinned = cache.sharded_device_arrays(e0)["feat_shards"]
+    assert pinned is live
+    assert all(torch.equal(a, b) for a, b in zip(pinned, old))
     new = cache.sharded_device_arrays()["feat_shards"]
-    assert new.shape[0] == 4 and new is not old
+    assert len(new) == 4 and not {t.data_ptr() for t in new} & {
+        t.data_ptr() for t in live}
     cache.replace_topology(cache.topo_ids_per_dev)
-    assert cache.sharded_device_arrays()["topo_shard_indices"] is \
-        cache.device_arrays()["topo_shard_indices"]
+    sa, da = cache.sharded_device_arrays(), cache.device_arrays()
+    assert torch.equal(torch.stack(sa["topo_shard_indices"]),
+                       da["topo_shard_indices"])
     cache.begin_epoch()
     with pytest.raises(RuntimeError, match="in sharded form"):
         cache.sharded_device_arrays(e0)

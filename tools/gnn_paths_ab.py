@@ -28,8 +28,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke as cs  # noqa: E402  (puts this checkout's src on the path)
-
 SHARDED_STEPS = 8
 
 
@@ -39,7 +37,11 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args(argv)
     src = str(Path(args.src).resolve())
-    sys.path.insert(0, src)  # ahead of chip_smoke's
+    sys.path.insert(0, src)
+    # the tree under test is imported first: chip_smoke puts this
+    # checkout's src ahead of it, but then finds repro_torch imported
+    import repro_torch  # noqa: F401
+    import chip_smoke as cs
     import numpy as np
     import torch
 
