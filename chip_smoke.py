@@ -353,6 +353,23 @@ result line):
    head dim of 80, 4 heads, d_model 320): its logits on the card
    (teacher-forced) against the CPU's ``generate`` within 5e-3, and 4
    AdamW steps card against CPU within 2e-3, every launch on ``wgmma``.
+28. LM serving over a mesh (``mesh_phase``), every position on ``cuda:0``:
+   gemma3-1b at full size on a 2 x 2 (data, model) mesh (``MESH_GEMMA``:
+   4 x 4096 prompts, 32 greedy tokens; a 1 x 1 mesh first, bitwise the
+   meshless run) and phi3.5-moe at full width on 8 layers on a 1 x 4 mesh
+   (``MESH_MOE``, its experts over "model", each position's drops
+   counted), each ``generate`` held to its meshless run (``greedy_held``:
+   the prefill's logits within ``MESH_TOL``, decode by phase 13's
+   criterion, token flips only at near ties; the MoE at capacity factor E
+   / top_k, where nothing drops, routing flips only at near ties), one
+   ``flash_attention`` launch per layer and position, all ``wgmma``, the
+   collectives by kind; the kernel at nonzero query offsets
+   (``MESH_OFFSET_CASES``) held to its plain version on its three routes
+   and timed beside offset 0, the plain version, SDPA and the bound;
+   dbrx-132b's ``decode_32k`` accounted per position on a 1 x 4 meta mesh
+   and on the 2 x 16 x 16 production mesh.  28x: the gemma3 mesh with each
+   position on its own card, bitwise the one-card mesh, where the host has
+   four cards (otherwise it prints that it did not run, and why).
 
 Every kernel's launch count is zeroed just before each of the serve,
 train, parity, unfused, shard, shard-parity, store-train (each of its 5
@@ -361,8 +378,8 @@ sampler-chain, sampler-stepwise, lm-serve, lm-parity, lm-train,
 lm-train-parity, moe-serve, moe-parity, ssm-serve, hybrid-serve,
 audio-serve, vlm-serve, family-parity, ssm-train, hybrid-train,
 audio-train, moe-train, vlm-train, train-parity, dryrun-* (each cell of
-phase 25), <arch>-serve and <arch>-train (phase 26) and narrow-stablelm
-phases and read just after, with
+phase 25), <arch>-serve and <arch>-train (phase 26), narrow-stablelm and
+mesh-<arch> (phase 28; mesh-<arch>-x in 28x) phases and read just after, with
 the launches by route; ``sage_aggregate``'s stay 0 (no path runs it), and
 ``routed_neighbor_sample`` launches once per device-sampling spec build,
 on its ``chain`` route, except in the stepwise run, where it launches once
@@ -654,6 +671,37 @@ SPILL_FREE = ("flash_fwd_wgmma", "fused_gather_overlay_kernel",
               "flash_bwd_wgmma", "flash_bwd_prep")
 # kernels that no path of either package runs (their launches stay 0)
 NO_PATH = {"sage_aggregate": "called only by its tests in the reference"}
+# phase 28, LM serving over a mesh (every position on cuda:0): gemma3-1b at
+# full width and depth on a 2 x 2 (data, model) mesh, and MOE_ARCH at full
+# width on MOE_LAYERS layers on a 1 x 4 mesh (the experts over "model"):
+# (mesh shape, batch, prompt, new tokens)
+MESH_GEMMA = ((2, 2), LM_BATCH, LM_PROMPT, LM_NEW)
+MESH_MOE = ((1, 4), LM_BATCH, LM_PROMPT, 8)
+# each held to the same config's meshless run on the card: the prefill's
+# logits within the LM tolerance (ROADMAP finding 3); each decode step's by
+# the full-width decode criterion of phase 13 (log-softmax within the
+# reference's rtol = atol = 5e-2, max gap LM_DECODE_GAP): the mesh's decode
+# attention combines per-shard partials (the reference's algorithm), so p
+# is rounded to bf16 at another point in each of 26 layers, and at full
+# width that moves single logits by up to 0.0625 on the CPU (gemma3-1b,
+# 4 x 64 prompts: 0.0508 in prefill), the LM tolerance's own size; a
+# greedy token may differ only where the meshless top-2 margin is within
+# twice the LM tolerance
+MESH_TOL = {"atol": 6e-2, "rtol": 3e-2}
+# the flash kernel at a mesh prefill's per-position shapes (a query block
+# of the sequence at its offset, over the whole keys): (name, q shape,
+# Sk, Hkv, window, q_offset); gemma3's last sequence block (local and
+# global layers) on the 2 x 2 mesh, MOE_ARCH's on the 1 x 4 mesh
+MESH_OFFSET_CASES = (
+    ("mesh_gemma3_local_q2048_at2048", (2, 2048, 4, 256), 4096, 1, 512, 2048),
+    ("mesh_gemma3_global_q2048_at2048", (2, 2048, 4, 256), 4096, 1, 0, 2048),
+    ("mesh_phi35_q1024_at3072", (4, 1024, 32, 128), 4096, 8, 0, 3072))
+MESH_OFFSET_TIMED = 20  # the kernel's timed launches per case and offset
+# the MoE's routing is discontinuous: where the meshless router's k-th and
+# (k+1)-th probabilities are this close (a near tie; the two runs' hidden
+# states differ by bf16 rounding), the mesh may pick the other expert, and
+# that sequence is compared no further; a flip at a wider margin fails
+ROUTE_FLIP_MARGIN = 1e-2
 
 
 def ptxas_functions(log: str) -> list:
@@ -5391,6 +5439,472 @@ def gap_summary(gap, window: int) -> str:
             f", mean {gap.mean():.4e}")
 
 
+# ---- phase 28: LM serving over a (data, model) mesh -------------------------
+
+@contextlib.contextmanager
+def recorded_router(moe, record: list):
+    """Every ``moe._route`` call's (top-k ids, the margin between the
+    router's k-th and (k+1)-th probabilities) appended to ``record``."""
+    import torch
+
+    inner = moe._route
+
+    def route(cfg, p, x):
+        out = inner(cfg, p, x)
+        probs = torch.softmax((x @ p["router"].to(x.dtype)).float(), dim=-1)
+        top = probs.topk(cfg.top_k + 1, dim=-1).values
+        record.append((out[0], top[..., -2] - top[..., -1]))
+        return out
+
+    moe._route = route
+    try:
+        yield record
+    finally:
+        moe._route = inner
+
+
+def routing_flips(torch, want: list, got: list, L: int, n: int,
+                  new: int, tokens) -> dict:
+    """Where the mesh's routing (``recorded_router`` of a 1 x n mesh: the
+    batch whole, the prefill's sequence split over the n positions, decode
+    replicated) differs from the meshless run's: {sequence: first step (0:
+    the prefill)}, while the sequence's greedy tokens (``tokens``: the two
+    runs', (B, new) each) agree: a sequence's first flip (in layer order)
+    changes its later layers' inputs, so it is compared no further.
+    Raises where a first flip's meshless k / k+1 margin exceeds
+    ``ROUTE_FLIP_MARGIN``."""
+    first = {}
+    same = (tokens[0].cpu() == tokens[1].cpu()).cumprod(dim=1)
+
+    def compare(w, g, t):
+        (wi, wm), gi = w, g
+        diff = (torch.sort(wi, -1).values != torch.sort(gi, -1).values).any(-1)
+        for b in diff.any(-1).nonzero().flatten().tolist():
+            if b in first or (t > 0 and not bool(same[b, t - 1])):
+                continue  # flipped before, or fed another token
+            m = float(wm[b][diff[b]].max())
+            if m > ROUTE_FLIP_MARGIN:
+                raise AssertionError(
+                    f"sequence {b} step {t}: routing differs at a router "
+                    f"margin of {m:.4e}, beyond {ROUTE_FLIP_MARGIN}")
+            first.setdefault(b, t)
+
+    for l in range(L):
+        blocks = [got[l * n + i][0] for i in range(n)]
+        compare(want[l], torch.cat(blocks, dim=1), 0)
+    for t in range(1, new):
+        for l in range(L):
+            compare(want[L + (t - 1) * L + l],
+                    got[L * n + ((t - 1) * L + l) * n][0], t)
+    return first
+
+
+def greedy_held(torch, want, got, vocab: int, tol: dict,
+                gap: float = LM_DECODE_GAP, stop: dict = None) -> dict:
+    """A mesh generation held to the meshless one, step by step, while a
+    sequence's tokens agree: the prefill's logits (step 0) within ``tol``
+    (atol + rtol * |meshless|), each decode step's log-softmax within rtol
+    = atol = 5e-2 of the meshless one with a max gap of ``gap``
+    (``MESH_TOL``'s note); its token the meshless token, unless the
+    meshless top-2 margin is within twice ``tol`` at that logit (a flip,
+    counted; the sequence is compared no further).  Raises otherwise.
+    Returns the largest logit error and log-softmax gap compared, the decode
+    logits beyond ``tol`` (reported, not held), and the compared and the
+    flipped (sequence, step)s.  ``stop``: {sequence: step} from which a
+    sequence is not compared (``routing_flips``)."""
+    B, T = want.tokens.shape
+    live = torch.ones(B, dtype=torch.bool)
+    out = {"max_err": 0.0, "prefill_err": 0.0, "max_gap": 0.0,
+           "beyond_tol": 0, "compared": 0, "flips": [], "margin_min": None}
+    stop = stop or {}
+    for t in range(T):
+        for b, at in stop.items():
+            live[b] = live[b] and t < at
+        w = want.logits[:, t, :vocab].float()
+        g = got.logits[:, t, :vocab].float().to(w.device)
+        err = (g - w).abs()
+        bound = tol["atol"] + tol["rtol"] * w.abs()
+        lw, lg = torch.log_softmax(w, -1), torch.log_softmax(g, -1)
+        lerr = (lg - lw).abs()
+        top2 = w.topk(2, dim=-1)
+        margin = top2.values[:, 0] - top2.values[:, 1]
+        allowed = margin <= 2 * (tol["atol"] + tol["rtol"]
+                                 * top2.values[:, 0].abs())
+        for b in range(B):
+            if not live[b]:
+                continue
+            out["compared"] += 1
+            out["max_err"] = max(out["max_err"], float(err[b].max()))
+            out["max_gap"] = max(out["max_gap"], float(lerr[b].max()))
+            if t == 0:
+                out["prefill_err"] = max(out["prefill_err"],
+                                         float(err[b].max()))
+                if not bool((err[b] <= bound[b]).all()):
+                    raise AssertionError(
+                        f"sequence {b}: prefill logits differ by "
+                        f"{float(err[b].max()):.4e}, beyond {tol}")
+            else:
+                out["beyond_tol"] += int((err[b] > bound[b]).sum())
+                if float(lerr[b].max()) > gap or not bool(
+                        (lerr[b] <= 5e-2 + 5e-2 * lw[b].abs()).all()):
+                    raise AssertionError(
+                        f"sequence {b} step {t}: log-softmax gap "
+                        f"{float(lerr[b].max()):.4e} (logits "
+                        f"{float(err[b].max()):.4e}), beyond {gap} or "
+                        f"rtol = atol = 5e-2")
+            m = float(margin[b])
+            out["margin_min"] = m if out["margin_min"] is None else min(
+                out["margin_min"], m)
+            if int(got.tokens[b, t]) != int(want.tokens[b, t]):
+                if not bool(allowed[b]):
+                    raise AssertionError(
+                        f"sequence {b} step {t}: token "
+                        f"{int(got.tokens[b, t])} != "
+                        f"{int(want.tokens[b, t])} at a top-2 margin of "
+                        f"{m:.4e}, beyond twice {tol}")
+                out["flips"].append((b, t))
+                live[b] = False
+    return out
+
+
+def mesh_generate(torch, phase_launches: dict, phase_routes: dict,
+                  phase: str, cfg, params, prompts, new: int, dist,
+                  device: str):
+    """One generation over ``dist``'s mesh as a main path: launch counts set
+    to 0 just before and read just after, the flash kernel's launches held
+    to one per layer and position (``wgmma`` on the card), and the decode
+    steps timed by CUDA events.  Returns (generation, step ms, the
+    collective log's summary)."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.serve_lm import generate
+    from repro_torch.models import transformer
+
+    on_card = device != "cpu"
+    n = dist.mesh.size
+    zero_launches(KERNELS)
+    dist.log.clear()
+    if on_card:
+        gen, step = timed_decode_steps(
+            torch, transformer,
+            lambda: generate(cfg, params, prompts, new, dist=dist))
+    else:
+        gen, step = generate(cfg, params, prompts, new, dist=dist), [0.0]
+    phase_launches[phase] = read_launches(KERNELS)
+    phase_routes[phase] = read_routes(KERNELS)
+    L = cfg.n_layers
+    fa = phase_routes[phase]["flash_attention"]
+    if on_card and (phase_launches[phase] != expect(
+            {"flash_attention": L * n}) or fa["wgmma"] != L * n):
+        raise AssertionError(f"{phase}: launches {phase_launches[phase]} by "
+                             f"route {fa}, expected {L} layers x {n} "
+                             f"positions of flash_attention, on wgmma")
+    return gen, step, op_cost.parse_collectives(dist.log)
+
+
+def position_bytes(dist, tree) -> int:
+    """The first active position's bytes of a nested dict of ``Sharded``
+    leaves (every position's blocks have one shape)."""
+    if isinstance(tree, dict):
+        return sum(position_bytes(dist, v) for v in tree.values())
+    t = tree.local(dist.mesh.active[0])
+    return t.numel() * t.element_size()
+
+
+def mesh_offset_cases(torch, np, card: str, measured: dict, flush) -> None:
+    """The flash kernel at nonzero query offsets, at the mesh prefill's
+    per-position shapes (``MESH_OFFSET_CASES``): held to its plain version
+    within TOLERANCE on the ``wgmma`` route, on ``mma_sync`` (forced) and
+    on ``simt`` (f32 copies); on ``wgmma`` timed (CUDA events, L2 flushed)
+    beside the same call at offset 0, the plain version and SDPA with the
+    offset's mask, with the bound from this call's visible pairs.  These
+    launches compare the kernel with its plain version, outside every
+    main-path count.  The timed shapes join ``measured``'s."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fam
+    from repro_torch.kernels import ref as kref
+
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    for name, (B, Sq, Hq, Dh), Sk, Hkv, window, off in MESH_OFFSET_CASES:
+        q = torch.randn((B, Sq, Hq, Dh), generator=gen, device="cuda")
+        k = torch.randn((B, Sk, Hkv, Dh), generator=gen, device="cuda")
+        v = torch.randn((B, Sk, Hkv, Dh), generator=gen, device="cuda")
+        kw = {"causal": True, "window": window, "q_offset": off}
+        errs = {}
+        for route in ("wgmma", "mma_sync", "simt"):
+            dt = torch.float32 if route == "simt" else torch.bfloat16
+            a = tuple(t.to(dt) for t in (q, k, v))
+            with forced_route(fam, "flash_route", route):
+                before = fam.KERNEL.route_launches[route]
+                got = fam.flash_attention(*a, **kw)
+                if fam.KERNEL.route_launches[route] != before + 1:
+                    raise AssertionError(f"{name}: not on {route}")
+            want = kref.flash_attention(*a, **kw)
+            torch.testing.assert_close(
+                got.float(), want.float(),
+                **TOLERANCE["flash_attention"][str(dt).split(".")[-1]],
+                msg=lambda m: f"{name} on {route}: {m}")
+            errs[route] = float((got.float() - want.float()).abs().max())
+        a = tuple(t.to(torch.bfloat16) for t in (q, k, v))
+        i = off + torch.arange(Sq, device="cuda")[:, None]
+        j = torch.arange(Sk, device="cuda")[None, :]
+        mask = (j <= i) & ((i - j < window) if window > 0 else True)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in a)
+
+        def sdpa(qt=qt, kt=kt, vt=vt, mask=mask):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+        nbytes, flops = flash_work(a[0], a[1], window, shift=off)
+        runs = []
+        for _ in range(2):
+            runs.append([time_ms(torch, functools.partial(
+                fam.flash_attention, **kw), a, MESH_OFFSET_TIMED, flush),
+                time_ms(torch, functools.partial(
+                    fam.flash_attention, causal=True, window=window), a,
+                    MESH_OFFSET_TIMED, flush),
+                time_ms(torch, functools.partial(kref.flash_attention, **kw),
+                        a, LAYER_TIMED_PLAIN, flush),
+                time_ms(torch, sdpa, (), MESH_OFFSET_TIMED, flush)])
+        r = np.mean(runs, axis=0)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        z_bytes, z_flops = flash_work(a[0], a[1], window)
+        res = {"ms": float(r[0]), "plain_ms": float(r[2]),
+               "library_ms": float(r[3]),
+               "library_call": "F.scaled_dot_product_attention(enable_gqa="
+                               "True, the offset's mask)",
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+               "bytes": int(nbytes), "flops": int(flops),
+               "q_offset": off, "offset0_ms": float(r[1]),
+               "offset0_bound_ms": max(
+                   z_bytes / HBM_BYTES_PER_S * 1e3,
+                   z_flops / BF16_FLOPS_PER_S * 1e3)}
+        measured["flash_attention"]["timed"][name] = res
+        print(f"[mesh] flash_attention @ {name} (q {tuple(q.shape)} over "
+              f"{Sk} keys, window {window}, q_offset {off}): max |err| vs "
+              f"the plain version {errs} within {TOLERANCE['flash_attention']}"
+              f"; kernel {res['ms']:.4f} ms (at offset 0: "
+              f"{res['offset0_ms']:.4f} ms, bound "
+              f"{res['offset0_bound_ms']:.4f}), plain {res['plain_ms']:.4f}"
+              f" ms, SDPA {res['library_ms']:.4f} ms, bound "
+              f"{res['bound_ms']:.4f} ms by {res['bound_by']} "
+              f"({flops / 1e9:.2f} GFLOP) runs {runs} | {card}")
+
+
+def mesh_phase(torch, np, card: str, phase_launches: dict,
+               phase_routes: dict, measured: dict = None, gemma=None,
+               moe_cfg=None, mesh_gemma=MESH_GEMMA, mesh_moe=MESH_MOE,
+               device: str = "cuda") -> None:
+    """Phase 28 (28x where the host has 4 cards): LM serving over a mesh,
+    every position bound to ``device``.  ``gemma`` (default gemma3-1b at
+    full width and depth, seed-0 weights drawn on the card) on the
+    ``mesh_gemma`` mesh: the meshless generation, the 1 x 1 mesh's (bitwise
+    the meshless), the mesh's held to the meshless by ``greedy_held``, and
+    with 4 cards the same mesh with each position on its own card, bitwise
+    the one-card mesh (28x).  Then ``moe_cfg`` (default MOE_ARCH at full
+    width on MOE_LAYERS layers) on the ``mesh_moe`` mesh at its capacity
+    factor (each position's queues drop their own pairs, printed), and
+    held to the meshless run with the capacity factor at E / top_k, where
+    no pair can drop on either path.  Then the offset kernel's checks and
+    times (card only) and dbrx-132b's decode_32k accounted per position on
+    a 1 x 4 meta mesh and on the 2 x 16 x 16 production mesh.  A CPU dry
+    run: pass smoke configs, small ``mesh_*`` and ``device="cpu"``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve_lm import generate
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.params import init_from_defs, shard_params
+    from repro_torch.models.sharding import Distribution
+
+    on_card = device != "cpu"
+
+    def sync():
+        if on_card:
+            for d in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(d)
+
+    def draw(cfg):
+        gen = torch.Generator(device=device).manual_seed(0)
+        return init_from_defs(transformer.defs(cfg), gen, device)
+
+    # ---- gemma3: 1 x 1 bitwise, 2 x 2 held, 28x ----------------------------
+    shape, batch, prompt, new = mesh_gemma
+    cfg = gemma or get_config(LM_ARCH)
+    defs = transformer.defs(cfg)
+    params = draw(cfg)
+    prompts = np.random.default_rng(28).integers(0, cfg.vocab_size,
+                                                 (batch, prompt))
+    generate(cfg, params, prompts, 2, device=device)  # warm-up
+    t0 = time.perf_counter()
+    want = generate(cfg, params, prompts, new, device=device)
+    sync()
+    meshless_s = time.perf_counter() - t0
+    one = Distribution(make_debug_mesh((1, 1), devices=[device]))
+    got1 = generate(cfg, shard_params(params, defs, one), prompts, new,
+                    dist=one)
+    if not (torch.equal(got1.tokens, want.tokens)
+            and torch.equal(got1.logits, want.logits)) or one.log.calls:
+        raise AssertionError("the 1 x 1 mesh is not the meshless path's bits")
+    print(f"[mesh] {cfg.name} on a 1 x 1 mesh: tokens and logits of "
+          f"{batch} x {prompt} + {new} greedy tokens bitwise the meshless "
+          f"run's, no collective | {card}")
+    dist = Distribution(make_debug_mesh(shape, devices=[device] * math.prod(
+        shape)))
+    sp = shard_params(params, defs, dist)
+    generate(cfg, sp, prompts, 2, dist=dist)  # warm-up
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    phase = f"mesh-{cfg.name}"
+    got, step, colls = mesh_generate(torch, phase_launches,
+                                     phase_routes, phase, cfg, sp, prompts,
+                                     new, dist, device)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    held = greedy_held(torch, want, got, cfg.vocab_size, MESH_TOL)
+    step = np.array(step)
+    print(f"[mesh] {cfg.name} on a {shape[0]} x {shape[1]} (data, model) "
+          f"mesh, every position on {device}: prefill {batch} x {prompt} "
+          f"{got.prefill_s * 1e3:.3f} ms (meshless {want.prefill_s * 1e3:.3f}"
+          f"), decode median {float(np.median(step)):.3f} ms/step (CUDA "
+          f"events; meshless loop {want.decode_s * 1e3 / max(new - 1, 1):.3f}"
+          f" ms/step host wall), loop {got.decode_s * 1e3:.3f} ms wall, "
+          f"meshless generation {meshless_s:.3f} s wall; flash_attention "
+          f"launches {phase_launches[phase]['flash_attention']} by route "
+          f"{phase_routes[phase]['flash_attention']}; peak device memory "
+          f"{peak / 2**30:.3f} GiB | {card}")
+    print(f"[mesh] {cfg.name} held to the meshless run over "
+          f"{held['compared']} compared (sequence, step)s: prefill logits "
+          f"max |diff| {held['prefill_err']:.4e} within {MESH_TOL}; decode "
+          f"log-softmax max gap {held['max_gap']:.4e} (held to "
+          f"{LM_DECODE_GAP}), logits max |diff| {held['max_err']:.4e}, "
+          f"{held['beyond_tol']} decode logits beyond {MESH_TOL} (of "
+          f"{held['compared'] * cfg.vocab_size}); greedy flips "
+          f"{held['flips']} ({len(held['flips'])}, each where the meshless "
+          f"top-2 margin is within twice the tolerance); smallest margin "
+          f"compared {held['margin_min']:.4e} | {card}")
+    print(f"[mesh] {cfg.name} collectives of the generation (per position, "
+          f"the port's schedule: weights gathered at each use): "
+          f"{json.dumps(colls)} | {card}")
+    print(f"[mesh] {cfg.name} per position: parameters "
+          f"{position_bytes(dist, sp) / 2**20:.3f} MiB at rest (views of "
+          f"the one tree on this card) | {card}")
+    if on_card and torch.cuda.device_count() >= math.prod(shape):
+        n = math.prod(shape)
+        dx = Distribution(make_debug_mesh(shape, devices=[
+            f"cuda:{i}" for i in range(n)]))
+        spx = shard_params(params, defs, dx)
+        generate(cfg, spx, prompts, 2, dist=dx)  # warm-up
+        gx, stepx, _ = mesh_generate(torch, phase_launches,
+                                     phase_routes, f"{phase}-x", cfg, spx,
+                                     prompts, new, dx, device)
+        if not (torch.equal(gx.tokens, got.tokens)
+                and torch.equal(gx.logits, got.logits)):
+            raise AssertionError("phase 28x: positions on their own cards "
+                                 "are not the one-card mesh's bits")
+        print(f"[mesh-x] phase 28x: {cfg.name} with each position on its "
+              f"own card (cuda:0-{n - 1}): tokens and logits bitwise the "
+              f"one-card mesh; prefill {gx.prefill_s * 1e3:.3f} ms, decode "
+              f"median {float(np.median(stepx)):.3f} ms/step | {card}")
+        del spx, gx
+    else:
+        have = torch.cuda.device_count() if on_card else 0
+        print(f"[mesh-x] phase 28x did not run: this host has {have} CUDA "
+              f"device(s), and the {shape[0]} x {shape[1]} mesh with each "
+              f"position on its own card needs {math.prod(shape)} | {card}")
+    del params, sp, want, got, got1
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- the MoE: the expert-parallel all_to_all ---------------------------
+    shape, batch, prompt, new = mesh_moe
+    cfg = moe_cfg or dataclasses.replace(get_config(MOE_ARCH),
+                                         n_layers=MOE_LAYERS)
+    defs = transformer.defs(cfg)
+    params = draw(cfg)
+    prompts = np.random.default_rng(29).integers(0, cfg.vocab_size,
+                                                 (batch, prompt))
+    dist = Distribution(make_debug_mesh(shape, devices=[device] * math.prod(
+        shape)))
+    sp = shard_params(params, defs, dist)
+    generate(cfg, sp, prompts, 2, dist=dist)  # warm-up
+    phase = f"mesh-{cfg.name}"
+    with recorded_router(moe, []) as routes:
+        got, step, colls = mesh_generate(torch, phase_launches,
+                                         phase_routes, phase, cfg, sp,
+                                         prompts, new, dist, device)
+    n = math.prod(shape)
+    T_loc = batch * prompt // n
+    cap = -(-(moe.capacity(cfg, T_loc)) // 8) * 8
+    dropped = sum(int((~moe._dispatch(idx.reshape(T_loc, -1), cfg.n_experts,
+                                      cap)[1]).sum())
+                  for idx, _ in routes[:cfg.n_layers * n])
+    print(f"[mesh] {cfg.name} ({cfg.n_layers} layers, full width) on a "
+          f"{shape[0]} x {shape[1]} mesh, experts over \"model\" "
+          f"({cfg.n_experts // shape[1]} a position, never gathered), "
+          f"capacity factor {cfg.capacity_factor}: {batch} x {prompt} "
+          f"prefill {got.prefill_s * 1e3:.3f} ms, {new} greedy tokens, "
+          f"decode median {float(np.median(step)):.3f} ms/step; each "
+          f"position's {T_loc} tokens into {cap} rows per expert: "
+          f"{dropped} of {T_loc * n * cfg.top_k * cfg.n_layers} (token, "
+          f"expert) pairs dropped by the positions' own queues; "
+          f"flash_attention launches "
+          f"{phase_launches[phase]['flash_attention']}; collectives "
+          f"{json.dumps(colls)} | {card}")
+    roomy = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                / cfg.top_k)
+    with recorded_router(moe, []) as want_routes:
+        want = generate(roomy, params, prompts, new, device=device)
+    with recorded_router(moe, []) as got_routes:
+        got = generate(roomy, sp, prompts, new, dist=dist)
+    flips = routing_flips(torch, want_routes, got_routes, cfg.n_layers, n,
+                          new, (want.tokens, got.tokens))
+    held = greedy_held(torch, want, got, cfg.vocab_size, MESH_TOL,
+                       stop=flips)
+    print(f"[mesh] {cfg.name} at capacity factor {roomy.capacity_factor} "
+          f"(E / top_k: no pair can drop on either path) held to the "
+          f"meshless run over {held['compared']} compared (sequence, "
+          f"step)s: prefill logits max |diff| {held['prefill_err']:.4e} "
+          f"within {MESH_TOL}; decode log-softmax max gap "
+          f"{held['max_gap']:.4e} (held to {LM_DECODE_GAP}), logits max "
+          f"|diff| {held['max_err']:.4e}, {held['beyond_tol']} beyond "
+          f"{MESH_TOL}; routing flips (sequence: first step, each at a "
+          f"meshless router margin within {ROUTE_FLIP_MARGIN}) {flips}; "
+          f"greedy flips {held['flips']} | {card}")
+    del params, sp, want, got
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- the offset kernel, then dbrx-132b's accounting --------------------
+    if on_card and measured is not None:
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        mesh_offset_cases(torch, np, card, measured, flush)
+        del flush
+    dbrx = get_config("dbrx-132b")
+    shape = SHAPES["decode_32k"]
+    mesh = make_debug_mesh((1, 4), devices="meta")
+    cell = specs.build_cell(dbrx, shape, mesh.run_only(0))
+    _, mem, _ = dryrun.account(cell)
+    params_b = position_bytes(cell.meta["dist"], cell.args[0])
+    cache_b = position_bytes(cell.meta["dist"], cell.args[1])
+    rec = dryrun.run_cell("dbrx-132b", "decode_32k", "multi")
+    print(f"[mesh] dbrx-132b decode_32k accounted on meta, per position: "
+          f"1 x 4 mesh: parameters {params_b / 2**30:.3f} GiB, cache "
+          f"{cache_b / 2**30:.3f} GiB, peak {mem['peak_bytes'] / 2**30:.3f} "
+          f"GiB; 2 x 16 x 16 mesh ({rec['n_chips']} positions): arguments "
+          f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB, peak "
+          f"{rec['memory']['peak_bytes'] / 2**30:.3f} GiB (fits an 80 GiB "
+          f"card: {rec['fits']}), collectives "
+          f"{rec['collectives']['wire_bytes'] / 2**30:.3f} GiB on the wire, "
+          f"roofline {rec['roofline']['dominant']} | {card}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6335,6 +6849,11 @@ def main() -> int:
     # ---- 27. the narrow stablelm (Dh 80): card against CPU ---------------
     torch.cuda.empty_cache()
     narrow_stablelm_phase(torch, np, card, phase_launches, phase_routes)
+    clock("28")
+    # ---- 28. LM serving over a mesh (28x across cards, where present) -----
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_phase(torch, np, card, phase_launches, phase_routes, measured)
 
     record = {"kernels": []}
     for k in KERNELS:

@@ -6,8 +6,12 @@
 // chunked attention computes (src/repro/models/layers.py:75):
 //
 //   q (B, Sq, Hq, Dh), k and v (B, Sk, Hkv, Dh), contiguous; query head h
-//   reads kv head h / G (G = Hq / Hkv).  Key j is visible to query i when
-//   j < Sk, and (causal) j <= i, and (window > 0) i - j < window.  Scores
+//   reads kv head h / G (G = Hq / Hkv).  Query i sits at position
+//   q_offset + i and key j at kv_offset + j (the reference's offsets; a
+//   mesh prefill's query rows start at their shard's sequence offset), and
+//   the kernels take only their difference, shift = q_offset - kv_offset:
+//   key j is visible to query i when j < Sk, and (causal) j <= i + shift,
+//   and (window > 0) i + shift - j < window.  Scores
 //   are bf16(q * scale) . k in f32, the running max m, sum l and
 //   accumulator are f32, p is rounded to bf16 before p . v while l sums the
 //   f32 p, masked scores are -1e30 as in the reference (so a tile that a
@@ -105,7 +109,8 @@ __device__ __forceinline__ bool visible(int i, int j, int Sk, int causal,
   return j < Sk && (!causal || j <= i) && (window <= 0 || i - j < window);
 }
 
-// The first and last key tile that rows [q0, q0 + rows) can see.
+// The first and last key tile that rows at positions [q0, q0 + rows) can
+// see (q0 already shifted into the keys' positions).
 __device__ __forceinline__ void key_tiles(int q0, int rows, int Sk, int bn,
                                           int causal, int window, int* t_lo,
                                           int* t_hi) {
@@ -124,7 +129,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ v,
                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                int Sq, int Sk, int Hq, int Hkv, int Dh, int causal,
-               int window, float scale) {
+               int window, int shift, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = Dh + 8;  // padded row, in elements
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -157,7 +162,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   }
 
   int t_lo, t_hi;
-  key_tiles(q0, kBM, Sk, kBN, causal, window, &t_lo, &t_hi);
+  key_tiles(q0 + shift, kBM, Sk, kBN, causal, window, &t_lo, &t_hi);
 
   constexpr int NO = DMAX / 8;  // output n-tiles (8 columns each)
   constexpr int NS = kBN / 8;   // score n-tiles
@@ -213,7 +218,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int i = q0 + row0 + (e >= 2 ? 8 : 0);
         const int j = j0 + n * 8 + tig * 2 + (e & 1);
-        if (!visible(i, j, Sk, causal, window)) s[n][e] = kNegInf;
+        if (!visible(i + shift, j, Sk, causal, window)) s[n][e] = kNegInf;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       }
     }
@@ -298,7 +303,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out,
               float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int Dh,
-              int causal, int window, float scale) {
+              int causal, int window, int shift, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = Dh + 1;  // odd stride: lane j reads row j without conflicts
   float* Qs = reinterpret_cast<float*>(smem);  // kRows x Dh
@@ -321,7 +326,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     Qs[e] = q0 + r < Sq ? qb[(q0 + r) * q_step + c] * scale : 0.f;
   }
   int t_lo, t_hi;
-  key_tiles(q0, kRows, Sk, kTileK, causal, window, &t_lo, &t_hi);
+  key_tiles(q0 + shift, kRows, Sk, kTileK, causal, window, &t_lo, &t_hi);
 
   float acc[kMaxChunks];
 #pragma unroll
@@ -339,7 +344,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     float s = 0.f;
     for (int d = 0; d < Dh; ++d) s += Qs[warp * Dh + d] * Ks[lane * ld + d];
-    if (!visible(i, j0 + lane, Sk, causal, window)) s = kNegInf;
+    if (!visible(i + shift, j0 + lane, Sk, causal, window)) s = kNegInf;
     float mx = s;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -410,6 +415,7 @@ struct WgParams {
   int P;       // positions per tile: 128 / Gt
   int ntiles;  // query tiles: ceil(Sq / P)
   int causal, window;
+  int shift;      // q_offset - kv_offset: a row's position in the keys'
   float c;        // multiplies q . k into the exp2 domain
   int rescale_q;  // 1: round q * scale into shared memory first
   float scale;
@@ -524,10 +530,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   const int p0 = tile * prm.P;
   const int p_last = min(p0 + prm.P - 1, prm.Sq - 1);
 
-  // The key tiles some row of the CTA can see.
+  // The key tiles some row of the CTA can see (rows at positions shifted
+  // by prm.shift into the keys').
   int hi = prm.Sk - 1;
-  if (prm.causal) hi = min(hi, p_last);
-  const int lo = prm.window > 0 ? max(0, p0 - prm.window + 1) : 0;
+  if (prm.causal) hi = min(hi, p_last + prm.shift);
+  const int lo =
+      prm.window > 0 ? max(0, p0 + prm.shift - prm.window + 1) : 0;
   const int t_lo = lo / kKeys;
   const int n = hi < lo ? 0 : hi / kKeys - t_lo + 1;
 
@@ -588,15 +596,18 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32;
     const int r0 = 64 * w + 16 * warp + lane / 4, r1 = r0 + 8;
-    const int pos0 = p0 + r0 / prm.Gt, pos1 = p0 + r1 / prm.Gt;
+    // the rows' positions in the keys' frame
+    const int pos0 = p0 + prm.shift + r0 / prm.Gt;
+    const int pos1 = p0 + prm.shift + r1 / prm.Gt;
     // keys [jlo, jhi) are visible to a row
     const int jlo0 = prm.window > 0 ? pos0 - prm.window + 1 : INT_MIN;
     const int jlo1 = prm.window > 0 ? pos1 - prm.window + 1 : INT_MIN;
     const int jhi0 = prm.causal ? min(prm.Sk, pos0 + 1) : prm.Sk;
     const int jhi1 = prm.causal ? min(prm.Sk, pos1 + 1) : prm.Sk;
     // every row of the CTA sees all keys in [lo_all, hi_all)
-    const int lo_all = prm.window > 0 ? p_last - prm.window + 1 : INT_MIN;
-    const int hi_all = prm.causal ? min(prm.Sk, p0 + 1) : prm.Sk;
+    const int lo_all =
+        prm.window > 0 ? p_last + prm.shift - prm.window + 1 : INT_MIN;
+    const int hi_all = prm.causal ? min(prm.Sk, p0 + prm.shift + 1) : prm.Sk;
 
     const uint32_t q_base = hopper::smem_addr(Qs) + w * 64 * 128;
     const uint32_t q_tail = hopper::smem_addr(Qs + T::kQTail) + w * 64 * TL * 2;
@@ -800,8 +811,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 template <int DH>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, float* lse, int B, int Sq, int Sk, int Hq,
-                         int Hkv, int causal, int window, float scale,
-                         cudaStream_t stream) {
+                         int Hkv, int causal, int window, int shift,
+                         float scale, cudaStream_t stream) {
   using T = WgTile<DH>;
   const int G = Hq / Hkv;
   WgParams prm;
@@ -817,6 +828,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   prm.ntiles = (Sq + prm.P - 1) / prm.P;
   prm.causal = causal;
   prm.window = window;
+  prm.shift = shift;
   int ex;
   const bool pow2 = frexpf(scale, &ex) == 0.5f;  // exact to fold into c
   prm.c = pow2 ? scale * kLog2e : kLog2e;
@@ -881,8 +893,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 template <int DMAX>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, float* lse, int B, int Sq, int Sk, int Hq,
-                        int Hkv, int Dh, int causal, int window, float scale,
-                        cudaStream_t stream) {
+                        int Hkv, int Dh, int causal, int window, int shift,
+                        float scale, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kBM + 2 * kBN) * (Dh + 8) * 2;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -892,7 +904,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   flash_fwd_bf16<DMAX><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      lse, Sq, Sk, Hq, Hkv, Dh, causal, window, scale);
+      lse, Sq, Sk, Hq, Hkv, Dh, causal, window, shift, scale);
   return cudaGetLastError();
 }
 
@@ -910,12 +922,13 @@ extern "C" int flash_attention_route(int dtype, int Dh) {
 // (flash_route), refused where it does not apply: SIMT takes f32 only,
 // mma.sync any bf16 head dim (so a caller may force it where the rule
 // gives wgmma), wgmma the bf16 head dims of the rule.  Dh a multiple of 16
-// up to 256 (the wrapper checks); window <= 0 means unbounded; lse null or
-// (B, Hq, Sq) f32.  Returns the launch's cudaError_t.
+// up to 256 (the wrapper checks); window <= 0 means unbounded; shift =
+// q_offset - kv_offset (0: query i and key j at positions i and j); lse
+// null or (B, Hq, Sq) f32.  Returns the launch's cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, float* lse, int dtype, int route,
                                int B, int Sq, int Sk, int Hq, int Hkv, int Dh,
-                               int causal, int window, float scale,
+                               int causal, int window, int shift, float scale,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((route == 0) != (dtype == 0) || route < 0 || route > 2 ||
@@ -926,24 +939,24 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     case 2:
       if (Dh == 64)
         return launch_wgmma<64>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv,
-                                causal, window, scale, st);
+                                causal, window, shift, scale, st);
       if (Dh == 80)
         return launch_wgmma<80>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv,
-                                causal, window, scale, st);
+                                causal, window, shift, scale, st);
       if (Dh == 128)
         return launch_wgmma<128>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv,
-                                 causal, window, scale, st);
+                                 causal, window, shift, scale, st);
       return launch_wgmma<256>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal,
-                               window, scale, st);
+                               window, shift, scale, st);
     case 1:
       if (Dh <= 64)
         return launch_bf16<64>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, Dh,
-                               causal, window, scale, st);
+                               causal, window, shift, scale, st);
       if (Dh <= 128)
         return launch_bf16<128>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, Dh,
-                                causal, window, scale, st);
+                                causal, window, shift, scale, st);
       return launch_bf16<256>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, Dh,
-                              causal, window, scale, st);
+                              causal, window, shift, scale, st);
     default:
       break;
   }
@@ -957,6 +970,6 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   flash_fwd_f32<<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Sk, Hq,
-      Hkv, Dh, causal, window, scale);
+      Hkv, Dh, causal, window, shift, scale);
   return cudaGetLastError();
 }

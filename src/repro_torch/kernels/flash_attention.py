@@ -1,8 +1,10 @@
 """Online-softmax attention and its gradient: the LM path's hot spot.
 
 ``flash_attention`` takes the LM path's layout — q (B, Sq, Hq, Dh), k and v
-(B, Sk, Hkv, Dh) with grouped-query heads and a per-call sliding window —
-and ``flash_attention_bhsd`` the TPU kernel's (BH, S, Dh).  On CUDA tensors
+(B, Sk, Hkv, Dh) with grouped-query heads, a per-call sliding window and
+the reference's query and key offsets (a mesh prefill's query block sits at
+its sequence offset; the kernels take ``q_offset - kv_offset`` as one int)
+— and ``flash_attention_bhsd`` the TPU kernel's (BH, S, Dh).  On CUDA tensors
 they launch one of the hand-written Hopper kernels of
 ``csrc/flash_attention.cu``, chosen by ``flash_route(dtype, Dh)`` alone:
 ``wgmma`` (bf16 with Dh 64, 80, 128 or 256: TMA, wgmma, warp-specialised,
@@ -38,6 +40,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import accounting, ref
@@ -47,7 +50,7 @@ ROUTES = ("wgmma", "mma_sync", "simt")
 ROUTE_CODES = {"simt": 0, "mma_sync": 1, "wgmma": 2}  # the C entry's codes
 KERNEL = CudaKernel(
     "flash_attention", "csrc/flash_attention.cu", "flash_attention",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float,
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_float,
                                                    ctypes.c_void_p],
     routes=ROUTES)
 BWD_ROUTES = ("wgmma", "mma_sync")  # the C entry's route codes, in order
@@ -63,6 +66,8 @@ BWD_KERNEL = CudaKernel(
                                        ctypes.POINTER(ctypes.c_int64)]})
 F32_BACKWARD = ("ROADMAP queue 2: the f32 backward of flash_attention on "
                 "the card")
+OFFSET_BACKWARD = ("ROADMAP queue 1, item 13: training on a mesh (the "
+                   "attention backward with a query offset)")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 80, 128, 256)
@@ -79,15 +84,33 @@ def causal_pairs(S: int, window: int) -> int:
     return w * (w + 1) // 2 + (S - w) * w
 
 
+def visible_pairs(Sq: int, Sk: int, shift: int, causal: bool,
+                  window: int) -> int:
+    """Visible (query, key) pairs of one head when query ``i`` sits
+    ``shift`` positions after key ``i`` (``shift = q_offset - kv_offset``):
+    key ``j < Sk`` is visible to query ``i`` when (``causal``) ``j <= i +
+    shift`` and (``window > 0``) ``i + shift - j < window``."""
+    i = np.arange(Sq, dtype=np.int64) + shift
+    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(Sq,
+                                                                   np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
 def flash_work(q, k, window: int, causal: bool = True, *,
-               backward: bool = False, lse: bool = False) -> tuple:
+               backward: bool = False, lse: bool = False,
+               shift: int = 0) -> tuple:
     """(bytes, flops) one call needs at least, its bound's terms.  Forward:
     q, k, v and out once each (and the lse written, with ``lse``); 4 * Dh
     flops per visible (query, key) pair and query head (every pair when not
     causal).  Backward: q, o, do in and dq out, k, v in and dk, dv out, lse
-    in; 10 * Dh flops per pair (5 products)."""
+    in; 10 * Dh flops per pair (5 products).  With a ``shift`` (``q_offset
+    - kv_offset``) the pairs are ``visible_pairs``'."""
     B, Sq, Hq, Dh = q.shape
-    pairs = causal_pairs(Sq, window) if causal else Sq * k.shape[1]
+    if shift:
+        pairs = visible_pairs(Sq, k.shape[1], shift, causal, window)
+    else:
+        pairs = causal_pairs(Sq, window) if causal else Sq * k.shape[1]
     es = q.element_size()
     if backward:
         return (4 * (q.numel() + k.numel()) * es + 4 * B * Hq * Sq,
@@ -110,13 +133,14 @@ def scan_flops(q, k, block_kv: int = 1024) -> int:
 
 
 def flash_cost(q, k, causal: bool, window: int, block_kv: int, *,
-               backward: bool = False, lse: bool = False) -> dict:
+               backward: bool = False, lse: bool = False,
+               shift: int = 0) -> dict:
     """One call's work for ``op_cost.OpCounter.kernel``: the bytes and the
     visible-pair flops of ``flash_work``, and the reference's HLO count
     (twice the forward's for the backward, as differentiating its scan
     gives)."""
     nbytes, flops = flash_work(q, k, window, causal, backward=backward,
-                               lse=lse)
+                               lse=lse, shift=shift)
     return {"flops": flops, "nbytes": nbytes, "dtype": q.dtype,
             "hlo_flops": scan_flops(q, k, block_kv) * (2 if backward else 1)}
 
@@ -198,22 +222,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {q.device}")
 
 
-def _cuda_args(q, k, window: int) -> float:
+def _cuda_args(q, k, window: int, shift: int = 0) -> float:
     """Checks a CUDA launch needs beyond ``_check``; returns the scale,
     rounded to the input type (jnp's weakly typed scalar takes the input's
     type: exact for Dh = 16, 64, 256)."""
     for name, value in (("window", window), ("Sq", q.shape[1]),
-                        ("Sk", k.shape[1])):
+                        ("Sk", k.shape[1]),
+                        ("q_offset - kv_offset + Sq", shift + q.shape[1]),
+                        ("q_offset - kv_offset - window",
+                         shift - max(window, 0))):
         if not -(1 << 31) <= value < (1 << 31):
             raise ValueError(f"{name} {value} does not fit the kernel's int32")
     return float(torch.tensor(q.shape[3] ** -0.5, dtype=q.dtype))
 
 
-def _forward_cuda(q, k, v, causal: bool, window: int, with_lse: bool):
+def _forward_cuda(q, k, v, causal: bool, window: int, with_lse: bool,
+                  shift: int = 0):
     """One launch of the forward kernel: (out, lse or None)."""
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention needs contiguous inputs")
-    scale = _cuda_args(q, k, window)
+    scale = _cuda_args(q, k, window, shift)
     B, Sq, Hq, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     route = flash_route(q.dtype, Dh)
@@ -232,32 +260,37 @@ def _forward_cuda(q, k, v, causal: bool, window: int, with_lse: bool):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr() if with_lse else None, _DTYPES[q.dtype],
                  ROUTE_CODES[route], B, Sq, Sk, Hq, Hkv, Dh, int(causal),
-                 int(window), scale, stream)
+                 int(window), int(shift), scale, stream)
     KERNEL.check(err)
     KERNEL.count_launch(route)
     return out, lse
 
 
 def _forward(q, k, v, causal: bool, window: int, block_kv: int,
-             with_lse: bool):
+             with_lse: bool, q_offset: int = 0, kv_offset: int = 0):
     """One forward on q's device, its work recorded by the counter in
     force: (out, lse or None)."""
+    offsets = (q_offset, kv_offset)
     c = accounting.counter(q.device)
     if c is None:
-        return _forward_on(q, k, v, causal, window, block_kv, with_lse)
-    with c.kernel("flash_attention", **flash_cost(q, k, causal, window,
-                                                  block_kv, lse=with_lse)):
-        return _forward_on(q, k, v, causal, window, block_kv, with_lse)
+        return _forward_on(q, k, v, causal, window, block_kv, with_lse,
+                           *offsets)
+    with c.kernel("flash_attention", **flash_cost(
+            q, k, causal, window, block_kv, lse=with_lse,
+            shift=q_offset - kv_offset)):
+        return _forward_on(q, k, v, causal, window, block_kv, with_lse,
+                           *offsets)
 
 
 def _forward_on(q, k, v, causal: bool, window: int, block_kv: int,
-                with_lse: bool):
+                with_lse: bool, q_offset: int, kv_offset: int):
     """The kernel on CUDA, the plain version on the CPU (its outputs made
     contiguous, as the kernel's are, so that the ops after it are the
     card's), empty outputs on ``meta``."""
     if q.device.type == "cpu":
         out = ref.flash_attention(q, k, v, causal=causal, window=window,
-                                  block_kv=block_kv, return_lse=with_lse)
+                                  block_kv=block_kv, return_lse=with_lse,
+                                  q_offset=q_offset, kv_offset=kv_offset)
         if with_lse:
             return out[0].contiguous(), out[1].contiguous()
         return out.contiguous(), None
@@ -268,7 +301,8 @@ def _forward_on(q, k, v, causal: bool, window: int, block_kv: int,
         return torch.empty_like(q), (
             torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
             if with_lse else None)
-    return _forward_cuda(q, k, v, causal, window, with_lse)
+    return _forward_cuda(q, k, v, causal, window, with_lse,
+                         q_offset - kv_offset)
 
 
 class _Attention(torch.autograd.Function):
@@ -293,21 +327,31 @@ class _Attention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    block_kv: int = 1024) -> torch.Tensor:
+                    block_kv: int = 1024, q_offset: int = 0,
+                    kv_offset: int = 0) -> torch.Tensor:
     """Attention of q (B, Sq, Hq, Dh) over k, v (B, Sk, Hkv, Dh).
 
     Query head ``h`` reads kv head ``h // (Hq // Hkv)``; query ``i`` and key
-    ``j`` sit at positions ``i`` and ``j``; a key is visible when
+    ``j`` sit at positions ``q_offset + i`` and ``kv_offset + j`` (host
+    ints; the kernels take their difference); a key is visible when
     (``causal``) it is not after the query and (``window > 0``) it is less
     than ``window`` positions before it.  bf16 or f32, all three
     of one type; Dh a multiple of 16 up to 256.  Returns (B, Sq, Hq, Dh) in
     the input type.  ``block_kv`` is the plain version's key block; the
     kernels tile keys by 64 (bf16) or 32 (f32) and visit only the tiles
     their queries can see.  A query that sees no key at all is undefined.
-    Differentiable (see the module's doc); on the card in bf16 only.
+    Differentiable (see the module's doc) at offsets 0 only (a nonzero
+    offset under autograd raises: ``OFFSET_BACKWARD``); on the card in bf16
+    only.
     """
     _check(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q_offset != kv_offset:
+            raise NotImplementedError(
+                f"flash_attention has no backward with a query offset "
+                f"(q_offset {q_offset}, kv_offset {kv_offset}): "
+                f"{OFFSET_BACKWARD}; call it under torch.no_grad() or "
+                f"torch.inference_mode()")
         if q.device.type != "cpu" and q.dtype != torch.bfloat16:
             raise RuntimeError(
                 f"flash_attention on CUDA has a backward kernel for bf16 "
@@ -315,7 +359,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 f"({F32_BACKWARD}): call it in bf16, or under "
                 f"torch.no_grad() or torch.inference_mode()")
         return _Attention.apply(q, k, v, causal, window, block_kv)
-    return _forward(q, k, v, causal, window, block_kv, False)[0]
+    return _forward(q, k, v, causal, window, block_kv, False, q_offset,
+                    kv_offset)[0]
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

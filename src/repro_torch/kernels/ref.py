@@ -240,13 +240,16 @@ def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    block_kv: int = 1024, return_lse: bool = False):
+                    block_kv: int = 1024, return_lse: bool = False,
+                    q_offset: int = 0, kv_offset: int = 0):
     """Chunked online-softmax attention with GQA, as the reference's LM path
     computes it (``models/layers.py`` ``flash_attention``).
 
     q (B, Sq, Hq, Dh), k and v (B, Sk, Hkv, Dh); or the Pallas kernel's
     (BH, S, Dh), which is the case B = BH, Hq = Hkv = 1.  Query head ``h``
-    reads kv head ``h // (Hq // Hkv)``.  Keys are padded to a multiple of
+    reads kv head ``h // (Hq // Hkv)``; query ``i`` sits at position
+    ``q_offset + i`` and key ``j`` at ``kv_offset + j`` (the reference's
+    offsets: the mask compares positions).  Keys are padded to a multiple of
     ``block_kv`` and visited block by block; ``q * scale`` is rounded to the
     input type (jnp's weakly typed scalar is the input type, so the scale
     is rounded too), scores and running statistics are f32, ``p`` is
@@ -261,7 +264,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dim() == 3:
         out = flash_attention(q[:, :, None], k[:, :, None], v[:, :, None],
                               causal=causal, window=window,
-                              block_kv=block_kv, return_lse=return_lse)
+                              block_kv=block_kv, return_lse=return_lse,
+                              q_offset=q_offset, kv_offset=kv_offset)
         if return_lse:
             return out[0][:, :, 0], out[1][:, 0]
         return out[:, :, 0]
@@ -276,7 +280,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     qg = (q.reshape(B, Sq, Hkv, G, Dh) * scale).float()
-    q_pos = torch.arange(Sq, device=dev)
+    q_pos = q_offset + torch.arange(Sq, device=dev)
     o = torch.zeros((B, Hkv, G, Sq, Dh), dtype=torch.float32, device=dev)
     m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
@@ -284,7 +288,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kb, vb = k[:, b0:b0 + block], v[:, b0:b0 + block]
         j = torch.arange(b0, b0 + block, device=dev)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb.float())
-        mask = attn_mask(q_pos, j, causal=causal, window=window,
+        mask = attn_mask(q_pos, kv_offset + j, causal=causal, window=window,
                          k_valid=j < Sk)
         s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))

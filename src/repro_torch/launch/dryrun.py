@@ -21,7 +21,21 @@ reference's HLO count of the same function.
 ``lower_s`` is the time to build the cell's meta arguments and
 ``compile_s`` the time of that accounting pass; ``xla_cost_analysis``
 carries the counter's own totals (there is no XLA).  ``--mesh single`` is
-one H100; a mesh (``multi``, ``both``) is not ported yet and raises.
+one H100.  ``--mesh multi`` is the reference's multi-pod production mesh,
+2 x 16 x 16 ``("pod", "data", "model")`` H100s, every position on
+``meta`` (``launch.mesh.make_production_mesh``): the serving cells of the
+``transformer`` families (``prefill``, ``decode``) run their mesh step
+with one position standing for all of them (``LMMesh.run_only``), the
+busiest (``accounted_position``): ``tests/test_torch_lm_mesh.py`` shows
+that the positions run the same shapes, bytes and collectives, but for
+the decode slot's write, which position 0 makes, and the same flops, but
+for the prefill attention's visible pairs, which the last sequence block
+has most of.  So ``memory`` and the counts are that position's,
+``collectives`` its calls summed by ``op_cost.parse_collectives`` and
+``collective_s`` their wire bytes over the NVLink rate; train cells and the
+other families are not ported on a mesh: their records say why
+(``status`` "not_ported") and the sweep counts them apart from its
+failures.  ``--mesh both`` runs single then multi.
 
 ``run_cell(..., device="cuda", shape=..., overrides=...)`` also runs the
 cell for real on that device, at a (reduced) ``ShapeConfig`` and config
@@ -56,9 +70,22 @@ F32_FLOPS_PER_S = 67e12    # f32 without TF32 (the port's rule): CUDA cores
 HBM_BYTES_PER_S = 3.35e12  # device-memory rate
 H100_BYTES = 80 * 2 ** 30  # the H100's 80 GiB of HBM3, where no card is seen
 PEAK_FLOPS = {"bf16": BF16_FLOPS_PER_S, "f16": BF16_FLOPS_PER_S}
+# NVLink 4 of one H100, each direction (18 links x 25 GB/s); a mesh of
+# hundreds of cards also crosses nodes, where the rate is lower, so the
+# collective term is a lower bound
+LINK_BYTES_PER_S = 450e9
 N_CHIPS = 1
-_COLL_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
-               "collective-permute")
+ONE_POSITION = ("the busiest position stands for every position: they run "
+                "the same shapes, bytes and collectives, but for the decode "
+                "slot's write, which position 0 makes, and the same flops, "
+                "but for the prefill attention's pairs, which the last "
+                "sequence block has most of (tests/test_torch_lm_mesh.py)")
+
+
+def accounted_position(mesh, kind: str) -> int:
+    """The position the dry-run accounts: the last (its sequence block is
+    the prefill's last) or, in decode, 0 (it holds slot 0 and writes it)."""
+    return mesh.size - 1 if kind == "prefill" else 0
 SKIP_REASON = ("long_500k needs sub-quadratic attention "
                "(pure full-attention arch; see DESIGN.md)")
 
@@ -150,17 +177,19 @@ def account(cell, device="meta") -> tuple:
     return c.summary(), mem, out
 
 
-def roofline(summary: dict, mf: dict) -> dict:
+def roofline(summary: dict, mf: dict, colls: dict | None = None,
+             n_chips: int = N_CHIPS) -> dict:
     compute_s = sum(f / PEAK_FLOPS.get(dt, F32_FLOPS_PER_S)
                     for dt, f in summary["matmul_flops"].items()) \
         + summary["elementwise_flops"] / F32_FLOPS_PER_S
     terms = {"compute_s": compute_s,
              "memory_s": summary["bytes"] / HBM_BYTES_PER_S,
-             "collective_s": 0.0}
+             "collective_s": (colls["wire_bytes"] / LINK_BYTES_PER_S
+                              if colls else 0.0)}
     return {**terms, "dominant": max(terms, key=terms.get),
             "model_flops": mf["model_flops"],
             "useful_flops_ratio": mf["model_flops"]
-            / max(summary["flops"] * N_CHIPS, 1.0)}
+            / max(summary["flops"] * n_chips, 1.0)}
 
 
 def _reduced(cfg, full, shape, overrides) -> list:
@@ -246,15 +275,33 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
     from repro_torch.launch.specs import build_cell
     from repro_torch.launch.variants import apply_variant
 
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import mesh_support
+
     cfg = apply_variant(get_config(arch), variant)
     if shape_name not in applicable_shapes(cfg):
         rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
                "status": "skipped", "reason": SKIP_REASON}
         _write(rec, out_path)
         return rec
-    mesh = None if mesh_kind == "single" else mesh_kind
     full = SHAPES[shape_name]
     shape = shape or full
+    mesh, n_chips = None, N_CHIPS
+    if mesh_kind != "single":
+        if mesh_kind != "multi":
+            raise ValueError(f"mesh {mesh_kind!r}: single or multi")
+        why = mesh_support(cfg, shape)
+        if why is not None:
+            rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+                   "variant": variant, "status": "not_ported",
+                   "reason": f"not ported on a mesh yet: {why}"}
+            _write(rec, out_path)
+            return rec
+        if device is not None:
+            raise ValueError("a mesh cell is accounted on meta only")
+        mesh = make_production_mesh(multi_pod=True)
+        n_chips = mesh.size
+        mesh = mesh.run_only(accounted_position(mesh, shape.kind))
     reduced = _reduced(cfg, full, shape, overrides)
     cfg = dataclasses.replace(cfg, **(overrides or {}))
 
@@ -266,23 +313,29 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
     t_compile = time.time() - t0 - t_lower
     mf = model_flops_estimate(cfg, shape)
     cap = device_bytes()
+    dist = cell.meta.get("dist")
+    colls = op_cost.parse_collectives(dist.log if dist is not None
+                                      else None)
     rec = {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind,
-        "variant": variant, "status": "ok", "n_chips": N_CHIPS,
+        "variant": variant, "status": "ok", "n_chips": n_chips,
         "lower_s": round(t_lower, 2), "compile_s": round(t_compile, 2),
         "flops_per_device": float(summary["flops"]),
         "bytes_per_device": float(summary["bytes"]),
         "xla_cost_analysis": {"flops": float(summary["flops"]),
                               "bytes": float(summary["bytes"])},
         "memory": mem,
-        "collectives": {**{k: {"count": 0, "bytes": 0.0}
-                           for k in _COLL_KINDS},
-                        "total_bytes": 0.0, "wire_bytes": 0.0},
-        "roofline": roofline(summary, mf),
+        "collectives": colls,
+        "roofline": roofline(summary, mf, colls, n_chips),
         "model_flops_detail": mf,
         "device_bytes": cap, "fits": mem["peak_bytes"] <= cap,
         "counts": summary, "reduced": reduced,
     }
+    if mesh is not None:
+        rec["mesh_shape"] = mesh.shape
+        rec["positions_accounted"] = {"position": mesh.active[0],
+                                      "why": ONE_POSITION}
+        rec["param_specs"] = cell.meta["param_specs"]
     if device is not None:
         rec["run"] = run_on_device(cfg, shape, device, steps)
     _write(rec, out_path)
@@ -313,40 +366,49 @@ def main(argv=None):
     ap.add_argument("--timeout", type=int, default=2400,
                     help="accepted for the reference's CLI; unused")
     args = ap.parse_args(argv)
-    if args.mesh != "single":
-        from repro_torch.launch.specs import MULTI_CARD
-        raise NotImplementedError(f"--mesh {args.mesh} is not ported yet "
-                                  f"({MULTI_CARD})")
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
 
     if not args.all:
-        out = args.out or record_path(args.arch, args.shape, args.mesh,
-                                      args.variant)
-        rec = run_cell(args.arch, args.shape, args.mesh, out_path=out,
-                       variant=args.variant)
-        dom = rec.get("roofline", {}).get("dominant", "-")
-        print(json.dumps({k: rec[k] for k in ("arch", "shape", "mesh", "status")
-                          if k in rec} | {"dominant": dom}))
+        for m in meshes:
+            out = args.out or record_path(args.arch, args.shape, m,
+                                          args.variant)
+            rec = run_cell(args.arch, args.shape, m, out_path=out,
+                           variant=args.variant)
+            dom = rec.get("roofline", {}).get("dominant", "-")
+            print(json.dumps({k: rec[k] for k in ("arch", "shape", "mesh",
+                                                  "status") if k in rec}
+                             | {"dominant": dom}))
+            if rec["status"] == "not_ported":
+                raise SystemExit(f"{args.arch} {args.shape} on --mesh {m}: "
+                                 f"{rec['reason']}")
         return
 
     from repro_torch.configs import ARCH_IDS, SHAPES
 
-    cells = [(a, s) for a in ARCH_IDS for s in SHAPES]
+    cells = [(a, s, m) for a in ARCH_IDS for s in SHAPES for m in meshes]
     print(f"dry-run sweep: {len(cells)} cells")
-    failures = []
-    for i, (arch, shape) in enumerate(cells):
+    failures, not_ported = [], []
+    for i, (arch, shape, m) in enumerate(cells):
         t0 = time.time()
         try:
-            rec = run_cell(arch, shape, args.mesh, variant=args.variant,
-                           out_path=record_path(arch, shape, args.mesh,
+            rec = run_cell(arch, shape, m, variant=args.variant,
+                           out_path=record_path(arch, shape, m,
                                                 args.variant))
         except Exception as e:  # noqa: BLE001 -- reported, the sweep goes on
-            print(f"[{i+1}/{len(cells)}] {arch} {shape}: FAIL {e!r:.300}")
-            failures.append((arch, shape, repr(e)[:500]))
+            print(f"[{i+1}/{len(cells)}] {arch} {shape} {m}: FAIL "
+                  f"{e!r:.300}")
+            failures.append((arch, shape, m, repr(e)[:500]))
             continue
+        if rec["status"] == "not_ported":
+            not_ported.append((arch, shape, m, rec["reason"]))
         dom = rec.get("roofline", {}).get("dominant", "-")
-        print(f"[{i+1}/{len(cells)}] {arch} {shape}: {rec['status']} "
+        print(f"[{i+1}/{len(cells)}] {arch} {shape} {m}: {rec['status']} "
               f"({time.time() - t0:.1f}s) {dom}")
-    print(f"done; {len(failures)} failures")
+    print(f"done; {len(not_ported)} not ported on a mesh, "
+          f"{len(failures)} failures")
+    for reason in sorted({r for *_, r in not_ported}):
+        print(f"not ported ({sum(r == reason for *_, r in not_ported)} "
+              f"cells): {reason}")
     for f in failures:
         print("FAIL:", f)
     if failures:

@@ -31,8 +31,15 @@ its classes with host reads on the CPU, compares against an ``arange`` on
 ``meta``, scatters on CUDA) are counted once, at the function level, so
 that one shape gives the same counts on ``meta``, the CPU and the card.
 Ops on no tensor of the counted device (the CPU RNG state a checkpoint
-stashes) are not counted.  Collectives are none on one card: the
-reference's collective accounting returns with the multi-card executor.
+stashes) are not counted.
+
+Collectives: the reference reads them from the compiled HLO
+(``parse_collectives``, ``src/repro/launch/dryrun.py:39``).  The port's
+are the explicit copies of ``models.sharding.Distribution``, each recorded
+in its ``CollectiveLog``; ``parse_collectives`` sums that log by kind with
+the reference's keys.  The counts are the port's own schedule, not XLA's
+(the weights are gathered at each use, for one), so they differ from the
+reference's in number and bytes.
 """
 from __future__ import annotations
 
@@ -73,6 +80,25 @@ _NO_KERNEL = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
                         "new_empty_strided", "_local_scalar_dense", "set",
                         "resize", "lift_fresh", "record_stream"})
 _COMPOSITES = {F.one_hot: "one_hot"}
+
+
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+
+def parse_collectives(log) -> dict:
+    """Count and per-position result bytes of the calls in a
+    ``CollectiveLog`` (None: a run without a mesh, no call) by kind, their
+    total, and ``wire_bytes``: the total with each all-reduce counted twice
+    (a ring moves about twice its payload: reduce-scatter + all-gather), as
+    ``hlo_cost.py:13`` counts it."""
+    out = {k: {"count": 0, "bytes": 0} for k in COLLECTIVE_KINDS}
+    for kind, _, nbytes in (log.calls if log is not None else ()):
+        out[kind]["count"] += 1
+        out[kind]["bytes"] += nbytes
+    out["total_bytes"] = sum(v["bytes"] for v in out.values())
+    out["wire_bytes"] = out["total_bytes"] + out["all-reduce"]["bytes"]
+    return out
 
 
 def dtype_name(dtype: torch.dtype) -> str:

@@ -30,6 +30,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import get_module
 from repro_torch.models.params import init_from_defs
+from repro_torch.models.sharding import on_mesh
 from repro_torch.train.optimizer import tree_leaves
 from repro_torch.utils import resolve_device, synchronize
 
@@ -52,7 +53,7 @@ def target_len(cfg: ModelConfig, frames: int) -> int:
 
 
 def generate(cfg: ModelConfig, params: dict, prompts, new_tokens: int, *,
-             frames=None, device="cuda") -> Generation:
+             frames=None, device="cuda", dist=None) -> Generation:
     """Greedy generation of ``new_tokens`` tokens after ``prompts`` (B, P).
 
     Prefill with a cache (or state) of ``P + new_tokens`` slots, take the
@@ -63,7 +64,16 @@ def generate(cfg: ModelConfig, params: dict, prompts, new_tokens: int, *,
     prefill encodes; the others take none.  ``params`` must live on
     ``device``.  The device is synchronized once after the prefill and once
     after the decode loop; each decode step is a ``device_step`` profiler
-    range (free when no profiler runs)."""
+    range (free when no profiler runs).
+
+    On a mesh (``dist`` with one; ``params`` laid out by
+    ``params.shard_params``, ``device`` ignored): the mesh prefill and
+    decode steps, the vocab-sharded logits gathered whole before each
+    argmax, the tokens fed back batch-sharded; the result is assembled on
+    the first position's device and every device of the mesh is
+    synchronized."""
+    if on_mesh(dist):
+        return _generate_mesh(cfg, params, prompts, new_tokens, dist)
     dev = resolve_device(device)
     where = tree_leaves(params)[0].device
     if where != dev:
@@ -100,6 +110,50 @@ def generate(cfg: ModelConfig, params: dict, prompts, new_tokens: int, *,
         decode_s = time.perf_counter() - t0
     return Generation(torch.cat(toks, dim=1), torch.cat(outs, dim=1),
                       prefill_s, decode_s)
+
+
+def _generate_mesh(cfg: ModelConfig, params: dict, prompts,
+                   new_tokens: int, dist) -> Generation:
+    mesh = dist.mesh
+    devices = sorted(set(mesh.devices), key=str)
+    mod = get_module(cfg)
+    prompts = torch.as_tensor(prompts, device=mesh.device(0))
+    B, P = prompts.shape
+    if new_tokens < 1:
+        raise ValueError(f"new_tokens must be >= 1, got {new_tokens}")
+    V = cfg.vocab_size
+
+    def greedy(logits):
+        logits = dist.all_gather(logits, 2)
+        tok = dist.map(lambda t: t[:, -1:, :V].argmax(dim=-1), logits,
+                       spec=logits.spec[:2])
+        return tok, logits
+
+    def sync():
+        for d in devices:
+            synchronize(d)
+
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache = mod.prefill(cfg, params, prompts,
+                                    max_len=P + new_tokens, dist=dist)
+        tok, logits = greedy(logits)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        toks, outs = [tok], [logits]
+        t0 = time.perf_counter()
+        for i in range(new_tokens - 1):
+            with torch.profiler.record_function("device_step"):
+                logits, cache = mod.decode_step(cfg, params, cache, tok,
+                                                P + i, dist=dist)
+                tok, logits = greedy(logits)
+            toks.append(tok)
+            outs.append(logits)
+        sync()
+        decode_s = time.perf_counter() - t0
+        tokens = torch.cat([dist.full(t) for t in toks], dim=1)
+        logits = torch.cat([dist.full(t)[:, -1:, :V] for t in outs], dim=1)
+    return Generation(tokens, logits, prefill_s, decode_s)
 
 
 def main(argv=None) -> int:

@@ -1,11 +1,18 @@
 """Per-(arch x shape) cell construction: the step function and its
-arguments, for one card (the port of the reference's ``launch/specs.py``).
+arguments, for one card or over an LM mesh (the port of the reference's
+``launch/specs.py``).
 
 ``build_cell`` returns what the dry-run (and a real run) needs: the step
 function and its arguments, ``meta`` tensors by default (shapes and types,
-nothing allocated) or real tensors on a device the caller names.  The
-reference also pins output shardings over a mesh; one card has none, so
-``out_shardings`` is None and a mesh raises.
+nothing allocated) or real tensors on a device the caller names.  Without
+a mesh ``out_shardings`` is None.  On a mesh (``launch.mesh.LMMesh``) the
+serving cells of the ``transformer`` families run the mesh prefill and
+decode step over parameters and caches laid out by the rules
+``shape_rules`` gives (``Sharded`` per position; ``meta["dist"]`` holds
+the ``Distribution`` and its collective log), and ``out_shardings`` holds
+the reference's specs of the logits and caches.  Training on a mesh
+(``MESH_TRAIN``) and the SSM, hybrid and encoder-decoder families on a
+mesh (``MESH_FAMILIES``) raise.
 
 * **train**: ``launch.train.train_step(..., donate=True)`` with
   ``adamw(lr)``: the state (params, AdamW's m, v and count, the step) is
@@ -29,11 +36,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.serve_lm import ENCDEC_FAMILIES, target_len
+from repro_torch.launch.mesh import LMMesh
 from repro_torch.models import encdec, get_module, ssm_lm, transformer
-from repro_torch.models.params import init_from_defs, specs_from_defs
+from repro_torch.models.params import (init_from_defs, pspecs_from_defs,
+                                       shard_params, specs_from_defs)
+from repro_torch.models.sharding import (MESH_FAMILIES, MESH_TRAIN,
+                                         Distribution, default_rules)
 
-MULTI_CARD = ("ROADMAP queue 1, items 10-11: a cell on a mesh across "
-              "cards")
+MESH_SERVING = ("dense", "moe", "vlm")  # the transformer's families
 
 
 @dataclasses.dataclass
@@ -45,10 +55,41 @@ class Cell:
     meta: dict
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"a cell on a mesh is not ported yet "
-                                  f"({MULTI_CARD})")
+def shape_rules(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
+    """The rules of this cell: ``default_rules``, with the KV cache of a
+    long-context decode (seq_len > 100,000: its batch cannot shard) spread
+    over every data and model axis."""
+    rules = default_rules(mesh)
+    if mesh is None:
+        return rules
+    names = mesh.axis_names
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    tp = "model" if "model" in names else None
+    if shape.kind == "decode" and shape.seq_len > 100_000:
+        rules["kv_seq"] = dp + ((tp,) if tp else ())
+    return rules
+
+
+def mesh_support(cfg: ModelConfig, shape: ShapeConfig):
+    """None where the cell runs on a mesh, else why not (the ROADMAP item
+    that ports it)."""
+    if shape.kind == "train":
+        return MESH_TRAIN
+    if cfg.family not in MESH_SERVING:
+        return MESH_FAMILIES
+    return None
+
+
+def _check_mesh(cfg: ModelConfig, shape: ShapeConfig, mesh) -> None:
+    if mesh is None:
+        return
+    if not isinstance(mesh, LMMesh):
+        raise TypeError(f"a cell's mesh is a launch.mesh.LMMesh, got "
+                        f"{type(mesh).__name__}")
+    why = mesh_support(cfg, shape)
+    if why is not None:
+        raise NotImplementedError(f"{cfg.name} {shape.name} on a mesh is "
+                                  f"not ported yet ({why})")
 
 
 def _tokens(shape: tuple, vocab: int, device, rng) -> torch.Tensor:
@@ -81,9 +122,10 @@ def _token_specs(cfg: ModelConfig, shape: ShapeConfig, with_labels=True, *,
 
 
 def _serve_cache_specs(cfg: ModelConfig, shape: ShapeConfig, *,
-                       device="meta") -> dict:
+                       device="meta", dist=None) -> dict:
     """The decode cache of this cell (bf16 KV, f32 SSM state ``h``): meta
-    tensors, or zeros on ``device``."""
+    tensors, or zeros on ``device``; with a mesh (``dist``) laid out by
+    the rules, per position."""
     B, S = shape.global_batch, shape.seq_len
     if cfg.family in ENCDEC_FAMILIES:
         defs = encdec.cache_defs(cfg, B, S, target_len(cfg, S))
@@ -93,10 +135,12 @@ def _serve_cache_specs(cfg: ModelConfig, shape: ShapeConfig, *,
     else:
         defs = transformer.cache_defs(cfg, B, S)
     specs = specs_from_defs(defs, torch.bfloat16)
-    if torch.device(device).type == "meta":
-        return specs
-    return {k: torch.zeros(t.shape, dtype=t.dtype, device=device)
-            for k, t in specs.items()}
+    if torch.device(device).type != "meta":
+        specs = {k: torch.zeros(t.shape, dtype=t.dtype, device=device)
+                 for k, t in specs.items()}
+    if dist is not None:
+        return shard_params(specs, defs, dist)
+    return specs
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> tuple:
@@ -116,20 +160,25 @@ def _params(cfg: ModelConfig, device, seed: int) -> dict:
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
                lr: float = 3e-4, device="meta", seed: int = 0) -> Cell:
-    """The cell of ``cfg`` at ``shape`` on one card.  ``device="meta"``
-    gives meta arguments; another device gives real ones there: f32
-    parameters drawn from ``seed`` by a ``torch.Generator`` of that device,
-    zero optimizer state and caches, and tokens (and frames) drawn from
-    ``numpy.random.default_rng(seed)``."""
+    """The cell of ``cfg`` at ``shape`` on one card, or on ``mesh``.
+    ``device="meta"`` gives meta arguments; another device gives real ones
+    there: f32 parameters drawn from ``seed`` by a ``torch.Generator`` of
+    that device, zero optimizer state and caches, and tokens (and frames)
+    drawn from ``numpy.random.default_rng(seed)``.  On a mesh the
+    parameters and caches are then laid out on its positions (views of
+    those on ``device`` where a position is bound to it; every position's
+    own ``meta`` blocks on a meta mesh)."""
     from repro_torch.launch.train import train_step
     from repro_torch.train.optimizer import adamw
 
-    _no_mesh(mesh)
+    _check_mesh(cfg, shape, mesh)
     mod = get_module(cfg)
     rng = None if torch.device(device).type == "meta" \
         else np.random.default_rng(seed)
     params = _params(cfg, device, seed)
     name = f"{cfg.name}__{shape.name}"
+    if mesh is not None:
+        return _mesh_cell(cfg, shape, mesh, mod, params, device, rng, name)
 
     if shape.kind == "train":
         opt = adamw(lr)
@@ -166,3 +215,34 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
 
     return Cell(name, serve_step, (params, cache, tokens, 0), None,
                 {"kind": "decode"})
+
+
+def _mesh_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: LMMesh, mod,
+               params: dict, device, rng, name: str) -> Cell:
+    """A serving cell of a ``transformer`` family on ``mesh``."""
+    dist = Distribution(mesh=mesh, rules=shape_rules(cfg, shape, mesh))
+    defs = mod.defs(cfg)
+    params = shard_params(params, defs, dist)
+    meta = {"kind": shape.kind, "dist": dist,
+            "param_specs": pspecs_from_defs(defs, dist.rules, mesh)}
+    B, V = shape.global_batch, cfg.padded_vocab
+    logits_spec = dist.spec("batch", None, "vocab", shape=(B, 1, V))
+    if shape.kind == "prefill":
+        batch = _token_specs(cfg, shape, with_labels=False, device=device,
+                             rng=rng)
+
+        def prefill_fn(params, batch):
+            return mod.prefill(cfg, params, batch["tokens"], dist=dist)
+
+        return Cell(name, prefill_fn, (params, batch), None,
+                    meta | {"logits_spec": logits_spec})
+    cache = _serve_cache_specs(cfg, shape, device=device, dist=dist)
+    tokens = _tokens((B, 1), cfg.vocab_size, device, rng)
+
+    def serve_step(params, cache, tokens, pos):
+        return mod.decode_step(cfg, params, cache, tokens, pos, dist=dist)
+
+    cache_specs = pspecs_from_defs(transformer.cache_defs(
+        cfg, B, shape.seq_len), dist.rules, mesh)
+    return Cell(name, serve_step, (params, cache, tokens, 0),
+                (logits_spec, cache_specs), meta)

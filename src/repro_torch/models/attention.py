@@ -3,8 +3,18 @@ the decoders, bidirectional in the encoder-decoder's encoder) and the
 encoder-decoder's cross attention.
 
 The reference shards q, k and v differently per mode (train / prefill /
-decode) over its mesh; on one device those constraints are no-ops, so the
-port has one layout.
+decode) over its mesh.  Without a mesh those constraints are no-ops, and
+the functions below run one layout.  On a mesh (``dist`` a
+``models.sharding.Distribution`` with one) the serving functions run the
+reference's layouts over ``Sharded`` values, with every weight whole on
+each position at its use (``Distribution.gather_all``):
+
+* prefill (``self_attention_mesh``): q sharded along its sequence
+  ("seq"), k and v gathered whole per data shard, and each position's
+  flash attention called with its block's ``q_offset``;
+* decode (``decode_self_attention_mesh``): the new token's k and v
+  written into the one position that owns its cache slot, then
+  ``layers.dist_decode_attention`` over the cache's ``kv_seq`` shards.
 """
 from __future__ import annotations
 
@@ -15,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
 from repro_torch.models.params import Def
+from repro_torch.models.sharding import on_mesh
 
 
 def attn_defs(cfg: ModelConfig, stack: int = 0, d_model: int = 0) -> dict:
@@ -69,9 +80,17 @@ def _out(cfg: ModelConfig, p: dict, o: torch.Tensor) -> torch.Tensor:
 
 def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                    window: int = 0, theta: Optional[float] = None,
-                   causal: bool = True) -> torch.Tensor:
+                   causal: bool = True, dist=None) -> torch.Tensor:
     """Full-sequence self attention (train / prefill), rope'd q and k;
-    ``causal=False`` for the encoder."""
+    ``causal=False`` for the encoder.  On a mesh (causal only): the
+    output of ``self_attention_mesh``."""
+    if on_mesh(dist):
+        if not causal:
+            raise NotImplementedError("non-causal attention on a mesh is "
+                                      "the encoder's (ROADMAP queue 1, "
+                                      "item 14)")
+        return self_attention_mesh(cfg, p, x, dist=dist, window=window,
+                                   theta=theta)[0]
     positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _project(cfg, p, x)
     if theta is None:
@@ -114,13 +133,17 @@ def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 def decode_self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
                           cache: dict, pos: int, *, window: int = 0,
-                          theta: Optional[float] = None) -> tuple:
+                          theta: Optional[float] = None, dist=None) -> tuple:
     """One-token self attention against a KV cache.
 
     cache: {"k": (B, Smax, Hkv, Dh), "v": same}; ``pos`` (a host int) is the
     number of tokens already in the cache, the new token's position.  The
     new k and v are written into the cache tensors in place (the reference
-    returns updated copies); returns (out, cache)."""
+    returns updated copies); returns (out, cache).  On a mesh:
+    ``decode_self_attention_mesh``."""
+    if on_mesh(dist):
+        return decode_self_attention_mesh(cfg, p, x, cache, pos, dist=dist,
+                                          window=window, theta=theta)
     S = x.shape[1]  # 1
     q, k_new, v_new = _project(cfg, p, x)
     if theta is None:
@@ -135,3 +158,87 @@ def decode_self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     k_pos = torch.where(idx <= pos, idx, -1)  # only filled slots are valid
     o = layers.decode_attention(q, k, v, positions, k_pos, window=window)
     return _out(cfg, p, o), cache
+
+
+# ------------------------------------------------------------------ mesh ----
+
+def _out_mesh(cfg: ModelConfig, p: dict, o, dist, seq_axis):
+    """The output projection on a mesh: o (B, S, Hq, Dh) -> (B, S, D),
+    constrained as the reference's ``_out``; where "heads" shards o's
+    packed dim, the product is the partial sums' ``psum``."""
+    spec = o.spec[:2] + ((),)
+    o = dist.map(lambda t: t.reshape(*t.shape[:2], -1), o, spec=spec)
+    o = dist.constrain(o, "batch", seq_axis, "heads")
+    out = dist.matmul(o, p["wo"])
+    return dist.constrain(out, "batch", seq_axis, "embed")
+
+
+def self_attention_mesh(cfg: ModelConfig, p: dict, x, *, dist,
+                        window: int = 0, theta: Optional[float] = None):
+    """Causal self attention of the prefill on a mesh.  ``p`` holds the
+    layer's weights whole on every position; x (B, S, D) is sharded
+    (batch, seq).  Each position ropes its rows at their absolute
+    positions, q stays sharded along seq, k and v are gathered whole per
+    data shard, and the flash attention of each position sees its rows at
+    ``q_offset`` = its block's start.  Returns (out, k, v): k and v (B, S,
+    Hkv, Dh) whole per data shard, for the cache."""
+    if theta is None:
+        theta = cfg.rope_theta
+    spec = x.spec + ((),)
+    q, k, v = dist.map(lambda pi, xi: _project(cfg, pi, xi), p, x,
+                       spec=(spec,) * 3)
+
+    def rot(i, qi, ki):
+        positions = dist.block_start(x, 1, i) + torch.arange(
+            qi.shape[1], device=qi.device)
+        return (layers.rope(qi, positions, theta),
+                layers.rope(ki, positions, theta))
+
+    q, k = dist.map(rot, q, k, pos=True, spec=(spec,) * 2)
+    q = dist.constrain(q, "batch", "seq", None, None)
+    k = dist.constrain(k, "batch", None, None, None)
+    v = dist.constrain(v, "batch", None, None, None)
+    o = dist.map(lambda i, qi, ki, vi: layers.flash_attention(
+        qi, ki, vi, causal=True, window=window,
+        q_offset=dist.block_start(q, 1, i),
+        kv_offset=dist.block_start(k, 1, i)), q, k, v, pos=True, spec=q.spec)
+    return _out_mesh(cfg, p, o, dist, "seq"), k, v
+
+
+def decode_self_attention_mesh(cfg: ModelConfig, p: dict, x, cache: dict,
+                               pos: int, *, dist, window: int = 0,
+                               theta: Optional[float] = None):
+    """One-token self attention on a mesh against a cache sharded along
+    its sequence (cache["k"], ["v"]: (B, Smax, Hkv, Dh) ``Sharded``).  The
+    new token's k and v are written, in place, only into the position whose
+    block holds slot ``pos``; then ``dist_decode_attention`` over the
+    cache's shards.  Returns (out, cache)."""
+    if theta is None:
+        theta = cfg.rope_theta
+    spec = x.spec + ((),)
+    q, k_new, v_new = dist.map(lambda pi, xi: _project(cfg, pi, xi), p, x,
+                               spec=(spec,) * 3)
+    dev = x.first.device
+    positions = pos + torch.arange(x.shape[1], device=dev)
+
+    def rot(qi, ki):
+        at = positions.to(qi.device)
+        return layers.rope(qi, at, theta), layers.rope(ki, at, theta)
+
+    q, k_new = dist.map(rot, q, k_new, spec=(spec,) * 2)
+    k, v = cache["k"], cache["v"]
+    if k.spec[0] != k_new.spec[0]:
+        raise ValueError(f"the cache's batch layout {k.spec[0]} is not the "
+                         f"tokens' {k_new.spec[0]}")
+    S_loc = k.local_shape[1]
+    for i in dist.mesh.active:
+        lo = dist.block_start(k, 1, i)
+        if lo <= pos < lo + S_loc:
+            for c, new in ((k, k_new), (v, v_new)):
+                t = c.local(i)
+                t[:, pos - lo:pos - lo + 1] = new.local(i).to(t.dtype)
+    idx = torch.arange(k.shape[1], device=dev)
+    k_pos = torch.where(idx <= pos, idx, -1)  # only filled slots are valid
+    o = layers.dist_decode_attention(q, k, v, positions, k_pos, dist=dist,
+                                     window=window)
+    return _out_mesh(cfg, p, o, dist, None), cache

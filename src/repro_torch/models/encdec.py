@@ -25,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import masked_ce, rms_norm, swiglu_mlp
 from repro_torch.models.params import Def
+from repro_torch.models.sharding import no_mesh
 
 
 def defs(cfg: ModelConfig) -> dict:
@@ -132,15 +133,17 @@ def decode_train(cfg: ModelConfig, params: dict, enc_out: torch.Tensor,
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
-            mode: str = "train"):
+            mode: str = "train", dist=None):
     """(logits (B, St, V), 0.0) for a batch of ``frames`` and ``tokens``."""
+    no_mesh(dist)
     enc_out = encode(cfg, params, batch["frames"], mode=mode)
     return decode_train(cfg, params, enc_out, batch["tokens"], mode=mode), 0.0
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, dist=None):
     """Next-token CE of the decoder over the unmasked labels.  Returns (ce,
     {"ce": ce})."""
+    no_mesh(dist)
     logits, _ = forward(cfg, params, batch, mode="train")
     ce = masked_ce(logits, batch["labels"])
     return ce, {"ce": ce}
@@ -180,13 +183,14 @@ def make_cache(cfg: ModelConfig, params: dict, enc_out: torch.Tensor,
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, dist=None):
     """The serving prefill: ``encode`` the frames, ``make_cache`` with
     ``max_len`` self slots (default: the prompt's length), the
     teacher-forced decoder over the prompt ``batch["tokens"]`` (B, St),
     reading the cross k and v from the cache.  The self cache stays all
     zero (see the module's doc).  Returns (logits of the last position
     (B, 1, V), cache)."""
+    no_mesh(dist)
     tokens = batch["tokens"]
     enc_out = encode(cfg, params, batch["frames"], mode="prefill")
     cache = make_cache(cfg, params, enc_out, max_len or tokens.shape[1])
@@ -196,10 +200,11 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor, pos: int):
+                tokens: torch.Tensor, pos: int, *, dist=None):
     """One decoder token for every sequence against the self and cross
     caches.  tokens (B, 1); ``pos`` (a host int) the self-cache slot
     written, in place.  Returns (logits (B, 1, V), cache)."""
+    no_mesh(dist)
     x = params["dec_embed"][tokens.long()].to(torch.bfloat16)
     for l in range(cfg.n_dec_layers):
         p = _layer(params["dec_layers"], l)

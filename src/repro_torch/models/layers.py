@@ -4,16 +4,18 @@ Plain functions over explicit parameter dicts, in the reference package's
 layouts (activations (B, S, H, Dh), weights (d_in, d_out)).  Attention comes
 in two flavours:
 
-* ``flash_attention``   chunked online-softmax attention with GQA and a
-                        per-call window: the hand-written Hopper kernel on
-                        CUDA tensors (``kernels/flash_attention.py``), its
-                        plain version on CPU tensors.
+* ``flash_attention``   chunked online-softmax attention with GQA, a
+                        per-call window and query / key offsets: the
+                        hand-written Hopper kernel on CUDA tensors
+                        (``kernels/flash_attention.py``), its plain version
+                        on CPU tensors.
 * ``decode_attention``  single-step attention over a whole KV cache, plain
                         PyTorch (the reference writes it in jnp too).
-
-The reference's ``dist_decode_attention`` (the KV cache sharded along its
-sequence over a mesh) is ``decode_attention`` on one device, which is all
-the port runs.
+* ``dist_decode_attention`` flash-decode over a mesh: the KV cache stays
+                        sharded along its sequence; each position computes
+                        a partial (max, sum, weighted V) over its slice and
+                        the partials combine with a global log-sum-exp
+                        (``pmax``, then ``psum`` in position order).
 """
 from __future__ import annotations
 
@@ -24,9 +26,11 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import NEG_INF, attn_mask
+from repro_torch.models.sharding import on_mesh
 
 __all__ = ["NEG_INF", "rms_norm", "rope", "attn_mask", "flash_attention",
-           "decode_attention", "swiglu_mlp", "masked_ce"]
+           "decode_attention", "dist_decode_attention", "swiglu_mlp",
+           "masked_ce"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -78,6 +82,77 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dh).to(q.dtype)
+
+
+def dist_decode_attention(q, k, v, q_pos: torch.Tensor, k_pos: torch.Tensor,
+                          *, dist, window: int = 0,
+                          kv_logical: str = "kv_seq"):
+    """Flash-decode with the KV cache sharded along its sequence.
+
+    q (B, Sq, Hq, Dh), k and v (B, Skv, Hkv, Dh) are ``Sharded`` values of
+    ``dist`` (plain tensors without a mesh); q_pos (Sq,) and k_pos (Skv,)
+    are plain tensors of absolute positions (k_pos < 0: an empty slot).
+    The mesh axes of ``kv_logical`` that divide Skv (and split it: size >
+    1) shard the cache; with none, every position runs ``decode_attention``
+    on its whole cache.  Otherwise q is resharded to (batch, None, None,
+    None) and k, v to (batch, those axes, None, None), as the reference's
+    ``shard_map`` specs ask, and each position computes over its slice
+    m = max s, l = sum exp(s - m), u = exp(s - m) . v (p rounded to v's
+    type), then o = psum(u e^{m - M}) / psum(l e^{m - M}) with M =
+    pmax(m): the cache is never gathered."""
+    if not on_mesh(dist):
+        return decode_attention(q, k, v, q_pos, k_pos, window=window)
+    mesh = dist.mesh
+    Skv = k.shape[1]
+    keep, size = [], 1
+    for a in dist.axes_of(kv_logical):
+        n = mesh.shape[a]
+        if n > 1 and Skv % (size * n) == 0:
+            keep.append(a)
+            size *= n
+    seq_axes = tuple(keep)
+    batch = dist.layout("batch", shape=(q.shape[0],))[0]
+    q = dist.reshard(q, (batch, (), (), ()))
+    k = dist.reshard(k, (batch, seq_axes, (), ()))
+    v = dist.reshard(v, (batch, seq_axes, (), ()))
+    if not seq_axes:
+        return dist.map(lambda qi, ki, vi: decode_attention(
+            qi, ki, vi, q_pos.to(qi.device), k_pos.to(qi.device),
+            window=window), q, k, v, spec=q.spec)
+    S_loc = k.local_shape[1]
+
+    def partial(i, qi, ki, vi):
+        B, Sq, Hq, Dh = qi.shape
+        Hkv = ki.shape[2]
+        G = Hq // Hkv
+        lo = mesh.rank(i, seq_axes) * S_loc
+        kpi = k_pos[lo:lo + S_loc].to(qi.device)
+        scale = torch.full((), Dh ** -0.5, dtype=qi.dtype, device=qi.device)
+        qg = qi.reshape(B, Sq, Hkv, G, Dh) * scale
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), ki.float())
+        mask = attn_mask(q_pos.to(qi.device), kpi, causal=True,
+                         window=window, k_valid=kpi >= 0)
+        s = torch.where(mask, s, NEG_INF)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        u = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vi.dtype).float(),
+                         vi.float())
+        return m, p.sum(dim=-1), u
+
+    m, l, u = dist.map(partial, q, k, v, pos=True)
+    M = dist.pmax(m, seq_axes)
+    a = dist.map(lambda mi, Mi: torch.exp(mi - Mi), m, M)
+    num = dist.psum(dist.map(lambda ui, ai: ui * ai[..., None], u, a),
+                    seq_axes)
+    den = dist.psum(dist.map(torch.mul, l, a), seq_axes)
+
+    def finish(qi, ni, di):
+        B, Sq, Hq, Dh = qi.shape
+        o = ni / di.clamp_min(1e-30)[..., None]
+        return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dh).to(qi.dtype)
+
+    return dist.map(finish, q, num, den, spec=q.spec)
+
 
 
 def swiglu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,11 @@
 """Parameter definitions: models declare their parameters once as a nested
 dict of :class:`Def` leaves (shape + logical axes + init rule).
 ``init_from_defs`` materializes them as tensors; ``specs_from_defs`` gives
-their shapes and types as ``meta`` tensors (the dry-run's arguments)."""
+their shapes and types as ``meta`` tensors (the dry-run's arguments);
+``resolve_spec`` / ``pspecs_from_defs`` translate the logical axes into
+mesh axes through a rules dict (the reference's ``PartitionSpec`` entries,
+non-divisible dims falling back to replication), and ``shard_params``
+lays full parameters out on a mesh by them (``unshard`` undoes it)."""
 from __future__ import annotations
 
 import dataclasses
@@ -69,3 +73,63 @@ def specs_from_defs(defs: Any, dtype: torch.dtype = torch.float32) -> Any:
         return torch.empty(defs.shape, dtype=defs.dtype or dtype,
                            device="meta")
     return {k: specs_from_defs(defs[k], dtype) for k in sorted(defs)}
+
+
+def resolve_spec(d: Def, rules: dict, mesh) -> tuple:
+    """Logical axes -> the reference's ``PartitionSpec`` entries (None, an
+    axis name, or a tuple of names per dim), dropping mesh axes that do
+    not divide the dim or that an earlier dim already uses.  ``mesh`` is a
+    ``launch.mesh.LMMesh`` (anything with a ``shape`` dict of axis sizes)
+    or None."""
+    parts = []
+    used = set()
+    for dim, ax in zip(d.shape, d.axes):
+        mesh_axes = rules.get(ax) if ax is not None else None
+        if mesh_axes is None:
+            parts.append(None)
+            continue
+        if isinstance(mesh_axes, str):
+            mesh_axes = (mesh_axes,)
+        keep = []
+        size = 1
+        for m in mesh_axes:
+            if m in used or (mesh is not None and m not in mesh.shape):
+                continue
+            msize = mesh.shape[m] if mesh is not None else 1
+            if dim % (size * msize) == 0:
+                keep.append(m)
+                size *= msize
+        used.update(keep)
+        if not keep:
+            parts.append(None)
+        elif len(keep) == 1:
+            parts.append(keep[0])
+        else:
+            parts.append(tuple(keep))
+    return tuple(parts)
+
+
+def pspecs_from_defs(defs: Any, rules: dict, mesh) -> Any:
+    """The tree of ``resolve_spec`` entries."""
+    if isinstance(defs, Def):
+        return resolve_spec(defs, rules, mesh)
+    return {k: pspecs_from_defs(defs[k], rules, mesh) for k in sorted(defs)}
+
+
+def shard_params(params: Any, defs: Any, dist) -> Any:
+    """Full parameters laid out on ``dist``'s mesh as ``resolve_spec``
+    gives (``models.sharding.Sharded`` leaves): each position holds its
+    block, on its device, so its bytes are the reference's per-device
+    shard.  A block on the device its parameter lives on is a view of it
+    (one card holds the tree once, whatever the number of positions); on
+    another device it is a copy; on ``meta`` an empty tensor of its own."""
+    if isinstance(defs, Def):
+        return dist.shard(params, resolve_spec(defs, dist.rules, dist.mesh))
+    return {k: shard_params(params[k], defs[k], dist) for k in sorted(defs)}
+
+
+def unshard(params: Any, dist, device=None) -> Any:
+    """The full parameters a sharded tree stands for (for the tests)."""
+    if isinstance(params, dict):
+        return {k: unshard(v, dist, device) for k, v in params.items()}
+    return dist.full(params, device)

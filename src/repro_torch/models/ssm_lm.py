@@ -32,6 +32,7 @@ from repro_torch.models import mamba2
 from repro_torch.models.layers import (flash_attention, masked_ce, rms_norm,
                                       rope, swiglu_mlp)
 from repro_torch.models.params import Def
+from repro_torch.models.sharding import no_mesh
 
 SSM_KEYS = ("h", "conv_x", "conv_B", "conv_C")
 
@@ -148,28 +149,31 @@ def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            mode: str = "train"):
+            mode: str = "train", dist=None):
     """Full-sequence forward: (logits (B, S, V), 0.0) as the reference's
     (no auxiliary loss)."""
+    no_mesh(dist)
     return _unembed(cfg, params, forward_hidden(cfg, params, tokens,
                                                 mode=mode)), 0.0
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, dist=None):
     """Next-token CE over the unmasked labels (labels < 0 masked), from f32
     logits.  Returns (ce, {"ce": ce})."""
+    no_mesh(dist)
     logits, _ = forward(cfg, params, batch["tokens"], mode="train")
     ce = masked_ce(logits, batch["labels"])
     return ce, {"ce": ce}
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, dist=None):
     """Forward over the prompts that also emits the decode state: every
     layer's final SSM state ``h`` and, for the hybrid, each place's k and v
     (zero-padded to ``max_len``).  The conv tails stay zero, as in the
     reference (a 3-token window).  Returns (logits of the last position
     (B, 1, V), state)."""
+    no_mesh(dist)
     x = _embed(params, tokens)
     B, S = x.shape[:2]
     max_len = max_len or S
@@ -229,11 +233,12 @@ def init_state(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(cfg: ModelConfig, params: dict, state: dict,
-                tokens: torch.Tensor, pos: int):
+                tokens: torch.Tensor, pos: int, *, dist=None):
     """One token for every sequence.  tokens (B, 1); ``pos`` (a host int)
     the position being written (the shared block's KV slot).  Writes each
     layer's new state, and each place's k and v, into ``state`` in place;
     returns (logits (B, 1, V), state)."""
+    no_mesh(dist)
     x = _embed(params, tokens)
     for kind, i, p in _schedule(cfg, params):
         if kind == "mamba":

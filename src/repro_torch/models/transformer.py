@@ -11,6 +11,20 @@ of the reference's ``lax.scan``.  Per-layer heterogeneity (gemma3's 5 local
 stacked KV caches (L, B, Smax, Hkv, Dh), in place.  Activations are bf16
 over f32 master weights, cast at each use, as in the reference.
 
+Serving on a mesh (``prefill`` and ``decode_step`` with ``dist`` a
+``models.sharding.Distribution`` that has one; parameters laid out by
+``params.shard_params``): the reference's layouts over ``Sharded`` values.
+The embedding lookup is vocab-sharded (each position looks up the rows it
+holds, zeros elsewhere, and a ``psum`` over the vocab axis adds them: one
+nonzero row per token, so exact; the reference's ``embed_gather=
+"shard_map"`` path, taken for ``"auto"`` too); every other weight is
+gathered whole at its use and the experts stay sharded; activations are
+sharded (batch, seq) in prefill and (batch) in decode; the logits are
+vocab-sharded; the caches are (batch, kv_seq)-sharded per position and
+written in place.  ``dist=None`` (or a ``Distribution`` without a mesh)
+is the meshless path below, unchanged.  Training on a mesh raises
+(``MESH_TRAIN``).
+
 Training: ``loss_fn`` is the reference's next-token cross entropy.  With
 ``cfg.remat`` each layer of a ``mode="train"`` forward runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint(layer)``), and
@@ -23,6 +37,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -30,6 +45,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import flash_attention, rms_norm, rope, swiglu_mlp
 from repro_torch.models.params import Def
+from repro_torch.models.sharding import MESH_TRAIN, no_mesh, on_mesh
 from repro_torch.utils import resolve_device
 
 BIG_WINDOW = 1 << 30  # "no window": the global layers' window
@@ -83,16 +99,50 @@ def _layer(params: dict, l: int) -> dict:
     return {k: v[l] for k, v in params["layers"].items()}
 
 
-def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(dtype)
+def embed_tokens(cfg: ModelConfig, params: dict, tokens,
+                 dtype: torch.dtype = torch.bfloat16, *, dist=None):
+    """The tokens' embedding rows in ``dtype``; on a mesh, the
+    vocab-sharded lookup (module doc), constrained (batch, seq, embed)."""
+    if not on_mesh(dist):
+        return params["embed"][tokens.long()].to(dtype)
+    tokens = dist.constrain(tokens, "batch", None)
+    table = params["embed"]  # (vocab, embed): "embed" is never sharded
+    vax = table.spec[0]
+    if not vax:
+        x = dist.map(lambda tab, toks: tab[toks.long()].to(dtype), table,
+                     tokens, spec=tokens.spec + ((),))
+    else:
+        rows = table.local_shape[0]
+
+        def local(i, tab, toks):
+            loc = toks.long() - dist.mesh.rank(i, vax) * rows
+            ok = (loc >= 0) & (loc < rows)
+            x = tab[loc.clamp(0, rows - 1)]
+            zero = torch.zeros((), dtype=x.dtype, device=x.device)
+            return torch.where(ok[..., None], x, zero).to(dtype)
+
+        x = dist.psum(dist.map(local, table, tokens, pos=True,
+                               spec=tokens.spec + ((),)), vax)
+    return dist.constrain(x, "batch", "seq", "embed")
 
 
-def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def unembed(cfg: ModelConfig, params: dict, x, *, dist=None):
+    """Logits in x's type; on a mesh vocab-sharded (each position
+    multiplies by the vocab rows it holds), constrained (batch, None,
+    vocab)."""
     w = params.get("lm_head")
-    if w is None:  # tied: the embedding's transpose
-        return x @ params["embed"].to(x.dtype).T
-    return x @ w.to(x.dtype)
+    if not on_mesh(dist):
+        if w is None:  # tied: the embedding's transpose
+            return x @ params["embed"].to(x.dtype).T
+        return x @ w.to(x.dtype)
+    if w is None:  # (vocab, embed): "embed" is never sharded
+        tab = params["embed"]
+        logits = dist.map(lambda xi, ti: xi @ ti.to(xi.dtype).T, x, tab,
+                          spec=x.spec[:-1] + (tab.spec[0],))
+    else:
+        logits = dist.map(lambda xi, wi: xi @ wi.to(xi.dtype), x, w,
+                          spec=x.spec[:-1] + (w.spec[1],))
+    return dist.constrain(logits, "batch", None, "vocab")
 
 
 def _mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor, mode: str):
@@ -106,9 +156,12 @@ def _mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor, mode: str):
     return x + swiglu_mlp(p, h), 0.0
 
 
-def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            dist=None):
     """Full-sequence forward.  Returns (logits (B, S, V), aux loss: the
-    layers' mean router loss, 0.0 for a dense config)."""
+    layers' mean router loss, 0.0 for a dense config).  Not on a mesh
+    (``MESH_TRAIN``)."""
+    no_mesh(dist, MESH_TRAIN)
     x, aux = forward_hidden(cfg, params, tokens)
     return unembed(cfg, params, x), aux
 
@@ -123,13 +176,15 @@ def _block(cfg: ModelConfig, p: dict, x: torch.Tensor, window: int,
 
 
 def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-                   mode: str = "train"):
+                   mode: str = "train", dist=None):
     """Forward up to the final norm (pre-unembed); (hidden, aux), aux the
     layers' summed router loss over the number of layers, as the
     reference's (0.0 for a dense config).  ``mode`` picks the MoE
     dispatch (``"train"``/``"prefill"``: capacity buffers; ``"decode"``:
     dense).  With ``cfg.remat`` and ``mode == "train"`` each layer is
-    checkpointed when autograd records (nothing to recompute otherwise)."""
+    checkpointed when autograd records (nothing to recompute otherwise).
+    Not on a mesh (``MESH_TRAIN``)."""
+    no_mesh(dist, MESH_TRAIN)
     x = embed_tokens(cfg, params, tokens)
     window, theta = layer_flags(cfg)
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
@@ -157,7 +212,7 @@ def _ce(cfg: ModelConfig, params: dict, x: torch.Tensor,
     return ((lse - ll) * mask).sum(), mask.sum()
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, dist=None):
     """Next-token CE (labels = tokens shifted by the caller; labels < 0
     masked) plus 0.01 times the router loss.  Returns (loss, {"ce",
     "aux"}); aux is 0.0 for a dense config.
@@ -165,7 +220,9 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     With ``cfg.loss_chunk`` > 0 dividing S (and S > the chunk), the CE is
     summed chunk by chunk along the sequence, in order, as the reference's
     scan sums it; under autograd each chunk is checkpointed, so that only
-    one chunk's logits exist at a time in the backward too."""
+    one chunk's logits exist at a time in the backward too.  Not on a
+    mesh (``MESH_TRAIN``)."""
+    no_mesh(dist, MESH_TRAIN)
     hidden, aux = forward_hidden(cfg, params, batch["tokens"], mode="train")
     labels = batch["labels"]
     S = hidden.shape[1]
@@ -211,10 +268,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor, pos: int):
+                tokens: torch.Tensor, pos: int, *, dist=None):
     """One token for every sequence.  tokens (B, 1); ``pos`` (a host int)
     the position being written.  Writes each layer's k and v into
-    ``cache`` in place; returns (logits (B, 1, V), cache)."""
+    ``cache`` in place; returns (logits (B, 1, V), cache).  On a mesh:
+    ``decode_step_mesh``."""
+    if on_mesh(dist):
+        return decode_step_mesh(cfg, params, cache, tokens, pos, dist=dist)
     x = embed_tokens(cfg, params, tokens)
     window, theta = layer_flags(cfg)
     for l in range(cfg.n_layers):
@@ -229,9 +289,12 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, dist=None):
     """Forward that also emits the KV cache (zero-padded to ``max_len``).
-    Returns (logits of the last position (B, 1, V), cache)."""
+    Returns (logits of the last position (B, 1, V), cache).  On a mesh:
+    ``prefill_mesh``."""
+    if on_mesh(dist):
+        return prefill_mesh(cfg, params, tokens, max_len=max_len, dist=dist)
     x = embed_tokens(cfg, params, tokens)
     B, S = x.shape[:2]
     max_len = max_len or S
@@ -250,3 +313,108 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         cache["v"][l, :, :S] = v
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x[:, -1:]), cache
+
+
+# ------------------------------------------------------------------ mesh ----
+
+def _layer_at_use(cfg: ModelConfig, params: dict, l: int, dist) -> dict:
+    """Layer ``l``'s weights at use: each gathered whole on every position,
+    but the experts, which keep their shards."""
+    experts = ("w_gate", "w_up", "w_down") if cfg.n_experts > 0 else ()
+    return {k: (dist.select(v, l) if k in experts
+                else dist.gather_all(dist.select(v, l)))
+            for k, v in params["layers"].items()}
+
+
+def _norm(cfg: ModelConfig, x, scale, dist):
+    return dist.map(lambda xi, si: rms_norm(xi, si, cfg.norm_eps), x, scale,
+                    spec=x.spec)
+
+
+def _mlp_block_mesh(cfg: ModelConfig, p: dict, x, mode: str, dist,
+                    seq_axis):
+    """``_mlp_block`` on a mesh: the FFN behind its pre-norm and residual
+    add, the sum constrained (batch, seq_axis, embed).  The dense MLP's
+    hidden dim is constrained to "ff" as in the reference (in decode it
+    shards there, and the down projection sums its partial products)."""
+    h = _norm(cfg, x, p["mlp_norm"], dist)
+    if cfg.n_experts > 0:
+        y, _ = moe_mod.moe_block_mesh(cfg, p, h, dist=dist, mode=mode)
+    else:
+        u = dist.map(lambda pi, hi: F.silu(hi @ pi["w_gate"].to(hi.dtype))
+                     * (hi @ pi["w_up"].to(hi.dtype)), p, h, spec=h.spec)
+        u = dist.constrain(u, "batch", seq_axis, "ff")
+        y = dist.matmul(u, p["w_down"])
+    x = dist.map(torch.add, x, y, spec=x.spec)
+    return dist.constrain(x, "batch", seq_axis, "embed")
+
+
+def _last_position(x, dist):
+    """x[:, -1:] of a value sharded along its sequence: every position's
+    last row all-gathered over the sequence axes, the last block's kept."""
+    last = dist.map(lambda t: t[:, -1:], x, spec=x.spec)
+    if x.spec[1]:
+        last = dist.all_gather(last, 1)
+        last = dist.map(lambda t: t[:, -1:], last, spec=last.spec)
+    return last
+
+
+def prefill_mesh(cfg: ModelConfig, params: dict, tokens, *,
+                 max_len: Optional[int] = None, dist):
+    """``prefill`` on ``dist``'s mesh (the reference's ``prefill`` under a
+    mesh): tokens (B, S), a plain tensor or ``Sharded``; ``params`` laid
+    out by ``params.shard_params``.  Returns (logits of the last position
+    (B, 1, V) vocab-sharded, cache): the caches (L, B, max_len, Hkv, Dh)
+    constrained (batch, kv_seq) per position (``Sharded``, zero past S)."""
+    x = embed_tokens(cfg, params, tokens, dist=dist)
+    B, S = x.shape[:2]
+    max_len = max_len or S
+    window, theta = layer_flags(cfg)
+    cache = None
+    for l in range(cfg.n_layers):
+        p = _layer_at_use(cfg, params, l, dist)
+        h = _norm(cfg, x, p["attn_norm"], dist)
+        a, k, v = attn.self_attention_mesh(cfg, p, h, dist=dist,
+                                           window=window[l], theta=theta[l])
+        x = dist.map(torch.add, x, a, spec=x.spec)
+        x = _mlp_block_mesh(cfg, p, x, "prefill", dist, "seq")
+        full = (B, max_len) + k.shape[2:]
+        spec = dist.layout("batch", "kv_seq", None, None, shape=full)
+        if spec[0] != k.spec[0] or k.spec[1]:
+            raise ValueError(f"k laid out {k.spec}, the cache {spec}")
+        if cache is None:
+            cache = {n: dist.map(lambda t: torch.zeros(
+                (cfg.n_layers,) + t.shape[:1]
+                + (max_len // dist.group_size(spec[1]),) + t.shape[2:],
+                dtype=t.dtype, device=t.device), kv, spec=((),) + spec)
+                for n, kv in (("k", k), ("v", v))}
+        for n, kv in (("k", k), ("v", v)):
+            for i in dist.mesh.active:
+                c = cache[n].local(i)
+                lo = dist.mesh.rank(i, spec[1]) * c.shape[2]
+                hi = min(S, lo + c.shape[2])
+                if hi > lo:
+                    c[l, :, :hi - lo] = kv.local(i)[:, lo:hi]
+    x = _norm(cfg, x, params["final_norm"], dist)
+    return unembed(cfg, params, _last_position(x, dist), dist=dist), cache
+
+
+def decode_step_mesh(cfg: ModelConfig, params: dict, cache: dict, tokens,
+                     pos: int, *, dist):
+    """``decode_step`` on ``dist``'s mesh: tokens (B, 1), a plain tensor or
+    ``Sharded``; the caches as ``prefill_mesh`` gives them, written in
+    place.  Returns (logits (B, 1, V) vocab-sharded, cache)."""
+    x = embed_tokens(cfg, params, tokens, dist=dist)
+    x = dist.constrain(x, "batch", None, "embed")
+    window, theta = layer_flags(cfg)
+    for l in range(cfg.n_layers):
+        p = _layer_at_use(cfg, params, l, dist)
+        h = _norm(cfg, x, p["attn_norm"], dist)
+        layer_cache = {n: dist.select(cache[n], l) for n in ("k", "v")}
+        a, _ = attn.decode_self_attention(
+            cfg, p, h, layer_cache, pos, dist=dist, window=window[l],
+            theta=theta[l])
+        x = dist.map(torch.add, x, a, spec=x.spec)
+        x = _mlp_block_mesh(cfg, p, x, "decode", dist, None)
+    x = _norm(cfg, x, params["final_norm"], dist)
+    return unembed(cfg, params, x, dist=dist), cache

@@ -780,6 +780,50 @@ def test_cuda_flash_matches_plain_version(cuda_device, B, S, Hq, Hkv, Dh,
     torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk,Hq,Hkv,Dh,window,causal,q_offset,kv_offset", [
+    # a mesh prefill's shard: queries [1024, 2048) over keys [0, 4096)
+    (1024, 4096, 4, 1, 256, 512, True, 1024, 0),
+    (1024, 4096, 4, 1, 256, BIG_WINDOW, True, 1024, 0),
+    (1000, 3000, 8, 2, 128, 0, True, 2000, 0),     # the last shard, ragged
+    (512, 2048, 8, 2, 80, 64, True, 777, 0),       # Dh 80, odd offset
+    (300, 1000, 4, 1, 64, 0, True, 5000, 4800),    # both offsets
+    (200, 300, 4, 1, 16, 8, True, 100, 0),         # mma_sync's head dim
+    (256, 256, 4, 1, 256, 0, True, 0, 128),        # keys after queries
+])
+@pytest.mark.parametrize("route", ["wgmma", "mma_sync", "simt"])
+def test_cuda_flash_with_offsets_matches_plain_version(
+        cuda_device, monkeypatch, Sq, Sk, Hq, Hkv, Dh, window, causal,
+        q_offset, kv_offset, route):
+    """The query offset on each route: the kernels take q_offset -
+    kv_offset as one int and mask and skip tiles by it; held to the plain
+    version at the same offsets within ``CUDA_TOL`` (``simt`` in f32,
+    ``mma_sync`` forced where the rule gives ``wgmma``); rows that see no
+    key are undefined and left out.  Offsets 0 give the bits the kernel
+    gives without them."""
+    if route == "wgmma" and Dh not in fa.WGMMA_HEAD_DIMS:
+        pytest.skip(f"no wgmma tile for Dh {Dh}")
+    dtype = torch.float32 if route == "simt" else torch.bfloat16
+    q, k, v = _qkv(Sq, 1, Sq, Hq, Hkv, Dh, dtype, device=cuda_device, Sk=Sk)
+    monkeypatch.setattr(fa, "flash_route", lambda *_: route)
+    kw = dict(causal=causal, window=window)
+    before = fa.KERNEL.route_launches[route]
+    got = fa.flash_attention(q, k, v, q_offset=q_offset, kv_offset=kv_offset,
+                             **kw)
+    want = tref.flash_attention(q, k, v, q_offset=q_offset,
+                                kv_offset=kv_offset, **kw)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.route_launches[route] == before + 1
+    pos = q_offset - kv_offset + torch.arange(Sq, device=cuda_device)
+    sees = (pos >= 0) & ((pos - (Sk - 1) < window) if window > 0
+                         else torch.ones_like(pos, dtype=torch.bool))
+    torch.testing.assert_close(got[:, sees].float(), want[:, sees].float(),
+                               **CUDA_TOL[dtype])
+    plain = fa.flash_attention(q, k, v, **kw)
+    zero = fa.flash_attention(q, k, v, q_offset=0, kv_offset=0, **kw)
+    assert torch.equal(plain, zero)
+
+
 def test_route_codes_name_every_forward_route():
     """The C entry takes the route by code: every route has one, and the
     codes are the C rule's (0 SIMT, 1 mma.sync, 2 wgmma)."""

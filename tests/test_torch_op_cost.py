@@ -29,6 +29,7 @@ from repro_torch.configs import ARCH_IDS, SHAPES, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import dryrun, op_cost, specs, variants
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import transformer
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -413,7 +414,8 @@ def test_cli_writes_a_record_with_the_references_keys(tmp_path):
 
 def test_variant_records_have_their_own_file(tmp_path, monkeypatch):
     """A variant's record is named after it, so a variant run never
-    overwrites the baseline's; ``--mesh both`` (like ``multi``) raises."""
+    overwrites the baseline's, on either mesh (``--mesh both`` writes the
+    single and the multi record of a cell)."""
     assert dryrun.record_path("a", "s", "single", "baseline").name == \
         "a__s__single.json"
     assert dryrun.record_path("a", "s", "single", "no_remat").name == \
@@ -426,20 +428,41 @@ def test_variant_records_have_their_own_file(tmp_path, monkeypatch):
     assert {n: r["variant"] for n, r in recs.items()} == {
         "mamba2-780m__decode_32k__single.json": "baseline",
         "mamba2-780m__decode_32k__single__chunked_loss.json": "chunked_loss"}
-    with pytest.raises(NotImplementedError, match="queue 1, items 10-11"):
-        dryrun.main(["--all", "--mesh", "both"])
+    for p in tmp_path.iterdir():
+        p.unlink()
+    dryrun.main(["--arch", "mamba2-780m", "--shape", "decode_32k",
+                 "--variant", "chunked_loss", "--mesh", "single"])
+    with pytest.raises(SystemExit, match="queue 1, item 14"):
+        dryrun.main(["--arch", "mamba2-780m", "--shape", "decode_32k",
+                     "--variant", "chunked_loss", "--mesh", "both"])
+    recs = {p.name: json.loads(p.read_text()) for p in tmp_path.iterdir()}
+    assert {n: (r["variant"], r["status"]) for n, r in recs.items()} == {
+        "mamba2-780m__decode_32k__single__chunked_loss.json":
+            ("chunked_loss", "ok"),
+        "mamba2-780m__decode_32k__multi__chunked_loss.json":
+            ("chunked_loss", "not_ported")}
 
 
 def test_cli_refuses_a_mesh(tmp_path):
+    """What a mesh does not run yet: the CLI exits non-zero on a train cell
+    on ``--mesh multi`` and names the ROADMAP item (a serving cell of the
+    transformer families runs: ``tests/test_torch_lm_mesh.py``), and
+    ``build_cell`` refuses one, and any mesh that is not an ``LMMesh``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                        "--arch", "gemma3-1b", "--shape", "decode_32k",
+                        "--arch", "gemma3-1b", "--shape", "train_4k",
                         "--mesh", "multi", "--out", str(tmp_path / "r.json")],
                        cwd=ROOT, env=env, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode != 0
-    assert "queue 1, items 10-11" in r.stderr
-    with pytest.raises(NotImplementedError, match="queue 1, items 10-11"):
+    assert "queue 1, item 13" in r.stderr
+    assert json.loads((tmp_path / "r.json").read_text())["status"] == \
+        "not_ported"
+    mesh = make_debug_mesh(devices="meta")
+    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
+        specs.build_cell(get_config("gemma3-1b", smoke=True),
+                         ShapeConfig("t", 8, 2, "train"), mesh=mesh)
+    with pytest.raises(TypeError, match="LMMesh"):
         specs.build_cell(get_config("gemma3-1b", smoke=True),
                          ShapeConfig("p", 8, 1, "prefill"), mesh=object())
 
