@@ -287,9 +287,9 @@ result line):
 22. Family training at full size: ``launch.train.train_step`` for
    ``mamba2-780m``, ``zamba2-1.2b`` and ``seamless-m4t-large-v2`` (4 x 4096
    frames and a 512-token target) at batch 4 x 4096, remat on, AdamW lr
-   1e-3 with the optimizer state handed over (``donate=True``), 3 steps
+   1e-3 with the optimizer state handed over (``donate=True``), 2 steps
    from the serving phases' seed-0 weights (the same draw): finite losses,
-   the median step of steps 2-3 and tokens/s, forward, backward and AdamW
+   step 2's time and tokens/s, forward, backward and AdamW
    ms on CUDA events, peak memory, the attention launches of every step
    by route (mamba2 none; zamba2 6 forward, 6 recomputed, 6 backward;
    seamless 72, 72 and 72; all ``wgmma``), one profiled step's device ms
@@ -355,9 +355,9 @@ result line):
    AdamW steps card against CPU within 2e-3, every launch on ``wgmma``.
 28. LM serving over a mesh (``mesh_phase``), every position on ``cuda:0``:
    gemma3-1b at full size on a 2 x 2 (data, model) mesh (``MESH_GEMMA``:
-   4 x 4096 prompts, 32 greedy tokens; a 1 x 1 mesh first, bitwise the
+   4 x 4096 prompts, 16 greedy tokens; a 1 x 1 mesh first, bitwise the
    meshless run) and phi3.5-moe at full width on 8 layers on a 1 x 4 mesh
-   (``MESH_MOE``, its experts over "model", each position's drops
+   (``MESH_MOE``, 4 tokens, its experts over "model", each position's drops
    counted), each ``generate`` held to its meshless run (``greedy_held``:
    the prefill's logits within ``MESH_TOL``, decode by phase 13's
    criterion, token flips only at near ties; the MoE at capacity factor E
@@ -370,6 +370,36 @@ result line):
    and on the 2 x 16 x 16 production mesh.  28x: the gemma3 mesh with each
    position on its own card, bitwise the one-card mesh, where the host has
    four cards (otherwise it prints that it did not run, and why).
+29. LM training over a mesh, every position on ``cuda:0``.  29c first
+   (``offset_backward_phase``): ``flash_attention_bwd`` at query offsets
+   (``MESH_OFFSET_CASES``' shapes, the ``sp`` layout's last sequence
+   blocks, and ``MESH_BWD_EDGE_CASES``: an offset inside a tile, a window
+   ending inside one, Dh 80 with G 3, Dh 16), o and lse from the forward
+   kernel at the offset, by ``check_backward``'s rule on both routes, then
+   timed at the mesh's shapes beside offset 0, the plain version, SDPA's
+   backward under the offset's mask and the bound.  29a
+   (``mesh_train_phase``): gemma3-1b at full size on a 2 x 2 (data, model)
+   mesh at 4 x 4096 (remat, CE in chunks of 512, AdamW with the state
+   handed over), sized on meta (every position's bytes summed; a
+   subprocess started before phase 11, ``--mesh-train-accounting``, which
+   also accounts 29b's and 29d's cells beside the card's phases); the
+   meshless ``train_step``s, the first bitwise a 1 x 1 mesh's (loss, new
+   parameters, m, v); then ``MESH_TRAIN_LAYOUTS``: ``baseline`` (the
+   ``batch_full`` attention) 3 steps and ``sp_attn+zero1`` 2 steps, each
+   layout's step-1 layer-0 gradients against the meshless within
+   ``MESH_GRAD_REL``, each loss within ``MESH_TRAIN_LOSS_TOL`` of the
+   meshless one,
+   L forward + L recompute and L backward attention launches per position
+   a step, all ``wgmma`` (under ``sp`` half the backward calls at a
+   nonzero offset); step ms, tokens/s, peak memory, the collectives of a
+   step by kind, a profiled step by kind.  29x: the baseline steps with
+   each position on its own card, bitwise the one-card mesh, where the
+   host has four cards (otherwise it prints why not).  29b: phi3.5-moe at
+   full width on 2 layers on 1 x 4 (experts over "model", capacity factor
+   E / top_k, 4 x 4096) against its meshless run, step 1's routing flips
+   only at near ties.  29d: dbrx-132b's ``train_4k`` accounted per
+   position on the 2 x 16 x 16 meta mesh under ``MESH_TRAIN_DBRX``,
+   whether it fits a position printed.
 
 Every kernel's launch count is zeroed just before each of the serve,
 train, parity, unfused, shard, shard-parity, store-train (each of its 5
@@ -378,12 +408,21 @@ sampler-chain, sampler-stepwise, lm-serve, lm-parity, lm-train,
 lm-train-parity, moe-serve, moe-parity, ssm-serve, hybrid-serve,
 audio-serve, vlm-serve, family-parity, ssm-train, hybrid-train,
 audio-train, moe-train, vlm-train, train-parity, dryrun-* (each cell of
-phase 25), <arch>-serve and <arch>-train (phase 26), narrow-stablelm and
-mesh-<arch> (phase 28; mesh-<arch>-x in 28x) phases and read just after, with
+phase 25), <arch>-serve and <arch>-train (phase 26), narrow-stablelm,
+mesh-<arch> (phase 28; mesh-<arch>-x in 28x) and mesh-train-<arch>
+(phase 29; mesh-train-gemma3-1b-sp_attn+zero1 for the second layout)
+phases and read just after, with
 the launches by route; ``sage_aggregate``'s stay 0 (no path runs it), and
 ``routed_neighbor_sample`` launches once per device-sampling spec build,
 on its ``chain`` route, except in the stepwise run, where it launches once
 per hop on its ``hop`` route.
+Run-time cuts that made room for phase 29 (each lowers a step, token or
+repeat count; no kernel check and no path is dropped): timed launches per
+kernel and shape 100 -> 50 (``TIMED_LAUNCHES``); phase 6 trains 7 steps (was
+10), phase 7 8 (12), phase 9 8 (12), phase 16 4 (6); phases 22, 23 and 26
+train 2 steps (3); phase 25 times 1 train and 1 prefill call and 2 decode
+steps after the counted call (2, 2, 4); phase 28 decodes 16 and 4 tokens
+(32, 8).  ``mesh_train_accounting`` runs in a subprocess beside phases 11-28.
 A ``[time]`` line gives each phase's start on the host clock.  The last
 three lines are the card's name and power limit, the
 ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
@@ -392,6 +431,7 @@ fails.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
@@ -421,17 +461,19 @@ N_VERTICES = 1_000_000
 MEM_PER_DEVICE = 300e6
 MAX_BATCH = 256
 N_REQUESTS = 200
-TIMED_LAUNCHES = 100
-# phase 6's steps (20 until the dense configs of phase 26 came in)
-TRAIN_STEPS = 10
+# timed launches per kernel and shape (100 until phase 29 came in)
+TIMED_LAUNCHES = 50
+# phase 6's steps (20 until the dense configs of phase 26 came in, 10 until
+# phase 29 did)
+TRAIN_STEPS = 7
 SHARD_TOPOLOGY = ("dgx-v100", 4)  # 2 cliques x 2 GPUs
 SHARD_MEM_PER_DEVICE = 150e6      # 300 MB per clique, the one-GPU budget
-SHARD_STEPS = 12
+SHARD_STEPS = 8  # 12 until phase 29 came in
 SHARD_REFRESH = 5
 SHARD_LAYER_STEPS = 3
 SHARD_PARITY_STEPS = 8
 PARITY_BATCH = 1024
-PARITY_STEPS = 12
+PARITY_STEPS = 8  # 12 until phase 29 came in
 UNFUSED_STEPS = 4
 # phase 10b: each run's steps (8 until the dense configs of phase 26 came
 # in; the refresh at step 4 needs 4 observed batches) and the refresh
@@ -469,7 +511,7 @@ LM_TRAIN_SMOKE = (4, 64, 4)  # batch, seq, steps: smoke config, card vs CPU
 # one card, at paper width; its step 0 against the plain run's: the same
 # parameters, and the mean of equal-size chunk means is the batch mean, so
 # only the order of the float sums differs
-DP_STEPS = 6  # 12 until the dense configs of phase 26 came in
+DP_STEPS = 4  # 12 until phase 26 came in, 6 until phase 29 did
 DP_POSITIONS = 4
 DP_STEP0_ATOL = 1e-5
 # phase 17: the stepwise sampler against the chain
@@ -530,14 +572,14 @@ SSD_PROFILED = 3  # ssd_chunked calls profiled after a warm-up call
 # phases 22-23: the families trained through launch.train.train_step at 4 x
 # 4096 (seamless: 4096 frames and a 512-token target), remat on (the
 # configs' default), AdamW at LM_TRAIN_LR with the optimizer state handed
-# over (train_step's donate=True: one copy of the state), 3 steps, the first
+# over (train_step's donate=True: one copy of the state), 2 steps, the first
 # warm-up.  mamba2, zamba2 and seamless at full size; phi3.5-moe and
 # chameleon at full width on 2 of their layers (params, gradients, m and v
 # in f32 are 16 bytes a parameter: 2 layers are 2.865 B and 2.458 B
 # parameters, 45.8 GB and 39.3 GB, which one card holds with the new params
 # and the activations; 3 layers of phi3.5-moe, 66.6 GB, would not), with
 # the CE in chunks of LM_TRAIN_CHUNK as phase 14 trains gemma3-1b
-FAMILY_TRAIN_STEPS = 3
+FAMILY_TRAIN_STEPS = 2  # 3 until phase 29 came in
 FAMILY_TRAIN_FULL = SSM_ARCHS + (ENCDEC_ARCH,)
 FAMILY_TRAIN_CUT = ((MOE_ARCH, 2), (VLM_ARCH, 2))  # (arch, layers kept)
 # phase 24: the smoke configs trained on the card and the CPU (LM_TRAIN_SMOKE
@@ -583,7 +625,8 @@ DRYRUN_MEM_SHARE = 0.9
 # (each phase 26 training prints its peak reserve beside its peak)
 ALLOC_MARGIN = 12 * 2 ** 30
 # timed calls after the counted one (decode: that many more positions)
-DRYRUN_STEPS = {"train": 2, "prefill": 2, "decode": 4}
+# (2, 2 and 4 until phase 29 came in)
+DRYRUN_STEPS = {"train": 1, "prefill": 1, "decode": 2}
 # the measured peak against the accounted one: within the larger of 10% and
 # 0.5 GiB
 DRYRUN_PEAK_REL, DRYRUN_PEAK_ABS = 0.10, 0.5 * 2 ** 30
@@ -611,7 +654,8 @@ NARROW_STABLELM = {"n_layers": 2, "n_heads": 4, "n_kv_heads": 4,
 # the backward kernel against the f64 exact gradient: per gradient, max
 # |kernel - exact| / max |exact| within twice the plain version's plus this
 # floor (both round q * scale, p and each gradient to bf16; the kernel
-# also rounds ds and sums in another order)
+# also takes ds as two bf16 parts (wgmma) or rounds it (mma_sync) and sums
+# in another order)
 BWD_F64_FLOOR = 1e-3
 # the forward kernel's lse (which the backward reads) against the plain
 # forward's, as tests/test_torch_lm_kernels.py holds it
@@ -675,8 +719,9 @@ NO_PATH = {"sage_aggregate": "called only by its tests in the reference"}
 # full width and depth on a 2 x 2 (data, model) mesh, and MOE_ARCH at full
 # width on MOE_LAYERS layers on a 1 x 4 mesh (the experts over "model"):
 # (mesh shape, batch, prompt, new tokens)
-MESH_GEMMA = ((2, 2), LM_BATCH, LM_PROMPT, LM_NEW)
-MESH_MOE = ((1, 4), LM_BATCH, LM_PROMPT, 8)
+# (32 and 8 new tokens until phase 29 came in)
+MESH_GEMMA = ((2, 2), LM_BATCH, LM_PROMPT, 16)
+MESH_MOE = ((1, 4), LM_BATCH, LM_PROMPT, 4)
 # each held to the same config's meshless run on the card: the prefill's
 # logits within the LM tolerance (ROADMAP finding 3); each decode step's by
 # the full-width decode criterion of phase 13 (log-softmax within the
@@ -697,6 +742,42 @@ MESH_OFFSET_CASES = (
     ("mesh_gemma3_global_q2048_at2048", (2, 2048, 4, 256), 4096, 1, 0, 2048),
     ("mesh_phi35_q1024_at3072", (4, 1024, 32, 128), 4096, 8, 0, 3072))
 MESH_OFFSET_TIMED = 20  # the kernel's timed launches per case and offset
+# phase 29c, the attention backward at a query offset, beside
+# MESH_OFFSET_CASES's shapes: (name, (B, Sq, Hq, Hkv, Dh), Sk, window,
+# q_offset): an offset inside a tile; a window that ends inside a tile; Dh
+# 80 with G 3; Dh 16 (native on mma_sync)
+MESH_BWD_EDGE_CASES = (
+    ("bwd_off37_sq100_sk200_g4_dh64", (1, 100, 4, 1, 64), 200, 0, 37),
+    ("bwd_off70_window50_g2_dh128", (2, 130, 4, 2, 128), 260, 50, 70),
+    ("bwd_off170_g3_dh80", (1, 130, 6, 2, 80), 300, 0, 170),
+    ("bwd_off96_window100_g4_dh16", (1, 77, 4, 1, 16), 200, 100, 96))
+# phase 29, LM training over a mesh (every position on cuda:0): gemma3-1b
+# at full size on a 2 x 2 (data, model) mesh at LM_BATCH x LM_PROMPT (remat,
+# the CE in chunks of LM_TRAIN_CHUNK, AdamW at LM_TRAIN_LR with the state
+# handed over), each layout for its number of steps; MOE_ARCH at full width
+# on MESH_TRAIN_MOE_LAYERS layers on a 1 x 4 mesh (the experts over
+# "model") at capacity factor E / top_k, where no pair can drop, at
+# LM_BATCH x LM_PROMPT: there the capacity buffers and the experts'
+# activations are 6.4 times those at the config's 1.25; the mesh step
+# peaked at 76.776 GiB of an H100 80GB HBM3 at 700 W (accounted 66.004)
+MESH_TRAIN_GEMMA = ((2, 2), LM_BATCH, LM_PROMPT)
+MESH_TRAIN_LAYOUTS = (("baseline", 3), ("sp_attn+zero1", 2))
+MESH_TRAIN_MOE = ((1, 4), LM_BATCH, LM_PROMPT, 2)  # mesh, batch, seq, steps
+MESH_TRAIN_MOE_LAYERS = 2
+# each step's loss held to the meshless run's: the LM tolerance (6e-2 +
+# 3e-2 |loss|: the same rounding spread as MESH_TOL, and AdamW's sign-like
+# first steps carry it on: ROADMAP finding 14); step 1's layer-0 gradient
+# leaves, each |mesh - meshless| / |meshless| (Frobenius) within
+# MESH_GRAD_REL: the CPU tests measure 1.2e-2 at most between the port's
+# mesh and meshless steps of the smoke configs
+# (tests/test_torch_lm_mesh_train.py, GRAD_REL 5e-2); a gradient counted
+# twice or half is 1.0 or 0.5 off
+MESH_TRAIN_LOSS_TOL = {"atol": 6e-2, "rtol": 3e-2}
+MESH_GRAD_REL = 5e-2
+# phase 29d: dbrx-132b's train_4k accounted on the 2 x 16 x 16 meta mesh
+# under these variants (a subprocess started before phase 11, beside the
+# card's phases: about 40 s each on one CPU core)
+MESH_TRAIN_DBRX = ("baseline", "sp_attn+zero3+chunked_loss")
 # the MoE's routing is discontinuous: where the meshless router's k-th and
 # (k+1)-th probabilities are this close (a near tie; the two runs' hidden
 # states differ by bf16 rounding), the mesh may pick the other expert, and
@@ -4962,10 +5043,11 @@ def capture_backward(torch, fa, transformer, cfg, params, batch, layers):
 
 
 def visible_pairs(torch, Sq: int, Sk: int, causal: bool, window: int,
-                  device):
-    """(Sq, Sk) bool: key j is visible to query i (causal: j <= i; window
-    > 0: i - j < window)."""
-    i = torch.arange(Sq, device=device)[:, None]
+                  device, shift: int = 0):
+    """(Sq, Sk) bool: key j is visible to query i at key position i +
+    ``shift`` (causal: j <= i + shift; window > 0: i + shift - j <
+    window)."""
+    i = shift + torch.arange(Sq, device=device)[:, None]
     j = torch.arange(Sk, device=device)[None, :]
     seen = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
     if causal:
@@ -4975,9 +5057,11 @@ def visible_pairs(torch, Sq: int, Sk: int, causal: bool, window: int,
     return seen
 
 
-def exact_grads(torch, q, k, v, do, causal: bool, window: int):
+def exact_grads(torch, q, k, v, do, causal: bool, window: int,
+                shift: int = 0):
     """The f64 gradient of attention over q * the bf16-rounded scale (the
-    product not rounded), k and v at output gradient ``do``, one (batch
+    product not rounded), k and v at output gradient ``do`` (query i at key
+    position i + ``shift``), one (batch
     row, kv head) at a time: its G query heads against its one kv head
     (the f64 scores of a 4096-token row are 134 MB a query head, so a
     chameleon row of 64 heads would need 8.6 GB a tensor at once)."""
@@ -4985,7 +5069,7 @@ def exact_grads(torch, q, k, v, do, causal: bool, window: int):
     G = q.shape[2] // Hkv
     scale = float(torch.tensor(Dh ** -0.5, dtype=q.dtype))
     seen = visible_pairs(torch, q.shape[1], k.shape[1], causal, window,
-                         q.device)
+                         q.device, shift)
     out = [torch.empty(t.shape, dtype=torch.float64, device=t.device)
            for t in (q, k, v)]
     for b in range(B):
@@ -5081,7 +5165,7 @@ def check_backward(torch, fa, k, cases, card) -> dict:
         plain = ref.flash_attention_bwd(q, kk, v, ro, rlse, do, **kw)
         del ro, rlse
         exact = exact_grads(torch, q, kk, v, do, kw.get("causal", True),
-                            kw["window"])
+                            kw["window"], kw.get("q_offset", 0))
         native = fa.flash_bwd_route(q.dtype, q.shape[3])
         routes[name] = [native] + (["mma_sync"] if native == "wgmma" else [])
         errs[name] = 0.0
@@ -5451,8 +5535,10 @@ def recorded_router(moe, record: list):
 
     def route(cfg, p, x):
         out = inner(cfg, p, x)
-        probs = torch.softmax((x @ p["router"].to(x.dtype)).float(), dim=-1)
-        top = probs.topk(cfg.top_k + 1, dim=-1).values
+        with torch.no_grad():  # a record, not part of a training graph
+            probs = torch.softmax((x @ p["router"].to(x.dtype)).float(),
+                                  dim=-1)
+            top = probs.topk(cfg.top_k + 1, dim=-1).values
         record.append((out[0], top[..., -2] - top[..., -1]))
         return out
 
@@ -5695,6 +5781,129 @@ def mesh_offset_cases(torch, np, card: str, measured: dict, flush) -> None:
               f"({flops / 1e9:.2f} GFLOP) runs {runs} | {card}")
 
 
+def offset_bwd_cases(torch, fa, seed: int = 29) -> dict:
+    """Phase 29c's cases of the attention backward at a query offset (the
+    ``sp`` layout's sequence blocks): ``MESH_OFFSET_CASES``'s shapes (the
+    last block of gemma3-1b's 2 x 2 mesh, local and global, and
+    phi3.5-moe's on 1 x 4) and ``MESH_BWD_EDGE_CASES``; o and lse from the
+    forward kernel at the same offset, as in training."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = [(f"bwd_{name}", (B, Sq, Hq, Hkv, Dh), Sk, window, off)
+              for name, (B, Sq, Hq, Dh), Sk, Hkv, window, off
+              in MESH_OFFSET_CASES] + list(MESH_BWD_EDGE_CASES)
+    cases = {}
+    for name, (B, Sq, Hq, Hkv, Dh), Sk, window, off in shapes:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .bfloat16() for shape in
+                       ((B, Sq, Hq, Dh), (B, Sk, Hkv, Dh), (B, Sk, Hkv, Dh),
+                        (B, Sq, Hq, Dh)))
+        o, lse = fa._forward_cuda(q, k, v, True, window, True, off)
+        cases[name] = (q, k, v, o, lse, do, {"causal": True,
+                                             "window": window,
+                                             "q_offset": off})
+    return cases
+
+
+def time_offset_backward(torch, np, fa, cases, flush, card) -> dict:
+    """The backward kernel at the mesh's offset shapes (the ``bwd_mesh_``
+    cases), on its route, in two rounds: at its offset, the same call at
+    offset 0 (the first block's), its plain version and SDPA's backward
+    under the offset's mask (k and v expanded to the query heads;
+    (forward + backward) - forward), beside the bound from this call's
+    visible pairs (5 products at the bf16 rate, or the bytes, the
+    larger)."""
+    import functools
+
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+
+    out = {}
+    for name, (q, kk, v, o, lse, do, kw) in cases.items():
+        if not name.startswith("bwd_mesh_"):
+            continue
+        Sq, Sk, G = q.shape[1], kk.shape[1], q.shape[2] // kk.shape[2]
+        off, window = kw["q_offset"], kw["window"]
+        mask = visible_pairs(torch, Sq, Sk, True, window, "cuda", off)
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kt, vt = (t.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+                  .requires_grad_() for t in (kk, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+        a = (q, kk, v, o, lse, do)
+        at0 = {"causal": True, "window": window}
+        runs = []
+        for _ in range(2):
+            runs.append([
+                time_ms(torch, functools.partial(fa.flash_attention_bwd,
+                                                 **kw), a, MESH_OFFSET_TIMED,
+                        flush),
+                time_ms(torch, functools.partial(fa.flash_attention_bwd,
+                                                 **at0), a,
+                        MESH_OFFSET_TIMED, flush),
+                time_ms(torch, functools.partial(ref.flash_attention_bwd,
+                                                 **kw), a, BWD_TIMED_PLAIN,
+                        flush),
+                time_ms(torch, sdpa_fwd_bwd, (), MESH_OFFSET_TIMED, flush)
+                - time_ms(torch, sdpa, (), MESH_OFFSET_TIMED, flush)])
+        m = np.mean(runs, axis=0)
+        nbytes, flops = flash_work(q, kk, window, backward=True, shift=off)
+        z_bytes, z_flops = flash_work(q, kk, window, backward=True)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        res = {"ms": float(m[0]), "route": fa.flash_bwd_route(q.dtype,
+                                                              q.shape[3]),
+               "plain_ms": float(m[2]), "library_ms": float(m[3]),
+               "library_call": "F.scaled_dot_product_attention backward, "
+                               "k/v expanded to the query heads, the "
+                               "offset's mask, (forward + backward) - "
+                               "forward",
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+               "bytes": int(nbytes), "flops": int(flops), "q_offset": off,
+               "offset0_ms": float(m[1]),
+               "offset0_bound_ms": max(z_bytes / HBM_BYTES_PER_S * 1e3,
+                                       z_flops / BF16_FLOPS_PER_S * 1e3)}
+        out[name] = res
+        print(f"[mesh-train] flash_attention_bwd @ {name} (q "
+              f"{tuple(q.shape)} over {Sk} keys, window {window}, q_offset "
+              f"{off}) on {res['route']}: kernel {res['ms']:.4f} ms (at "
+              f"offset 0: {res['offset0_ms']:.4f} ms, bound "
+              f"{res['offset0_bound_ms']:.4f}), plain {res['plain_ms']:.4f}"
+              f" ms, SDPA backward {res['library_ms']:.4f} ms, bound "
+              f"{res['bound_ms']:.4f} ms by {res['bound_by']} "
+              f"({flops / 1e9:.2f} GFLOP) runs {runs} | {card}")
+        del qt, kt, vt, dot, mask
+    return out
+
+
+def offset_backward_phase(torch, np, card: str, measured: dict) -> None:
+    """Phase 29c: ``flash_attention_bwd`` at query offsets held by
+    ``check_backward``'s rule on both routes (``wgmma`` and ``mma_sync``
+    forced; the Dh 16 case on its native ``mma_sync``), then timed at the
+    mesh's shapes.  These launches compare the kernel with its plain
+    version, outside every main-path count; the times join ``measured``'s
+    ``flash_attention_bwd`` entry."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import flash_attention as fam
+
+    bwd = next(k for k in KERNELS if k.name == "flash_attention_bwd")
+    cases = offset_bwd_cases(torch, fam)
+    checked = check_backward(torch, fam, bwd, cases, card)
+    mine = measured.setdefault(bwd.name, {"max_abs_err": 0.0, "timed": {}})
+    mine["max_abs_err"] = max(mine["max_abs_err"], checked["max_abs_err"])
+    mine.setdefault("routes", {}).update(checked["routes"])
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    mine["timed"].update(time_offset_backward(torch, np, fam, cases, flush,
+                                              card))
+    del flush, cases
+
+
 def mesh_phase(torch, np, card: str, phase_launches: dict,
                phase_routes: dict, measured: dict = None, gemma=None,
                moe_cfg=None, mesh_gemma=MESH_GEMMA, mesh_moe=MESH_MOE,
@@ -5903,6 +6112,535 @@ def mesh_phase(torch, np, card: str, phase_launches: dict,
           f"card: {rec['fits']}), collectives "
           f"{rec['collectives']['wire_bytes'] / 2**30:.3f} GiB on the wire, "
           f"roofline {rec['roofline']['dominant']} | {card}")
+
+
+def mesh_train_accounting(out_path: str) -> int:
+    """Phase 29's accounting on the meta device (run as ``python3
+    chip_smoke.py --mesh-train-accounting OUT``, a subprocess the smoke
+    starts before phase 11, so that it runs beside the card's phases):
+    gemma3-1b's 2 x 2 train cell under each of ``MESH_TRAIN_LAYOUTS`` and
+    MOE_ARCH's 1 x 4 cell with every position active (the positions share
+    one card: their bytes summed), and dbrx-132b's ``train_4k`` on the
+    2 x 16 x 16 production mesh (one position standing for all) under each
+    of ``MESH_TRAIN_DBRX``; written to ``out_path`` as JSON."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), remat=True,
+                              loss_chunk=LM_TRAIN_CHUNK)
+    moe_cfg = dataclasses.replace(get_config(MOE_ARCH),
+                                  n_layers=MESH_TRAIN_MOE_LAYERS, remat=True,
+                                  loss_chunk=LM_TRAIN_CHUNK)
+    moe_cfg = dataclasses.replace(moe_cfg, capacity_factor=moe_cfg.n_experts
+                                  / moe_cfg.top_k)
+    out = {"gemma": {}, "dbrx": {}}
+    for layout, _ in MESH_TRAIN_LAYOUTS:
+        out["gemma"][layout] = mesh_train_peak(cfg, layout, *MESH_TRAIN_GEMMA)
+    out["moe"] = mesh_train_peak(moe_cfg, "baseline", *MESH_TRAIN_MOE[:3])
+    for variant in MESH_TRAIN_DBRX:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell("dbrx-132b", "train_4k", "multi",
+                              variant=variant)
+        out["dbrx"][variant] = {k: rec[k] for k in (
+            "memory", "fits", "collectives", "roofline", "n_chips",
+            "device_bytes")} | {"wall_s": time.perf_counter() - t0}
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def mesh_train_peak(cfg, layout: str, shape, batch: int, seq: int) -> dict:
+    """The accounted peak bytes of ``cfg``'s train cell at ``batch`` x
+    ``seq`` under ``layout`` (a variant) on a ``shape`` meta mesh with
+    every position active (their bytes summed, as one card holding them
+    all would; each position's parameter blocks counted as its own, which
+    the card shares where a block is a view)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.variants import apply_variant
+
+    t0 = time.perf_counter()
+    cell = specs.build_cell(apply_variant(cfg, layout),
+                            ShapeConfig("train", seq, batch, "train"),
+                            make_debug_mesh(shape, devices="meta"))
+    _, mem, _ = dryrun.account(cell)
+    return {"peak_bytes": mem["peak_bytes"],
+            "argument_bytes": mem["argument_bytes"], "layers": cfg.n_layers,
+            "wall_s": time.perf_counter() - t0}
+
+
+def start_mesh_train_accounting(out_dir: str):
+    """``mesh_train_accounting`` in a subprocess: (the process, its JSON's
+    path, its log's path)."""
+    out = os.path.join(out_dir, "mesh_train_accounting.json")
+    log = os.path.join(out_dir, "mesh_train_accounting.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--mesh-train-accounting", out], stdout=f,
+            stderr=subprocess.STDOUT)
+    return proc, out, log
+
+
+def finish_mesh_train_accounting(started, timeout: float = 900.0) -> dict:
+    """Waits for ``start_mesh_train_accounting``'s subprocess and reads its
+    JSON; raises (the process stopped) where it failed."""
+    proc, out, log = started
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"the mesh training accounting failed (exit "
+                             f"{rc}): {Path(log).read_text()[-3000:]}")
+    return json.loads(Path(out).read_text())
+
+
+def bit_sums(torch, tree) -> list:
+    """Each leaf's bits summed (its 32-bit words as int64): equal sums for
+    equal bits, cheap to keep between two runs."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    return [int(t.detach().contiguous().view(torch.int32).to(torch.int64)
+                .sum()) for t in tree_leaves(tree)]
+
+
+def mesh_bit_sums(torch, dist, tree) -> list:
+    """``bit_sums`` of every position's block of every leaf."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    return [bit_sums(torch, leaf.local(i)) for leaf in tree_leaves(tree)
+            for i in dist.mesh.active]
+
+
+@contextlib.contextmanager
+def recorded_offsets(fam, record: list):
+    """Every ``flash_attention_bwd`` call's ``q_offset - kv_offset``
+    appended to ``record`` (the autograd backward calls it by its module
+    name)."""
+    inner = fam.flash_attention_bwd
+
+    def bwd(*a, **kw):
+        record.append(kw.get("q_offset", 0) - kw.get("kv_offset", 0))
+        return inner(*a, **kw)
+
+    fam.flash_attention_bwd = bwd
+    try:
+        yield record
+    finally:
+        fam.flash_attention_bwd = inner
+
+
+def train_routing_flips(torch, want: list, got: list, L: int, n: int
+                        ) -> dict:
+    """Where a 1 x n mesh's routing of one training forward (``got``: L x n
+    ``recorded_router`` entries, layer by layer, each position's sequence
+    block) differs from the meshless forward's (``want``: L entries):
+    {sequence: first layer}; a sequence's first flip changes its later
+    layers' inputs, so it is compared no further.  Raises where a first
+    flip's meshless k / k+1 margin exceeds ``ROUTE_FLIP_MARGIN``."""
+    first = {}
+    for l in range(L):
+        wi, wm = want[l]
+        gi = torch.cat([got[l * n + p][0] for p in range(n)], dim=1)
+        diff = (torch.sort(wi, -1).values != torch.sort(gi, -1).values
+                ).any(-1)
+        for b in diff.any(-1).nonzero().flatten().tolist():
+            if b in first:
+                continue
+            m = float(wm[b][diff[b]].max())
+            if m > ROUTE_FLIP_MARGIN:
+                raise AssertionError(f"sequence {b} layer {l}: routing "
+                                     f"differs at a router margin {m:.3e}")
+            first[b] = l
+    return first
+
+
+def mesh_train_steps(torch, np, phase_launches, phase_routes, phase: str,
+                     cfg, params, opt, state, batches, dist, device,
+                     offsets: list = None):
+    """``len(batches)`` train steps over ``dist``'s mesh as a main path
+    (launch counts set to 0 just before and read just after), each timed on
+    the host clock after a synchronizing loss read: every step's attention
+    launches held to L forward + L recompute and L backward per position,
+    all on ``wgmma`` on the card.  Returns (losses, step seconds, params,
+    state, the last step's collectives summary)."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import flash_attention as fam
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.train import train_step
+
+    on_card = device != "cpu"
+    L, n = cfg.n_layers, len(dist.mesh.active)
+    zero_launches(KERNELS)
+    losses, walls, colls = [], [], None
+    with (recorded_offsets(fam, offsets) if offsets is not None
+          else contextlib.nullcontext()):
+        for b in batches:
+            f0, b0 = (dict(fam.KERNEL.route_launches),
+                      dict(fam.BWD_KERNEL.route_launches))
+            dist.log.clear()
+            t0 = time.perf_counter()
+            params, state, loss = train_step(cfg, params, opt, state, b,
+                                             donate=True, dist=dist)
+            losses.append(float(loss))  # synchronizes
+            walls.append(time.perf_counter() - t0)
+            colls = op_cost.parse_collectives(dist.log)
+            fwd = {r: fam.KERNEL.route_launches[r] - f0[r] for r in f0}
+            back = {r: fam.BWD_KERNEL.route_launches[r] - b0[r] for r in b0}
+            if on_card and (fwd != {"wgmma": 2 * L * n, "mma_sync": 0,
+                                    "simt": 0}
+                            or back != {"wgmma": L * n, "mma_sync": 0}):
+                raise AssertionError(
+                    f"{phase}: a step's forward launches {fwd}, backward "
+                    f"{back}; expected {L} layers x {n} positions forward, "
+                    f"recompute and backward, all on wgmma")
+    phase_launches[phase] = read_launches(KERNELS)
+    phase_routes[phase] = read_routes(KERNELS)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{phase}: losses {losses}")
+    return losses, walls, params, state, colls
+
+
+def held_losses(phase: str, got: list, want: list) -> float:
+    """The mesh's losses against the meshless run's, step by step, within
+    ``MESH_TRAIN_LOSS_TOL``; returns the largest difference."""
+    tol = MESH_TRAIN_LOSS_TOL
+    worst = 0.0
+    for s, (a, b) in enumerate(zip(got, want)):
+        worst = max(worst, abs(a - b))
+        if abs(a - b) > tol["atol"] + tol["rtol"] * abs(b):
+            raise AssertionError(f"{phase}: step {s} loss {a} against the "
+                                 f"meshless {b}, beyond {tol}")
+    return worst
+
+
+def profiled_mesh_step(torch, cfg, params, opt, state, batch, dist):
+    """One more mesh step under ``torch.profiler``: (host wall us, device
+    rows, device ms by kind), or None where the profiler saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import train_step
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=False) as prof:
+        t0 = time.perf_counter()
+        out = train_step(cfg, params, opt, state, batch, donate=True,
+                         dist=dist)
+        float(out[2])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del out
+    rows, _ = kineto_rows(torch, prof, marks=())
+    if not rows:
+        return None
+    return wall_us, rows, by_category(rows)
+
+
+def mesh_train_phase(torch, np, card: str, phase_launches: dict,
+                     phase_routes: dict, acct: dict, gemma=None,
+                     moe_cfg=None, mesh_gemma=MESH_TRAIN_GEMMA,
+                     mesh_moe=MESH_TRAIN_MOE, layouts=MESH_TRAIN_LAYOUTS,
+                     device: str = "cuda") -> None:
+    """Phase 29 (29a, 29b, 29d, 29x; 29c is ``offset_backward_phase``): LM
+    training over a mesh, every position bound to ``device``.  ``gemma``
+    (default gemma3-1b at full size, remat, the CE in chunks of
+    LM_TRAIN_CHUNK; seed-0 weights drawn on the card), sized from ``acct``
+    (``mesh_train_accounting``'s): the meshless ``train_step``s, the first
+    against a 1 x 1 mesh's (bitwise: loss, new parameters, m and v); step
+    1's layer-0 gradients on the ``mesh_gemma`` mesh under each of
+    ``layouts`` against the meshless (under ``sp`` the backward runs at
+    query offsets and the all-gathers' transposes sum each block's dk and
+    dv), then that layout's steps, held to the meshless losses; with 4
+    cards one step with each position on its own card, bitwise the
+    one-card mesh's (29x).  Then ``moe_cfg`` (default MOE_ARCH
+    at full width on MESH_TRAIN_MOE_LAYERS layers, capacity factor E /
+    top_k) on the ``mesh_moe`` mesh against its meshless run, its routing
+    flips counted.  Then dbrx-132b's accounting from ``acct`` (29d).  A
+    CPU dry run: smoke configs, small meshes' batch and sequence, the
+    accounting of ``mesh_train_accounting`` at those, ``device="cpu"``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import (make_batch, mesh_loss_and_grads,
+                                          train_step)
+    from repro_torch.launch.variants import apply_variant
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.params import (init_from_defs, layout_pspecs,
+                                           shard_params)
+    from repro_torch.models.sharding import Distribution
+    from repro_torch.train.optimizer import adamw, tree_leaves, tree_map
+
+    on_card = device != "cpu"
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def draw(cfg):
+        gen = torch.Generator(device=device).manual_seed(0)
+        return init_from_defs(transformer.defs(cfg), gen, device)
+
+    def rel(a, b) -> float:
+        a, b = a.double(), b.double()
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    # ---- 29a. gemma3-1b on 2 x 2: sizing, 1 x 1 bitwise, the layouts ------
+    shape, batch, seq = mesh_gemma
+    n = math.prod(shape)
+    cfg = gemma or dataclasses.replace(get_config(LM_ARCH), remat=True,
+                                       loss_chunk=LM_TRAIN_CHUNK)
+    cap = dryrun.device_bytes()
+    for layout, sized in acct["gemma"].items():
+        fits = sized["peak_bytes"] <= DRYRUN_MEM_SHARE * cap
+        print(f"[mesh-train] {cfg.name} {batch} x {seq} train step on a "
+              f"{shape[0]} x {shape[1]} mesh under {layout}, accounted on "
+              f"meta (the {n} positions' bytes summed, each position's "
+              f"parameter blocks its own): peak "
+              f"{sized['peak_bytes'] / 2**30:.3f} GiB (arguments "
+              f"{sized['argument_bytes'] / 2**30:.3f} GiB) of the card's "
+              f"{cap / 2**30:.3f} GiB: "
+              + ("no cut" if fits else "above DRYRUN_MEM_SHARE")
+              + f" ({sized['wall_s']:.1f} s) | {card}")
+        if not fits:
+            raise AssertionError(f"{cfg.name} on the mesh does not fit the "
+                                 f"card at full depth")
+    defs = transformer.defs(cfg)
+    params = draw(cfg)
+    opt = adamw(LM_TRAIN_LR)
+    steps = max(k for _, k in layouts)
+    batches = [make_batch(cfg, batch, seq, 0, s, device)
+               for s in range(steps)]
+    t0 = time.perf_counter()
+    p, st, loss = train_step(cfg, params, opt, opt.init(params), batches[0],
+                             donate=True)
+    one = Distribution(make_debug_mesh((1, 1), devices=[device]))
+    sp1 = shard_params(params, defs, one)
+    q, s1, loss1 = train_step(cfg, sp1, opt, opt.init(sp1, one), batches[0],
+                              donate=True, dist=one)
+    same = torch.equal(loss, loss1) and all(
+        torch.equal(a, b.local(0)) for t, u in ((p, q), (st["m"], s1["m"]),
+                                                (st["v"], s1["v"]))
+        for a, b in zip(tree_leaves(t), tree_leaves(u)))
+    if not same or one.log.calls:
+        raise AssertionError("the 1 x 1 mesh's train step is not the "
+                             "meshless step's bits")
+    print(f"[mesh-train] {cfg.name} on a 1 x 1 mesh: one train step's loss, "
+          f"new parameters, m and v bitwise the meshless train_step's, no "
+          f"collective | {card}")
+    del q, s1, sp1
+    want = [float(loss)]
+    for s in range(1, steps):
+        p, st, loss = train_step(cfg, p, opt, st, batches[s], donate=True)
+        want.append(float(loss))
+    meshless_s = time.perf_counter() - t0
+    del p, st
+    free()
+    leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+    transformer.loss_fn(cfg, leaves, batches[0])[0].backward()
+    g0 = {k: v.grad[0].clone() for k, v in leaves["layers"].items()}
+    del leaves
+    free()
+    one_card = {}
+    for li, (layout, k) in enumerate(layouts):
+        c = apply_variant(cfg, layout)
+        dist = Distribution(make_debug_mesh(shape, devices=[device] * n))
+        sp = shard_params(params, defs, dist,
+                          layout_pspecs(defs, dist, zero=c.zero3))
+        _, grads = mesh_loss_and_grads(c, sp, batches[0], dist=dist)
+        errs = {name: rel(dist.full(g)[0], g0[name])
+                for name, g in grads["layers"].items()}
+        del grads
+        free()
+        if max(errs.values()) > MESH_GRAD_REL:
+            raise AssertionError(f"{layout}: step 1's layer-0 gradients "
+                                 f"{errs} beyond {MESH_GRAD_REL}")
+        print(f"[mesh-train] {cfg.name} {layout}: step 1's layer-0 "
+              f"gradients against the meshless, |mesh - meshless| / "
+              f"|meshless| per leaf (within {MESH_GRAD_REL}): "
+              + ", ".join(f"{name} {e:.3e}" for name, e in
+                          sorted(errs.items())) + f" | {card}")
+        state = opt.init(sp, dist, layout_pspecs(defs, dist, zero=True)
+                         if c.zero1 else None)
+        phase = f"mesh-train-{cfg.name}" + (f"-{layout}" if li else "")
+        offsets = []
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        losses, walls, sp, state, colls = mesh_train_steps(
+            torch, np, phase_launches, phase_routes, phase, c, sp, opt,
+            state, batches[:k], dist, device, offsets)
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        worst = held_losses(phase, losses, want)
+        shifted = sum(1 for o in offsets if o)
+        if (c.attn_layout == "sp") != (shifted > 0):
+            raise AssertionError(f"{phase}: {shifted} backward calls at a "
+                                 f"nonzero offset")
+        ms = np.array(walls[1:] or walls) * 1e3
+        print(f"[mesh-train] {cfg.name} {layout} on a {shape[0]} x "
+              f"{shape[1]} (data, model) mesh, every position on {device}: "
+              f"{k} steps of {batch} x {seq} (remat, loss chunk "
+              f"{c.loss_chunk}, AdamW lr {LM_TRAIN_LR}, the state handed "
+              f"over): step {float(np.median(ms)):.3f} ms host wall median "
+              f"of steps 2+ ({[round(w * 1e3, 3) for w in walls]}), "
+              f"{batch * seq / float(np.median(ms)) * 1e3:.0f} tokens/s "
+              f"(meshless: {k} of {steps} steps in {meshless_s:.3f} s with "
+              f"the 1 x 1 step); peak device memory {peak / 2**30:.3f} GiB; "
+              f"losses {losses} against the meshless {want[:k]} (max |diff| "
+              f"{worst:.4e} within {MESH_TRAIN_LOSS_TOL}); attention per "
+              f"step {cfg.n_layers} x {n} forward + recompute "
+              f"{phase_routes[phase]['flash_attention']} and backward "
+              f"{phase_routes[phase]['flash_attention_bwd']} in all, "
+              f"{shifted} of {len(offsets)} backward calls at a nonzero "
+              f"query offset | {card}")
+        print(f"[mesh-train] {cfg.name} {layout} collectives of one step "
+              f"(per position, result bytes; the gradient sums, ZeRO-1's "
+              f"parameter gather): {json.dumps(colls)} | {card}")
+        if on_card and li == 0:
+            prof = profiled_mesh_step(torch, c, sp, opt, state, batches[0],
+                                      dist)
+            if prof is None:
+                print("[mesh-train] profiled step: not measured "
+                      "(torch.profiler saw no device time)")
+            else:
+                wall_us, rows, cats = prof
+                busy, top = busy_and_top(rows, k=8)
+                print(f"[mesh-train] {cfg.name} {layout} profiled step: "
+                      f"device busy {busy / 1e3:.3f} ms of "
+                      f"{wall_us / 1e3:.3f} ms host wall (busy share "
+                      f"{busy / wall_us:.4f}); device ms by kind: "
+                      + ", ".join(f"{k2} {v:.3f}" for k2, v in cats.items())
+                      + f" | {card}")
+                for us, name, count in top:
+                    print(f"[mesh-train]   {us / 1e3:9.3f} ms  x{count:<5d} "
+                          f"{name[:70]} | {card}")
+            del prof
+        if li == 0:
+            one_card = {"losses": losses, "steps": k,
+                        "bits": mesh_bit_sums(torch, dist, sp)}
+        del sp, state
+        free()
+    # ---- 29x. each position on its own card --------------------------------
+    if on_card and torch.cuda.device_count() >= n:
+        c = apply_variant(cfg, layouts[0][0])
+        dx = Distribution(make_debug_mesh(shape, devices=[
+            f"cuda:{i}" for i in range(n)]))
+        spx = shard_params(params, defs, dx)
+        stx, lx = opt.init(spx, dx), []
+        for b in batches[:one_card["steps"]]:
+            spx, stx, loss = train_step(c, spx, opt, stx, b, donate=True,
+                                        dist=dx)
+            lx.append(float(loss))
+        if lx != one_card["losses"] or \
+                mesh_bit_sums(torch, dx, spx) != one_card["bits"]:
+            raise AssertionError("phase 29x: positions on their own cards "
+                                 "are not the one-card mesh's bits")
+        print(f"[mesh-train-x] phase 29x: {cfg.name} with each position on "
+              f"its own card (cuda:0-{n - 1}): {len(lx)} train steps' losses "
+              f"and new parameters bitwise the one-card mesh's | {card}")
+        del spx, stx
+    else:
+        have = torch.cuda.device_count() if on_card else 0
+        print(f"[mesh-train-x] phase 29x did not run: this host has {have} "
+              f"CUDA device(s), and the {shape[0]} x {shape[1]} mesh with "
+              f"each position on its own card needs {n} | {card}")
+    del params, batches, g0
+    free()
+
+    # ---- 29b. the MoE on 1 x 4: the expert-parallel all_to_all trained -----
+    shape, batch, seq, k = mesh_moe
+    n = math.prod(shape)
+    cfg = moe_cfg or dataclasses.replace(
+        get_config(MOE_ARCH), n_layers=MESH_TRAIN_MOE_LAYERS, remat=True,
+        loss_chunk=LM_TRAIN_CHUNK)
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    sized = acct["moe"]
+    held = torch.cuda.memory_allocated() if on_card else 0
+    print(f"[mesh-train] {cfg.name} ({cfg.n_layers} layers, full width) "
+          f"{batch} x {seq} train step on a {shape[0]} x {shape[1]} mesh "
+          f"accounted on meta (positions summed): peak "
+          f"{sized['peak_bytes'] / 2**30:.3f} GiB; the process holds "
+          f"{held / 2**30:.3f} GiB before it | {card}")
+    defs = transformer.defs(cfg)
+    params = draw(cfg)
+    opt = adamw(LM_TRAIN_LR)
+    batches = [make_batch(cfg, batch, seq, 0, s, device) for s in range(k)]
+    # one copy of the parameters at a time beside the step's state (the
+    # step's new ones replace them): two do not fit
+    want, p, st = [], params, opt.init(params)
+    del params
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with recorded_router(moe, []) as want_routes:
+        for b in batches:
+            p, st, loss = train_step(cfg, p, opt, st, b, donate=True)
+            want.append(float(loss))
+    want_routes = want_routes[:cfg.n_layers]  # step 1's forward
+    want_peak = torch.cuda.max_memory_allocated() if on_card else 0
+    del p, st
+    free()
+    dist = Distribution(make_debug_mesh(shape, devices=[device] * n))
+    sp = shard_params(draw(cfg), defs, dist)  # the same weights, again
+    state = opt.init(sp, dist)
+    phase = f"mesh-train-{cfg.name}"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with recorded_router(moe, []) as got_routes:
+        losses, walls, sp, state, colls = mesh_train_steps(
+            torch, np, phase_launches, phase_routes, phase, cfg, sp, opt,
+            state, batches, dist, device)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    flips = train_routing_flips(torch, want_routes,
+                                got_routes[:cfg.n_layers * n],
+                                cfg.n_layers, n)
+    worst = held_losses(phase, losses, want)
+    print(f"[mesh-train] {cfg.name} ({cfg.n_layers} layers, full width) on a "
+          f"{shape[0]} x {shape[1]} mesh, experts over \"model\" "
+          f"({cfg.n_experts // shape[1]} a position), capacity factor "
+          f"{cfg.capacity_factor} (E / top_k: nothing drops): {k} steps of "
+          f"{batch} x {seq}: step ms host wall "
+          f"{[round(w * 1e3, 3) for w in walls]}; peak device memory "
+          f"{peak / 2**30:.3f} GiB (the meshless steps' "
+          f"{want_peak / 2**30:.3f}); losses {losses} against the meshless "
+          f"{want} (max |diff| {worst:.4e} within {MESH_TRAIN_LOSS_TOL}); "
+          f"step 1's routing flips (sequence: first layer, each at a "
+          f"meshless router margin within {ROUTE_FLIP_MARGIN}) {flips}; "
+          f"attention {phase_routes[phase]['flash_attention']} forward + "
+          f"recompute, {phase_routes[phase]['flash_attention_bwd']} "
+          f"backward | {card}")
+    print(f"[mesh-train] {cfg.name} collectives of one step: "
+          f"{json.dumps(colls)} | {card}")
+    del sp, state, batches
+    free()
+
+    if on_card:  # the scratch rule holds at every shape, offsets included
+        from repro_torch.kernels import flash_attention as fam
+
+        asked = dict(fam.SCRATCH_ASKED)
+        bad = {k: (v, fam.scratch_rule(*k)) for k, v in asked.items()
+               if fam.scratch_rule(*k) != v}
+        if not asked or bad:
+            raise AssertionError(f"scratch rule: {len(asked)} backward "
+                                 f"shapes asked, Python copy differs at {bad}")
+        print(f"[mesh-train] scratch rule: the Python copy equals the "
+              f"library's at all {len(asked)} backward shapes this run "
+              f"launched, the offset ones included | {card}")
+
+    # ---- 29d. dbrx-132b's train_4k per position on 2 x 16 x 16 -------------
+    for variant, rec in acct["dbrx"].items():
+        mem = rec["memory"]
+        print(f"[mesh-train] dbrx-132b train_4k on the 2 x 16 x 16 meta mesh "
+              f"({rec['n_chips']} positions, one standing for all) under "
+              f"{variant}: per position arguments "
+              f"{mem['argument_bytes'] / 2**30:.3f} GiB, peak "
+              f"{mem['peak_bytes'] / 2**30:.3f} GiB: fits one "
+              f"{rec['device_bytes'] / 2**30:.3f} GiB position: "
+              f"{rec['fits']}; collectives "
+              f"{rec['collectives']['wire_bytes'] / 2**30:.3f} GiB on the "
+              f"wire; roofline {rec['roofline']['dominant']} "
+              f"({rec['wall_s']:.1f} s of accounting) | {card}")
 
 
 def main() -> int:
@@ -6471,6 +7209,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phase 29's accounting on the meta device, in a subprocess beside the
+    # LM phases (stopped at exit if the run fails first)
+    acct_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
+    mesh_acct = start_mesh_train_accounting(acct_dir)
+
+    def stop_accounting():
+        if mesh_acct[0].poll() is None:
+            mesh_acct[0].kill()
+            mesh_acct[0].wait()
+        shutil.rmtree(acct_dir, ignore_errors=True)
+
+    atexit.register(stop_accounting)
+
     clock("11")
     # ---- 11. LM: gemma3-1b at full width, its attention kernel -------------
     lm = get_config(LM_ARCH)
@@ -6854,6 +7605,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh_phase(torch, np, card, phase_launches, phase_routes, measured)
+    clock("29")
+    # ---- 29. LM training over a mesh; 29c the offset backward -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    offset_backward_phase(torch, np, card, measured)
+    mesh_train_phase(torch, np, card, phase_launches, phase_routes,
+                     finish_mesh_train_accounting(mesh_acct))
+    stop_accounting()
 
     record = {"kernels": []}
     for k in KERNELS:
@@ -6894,4 +7653,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-train-accounting"]:
+        sys.exit(mesh_train_accounting(sys.argv[2]))
     sys.exit(main())

@@ -9,19 +9,27 @@
 //
 //   q, do (B, Sq, Hq, Dh), k, v (B, Sk, Hkv, Dh), o (B, Sq, Hq, Dh), bf16,
 //   contiguous; lse (B, Hq, Sq) f32 in natural log (flash_attention.cu writes
-//   it).  Query head h reads kv head h / G; key j is visible to query i when
-//   j < Sk, and (causal) j <= i, and (window > 0) i - j < window.
+//   it).  Query head h reads kv head h / G; query i sits at key position
+//   i + shift (shift = q_offset - kv_offset: a mesh position's sequence
+//   block, 0 on one card); key j is visible to query i when j < Sk, and
+//   (causal) j <= i + shift, and (window > 0) i + shift - j < window.  The
+//   shift moves the query and key tile ranges each CTA walks and its masks;
+//   the pre-pass and the scratch do not depend on it.
 //   s = bf16(q * scale) . k in f32, p = exp(s - lse) (0 where masked),
 //   D = rowsum(do * o), dv = p^T do, dp = do v^T, ds = p * (dp - D),
 //   dk = ds^T bf16(q * scale), dq = (ds k) * scale.
 //
 // Rounding points: q * scale is rounded to bf16 (the scale itself is the
 // bf16-rounded one the wrapper passes), as the forward rounds it; p is
-// rounded to bf16 before p^T do, as the forward rounds p before p . v; ds
-// is rounded to bf16 before ds^T q and ds k (the tensor cores' operand;
-// the plain version keeps it f32); every product accumulates in f32; dq is
-// multiplied by the scale once, at the end, and dq, dk and dv are each
-// rounded to bf16 once.
+// rounded to bf16 before p^T do, as the forward rounds p before p . v; on
+// the wgmma route ds stays f32 as in the plain version: the tensor cores
+// take it as two bf16 parts, hi = bf16(ds) and lo = bf16(ds - hi) (about
+// 16 bits of ds), so ds^T q and ds k are each two products, hi's and lo's,
+// into the same f32 accumulator (with ds rounded to bf16 once, the error
+// of dk and dq over rows that see a few hundred keys reached 2.6 times the
+// plain version's); the mma.sync route still rounds ds to bf16 once
+// (ROADMAP); every product accumulates in f32; dq is multiplied by the
+// scale once, at the end, and dq, dk and dv are each rounded to bf16 once.
 //
 // Bound on this card: operations.  The useful work is 5 products of 2 * Dh
 // flops per visible (query, key) pair and query head (s, dp, dv, dk, dq):
@@ -32,7 +40,8 @@
 // wrapper's flash_bwd_route states the same rule).  Both are deterministic
 // (no atomics: two calls give the same bits) and split the work FA2's way
 // into dk/dv work that owns a key tile and dq work that owns query rows,
-// so s and dp are computed for both (7 products against 5).  At Dh 256 a
+// so s and dp are computed for both (7 products against 5; on wgmma ds's
+// two parts make dk and dq two products each, 9).  At Dh 256 a
 // fixed-order dq sum inside the dk/dv work would move a 64 x 256 f32
 // partial per (key tile, query tile) pair, gigabytes at 4 x 4096.
 //
@@ -71,17 +80,18 @@
 //    double-buffered 16 KB shared tile, and runs dV += P^T dO with P^T
 //    (bf16) as the register operand and dO read transposed (wgmma
 //    m64n{Dh}k16).  Consumer 1 computes dP^T = V dO^T, dS^T = P^T (dP^T -
-//    D), and dK += dS^T Q the same way.  So each consumer holds one 64 x Dh
-//    f32 accumulator (128 registers a thread at Dh 256), not two.  Rows of
-//    a tile that TMA never writes (64 is not a multiple of G) are zeroed
-//    once, so P^T's zeros meet finite rows.
+//    D), and dK += dS^T Q the same way, once for each of dS^T's parts.  So
+//    each consumer holds one 64 x Dh f32 accumulator (128 registers a
+//    thread at Dh 256), not two.  Rows of a tile that TMA never writes (64
+//    is not a multiple of G) are zeroed once, so P^T's zeros meet finite
+//    rows.
 //    dq CTA, per two neighbouring 64-row query tiles, one per consumer: Q
 //    and dO loaded once, K and V tiles of the key tiles either tile can see
 //    through two rings, so each is loaded once for 128 rows: with 64 rows
 //    a CTA, L2 moved about as many bytes as the products took time.  dP =
 //    dO V^T first, so the V tile is free at once (1 stage at Dh 256), then
-//    S = Q K^T (ss), dS in registers, and dQ += dS K (rs, K read
-//    transposed; 2 K stages at Dh 256).
+//    S = Q K^T (ss), dS in registers, and dQ += dS K (rs, one product for
+//    each of dS's parts, K read transposed; 2 K stages at Dh 256).
 //
 // Shared memory at Dh 256: a dk/dv CTA 64 KB of K and V + 2 stages x 64 KB
 // of Q and dO + 32 KB of P^T + 1 KB of row statistics = 225 KB of the 227
@@ -144,13 +154,21 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
 
 using hopper::pack_bf16;
 
+// What rounding x to bf16 drops (exact in f32): ds = bf16(ds) + this.
+__device__ __forceinline__ float bf16_rest(float x) {
+  return x - __bfloat162float(__float2bfloat16_rn(x));
+}
+
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// Key j is visible to the query at key position i (a query's index plus
+// shift = q_offset - kv_offset).
 __device__ __forceinline__ bool visible(int i, int j, int Sk, int causal,
                                         int window) {
-  return j < Sk && (!causal || j <= i) && (window <= 0 || i - j < window);
+  return j < Sk && (!causal || j <= i) &&
+         (window <= 0 || static_cast<long long>(i) - j < window);
 }
 
 // The A fragment (16 x 16, row-major) of a bf16 tile with row stride ld:
@@ -294,7 +312,7 @@ flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,
                const float* __restrict__ lse, const float* __restrict__ delta,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                int Sq, int Sk, int Hq, int Hkv, int Dh, int causal, int window,
-               float scale) {
+               int shift, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = Dh + 8;  // padded row, in elements
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -323,14 +341,16 @@ flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,
   load_tile(Vs, ld, v + (static_cast<size_t>(b) * Sk * Hkv + hk) * Dh,
             kv_step, j0, Sk, Dh, false, 0.f);
 
-  // the query tiles that can see a key of this tile
+  // the query tiles that can see a key of this tile (query i sits at key
+  // position i + shift)
   const int j_last = min(j0 + kTile, Sk) - 1;
-  const int i_lo = causal ? j0 : 0;
+  const long long i_lo =
+      causal ? max(0LL, static_cast<long long>(j0) - shift) : 0;
   long long hi = Sq - 1;
   if (window > 0)
-    hi = min(hi, static_cast<long long>(j_last) + window - 1);
-  const int t_lo = i_lo / kTile;
-  const int t_hi = hi < i_lo ? t_lo - 1 : static_cast<int>(hi / kTile);
+    hi = min(hi, static_cast<long long>(j_last) + window - 1 - shift);
+  const int t_lo = hi < i_lo ? 0 : static_cast<int>(i_lo / kTile);
+  const int t_hi = hi < i_lo ? -1 : static_cast<int>(hi / kTile);
 
   constexpr int NC = DMAX / 16;  // 8-column n-tiles in half the head dim
   float acc_dv[NC][4], acc_dk[NC][4];
@@ -369,7 +389,7 @@ flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int i = i0 + qc + e;
-            p[e] = i < Sq && visible(i, j0 + kr, Sk, causal, window)
+            p[e] = i < Sq && visible(i + shift, j0 + kr, Sk, causal, window)
                        ? expf(s[n][2 * r + e] - Ls[qc + e])
                        : 0.f;
             ds[e] = p[e] * (dp[n][2 * r + e] - Ds[qc + e]);
@@ -414,7 +434,7 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv,
-             int Dh, int causal, int window, float scale) {
+             int Dh, int causal, int window, int shift, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = Dh + 8;
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -445,12 +465,15 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * Sk * Hkv + hk) * Dh;
   const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * Sk * Hkv + hk) * Dh;
 
-  // the key tiles rows [i0, i0 + kTile) can see
-  int hi = Sk - 1;
-  if (causal) hi = min(hi, i0 + kTile - 1);
-  const int lo = window > 0 ? max(0, i0 - window + 1) : 0;
-  const int t_lo = lo / kTile;
-  const int t_hi = hi < lo ? t_lo - 1 : hi / kTile;
+  // the key tiles rows [i0, i0 + kTile) can see (at key positions shifted
+  // by shift)
+  long long hi = Sk - 1;
+  if (causal) hi = min(hi, static_cast<long long>(i0) + kTile - 1 + shift);
+  const long long lo =
+      window > 0 ? max(0LL, static_cast<long long>(i0) + shift - window + 1)
+                 : 0;
+  const int t_lo = hi < lo ? 0 : static_cast<int>(lo / kTile);
+  const int t_hi = hi < lo ? -1 : static_cast<int>(hi / kTile);
 
   constexpr int NC = DMAX / 16;
   float acc[NC][4];
@@ -478,7 +501,8 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q,
         float ds[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float p = visible(i0 + qr, j0 + kc + e, Sk, causal, window)
+          const float p = visible(i0 + qr + shift, j0 + kc + e, Sk, causal,
+                                  window)
                               ? expf(s[n][2 * r + e] - Ls[qr])
                               : 0.f;
           ds[e] = p * (dp[n][2 * r + e] - Ds[qr]);
@@ -511,8 +535,8 @@ template <int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, void* dk, void* dv, int B, int Sq, int Sk, int Hq,
-                   int Hkv, int Dh, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   int Hkv, int Dh, int causal, int window, int shift,
+                   float scale, cudaStream_t stream) {
   using bf = __nv_bfloat16;
   const size_t smem = (4 * static_cast<size_t>(kTile) * (Dh + 8) +
                        2 * static_cast<size_t>(kTile) * kLdP) * sizeof(bf) +
@@ -531,7 +555,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
         static_cast<const bf*>(q), static_cast<const bf*>(k),
         static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, delta,
         static_cast<bf*>(dk), static_cast<bf*>(dv), Sq, Sk, Hq, Hkv, Dh,
-        causal, window, scale);
+        causal, window, shift, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -539,7 +563,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   flash_bwd_dq<DMAX><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, delta,
-      static_cast<bf*>(dq), Sq, Sk, Hq, Hkv, Dh, causal, window, scale);
+      static_cast<bf*>(dq), Sq, Sk, Hq, Hkv, Dh, causal, window, shift,
+      scale);
   return cudaGetLastError();
 }
 
@@ -606,6 +631,8 @@ struct WgParams {
   int P;       // positions per tile: 64 / Gt
   int ntiles;  // query tiles per (b, kv head, head block): ceil(Sq / P)
   int causal, window;
+  int shift;      // q_offset - kv_offset: query i sits at key position
+                  // i + shift
   int dkdv_ctas;  // CTAs of flash_bwd_wgmma that own a key tile
   float c;       // multiplies q . k into the exp2 domain
   float dk_mul;  // the scale where it is folded into c, else 1
@@ -792,12 +819,14 @@ __device__ __forceinline__ void dkdv_cta(unsigned char* smem, int cta,
   const int b = (cta % per) / prm.Hkv;
   const int j0 = kt * kKeys;
   const int j_last = min(j0 + kKeys, prm.Sk) - 1;
-  // the positions that see a key of the tile, and their tiles
-  const int lo = prm.causal ? j0 : 0;
+  // the positions that see a key of the tile (position p at key position
+  // p + shift), and their tiles
+  const long long lo =
+      prm.causal ? max(0LL, static_cast<long long>(j0) - prm.shift) : 0;
   long long hi = prm.Sq - 1;
   if (prm.window > 0)
-    hi = min(hi, static_cast<long long>(j_last) + prm.window - 1);
-  const int t_lo = lo / prm.P;
+    hi = min(hi, static_cast<long long>(j_last) + prm.window - 1 - prm.shift);
+  const int t_lo = hi < lo ? 0 : static_cast<int>(lo / prm.P);
   const int nt = hi < lo ? 0 : static_cast<int>(hi / prm.P) - t_lo + 1;
   const int n = nt * prm.HB;  // (Q, dO) stages: every head block's tiles
 
@@ -895,7 +924,8 @@ __device__ __forceinline__ void dkdv_cta(unsigned char* smem, int cta,
     if (n > 0) hopper::mbar_wait(kv_full, 0);
     for (int i = 0; i < n; ++i) {
       const int st = i % ST, xb = i & 1;
-      const int pp0 = (t_lo + i % nt) * prm.P;  // the tile's first position
+      // the tile's first position, at its key position
+      const int pp0 = (t_lo + i % nt) * prm.P + prm.shift;
       const uint32_t q_base = ring + 2 * st * T::kBytes;
       const uint32_t do_base = q_base + T::kBytes;
       const float* lse2 = stat + st * 2 * kRows;
@@ -910,7 +940,8 @@ __device__ __forceinline__ void dkdv_cta(unsigned char* smem, int cta,
         // p = 2^(s c - lse2) where key and query row see each other, else 0
         const bool all_seen =
             j0 + kKeys <= prm.Sk && (!prm.causal || j0 + kKeys - 1 <= pp0) &&
-            (prm.window <= 0 || pp0 + prm.P - 1 - j0 < prm.window);
+            (prm.window <= 0 ||
+             static_cast<long long>(pp0) + prm.P - 1 - j0 < prm.window);
         // key j sees the rows (columns) [clo, chi) of the tile: position
         // pp0 + col / Gt in [j, j + window) (causal), or below j + window
         int clo[2], chi[2];
@@ -962,10 +993,19 @@ __device__ __forceinline__ void dkdv_cta(unsigned char* smem, int cta,
         }
         if (i + 2 < n) hopper::named_arrive(2 + xb, 256);
       }
-      // dV += P^T dO (consumer 0), dK += dS^T Q (consumer 1)
-      uint32_t a[4][4];
+      // dV += P^T dO (consumer 0), dK += dS^T Q (consumer 1: dS^T's hi
+      // part's product, then its lo part's, into the same accumulator; both
+      // operands made before either is issued, as the products read them
+      // from registers until the wait)
+      uint32_t a[4][4], lo[4][4];
       hopper::acc_to_a(s, a);
+      if (w) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) s[e] = bf16_rest(s[e]);
+        hopper::acc_to_a(s, lo);
+      }
       issue_rs<DH>(acc, acc_t, a, w ? q_base : do_base);
+      if (w) issue_rs<DH>(acc, acc_t, lo, q_base);
       wait_all<NC>(acc, acc_t);
       hopper::mbar_arrive(&q_empty[st]);
     }
@@ -1014,12 +1054,16 @@ __device__ __forceinline__ void dq_cta(unsigned char* smem, int cta,
   const int tiles = min(2, prm.ntiles - 2 * u);  // 1 for an odd last pair
   const int p0 = 2 * u * prm.P;
   const int p_last = min(p0 + tiles * prm.P - 1, prm.Sq - 1);
-  // the key tiles some row of the CTA can see
-  int hi = prm.Sk - 1;
-  if (prm.causal) hi = min(hi, p_last);
-  const int lo = prm.window > 0 ? max(0, p0 - prm.window + 1) : 0;
-  const int t_lo = lo / kKeys;
-  const int n = hi < lo ? 0 : hi / kKeys - t_lo + 1;
+  // the key tiles some row of the CTA can see (at key positions shifted by
+  // prm.shift)
+  long long hi = prm.Sk - 1;
+  if (prm.causal) hi = min(hi, static_cast<long long>(p_last) + prm.shift);
+  const long long lo =
+      prm.window > 0
+          ? max(0LL, static_cast<long long>(p0) + prm.shift - prm.window + 1)
+          : 0;
+  const int t_lo = hi < lo ? 0 : static_cast<int>(lo / kKeys);
+  const int n = hi < lo ? 0 : static_cast<int>(hi / kKeys) - t_lo + 1;
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(qd_full, 1);
@@ -1089,15 +1133,17 @@ __device__ __forceinline__ void dq_cta(unsigned char* smem, int cta,
     const float d0 = real ? prm.delta[srow + r0] : 0.f;
     const float d1 = real ? prm.delta[srow + r1] : 0.f;
     const int pos0 = pt + r0 / prm.Gt, pos1 = pt + r1 / prm.Gt;
-    // keys [jlo, jhi) are visible to a row
-    const int jlo0 = prm.window > 0 ? pos0 - prm.window + 1 : INT_MIN;
-    const int jlo1 = prm.window > 0 ? pos1 - prm.window + 1 : INT_MIN;
-    const int jhi0 = prm.causal ? min(prm.Sk, pos0 + 1) : prm.Sk;
-    const int jhi1 = prm.causal ? min(prm.Sk, pos1 + 1) : prm.Sk;
+    // keys [jlo, jhi) are visible to a row (at key position pos + shift:
+    // in int32, as the wrapper checks shift + Sq and shift - window)
+    const int at0 = pos0 + prm.shift, at1 = pos1 + prm.shift;
+    const int jlo0 = prm.window > 0 ? at0 - prm.window + 1 : INT_MIN;
+    const int jlo1 = prm.window > 0 ? at1 - prm.window + 1 : INT_MIN;
+    const int jhi0 = prm.causal ? min(prm.Sk, at0 + 1) : prm.Sk;
+    const int jhi1 = prm.causal ? min(prm.Sk, at1 + 1) : prm.Sk;
     // every row of the tile sees all keys in [lo_all, hi_all)
-    const int pt_last = min(pt + prm.P - 1, prm.Sq - 1);
+    const int pt_last = min(pt + prm.P - 1, prm.Sq - 1) + prm.shift;
     const int lo_all = prm.window > 0 ? pt_last - prm.window + 1 : INT_MIN;
-    const int hi_all = prm.causal ? min(prm.Sk, pt + 1) : prm.Sk;
+    const int hi_all = prm.causal ? min(prm.Sk, pt + prm.shift + 1) : prm.Sk;
 
     float acc[NC][32], acc_t[8];  // acc_t: the tail's 16 columns (Dh 80)
 #pragma unroll
@@ -1143,10 +1189,15 @@ __device__ __forceinline__ void dq_cta(unsigned char* smem, int cta,
           }
           s[4 * nn + e] = p * (dp[4 * nn + e] - (hi_row ? d1 : d0));
         }
-      // dQ += dS K
-      uint32_t a[4][4];
+      // dQ += dS K: dS's hi part's product, then its lo part's (both
+      // operands made before either is issued)
+      uint32_t a[4][4], lo[4][4];
       hopper::acc_to_a(s, a);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] = bf16_rest(s[e]);
+      hopper::acc_to_a(s, lo);
       issue_rs<DH>(acc, acc_t, a, k_st);
+      issue_rs<DH>(acc, acc_t, lo, k_st);
       wait_all<NC>(acc, acc_t);
       hopper::mbar_arrive(&k_empty[ks]);
     }
@@ -1207,8 +1258,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const void* o, const void* dout, const float* lse,
                          void* scratch, long long scratch_bytes, void* dq,
                          void* dk, void* dv, int B, int Sq, int Sk, int Hq,
-                         int Hkv, int causal, int window, float scale,
-                         cudaStream_t stream) {
+                         int Hkv, int causal, int window, int shift,
+                         float scale, cudaStream_t stream) {
   using bf = __nv_bfloat16;
   const int G = Hq / Hkv;
   WgParams prm;
@@ -1223,6 +1274,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   prm.ntiles = (Sq + prm.P - 1) / prm.P;
   prm.causal = causal;
   prm.window = window;
+  prm.shift = shift;
   int ex;
   const bool pow2 = frexpf(scale, &ex) == 0.5f;  // exact to fold
   prm.c = pow2 ? scale * kLog2e : kLog2e;
@@ -1340,7 +1392,9 @@ extern "C" int flash_attention_bwd_scratch_bytes(int route, int B, int Sq,
 }
 
 // bf16 only; Dh a multiple of 16 up to 256, every pointer 16-byte aligned
-// (the wrapper checks); window <= 0 means unbounded.  route: the wrapper's
+// (the wrapper checks); window <= 0 means unbounded; shift = q_offset -
+// kv_offset (query i sits at key position i + shift; shift + Sq and shift -
+// window fit in int32, which the wrapper checks).  route: the wrapper's
 // choice (flash_bwd_route), refused where it does not apply.  scratch:
 // scratch_bytes of device memory, at least what
 // flash_attention_bwd_scratch_bytes gives.  Launches the route's kernels
@@ -1352,8 +1406,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    void* scratch, long long scratch_bytes,
                                    void* dq, void* dk, void* dv, int route,
                                    int B, int Sq, int Sk, int Hq, int Hkv,
-                                   int Dh, int causal, int window, float scale,
-                                   void* stream) {
+                                   int Dh, int causal, int window, int shift,
+                                   float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0) return cudaSuccess;
   if (route == 0) {
@@ -1361,18 +1415,18 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     if (Dh == 64)
       return launch_wgmma<64>(q, k, v, o, dout, lse, scratch, scratch_bytes,
                               dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, window,
-                              scale, st);
+                              shift, scale, st);
     if (Dh == 80)
       return launch_wgmma<80>(q, k, v, o, dout, lse, scratch, scratch_bytes,
                               dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, window,
-                              scale, st);
+                              shift, scale, st);
     if (Dh == 128)
       return launch_wgmma<128>(q, k, v, o, dout, lse, scratch, scratch_bytes,
                                dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, window,
-                               scale, st);
+                               shift, scale, st);
     return launch_wgmma<256>(q, k, v, o, dout, lse, scratch, scratch_bytes,
                              dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, window,
-                             scale, st);
+                             shift, scale, st);
   }
   if (route != 1) return cudaErrorInvalidValue;
   const long long rows = static_cast<long long>(B) * Sq * Hq;
@@ -1388,10 +1442,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   if (err != cudaSuccess) return err;
   if (Dh <= 64)
     return launch<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq,
-                      Hkv, Dh, causal, window, scale, st);
+                      Hkv, Dh, causal, window, shift, scale, st);
   if (Dh <= 128)
     return launch<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq,
-                       Hkv, Dh, causal, window, scale, st);
+                       Hkv, Dh, causal, window, shift, scale, st);
   return launch<256>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq,
-                     Hkv, Dh, causal, window, scale, st);
+                     Hkv, Dh, causal, window, shift, scale, st);
 }

@@ -18,7 +18,9 @@ Under autograd (grad mode on and q, k or v requiring grad) the call is a
 ``torch.autograd.Function``: its forward also writes each row's
 log-sum-exp and saves q, k, v, the output and the lse; its backward is
 ``flash_attention_bwd``, the hand-written kernels of
-``csrc/flash_attention_bwd.cu`` (bf16, counted on ``BWD_KERNEL``), on the
+``csrc/flash_attention_bwd.cu`` (bf16, counted on ``BWD_KERNEL``; the
+forward's offsets carried over, so that a mesh position's sequence block
+trains at its offset), on the
 route ``flash_bwd_route(dtype, Dh)`` gives: ``wgmma`` (Dh 64, 80, 128 or
 256: TMA, wgmma, warp-specialised, GQA heads packed into 64-row tiles) or
 ``mma_sync`` (other head dims).  On CPU
@@ -58,7 +60,7 @@ BWD_KERNEL = CudaKernel(
     "flash_attention_bwd", "csrc/flash_attention_bwd.cu",
     "flash_attention_bwd",
     [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p],
+    + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p],
     routes=BWD_ROUTES,
     symbols={"flash_attention_bwd_route": [ctypes.c_int, ctypes.c_int],
              "flash_attention_bwd_scratch_bytes":
@@ -66,8 +68,6 @@ BWD_KERNEL = CudaKernel(
                                        ctypes.POINTER(ctypes.c_int64)]})
 F32_BACKWARD = ("ROADMAP queue 2: the f32 backward of flash_attention on "
                 "the card")
-OFFSET_BACKWARD = ("ROADMAP queue 1, item 13: training on a mesh (the "
-                   "attention backward with a query offset)")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 80, 128, 256)
@@ -311,10 +311,12 @@ class _Attention(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, block_kv):
-        out, lse = _forward(q, k, v, causal, window, block_kv, True)
+    def forward(ctx, q, k, v, causal, window, block_kv, q_offset, kv_offset):
+        out, lse = _forward(q, k, v, causal, window, block_kv, True,
+                            q_offset, kv_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kw = {"causal": causal, "window": window, "block_kv": block_kv}
+        ctx.kw = {"causal": causal, "window": window, "block_kv": block_kv,
+                  "q_offset": q_offset, "kv_offset": kv_offset}
         return out
 
     @staticmethod
@@ -322,7 +324,7 @@ class _Attention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                          dout.contiguous(), **ctx.kw)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -340,25 +342,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the input type.  ``block_kv`` is the plain version's key block; the
     kernels tile keys by 64 (bf16) or 32 (f32) and visit only the tiles
     their queries can see.  A query that sees no key at all is undefined.
-    Differentiable (see the module's doc) at offsets 0 only (a nonzero
-    offset under autograd raises: ``OFFSET_BACKWARD``); on the card in bf16
-    only.
+    Differentiable (see the module's doc) at any offsets; on the card in
+    bf16 only.
     """
     _check(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if q_offset != kv_offset:
-            raise NotImplementedError(
-                f"flash_attention has no backward with a query offset "
-                f"(q_offset {q_offset}, kv_offset {kv_offset}): "
-                f"{OFFSET_BACKWARD}; call it under torch.no_grad() or "
-                f"torch.inference_mode()")
         if q.device.type != "cpu" and q.dtype != torch.bfloat16:
             raise RuntimeError(
                 f"flash_attention on CUDA has a backward kernel for bf16 "
                 f"only, so it cannot give {q.dtype} q, k or v a gradient "
                 f"({F32_BACKWARD}): call it in bf16, or under "
                 f"torch.no_grad() or torch.inference_mode()")
-        return _Attention.apply(q, k, v, causal, window, block_kv)
+        return _Attention.apply(q, k, v, causal, window, block_kv, q_offset,
+                                kv_offset)
     return _forward(q, k, v, causal, window, block_kv, False, q_offset,
                     kv_offset)[0]
 
@@ -366,10 +362,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
-                        block_kv: int = 1024) -> tuple:
-    """The gradient (dq, dk, dv) of ``flash_attention(q, k, v)`` at output
-    gradient ``do``, from its output ``o`` and log-sum-exp ``lse``
-    (B, Hq, Sq) f32, natural log.  On CUDA tensors one call of the
+                        block_kv: int = 1024, q_offset: int = 0,
+                        kv_offset: int = 0) -> tuple:
+    """The gradient (dq, dk, dv) of ``flash_attention(q, k, v, q_offset=,
+    kv_offset=)`` at output gradient ``do``, from its output ``o`` and
+    log-sum-exp ``lse`` (B, Hq, Sq) f32, natural log.  On CUDA tensors one call of the
     hand-written kernels on the route ``flash_bwd_route`` gives (a
     pre-pass with D = rowsum(do * o), then dk and dv, and dq: three
     launches on ``mma_sync``, two on ``wgmma``, whose dk/dv and dq CTAs
@@ -389,23 +386,30 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(lse.shape)} {lse.dtype}")
     if {t.device for t in (o, lse, do)} != {q.device}:
         raise ValueError("q, k, v, o, lse and do must share one device")
+    offsets = (q_offset, kv_offset)
     c = accounting.counter(q.device)
     if c is None:
-        return _backward_on(q, k, v, o, lse, do, causal, window, block_kv)
+        return _backward_on(q, k, v, o, lse, do, causal, window, block_kv,
+                            *offsets)
     with c.kernel("flash_attention_bwd", **flash_cost(
-            q, k, causal, window, block_kv, backward=True)):
-        return _backward_on(q, k, v, o, lse, do, causal, window, block_kv)
+            q, k, causal, window, block_kv, backward=True,
+            shift=q_offset - kv_offset)):
+        return _backward_on(q, k, v, o, lse, do, causal, window, block_kv,
+                            *offsets)
 
 
 def _backward_on(q, k, v, o, lse, do, causal: bool, window: int,
-                 block_kv: int):
+                 block_kv: int, q_offset: int, kv_offset: int):
     if q.device.type == "cpu":
         return ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                       window=window, block_kv=block_kv)
-    return _backward_device(q, k, v, o, lse, do, causal, window)
+                                       window=window, block_kv=block_kv,
+                                       q_offset=q_offset, kv_offset=kv_offset)
+    return _backward_device(q, k, v, o, lse, do, causal, window,
+                            q_offset - kv_offset)
 
 
-def _backward_device(q, k, v, o, lse, do, causal: bool, window: int):
+def _backward_device(q, k, v, o, lse, do, causal: bool, window: int,
+                     shift: int = 0):
     """The backward on the card (a launch) or on ``meta`` (the card's
     outputs and scratch, empty)."""
     B, Sq, Hq, Dh = q.shape
@@ -420,7 +424,7 @@ def _backward_device(q, k, v, o, lse, do, causal: bool, window: int):
     if not meta and any(t.data_ptr() % 16 for t in ts if t.numel()):
         raise ValueError("flash_attention_bwd reads 16-byte chunks and needs "
                          "its inputs 16-byte aligned")
-    scale = _cuda_args(q, k, window)
+    scale = _cuda_args(q, k, window, shift)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -437,7 +441,7 @@ def _backward_device(q, k, v, o, lse, do, causal: bool, window: int):
                  do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), nbytes,
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  BWD_ROUTES.index(route), B, Sq, Sk, Hq, Hkv, Dh,
-                 int(causal), int(window), scale, stream)
+                 int(causal), int(window), int(shift), scale, stream)
     BWD_KERNEL.check(err)
     BWD_KERNEL.count_launch(route)
     return dq, dk, dv

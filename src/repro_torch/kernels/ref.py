@@ -308,12 +308,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
-                        block_kv: int = 1024) -> tuple:
+                        block_kv: int = 1024, q_offset: int = 0,
+                        kv_offset: int = 0) -> tuple:
     """The gradient of ``flash_attention`` as the backward kernel computes
     it: (dq, dk, dv) in the input type, from q, k, v, the forward's output
     ``o``, its log-sum-exp ``lse`` (B, Hq, Sq) (natural log, as
     ``flash_attention(..., return_lse=True)`` gives it) and the output's
-    gradient ``do`` (B, Sq, Hq, Dh).
+    gradient ``do`` (B, Sq, Hq, Dh).  Query ``i`` and key ``j`` sit at
+    ``q_offset + i`` and ``kv_offset + j``, as in the forward (a mesh
+    position's sequence block: dk and dv are then that block's share of
+    the keys' gradient).
 
     Key block by key block (``block_kv`` keys): p = exp(s - lse) from the
     recomputed masked scores s = bf16(q * scale) . k (0 where masked);
@@ -325,9 +329,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale rounded to the input type (the scale itself rounded too), p
     rounded to the value type before p^T do (the forward's p . v), o and do
     in the input type (the output cast); dq, dk and dv are each rounded to
-    the input type once, at the end.  Everything else is f32 (the kernel
-    also rounds ds to bf16 for its products).  In f32 none of these
-    rounds."""
+    the input type once, at the end.  Everything else is f32 (for its
+    products the kernel's ``wgmma`` route takes ds as two bf16 parts, hi =
+    bf16(ds) and lo = bf16(ds - hi); its ``mma_sync`` route rounds ds to
+    bf16).  In f32 none of these rounds."""
     B, Sq, Hq, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -338,14 +343,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = (dof * o.reshape(B, Sq, Hkv, G, Dh).float()).sum(-1)
     delta = delta.permute(0, 2, 3, 1)  # (B, Hkv, G, Sq)
     lse = lse.reshape(B, Hkv, G, Sq).float()
-    q_pos = torch.arange(Sq, device=dev)
+    q_pos = q_offset + torch.arange(Sq, device=dev)
     dqs = torch.zeros((B, Sq, Hkv, G, Dh), dtype=torch.float32, device=dev)
     dk = torch.empty((B, Sk, Hkv, Dh), dtype=k.dtype, device=dev)
     dv = torch.empty((B, Sk, Hkv, Dh), dtype=v.dtype, device=dev)
     for b0 in range(0, Sk, block_kv):
         kb = k[:, b0:b0 + block_kv].float()
         vb = v[:, b0:b0 + block_kv]
-        j = torch.arange(b0, b0 + kb.shape[1], device=dev)
+        j = kv_offset + torch.arange(b0, b0 + kb.shape[1], device=dev)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qs, kb)
         mask = attn_mask(q_pos, j, causal=causal, window=window)
         p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)

@@ -23,19 +23,22 @@ reference's HLO count of the same function.
 carries the counter's own totals (there is no XLA).  ``--mesh single`` is
 one H100.  ``--mesh multi`` is the reference's multi-pod production mesh,
 2 x 16 x 16 ``("pod", "data", "model")`` H100s, every position on
-``meta`` (``launch.mesh.make_production_mesh``): the serving cells of the
-``transformer`` families (``prefill``, ``decode``) run their mesh step
-with one position standing for all of them (``LMMesh.run_only``), the
+``meta`` (``launch.mesh.make_production_mesh``): the cells of the
+``transformer`` families (``train``, ``prefill``, ``decode``) run their
+mesh step with one position standing for all of them (``LMMesh.run_only``),
+the
 busiest (``accounted_position``): ``tests/test_torch_lm_mesh.py`` shows
 that the positions run the same shapes, bytes and collectives, but for
 the decode slot's write, which position 0 makes, and the same flops, but
 for the prefill attention's visible pairs, which the last sequence block
 has most of.  So ``memory`` and the counts are that position's,
-``collectives`` its calls summed by ``op_cost.parse_collectives`` and
-``collective_s`` their wire bytes over the NVLink rate; train cells and the
-other families are not ported on a mesh: their records say why
-(``status`` "not_ported") and the sweep counts them apart from its
-failures.  ``--mesh both`` runs single then multi.
+``collectives`` its calls summed by ``op_cost.parse_collectives`` (the
+backward's transposes and the gradient sums of a train cell included) and
+``collective_s`` their wire bytes over the NVLink rate; the train cells
+(``train_4k``) run the mesh train step with ``--variant``'s layout
+(``sp_attn``, ``zero1``, ``zero3``); the other families are not ported on
+a mesh: their records say why (``status`` "not_ported") and the sweep
+counts them apart from its failures.  ``--mesh both`` runs single then multi.
 
 ``run_cell(..., device="cuda", shape=..., overrides=...)`` also runs the
 cell for real on that device, at a (reduced) ``ShapeConfig`` and config
@@ -78,14 +81,18 @@ N_CHIPS = 1
 ONE_POSITION = ("the busiest position stands for every position: they run "
                 "the same shapes, bytes and collectives, but for the decode "
                 "slot's write, which position 0 makes, and the same flops, "
-                "but for the prefill attention's pairs, which the last "
-                "sequence block has most of (tests/test_torch_lm_mesh.py)")
+                "but for the prefill (and sp train) attention's pairs, which "
+                "the last sequence block has most of "
+                "(tests/test_torch_lm_mesh.py, "
+                "tests/test_torch_lm_mesh_train.py)")
 
 
 def accounted_position(mesh, kind: str) -> int:
-    """The position the dry-run accounts: the last (its sequence block is
-    the prefill's last) or, in decode, 0 (it holds slot 0 and writes it)."""
-    return mesh.size - 1 if kind == "prefill" else 0
+    """The position the dry-run accounts: in decode 0 (it holds slot 0 and
+    writes it); in prefill and training the last (its sequence block is the
+    last, which the ``sp`` attention's queries see most of; under
+    ``batch_full`` every position's work is the same)."""
+    return 0 if kind == "decode" else mesh.size - 1
 SKIP_REASON = ("long_500k needs sub-quadratic attention "
                "(pure full-attention arch; see DESIGN.md)")
 

@@ -6,13 +6,16 @@ arguments, for one card or over an LM mesh (the port of the reference's
 function and its arguments, ``meta`` tensors by default (shapes and types,
 nothing allocated) or real tensors on a device the caller names.  Without
 a mesh ``out_shardings`` is None.  On a mesh (``launch.mesh.LMMesh``) the
-serving cells of the ``transformer`` families run the mesh prefill and
-decode step over parameters and caches laid out by the rules
-``shape_rules`` gives (``Sharded`` per position; ``meta["dist"]`` holds
-the ``Distribution`` and its collective log), and ``out_shardings`` holds
-the reference's specs of the logits and caches.  Training on a mesh
-(``MESH_TRAIN``) and the SSM, hybrid and encoder-decoder families on a
-mesh (``MESH_FAMILIES``) raise.
+cells of the ``transformer`` families run the mesh train step, prefill and
+decode step over parameters, optimizer state and caches laid out by the
+rules ``shape_rules`` gives (``Sharded`` per position; ``meta["dist"]``
+holds the ``Distribution`` and its collective log), and ``out_shardings``
+holds the reference's specs of the new state (train) or of the logits and
+caches.  A train cell's parameters take ZeRO-3's layout with
+``cfg.zero3`` and its moments ZeRO-1's with ``cfg.zero1``
+(``models.params.zero_pspec``, the reference's ``_fsdp`` and
+``_moment``).  The SSM, hybrid and encoder-decoder families on a mesh
+(``MESH_FAMILIES``) raise.
 
 * **train**: ``launch.train.train_step(..., donate=True)`` with
   ``adamw(lr)``: the state (params, AdamW's m, v and count, the step) is
@@ -38,12 +41,13 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.serve_lm import ENCDEC_FAMILIES, target_len
 from repro_torch.launch.mesh import LMMesh
 from repro_torch.models import encdec, get_module, ssm_lm, transformer
-from repro_torch.models.params import (init_from_defs, pspecs_from_defs,
-                                       shard_params, specs_from_defs)
-from repro_torch.models.sharding import (MESH_FAMILIES, MESH_TRAIN,
-                                         Distribution, default_rules)
+from repro_torch.models.params import (init_from_defs, layout_pspecs,
+                                       pspecs_from_defs, shard_params,
+                                       specs_from_defs)
+from repro_torch.models.sharding import (MESH_FAMILIES, Distribution,
+                                         default_rules)
 
-MESH_SERVING = ("dense", "moe", "vlm")  # the transformer's families
+MESH_FAMILIES_PORTED = ("dense", "moe", "vlm")  # the transformer's families
 
 
 @dataclasses.dataclass
@@ -73,9 +77,7 @@ def shape_rules(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
 def mesh_support(cfg: ModelConfig, shape: ShapeConfig):
     """None where the cell runs on a mesh, else why not (the ROADMAP item
     that ports it)."""
-    if shape.kind == "train":
-        return MESH_TRAIN
-    if cfg.family not in MESH_SERVING:
+    if cfg.family not in MESH_FAMILIES_PORTED:
         return MESH_FAMILIES
     return None
 
@@ -178,7 +180,8 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
     params = _params(cfg, device, seed)
     name = f"{cfg.name}__{shape.name}"
     if mesh is not None:
-        return _mesh_cell(cfg, shape, mesh, mod, params, device, rng, name)
+        return _mesh_cell(cfg, shape, mesh, mod, params, device, rng, name,
+                          lr)
 
     if shape.kind == "train":
         opt = adamw(lr)
@@ -218,10 +221,13 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
 
 
 def _mesh_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: LMMesh, mod,
-               params: dict, device, rng, name: str) -> Cell:
-    """A serving cell of a ``transformer`` family on ``mesh``."""
+               params: dict, device, rng, name: str, lr: float) -> Cell:
+    """A cell of a ``transformer`` family on ``mesh``."""
     dist = Distribution(mesh=mesh, rules=shape_rules(cfg, shape, mesh))
     defs = mod.defs(cfg)
+    if shape.kind == "train":
+        return _mesh_train_cell(cfg, shape, dist, defs, params, device, rng,
+                                name, lr)
     params = shard_params(params, defs, dist)
     meta = {"kind": shape.kind, "dist": dist,
             "param_specs": pspecs_from_defs(defs, dist.rules, mesh)}
@@ -246,3 +252,38 @@ def _mesh_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: LMMesh, mod,
         cfg, B, shape.seq_len), dist.rules, mesh)
     return Cell(name, serve_step, (params, cache, tokens, 0),
                 (logits_spec, cache_specs), meta)
+
+
+def _mesh_train_cell(cfg: ModelConfig, shape: ShapeConfig, dist, defs,
+                     params: dict, device, rng, name: str, lr: float) -> Cell:
+    """The train cell on ``dist``'s mesh: the reference's state {"params",
+    "opt": {"m", "v", "count"}, "step"}, its parameters in ZeRO-3's layout
+    where ``cfg.zero3``, its moments in ZeRO-1's where ``cfg.zero1``;
+    ``train_step(..., donate=True, dist=)``; ``out_shardings`` the
+    reference's (the new state's specs, and None for the metrics)."""
+    from repro_torch.launch.train import train_step
+    from repro_torch.train.optimizer import adamw
+
+    param_specs = layout_pspecs(defs, dist, zero=cfg.zero3)
+    moment_specs = (layout_pspecs(defs, dist, zero=True) if cfg.zero1
+                    else param_specs)
+    params = shard_params(params, defs, dist, param_specs)
+    opt = adamw(lr)
+
+    def train_fn(state, batch):
+        new, opt_state, loss = train_step(cfg, state["params"], opt,
+                                          state["opt"], batch, donate=True,
+                                          dist=dist)
+        return ({"params": new, "opt": opt_state,
+                 "step": state["step"] + 1}, {"loss": loss})
+
+    state = {"params": params,
+             "opt": opt.init(params, dist, moment_specs), "step": 0}
+    batch = _token_specs(cfg, shape, device=device, rng=rng)
+    state_specs = {"params": param_specs,
+                   "opt": {"m": moment_specs, "v": moment_specs,
+                           "count": ()},
+                   "step": ()}
+    return Cell(name, train_fn, (state, batch), (state_specs, None),
+                {"kind": "train", "dist": dist, "param_specs": param_specs,
+                 "moment_specs": moment_specs})

@@ -73,7 +73,7 @@ def make_batch(cfg, batch: int, seq: int, seed: int, step: int,
 
 
 def train_step(cfg, params: dict, opt, opt_state: dict, batch: dict, *,
-               donate: bool = False):
+               donate: bool = False, dist=None):
     """One step: loss and gradients through the family's ``loss_fn``, then
     AdamW.  Functional, like the reference's: returns (new params, new
     optimizer state, loss) and leaves ``params`` as they were.
@@ -84,9 +84,17 @@ def train_step(cfg, params: dict, opt, opt_state: dict, batch: dict, *,
     step holds one copy of the parameters, the gradients, m and v and the
     new parameters, where the functional update also holds the old
     moments, the scaled gradients and the updates.  The caller must not
-    use the ``opt_state`` it passed again."""
+    use the ``opt_state`` it passed again.
+
+    On a mesh (``dist`` a ``models.sharding.Distribution`` with one):
+    ``train_step_mesh``."""
     from repro_torch.models import get_module
+    from repro_torch.models.sharding import on_mesh
     from repro_torch.train.optimizer import apply_updates, tree_map
+
+    if on_mesh(dist):
+        return train_step_mesh(cfg, params, opt, opt_state, batch,
+                               donate=donate, dist=dist)
 
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     loss, _ = get_module(cfg).loss_fn(cfg, leaves, batch)
@@ -99,6 +107,75 @@ def train_step(cfg, params: dict, opt, opt_state: dict, batch: dict, *,
         return new, opt_state, loss.detach()
     updates, opt_state = opt.update(grads, opt_state, params)
     return apply_updates(params, updates), opt_state, loss.detach()
+
+
+def grad_sum(g, p, m, dist):
+    """A parameter's gradient (``Sharded``, each position's block's own)
+    summed over the mesh axes the parameter ``p`` is replicated on, in
+    position order (the data-parallel sum GSPMD inserts), into the layout
+    of its moment ``m``: ZeRO-1's extra "data" split of dim 0 is a
+    reduce-scatter there, the rest an all-reduce."""
+    from repro_torch.train.optimizer import extra_axes
+
+    used = {a for ax in p.spec for a in ax}
+    rest = tuple(a for a in dist.mesh.axis_names
+                 if a not in used and dist.mesh.shape[a] > 1)
+    extra = extra_axes(p, m)
+    if extra:
+        g = dist.reduce_scatter(g, 0, extra)
+        rest = tuple(a for a in rest if a not in extra)
+    return dist.psum(g, rest)
+
+
+def mesh_loss_and_grads(cfg, params: dict, batch: dict, *, dist,
+                        moments: dict = None):
+    """The loss (as the first active position holds it) and the
+    gradients of ``train_step_mesh``: each position's block a leaf of its
+    own, the replicated loss seeded once on the first active position,
+    and each leaf's gradient summed over its replicated axes into the
+    layout of ``moments`` (a tree of ``Sharded``; the parameters' layout
+    where it is None)."""
+    from repro_torch.models import get_module
+    from repro_torch.train.optimizer import tree_map
+
+    leaves = tree_map(lambda p: dist.map(
+        lambda t: t.detach().requires_grad_(), p, spec=p.spec), params)
+    loss, _ = get_module(cfg).loss_fn(cfg, leaves, batch, dist=dist)
+    first = dist.mesh.active[0]
+    loss.local(first).backward()
+
+    def summed(leaf, p, m):
+        g = dist.map(lambda t: t.grad if t.grad is not None
+                     else torch.zeros_like(t), leaf, spec=leaf.spec)
+        return grad_sum(g, p, m, dist)
+
+    grads = tree_map(summed, leaves, params,
+                     params if moments is None else moments)
+    return loss.local(first).detach(), grads
+
+
+def train_step_mesh(cfg, params: dict, opt, opt_state: dict, batch: dict,
+                    *, donate: bool = False, dist):
+    """``train_step`` over ``dist``'s mesh: ``params`` a tree of
+    ``Sharded`` leaves (``models.params.shard_params``, ZeRO-3's layout
+    included), ``opt_state`` AdamW's on the mesh (``opt.init(params,
+    dist, moment specs)``: ZeRO-1's moments split over "data").  Each
+    position's block becomes a leaf of its own, so that each gets its own
+    gradient; the loss (replicated) is seeded once, on the first active
+    position, and every collective's transpose sums the copies'
+    gradients; each leaf's gradient is then summed over its replicated
+    axes (``grad_sum``), and AdamW runs position by position.  Returns
+    (new params, new optimizer state, the loss as the first active
+    position holds it)."""
+    from repro_torch.train.optimizer import apply_updates
+
+    value, grads = mesh_loss_and_grads(cfg, params, batch, dist=dist,
+                                       moments=opt_state["m"])
+    if donate:
+        new, opt_state = opt.step(grads, opt_state, params, dist=dist)
+        return new, opt_state, value
+    updates, opt_state = opt.update(grads, opt_state, params, dist=dist)
+    return apply_updates(params, updates, dist=dist), opt_state, value
 
 
 def train_lm(args):

@@ -9,9 +9,16 @@ the functions below run one layout.  On a mesh (``dist`` a
 reference's layouts over ``Sharded`` values, with every weight whole on
 each position at its use (``Distribution.gather_all``):
 
-* prefill (``self_attention_mesh``): q sharded along its sequence
-  ("seq"), k and v gathered whole per data shard, and each position's
-  flash attention called with its block's ``q_offset``;
+* prefill and the ``sp`` train layout (``self_attention_mesh``): q
+  sharded along its sequence ("seq"), k and v gathered whole per data
+  shard, and each position's flash attention called with its block's
+  ``q_offset`` (under autograd its backward runs at that offset, and the
+  gather's transpose sums each block's share of dk and dv back);
+* the ``batch_full`` train layout (``cfg.attn_layout``, the default): q, k
+  and v resharded to the batch over every mesh axis ("batch_full", as far
+  as it divides the batch), so that each position owns whole sequences
+  and runs the attention locally at offset 0; the output goes back to
+  (batch, seq);
 * decode (``decode_self_attention_mesh``): the new token's k and v
   written into the one position that owns its cache slot, then
   ``layers.dist_decode_attention`` over the cache's ``kv_seq`` shards.
@@ -174,14 +181,19 @@ def _out_mesh(cfg: ModelConfig, p: dict, o, dist, seq_axis):
 
 
 def self_attention_mesh(cfg: ModelConfig, p: dict, x, *, dist,
-                        window: int = 0, theta: Optional[float] = None):
-    """Causal self attention of the prefill on a mesh.  ``p`` holds the
-    layer's weights whole on every position; x (B, S, D) is sharded
-    (batch, seq).  Each position ropes its rows at their absolute
-    positions, q stays sharded along seq, k and v are gathered whole per
-    data shard, and the flash attention of each position sees its rows at
-    ``q_offset`` = its block's start.  Returns (out, k, v): k and v (B, S,
-    Hkv, Dh) whole per data shard, for the cache."""
+                        window: int = 0, theta: Optional[float] = None,
+                        mode: str = "prefill"):
+    """Causal self attention of the prefill or of training on a mesh.
+    ``p`` holds the layer's weights whole on every position; x (B, S, D)
+    is sharded (batch, seq).  Each position ropes its rows at their
+    absolute positions.  In prefill and under ``cfg.attn_layout == "sp"``,
+    q stays sharded along seq, k and v are gathered whole per data shard,
+    and the flash attention of each position sees its rows at ``q_offset``
+    = its block's start; in training under ``"batch_full"``, q, k and v are
+    resharded to ("batch_full", None) and each position attends over whole
+    sequences.  Returns (out, k, v): k and v (B, S, Hkv, Dh) as the
+    attention read them (in prefill whole per data shard, for the
+    cache)."""
     if theta is None:
         theta = cfg.rope_theta
     spec = x.spec + ((),)
@@ -195,9 +207,13 @@ def self_attention_mesh(cfg: ModelConfig, p: dict, x, *, dist,
                 layers.rope(ki, positions, theta))
 
     q, k = dist.map(rot, q, k, pos=True, spec=(spec,) * 2)
-    q = dist.constrain(q, "batch", "seq", None, None)
-    k = dist.constrain(k, "batch", None, None, None)
-    v = dist.constrain(v, "batch", None, None, None)
+    if mode == "train" and cfg.attn_layout == "batch_full":
+        q, k, v = (dist.constrain(t, "batch_full", None, None, None)
+                   for t in (q, k, v))
+    else:
+        q = dist.constrain(q, "batch", "seq", None, None)
+        k = dist.constrain(k, "batch", None, None, None)
+        v = dist.constrain(v, "batch", None, None, None)
     o = dist.map(lambda i, qi, ki, vi: layers.flash_attention(
         qi, ki, vi, causal=True, window=window,
         q_offset=dist.block_start(q, 1, i),

@@ -21,8 +21,10 @@ expert axis: (E, C, D) -> (E_loc, C * n, D)), runs its local experts, and
 sends the outputs back for the combine; drops follow from each position's
 own queues, as in the reference.  Decode keeps dense dispatch: each
 position computes its local experts and the combine's partial sums are
-summed over the expert axis (``psum``).  Training on a mesh is not ported
-(ROADMAP queue 1, item 13).
+summed over the expert axis (``psum``).  Training (``mode="train"``) takes
+the prefill's dispatch: the two ``all_to_all``s' gradients are the reverse
+exchanges, and the router loss over every token is each position's
+fractions and mean probabilities ``psum``-med over the token shards.
 """
 from __future__ import annotations
 
@@ -181,13 +183,8 @@ def moe_block_mesh(cfg: ModelConfig, p: dict, x, *, dist,
     prefill runs the expert-parallel dispatch (module doc) and decode the
     dense dispatch over the local experts with a ``psum``."""
     E, K = cfg.n_experts, cfg.top_k
-    w = {}
-    for name in ("w_gate", "w_up", "w_down"):
-        t = p[name]
-        for d in range(1, len(t.spec)):
-            if t.spec[d]:
-                t = dist.all_gather(t, d)
-        w[name] = t
+    w = {name: dist.gather_all(p[name], keep=0)
+         for name in ("w_gate", "w_up", "w_down")}
     e_axes = w["w_gate"].spec[0]
     tok_axes = x.spec[0] + x.spec[1]
     idx, weights, aux = dist.map(lambda pi, xi: _route(cfg, pi, xi), p, x)

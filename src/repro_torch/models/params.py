@@ -4,7 +4,8 @@ dict of :class:`Def` leaves (shape + logical axes + init rule).
 their shapes and types as ``meta`` tensors (the dry-run's arguments);
 ``resolve_spec`` / ``pspecs_from_defs`` translate the logical axes into
 mesh axes through a rules dict (the reference's ``PartitionSpec`` entries,
-non-divisible dims falling back to replication), and ``shard_params``
+non-divisible dims falling back to replication), ``zero_pspec`` adds the
+reference's ZeRO rule (dim 0 also over "data"), and ``shard_params``
 lays full parameters out on a mesh by them (``unshard`` undoes it)."""
 from __future__ import annotations
 
@@ -116,16 +117,46 @@ def pspecs_from_defs(defs: Any, rules: dict, mesh) -> Any:
     return {k: pspecs_from_defs(defs[k], rules, mesh) for k in sorted(defs)}
 
 
-def shard_params(params: Any, defs: Any, dist) -> Any:
-    """Full parameters laid out on ``dist``'s mesh as ``resolve_spec``
-    gives (``models.sharding.Sharded`` leaves): each position holds its
-    block, on its device, so its bytes are the reference's per-device
-    shard.  A block on the device its parameter lives on is a view of it
-    (one card holds the tree once, whatever the number of positions); on
-    another device it is a copy; on ``meta`` an empty tensor of its own."""
+def zero_pspec(spec: tuple, shape: tuple, mesh) -> tuple:
+    """The reference's ZeRO rule (``_fsdp`` for ZeRO-3's parameters,
+    ``_moment`` for ZeRO-1's moments, ``src/repro/launch/specs.py``): dim 0
+    also sharded over "data" where it is unsharded, "data" shards no other
+    dim, and dim 0 divides by the "data" axis' size."""
+    spec = list(spec) + [None] * (len(shape) - len(spec))
+    used = {a for e in spec if e
+            for a in ((e,) if isinstance(e, str) else e)}
+    dsize = mesh.shape.get("data", 1)
+    if (spec and spec[0] is None and "data" not in used and shape
+            and shape[0] % dsize == 0):
+        spec[0] = "data"
+    return tuple(spec)
+
+
+def layout_pspecs(defs: Any, dist, zero: bool = False) -> Any:
+    """The tree of a model's parameter specs on ``dist``'s mesh
+    (``pspecs_from_defs``), with ``zero_pspec`` applied where ``zero``
+    (ZeRO-3's parameters; ZeRO-1's moments from the parameters')."""
     if isinstance(defs, Def):
-        return dist.shard(params, resolve_spec(defs, dist.rules, dist.mesh))
-    return {k: shard_params(params[k], defs[k], dist) for k in sorted(defs)}
+        spec = resolve_spec(defs, dist.rules, dist.mesh)
+        return zero_pspec(spec, defs.shape, dist.mesh) if zero else spec
+    return {k: layout_pspecs(defs[k], dist, zero) for k in sorted(defs)}
+
+
+def shard_params(params: Any, defs: Any, dist, specs: Any = None) -> Any:
+    """Full parameters laid out on ``dist``'s mesh as ``resolve_spec``
+    gives, or as the tree ``specs`` gives (``models.sharding.Sharded``
+    leaves): each position holds its block, on its device, so its bytes
+    are the reference's per-device shard.  A block on the device its
+    parameter lives on is a view of it (one card holds the tree once,
+    whatever the number of positions); on another device it is a copy; on
+    ``meta`` an empty tensor of its own."""
+    if isinstance(defs, Def):
+        if specs is None:
+            specs = resolve_spec(defs, dist.rules, dist.mesh)
+        return dist.shard(params, specs)
+    return {k: shard_params(params[k], defs[k], dist,
+                            None if specs is None else specs[k])
+            for k in sorted(defs)}
 
 
 def unshard(params: Any, dist, device=None) -> Any:

@@ -27,13 +27,19 @@ the mesh in one process, the way the GNN meshes run (``launch/mesh.py``):
   positions hold what a ``shard_map`` body holds (partials, dispatch
   buffers);
 * **local work** maps a plain function over the positions (``map``);
-* **collectives** (``all_gather``, ``psum``, ``pmax``, ``all_to_all``) are
-  explicit copies over named axes: each group gathers (or sums, or takes
-  the maximum) in position order on its first position's device and
-  copies the result to the others, so any binding of positions to devices
-  gives the same bits; each call is recorded in the ``CollectiveLog``
-  (its kind and per-position result bytes, ``launch/op_cost.py`` reads
-  it).  A group of one position does nothing and records nothing;
+* **collectives** (``all_gather``, ``psum``, ``pmax``, ``all_to_all``,
+  ``reduce_scatter``) are explicit copies over named axes: each group
+  gathers (or sums, or takes the maximum) in position order on its first
+  position's device and copies the result to the others, so any binding of
+  positions to devices gives the same bits; each call is recorded in the
+  ``CollectiveLog`` (its kind and per-position result bytes,
+  ``launch/op_cost.py`` reads it).  Under autograd each is one node whose
+  backward is its transpose, taken the same way and logged too (an
+  all-gather's is a reduce-scatter, a psum's a psum, an all_to_all's the
+  reverse one); ``pmax`` is not differentiated.  A group of one position
+  does nothing and records nothing;
+* ``remat(fn, *args)`` runs a region (a layer, a CE chunk) as one autograd
+  node that recomputes it in its backward;
 * ``Distribution.constrain(x, *logical_axes)`` reshards to the spec the
   rules give: an ``all_gather`` where a dim becomes replicated, a local
   slice where one becomes sharded, an ``all_to_all`` where a shard moves
@@ -54,7 +60,6 @@ from torch.utils import _pytree
 from repro_torch.launch.mesh import LMMesh
 from repro_torch.models.params import Def, resolve_spec
 
-MESH_TRAIN = "ROADMAP queue 1, item 13: training on a mesh"
 MESH_FAMILIES = "ROADMAP queue 1, item 14: ssm_lm and encdec on a mesh"
 
 
@@ -133,14 +138,23 @@ class Sharded:
     """One local tensor per active mesh position (``shards[i]`` for
     position ``i``, on ``mesh.device(i)``), and the spec: a tuple of mesh
     axes per dim (empty: replicated over the mesh), or None where the
-    positions hold local values with no global layout."""
+    positions hold local values with no global layout.
+
+    Under autograd each position's tensor gets its own gradient, and the
+    gradient of a value replicated over some axes is the sum of its
+    copies' gradients: the collectives' transposes take those sums (in
+    position order), and a parameter replicated over some axes has its
+    positions' gradients summed over them (``launch.train.train_step``)."""
 
     def __init__(self, shards: dict, spec: Optional[tuple], mesh: LMMesh):
         self.shards = dict(shards)
         self.spec = None if spec is None else tuple(tuple(a) for a in spec)
         self.mesh = mesh
         first = self.first
-        if self.spec is not None and len(self.spec) != first.dim():
+        # (a pytree map, as ``torch.utils.checkpoint`` makes over its
+        # arguments, may rebuild one over values that are not tensors)
+        if self.spec is not None and isinstance(first, torch.Tensor) \
+                and len(self.spec) != first.dim():
             raise ValueError(f"spec {self.spec} for a {first.dim()}-D value")
 
     @property
@@ -352,16 +366,51 @@ class Distribution:
         return self.mesh.rank(i, x.spec[dim]) * x.local_shape[dim]
 
     def select(self, x: Sharded, index: int) -> Sharded:
-        """``x[index]`` along an unsharded leading dim (a stacked layer)."""
-        if x.spec[0]:
-            raise ValueError(f"dim 0 of {x} is sharded")
-        return self.map(lambda t: t[index], x, spec=x.spec[1:])
+        """``x[index]`` along the leading dim (a stacked layer).  Where that
+        dim is sharded (ZeRO-3's layers over "data"), only the position of
+        each group that holds ``index`` sends it to the others (logged as
+        an all-gather of the one layer's bytes, not the stack's), and the
+        gradient is the copies' gradients summed in position order back
+        into the holder's block (a reduce-scatter of the one layer)."""
+        if not x.spec[0]:
+            return self.map(lambda t: t[index], x, spec=x.spec[1:])
+        axes = x.spec[0]
+        rows = x.local_shape[0]
+        owner, li = divmod(index, rows)
+        groups = self._groups(axes)
 
-    def gather_all(self, x: Sharded) -> Sharded:
+        def fwd(loc):
+            out = {}
+            for group, active in groups:
+                src = loc.get(group[owner], loc[active[0]])
+                self._spread(src[li], active, out)
+            return out
+
+        def bwd(gs):
+            out = {}
+            for group, active in groups:
+                acc = self._sum(gs, group, active)
+                holder = group[owner]
+                if acc is None or holder not in self.mesh.active:
+                    continue
+                g = acc.new_zeros((rows,) + tuple(acc.shape))
+                g[li] = acc.to(g.device)
+                out[holder] = g.to(self.mesh.device(holder))
+            if out:
+                self.log.record("reduce-scatter", axes,
+                                _nbytes(next(iter(out.values()))[0]))
+            return out
+
+        res = self._collective(x, x.spec[1:], fwd, bwd)
+        self.log.record("all-gather", axes, _nbytes(res.first))
+        return res
+
+    def gather_all(self, x: Sharded, keep: Optional[int] = None) -> Sharded:
         """``x`` whole on every position: every sharded dim all-gathered
-        (a weight at its use)."""
+        but ``keep`` (a weight at its use; the vocab dim of the tables and
+        the experts' dim stay sharded)."""
         for d, ax in enumerate(x.spec):
-            if ax:
+            if ax and d != keep:
                 x = self.all_gather(x, d)
         return x
 
@@ -409,69 +458,213 @@ class Distribution:
         for p in active:
             out[p] = result.to(self.mesh.device(p))
 
+    def _sum(self, local: dict, group: tuple, active: list):
+        """The group's tensors summed in rank order on the first member's
+        device (absent peers stand in by the first active member's; a
+        member without a tensor, None, adds nothing); None where none has
+        one."""
+        acc = None
+        for p in group:
+            t = local.get(p if p in self.mesh.active else active[0])
+            if t is not None:
+                acc = t if acc is None else acc + t.to(acc.device)
+        return acc
+
+    def _collective(self, x: Sharded, spec, fwd: Callable, bwd: Callable
+                    ) -> Sharded:
+        """``fwd`` over every active position's tensor ({position: tensor}
+        -> {position: tensor}) as one autograd node whose gradient is
+        ``bwd`` (the same maps over the outputs' gradients, None for an
+        output no loss reached), so that the backward's sums are taken in
+        position order too, never in the autograd engine's."""
+        act = self.mesh.active
+
+        def run(fn, ts, default=None):
+            out = fn(dict(zip(act, ts)))
+            return [out.get(i, default) for i in act]
+
+        outs = _Collective.apply(lambda xs: run(fwd, xs),
+                                 lambda gs: run(bwd, gs),
+                                 *(x.local(i) for i in act))
+        return Sharded(dict(zip(act, outs)), spec, self.mesh)
+
     def all_gather(self, x: Sharded, dim: int) -> Sharded:
         """``dim`` made whole: every position gets its group's blocks (the
-        group over ``x.spec[dim]``) concatenated in rank order."""
+        group over ``x.spec[dim]``) concatenated in rank order.  Its
+        gradient is the transpose, a ``reduce_scatter``: each copy's
+        gradient summed over the group in rank order, each position
+        keeping its block's rows."""
         axes = x.spec[dim]
         if not axes:
             return x
-        out = {}
-        for group, active in self._groups(axes):
-            dev = self.mesh.device(group[0]) if group[0] in x.shards \
-                else self.mesh.device(active[0])
-            parts = [t.to(dev) for t in self._members(x, group, active)]
-            self._spread(torch.cat(parts, dim=dim), active, out)
+        groups = self._groups(axes)
+        size = x.local_shape[dim]
+
+        def fwd(loc):
+            out = {}
+            for group, active in groups:
+                dev = self.mesh.device(group[0]) if group[0] in loc \
+                    else self.mesh.device(active[0])
+                stand_in = loc[active[0]]
+                parts = [loc.get(p, stand_in).to(dev) for p in group]
+                self._spread(torch.cat(parts, dim=dim), active, out)
+            return out
+
+        def bwd(gs):
+            return self._scatter(gs, groups, dim, size, axes)
+
         spec = list(x.spec)
         spec[dim] = ()
-        res = Sharded(out, tuple(spec), self.mesh)
+        res = self._collective(x, tuple(spec), fwd, bwd)
         self.log.record("all-gather", axes, _nbytes(res.first))
         return res
 
-    def _reduce(self, x: Sharded, axes: Sequence[str], op,
-                kind: str) -> Sharded:
+    def _scatter(self, local: dict, groups: list, dim: int, size: int,
+                 axes: tuple) -> dict:
+        """Each group's tensors summed in rank order, and each member's
+        ``size`` rows of ``dim`` at its rank, on its device (logged as a
+        reduce-scatter)."""
+        out = {}
+        for group, active in groups:
+            acc = self._sum(local, group, active)
+            if acc is None:
+                continue
+            for p in active:
+                r = group.index(p)
+                out[p] = acc.narrow(dim, r * size, size).to(
+                    self.mesh.device(p))
+        if out:
+            self.log.record("reduce-scatter", axes,
+                            _nbytes(next(iter(out.values()))))
+        return out
+
+    def reduce_scatter(self, x: Sharded, dim: int, axes) -> Sharded:
+        """The sum over the group along ``axes``, in position order, of
+        which each position keeps its rank's block of ``dim`` (``axes``
+        join that dim's spec as its minor axes).  Its gradient is the
+        ``all_gather`` of the blocks' gradients."""
+        axes = tuple(a for a in _axes(axes) if self.mesh.shape[a] > 1)
+        if not axes:
+            return x
+        n = self.group_size(axes)
+        if x.local_shape[dim] % n:
+            raise ValueError(f"dim {dim} of {x.local_shape} does not split "
+                             f"{n} ways")
+        size = x.local_shape[dim] // n
+        groups = self._groups(axes)
+
+        def bwd(gs):
+            out = {}
+            for group, active in groups:
+                if all(gs.get(p) is None for p in active):
+                    continue
+                dev = self.mesh.device(group[0] if group[0] in gs
+                                       else active[0])
+                like = next(g for g in gs.values() if g is not None)
+                parts = []
+                for p in group:
+                    g = gs.get(p if p in self.mesh.active else active[0])
+                    parts.append(torch.zeros_like(like, device=dev)
+                                 if g is None else g.to(dev))
+                self._spread(torch.cat(parts, dim=dim), active, out)
+            if out:
+                self.log.record("all-gather", axes,
+                                _nbytes(next(iter(out.values()))))
+            return out
+
+        spec = None
+        if x.spec is not None:
+            spec = list(x.spec)
+            spec[dim] = spec[dim] + axes
+            spec = tuple(spec)
+        res = self._collective(
+            x, spec, lambda loc: self._scatter(loc, groups, dim, size, axes),
+            bwd)
+        return res
+
+    def psum(self, x: Sharded, axes) -> Sharded:
+        """The sum over the group along ``axes``, in position order.  Its
+        gradient is the ``psum`` of the copies' gradients (a replicated
+        value's gradient is the sum of its copies')."""
+        axes = tuple(a for a in _axes(axes) if self.mesh.shape[a] > 1)
+        if not axes:
+            return x
+        groups = self._groups(axes)
+
+        def reduce(loc, log):
+            out = {}
+            for group, active in groups:
+                acc = self._sum(loc, group, active)
+                if acc is not None:
+                    self._spread(acc, active, out)
+            if log and out:
+                self.log.record("all-reduce", axes,
+                                _nbytes(next(iter(out.values()))))
+            return out
+
+        res = self._collective(x, x.spec, lambda loc: reduce(loc, False),
+                               lambda gs: reduce(gs, True))
+        self.log.record("all-reduce", axes, _nbytes(res.first))
+        return res
+
+    def pmax(self, x: Sharded, axes) -> Sharded:
+        """The maximum over the group along ``axes``, taken in position
+        order; not differentiated (its uses, the softmax shifts, are
+        constants to their gradients)."""
         axes = tuple(a for a in _axes(axes) if self.mesh.shape[a] > 1)
         if not axes:
             return x
         out = {}
         for group, active in self._groups(axes):
-            members = self._members(x, group, active)
+            members = [t.detach() for t in self._members(x, group, active)]
             dev = members[0].device
             acc = members[0]
             for t in members[1:]:
-                acc = op(acc, t.to(dev))
+                acc = torch.maximum(acc, t.to(dev))
             self._spread(acc, active, out)
         res = Sharded(out, x.spec, self.mesh)
-        self.log.record(kind, axes, _nbytes(res.first))
+        self.log.record("all-reduce", axes, _nbytes(res.first))
         return res
-
-    def psum(self, x: Sharded, axes) -> Sharded:
-        """The sum over the group along ``axes``, in position order."""
-        return self._reduce(x, axes, torch.add, "all-reduce")
-
-    def pmax(self, x: Sharded, axes) -> Sharded:
-        return self._reduce(x, axes, torch.maximum, "all-reduce")
 
     def all_to_all(self, x: Sharded, axes, split_dim: int,
                    concat_dim: int) -> Sharded:
         """The tiled ``all_to_all`` over ``axes``: each position splits its
         local along ``split_dim`` into one block per group member, and the
         member of rank r gets every member's r-th block, concatenated along
-        ``concat_dim`` in rank order."""
+        ``concat_dim`` in rank order.  Its gradient is the reverse
+        ``all_to_all`` (``split_dim`` and ``concat_dim`` swapped)."""
         axes = tuple(a for a in _axes(axes) if self.mesh.shape[a] > 1)
         if not axes:
             return x
         n = self.group_size(axes)
-        out = {}
-        for group, active in self._groups(axes):
-            blocks = [t.chunk(n, dim=split_dim)
-                      for t in self._members(x, group, active)]
-            if any(len(b) != n for b in blocks):
-                raise ValueError(f"dim {split_dim} of {x.local_shape} does "
-                                 f"not split {n} ways")
-            for p in active:
-                r, dev = group.index(p), self.mesh.device(p)
-                out[p] = torch.cat([b[r].to(dev) for b in blocks],
-                                   dim=concat_dim)
+        groups = self._groups(axes)
+        if x.local_shape[split_dim] % n:
+            raise ValueError(f"dim {split_dim} of {x.local_shape} does not "
+                             f"split {n} ways")
+
+        def exchange(loc, split, concat, log):
+            out = {}
+            for group, active in groups:
+                present = [loc.get(p) for p in active]
+                if all(t is None for t in present):
+                    continue
+                like = next(t for t in present if t is not None)
+                stand_in = loc.get(active[0])
+                blocks = []
+                for p in group:
+                    t = loc.get(p) if p in self.mesh.active else stand_in
+                    if t is None:
+                        t = torch.zeros_like(like)
+                    blocks.append(t.chunk(n, dim=split))
+                for p in active:
+                    r, dev = group.index(p), self.mesh.device(p)
+                    out[p] = torch.cat([b[r].to(dev) for b in blocks],
+                                       dim=concat)
+            if log and out:
+                self.log.record("all-to-all", axes,
+                                _nbytes(next(iter(out.values()))))
+            return out
+
         spec = None
         if x.spec is not None:
             spec = list(x.spec)
@@ -479,25 +672,32 @@ class Distribution:
                                      if a not in axes)
             spec[split_dim] = spec[split_dim] + axes
             spec = tuple(spec)
-        res = Sharded(out, spec, self.mesh)
+        res = self._collective(
+            x, spec, lambda loc: exchange(loc, split_dim, concat_dim, False),
+            lambda gs: exchange(gs, concat_dim, split_dim, True))
         self.log.record("all-to-all", axes, _nbytes(res.first))
         return res
 
     # ---- resharding ---------------------------------------------------------
     def reshard(self, x, spec: tuple) -> Sharded:
-        """``x`` in the layout ``spec`` (tuples of mesh axes per dim)."""
+        """``x`` in the layout ``spec`` (tuples of mesh axes per dim).  The
+        local slices where a dim becomes sharded are ``narrow``s of each
+        position's own tensor, whose gradient is that tensor's zero
+        padding: a replicated value's copies each get their slice's
+        gradient, and the value's gradient is their sum, as everywhere on
+        the mesh (``Sharded``)."""
         if not isinstance(x, Sharded):
             return self.shard(x, spec)
         cur, tgt = list(x.spec), list(spec)
         if cur == tgt:
             return x
-        # a single axis moving from one dim to another (there the minor
-        # one): one all_to_all
+        # the minor axis of one dim moving to another (there the minor
+        # one too): one all_to_all
         moved = [(d1, d2) for d1 in range(len(cur)) for d2 in range(len(cur))
-                 if d1 != d2 and len(cur[d1]) == 1 and not tgt[d1]
-                 and tgt[d2] == cur[d2] + cur[d1]]
+                 if d1 != d2 and cur[d1] and tgt[d1] == cur[d1][:-1]
+                 and tgt[d2] == cur[d2] + cur[d1][-1:]]
         for d1, d2 in moved[:1]:
-            x = self.all_to_all(x, cur[d1], split_dim=d2, concat_dim=d1)
+            x = self.all_to_all(x, cur[d1][-1:], split_dim=d2, concat_dim=d1)
             cur = list(x.spec)
         # dims leaving their layout are made whole, then cut to the target
         for d in range(len(cur)):
@@ -521,6 +721,103 @@ class Distribution:
         if self.mesh is None:
             return x
         return self.reshard(x, self.layout(*axes, shape=_shape(x)))
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)`` without keeping its activations: the region runs under
+    ``no_grad`` and is one autograd node whose backward runs it again with
+    grad on and backpropagates through it, into the gradients of the
+    tensors among ``args`` (``Sharded`` values and dicts of them are seen
+    through; parameters' blocks among them get theirs).  Every collective
+    in the region runs again and is logged again.  It stands for
+    ``torch.utils.checkpoint``'s non-reentrant form, whose recompute starts
+    at the first saved tensor any thread unpacks: with positions on several
+    devices, one autograd thread per device would start it at once and
+    interleave their recomputed tensors; this node's backward runs once.
+    The meshless paths keep that form: it gives the same bits (the 1 x 1
+    mesh's train step is the meshless one's) but stops recomputing once the
+    last tensor the backward needs is rebuilt, so it skips each layer's
+    down projection, which this node recomputes: on the meshless gemma3-1b
+    step at 4 x 4096 that is 2 B S d_ff d_model flops a layer, 6.8 TFLOP a
+    step, and with this node there the profiled step's matrix products
+    took 177.104 ms against 165.698 (an H100 80GB HBM3 at 700 W,
+    ``chip_smoke.py`` phase 14).
+    Returns what ``fn`` returns (tensors and ``Sharded`` values of it now
+    requiring grad where an input did)."""
+    flat, spec = _pytree.tree_flatten(args)
+    out_spec, extras = [], []
+
+    def run(*leaves):
+        out = fn(*_pytree.tree_unflatten(list(leaves), spec))
+        out_flat, treespec = _pytree.tree_flatten(out)
+        out_spec[:] = [treespec]
+        extras[:] = [None if isinstance(o, torch.Tensor) else o
+                     for o in out_flat]
+        return [o for o in out_flat if isinstance(o, torch.Tensor)]
+
+    outs = iter(_Remat.apply(run, *flat))
+    return _pytree.tree_unflatten(
+        [next(outs) if e is None else e for e in extras], out_spec[0])
+
+
+class _Remat(torch.autograd.Function):
+    """``remat``'s node: forward under ``no_grad``, backward a recompute and
+    a backward through it (a reentrant checkpoint over flat leaves)."""
+
+    @staticmethod
+    def forward(ctx, run, *leaves):
+        ctx.run = run
+        ctx.is_tensor = [isinstance(t, torch.Tensor) for t in leaves]
+        ctx.others = [None if t else leaf
+                      for t, leaf in zip(ctx.is_tensor, leaves)]
+        ctx.save_for_backward(*(leaf for t, leaf in zip(ctx.is_tensor, leaves)
+                                if t))
+        with torch.no_grad():
+            return tuple(run(*leaves))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = iter(ctx.saved_tensors)
+        leaves = []
+        for t, other in zip(ctx.is_tensor, ctx.others):
+            if not t:
+                leaves.append(other)
+                continue
+            x = next(saved)
+            leaves.append(x.detach().requires_grad_(x.requires_grad))
+        with torch.enable_grad():
+            outs = ctx.run(*leaves)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        if pairs:
+            torch.autograd.backward([o for o, _ in pairs],
+                                    [g for _, g in pairs])
+        return (None,) + tuple(
+            (x.grad if isinstance(x, torch.Tensor) and x.requires_grad
+             else None) for x in leaves)
+
+
+class _Collective(torch.autograd.Function):
+    """One collective over every active position as one autograd node:
+    ``fwd`` maps the positions' tensors (in ``mesh.active`` order) to
+    theirs, ``bwd`` the outputs' gradients (None where no loss reached an
+    output) to the inputs' (None: no gradient)."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *xs):
+        ctx.set_materialize_grads(False)
+        ctx.bwd = bwd
+        outs, seen = [], set()
+        for t in fwd(list(xs)):
+            # each position's output is its own tensor, with its own
+            # gradient (one tensor spread to positions on one device)
+            outs.append(t.view_as(t) if id(t) in seen else t)
+            seen.add(id(t))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None) + tuple(ctx.bwd(list(gs)))
 
 
 def _shape(x) -> tuple:

@@ -22,8 +22,22 @@ gathered whole at its use and the experts stay sharded; activations are
 sharded (batch, seq) in prefill and (batch) in decode; the logits are
 vocab-sharded; the caches are (batch, kv_seq)-sharded per position and
 written in place.  ``dist=None`` (or a ``Distribution`` without a mesh)
-is the meshless path below, unchanged.  Training on a mesh raises
-(``MESH_TRAIN``).
+is the meshless path below, unchanged.
+
+Training on a mesh (``forward``, ``forward_hidden`` and ``loss_fn`` with
+``dist``): the activations are sharded (batch, seq) between the layers; the
+attention runs in ``cfg.attn_layout`` (``models/attention.py``); with
+``cfg.remat`` each layer is checkpointed with its weights gathered inside
+it, so that the backward's recompute gathers them again (and logs those
+collectives) rather than keep them.  ZeRO-3 leaves (dim 0 sharded over
+"data", the stacked layers' too) are fetched one layer at a time
+(``Distribution.select``).  The CE reads whole sequences: the hidden state
+is gathered along its sequence, each position multiplies by its vocab
+shard, the logsumexp is a ``pmax`` (a constant shift) and a ``psum`` of
+the exp-sums over the vocab axes, the label's logit comes from the shard
+that owns it, and the CE's sum and count are summed over the batch axes;
+the loss is replicated on every position, and a caller seeds its gradient
+once (``launch.train.train_step``).
 
 Training: ``loss_fn`` is the reference's next-token cross entropy.  With
 ``cfg.remat`` each layer of a ``mode="train"`` forward runs under
@@ -45,7 +59,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import flash_attention, rms_norm, rope, swiglu_mlp
 from repro_torch.models.params import Def
-from repro_torch.models.sharding import MESH_TRAIN, no_mesh, on_mesh
+from repro_torch.models.sharding import on_mesh, remat
 from repro_torch.utils import resolve_device
 
 BIG_WINDOW = 1 << 30  # "no window": the global layers' window
@@ -102,11 +116,15 @@ def _layer(params: dict, l: int) -> dict:
 def embed_tokens(cfg: ModelConfig, params: dict, tokens,
                  dtype: torch.dtype = torch.bfloat16, *, dist=None):
     """The tokens' embedding rows in ``dtype``; on a mesh, the
-    vocab-sharded lookup (module doc), constrained (batch, seq, embed)."""
+    vocab-sharded lookup (module doc), constrained (batch, seq, embed).
+    Its gradient is each position's scatter-add into the rows it holds
+    (the ``psum``'s transpose sums the copies' gradients first): the
+    table's gradient stays vocab-sharded, both for ``embed_gather="auto"``
+    and ``"shard_map"``, which take this one path."""
     if not on_mesh(dist):
         return params["embed"][tokens.long()].to(dtype)
     tokens = dist.constrain(tokens, "batch", None)
-    table = params["embed"]  # (vocab, embed): "embed" is never sharded
+    table = dist.gather_all(params["embed"], keep=0)  # (vocab, embed)
     vax = table.spec[0]
     if not vax:
         x = dist.map(lambda tab, toks: tab[toks.long()].to(dtype), table,
@@ -135,11 +153,13 @@ def unembed(cfg: ModelConfig, params: dict, x, *, dist=None):
         if w is None:  # tied: the embedding's transpose
             return x @ params["embed"].to(x.dtype).T
         return x @ w.to(x.dtype)
-    if w is None:  # (vocab, embed): "embed" is never sharded
-        tab = params["embed"]
+    x = dist.constrain(x, "batch", None, "embed")
+    if w is None:  # (vocab, embed)
+        tab = dist.gather_all(params["embed"], keep=0)
         logits = dist.map(lambda xi, ti: xi @ ti.to(xi.dtype).T, x, tab,
                           spec=x.spec[:-1] + (tab.spec[0],))
     else:
+        w = dist.gather_all(w, keep=1)
         logits = dist.map(lambda xi, wi: xi @ wi.to(xi.dtype), x, w,
                           spec=x.spec[:-1] + (w.spec[1],))
     return dist.constrain(logits, "batch", None, "vocab")
@@ -159,11 +179,10 @@ def _mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor, mode: str):
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             dist=None):
     """Full-sequence forward.  Returns (logits (B, S, V), aux loss: the
-    layers' mean router loss, 0.0 for a dense config).  Not on a mesh
-    (``MESH_TRAIN``)."""
-    no_mesh(dist, MESH_TRAIN)
-    x, aux = forward_hidden(cfg, params, tokens)
-    return unembed(cfg, params, x), aux
+    layers' mean router loss, 0.0 for a dense config); on a mesh the logits
+    (batch, None, vocab)-sharded and aux replicated."""
+    x, aux = forward_hidden(cfg, params, tokens, dist=dist)
+    return unembed(cfg, params, x, dist=dist), aux
 
 
 def _block(cfg: ModelConfig, p: dict, x: torch.Tensor, window: int,
@@ -183,8 +202,9 @@ def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     dispatch (``"train"``/``"prefill"``: capacity buffers; ``"decode"``:
     dense).  With ``cfg.remat`` and ``mode == "train"`` each layer is
     checkpointed when autograd records (nothing to recompute otherwise).
-    Not on a mesh (``MESH_TRAIN``)."""
-    no_mesh(dist, MESH_TRAIN)
+    On a mesh: ``forward_hidden_mesh``."""
+    if on_mesh(dist):
+        return forward_hidden_mesh(cfg, params, tokens, mode=mode, dist=dist)
     x = embed_tokens(cfg, params, tokens)
     window, theta = layer_flags(cfg)
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
@@ -205,7 +225,11 @@ def _ce(cfg: ModelConfig, params: dict, x: torch.Tensor,
         labels: torch.Tensor):
     """(sum of the token CEs, number of tokens) over the unmasked labels
     (labels < 0 are masked), from f32 logits."""
-    logits = unembed(cfg, params, x).float()
+    return _ce_terms(unembed(cfg, params, x), labels)
+
+
+def _ce_terms(logits: torch.Tensor, labels: torch.Tensor):
+    logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
@@ -220,9 +244,10 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, dist=None):
     With ``cfg.loss_chunk`` > 0 dividing S (and S > the chunk), the CE is
     summed chunk by chunk along the sequence, in order, as the reference's
     scan sums it; under autograd each chunk is checkpointed, so that only
-    one chunk's logits exist at a time in the backward too.  Not on a
-    mesh (``MESH_TRAIN``)."""
-    no_mesh(dist, MESH_TRAIN)
+    one chunk's logits exist at a time in the backward too.  On a mesh:
+    ``loss_fn_mesh``."""
+    if on_mesh(dist):
+        return loss_fn_mesh(cfg, params, batch, dist=dist)
     hidden, aux = forward_hidden(cfg, params, batch["tokens"], mode="train")
     labels = batch["labels"]
     S = hidden.shape[1]
@@ -319,7 +344,8 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 
 def _layer_at_use(cfg: ModelConfig, params: dict, l: int, dist) -> dict:
     """Layer ``l``'s weights at use: each gathered whole on every position,
-    but the experts, which keep their shards."""
+    but the experts, which keep their shards (ZeRO-3's layer dim: only
+    layer ``l``, from the position that holds it)."""
     experts = ("w_gate", "w_up", "w_down") if cfg.n_experts > 0 else ()
     return {k: (dist.select(v, l) if k in experts
                 else dist.gather_all(dist.select(v, l)))
@@ -334,19 +360,21 @@ def _norm(cfg: ModelConfig, x, scale, dist):
 def _mlp_block_mesh(cfg: ModelConfig, p: dict, x, mode: str, dist,
                     seq_axis):
     """``_mlp_block`` on a mesh: the FFN behind its pre-norm and residual
-    add, the sum constrained (batch, seq_axis, embed).  The dense MLP's
-    hidden dim is constrained to "ff" as in the reference (in decode it
-    shards there, and the down projection sums its partial products)."""
+    add, the sum constrained (batch, seq_axis, embed); (x, aux), aux the
+    MoE's router loss (replicated) or 0.0.  The dense MLP's hidden dim is
+    constrained to "ff" as in the reference (in decode it shards there,
+    and the down projection sums its partial products)."""
     h = _norm(cfg, x, p["mlp_norm"], dist)
+    aux = 0.0
     if cfg.n_experts > 0:
-        y, _ = moe_mod.moe_block_mesh(cfg, p, h, dist=dist, mode=mode)
+        y, aux = moe_mod.moe_block_mesh(cfg, p, h, dist=dist, mode=mode)
     else:
         u = dist.map(lambda pi, hi: F.silu(hi @ pi["w_gate"].to(hi.dtype))
                      * (hi @ pi["w_up"].to(hi.dtype)), p, h, spec=h.spec)
         u = dist.constrain(u, "batch", seq_axis, "ff")
         y = dist.matmul(u, p["w_down"])
     x = dist.map(torch.add, x, y, spec=x.spec)
-    return dist.constrain(x, "batch", seq_axis, "embed")
+    return dist.constrain(x, "batch", seq_axis, "embed"), aux
 
 
 def _last_position(x, dist):
@@ -377,7 +405,7 @@ def prefill_mesh(cfg: ModelConfig, params: dict, tokens, *,
         a, k, v = attn.self_attention_mesh(cfg, p, h, dist=dist,
                                            window=window[l], theta=theta[l])
         x = dist.map(torch.add, x, a, spec=x.spec)
-        x = _mlp_block_mesh(cfg, p, x, "prefill", dist, "seq")
+        x, _ = _mlp_block_mesh(cfg, p, x, "prefill", dist, "seq")
         full = (B, max_len) + k.shape[2:]
         spec = dist.layout("batch", "kv_seq", None, None, shape=full)
         if spec[0] != k.spec[0] or k.spec[1]:
@@ -395,7 +423,7 @@ def prefill_mesh(cfg: ModelConfig, params: dict, tokens, *,
                 hi = min(S, lo + c.shape[2])
                 if hi > lo:
                     c[l, :, :hi - lo] = kv.local(i)[:, lo:hi]
-    x = _norm(cfg, x, params["final_norm"], dist)
+    x = _norm(cfg, x, dist.gather_all(params["final_norm"]), dist)
     return unembed(cfg, params, _last_position(x, dist), dist=dist), cache
 
 
@@ -415,6 +443,133 @@ def decode_step_mesh(cfg: ModelConfig, params: dict, cache: dict, tokens,
             cfg, p, h, layer_cache, pos, dist=dist, window=window[l],
             theta=theta[l])
         x = dist.map(torch.add, x, a, spec=x.spec)
-        x = _mlp_block_mesh(cfg, p, x, "decode", dist, None)
-    x = _norm(cfg, x, params["final_norm"], dist)
+        x, _ = _mlp_block_mesh(cfg, p, x, "decode", dist, None)
+    x = _norm(cfg, x, dist.gather_all(params["final_norm"]), dist)
     return unembed(cfg, params, x, dist=dist), cache
+
+
+# ------------------------------------------------------ mesh training ----
+
+def _block_mesh(cfg: ModelConfig, params: dict, l: int, x, window: int,
+                theta: float, mode: str, dist):
+    """Layer ``l`` on a mesh, its weights gathered at use inside it (a
+    checkpointed layer's recompute gathers them again): (x, aux)."""
+    p = _layer_at_use(cfg, params, l, dist)
+    h = _norm(cfg, x, p["attn_norm"], dist)
+    a = attn.self_attention_mesh(cfg, p, h, dist=dist, window=window,
+                                 theta=theta, mode=mode)[0]
+    x = dist.map(torch.add, x, a, spec=x.spec)
+    return _mlp_block_mesh(cfg, p, x, mode, dist, "seq")
+
+
+def forward_hidden_mesh(cfg: ModelConfig, params: dict, tokens, *,
+                        mode: str = "train", dist):
+    """``forward_hidden`` on ``dist``'s mesh: (hidden (B, S, D) sharded
+    (batch, seq), aux replicated or 0.0).  With ``cfg.remat`` and ``mode ==
+    "train"`` each layer runs under ``models.sharding.remat`` (one autograd
+    node that reruns the layer on its ``Sharded`` arguments in the
+    backward) when autograd records."""
+    x = embed_tokens(cfg, params, tokens, dist=dist)
+    window, theta = layer_flags(cfg)
+    recompute = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    aux = 0.0
+    for l in range(cfg.n_layers):
+        if recompute:
+            x, a = remat(_block_mesh, cfg, params, l, x, window[l],
+                         theta[l], mode, dist)
+        else:
+            x, a = _block_mesh(cfg, params, l, x, window[l], theta[l], mode,
+                               dist)
+        if cfg.n_experts > 0:
+            aux = dist.map(lambda s, t: s + t, aux, a, spec=())
+    x = _norm(cfg, x, dist.gather_all(params["final_norm"]), dist)
+    if cfg.n_experts > 0:
+        aux = dist.map(lambda t: t / cfg.n_layers, aux, spec=())
+    else:
+        aux = aux / cfg.n_layers
+    return x, aux
+
+
+def _ce_mesh(cfg: ModelConfig, params: dict, x, labels, dist):
+    """(CE sum, token count) of each position's rows, replicated over the
+    vocab axes: ``_ce`` where the vocab is whole, else the logsumexp from a
+    ``pmax`` shift and a ``psum`` of the exp-sums over the vocab axes and
+    the label's logit ``psum``-med from the shard that holds it."""
+    logits = unembed(cfg, params, x, dist=dist)
+    vax = logits.spec[2]
+    if not vax:
+        return dist.map(_ce_terms, logits, labels, spec=((), ()))
+    lf = dist.map(lambda t: t.float(), logits, spec=logits.spec)
+    row = labels.spec
+    with torch.no_grad():
+        m = dist.pmax(dist.map(lambda t: t.amax(-1), lf, spec=row), vax)
+    es = dist.psum(dist.map(lambda t, mi: torch.exp(t - mi[..., None]).sum(
+        -1), lf, m, spec=row), vax)
+    V_loc = logits.local_shape[2]
+
+    def label_logit(i, t, lab):
+        loc = lab.clamp_min(0).long() - dist.mesh.rank(i, vax) * V_loc
+        ok = (loc >= 0) & (loc < V_loc)
+        g = torch.gather(t, -1, loc.clamp(0, V_loc - 1)[..., None])[..., 0]
+        return torch.where(ok, g, torch.zeros((), dtype=g.dtype,
+                                              device=g.device))
+
+    ll = dist.psum(dist.map(label_logit, lf, labels, pos=True, spec=row),
+                   vax)
+
+    def terms(e, mi, li, lab):
+        mask = (lab >= 0).float()
+        return ((mi + torch.log(e) - li) * mask).sum(), mask.sum()
+
+    return dist.map(terms, es, m, ll, labels, spec=((), ()))
+
+
+def _ce_chunk(cfg: ModelConfig, head: dict, se, cnt, h, labels, dist):
+    """The running CE sum and count with one more chunk's added."""
+    s_c, n_c = _ce_mesh(cfg, head, h, labels, dist)
+    return (dist.map(torch.add, se, s_c, spec=()),
+            dist.map(torch.add, cnt, n_c, spec=()))
+
+
+def loss_fn_mesh(cfg: ModelConfig, params: dict, batch: dict, *, dist):
+    """``loss_fn`` on ``dist``'s mesh: tokens and labels (B, S) plain or
+    ``Sharded``; ``params`` laid out by ``params.shard_params`` (ZeRO-3's
+    layout too).  The CE's rows are whole sequences (the logits'
+    (batch, None, vocab) layout), cut into ``cfg.loss_chunk`` chunks as
+    the meshless path cuts them, each checkpointed; the sum and count are
+    ``psum``-med over the batch axes.  Returns (loss, {"ce", "aux"}), each
+    replicated on every position (``Sharded`` scalars; aux 0.0 for a dense
+    config)."""
+    hidden, aux = forward_hidden_mesh(cfg, params, batch["tokens"],
+                                      mode="train", dist=dist)
+    hidden = dist.constrain(hidden, "batch", None, "embed")
+    labels = dist.constrain(batch["labels"], "batch", None)
+    if labels.spec[0] != hidden.spec[0]:
+        raise ValueError(f"labels laid out {labels.spec}, the hidden state "
+                         f"{hidden.spec}")
+    S = hidden.shape[1]
+    chunk = cfg.loss_chunk
+    if chunk and S % chunk == 0 and S > chunk:
+        se = cnt = dist.map(lambda t: torch.zeros(
+            (), dtype=torch.float32, device=t.device), hidden, spec=())
+        head = {k: params[k] for k in ("embed", "lm_head") if k in params}
+        for c in range(0, S, chunk):
+            h = dist.map(lambda t: t[:, c:c + chunk], hidden,
+                         spec=hidden.spec)
+            lab = dist.map(lambda t: t[:, c:c + chunk], labels,
+                           spec=labels.spec)
+            # the running sums go through each chunk's region, so that the
+            # backward runs the chunks one after the other, last first,
+            # whatever the binding: the head's gradients meet in its
+            # leaves in that order (as one thread meets them)
+            if torch.is_grad_enabled():
+                se, cnt = remat(_ce_chunk, cfg, head, se, cnt, h, lab, dist)
+            else:
+                se, cnt = _ce_chunk(cfg, head, se, cnt, h, lab, dist)
+    else:
+        se, cnt = _ce_mesh(cfg, params, hidden, labels, dist)
+    se = dist.psum(se, hidden.spec[0])
+    cnt = dist.psum(cnt, hidden.spec[0])
+    ce = dist.map(lambda s_, n_: s_ / n_.clamp_min(1.0), se, cnt, spec=())
+    loss = dist.map(lambda c_, a_: c_ + 0.01 * a_, ce, aux, spec=())
+    return loss, {"ce": ce, "aux": aux}

@@ -440,7 +440,8 @@ def _emulate_wgmma_bwd(q, k, v, o, lse, do, *, causal, window, stats=None):
     lse2 = lse * log2(e) (f32) and D = rowsum(do * o): p = 2^(s c - lse2),
     0 where the key is not visible and on rows that are no real row (lse2 =
     +inf, D = 0); p rounded to bf16 for dv += p^T do; ds = p (dp - D)
-    rounded to bf16 for dk += ds^T q and dq += ds k.  dk and dv: one
+    as two bf16 parts, hi = bf16(ds) and lo = bf16(ds - hi), for dk +=
+    hi^T q, then lo^T q, and dq += hi k, then lo k.  dk and dv: one
     (key tile) walk over every head block's query tiles that can see it,
     in order; dq: query tiles in pairs (2 u, 2 u + 1) as a dq CTA owns
     them, each tile summing, in one sum in key-tile order, every key tile
@@ -510,7 +511,8 @@ def _emulate_wgmma_bwd(q, k, v, o, lse, do, *, causal, window, stats=None):
                         p = torch.where(visible(pos, j).T, p, 0.0)
                         acc_v = _dh_acc(acc_v, bf(p), dO)
                         ds = p * (_dh_dot(V, dO) - D[None, :])
-                        acc_k = _dh_acc(acc_k, bf(ds), Q)
+                        acc_k = _dh_acc(_dh_acc(acc_k, bf(ds), Q),
+                                        bf(ds - bf(ds)), Q)
                 dk[b, j0:j0 + T, hk] = acc_k * dk_mul
                 dv[b, j0:j0 + T, hk] = acc_v
             for hb in range(HB):
@@ -533,7 +535,8 @@ def _emulate_wgmma_bwd(q, k, v, o, lse, do, *, causal, window, stats=None):
                         p = torch.where(vis, torch.exp2(
                             _dh_dot(Q, K) * c - l2[:, None]), 0.0)
                         ds = p * (_dh_dot(dO, V) - D[:, None])
-                        acc = _dh_acc(acc, bf(ds), K)
+                        acc = _dh_acc(_dh_acc(acc, bf(ds), K),
+                                      bf(ds - bf(ds)), K)
                     out = acc * dq_mul
                     for r in torch.nonzero(ok).flatten().tolist():
                         dq[b, t * P + r // Gt, hk * G + hb * Gt + r % Gt] = \
@@ -562,8 +565,8 @@ def test_wgmma_bwd_arithmetic_matches_the_exact_gradient(B, Sq, Sk, Hq, Hkv,
     """The emulation against the f64 exact gradient by the card's rule:
     per gradient, max error over max |g| within twice the plain version's
     plus 1e-3 (both round q * scale, p and the outputs to bf16; the route
-    also rounds ds, takes exp2 of lse * log2(e) and sums its tiles in
-    another order)."""
+    also takes ds as two bf16 parts, takes exp2 of lse * log2(e) and sums
+    its tiles in another order)."""
     q, k, v = _qkv(Sq + Dh + Hq, B, Sq, Hq, Hkv, Dh, torch.bfloat16, Sk=Sk)
     do = _randn(np.random.default_rng(Sk), tuple(q.shape), torch.bfloat16)
     o, lse = tref.flash_attention(q, k, v, causal=causal, window=window,
@@ -965,9 +968,9 @@ def test_cuda_flash_bwd_matches_plain_version_and_exact_gradient(
         cuda_device, B, S, Hq, Hkv, Dh, window, causal, Sk):
     """The backward kernel against the f64 exact gradient: per gradient its
     max error over max |g| within twice the plain version's plus 1e-3 (both
-    round q * scale, p and the outputs to bf16; the kernel also rounds ds
-    and sums in another order: measured at most 1.6x the plain version's
-    on an H100 80GB HBM3 at 700 W).  o and lse come from the forward
+    round q * scale, p and the outputs to bf16; the kernel also takes ds as
+    two bf16 parts (wgmma) or rounds it (mma_sync) and sums in another
+    order).  o and lse come from the forward
     kernel, as in training, within the forward's tolerances of the plain
     forward's; the plain backward reads the plain forward's, so a wrong lse
     fails the limit rather than raise it.  Two calls give the same bits;

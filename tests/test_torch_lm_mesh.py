@@ -536,11 +536,30 @@ def test_offset_counts_the_visible_pairs():
 
 
 def test_offset_under_autograd_raises_with_the_roadmap_item():
-    q = torch.randn(1, 8, 2, 16, requires_grad=True)
-    k = torch.randn(1, 16, 2, 16)
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        fa.flash_attention(q, k, k, q_offset=8)
-    fa.flash_attention(q, k, k, q_offset=4, kv_offset=4).sum().backward()
+    """The offset under autograd no longer raises (it was ROADMAP queue 1,
+    item 13): the gradient of a query block at its offset is the
+    full-sequence gradient with the cotangent on the block's rows only
+    (dq those rows; dk and dv the block's share), within f32 rounding."""
+    g = torch.Generator().manual_seed(13)
+    q = torch.randn(1, 16, 2, 16, generator=g, dtype=torch.float64).float()
+    k = torch.randn(1, 16, 2, 16, generator=g)
+    v = torch.randn(1, 16, 2, 16, generator=g)
+    do = torch.randn(1, 8, 2, 16, generator=g)
+    for window in (0, 5):
+        leaves = [t.clone().requires_grad_() for t in (q[:, 8:], k, v)]
+        out = fa.flash_attention(*leaves, q_offset=8, window=window)
+        got = torch.autograd.grad(out, leaves, do)
+        full = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref_out = fa.flash_attention(*full, window=window)
+        cot = torch.zeros_like(ref_out)
+        cot[:, 8:] = do
+        want = torch.autograd.grad(ref_out, full, cot)
+        torch.testing.assert_close(out, ref_out[:, 8:], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got[0], want[0][:, 8:], rtol=1e-5,
+                                   atol=1e-5)
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    fa.flash_attention(*leaves, q_offset=4, kv_offset=4).sum().backward()
 
 
 # --------------------------------------------------------- collective log --
@@ -668,9 +687,10 @@ def test_dryrun_mesh_multi_records_a_tiny_cell(tmp_path, monkeypatch):
     """``--mesh multi``: a 2-layer gemma3-1b decode cell at full width on
     the 2 x 16 x 16 production mesh (every position on meta, one standing
     for all): the reference's keys, each position's memory, collectives
-    with their wire bytes and ``collective_s``; train cells and the other
-    families get a ``not_ported`` record with the ROADMAP item (the CLI
-    exits non-zero on one), the sweep counts them apart."""
+    with their wire bytes and ``collective_s``; the other families get a
+    ``not_ported`` record with the ROADMAP item (the CLI exits non-zero on
+    one), the sweep counts them apart (train cells run:
+    ``tests/test_torch_lm_mesh_train.py``)."""
     rec = dryrun.run_cell("gemma3-1b", "decode_32k", "multi",
                           shape=ShapeConfig("decode_32k", 512, 32, "decode"),
                           overrides={"n_layers": 2})
@@ -691,33 +711,28 @@ def test_dryrun_mesh_multi_records_a_tiny_cell(tmp_path, monkeypatch):
     # the position's cache: (2, 32/32, 512/16, 1, 256) bf16 for k and v
     cache = 2 * 2 * 1 * (512 // 16) * 1 * 256 * 2
     assert mem["argument_bytes"] >= cache
-    for arch, shape in (("gemma3-1b", "train_4k"),
+    for arch, shape in (("mamba2-780m", "train_4k"),
                         ("mamba2-780m", "decode_32k")):
         rec = dryrun.run_cell(arch, shape, "multi")
         assert rec["status"] == "not_ported"
-        assert "ROADMAP queue 1, item 1" in rec["reason"]
+        assert "ROADMAP queue 1, item 14" in rec["reason"]
     monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
-    with pytest.raises(SystemExit, match="item 13"):
-        dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k",
+    with pytest.raises(SystemExit, match="item 14"):
+        dryrun.main(["--arch", "zamba2-1.2b", "--shape", "train_4k",
                      "--mesh", "multi"])
     rec = json.loads(next(tmp_path.iterdir()).read_text())
     assert rec["status"] == "not_ported"
 
 
 def test_training_and_other_families_raise_on_a_mesh():
-    """What is not ported on a mesh raises with its ROADMAP item:
-    training (``loss_fn``, ``forward``, a train cell) and the SSM and
-    encoder-decoder families (item 14)."""
+    """What is not ported on a mesh raises with its ROADMAP item: the SSM
+    and encoder-decoder families (item 14), serving and training (training
+    the transformer families on a mesh runs:
+    ``tests/test_torch_lm_mesh_train.py``)."""
     dist = _dist()
     cfg = get_config("gemma3-1b", smoke=True)
     batch = {"tokens": torch.zeros(2, 8, dtype=torch.long),
              "labels": torch.zeros(2, 8, dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        transformer.loss_fn(cfg, {}, batch, dist=dist)
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        transformer.forward(cfg, {}, batch["tokens"], dist=dist)
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        specs.build_cell(cfg, ShapeConfig("t", 8, 2, "train"), dist.mesh)
     scfg = get_config("mamba2-780m", smoke=True)
     with pytest.raises(NotImplementedError, match="queue 1, item 14"):
         ssm_lm.prefill(scfg, {}, batch["tokens"], dist=dist)

@@ -444,23 +444,24 @@ def test_variant_records_have_their_own_file(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_a_mesh(tmp_path):
-    """What a mesh does not run yet: the CLI exits non-zero on a train cell
-    on ``--mesh multi`` and names the ROADMAP item (a serving cell of the
-    transformer families runs: ``tests/test_torch_lm_mesh.py``), and
-    ``build_cell`` refuses one, and any mesh that is not an ``LMMesh``."""
+    """What a mesh does not run yet: the CLI exits non-zero on a cell of
+    the SSM family on ``--mesh multi`` and names the ROADMAP item (the
+    transformer families' cells run: ``tests/test_torch_lm_mesh.py`` and
+    ``tests/test_torch_lm_mesh_train.py``), and ``build_cell`` refuses one,
+    and any mesh that is not an ``LMMesh``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                        "--arch", "gemma3-1b", "--shape", "train_4k",
+                        "--arch", "mamba2-780m", "--shape", "train_4k",
                         "--mesh", "multi", "--out", str(tmp_path / "r.json")],
                        cwd=ROOT, env=env, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode != 0
-    assert "queue 1, item 13" in r.stderr
+    assert "queue 1, item 14" in r.stderr
     assert json.loads((tmp_path / "r.json").read_text())["status"] == \
         "not_ported"
     mesh = make_debug_mesh(devices="meta")
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        specs.build_cell(get_config("gemma3-1b", smoke=True),
+    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
+        specs.build_cell(get_config("mamba2-780m", smoke=True),
                          ShapeConfig("t", 8, 2, "train"), mesh=mesh)
     with pytest.raises(TypeError, match="LMMesh"):
         specs.build_cell(get_config("gemma3-1b", smoke=True),

@@ -195,15 +195,19 @@ def test_meshes_bind_and_refuse_as_documented():
     ((("data",), ("model",)), (("data", "model"), ()), ["all-to-all"]),
     ((("data",), ("model",)), ((), ()), ["all-gather", "all-gather"]),
     ((("data",), ()), ((), ("data",)), ["all-to-all"]),
-    (((), ("data", "model")), (("model",), ("data",)), ["all-gather"]),
+    (((), ("data", "model")), (("model",), ("data",)), ["all-to-all"]),
+    ((("data", "model"), ()), (("data",), ("model",)), ["all-to-all"]),
+    ((("model",), ("data",)), ((), ("data", "model")), ["all-to-all"]),
+    ((("data", "model"), ()), (("model",), ("data",)), ["all-gather"]),
 ])
 def test_reshard_keeps_the_value_and_logs_its_collectives(start, target,
                                                           kinds):
     """``Distribution.reshard`` (what ``constrain`` runs): a dim made whole
     is all-gathered (one call over all its axes), a dim newly split is cut
-    locally, a single axis moving from one dim to another (as its minor
-    axis there) is one all_to_all; the global value never changes, and only
-    those collectives are logged."""
+    locally, the minor axis of one dim moving to another (as its minor
+    axis there) is one all_to_all (the ``batch_full`` attention's way back
+    to (batch, seq)); the global value never changes, and only those
+    collectives are logged."""
     dist = sharding.Distribution(tmesh.make_debug_mesh(devices="cpu"))
     full = torch.arange(8 * 12, dtype=torch.float32).reshape(8, 12)
     x = dist.shard(full, start)
