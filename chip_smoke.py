@@ -400,6 +400,33 @@ result line):
    only at near ties.  29d: dbrx-132b's ``train_4k`` accounted per
    position on the 2 x 16 x 16 meta mesh under ``MESH_TRAIN_DBRX``,
    whether it fits a position printed.
+30. The SSM, hybrid and encoder-decoder families over a mesh, every
+   position on ``cuda:0``.  30c first (``family_offset_phase``): the
+   attention at those meshes' per-position shapes (``MESH_FAMILY_CASES``:
+   zamba2's shared block causal at its block's offset, seamless's encoder
+   and cross attention not causal, the offset passed and ignored, the
+   cross attention's query block a slice of the 128-token target over 1024
+   encoder keys; the smoke configs' Dh 16 on ``mma_sync``), forward held
+   to its plain version on its routes, backward by ``check_backward``'s
+   rule on its own route, both timed beside offset 0, the plain versions,
+   SDPA and the bound.  30a (``family_mesh_phase``, ``MESH_FAMILY_SERVE``):
+   mamba2-780m under ``head_tp`` and ``seq_sp`` and zamba2-1.2b on a 2 x 2
+   (data, model) mesh, seamless-m4t-large-v2 on 1 x 4, full size, 4 x 1024
+   prompts (frames), 8 greedy tokens, each ``generate`` held to its
+   meshless run by ``greedy_held`` (prefill within ``MESH_TOL``, decode by
+   the log-softmax gap ``LM_DECODE_GAP``), one ``flash_attention`` launch
+   per attention call of a prefill and position, all ``wgmma``; prefill
+   ms, decode ms a step, peak memory, collectives.  30x: mamba2's mesh
+   with each position on its own card, bitwise the one-card mesh, where
+   the host has four cards (otherwise it prints why not).  30b
+   (``MESH_FAMILY_TRAIN``): at full width on a cut depth, 2 steps at 4 x
+   1024 on 2 x 2 (remat, AdamW with the state handed over): mamba2-780m
+   under ``seq_sp_mixer`` (12 of 48 layers), zamba2-1.2b (12 of 38 layers,
+   2 places of its shared block), seamless-m4t-large-v2 under
+   ``sp_attn+zero3+chunked_loss`` (6 + 6 of 24 + 24 layers); step 1's
+   layer-0 gradients against the meshless within ``MESH_GRAD_REL``, each
+   loss within ``MESH_TRAIN_LOSS_TOL``; step ms, tokens/s, peak memory,
+   the collectives of a step.
 
 Every kernel's launch count is zeroed just before each of the serve,
 train, parity, unfused, shard, shard-parity, store-train (each of its 5
@@ -409,9 +436,10 @@ lm-train-parity, moe-serve, moe-parity, ssm-serve, hybrid-serve,
 audio-serve, vlm-serve, family-parity, ssm-train, hybrid-train,
 audio-train, moe-train, vlm-train, train-parity, dryrun-* (each cell of
 phase 25), <arch>-serve and <arch>-train (phase 26), narrow-stablelm,
-mesh-<arch> (phase 28; mesh-<arch>-x in 28x) and mesh-train-<arch>
-(phase 29; mesh-train-gemma3-1b-sp_attn+zero1 for the second layout)
-phases and read just after, with
+mesh-<arch> (phases 28 and 30; mesh-<arch>-x in 28x and 30x,
+mesh-mamba2-780m-seq_sp_mixer for the second mixer layout) and
+mesh-train-<arch> (phases 29 and 30; mesh-train-gemma3-1b-sp_attn+zero1
+for the second layout) phases and read just after, with
 the launches by route; ``sage_aggregate``'s stay 0 (no path runs it), and
 ``routed_neighbor_sample`` launches once per device-sampling spec build,
 on its ``chain`` route, except in the stepwise run, where it launches once
@@ -423,6 +451,8 @@ kernel and shape 100 -> 50 (``TIMED_LAUNCHES``); phase 6 trains 7 steps (was
 train 2 steps (3); phase 25 times 1 train and 1 prefill call and 2 decode
 steps after the counted call (2, 2, 4); phase 28 decodes 16 and 4 tokens
 (32, 8).  ``mesh_train_accounting`` runs in a subprocess beside phases 11-28.
+Phase 30 came in without a cut elsewhere: its own depth cuts are 30b's
+(``MESH_FAMILY_TRAIN``), and 30a runs 4 x 1024 prompts and 8 tokens.
 A ``[time]`` line gives each phase's start on the host clock.  The last
 three lines are the card's name and power limit, the
 ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
@@ -778,6 +808,48 @@ MESH_GRAD_REL = 5e-2
 # under these variants (a subprocess started before phase 11, beside the
 # card's phases: about 40 s each on one CPU core)
 MESH_TRAIN_DBRX = ("baseline", "sp_attn+zero3+chunked_loss")
+# phase 30, the SSM, hybrid and encoder-decoder families over a mesh (every
+# position on cuda:0), serving at full width and depth: (arch, variant,
+# mesh shape, batch, prompt (frames for the encoder-decoder), new tokens);
+# each sequence block a whole number of SSD chunks under seq_sp (512 = 2
+# chunks of 256 on "model" = 2)
+MESH_FAMILY_SERVE = (
+    ("mamba2-780m", "baseline", (2, 2), 4, 1024, 8),
+    ("mamba2-780m", "seq_sp_mixer", (2, 2), 4, 1024, 8),
+    ("zamba2-1.2b", "baseline", (2, 2), 4, 1024, 8),
+    ("seamless-m4t-large-v2", "baseline", (1, 4), 4, 1024, 8))
+# training at full width on a cut depth (layers kept; the encoder-decoder's
+# encoder and decoder each), 2 steps: (arch, variant, mesh shape, batch,
+# seq, layers); zamba2's 12 layers hold 2 places of its shared block
+MESH_FAMILY_TRAIN = (
+    ("mamba2-780m", "seq_sp_mixer", (2, 2), 4, 1024, 12),
+    ("zamba2-1.2b", "baseline", (2, 2), 4, 1024, 12),
+    ("seamless-m4t-large-v2", "sp_attn+zero3+chunked_loss", (2, 2), 4, 1024,
+     6))
+MESH_FAMILY_STEPS = 2
+# 30a's criterion: the meshless run itself, on each half of the batch alone
+# (only its products' row counts change), moves these full-width models'
+# logits beyond MESH_TOL and LM_DECODE_GAP (decode log-softmax gaps up to
+# 0.7274 for mamba2-780m, 0.1777 for zamba2-1.2b, 0.1404 for
+# seamless-m4t-large-v2, whose prefill moves by 0.0742; tools/
+# mesh_decode_spread.py on an H100 80GB HBM3 at 700 W); so the mesh's
+# teacher-forced prefill is held to MESH_TOL, and each decode step's gap to
+# LM_DECODE_GAP, each plus this many times that meshless spread at the
+# step, measured in the same run
+MESH_FAMILY_SPREAD_K = 2
+# phase 30c: the attention at the per-position shapes of those meshes, the
+# last sequence block of each: zamba2's shared block (2 x 2, 4 x 1024),
+# seamless's encoder (1 x 4, 1024 frames: non-causal, the offset passed and
+# ignored) and its cross attention (the decoder's 128 tokens over 1024
+# encoder slots); then the smoke configs' Dh 16 (mma_sync) at the CPU
+# tests' 2 x 2 shapes: (name, q shape, Sk, Hkv, window, q_offset, causal)
+MESH_FAMILY_CASES = (
+    ("fam_zamba2_q512_at512", (2, 512, 32, 64), 1024, 32, 0, 512, True),
+    ("fam_seamless_enc_q256_at768", (4, 256, 16, 64), 1024, 16, 0, 768,
+     False),
+    ("fam_seamless_cross_q32_at96", (4, 32, 16, 64), 1024, 16, 0, 96, False),
+    ("fam_smoke_enc_q32_at32_dh16", (2, 32, 4, 16), 64, 4, 0, 32, False),
+    ("fam_smoke_cross_q8_at8_dh16", (2, 8, 4, 16), 64, 4, 0, 8, False))
 # the MoE's routing is discontinuous: where the meshless router's k-th and
 # (k+1)-th probabilities are this close (a near tie; the two runs' hidden
 # states differ by bf16 rounding), the mesh may pick the other expert, and
@@ -4802,21 +4874,23 @@ def log_softmax_gap(torch, a, b, vocab: int, chunk: int = 100):
     return torch.cat(gaps).cpu().numpy(), ok
 
 
-def teacher_forced(torch, mod, cfg, params, inputs, tokens):
+def teacher_forced(torch, mod, cfg, params, inputs, tokens, dist=None):
     """The logits ``generate`` gives when its decode steps are fed
     ``tokens`` (B, new) instead of its own argmaxes, and the cache (or
     state) after the last step; ``inputs`` is what ``mod.prefill`` takes
-    (the prompts, or the encoder-decoder's ``{"frames", "tokens"}``)."""
+    (the prompts, or the encoder-decoder's ``{"frames", "tokens"}``).  On
+    ``dist``'s mesh the logits are assembled whole."""
     P = (inputs["tokens"] if isinstance(inputs, dict) else inputs).shape[1]
     V = cfg.vocab_size
+    whole = dist.full if dist is not None else (lambda t: t)
     with torch.inference_mode():
         logits, cache = mod.prefill(cfg, params, inputs,
-                                    max_len=P + tokens.shape[1])
-        outs = [logits[:, -1:, :V]]
+                                    max_len=P + tokens.shape[1], dist=dist)
+        outs = [whole(logits)[:, -1:, :V]]
         for i in range(tokens.shape[1] - 1):
             logits, cache = mod.decode_step(
-                cfg, params, cache, tokens[:, i:i + 1], P + i)
-            outs.append(logits[:, :, :V])
+                cfg, params, cache, tokens[:, i:i + 1], P + i, dist=dist)
+            outs.append(whole(logits)[:, :, :V])
     return torch.cat(outs, dim=1), cache
 
 
@@ -5139,10 +5213,10 @@ def bwd_cases(torch, fa, captured, seed: int = 12):
     return cases
 
 
-def check_backward(torch, fa, k, cases, card) -> dict:
+def check_backward(torch, fa, k, cases, card, forced=("mma_sync",)) -> dict:
     """The backward kernel on every case, on the route ``flash_bwd_route``
-    gives it and, where that is ``wgmma``, on ``mma_sync`` too (forced
-    through the route rule): against the f64 exact gradient beside the
+    gives it and, where that is ``wgmma``, on the ``forced`` routes too
+    (through the route rule): against the f64 exact gradient beside the
     plain version (``BWD_F64_FLOOR``), twice (bitwise equal), one launch
     counted per call under the route taken.  The kernel is fed the forward
     kernel's o and lse, as in training; those are first held to the plain
@@ -5167,7 +5241,8 @@ def check_backward(torch, fa, k, cases, card) -> dict:
         exact = exact_grads(torch, q, kk, v, do, kw.get("causal", True),
                             kw["window"], kw.get("q_offset", 0))
         native = fa.flash_bwd_route(q.dtype, q.shape[3])
-        routes[name] = [native] + (["mma_sync"] if native == "wgmma" else [])
+        routes[name] = [native] + (list(forced) if native == "wgmma"
+                                   else [])
         errs[name] = 0.0
         for route in routes[name]:
             before = dict(k.kernel.route_launches)
@@ -5655,35 +5730,37 @@ def greedy_held(torch, want, got, vocab: int, tol: dict,
 
 def mesh_generate(torch, phase_launches: dict, phase_routes: dict,
                   phase: str, cfg, params, prompts, new: int, dist,
-                  device: str):
+                  device: str, frames=None):
     """One generation over ``dist``'s mesh as a main path: launch counts set
     to 0 just before and read just after, the flash kernel's launches held
-    to one per layer and position (``wgmma`` on the card), and the decode
-    steps timed by CUDA events.  Returns (generation, step ms, the
+    to ``flash_per_prefill`` per position (``wgmma`` on the card), and the
+    decode steps timed by CUDA events.  Returns (generation, step ms, the
     collective log's summary)."""
     from repro_torch.kernels import KERNELS
     from repro_torch.launch import op_cost
     from repro_torch.launch.serve_lm import generate
-    from repro_torch.models import transformer
+    from repro_torch.models import get_module
 
     on_card = device != "cpu"
     n = dist.mesh.size
     zero_launches(KERNELS)
     dist.log.clear()
+
+    def run():
+        return generate(cfg, params, prompts, new, frames=frames, dist=dist)
+
     if on_card:
-        gen, step = timed_decode_steps(
-            torch, transformer,
-            lambda: generate(cfg, params, prompts, new, dist=dist))
+        gen, step = timed_decode_steps(torch, get_module(cfg), run)
     else:
-        gen, step = generate(cfg, params, prompts, new, dist=dist), [0.0]
+        gen, step = run(), [0.0]
     phase_launches[phase] = read_launches(KERNELS)
     phase_routes[phase] = read_routes(KERNELS)
-    L = cfg.n_layers
+    L = flash_per_prefill(cfg)
     fa = phase_routes[phase]["flash_attention"]
     if on_card and (phase_launches[phase] != expect(
             {"flash_attention": L * n}) or fa["wgmma"] != L * n):
         raise AssertionError(f"{phase}: launches {phase_launches[phase]} by "
-                             f"route {fa}, expected {L} layers x {n} "
+                             f"route {fa}, expected {L} a prefill x {n} "
                              f"positions of flash_attention, on wgmma")
     return gen, step, op_cost.parse_collectives(dist.log)
 
@@ -5697,15 +5774,19 @@ def position_bytes(dist, tree) -> int:
     return t.numel() * t.element_size()
 
 
-def mesh_offset_cases(torch, np, card: str, measured: dict, flush) -> None:
+def mesh_offset_cases(torch, np, card: str, measured: dict, flush,
+                      cases=MESH_OFFSET_CASES, seed: int = 28,
+                      tag: str = "mesh") -> None:
     """The flash kernel at nonzero query offsets, at the mesh prefill's
-    per-position shapes (``MESH_OFFSET_CASES``): held to its plain version
-    within TOLERANCE on the ``wgmma`` route, on ``mma_sync`` (forced) and
-    on ``simt`` (f32 copies); on ``wgmma`` timed (CUDA events, L2 flushed)
-    beside the same call at offset 0, the plain version and SDPA with the
-    offset's mask, with the bound from this call's visible pairs.  These
-    launches compare the kernel with its plain version, outside every
-    main-path count.  The timed shapes join ``measured``'s."""
+    per-position shapes (``cases``: (name, q shape, Sk, Hkv, window,
+    q_offset[, causal]), causal unless given): held to its plain version
+    within TOLERANCE on the ``wgmma`` route (where the head dim has it), on
+    ``mma_sync`` (forced) and on ``simt`` (f32 copies); on its own route
+    timed (CUDA events, L2 flushed) beside the same call at offset 0, the
+    plain version and SDPA with the offset's mask, with the bound from this
+    call's visible pairs.  These launches compare the kernel with its plain
+    version, outside every main-path count.  The timed shapes join
+    ``measured``'s."""
     import functools
 
     import torch.nn.functional as F
@@ -5713,14 +5794,17 @@ def mesh_offset_cases(torch, np, card: str, measured: dict, flush) -> None:
     from repro_torch.kernels import flash_attention as fam
     from repro_torch.kernels import ref as kref
 
-    gen = torch.Generator(device="cuda").manual_seed(28)
-    for name, (B, Sq, Hq, Dh), Sk, Hkv, window, off in MESH_OFFSET_CASES:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name, (B, Sq, Hq, Dh), Sk, Hkv, window, off, *c in cases:
+        causal = c[0] if c else True
         q = torch.randn((B, Sq, Hq, Dh), generator=gen, device="cuda")
         k = torch.randn((B, Sk, Hkv, Dh), generator=gen, device="cuda")
         v = torch.randn((B, Sk, Hkv, Dh), generator=gen, device="cuda")
-        kw = {"causal": True, "window": window, "q_offset": off}
+        kw = {"causal": causal, "window": window, "q_offset": off}
         errs = {}
-        for route in ("wgmma", "mma_sync", "simt"):
+        native = fam.flash_route(torch.bfloat16, Dh)
+        for route in ("wgmma", "mma_sync", "simt")[
+                0 if native == "wgmma" else 1:]:
             dt = torch.float32 if route == "simt" else torch.bfloat16
             a = tuple(t.to(dt) for t in (q, k, v))
             with forced_route(fam, "flash_route", route):
@@ -5735,21 +5819,20 @@ def mesh_offset_cases(torch, np, card: str, measured: dict, flush) -> None:
                 msg=lambda m: f"{name} on {route}: {m}")
             errs[route] = float((got.float() - want.float()).abs().max())
         a = tuple(t.to(torch.bfloat16) for t in (q, k, v))
-        i = off + torch.arange(Sq, device="cuda")[:, None]
-        j = torch.arange(Sk, device="cuda")[None, :]
-        mask = (j <= i) & ((i - j < window) if window > 0 else True)
+        mask = (visible_pairs(torch, Sq, Sk, causal, window, "cuda", off)
+                if causal or window > 0 else None)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in a)
 
         def sdpa(qt=qt, kt=kt, vt=vt, mask=mask):
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   enable_gqa=True)
-        nbytes, flops = flash_work(a[0], a[1], window, shift=off)
+        nbytes, flops = flash_work(a[0], a[1], window, causal, shift=off)
         runs = []
         for _ in range(2):
             runs.append([time_ms(torch, functools.partial(
                 fam.flash_attention, **kw), a, MESH_OFFSET_TIMED, flush),
                 time_ms(torch, functools.partial(
-                    fam.flash_attention, causal=True, window=window), a,
+                    fam.flash_attention, causal=causal, window=window), a,
                     MESH_OFFSET_TIMED, flush),
                 time_ms(torch, functools.partial(kref.flash_attention, **kw),
                         a, LAYER_TIMED_PLAIN, flush),
@@ -5757,7 +5840,7 @@ def mesh_offset_cases(torch, np, card: str, measured: dict, flush) -> None:
         r = np.mean(runs, axis=0)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / BF16_FLOPS_PER_S * 1e3
-        z_bytes, z_flops = flash_work(a[0], a[1], window)
+        z_bytes, z_flops = flash_work(a[0], a[1], window, causal)
         res = {"ms": float(r[0]), "plain_ms": float(r[2]),
                "library_ms": float(r[3]),
                "library_call": "F.scaled_dot_product_attention(enable_gqa="
@@ -5770,8 +5853,9 @@ def mesh_offset_cases(torch, np, card: str, measured: dict, flush) -> None:
                    z_bytes / HBM_BYTES_PER_S * 1e3,
                    z_flops / BF16_FLOPS_PER_S * 1e3)}
         measured["flash_attention"]["timed"][name] = res
-        print(f"[mesh] flash_attention @ {name} (q {tuple(q.shape)} over "
-              f"{Sk} keys, window {window}, q_offset {off}): max |err| vs "
+        print(f"[{tag}] flash_attention @ {name} (q {tuple(q.shape)} over "
+              f"{Sk} keys, causal {causal}, window {window}, q_offset {off} "
+              f"on {native}): max |err| vs "
               f"the plain version {errs} within {TOLERANCE['flash_attention']}"
               f"; kernel {res['ms']:.4f} ms (at offset 0: "
               f"{res['offset0_ms']:.4f} ms, bound "
@@ -5781,32 +5865,36 @@ def mesh_offset_cases(torch, np, card: str, measured: dict, flush) -> None:
               f"({flops / 1e9:.2f} GFLOP) runs {runs} | {card}")
 
 
-def offset_bwd_cases(torch, fa, seed: int = 29) -> dict:
+def offset_bwd_cases(torch, fa, seed: int = 29, shapes=MESH_OFFSET_CASES,
+                     edge=MESH_BWD_EDGE_CASES) -> dict:
     """Phase 29c's cases of the attention backward at a query offset (the
-    ``sp`` layout's sequence blocks): ``MESH_OFFSET_CASES``'s shapes (the
-    last block of gemma3-1b's 2 x 2 mesh, local and global, and
-    phi3.5-moe's on 1 x 4) and ``MESH_BWD_EDGE_CASES``; o and lse from the
-    forward kernel at the same offset, as in training."""
+    ``sp`` layout's sequence blocks): ``shapes`` (``mesh_offset_cases``'
+    form; by default the last block of gemma3-1b's 2 x 2 mesh, local and
+    global, and phi3.5-moe's on 1 x 4) and ``edge`` cases; o and lse from
+    the forward kernel at the same offset, as in training."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    shapes = [(f"bwd_{name}", (B, Sq, Hq, Hkv, Dh), Sk, window, off)
-              for name, (B, Sq, Hq, Dh), Sk, Hkv, window, off
-              in MESH_OFFSET_CASES] + list(MESH_BWD_EDGE_CASES)
+    todo = [(f"bwd_{name}", (B, Sq, Hq, Hkv, Dh), Sk, window, off,
+             c[0] if c else True)
+            for name, (B, Sq, Hq, Dh), Sk, Hkv, window, off, *c in shapes] \
+        + [e + (True,) for e in edge]
     cases = {}
-    for name, (B, Sq, Hq, Hkv, Dh), Sk, window, off in shapes:
+    for name, (B, Sq, Hq, Hkv, Dh), Sk, window, off, causal in todo:
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                        .bfloat16() for shape in
                        ((B, Sq, Hq, Dh), (B, Sk, Hkv, Dh), (B, Sk, Hkv, Dh),
                         (B, Sq, Hq, Dh)))
-        o, lse = fa._forward_cuda(q, k, v, True, window, True, off)
-        cases[name] = (q, k, v, o, lse, do, {"causal": True,
+        o, lse = fa._forward_cuda(q, k, v, causal, window, True, off)
+        cases[name] = (q, k, v, o, lse, do, {"causal": causal,
                                              "window": window,
                                              "q_offset": off})
     return cases
 
 
-def time_offset_backward(torch, np, fa, cases, flush, card) -> dict:
-    """The backward kernel at the mesh's offset shapes (the ``bwd_mesh_``
-    cases), on its route, in two rounds: at its offset, the same call at
+def time_offset_backward(torch, np, fa, cases, flush, card,
+                         prefix: str = "bwd_mesh_") -> dict:
+    """The backward kernel at the mesh's offset shapes (the cases named
+    from ``prefix``), on its route, in two rounds: at its offset, the same
+    call at
     offset 0 (the first block's), its plain version and SDPA's backward
     under the offset's mask (k and v expanded to the query heads;
     (forward + backward) - forward), beside the bound from this call's
@@ -5819,11 +5907,11 @@ def time_offset_backward(torch, np, fa, cases, flush, card) -> dict:
 
     out = {}
     for name, (q, kk, v, o, lse, do, kw) in cases.items():
-        if not name.startswith("bwd_mesh_"):
+        if not name.startswith(prefix):
             continue
         Sq, Sk, G = q.shape[1], kk.shape[1], q.shape[2] // kk.shape[2]
-        off, window = kw["q_offset"], kw["window"]
-        mask = visible_pairs(torch, Sq, Sk, True, window, "cuda", off)
+        off, window, causal = kw["q_offset"], kw["window"], kw["causal"]
+        mask = visible_pairs(torch, Sq, Sk, causal, window, "cuda", off)
         qt = q.transpose(1, 2).contiguous().requires_grad_()
         kt, vt = (t.repeat_interleave(G, 2).transpose(1, 2).contiguous()
                   .requires_grad_() for t in (kk, v))
@@ -5836,7 +5924,7 @@ def time_offset_backward(torch, np, fa, cases, flush, card) -> dict:
             torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
 
         a = (q, kk, v, o, lse, do)
-        at0 = {"causal": True, "window": window}
+        at0 = {"causal": causal, "window": window}
         runs = []
         for _ in range(2):
             runs.append([
@@ -5852,8 +5940,9 @@ def time_offset_backward(torch, np, fa, cases, flush, card) -> dict:
                 time_ms(torch, sdpa_fwd_bwd, (), MESH_OFFSET_TIMED, flush)
                 - time_ms(torch, sdpa, (), MESH_OFFSET_TIMED, flush)])
         m = np.mean(runs, axis=0)
-        nbytes, flops = flash_work(q, kk, window, backward=True, shift=off)
-        z_bytes, z_flops = flash_work(q, kk, window, backward=True)
+        nbytes, flops = flash_work(q, kk, window, causal, backward=True,
+                                   shift=off)
+        z_bytes, z_flops = flash_work(q, kk, window, causal, backward=True)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / BF16_FLOPS_PER_S * 1e3
         res = {"ms": float(m[0]), "route": fa.flash_bwd_route(q.dtype,
@@ -5871,8 +5960,9 @@ def time_offset_backward(torch, np, fa, cases, flush, card) -> dict:
                                        z_flops / BF16_FLOPS_PER_S * 1e3)}
         out[name] = res
         print(f"[mesh-train] flash_attention_bwd @ {name} (q "
-              f"{tuple(q.shape)} over {Sk} keys, window {window}, q_offset "
-              f"{off}) on {res['route']}: kernel {res['ms']:.4f} ms (at "
+              f"{tuple(q.shape)} over {Sk} keys, causal {causal}, window "
+              f"{window}, q_offset {off}) on {res['route']}: kernel "
+              f"{res['ms']:.4f} ms (at "
               f"offset 0: {res['offset0_ms']:.4f} ms, bound "
               f"{res['offset0_bound_ms']:.4f}), plain {res['plain_ms']:.4f}"
               f" ms, SDPA backward {res['library_ms']:.4f} ms, bound "
@@ -6264,16 +6354,17 @@ def mesh_train_steps(torch, np, phase_launches, phase_routes, phase: str,
     """``len(batches)`` train steps over ``dist``'s mesh as a main path
     (launch counts set to 0 just before and read just after), each timed on
     the host clock after a synchronizing loss read: every step's attention
-    launches held to L forward + L recompute and L backward per position,
-    all on ``wgmma`` on the card.  Returns (losses, step seconds, params,
-    state, the last step's collectives summary)."""
+    launches held to L forward + L recompute and L backward per position
+    (L = ``flash_per_prefill``), all on ``wgmma`` on the card.  Returns
+    (losses, step seconds, params, state, the last step's collectives
+    summary)."""
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels import flash_attention as fam
     from repro_torch.launch import op_cost
     from repro_torch.launch.train import train_step
 
     on_card = device != "cpu"
-    L, n = cfg.n_layers, len(dist.mesh.active)
+    L, n = flash_per_prefill(cfg), len(dist.mesh.active)
     zero_launches(KERNELS)
     losses, walls, colls = [], [], None
     with (recorded_offsets(fam, offsets) if offsets is not None
@@ -6295,7 +6386,7 @@ def mesh_train_steps(torch, np, phase_launches, phase_routes, phase: str,
                             or back != {"wgmma": L * n, "mma_sync": 0}):
                 raise AssertionError(
                     f"{phase}: a step's forward launches {fwd}, backward "
-                    f"{back}; expected {L} layers x {n} positions forward, "
+                    f"{back}; expected {L} calls x {n} positions forward, "
                     f"recompute and backward, all on wgmma")
     phase_launches[phase] = read_launches(KERNELS)
     phase_routes[phase] = read_routes(KERNELS)
@@ -6641,6 +6732,308 @@ def mesh_train_phase(torch, np, card: str, phase_launches: dict,
               f"{rec['collectives']['wire_bytes'] / 2**30:.3f} GiB on the "
               f"wire; roofline {rec['roofline']['dominant']} "
               f"({rec['wall_s']:.1f} s of accounting) | {card}")
+
+
+def forced_held(torch, np, mod, cfg, params, sp, prompts, frames, tokens,
+                dist) -> dict:
+    """The mesh's prefill and decode, teacher-forced on ``tokens`` (the
+    meshless greedy run's), against the meshless run's: the prefill's
+    logits within ``MESH_TOL``, each decode step's largest log-softmax gap
+    within ``LM_DECODE_GAP``, each plus ``MESH_FAMILY_SPREAD_K`` times the
+    meshless run's own at that step when each half of the batch runs alone
+    (its spread: only its products' row counts change).  Raises otherwise;
+    returns the prefill's error and spread, and the gaps and spreads by
+    decode step."""
+    def inputs(rows):
+        p = torch.as_tensor(prompts[rows], device=tokens.device)
+        return p if frames is None else {"frames": frames[rows], "tokens": p}
+
+    every = slice(None)
+    ref, _ = teacher_forced(torch, mod, cfg, params, inputs(every), tokens)
+    B = tokens.shape[0]
+    halves = torch.cat([teacher_forced(torch, mod, cfg, params, inputs(h),
+                                       tokens[h])[0]
+                        for h in (slice(0, B // 2), slice(B // 2, B))])
+    got, _ = teacher_forced(torch, mod, cfg, sp, inputs(every), tokens,
+                            dist=dist)
+    got = got.to(ref.device)
+
+    def gaps(a):
+        d = (torch.log_softmax(a.float(), -1)
+             - torch.log_softmax(ref.float(), -1)).abs()
+        return [round(float(x), 4) for x in d.amax(dim=(0, 2))]
+
+    err = (got[:, 0].float() - ref[:, 0].float()).abs()
+    spread = float((halves[:, 0].float() - ref[:, 0].float()).abs().max())
+    bound = MESH_TOL["atol"] + MESH_TOL["rtol"] * ref[:, 0].float().abs() \
+        + MESH_FAMILY_SPREAD_K * spread
+    out = {"prefill_err": float(err.max()), "prefill_spread": spread,
+           "gaps": gaps(got)[1:], "spread": gaps(halves)[1:]}
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"{cfg.name}: prefill logits differ by "
+                             f"{out['prefill_err']:.4e}, beyond {MESH_TOL} "
+                             f"+ {MESH_FAMILY_SPREAD_K} x {spread:.4e}")
+    for t, (g, sp_) in enumerate(zip(out["gaps"], out["spread"]), 1):
+        if g > LM_DECODE_GAP + MESH_FAMILY_SPREAD_K * sp_:
+            raise AssertionError(f"{cfg.name} decode step {t}: log-softmax "
+                                 f"gap {g} beyond {LM_DECODE_GAP} + "
+                                 f"{MESH_FAMILY_SPREAD_K} x {sp_}")
+    return out
+
+
+def family_offset_phase(torch, np, card: str, measured: dict) -> None:
+    """Phase 30c: the attention at the family meshes' per-position shapes
+    (``MESH_FAMILY_CASES``: zamba2's shared block causal at its block's
+    offset; seamless's encoder and cross attention, not causal, each
+    block's offset passed and ignored, the cross attention's query block a
+    slice of the shorter target sequence; the smoke configs' Dh 16).  The
+    forward held to its plain version on its routes and timed beside offset
+    0, the plain version and SDPA (``mesh_offset_cases``); the backward,
+    o and lse from the forward kernel at the offset, held by
+    ``check_backward``'s rule on its own route (at these rows of 1024 keys
+    the ``mma_sync`` route, which rounds ds once, is not forced: ROADMAP
+    section 3, 18) and timed beside offset 0, its plain version and SDPA's
+    backward.  These launches compare the kernels with their plain
+    versions, outside every main-path count."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import flash_attention as fam
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    mesh_offset_cases(torch, np, card, measured, flush,
+                      cases=MESH_FAMILY_CASES, seed=30, tag="mesh-family")
+    bwd = next(k for k in KERNELS if k.name == "flash_attention_bwd")
+    cases = offset_bwd_cases(torch, fam, seed=30, shapes=MESH_FAMILY_CASES,
+                             edge=())
+    checked = check_backward(torch, fam, bwd, cases, card, forced=())
+    mine = measured[bwd.name]
+    mine["max_abs_err"] = max(mine["max_abs_err"], checked["max_abs_err"])
+    mine.setdefault("routes", {}).update(checked["routes"])
+    mine["timed"].update(time_offset_backward(torch, np, fam, cases, flush,
+                                              card, prefix="bwd_fam_"))
+    del flush, cases
+
+
+def family_mesh_phase(torch, np, card: str, phase_launches: dict,
+                      phase_routes: dict, serve=MESH_FAMILY_SERVE,
+                      train=MESH_FAMILY_TRAIN, steps=MESH_FAMILY_STEPS,
+                      smoke: bool = False, device: str = "cuda") -> None:
+    """Phase 30 (30a, 30b, 30x; 30c is ``family_offset_phase``): the SSM,
+    hybrid and encoder-decoder families over a mesh, every position bound
+    to ``device``, seed-0 weights drawn there.  30a (``serve``): each
+    config's ``generate`` on its mesh (``mesh_generate``: one
+    ``flash_attention`` launch per attention call of a prefill and
+    position, all ``wgmma``), then teacher-forced on the meshless run's
+    tokens and held to it by ``forced_held`` (the prefill's logits within
+    ``MESH_TOL``, each decode step's log-softmax gap within
+    ``LM_DECODE_GAP``, each plus ``MESH_FAMILY_SPREAD_K`` times the
+    meshless run's own spread); prefill ms, decode ms a step, peak memory,
+    the collectives, and how many steps the greedy tokens agree.  30x: the
+    first config with each position on its own card, bitwise the one-card
+    mesh, where the host has the cards (otherwise it prints why not).  30b
+    (``train``): each config at full width on its cut depth, the meshless
+    ``train_step``s (remat, AdamW with the state handed over), step 1's
+    layer-0 gradients on the mesh against the meshless within
+    ``MESH_GRAD_REL``, then ``steps`` mesh steps (``mesh_train_steps``: L
+    forward + L recompute and L backward attention launches per position),
+    each loss within ``MESH_TRAIN_LOSS_TOL`` of the meshless one; step ms,
+    tokens/s, peak memory, the collectives of a step.  A CPU dry run:
+    ``smoke=True`` (the smoke configs at the same meshes) with small
+    ``serve`` and ``train`` tuples and ``device="cpu"``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve_lm import generate, target_len
+    from repro_torch.launch.train import (make_batch, mesh_loss_and_grads,
+                                          train_step)
+    from repro_torch.launch.variants import apply_variant
+    from repro_torch.models import get_module
+    from repro_torch.models.params import (init_from_defs, layout_pspecs,
+                                           shard_params)
+    from repro_torch.models.sharding import Distribution
+    from repro_torch.train.optimizer import adamw, tree_map
+
+    on_card = device != "cpu"
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def draw(cfg):
+        gen = torch.Generator(device=device).manual_seed(0)
+        return init_from_defs(get_module(cfg).defs(cfg), gen, device)
+
+    def rel(a, b) -> float:
+        a, b = a.double(), b.double()
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def mesh(shape, devices=None):
+        n = math.prod(shape)
+        return Distribution(make_debug_mesh(shape, devices=devices
+                                            or [device] * n))
+
+    # ---- 30a. serving -------------------------------------------------------
+    first = None
+    for arch, variant, shape, batch, prompt, new in serve:
+        cfg = apply_variant(get_config(arch, smoke=smoke), variant)
+        defs = get_module(cfg).defs(cfg)
+        params = draw(cfg)
+        prompts, frames = serving_inputs(torch, np, cfg, batch, prompt,
+                                         device)
+        generate(cfg, params, prompts, 2, frames=frames, device=device)
+        t0 = time.perf_counter()
+        want = generate(cfg, params, prompts, new, frames=frames,
+                        device=device)
+        meshless_s = time.perf_counter() - t0
+        dist = mesh(shape)
+        sp = shard_params(params, defs, dist)
+        generate(cfg, sp, prompts, 2, frames=frames, dist=dist)  # warm-up
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        phase = f"mesh-{cfg.name}" + ("" if variant == "baseline"
+                                      else f"-{variant}")
+        got, step, colls = mesh_generate(torch, phase_launches,
+                                         phase_routes, phase, cfg, sp,
+                                         prompts, new, dist, device, frames)
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        held = forced_held(torch, np, get_module(cfg), cfg, params, sp,
+                           prompts, frames, want.tokens, dist)
+        agree = int((got.tokens == want.tokens).all(dim=0).int().cumprod(
+            0).sum())
+        mixer = cfg.mamba_layout if cfg.ssm_state else "no mixer"
+        print(f"[mesh-family] {cfg.name} ({mixer}) on a {shape[0]} x "
+              f"{shape[1]} (data, "
+              f"model) mesh, every position on {device}: {batch} x {prompt}"
+              + (f" frames ({prompts.shape[1]}-token prompts)"
+                 if frames is not None else " prompts")
+              + f", {new} greedy tokens: prefill {got.prefill_s * 1e3:.3f} "
+              f"ms (meshless {want.prefill_s * 1e3:.3f}), decode median "
+              f"{float(np.median(step)):.3f} ms/step (CUDA events; meshless "
+              f"loop {want.decode_s * 1e3 / max(new - 1, 1):.3f} ms/step "
+              f"host wall), meshless generation {meshless_s:.3f} s wall; "
+              f"flash_attention launches "
+              f"{phase_launches[phase]['flash_attention']} by route "
+              f"{phase_routes[phase]['flash_attention']}; peak device "
+              f"memory {peak / 2**30:.3f} GiB | {card}")
+        print(f"[mesh-family] {cfg.name} teacher-forced on the meshless "
+              f"run's tokens, against the meshless run: prefill logits max "
+              f"|diff| {held['prefill_err']:.4e} (the meshless run on each "
+              f"half of the batch: {held['prefill_spread']:.4e}; held to "
+              f"{MESH_TOL} + {MESH_FAMILY_SPREAD_K} x that); decode "
+              f"log-softmax max gap by step {held['gaps']}, the meshless "
+              f"run on each half of the batch {held['spread']} (held to "
+              f"{LM_DECODE_GAP} + {MESH_FAMILY_SPREAD_K} x that); the mesh's"
+              f" greedy tokens the meshless run's for the first {agree} of "
+              f"{new} steps | {card}")
+        print(f"[mesh-family] {cfg.name} collectives of the generation (per "
+              f"position): {json.dumps(colls)} | {card}")
+        if first is None:
+            first = (cfg, params, prompts, frames, shape, new, got)
+        else:
+            del params
+        del sp, want, got
+        free()
+    # ---- 30x. each position on its own card --------------------------------
+    cfg, params, prompts, frames, shape, new, got = first
+    n = math.prod(shape)
+    if on_card and torch.cuda.device_count() >= n:
+        dx = mesh(shape, [f"cuda:{i}" for i in range(n)])
+        spx = shard_params(params, get_module(cfg).defs(cfg), dx)
+        generate(cfg, spx, prompts, 2, frames=frames, dist=dx)  # warm-up
+        gx, stepx, _ = mesh_generate(torch, phase_launches, phase_routes,
+                                     f"mesh-{cfg.name}-x", cfg, spx, prompts,
+                                     new, dx, device, frames)
+        if not (torch.equal(gx.tokens, got.tokens)
+                and torch.equal(gx.logits, got.logits)):
+            raise AssertionError("phase 30x: positions on their own cards "
+                                 "are not the one-card mesh's bits")
+        print(f"[mesh-family-x] phase 30x: {cfg.name} with each position on "
+              f"its own card (cuda:0-{n - 1}): tokens and logits bitwise the "
+              f"one-card mesh; prefill {gx.prefill_s * 1e3:.3f} ms, decode "
+              f"median {float(np.median(stepx)):.3f} ms/step | {card}")
+        del spx, gx
+    else:
+        have = torch.cuda.device_count() if on_card else 0
+        print(f"[mesh-family-x] phase 30x did not run: this host has {have} "
+              f"CUDA device(s), and the {shape[0]} x {shape[1]} mesh with "
+              f"each position on its own card needs {n} | {card}")
+    del first, params, got
+    free()
+
+    # ---- 30b. training ------------------------------------------------------
+    for arch, variant, shape, batch, seq, layers in train:
+        base = get_config(arch, smoke=smoke)
+        cut = ({"n_enc_layers": layers, "n_dec_layers": layers,
+                "n_layers": 2 * layers} if base.n_enc_layers
+               else {"n_layers": layers})
+        cfg = apply_variant(dataclasses.replace(base, remat=True, **cut),
+                            variant)
+        mod = get_module(cfg)
+        defs = mod.defs(cfg)
+        n = math.prod(shape)
+        params = draw(cfg)
+        opt = adamw(LM_TRAIN_LR)
+        batches = [make_batch(cfg, batch, seq, 0, s, device)
+                   for s in range(steps)]
+        want, p, st = [], params, opt.init(params)
+        for b in batches:
+            p, st, loss = train_step(cfg, p, opt, st, b, donate=True)
+            want.append(float(loss))
+        del p, st
+        free()
+        leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+        mod.loss_fn(cfg, leaves, batches[0])[0].backward()
+        stack = "enc_layers" if cfg.n_enc_layers else "layers"
+        g0 = {k: v.grad[0].clone() for k, v in leaves[stack].items()}
+        del leaves
+        free()
+        dist = mesh(shape)
+        sp = shard_params(params, defs, dist,
+                          layout_pspecs(defs, dist, zero=cfg.zero3))
+        del params
+        _, grads = mesh_loss_and_grads(cfg, sp, batches[0], dist=dist)
+        errs = {k: rel(dist.full(g)[0], g0[k])
+                for k, g in grads[stack].items()}
+        del grads, g0
+        free()
+        if max(errs.values()) > MESH_GRAD_REL:
+            raise AssertionError(f"{cfg.name} {variant}: step 1's layer-0 "
+                                 f"gradients {errs} beyond {MESH_GRAD_REL}")
+        state = opt.init(sp, dist, layout_pspecs(defs, dist, zero=True)
+                         if cfg.zero1 else None)
+        phase = f"mesh-train-{cfg.name}"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        losses, walls, sp, state, colls = mesh_train_steps(
+            torch, np, phase_launches, phase_routes, phase, cfg, sp, opt,
+            state, batches, dist, device)
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        worst = held_losses(phase, losses, want)
+        ms = np.array(walls[1:] or walls) * 1e3
+        tokens = batch * (seq + (target_len(cfg, seq) if cfg.n_enc_layers
+                                 else 0))
+        print(f"[mesh-family-train] {cfg.name} ({variant}, "
+              + (f"{layers} + {layers} of {base.n_enc_layers} + "
+                 f"{base.n_dec_layers} layers" if base.n_enc_layers
+                 else f"{layers} of {base.n_layers} layers")
+              + f", full width) on a {shape[0]} x {shape[1]} mesh, every "
+              f"position on {device}: {steps} steps of {batch} x {seq} "
+              f"(remat, AdamW lr {LM_TRAIN_LR}, the state handed over): step "
+              f"{float(np.median(ms)):.3f} ms host wall (steps "
+              f"{[round(w * 1e3, 3) for w in walls]}), "
+              f"{tokens / float(np.median(ms)) * 1e3:.0f} tokens/s; peak "
+              f"device memory {peak / 2**30:.3f} GiB; losses {losses} "
+              f"against the meshless {want} (max |diff| {worst:.4e} within "
+              f"{MESH_TRAIN_LOSS_TOL}); step 1's {stack}[0] gradients, "
+              f"|mesh - meshless| / |meshless| per leaf (within "
+              f"{MESH_GRAD_REL}): max {max(errs.values()):.3e} at "
+              f"{max(errs, key=errs.get)}; attention "
+              f"{phase_routes[phase]['flash_attention']} forward + "
+              f"recompute, {phase_routes[phase]['flash_attention_bwd']} "
+              f"backward | {card}")
+        print(f"[mesh-family-train] {cfg.name} collectives of one step: "
+              f"{json.dumps(colls)} | {card}")
+        del sp, state, batches
+        free()
 
 
 def main() -> int:
@@ -7613,6 +8006,12 @@ def main() -> int:
     mesh_train_phase(torch, np, card, phase_launches, phase_routes,
                      finish_mesh_train_accounting(mesh_acct))
     stop_accounting()
+    clock("30")
+    # ---- 30. the SSM, hybrid and encoder-decoder families over a mesh ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_offset_phase(torch, np, card, measured)
+    family_mesh_phase(torch, np, card, phase_launches, phase_routes)
 
     record = {"kernels": []}
     for k in KERNELS:

@@ -27,9 +27,10 @@
 // 16 bits of ds), so ds^T q and ds k are each two products, hi's and lo's,
 // into the same f32 accumulator (with ds rounded to bf16 once, the error
 // of dk and dq over rows that see a few hundred keys reached 2.6 times the
-// plain version's); the mma.sync route still rounds ds to bf16 once
-// (ROADMAP); every product accumulates in f32; dq is multiplied by the
-// scale once, at the end, and dq, dk and dv are each rounded to bf16 once.
+// plain version's); the mma.sync route rounds ds to bf16 once
+// (kMmaSyncDsParts: its two-part form is written and measured, ROADMAP);
+// every product accumulates in f32; dq is multiplied by the scale once, at
+// the end, and dq, dk and dv are each rounded to bf16 once.
 //
 // Bound on this card: operations.  The useful work is 5 products of 2 * Dh
 // flops per visible (query, key) pair and query head (s, dp, dv, dk, dq):
@@ -133,6 +134,10 @@ namespace {
 constexpr int kTile = 64;      // queries per query tile, keys per key tile
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kLdP = kTile + 8;  // padded row of the p^T / ds tiles
+// The mma.sync route's ds operand: 1 rounds ds to bf16 once; 2 takes it as
+// hi = bf16(ds) and lo = bf16(ds - hi), two products each for dk and dq
+// (tools/ds_split_leaves.py builds that form to compare the two).
+constexpr int kMmaSyncDsParts = 1;
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
                                          uint32_t b0, uint32_t b1) {
@@ -320,8 +325,10 @@ flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* Qs = Vs + kTile * ld;
   __nv_bfloat16* dOs = Qs + kTile * ld;
   __nv_bfloat16* Ps = dOs + kTile * ld;  // p^T: keys x queries
-  __nv_bfloat16* dSs = Ps + kTile * kLdP;  // ds^T: keys x queries
-  float* Ls = reinterpret_cast<float*>(dSs + kTile * kLdP);
+  __nv_bfloat16* dSs = Ps + kTile * kLdP;  // bf16(ds)^T: keys x queries
+  __nv_bfloat16* dSl = dSs + kTile * kLdP;  // the rest of ds^T (two parts)
+  float* Ls = reinterpret_cast<float*>(dSl + (kMmaSyncDsParts - 1) * kTile *
+                                                 kLdP);
   float* Ds = Ls + kTile;
 
   const int j0 = blockIdx.x * kTile;
@@ -398,12 +405,18 @@ flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,
               pack_bf16(p[0], p[1]);
           *reinterpret_cast<uint32_t*>(dSs + kr * kLdP + qc) =
               pack_bf16(ds[0], ds[1]);
+          if constexpr (kMmaSyncDsParts == 2)
+            *reinterpret_cast<uint32_t*>(dSl + kr * kLdP + qc) =
+                pack_bf16(bf16_rest(ds[0]), bf16_rest(ds[1]));
         }
       }
       __syncthreads();
       // dv += p^T dO, dk += ds^T bf16(q * scale) over the tile's 64 queries
+      // (with two parts, hi first, into one accumulator)
       acc_product<DMAX>(acc_dv, Ps, krow + g, dOs, ld, c0, Dh);
       acc_product<DMAX>(acc_dk, dSs, krow + g, Qs, ld, c0, Dh);
+      if constexpr (kMmaSyncDsParts == 2)
+        acc_product<DMAX>(acc_dk, dSl, krow + g, Qs, ld, c0, Dh);
     }
   }
 
@@ -441,8 +454,10 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* dOs = Qs + kTile * ld;
   __nv_bfloat16* Ks = dOs + kTile * ld;
   __nv_bfloat16* Vs = Ks + kTile * ld;
-  __nv_bfloat16* dSs = Vs + kTile * ld;  // ds: queries x keys
-  float* Ls = reinterpret_cast<float*>(dSs + kTile * kLdP);
+  __nv_bfloat16* dSs = Vs + kTile * ld;  // bf16(ds): queries x keys
+  __nv_bfloat16* dSl = dSs + kTile * kLdP;  // the rest of ds (two parts)
+  float* Ls = reinterpret_cast<float*>(dSl + (kMmaSyncDsParts - 1) * kTile *
+                                                 kLdP);
   float* Ds = Ls + kTile;
 
   const int i0 = blockIdx.x * kTile;
@@ -509,11 +524,16 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q,
         }
         *reinterpret_cast<uint32_t*>(dSs + qr * kLdP + kc) =
             pack_bf16(ds[0], ds[1]);
+        if constexpr (kMmaSyncDsParts == 2)
+          *reinterpret_cast<uint32_t*>(dSl + qr * kLdP + kc) =
+              pack_bf16(bf16_rest(ds[0]), bf16_rest(ds[1]));
       }
     }
     __syncthreads();
-    // dq += ds K over the tile's 64 keys
+    // dq += ds K over the tile's 64 keys (with two parts, hi first)
     acc_product<DMAX>(acc, dSs, qrow + g, Ks, ld, c0, Dh);
+    if constexpr (kMmaSyncDsParts == 2)
+      acc_product<DMAX>(acc, dSl, qrow + g, Ks, ld, c0, Dh);
   }
 
 #pragma unroll
@@ -539,7 +559,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    float scale, cudaStream_t stream) {
   using bf = __nv_bfloat16;
   const size_t smem = (4 * static_cast<size_t>(kTile) * (Dh + 8) +
-                       2 * static_cast<size_t>(kTile) * kLdP) * sizeof(bf) +
+                       (1 + kMmaSyncDsParts) * static_cast<size_t>(kTile) *
+                           kLdP) * sizeof(bf) +
                       2 * kTile * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkdv<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -23,10 +23,9 @@ reference's HLO count of the same function.
 carries the counter's own totals (there is no XLA).  ``--mesh single`` is
 one H100.  ``--mesh multi`` is the reference's multi-pod production mesh,
 2 x 16 x 16 ``("pod", "data", "model")`` H100s, every position on
-``meta`` (``launch.mesh.make_production_mesh``): the cells of the
-``transformer`` families (``train``, ``prefill``, ``decode``) run their
-mesh step with one position standing for all of them (``LMMesh.run_only``),
-the
+``meta`` (``launch.mesh.make_production_mesh``): every cell (``train``,
+``prefill``, ``decode``) runs its mesh step with one position standing
+for all of them (``LMMesh.run_only``), the
 busiest (``accounted_position``): ``tests/test_torch_lm_mesh.py`` shows
 that the positions run the same shapes, bytes and collectives, but for
 the decode slot's write, which position 0 makes, and the same flops, but
@@ -36,9 +35,8 @@ has most of.  So ``memory`` and the counts are that position's,
 backward's transposes and the gradient sums of a train cell included) and
 ``collective_s`` their wire bytes over the NVLink rate; the train cells
 (``train_4k``) run the mesh train step with ``--variant``'s layout
-(``sp_attn``, ``zero1``, ``zero3``); the other families are not ported on
-a mesh: their records say why (``status`` "not_ported") and the sweep
-counts them apart from its failures.  ``--mesh both`` runs single then multi.
+(``sp_attn``, ``zero1``, ``zero3``, the Mamba mixer's ``seq_sp``).
+``--mesh both`` runs single then multi.
 
 ``run_cell(..., device="cuda", shape=..., overrides=...)`` also runs the
 cell for real on that device, at a (reduced) ``ShapeConfig`` and config
@@ -283,7 +281,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
     from repro_torch.launch.variants import apply_variant
 
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.launch.specs import mesh_support
 
     cfg = apply_variant(get_config(arch), variant)
     if shape_name not in applicable_shapes(cfg):
@@ -297,13 +294,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
     if mesh_kind != "single":
         if mesh_kind != "multi":
             raise ValueError(f"mesh {mesh_kind!r}: single or multi")
-        why = mesh_support(cfg, shape)
-        if why is not None:
-            rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
-                   "variant": variant, "status": "not_ported",
-                   "reason": f"not ported on a mesh yet: {why}"}
-            _write(rec, out_path)
-            return rec
         if device is not None:
             raise ValueError("a mesh cell is accounted on meta only")
         mesh = make_production_mesh(multi_pod=True)
@@ -385,16 +375,13 @@ def main(argv=None):
             print(json.dumps({k: rec[k] for k in ("arch", "shape", "mesh",
                                                   "status") if k in rec}
                              | {"dominant": dom}))
-            if rec["status"] == "not_ported":
-                raise SystemExit(f"{args.arch} {args.shape} on --mesh {m}: "
-                                 f"{rec['reason']}")
         return
 
     from repro_torch.configs import ARCH_IDS, SHAPES
 
     cells = [(a, s, m) for a in ARCH_IDS for s in SHAPES for m in meshes]
     print(f"dry-run sweep: {len(cells)} cells")
-    failures, not_ported = [], []
+    failures = []
     for i, (arch, shape, m) in enumerate(cells):
         t0 = time.time()
         try:
@@ -406,16 +393,10 @@ def main(argv=None):
                   f"{e!r:.300}")
             failures.append((arch, shape, m, repr(e)[:500]))
             continue
-        if rec["status"] == "not_ported":
-            not_ported.append((arch, shape, m, rec["reason"]))
         dom = rec.get("roofline", {}).get("dominant", "-")
         print(f"[{i+1}/{len(cells)}] {arch} {shape} {m}: {rec['status']} "
               f"({time.time() - t0:.1f}s) {dom}")
-    print(f"done; {len(not_ported)} not ported on a mesh, "
-          f"{len(failures)} failures")
-    for reason in sorted({r for *_, r in not_ported}):
-        print(f"not ported ({sum(r == reason for *_, r in not_ported)} "
-              f"cells): {reason}")
+    print(f"done; {len(failures)} failures")
     for f in failures:
         print("FAIL:", f)
     if failures:

@@ -72,8 +72,13 @@ def generate(cfg: ModelConfig, params: dict, prompts, new_tokens: int, *,
     argmax, the tokens fed back batch-sharded; the result is assembled on
     the first position's device and every device of the mesh is
     synchronized."""
+    if new_tokens < 1:
+        raise ValueError(f"new_tokens must be >= 1, got {new_tokens}")
+    if (frames is not None) != (cfg.family in ENCDEC_FAMILIES):
+        raise ValueError(f"family {cfg.family!r}: frames are "
+                         + ("required" if frames is None else "not taken"))
     if on_mesh(dist):
-        return _generate_mesh(cfg, params, prompts, new_tokens, dist)
+        return _generate_mesh(cfg, params, prompts, new_tokens, frames, dist)
     dev = resolve_device(device)
     where = tree_leaves(params)[0].device
     if where != dev:
@@ -82,11 +87,6 @@ def generate(cfg: ModelConfig, params: dict, prompts, new_tokens: int, *,
     mod = get_module(cfg)
     prompts = torch.as_tensor(prompts, device=dev)
     B, P = prompts.shape
-    if new_tokens < 1:
-        raise ValueError(f"new_tokens must be >= 1, got {new_tokens}")
-    if (frames is not None) != (cfg.family in ENCDEC_FAMILIES):
-        raise ValueError(f"family {cfg.family!r}: frames are "
-                         + ("required" if frames is None else "not taken"))
     inputs = prompts if frames is None else {
         "frames": torch.as_tensor(frames, device=dev), "tokens": prompts}
     V = cfg.vocab_size
@@ -113,14 +113,15 @@ def generate(cfg: ModelConfig, params: dict, prompts, new_tokens: int, *,
 
 
 def _generate_mesh(cfg: ModelConfig, params: dict, prompts,
-                   new_tokens: int, dist) -> Generation:
+                   new_tokens: int, frames, dist) -> Generation:
     mesh = dist.mesh
     devices = sorted(set(mesh.devices), key=str)
     mod = get_module(cfg)
     prompts = torch.as_tensor(prompts, device=mesh.device(0))
     B, P = prompts.shape
-    if new_tokens < 1:
-        raise ValueError(f"new_tokens must be >= 1, got {new_tokens}")
+    inputs = prompts if frames is None else {
+        "frames": torch.as_tensor(frames, device=mesh.device(0)),
+        "tokens": prompts}
     V = cfg.vocab_size
 
     def greedy(logits):
@@ -135,7 +136,7 @@ def _generate_mesh(cfg: ModelConfig, params: dict, prompts,
 
     with torch.inference_mode():
         t0 = time.perf_counter()
-        logits, cache = mod.prefill(cfg, params, prompts,
+        logits, cache = mod.prefill(cfg, params, inputs,
                                     max_len=P + new_tokens, dist=dist)
         tok, logits = greedy(logits)
         sync()

@@ -6,16 +6,16 @@ arguments, for one card or over an LM mesh (the port of the reference's
 function and its arguments, ``meta`` tensors by default (shapes and types,
 nothing allocated) or real tensors on a device the caller names.  Without
 a mesh ``out_shardings`` is None.  On a mesh (``launch.mesh.LMMesh``) the
-cells of the ``transformer`` families run the mesh train step, prefill and
-decode step over parameters, optimizer state and caches laid out by the
-rules ``shape_rules`` gives (``Sharded`` per position; ``meta["dist"]``
-holds the ``Distribution`` and its collective log), and ``out_shardings``
-holds the reference's specs of the new state (train) or of the logits and
-caches.  A train cell's parameters take ZeRO-3's layout with
-``cfg.zero3`` and its moments ZeRO-1's with ``cfg.zero1``
-(``models.params.zero_pspec``, the reference's ``_fsdp`` and
-``_moment``).  The SSM, hybrid and encoder-decoder families on a mesh
-(``MESH_FAMILIES``) raise.
+cells of every family run the mesh train step, prefill and decode step
+over parameters, optimizer state and caches laid out by the rules
+``shape_rules`` gives (``Sharded`` per position; ``meta["dist"]`` holds
+the ``Distribution`` and its collective log), and ``out_shardings`` holds
+the reference's specs of the new state (train) or of the logits and
+caches (the SSM state, ``h`` in f32, by ``ssm_lm.state_defs``; the
+encoder-decoder's by ``encdec.cache_defs``).  A train cell's parameters
+take ZeRO-3's layout with ``cfg.zero3`` and its moments ZeRO-1's with
+``cfg.zero1`` (``models.params.zero_pspec``, the reference's ``_fsdp`` and
+``_moment``).
 
 * **train**: ``launch.train.train_step(..., donate=True)`` with
   ``adamw(lr)``: the state (params, AdamW's m, v and count, the step) is
@@ -44,10 +44,7 @@ from repro_torch.models import encdec, get_module, ssm_lm, transformer
 from repro_torch.models.params import (init_from_defs, layout_pspecs,
                                        pspecs_from_defs, shard_params,
                                        specs_from_defs)
-from repro_torch.models.sharding import (MESH_FAMILIES, Distribution,
-                                         default_rules)
-
-MESH_FAMILIES_PORTED = ("dense", "moe", "vlm")  # the transformer's families
+from repro_torch.models.sharding import Distribution, default_rules
 
 
 @dataclasses.dataclass
@@ -72,26 +69,6 @@ def shape_rules(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
     if shape.kind == "decode" and shape.seq_len > 100_000:
         rules["kv_seq"] = dp + ((tp,) if tp else ())
     return rules
-
-
-def mesh_support(cfg: ModelConfig, shape: ShapeConfig):
-    """None where the cell runs on a mesh, else why not (the ROADMAP item
-    that ports it)."""
-    if cfg.family not in MESH_FAMILIES_PORTED:
-        return MESH_FAMILIES
-    return None
-
-
-def _check_mesh(cfg: ModelConfig, shape: ShapeConfig, mesh) -> None:
-    if mesh is None:
-        return
-    if not isinstance(mesh, LMMesh):
-        raise TypeError(f"a cell's mesh is a launch.mesh.LMMesh, got "
-                        f"{type(mesh).__name__}")
-    why = mesh_support(cfg, shape)
-    if why is not None:
-        raise NotImplementedError(f"{cfg.name} {shape.name} on a mesh is "
-                                  f"not ported yet ({why})")
 
 
 def _tokens(shape: tuple, vocab: int, device, rng) -> torch.Tensor:
@@ -123,19 +100,24 @@ def _token_specs(cfg: ModelConfig, shape: ShapeConfig, with_labels=True, *,
     return out
 
 
+def _cache_defs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The defs of this cell's decode cache (the SSM state ``h`` in
+    f32)."""
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.family in ENCDEC_FAMILIES:
+        return encdec.cache_defs(cfg, B, S, target_len(cfg, S))
+    if cfg.family in ("ssm", "hybrid"):
+        return {k: (dataclasses.replace(d, dtype=torch.float32) if k == "h"
+                    else d) for k, d in ssm_lm.state_defs(cfg, B, S).items()}
+    return transformer.cache_defs(cfg, B, S)
+
+
 def _serve_cache_specs(cfg: ModelConfig, shape: ShapeConfig, *,
                        device="meta", dist=None) -> dict:
     """The decode cache of this cell (bf16 KV, f32 SSM state ``h``): meta
     tensors, or zeros on ``device``; with a mesh (``dist``) laid out by
     the rules, per position."""
-    B, S = shape.global_batch, shape.seq_len
-    if cfg.family in ENCDEC_FAMILIES:
-        defs = encdec.cache_defs(cfg, B, S, target_len(cfg, S))
-    elif cfg.family in ("ssm", "hybrid"):
-        defs = {k: (dataclasses.replace(d, dtype=torch.float32) if k == "h"
-                    else d) for k, d in ssm_lm.state_defs(cfg, B, S).items()}
-    else:
-        defs = transformer.cache_defs(cfg, B, S)
+    defs = _cache_defs(cfg, shape)
     specs = specs_from_defs(defs, torch.bfloat16)
     if torch.device(device).type != "meta":
         specs = {k: torch.zeros(t.shape, dtype=t.dtype, device=device)
@@ -173,7 +155,9 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
     from repro_torch.launch.train import train_step
     from repro_torch.train.optimizer import adamw
 
-    _check_mesh(cfg, shape, mesh)
+    if mesh is not None and not isinstance(mesh, LMMesh):
+        raise TypeError(f"a cell's mesh is a launch.mesh.LMMesh, got "
+                        f"{type(mesh).__name__}")
     mod = get_module(cfg)
     rng = None if torch.device(device).type == "meta" \
         else np.random.default_rng(seed)
@@ -222,7 +206,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
 
 def _mesh_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: LMMesh, mod,
                params: dict, device, rng, name: str, lr: float) -> Cell:
-    """A cell of a ``transformer`` family on ``mesh``."""
+    """A cell on ``mesh``."""
     dist = Distribution(mesh=mesh, rules=shape_rules(cfg, shape, mesh))
     defs = mod.defs(cfg)
     if shape.kind == "train":
@@ -238,7 +222,9 @@ def _mesh_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: LMMesh, mod,
                              rng=rng)
 
         def prefill_fn(params, batch):
-            return mod.prefill(cfg, params, batch["tokens"], dist=dist)
+            inputs = batch if cfg.family in ENCDEC_FAMILIES \
+                else batch["tokens"]
+            return mod.prefill(cfg, params, inputs, dist=dist)
 
         return Cell(name, prefill_fn, (params, batch), None,
                     meta | {"logits_spec": logits_spec})
@@ -248,8 +234,8 @@ def _mesh_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: LMMesh, mod,
     def serve_step(params, cache, tokens, pos):
         return mod.decode_step(cfg, params, cache, tokens, pos, dist=dist)
 
-    cache_specs = pspecs_from_defs(transformer.cache_defs(
-        cfg, B, shape.seq_len), dist.rules, mesh)
+    cache_specs = pspecs_from_defs(_cache_defs(cfg, shape), dist.rules,
+                                   mesh)
     return Cell(name, serve_step, (params, cache, tokens, 0),
                 (logits_spec, cache_specs), meta)
 

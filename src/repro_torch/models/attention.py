@@ -21,7 +21,13 @@ each position at its use (``Distribution.gather_all``):
   (batch, seq);
 * decode (``decode_self_attention_mesh``): the new token's k and v
   written into the one position that owns its cache slot, then
-  ``layers.dist_decode_attention`` over the cache's ``kv_seq`` shards.
+  ``layers.dist_decode_attention`` over the cache's ``kv_seq`` shards;
+* the encoder-decoder's cross attention (``make_cross_kv`` and
+  ``cross_attention`` with ``dist``): k and v (batch, kv_seq); in training
+  and prefill q sharded along its sequence against the encoder's keys
+  gathered whole, not causal (each block's ``q_offset`` passed, and
+  ignored: no key is hidden); in decode ``dist_decode_attention`` over the
+  encoder's keys, the query after the last of them.
 """
 from __future__ import annotations
 
@@ -89,15 +95,11 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                    window: int = 0, theta: Optional[float] = None,
                    causal: bool = True, dist=None) -> torch.Tensor:
     """Full-sequence self attention (train / prefill), rope'd q and k;
-    ``causal=False`` for the encoder.  On a mesh (causal only): the
-    output of ``self_attention_mesh``."""
+    ``causal=False`` for the encoder.  On a mesh: the output of
+    ``self_attention_mesh``."""
     if on_mesh(dist):
-        if not causal:
-            raise NotImplementedError("non-causal attention on a mesh is "
-                                      "the encoder's (ROADMAP queue 1, "
-                                      "item 14)")
         return self_attention_mesh(cfg, p, x, dist=dist, window=window,
-                                   theta=theta)[0]
+                                   theta=theta, causal=causal)[0]
     positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _project(cfg, p, x)
     if theta is None:
@@ -108,9 +110,7 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     return _out(cfg, p, o)
 
 
-def make_cross_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor) -> tuple:
-    """The cross attention's k and v (B, S_enc, Hkv, Dh) from the encoder's
-    output, in its type (no bias, no norm, no rope)."""
+def _cross_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor) -> tuple:
     B, S, _ = enc_out.shape
     Dh = cfg.resolved_head_dim
     k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(B, S, cfg.n_kv_heads, Dh)
@@ -118,24 +118,63 @@ def make_cross_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor) -> tuple:
     return k, v
 
 
-def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                    enc_kv: tuple, *, mode: str) -> torch.Tensor:
+def make_cross_kv(cfg: ModelConfig, p: dict, enc_out, *,
+                  dist=None) -> tuple:
+    """The cross attention's k and v (B, S_enc, Hkv, Dh) from the encoder's
+    output, in its type (no bias, no norm, no rope); on a mesh (``p``
+    whole on every position, ``enc_out`` (batch, seq)) each position's
+    rows, constrained (batch, kv_seq)."""
+    if not on_mesh(dist):
+        return _cross_kv(cfg, p, enc_out)
+    spec = enc_out.spec + ((),)
+    k, v = dist.map(lambda pi, ei: _cross_kv(cfg, pi, ei), p, enc_out,
+                    spec=(spec, spec))
+    return tuple(dist.constrain(t, "batch", "kv_seq", None, None)
+                 for t in (k, v))
+
+
+def _cross_q(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    B, S, _ = x.shape
+    return (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads,
+                                             cfg.resolved_head_dim)
+
+
+def _cross_decode(q, k, v, dist=None):
+    """Each query placed after the last encoder slot, as the
+    reference's."""
+    S_enc, dev = k.shape[1], (q.first if on_mesh(dist) else q).device
+    k_pos = torch.arange(S_enc, device=dev)
+    q_pos = torch.full((q.shape[1],), S_enc, dtype=torch.int64, device=dev)
+    return layers.dist_decode_attention(q, k, v, q_pos, k_pos, dist=dist)
+
+
+def cross_attention(cfg: ModelConfig, p: dict, x, enc_kv: tuple, *,
+                    mode: str, dist=None):
     """Encoder-decoder cross attention: no rope, every encoder slot
     visible.  ``mode`` "train" / "prefill" runs the flash-attention kernel
     (not causal, Sq != Sk); "decode" runs ``decode_attention`` with each
-    query placed after the last encoder slot, as the reference's."""
-    B, S, _ = x.shape
-    Dh = cfg.resolved_head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, Dh)
+    query placed after the last encoder slot, as the reference's.  On a
+    mesh (``p`` whole on every position; x (batch, seq) or, in decode,
+    (batch); ``enc_kv`` (batch, kv_seq)): q along x's sequence against
+    the keys gathered whole per data shard, each position's block at its
+    ``q_offset``, or ``dist_decode_attention`` over the keys' shards."""
+    if not on_mesh(dist):
+        q, (k, v) = _cross_q(cfg, p, x), enc_kv
+        o = (_cross_decode(q, k, v) if mode == "decode"
+             else layers.flash_attention(q, k, v, causal=False))
+        return _out(cfg, p, o)
+    q = dist.map(lambda pi, xi: _cross_q(cfg, pi, xi), p, x,
+                 spec=x.spec + ((),))
     k, v = enc_kv
     if mode == "decode":
-        S_enc = k.shape[1]
-        k_pos = torch.arange(S_enc, device=x.device)
-        q_pos = torch.full((S,), S_enc, dtype=torch.int64, device=x.device)
-        o = layers.decode_attention(q, k, v, q_pos, k_pos)
-    else:
-        o = layers.flash_attention(q, k, v, causal=False)
-    return _out(cfg, p, o)
+        o = _cross_decode(q, k, v, dist)
+        return _out_mesh(cfg, p, o, dist, None)
+    q = dist.constrain(q, "batch", "seq", None, None)
+    k, v = (dist.constrain(t, "batch", None, None, None) for t in (k, v))
+    o = dist.map(lambda i, qi, ki, vi: layers.flash_attention(
+        qi, ki, vi, causal=False, q_offset=dist.block_start(q, 1, i)),
+        q, k, v, pos=True, spec=q.spec)
+    return _out_mesh(cfg, p, o, dist, "seq")
 
 
 def decode_self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -182,8 +221,10 @@ def _out_mesh(cfg: ModelConfig, p: dict, o, dist, seq_axis):
 
 def self_attention_mesh(cfg: ModelConfig, p: dict, x, *, dist,
                         window: int = 0, theta: Optional[float] = None,
-                        mode: str = "prefill"):
-    """Causal self attention of the prefill or of training on a mesh.
+                        mode: str = "prefill", causal: bool = True):
+    """Self attention of the prefill or of training on a mesh (causal, or
+    the encoder's bidirectional one: each block's offset is passed and
+    ignored there).
     ``p`` holds the layer's weights whole on every position; x (B, S, D)
     is sharded (batch, seq).  Each position ropes its rows at their
     absolute positions.  In prefill and under ``cfg.attn_layout == "sp"``,
@@ -215,7 +256,7 @@ def self_attention_mesh(cfg: ModelConfig, p: dict, x, *, dist,
         k = dist.constrain(k, "batch", None, None, None)
         v = dist.constrain(v, "batch", None, None, None)
     o = dist.map(lambda i, qi, ki, vi: layers.flash_attention(
-        qi, ki, vi, causal=True, window=window,
+        qi, ki, vi, causal=causal, window=window,
         q_offset=dist.block_start(q, 1, i),
         kv_offset=dist.block_start(k, 1, i)), q, k, v, pos=True, spec=q.spec)
     return _out_mesh(cfg, p, o, dist, "seq"), k, v

@@ -11,7 +11,12 @@ The reference combines the chunk states with ``jax.lax.associative_scan``
 (a tree); the port runs the recurrence as a loop over the chunks, which
 rounds differently in the last bits.  The reference's ``seq_sp`` and
 ``head_tp`` mixer layouts are sharding constraints for a mesh; on one
-device they do nothing, so the port has one layout.  Heads of one B/C
+device they do nothing.  On a mesh (``mamba_block_mesh``,
+``mamba_decode_step_mesh``) the port runs them over ``Sharded`` values:
+``head_tp`` splits the heads, ``seq_sp`` the sequence (with the
+convolution's halo and the carry over every position's chunk states).
+The gated norm reads whole rows on both, so it sums in the meshless
+order.  Heads of one B/C
 group share their group's B and C by broadcasting (the reference repeats
 them per head): the same products, without the (B, c, Q, H, N) copies.
 Everything here is plain PyTorch, as in the reference (no Pallas kernel).
@@ -52,15 +57,20 @@ def mamba_defs(cfg: ModelConfig, stack: int = 0) -> dict:
     }
 
 
-def causal_conv(x: torch.Tensor, w: torch.Tensor,
-                b: torch.Tensor) -> torch.Tensor:
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                halo=None) -> torch.Tensor:
     """Depthwise causal convolution, x (B, S, C), w (W, C): the taps summed
-    in f32 in order, then silu, returned in x's type."""
+    in f32 in order, then silu, returned in x's type.  ``halo`` (B, W - 1,
+    C) holds the rows before x's first (a sequence block's predecessor's
+    last rows on a mesh); None: zeros."""
     W, S = w.shape[0], x.shape[1]
+    if halo is not None:
+        ext = torch.cat([halo, x], dim=1)
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for k in range(W):
         shift = W - 1 - k
-        xs = F.pad(x, (0, 0, shift, 0))[:, :S]
+        xs = (F.pad(x, (0, 0, shift, 0))[:, :S] if halo is None
+              else ext[:, W - 1 - shift:W - 1 - shift + S])
         out = out + xs.float() * w[k].float()
     return F.silu(out + b.float()).to(x.dtype)
 
@@ -75,15 +85,19 @@ def causal_conv_step(x_new: torch.Tensor, conv_state: torch.Tensor,
     return out.to(x_new.dtype), window[:, 1:]
 
 
-def _project(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """x (B, S, D) -> z, x, B, C (B, S, width) in x's type and dt (B, S, H)
-    f32 (softplus of the projection plus its bias, in f32)."""
-    z = x @ p["w_z"].to(x.dtype)
-    xr = x @ p["w_x"].to(x.dtype)
+def _project(cfg: ModelConfig, p: dict, x: torch.Tensor, h0: int = 0,
+             n: int = 0):
+    """x (B, S, D) -> z, x (B, S, n P), B, C (B, S, G N) in x's type and
+    dt (B, S, n) f32 (softplus of the projection plus its bias, in f32),
+    for the ``n`` heads from ``h0`` (every head where ``n`` is 0)."""
+    n = n or cfg.ssm_nheads
+    cols = slice(h0 * cfg.ssm_headdim, (h0 + n) * cfg.ssm_headdim)
+    z = x @ p["w_z"][:, cols].to(x.dtype)
+    xr = x @ p["w_x"][:, cols].to(x.dtype)
     Br = x @ p["w_B"].to(x.dtype)
     Cr = x @ p["w_C"].to(x.dtype)
-    dt = x @ p["w_dt"].to(x.dtype)
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    dt = x @ p["w_dt"][:, h0:h0 + n].to(x.dtype)
+    dt = F.softplus(dt.float() + p["dt_bias"][h0:h0 + n].float())
     return z, xr, Br, Cr, dt
 
 
@@ -96,7 +110,22 @@ def ssd_chunked(x, dt, A, B_, C_, D_, chunk: int, h0=None,
 
     ``compute_dtype=torch.bfloat16`` keeps the decay cumsums in f32 but
     stores the (Q, Q) intra-chunk tensors and runs the large products in
-    bf16, as the reference's switch does."""
+    bf16, as the reference's switch does.  Its three steps (``ssd_local``,
+    ``ssd_carry``, ``ssd_out``) are the mesh's too: a sequence-sharded
+    mixer runs the first and last on its chunks and the carry over every
+    position's chunk states."""
+    S = x.shape[1]
+    t = ssd_local(x, dt, A, B_, C_, chunk, compute_dtype)
+    h_prev, h_final = ssd_carry(t["a_c"], t["Sc"], h0)
+    return ssd_out(t, h_prev, D_)[:, :S], h_final
+
+
+def ssd_local(x, dt, A, B_, C_, chunk: int, compute_dtype=torch.float32
+              ) -> dict:
+    """What each chunk computes from its own positions: the intra-chunk
+    output ``y_intra``, the chunk summary states ``Sc`` (B, c, H, N, P) f32
+    and the chunks' decays ``a_c`` (B, c, H), with what ``ssd_out`` reads
+    (the padded x and C, the decay cumsums)."""
     Bb, S, H, P_ = x.shape
     G, N = B_.shape[2], B_.shape[3]
     HG = H // G
@@ -135,29 +164,39 @@ def ssd_chunked(x, dt, A, B_, C_, D_, chunk: int, h0=None,
     w = (dec_end * dtc).to(cd).reshape(Bb, c, Q, G, HG, 1)
     Sc = torch.einsum("bckgn,bckgjp->bcgjnp", Bc.to(cd),
                       w * xc.to(cd)).float().reshape(Bb, c, H, N, P_)
+    return {"y_intra": y_intra, "Sc": Sc, "a_c": torch.exp(cum[:, :, -1, :]),
+            "cum": cum, "xc": xc, "Cc": Cc, "cd": cd}
 
-    # inter-chunk recurrence h_c = a_c h_{c-1} + S_c, a loop over chunks
-    a_c = torch.exp(cum[:, :, -1, :])  # (B, c, H)
-    h = (torch.zeros((Bb, H, N, P_), dtype=torch.float32, device=x.device)
+
+def ssd_carry(a_c, Sc, h0=None) -> tuple:
+    """The inter-chunk recurrence h_c = a_c h_{c-1} + S_c, a loop over the
+    chunks in order: (the state entering each chunk (B, c, H, N, P), the
+    state after the last) in f32."""
+    Bb, c, H, N, P_ = Sc.shape
+    h = (torch.zeros((Bb, H, N, P_), dtype=torch.float32, device=Sc.device)
          if h0 is None else h0.float())
     h_prev = []
     for i in range(c):
         h_prev.append(h)
         h = a_c[:, i, :, None, None] * h + Sc[:, i]
-    h_final = h
-    h_prev = torch.stack(h_prev, dim=1)  # (B, c, H, N, P): entering chunk
+    return torch.stack(h_prev, dim=1), h
 
-    # inter-chunk contribution: y_q += exp(cum_q) C_q . h_prev
+
+def ssd_out(t: dict, h_prev, D_):
+    """y (B, c * Q, H, P) f32 of the chunks of ``ssd_local``'s ``t`` from
+    the states entering them: the intra-chunk part, exp(cum_q) C_q .
+    h_prev, and the skip D x."""
+    xc, Cc, cum, cd = t["xc"], t["Cc"], t["cum"], t["cd"]
+    Bb, c, Q, G, HG, P_ = xc.shape
+    N = Cc.shape[-1]
     dec_in = torch.exp(cum)  # (B, c, Q, H)
     y_inter = torch.einsum(
         "bcqgn,bcgjnp->bcqgjp", Cc.to(cd),
         h_prev.to(cd).reshape(Bb, c, G, HG, N, P_)).float()
     y_inter = y_inter * dec_in.to(cd).float().reshape(Bb, c, Q, G, HG, 1)
-
-    y = (y_intra + y_inter).reshape(Bb, c, Q, H, P_) \
-        + D_.float()[:, None] * xc.float().reshape(Bb, c, Q, H, P_)
-    y = y.reshape(Bb, Sp, H, P_)[:, :S]
-    return y, h_final
+    y = (t["y_intra"] + y_inter).reshape(Bb, c, Q, G * HG, P_) \
+        + D_.float()[:, None] * xc.float().reshape(Bb, c, Q, G * HG, P_)
+    return y.reshape(Bb, c * Q, G * HG, P_)
 
 
 def ssd_sequential(x, dt, A, B_, C_, D_, h0=None):
@@ -180,24 +219,88 @@ def ssd_sequential(x, dt, A, B_, C_, D_, h0=None):
     return y, h
 
 
+def _mixer(cfg: ModelConfig, p: dict, x: torch.Tensor, h0: int = 0,
+           n: int = 0, h_in=None) -> tuple:
+    """The mixer up to its gated norm, for the ``n`` heads from ``h0``
+    (every head where ``n`` is 0): (bf16(y * silu(z)) (B, S, n P) in x's
+    type, h_final (B, n, N, P) f32)."""
+    B, S, _ = x.shape
+    n = n or cfg.ssm_nheads
+    P_, N = cfg.ssm_headdim, cfg.ssm_state
+    cols = slice(h0 * P_, (h0 + n) * P_)
+    g0, g1 = _groups(cfg, h0, n)
+    z, xr, Br, Cr, dt = _project(cfg, p, x, h0, n)
+    xr = causal_conv(xr, p["conv_x_w"][:, cols], p["conv_x_b"][cols])
+    Br = causal_conv(Br, p["conv_B_w"], p["conv_B_b"])
+    Cr = causal_conv(Cr, p["conv_C_w"], p["conv_C_b"])
+    A = -torch.exp(p["A_log"][h0:h0 + n].float())
+    G = cfg.ssm_ngroups
+    y, h_final = ssd_chunked(
+        xr.reshape(B, S, n, P_), dt, A, Br.reshape(B, S, G, N)[:, :, g0:g1],
+        Cr.reshape(B, S, G, N)[:, :, g0:g1], p["D"][h0:h0 + n], cfg.ssd_chunk,
+        h0=h_in, compute_dtype=_compute_dtype(cfg))
+    y = y.reshape(B, S, n * P_)
+    return (y * F.silu(z.float())).to(x.dtype), h_final
+
+
+def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.ssd_bf16 else torch.float32
+
+
+def _groups(cfg: ModelConfig, h0: int, n: int) -> tuple:
+    """The B/C groups [g0, g1) that heads [h0, h0 + n) read (a block of
+    heads holds whole groups, or lies inside one)."""
+    HG = cfg.ssm_nheads // cfg.ssm_ngroups
+    if n % HG and HG % n:
+        raise ValueError(f"a block of {n} heads splits groups of {HG}")
+    return h0 // HG, (h0 + n - 1) // HG + 1
+
+
+def _gated_out(cfg: ModelConfig, p: dict, u: torch.Tensor) -> torch.Tensor:
+    """The gated norm over the whole inner dim, then w_out."""
+    return rms_norm(u, p["norm"], cfg.norm_eps) @ p["w_out"].to(u.dtype)
+
+
 def mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                 h0=None) -> tuple:
     """The mixer on a (B, S, D) input.  Returns (out (B, S, D) in x's
     type, h_final (B, H, N, P) f32)."""
-    B, S, _ = x.shape
-    H, P_, N, G = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_ngroups
-    z, xr, Br, Cr, dt = _project(cfg, p, x)
-    xr = causal_conv(xr, p["conv_x_w"], p["conv_x_b"])
-    Br = causal_conv(Br, p["conv_B_w"], p["conv_B_b"])
-    Cr = causal_conv(Cr, p["conv_C_w"], p["conv_C_b"])
-    A = -torch.exp(p["A_log"].float())
-    y, h_final = ssd_chunked(
-        xr.reshape(B, S, H, P_), dt, A, Br.reshape(B, S, G, N),
-        Cr.reshape(B, S, G, N), p["D"], cfg.ssd_chunk, h0=h0,
-        compute_dtype=torch.bfloat16 if cfg.ssd_bf16 else torch.float32)
-    y = y.reshape(B, S, cfg.d_inner)
-    y = rms_norm((y * F.silu(z.float())).to(x.dtype), p["norm"], cfg.norm_eps)
-    return y @ p["w_out"].to(x.dtype), h_final
+    u, h_final = _mixer(cfg, p, x, h_in=h0)
+    return _gated_out(cfg, p, u), h_final
+
+
+def _decode_heads(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict,
+                  h0: int = 0, n: int = 0) -> tuple:
+    """One token through the mixer up to its gated norm, for the ``n``
+    heads from ``h0`` (every head where ``n`` is 0): (bf16(y * silu(z))
+    (B, 1, n P), the new state of those heads: ``h`` (B, n, N, P) and
+    ``conv_x`` (B, W-1, n P), and the new ``conv_B``, ``conv_C``)."""
+    B = x.shape[0]
+    n = n or cfg.ssm_nheads
+    P_, N, G = cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_ngroups
+    HG = cfg.ssm_nheads // G
+    cols = slice(h0 * P_, (h0 + n) * P_)
+    z, xr, Br, Cr, dt = _project(cfg, p, x, h0, n)
+    xr, cs_x = causal_conv_step(xr, state["conv_x"], p["conv_x_w"][:, cols],
+                                p["conv_x_b"][cols])
+    Br, cs_B = causal_conv_step(Br, state["conv_B"], p["conv_B_w"],
+                                p["conv_B_b"])
+    Cr, cs_C = causal_conv_step(Cr, state["conv_C"], p["conv_C_w"],
+                                p["conv_C_b"])
+    xh = xr.reshape(B, n, P_).float()
+    Bm = Br.reshape(B, G, N).repeat_interleave(HG, dim=1)[:, h0:h0 + n]
+    Cm = Cr.reshape(B, G, N).repeat_interleave(HG, dim=1)[:, h0:h0 + n]
+    Bm, Cm = Bm.float(), Cm.float()
+    dt1 = dt[:, 0]  # (B, n)
+    A = -torch.exp(p["A_log"][h0:h0 + n].float())
+    da = torch.exp(dt1 * A)
+    h = (da[..., None, None] * state["h"]
+         + dt1[..., None, None] * Bm[..., None] * xh[..., None, :])
+    y = torch.einsum("bhn,bhnp->bhp", Cm, h) \
+        + p["D"][h0:h0 + n].float()[:, None] * xh
+    y = y.reshape(B, 1, n * P_)
+    u = (y * F.silu(z.float())).to(x.dtype)
+    return u, {"h": h, "conv_x": cs_x, "conv_B": cs_B, "conv_C": cs_C}
 
 
 def mamba_decode_step(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -205,29 +308,151 @@ def mamba_decode_step(cfg: ModelConfig, p: dict, x: torch.Tensor,
     """One token, x (B, 1, D).  ``state``: {"h": (B, H, N, P) f32,
     "conv_x", "conv_B", "conv_C": (B, W-1, width)}.  Returns (out (B, 1,
     D), the new state as a new dict; ``state`` is left as it was)."""
-    B = x.shape[0]
-    H, P_, N, G = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_ngroups
-    HG = H // G
-    z, xr, Br, Cr, dt = _project(cfg, p, x)
-    xr, cs_x = causal_conv_step(xr, state["conv_x"], p["conv_x_w"],
-                                p["conv_x_b"])
-    Br, cs_B = causal_conv_step(Br, state["conv_B"], p["conv_B_w"],
-                                p["conv_B_b"])
-    Cr, cs_C = causal_conv_step(Cr, state["conv_C"], p["conv_C_w"],
-                                p["conv_C_b"])
-    xh = xr.reshape(B, H, P_).float()
-    Bm = Br.reshape(B, G, N).repeat_interleave(HG, dim=1).float()
-    Cm = Cr.reshape(B, G, N).repeat_interleave(HG, dim=1).float()
-    dt1 = dt[:, 0]  # (B, H)
-    A = -torch.exp(p["A_log"].float())
-    da = torch.exp(dt1 * A)
-    h = (da[..., None, None] * state["h"]
-         + dt1[..., None, None] * Bm[..., None] * xh[..., None, :])
-    y = torch.einsum("bhn,bhnp->bhp", Cm, h) + p["D"].float()[:, None] * xh
-    y = y.reshape(B, 1, cfg.d_inner)
-    y = rms_norm((y * F.silu(z.float())).to(x.dtype), p["norm"], cfg.norm_eps)
-    out = y @ p["w_out"].to(x.dtype)
-    return out, {"h": h, "conv_x": cs_x, "conv_B": cs_B, "conv_C": cs_C}
+    u, new = _decode_heads(cfg, p, x, state)
+    return _gated_out(cfg, p, u), new
+
+
+# ------------------------------------------------------------------ mesh ----
+
+STATE_KEYS = ("h", "conv_x", "conv_B", "conv_C")
+
+
+def _head_axes(cfg: ModelConfig, dist) -> tuple:
+    """The mesh axes the heads split over ("ssm_heads" where it divides
+    the head count; the inner channels, H P wide, split with them)."""
+    return dist.layout("ssm_heads", shape=(cfg.ssm_nheads,))[0]
+
+
+def _head_block(cfg: ModelConfig, dist, i: int, hax: tuple) -> tuple:
+    """Position ``i``'s heads: (first, count)."""
+    n = cfg.ssm_nheads // dist.group_size(hax)
+    return dist.mesh.rank(i, hax) * n, n
+
+
+def _mixer_out_mesh(cfg: ModelConfig, p, u, spec: tuple, dist):
+    """``_gated_out`` on the mesh: u (B, S, d_inner) resharded to whole
+    rows in ``spec`` (the block input's (batch, seq) layout; an all_to_all
+    where the inner dim's split moves to the sequence), so that the norm
+    sums every channel of a row in the meshless order."""
+    u = dist.reshard(u, spec)
+    return dist.map(lambda pi, ui: _gated_out(cfg, pi, ui), p, u, spec=spec)
+
+
+def mamba_block_mesh(cfg: ModelConfig, p: dict, x, *, dist) -> tuple:
+    """``mamba_block`` on ``dist``'s mesh: x (B, S, D) ``Sharded``
+    (batch, seq); ``p`` the layer's weights whole on every position.
+    Returns (out (B, S, D) in x's layout, h_final (B, H, N, P) f32:
+    (batch, heads) under ``head_tp``, replicated over the sequence axes
+    under ``seq_sp``).
+
+    ``head_tp`` (the default): x is gathered along its sequence, each
+    position projects, convolves and runs the SSD for its block of heads
+    (its "ssm_heads" rank; B and C, one per group, whole on every
+    position), and ``bf16(y * silu(z))`` goes back to whole rows of its
+    sequence block (``_mixer_out_mesh``) for the norm and ``w_out``.
+
+    ``seq_sp``: the sequence stays sharded, each block a whole number of
+    SSD chunks.  Each position projects its rows; the convolutions read
+    the previous block's last W - 1 raw rows (the halo: every block's tail
+    all-gathered along the sequence axes); each position computes its
+    chunks' states and decays (``ssd_local``), which are all-gathered, and
+    runs the meshless carry over every chunk (``ssd_carry``), taking the
+    states that enter its own chunks (``ssd_out``).  Without a sequence
+    split both layouts run the meshless mixer on every position."""
+    if cfg.mamba_layout == "seq_sp":
+        return _seq_sp_block(cfg, p, x, dist)
+    hax = _head_axes(cfg, dist)
+    xf = dist.constrain(x, "batch", None, "embed")
+    b = xf.spec[0]
+
+    def local(i, pi, xi):
+        return _mixer(cfg, pi, xi, *_head_block(cfg, dist, i, hax))
+
+    u, h_final = dist.map(local, p, xf, pos=True,
+                          spec=((b, (), hax), (b, hax, (), ())))
+    return _mixer_out_mesh(cfg, p, u, x.spec, dist), h_final
+
+
+def _seq_sp_block(cfg: ModelConfig, p: dict, x, dist) -> tuple:
+    b, sax = x.spec[0], x.spec[1]
+    hspec = (b, (), (), ())
+    if not sax:
+        return dist.map(lambda pi, xi: mamba_block(cfg, pi, xi), p, x,
+                        spec=(x.spec, hspec))
+    B, S_loc = x.local_shape[:2]
+    Q = cfg.ssd_chunk
+    if S_loc % Q:
+        raise ValueError(f"seq_sp: a sequence block of {S_loc} positions "
+                         f"is not a whole number of SSD chunks of {Q}")
+    H, P_, N, G = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state, \
+        cfg.ssm_ngroups
+    W = cfg.conv_width
+    z, xr, Br, Cr, dt = dist.map(lambda pi, xi: _project(cfg, pi, xi), p,
+                                 x, spec=(x.spec,) * 5)
+    tails = dist.map(lambda a, bb, c: torch.cat([a, bb, c], -1)[:, S_loc
+                                                                - (W - 1):],
+                     xr, Br, Cr, spec=x.spec)
+    tails = dist.all_gather(tails, 1)
+    local = {}
+
+    def chunks(i, pi, xi, bi, ci, di, ti):
+        r = dist.mesh.rank(i, sax)
+        halo = (torch.zeros_like(ti[:, :W - 1]) if r == 0
+                else ti[:, (r - 1) * (W - 1):r * (W - 1)])
+        din = xi.shape[-1]
+        hx, hb, hc = halo.split([din, G * N, G * N], dim=-1)
+        xi = causal_conv(xi, pi["conv_x_w"], pi["conv_x_b"], hx)
+        bi = causal_conv(bi, pi["conv_B_w"], pi["conv_B_b"], hb)
+        ci = causal_conv(ci, pi["conv_C_w"], pi["conv_C_b"], hc)
+        A = -torch.exp(pi["A_log"].float())
+        t = ssd_local(xi.reshape(B, S_loc, H, P_), di, A,
+                      bi.reshape(B, S_loc, G, N), ci.reshape(B, S_loc, G, N),
+                      Q, _compute_dtype(cfg))
+        local[i] = t
+        return t["a_c"], t["Sc"]
+
+    a_c, Sc = dist.map(chunks, p, xr, Br, Cr, dt, tails, pos=True,
+                       spec=((b, sax, ()), (b, sax, (), (), ())))
+    a_c, Sc = dist.all_gather(a_c, 1), dist.all_gather(Sc, 1)
+
+    def finish(i, pi, zi, ai, si):
+        h_prev, h_final = ssd_carry(ai, si)
+        c = local[i]["Sc"].shape[1]
+        r = dist.mesh.rank(i, sax)
+        y = ssd_out(local[i], h_prev[:, r * c:(r + 1) * c], pi["D"])
+        y = y.reshape(B, S_loc, H * P_)
+        u = (y * F.silu(zi.float())).to(zi.dtype)
+        return _gated_out(cfg, pi, u), h_final
+
+    return dist.map(finish, p, z, a_c, Sc, pos=True, spec=(x.spec, hspec))
+
+
+def mamba_decode_step_mesh(cfg: ModelConfig, p: dict, x, state: dict, *,
+                           dist) -> tuple:
+    """``mamba_decode_step`` on ``dist``'s mesh, under either layout (one
+    token): x (B, 1, D) ``Sharded`` (batch); ``p`` whole on every position;
+    ``state`` one layer's ``Sharded`` values (``h`` (batch, heads),
+    ``conv_x`` (batch, None, inner), ``conv_B`` and ``conv_C`` (batch)).
+    Each position steps its block of heads (``head_tp``'s); the gated norm
+    reads whole rows.  Returns (out (B, 1, D) in x's layout, the new state
+    in ``state``'s layouts)."""
+    hax = _head_axes(cfg, dist)
+    b = x.spec[0]
+    lay = {"h": (b, hax, (), ()), "conv_x": (b, (), hax),
+           "conv_B": (b, (), ()), "conv_C": (b, (), ())}
+    st = {k: dist.reshard(state[k], lay[k]) for k in STATE_KEYS}
+
+    def local(i, pi, xi, *s):
+        u, new = _decode_heads(cfg, pi, xi, dict(zip(STATE_KEYS, s)),
+                               *_head_block(cfg, dist, i, hax))
+        return (u,) + tuple(new[k] for k in STATE_KEYS)
+
+    u, *new = dist.map(local, p, x, *(st[k] for k in STATE_KEYS), pos=True,
+                       spec=((b, (), hax),) + tuple(lay[k]
+                                                    for k in STATE_KEYS))
+    out = _mixer_out_mesh(cfg, p, u, x.spec, dist)
+    return out, {k: dist.reshard(v, state[k].spec)
+                 for k, v in zip(STATE_KEYS, new)}
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int,

@@ -60,22 +60,12 @@ from torch.utils import _pytree
 from repro_torch.launch.mesh import LMMesh
 from repro_torch.models.params import Def, resolve_spec
 
-MESH_FAMILIES = "ROADMAP queue 1, item 14: ssm_lm and encdec on a mesh"
-
 
 def on_mesh(dist) -> bool:
     """Whether ``dist`` (a ``Distribution`` or None) has a mesh: the
     models' mesh paths run where it has one, the meshless paths
     otherwise."""
     return dist is not None and dist.mesh is not None
-
-
-def no_mesh(dist, why: str = MESH_FAMILIES) -> None:
-    """Raises where ``dist`` has a mesh, naming ``why`` (the ROADMAP item
-    that ports it; by default the SSM, hybrid and encoder-decoder
-    families', which run without a mesh only)."""
-    if on_mesh(dist):
-        raise NotImplementedError(f"not ported on a mesh yet ({why})")
 
 
 def default_rules(mesh: Optional[LMMesh]) -> dict:
@@ -307,6 +297,19 @@ class Distribution:
             out[i] = t.to(dev)
         return Sharded(out, spec, self.mesh)
 
+    def zeros(self, defs, dtype: torch.dtype):
+        """A tree of ``Def`` leaves as zero ``Sharded`` values laid out by
+        the rules, each position's block made on its device (in the
+        ``Def``'s dtype, else ``dtype``): a decode state or cache."""
+        if not isinstance(defs, Def):
+            return {k: self.zeros(v, dtype) for k, v in defs.items()}
+        spec = self.norm(resolve_spec(defs, self.rules, self.mesh))
+        local = tuple(n // self.group_size(ax)
+                      for n, ax in zip(defs.shape, spec))
+        return Sharded({i: torch.zeros(local, dtype=defs.dtype or dtype,
+                                       device=self.mesh.device(i))
+                        for i in self.mesh.active}, spec, self.mesh)
+
     def full(self, x: Sharded, device=None) -> torch.Tensor:
         """The global tensor ``x`` stands for, assembled on ``device``
         (default: the first position's) from every position's block (for
@@ -413,6 +416,16 @@ class Distribution:
             if ax and d != keep:
                 x = self.all_gather(x, d)
         return x
+
+    def at_use(self, tree, layer: Optional[int] = None):
+        """A parameter tree (nested dicts of ``Sharded`` leaves) whole on
+        every position: each leaf's layer ``layer`` first where one is
+        given (``select``: ZeRO-3's layer dim fetched from its holder),
+        then ``gather_all``."""
+        if isinstance(tree, dict):
+            return {k: self.at_use(v, layer) for k, v in tree.items()}
+        return self.gather_all(tree if layer is None
+                               else self.select(tree, layer))
 
     def matmul(self, x: Sharded, w: Sharded) -> Sharded:
         """``x @ w.to(x.dtype)`` with ``w`` whole on every position.  Where

@@ -534,21 +534,32 @@ def _ce_chunk(cfg: ModelConfig, head: dict, se, cnt, h, labels, dist):
 def loss_fn_mesh(cfg: ModelConfig, params: dict, batch: dict, *, dist):
     """``loss_fn`` on ``dist``'s mesh: tokens and labels (B, S) plain or
     ``Sharded``; ``params`` laid out by ``params.shard_params`` (ZeRO-3's
-    layout too).  The CE's rows are whole sequences (the logits'
-    (batch, None, vocab) layout), cut into ``cfg.loss_chunk`` chunks as
-    the meshless path cuts them, each checkpointed; the sum and count are
-    ``psum``-med over the batch axes.  Returns (loss, {"ce", "aux"}), each
-    replicated on every position (``Sharded`` scalars; aux 0.0 for a dense
-    config)."""
+    layout too).  The CE is ``mean_ce_mesh``'s, in ``cfg.loss_chunk``
+    chunks.  Returns (loss, {"ce", "aux"}), each replicated on every
+    position (``Sharded`` scalars; aux 0.0 for a dense config)."""
     hidden, aux = forward_hidden_mesh(cfg, params, batch["tokens"],
                                       mode="train", dist=dist)
+    ce = mean_ce_mesh(cfg, params, hidden, batch["labels"], dist,
+                      cfg.loss_chunk)
+    loss = dist.map(lambda c_, a_: c_ + 0.01 * a_, ce, aux, spec=())
+    return loss, {"ce": ce, "aux": aux}
+
+
+def mean_ce_mesh(cfg: ModelConfig, params: dict, hidden, labels, dist,
+                 chunk: int = 0):
+    """The mean next-token CE of the final hidden state (B, S, D) on
+    ``dist``'s mesh (the head: ``params["lm_head"]``, else the tied
+    ``params["embed"]``), replicated on every position.  The CE's rows are
+    whole sequences (the logits' (batch, None, vocab) layout), cut into
+    ``chunk``-position chunks where ``chunk`` divides S (and S is larger)
+    as the meshless path cuts them, each checkpointed; the sum and count
+    are ``psum``-med over the batch axes."""
     hidden = dist.constrain(hidden, "batch", None, "embed")
-    labels = dist.constrain(batch["labels"], "batch", None)
+    labels = dist.constrain(labels, "batch", None)
     if labels.spec[0] != hidden.spec[0]:
         raise ValueError(f"labels laid out {labels.spec}, the hidden state "
                          f"{hidden.spec}")
     S = hidden.shape[1]
-    chunk = cfg.loss_chunk
     if chunk and S % chunk == 0 and S > chunk:
         se = cnt = dist.map(lambda t: torch.zeros(
             (), dtype=torch.float32, device=t.device), hidden, spec=())
@@ -570,6 +581,4 @@ def loss_fn_mesh(cfg: ModelConfig, params: dict, batch: dict, *, dist):
         se, cnt = _ce_mesh(cfg, params, hidden, labels, dist)
     se = dist.psum(se, hidden.spec[0])
     cnt = dist.psum(cnt, hidden.spec[0])
-    ce = dist.map(lambda s_, n_: s_ / n_.clamp_min(1.0), se, cnt, spec=())
-    loss = dist.map(lambda c_, a_: c_ + 0.01 * a_, ce, aux, spec=())
-    return loss, {"ce": ce, "aux": aux}
+    return dist.map(lambda s_, n_: s_ / n_.clamp_min(1.0), se, cnt, spec=())

@@ -687,9 +687,9 @@ def test_dryrun_mesh_multi_records_a_tiny_cell(tmp_path, monkeypatch):
     """``--mesh multi``: a 2-layer gemma3-1b decode cell at full width on
     the 2 x 16 x 16 production mesh (every position on meta, one standing
     for all): the reference's keys, each position's memory, collectives
-    with their wire bytes and ``collective_s``; the other families get a
-    ``not_ported`` record with the ROADMAP item (the CLI exits non-zero on
-    one), the sweep counts them apart (train cells run:
+    with their wire bytes and ``collective_s``; the SSM and hybrid
+    families' cells run there too (2 layers at full width), and the CLI
+    writes an ``ok`` record for one (train cells run:
     ``tests/test_torch_lm_mesh_train.py``)."""
     rec = dryrun.run_cell("gemma3-1b", "decode_32k", "multi",
                           shape=ShapeConfig("decode_32k", 512, 32, "decode"),
@@ -711,36 +711,49 @@ def test_dryrun_mesh_multi_records_a_tiny_cell(tmp_path, monkeypatch):
     # the position's cache: (2, 32/32, 512/16, 1, 256) bf16 for k and v
     cache = 2 * 2 * 1 * (512 // 16) * 1 * 256 * 2
     assert mem["argument_bytes"] >= cache
-    for arch, shape in (("mamba2-780m", "train_4k"),
-                        ("mamba2-780m", "decode_32k")):
-        rec = dryrun.run_cell(arch, shape, "multi")
-        assert rec["status"] == "not_ported"
-        assert "ROADMAP queue 1, item 14" in rec["reason"]
+    for arch, shape in (("mamba2-780m", ShapeConfig("train_4k", 512, 32,
+                                                    "train")),
+                        ("mamba2-780m", ShapeConfig("decode_32k", 512, 32,
+                                                    "decode"))):
+        rec = dryrun.run_cell(arch, shape.name, "multi", shape=shape,
+                              overrides={"n_layers": 2})
+        assert rec["status"] == "ok" and rec["n_chips"] == 512
+        assert rec["collectives"]["all-gather"]["count"] > 0
     monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
-    with pytest.raises(SystemExit, match="item 14"):
-        dryrun.main(["--arch", "zamba2-1.2b", "--shape", "train_4k",
-                     "--mesh", "multi"])
+    dryrun.main(["--arch", "zamba2-1.2b", "--shape", "long_500k",
+                 "--mesh", "multi"])
     rec = json.loads(next(tmp_path.iterdir()).read_text())
-    assert rec["status"] == "not_ported"
+    assert rec["status"] == "ok" and rec["arch"] == "zamba2-1.2b"
 
 
 def test_training_and_other_families_raise_on_a_mesh():
-    """What is not ported on a mesh raises with its ROADMAP item: the SSM
-    and encoder-decoder families (item 14), serving and training (training
-    the transformer families on a mesh runs:
-    ``tests/test_torch_lm_mesh_train.py``)."""
+    """The SSM, hybrid and encoder-decoder families now build and run
+    their serving cells on a mesh (``build_cell(mesh=)``: the prefill and
+    a decode step of mamba2-smoke on the 2 x 2 CPU mesh, vocab-sharded
+    logits, the state laid out by ``state_defs``: ``h`` over "ssm_heads"
+    in f32); what still raises is a mesh that is not an ``LMMesh``
+    (training the families on a mesh: ``tests/test_torch_lm_mesh_train.py``
+    and ``tests/test_torch_lm_mesh_families.py``)."""
     dist = _dist()
     cfg = get_config("gemma3-1b", smoke=True)
-    batch = {"tokens": torch.zeros(2, 8, dtype=torch.long),
-             "labels": torch.zeros(2, 8, dtype=torch.long)}
     scfg = get_config("mamba2-780m", smoke=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        ssm_lm.prefill(scfg, {}, batch["tokens"], dist=dist)
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        specs.build_cell(scfg, ShapeConfig("p", 8, 2, "prefill"), dist.mesh)
+    tokens = torch.zeros(2, 8, dtype=torch.long)
+    params = init_from_defs(ssm_lm.defs(scfg), torch.Generator().manual_seed(
+        0), "cpu")
+    sp = shard_params(params, ssm_lm.defs(scfg), dist)
+    logits, state = ssm_lm.prefill(scfg, sp, tokens, dist=dist)
+    assert logits.shape == (2, 1, scfg.padded_vocab)
+    assert logits.spec == (("data",), (), ("model",))
+    assert state["h"].dtype == torch.float32
+    assert state["h"].spec == ((), ("data",), ("model",), (), ())
+    cell = specs.build_cell(scfg, ShapeConfig("p", 16, 2, "decode"),
+                            dist.mesh, device="cpu")
+    logits, state = cell.fn(*cell.args)
+    assert bool(torch.isfinite(dist.full(logits)).all())
+    assert cell.out_shardings[1]["h"] == (None, "data", "model", None, None)
     with pytest.raises(TypeError, match="LMMesh"):
         specs.build_cell(cfg, ShapeConfig("p", 8, 2, "prefill"), object())
     assert transformer.prefill(cfg, init_from_defs(
         transformer.defs(cfg), torch.Generator().manual_seed(0), "cpu"),
-        batch["tokens"], dist=Distribution.single_device())[0].shape == (
+        tokens, dist=Distribution.single_device())[0].shape == (
         2, 1, cfg.padded_vocab)

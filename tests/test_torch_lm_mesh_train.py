@@ -657,19 +657,35 @@ def test_dryrun_mesh_multi_records_a_train_cell():
 
 
 def test_other_families_still_raise_on_a_mesh():
-    """Training ``ssm_lm`` and ``encdec`` on a mesh raises with ROADMAP
-    queue 1, item 14; so does their train cell."""
-    dist = _dist()
-    batch = {"tokens": torch.zeros(2, 8, dtype=torch.long),
-             "labels": torch.zeros(2, 8, dtype=torch.long)}
-    for mod, arch in ((ssm_lm, "mamba2-780m"),
+    """Training ``ssm_lm`` and ``encdec`` on a mesh now runs: their train
+    cells build on the 2 x 2 CPU mesh (``build_cell(train, mesh=)``) and
+    take a step with a finite loss, replicated on every position, and each
+    family's ``loss_fn(dist=)`` gives the meshless loss on a 1 x 1 mesh;
+    and ``dryrun --mesh multi`` accounts a smoke-sized train cell of each
+    on a 2 x 2 meta mesh (the last position standing for all).  (Held to
+    the reference: ``tests/test_torch_lm_mesh_families.py``.)"""
+    for mod, arch in ((ssm_lm, "mamba2-780m"), (ssm_lm, "zamba2-1.2b"),
                       (encdec, "seamless-m4t-large-v2")):
         cfg = get_config(arch, smoke=True)
-        with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-            mod.loss_fn(cfg, {}, batch, dist=dist)
-        with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-            specs.build_cell(cfg, ShapeConfig("t", 8, 2, "train"),
-                             dist.mesh)
+        shape = ShapeConfig("t", 32, 4, "train")
+        cell = specs.build_cell(cfg, shape, make_debug_mesh(devices="cpu"),
+                                device="cpu")
+        dist = cell.meta["dist"]
+        state, batch = cell.args
+        params = tree_map(dist.full, state["params"])
+        new, metrics = cell.fn(state, batch)
+        assert bool(torch.isfinite(metrics["loss"]))
+        assert new["step"] == 1
+        one = _dist((1, 1))
+        loss, _ = mod.loss_fn(cfg, shard_params(params, mod.defs(cfg), one),
+                              batch, dist=one)
+        assert torch.equal(loss.first, mod.loss_fn(cfg, params, batch)[0])
+        meta = make_debug_mesh(devices="meta")
+        cell = specs.build_cell(cfg, shape, meta.run_only(3))
+        summary, mem, _ = dryrun.account(cell)
+        assert summary["flops"] > 0 and mem["peak_bytes"] > 0
+        assert op_cost.parse_collectives(cell.meta["dist"].log)[
+            "all-gather"]["count"] > 0
 
 
 # ------------------------------------------- the backward at an offset --

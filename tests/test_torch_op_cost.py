@@ -431,38 +431,39 @@ def test_variant_records_have_their_own_file(tmp_path, monkeypatch):
     for p in tmp_path.iterdir():
         p.unlink()
     dryrun.main(["--arch", "mamba2-780m", "--shape", "decode_32k",
-                 "--variant", "chunked_loss", "--mesh", "single"])
-    with pytest.raises(SystemExit, match="queue 1, item 14"):
-        dryrun.main(["--arch", "mamba2-780m", "--shape", "decode_32k",
-                     "--variant", "chunked_loss", "--mesh", "both"])
+                 "--variant", "chunked_loss", "--mesh", "both"])
     recs = {p.name: json.loads(p.read_text()) for p in tmp_path.iterdir()}
     assert {n: (r["variant"], r["status"]) for n, r in recs.items()} == {
         "mamba2-780m__decode_32k__single__chunked_loss.json":
             ("chunked_loss", "ok"),
         "mamba2-780m__decode_32k__multi__chunked_loss.json":
-            ("chunked_loss", "not_ported")}
+            ("chunked_loss", "ok")}
 
 
 def test_cli_refuses_a_mesh(tmp_path):
-    """What a mesh does not run yet: the CLI exits non-zero on a cell of
-    the SSM family on ``--mesh multi`` and names the ROADMAP item (the
-    transformer families' cells run: ``tests/test_torch_lm_mesh.py`` and
-    ``tests/test_torch_lm_mesh_train.py``), and ``build_cell`` refuses one,
-    and any mesh that is not an ``LMMesh``."""
+    """What the CLI and ``build_cell`` refuse about a mesh: a mesh kind
+    other than single, multi or both (the CLI exits non-zero), a device
+    for a mesh cell (accounted on meta only), and any mesh that is not an
+    ``LMMesh``.  A cell of the SSM family on ``--mesh multi`` now runs: the
+    CLI exits 0 with an ``ok`` record (every family runs on a mesh:
+    ``tests/test_torch_lm_mesh_families.py``)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                        "--arch", "mamba2-780m", "--shape", "train_4k",
-                        "--mesh", "multi", "--out", str(tmp_path / "r.json")],
-                       cwd=ROOT, env=env, capture_output=True, text=True,
-                       timeout=300)
-    assert r.returncode != 0
-    assert "queue 1, item 14" in r.stderr
-    assert json.loads((tmp_path / "r.json").read_text())["status"] == \
-        "not_ported"
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "mamba2-780m", "--shape", "decode_32k", "--out",
+           str(tmp_path / "r.json")]
+    r = subprocess.run(cmd + ["--mesh", "pods"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and "invalid choice" in r.stderr
+    r = subprocess.run(cmd + ["--mesh", "multi"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert json.loads((tmp_path / "r.json").read_text())["status"] == "ok"
+    with pytest.raises(ValueError, match="meta only"):
+        dryrun.run_cell("mamba2-780m", "decode_32k", "multi", device="cpu")
     mesh = make_debug_mesh(devices="meta")
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        specs.build_cell(get_config("mamba2-780m", smoke=True),
-                         ShapeConfig("t", 8, 2, "train"), mesh=mesh)
+    cell = specs.build_cell(get_config("mamba2-780m", smoke=True),
+                            ShapeConfig("t", 32, 2, "train"), mesh=mesh)
+    assert cell.meta["kind"] == "train"
     with pytest.raises(TypeError, match="LMMesh"):
         specs.build_cell(get_config("gemma3-1b", smoke=True),
                          ShapeConfig("p", 8, 1, "prefill"), mesh=object())
