@@ -627,7 +627,10 @@ TRAIN_PARITY = (MOE_ARCH,) + FAMILY_TRAIN_FULL + (VLM_ARCH,)
 # losses by 2.45e-3 and zamba2-smoke's first-step A_log gradient by 6.68e-2
 # between two CPU runs of the port whose attention sums in another order
 # (AdamW's first updates are about lr times each gradient entry's sign), so
-# 4e-3 and 1e-1
+# 4e-3 and 1e-1; the attention backward's ds rounded once or in two bf16
+# parts moves zamba2-smoke's CPU losses by 3.33e-3, inside 8e-3 too, while
+# the card's two-part mma_sync kernel reads 1.21e-2 from the CPU (ROADMAP
+# section 3, 18: the kernel rounds ds once)
 TRAIN_GRAD_REL = {None: 5e-2, "zamba2-1.2b": 1e-1}
 TRAIN_SMOKE_ATOL = {"zamba2-1.2b": 8e-3, "seamless-m4t-large-v2": 8e-3,
                     "chameleon-34b": 4e-3}
@@ -855,6 +858,28 @@ MESH_FAMILY_CASES = (
 # states differ by bf16 rounding), the mesh may pick the other expert, and
 # that sequence is compared no further; a flip at a wider margin fails
 ROUTE_FLIP_MARGIN = 1e-2
+# phase 31, the reference's collective schedule on the mesh: decode on the
+# weights' own shards, prefill's gathers in bf16, seq_sp's halo and carry
+# shifted.  gemma3-1b at phase 28's widths and mamba2-780m (head_tp) at
+# phase 30a's, on 2 x 2 (every position on cuda:0): (arch, variant, mesh
+# shape, batch, prompt, new tokens); each decode step's collective log
+# against its hand count (no parameter moved but the Mamba mixer's w_out
+# and its norm's gain: ROADMAP section 3, 19) beside PR 30's schedule's
+# (every weight gathered whole in f32 at each use), its decode ms a step
+# and peak beside the earlier schedule's on the same cells (PR 28: gemma3
+# 376.015 ms a step; PR 30: mamba2 446.960; NVIDIA H100 80GB HBM3, 700 W)
+SCHEDULE_SERVE = (("gemma3-1b", "baseline", (2, 2), LM_BATCH, LM_PROMPT, 4),
+                  ("mamba2-780m", "baseline", (2, 2), 4, 1024, 4))
+SCHEDULE_BEFORE_MS = {"gemma3-1b": ("PR 28", 376.015),
+                      "mamba2-780m": ("PR 30", 446.960)}
+# and the flash_attention rows the dense configs' prefill_32k cells launch
+# and no phase timed (phase 25 runs them): 1 x 32768, causal, no window;
+# (name, (B, S, Hq, Hkv, Dh), window), each timed SCHEDULE_32K_LAUNCHES
+# times a round (a launch takes 15-30 ms there)
+SCHEDULE_32K = (("stablelm_prefill_32k", (1, 32768, 32, 32, 80), 1 << 30),
+                ("minitron_prefill_32k", (1, 32768, 24, 8, 128), 1 << 30),
+                ("qwen25_prefill_32k", (1, 32768, 40, 8, 128), 1 << 30))
+SCHEDULE_32K_LAUNCHES = 10
 
 
 def ptxas_functions(log: str) -> list:
@@ -4203,13 +4228,15 @@ def dryrun_phase(torch, card: str, phase_launches: dict,
     return timed
 
 
-def time_32k(torch, card: str) -> dict:
-    """``flash_attention`` at each of ``LAYERS_32K`` (bf16, from a seed):
+def time_32k(torch, card: str, layers=LAYERS_32K,
+             launches: int = TIMED_LAUNCHES, tag: str = "dryrun") -> dict:
+    """``flash_attention`` at each of ``layers`` (bf16, from a seed):
     held to its plain version within ``TOLERANCE``, then the kernel, the
     plain version and SDPA (``enable_gqa``; ``is_causal``, or the window
-    as an explicit mask) timed twice in turns with CUDA events, L2 flushed
-    before each launch, beside the bound.  Returns the kernels line's
-    ``timed`` entries by name."""
+    as an explicit mask) timed twice in turns with CUDA events (``launches``
+    each; the plain version ``LAYERS_32K_PLAIN``), L2 flushed before each
+    launch, beside the bound.  Returns the kernels line's ``timed``
+    entries by name."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fam
     from repro_torch.kernels import ref
@@ -4217,7 +4244,7 @@ def time_32k(torch, card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(25)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     out = {}
-    for name, (B, S, Hq, Hkv, Dh), window in LAYERS_32K:
+    for name, (B, S, Hq, Hkv, Dh), window in layers:
         q, k, v = (torch.randn((B, S, h, Dh), generator=gen, device="cuda")
                    .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
         got = fam.flash_attention(q, k, v, window=window)
@@ -4244,9 +4271,9 @@ def time_32k(torch, card: str) -> dict:
         def plain(q=q, k=k, v=v, window=window):
             return ref.flash_attention(q, k, v, window=window)
 
-        runs = [[time_ms(torch, kernel, (), TIMED_LAUNCHES, flush),
+        runs = [[time_ms(torch, kernel, (), launches, flush),
                  time_ms(torch, plain, (), LAYERS_32K_PLAIN, flush),
-                 time_ms(torch, sdpa, (), TIMED_LAUNCHES, flush)]
+                 time_ms(torch, sdpa, (), launches, flush)]
                 for _ in range(2)]
         nbytes, flops = flash_work(q, k, window)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -4263,7 +4290,7 @@ def time_32k(torch, card: str) -> dict:
                "bytes": int(nbytes), "flops": int(flops),
                "route": fam.flash_route(q.dtype, Dh), "max_abs_err": err}
         out[name] = res
-        print(f"[dryrun] flash_attention @ {name} {(B, S, Hq, Hkv, Dh)}, "
+        print(f"[{tag}] flash_attention @ {name} {(B, S, Hq, Hkv, Dh)}, "
               f"window {window if window < S else 'none'}: kernel "
               f"{res['ms']:.4f} ms on {res['route']}, plain "
               f"{res['plain_ms']:.4f} ms, SDPA {res['library_ms']:.4f} ms "
@@ -6087,7 +6114,8 @@ def mesh_phase(torch, np, card: str, phase_launches: dict,
           f"top-2 margin is within twice the tolerance); smallest margin "
           f"compared {held['margin_min']:.4e} | {card}")
     print(f"[mesh] {cfg.name} collectives of the generation (per position, "
-          f"the port's schedule: weights gathered at each use): "
+          f"the reference's schedule: decode on the weights' shards, "
+          f"prefill's weight gathers in bf16): "
           f"{json.dumps(colls)} | {card}")
     print(f"[mesh] {cfg.name} per position: parameters "
           f"{position_bytes(dist, sp) / 2**20:.3f} MiB at rest (views of "
@@ -7034,6 +7062,148 @@ def family_mesh_phase(torch, np, card: str, phase_launches: dict,
               f"{json.dumps(colls)} | {card}")
         del sp, state, batches
         free()
+
+
+def schedule_hand_count(cfg, dist, batch: int, slots: int) -> tuple:
+    """One decode step's collectives on ``dist``'s mesh by hand, per
+    position, as (kind, bytes) pairs.  This schedule moves activations
+    but for the Mamba mixer's two parameters: the embedding's ``psum``; per
+    transformer layer q, k and v all-gathered along their packed dims
+    (bf16), the decode attention's ``pmax`` and two ``psum``s (where
+    "kv_seq" splits the cache's ``slots``) and the f32 partial sums of
+    wo's and w_down's rows; per Mamba layer bf16(y * silu(z)) gathered
+    whole (bf16), and its parameter moves: the gated norm's gain (f32) and
+    w_out (bf16) gathered whole (``mamba2._decode_out``).  PR 30's
+    gathered every sharded weight of a layer whole in f32 instead.
+    Returns (this schedule's, its parameter moves, PR 30's)."""
+    from repro_torch.models import get_module
+    from repro_torch.models.params import Def, resolve_spec
+
+    Bl = batch // dist.group_size(dist.layout("batch", shape=(batch,))[0])
+    D = cfg.d_model
+    new = [("all-reduce", Bl * D * 2)]
+    old = list(new)
+    layer = get_module(cfg).defs(cfg)["layers"]
+    weights = [("all-gather", math.prod(d.shape[1:]) * 4)
+               for d in layer.values() if isinstance(d, Def) and any(
+                   dist.norm(resolve_spec(d, dist.rules, dist.mesh))[1:])]
+    moves = []
+    for _ in range(cfg.n_layers):
+        if cfg.family == "ssm":
+            act = [("all-gather", Bl * cfg.d_inner * 2)]
+            moves += [("all-gather", cfg.d_inner * 4),
+                      ("all-gather", cfg.d_inner * D * 2)]
+            new += act + moves[-2:]
+        else:
+            Dh, G = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+            ml = ("all-reduce", Bl * cfg.n_kv_heads * G * 4)
+            act = [ml, ("all-reduce", Bl * cfg.n_heads * Dh * 4), ml] if \
+                dist.layout("kv_seq", shape=(slots,))[0] else []
+            act += [("all-reduce", Bl * D * 4)] * 2
+            new += [("all-gather", Bl * n * Dh * 2) for n in (
+                cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)] + act
+        old += act + weights
+    return new, moves, old
+
+
+def schedule_phase(torch, np, card: str, phase_launches: dict,
+                   phase_routes: dict, measured: dict = None,
+                   serve=SCHEDULE_SERVE, smoke: bool = False,
+                   device: str = "cuda") -> None:
+    """Phase 31: the reference's collective schedule on the mesh, read on
+    the card.  Each ``serve`` config (seed-0 weights drawn on ``device``,
+    every position bound to it) generates on its mesh as a main path
+    (``mesh_generate``: launch counts, CUDA-event step times), each decode
+    step's log taken apart: a step that moves a parameter fails the phase
+    (but the Mamba mixer's gated norm gain and w_out, which its decode
+    gathers whole: ``mamba2._decode_out``), and so does one whose
+    collectives are not ``schedule_hand_count``'s;
+    prints one step's collectives by kind and bytes beside PR 30's
+    schedule's for the same step, the decode ms a step and the peak beside
+    the earlier schedule's.  Then (card only, into ``measured``) the
+    ``SCHEDULE_32K`` flash rows.  A CPU dry run: ``smoke=True`` with a
+    small ``serve`` and ``device="cpu"``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.variants import apply_variant
+    from repro_torch.models import get_module
+    from repro_torch.models.params import init_from_defs, shard_params
+    from repro_torch.models.sharding import CollectiveLog, Distribution
+
+    on_card = device != "cpu"
+    for arch, variant, shape, batch, prompt, new in serve:
+        cfg = apply_variant(get_config(arch, smoke=smoke), variant)
+        mod = get_module(cfg)
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = init_from_defs(mod.defs(cfg), gen, device)
+        prompts, frames = serving_inputs(torch, np, cfg, batch, prompt,
+                                         device)
+        dist = Distribution(make_debug_mesh(shape, devices=[device]
+                                            * math.prod(shape)))
+        sp = shard_params(params, mod.defs(cfg), dist)
+        del params
+        if on_card:  # (warm: phases 28 and 30a ran these configs)
+            torch.cuda.reset_peak_memory_stats()
+        steps, inner = [], mod.decode_step
+
+        def logged(*a, **kw):
+            n0 = len(dist.log.calls)
+            out = inner(*a, **kw)
+            steps.append([(c, j in dist.log.params) for j, c in
+                          enumerate(dist.log.calls) if j >= n0])
+            return out
+
+        mod.decode_step = logged
+        try:
+            got, step, _ = mesh_generate(
+                torch, phase_launches, phase_routes, f"schedule-{cfg.name}",
+                cfg, sp, prompts, new, dist, device, frames)
+        finally:
+            mod.decode_step = inner
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        want, moves, before = schedule_hand_count(cfg, dist, batch,
+                                                  prompt + new)
+        for s in steps:
+            moved = [(c[0], c[2]) for c, param in s if param]
+            if moved != moves:
+                raise AssertionError(f"phase 31: {cfg.name}'s decode moved "
+                                     f"parameters {moved[:4]}..., not "
+                                     f"{moves[:2]}...")
+            if sorted((c[0], c[2]) for c, _ in s) != sorted(want):
+                raise AssertionError(f"phase 31: {cfg.name}'s decode step "
+                                     f"logged {[c for c, _ in s][:8]}..., "
+                                     f"not its hand count")
+        now = op_cost.parse_collectives(CollectiveLog(
+            [c for c, _ in steps[-1]]))
+        was = op_cost.parse_collectives(CollectiveLog(
+            [(k, ("model",), n) for k, n in before]))
+        ms = float(np.median(step)) if step else 0.0
+        launches = phase_launches[f"schedule-{cfg.name}"]
+        tag, ms_before = SCHEDULE_BEFORE_MS.get(cfg.name, ("-", 0.0))
+        mixer = cfg.mamba_layout if cfg.family == "ssm" else "attention"
+        print(f"[schedule] {cfg.name} ({mixer}) on a {shape[0]} x "
+              f"{shape[1]} mesh, {batch} x {prompt} + {new}: one decode "
+              f"step's collectives per position (its hand count; "
+              f"parameters moved: {len(moves)} gathers, "
+              f"{sum(n for _, n in moves)} bytes) {json.dumps(now)}; PR "
+              f"30's schedule for "
+              f"the same step (weights whole in f32 at each use) "
+              f"{json.dumps(was)}; wire bytes {now['wire_bytes']} against "
+              f"{was['wire_bytes']} "
+              f"({now['wire_bytes'] / was['wire_bytes']:.3e}x) | {card}")
+        print(f"[schedule] {cfg.name} decode median {ms:.3f} ms/step (CUDA "
+              f"events, {len(step)} intervals; {tag}'s schedule "
+              f"{ms_before:.3f}), prefill {got.prefill_s * 1e3:.3f} ms, peak "
+              f"device memory {peak / 2**30:.3f} GiB; flash_attention "
+              f"launches {launches['flash_attention']} | {card}")
+        del sp, got
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    if on_card and measured is not None:
+        measured["flash_attention"]["timed"] |= time_32k(
+            torch, card, SCHEDULE_32K, SCHEDULE_32K_LAUNCHES, "schedule")
 
 
 def main() -> int:
@@ -8012,6 +8182,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     family_offset_phase(torch, np, card, measured)
     family_mesh_phase(torch, np, card, phase_launches, phase_routes)
+    clock("31")
+    # ---- 31. the reference's collective schedule on the mesh -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    schedule_phase(torch, np, card, phase_launches, phase_routes, measured)
 
     record = {"kernels": []}
     for k in KERNELS:

@@ -6,8 +6,10 @@ The reference shards q, k and v differently per mode (train / prefill /
 decode) over its mesh.  Without a mesh those constraints are no-ops, and
 the functions below run one layout.  On a mesh (``dist`` a
 ``models.sharding.Distribution`` with one) the serving functions run the
-reference's layouts over ``Sharded`` values, with every weight whole on
-each position at its use (``Distribution.gather_all``):
+reference's layouts over ``Sharded`` values, the weights as
+``Distribution.at_use`` gives them (whole in prefill and training, in their
+sharded layout in decode; ``Distribution.matmul`` runs the projections on
+whatever each position holds):
 
 * prefill and the ``sp`` train layout (``self_attention_mesh``): q
   sharded along its sequence ("seq"), k and v gathered whole per data
@@ -19,15 +21,21 @@ each position at its use (``Distribution.gather_all``):
   as it divides the batch), so that each position owns whole sequences
   and runs the attention locally at offset 0; the output goes back to
   (batch, seq);
-* decode (``decode_self_attention_mesh``): the new token's k and v
-  written into the one position that owns its cache slot, then
-  ``layers.dist_decode_attention`` over the cache's ``kv_seq`` shards;
+* decode (``decode_self_attention_mesh``): q, k and v projected on each
+  position's column blocks of wq, wk and wv ("heads", "kv_heads") and
+  all-gathered along their packed dim (``dist_decode_attention`` takes
+  whole heads, as the reference's ``shard_map`` does); the new token's k
+  and v written into the one position that owns its cache slot, then
+  ``layers.dist_decode_attention`` over the cache's ``kv_seq`` shards; the
+  output's heads cut to each position's block and multiplied by its rows
+  of wo, the partial sums ``psum``-med (row-parallel);
 * the encoder-decoder's cross attention (``make_cross_kv`` and
   ``cross_attention`` with ``dist``): k and v (batch, kv_seq); in training
   and prefill q sharded along its sequence against the encoder's keys
   gathered whole, not causal (each block's ``q_offset`` passed, and
-  ignored: no key is hidden); in decode ``dist_decode_attention`` over the
-  encoder's keys, the query after the last of them.
+  ignored: no key is hidden); in decode q from the column blocks of wq,
+  ``dist_decode_attention`` over the encoder's keys, the query after the
+  last of them, and the row-parallel wo.
 """
 from __future__ import annotations
 
@@ -38,7 +46,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
 from repro_torch.models.params import Def
-from repro_torch.models.sharding import on_mesh
+from repro_torch.models.sharding import Sharded, on_mesh
 
 
 def attn_defs(cfg: ModelConfig, stack: int = 0, d_model: int = 0) -> dict:
@@ -133,6 +141,36 @@ def make_cross_kv(cfg: ModelConfig, p: dict, enc_out, *,
                  for t in (k, v))
 
 
+def _heads_mesh(dist, x, w: Sharded, heads: int, Dh: int, b=None):
+    """``(x @ w + b)`` as (B, S, heads, Dh) with the packed dim whole: each
+    position's product with the columns of ``w`` it holds (and its block
+    of the bias ``b``), the blocks all-gathered along the packed dim before
+    the reshape (a block may end mid-head: gemma3's one kv head of 256
+    splits over "model")."""
+    t = dist.matmul(x, w)
+    if b is not None:
+        t = dist.map(lambda ti, bi: ti + bi.to(ti.dtype), t, b, spec=t.spec)
+    t = dist.all_gather(t, len(t.spec) - 1)
+    return dist.map(lambda ti: ti.reshape(*ti.shape[:-1], heads, Dh), t,
+                    spec=t.spec + ((),))
+
+
+def _project_mesh(cfg: ModelConfig, p: dict, x, dist):
+    """``_project`` on a mesh: q, k and v from the weights as each position
+    holds them (whole, or their column blocks in decode), then the
+    qk-norm over whole heads."""
+    Dh = cfg.resolved_head_dim
+    out = [_heads_mesh(dist, x, p["w" + n], h, Dh,
+                       p["b" + n] if cfg.qkv_bias else None)
+           for n, h in (("q", cfg.n_heads), ("k", cfg.n_kv_heads),
+                        ("v", cfg.n_kv_heads))]
+    if cfg.qk_norm:
+        for j, n in ((0, "q_norm"), (1, "k_norm")):
+            out[j] = dist.map(lambda t, sc: layers.rms_norm(
+                t, sc, cfg.norm_eps), out[j], p[n], spec=out[j].spec)
+    return tuple(out)
+
+
 def _cross_q(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     B, S, _ = x.shape
     return (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads,
@@ -154,17 +192,17 @@ def cross_attention(cfg: ModelConfig, p: dict, x, enc_kv: tuple, *,
     visible.  ``mode`` "train" / "prefill" runs the flash-attention kernel
     (not causal, Sq != Sk); "decode" runs ``decode_attention`` with each
     query placed after the last encoder slot, as the reference's.  On a
-    mesh (``p`` whole on every position; x (batch, seq) or, in decode,
-    (batch); ``enc_kv`` (batch, kv_seq)): q along x's sequence against
-    the keys gathered whole per data shard, each position's block at its
-    ``q_offset``, or ``dist_decode_attention`` over the keys' shards."""
+    mesh (``p`` as ``Distribution.at_use`` gives it; x (batch, seq) or, in
+    decode, (batch); ``enc_kv`` (batch, kv_seq)): q along x's sequence
+    against the keys gathered whole per data shard, each position's block
+    at its ``q_offset``, or ``dist_decode_attention`` over the keys'
+    shards."""
     if not on_mesh(dist):
         q, (k, v) = _cross_q(cfg, p, x), enc_kv
         o = (_cross_decode(q, k, v) if mode == "decode"
              else layers.flash_attention(q, k, v, causal=False))
         return _out(cfg, p, o)
-    q = dist.map(lambda pi, xi: _cross_q(cfg, pi, xi), p, x,
-                 spec=x.spec + ((),))
+    q = _heads_mesh(dist, x, p["wq"], cfg.n_heads, cfg.resolved_head_dim)
     k, v = enc_kv
     if mode == "decode":
         o = _cross_decode(q, k, v, dist)
@@ -211,7 +249,8 @@ def decode_self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
 def _out_mesh(cfg: ModelConfig, p: dict, o, dist, seq_axis):
     """The output projection on a mesh: o (B, S, Hq, Dh) -> (B, S, D),
     constrained as the reference's ``_out``; where "heads" shards o's
-    packed dim, the product is the partial sums' ``psum``."""
+    packed dim (decode), each position multiplies its block by its rows
+    of wo and the partial sums are ``psum``-med."""
     spec = o.spec[:2] + ((),)
     o = dist.map(lambda t: t.reshape(*t.shape[:2], -1), o, spec=spec)
     o = dist.constrain(o, "batch", seq_axis, "heads")
@@ -238,8 +277,7 @@ def self_attention_mesh(cfg: ModelConfig, p: dict, x, *, dist,
     if theta is None:
         theta = cfg.rope_theta
     spec = x.spec + ((),)
-    q, k, v = dist.map(lambda pi, xi: _project(cfg, pi, xi), p, x,
-                       spec=(spec,) * 3)
+    q, k, v = _project_mesh(cfg, p, x, dist)
 
     def rot(i, qi, ki):
         positions = dist.block_start(x, 1, i) + torch.arange(
@@ -266,15 +304,15 @@ def decode_self_attention_mesh(cfg: ModelConfig, p: dict, x, cache: dict,
                                pos: int, *, dist, window: int = 0,
                                theta: Optional[float] = None):
     """One-token self attention on a mesh against a cache sharded along
-    its sequence (cache["k"], ["v"]: (B, Smax, Hkv, Dh) ``Sharded``).  The
-    new token's k and v are written, in place, only into the position whose
-    block holds slot ``pos``; then ``dist_decode_attention`` over the
-    cache's shards.  Returns (out, cache)."""
+    its sequence (cache["k"], ["v"]: (B, Smax, Hkv, Dh) ``Sharded``), the
+    weights in their sharded layout (module doc).  The new token's k and v
+    are written, in place, only into the position whose block holds slot
+    ``pos``; then ``dist_decode_attention`` over the cache's shards.
+    Returns (out, cache)."""
     if theta is None:
         theta = cfg.rope_theta
     spec = x.spec + ((),)
-    q, k_new, v_new = dist.map(lambda pi, xi: _project(cfg, pi, xi), p, x,
-                               spec=(spec,) * 3)
+    q, k_new, v_new = _project_mesh(cfg, p, x, dist)
     dev = x.first.device
     positions = pos + torch.arange(x.shape[1], device=dev)
 

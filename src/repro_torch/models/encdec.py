@@ -20,9 +20,11 @@ entry point runs over ``Sharded`` values, the transformer's way: frames and
 activations (batch, seq) between the layers, the encoder's attention not
 causal, the cross k and v (batch, kv_seq) (``attention.make_cross_kv`` and
 ``cross_attention`` with ``dist``), the vocab-sharded embedding and
-logits, the caches laid out by ``cache_defs``.  Weights are gathered whole
-at their use inside each layer, so that with ``cfg.remat`` each layer is
-one ``models.sharding.remat`` region whose recompute gathers them again.
+logits, the caches laid out by ``cache_defs``.  Weights are taken at their
+use inside each layer (``Distribution.at_use``): in decode as stored (the
+products run on the shards), else gathered whole (bf16 in prefill, f32 in
+training), so that with ``cfg.remat`` each layer is one
+``models.sharding.remat`` region whose recompute gathers them again.
 The CE is ``transformer.mean_ce_mesh``, unchunked as the reference's
 ``loss_fn``.
 """
@@ -203,7 +205,7 @@ def make_cache(cfg: ModelConfig, params: dict, enc_out, max_tgt: int, *,
     if on_mesh(dist):
         cache = dist.zeros(defs, dtype)
         for l in range(cfg.n_dec_layers):
-            p = dist.at_use(params["dec_layers"]["cross"], l)
+            p = dist.at_use(params["dec_layers"]["cross"], l, "prefill")
             k, v = attn.make_cross_kv(cfg, p, enc_out, dist=dist)
             for name, t in (("cross_k", k), ("cross_v", v)):
                 t = dist.reshard(t, cache[name].spec[1:])
@@ -278,7 +280,7 @@ def _add(x, y, dist):
 
 def _enc_layer_mesh(cfg: ModelConfig, params: dict, l: int, x, mode: str,
                     dist):
-    p = dist.at_use(params["enc_layers"], l)
+    p = dist.at_use(params["enc_layers"], l, mode)
     a = attn.self_attention_mesh(cfg, p, _norm(cfg, x, p["attn_norm"], dist),
                                  dist=dist, mode=mode, causal=False)[0]
     return transformer._mlp_block_mesh(cfg, p, _add(x, a, dist), mode, dist,
@@ -303,7 +305,7 @@ def _dec_layer_mesh(cfg: ModelConfig, params: dict, l: int, x, enc_out,
                     mode: str, kv, dist):
     """Decoder layer ``l`` on the mesh; the cross k and v from ``enc_out``
     unless given (``kv``, a cache's layer)."""
-    p = dist.at_use(params["dec_layers"], l)
+    p = dist.at_use(params["dec_layers"], l, mode)
     a = attn.self_attention_mesh(cfg, p, _norm(cfg, x, p["attn_norm"], dist),
                                  dist=dist, mode=mode)[0]
     x = _add(x, a, dist)
@@ -336,7 +338,7 @@ def _decode_step_mesh(cfg: ModelConfig, params: dict, cache: dict, tokens,
                                  tokens, dist=dist)
     x = dist.constrain(x, "batch", None, "embed")
     for l in range(cfg.n_dec_layers):
-        p = dist.at_use(params["dec_layers"], l)
+        p = dist.at_use(params["dec_layers"], l, "decode")
         self_kv = {"k": dist.select(cache["self_k"], l),
                    "v": dist.select(cache["self_v"], l)}
         a, _ = attn.decode_self_attention(

@@ -13,10 +13,12 @@ rounds differently in the last bits.  The reference's ``seq_sp`` and
 ``head_tp`` mixer layouts are sharding constraints for a mesh; on one
 device they do nothing.  On a mesh (``mamba_block_mesh``,
 ``mamba_decode_step_mesh``) the port runs them over ``Sharded`` values:
-``head_tp`` splits the heads, ``seq_sp`` the sequence (with the
-convolution's halo and the carry over every position's chunk states).
-The gated norm reads whole rows on both, so it sums in the meshless
-order.  Heads of one B/C
+``head_tp`` splits the heads, ``seq_sp`` the sequence (the convolution's
+halo a shift of each block's last rows to the next, the inter-chunk carry
+an exclusive scan in position order: the meshless recurrence's order of
+operations).  The gated norm reads whole rows on both, so it sums in the
+meshless order.  Decode projects on the weights' own column blocks and
+gathers w_out whole (``_decode_out``).  Heads of one B/C
 group share their group's B and C by broadcasting (the reference repeats
 them per head): the same products, without the (B, c, Q, H, N) copies.
 Everything here is plain PyTorch, as in the reference (no Pallas kernel).
@@ -92,11 +94,12 @@ def _project(cfg: ModelConfig, p: dict, x: torch.Tensor, h0: int = 0,
     for the ``n`` heads from ``h0`` (every head where ``n`` is 0)."""
     n = n or cfg.ssm_nheads
     cols = slice(h0 * cfg.ssm_headdim, (h0 + n) * cfg.ssm_headdim)
-    z = x @ p["w_z"][:, cols].to(x.dtype)
-    xr = x @ p["w_x"][:, cols].to(x.dtype)
+    # (contiguous: a weight already in x's type stays a strided view)
+    z = x @ p["w_z"][:, cols].to(x.dtype).contiguous()
+    xr = x @ p["w_x"][:, cols].to(x.dtype).contiguous()
     Br = x @ p["w_B"].to(x.dtype)
     Cr = x @ p["w_C"].to(x.dtype)
-    dt = x @ p["w_dt"][:, h0:h0 + n].to(x.dtype)
+    dt = x @ p["w_dt"][:, h0:h0 + n].to(x.dtype).contiguous()
     dt = F.softplus(dt.float() + p["dt_bias"][h0:h0 + n].float())
     return z, xr, Br, Cr, dt
 
@@ -270,17 +273,20 @@ def mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
 
 def _decode_heads(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict,
-                  h0: int = 0, n: int = 0) -> tuple:
+                  h0: int = 0, n: int = 0, own: bool = False) -> tuple:
     """One token through the mixer up to its gated norm, for the ``n``
     heads from ``h0`` (every head where ``n`` is 0): (bf16(y * silu(z))
     (B, 1, n P), the new state of those heads: ``h`` (B, n, N, P) and
-    ``conv_x`` (B, W-1, n P), and the new ``conv_B``, ``conv_C``)."""
+    ``conv_x`` (B, W-1, n P), and the new ``conv_B``, ``conv_C``).  With
+    ``own`` the per-head leaves of ``p`` hold those heads only (a
+    position's blocks on a mesh)."""
     B = x.shape[0]
     n = n or cfg.ssm_nheads
     P_, N, G = cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_ngroups
     HG = cfg.ssm_nheads // G
-    cols = slice(h0 * P_, (h0 + n) * P_)
-    z, xr, Br, Cr, dt = _project(cfg, p, x, h0, n)
+    w0 = 0 if own else h0  # where p's per-head leaves start
+    cols = slice(w0 * P_, (w0 + n) * P_)
+    z, xr, Br, Cr, dt = _project(cfg, p, x, w0, n)
     xr, cs_x = causal_conv_step(xr, state["conv_x"], p["conv_x_w"][:, cols],
                                 p["conv_x_b"][cols])
     Br, cs_B = causal_conv_step(Br, state["conv_B"], p["conv_B_w"],
@@ -292,12 +298,12 @@ def _decode_heads(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict,
     Cm = Cr.reshape(B, G, N).repeat_interleave(HG, dim=1)[:, h0:h0 + n]
     Bm, Cm = Bm.float(), Cm.float()
     dt1 = dt[:, 0]  # (B, n)
-    A = -torch.exp(p["A_log"][h0:h0 + n].float())
+    A = -torch.exp(p["A_log"][w0:w0 + n].float())
     da = torch.exp(dt1 * A)
     h = (da[..., None, None] * state["h"]
          + dt1[..., None, None] * Bm[..., None] * xh[..., None, :])
     y = torch.einsum("bhn,bhnp->bhp", Cm, h) \
-        + p["D"][h0:h0 + n].float()[:, None] * xh
+        + p["D"][w0:w0 + n].float()[:, None] * xh
     y = y.reshape(B, 1, n * P_)
     u = (y * F.silu(z.float())).to(x.dtype)
     return u, {"h": h, "conv_x": cs_x, "conv_B": cs_B, "conv_C": cs_C}
@@ -338,12 +344,13 @@ def _mixer_out_mesh(cfg: ModelConfig, p, u, spec: tuple, dist):
     return dist.map(lambda pi, ui: _gated_out(cfg, pi, ui), p, u, spec=spec)
 
 
-def mamba_block_mesh(cfg: ModelConfig, p: dict, x, *, dist) -> tuple:
+def mamba_block_mesh(cfg: ModelConfig, p: dict, x, *, dist,
+                     final_state: bool = True) -> tuple:
     """``mamba_block`` on ``dist``'s mesh: x (B, S, D) ``Sharded``
     (batch, seq); ``p`` the layer's weights whole on every position.
     Returns (out (B, S, D) in x's layout, h_final (B, H, N, P) f32:
     (batch, heads) under ``head_tp``, replicated over the sequence axes
-    under ``seq_sp``).
+    under ``seq_sp``, None there without ``final_state``).
 
     ``head_tp`` (the default): x is gathered along its sequence, each
     position projects, convolves and runs the SSD for its block of heads
@@ -353,14 +360,18 @@ def mamba_block_mesh(cfg: ModelConfig, p: dict, x, *, dist) -> tuple:
 
     ``seq_sp``: the sequence stays sharded, each block a whole number of
     SSD chunks.  Each position projects its rows; the convolutions read
-    the previous block's last W - 1 raw rows (the halo: every block's tail
-    all-gathered along the sequence axes); each position computes its
-    chunks' states and decays (``ssd_local``), which are all-gathered, and
-    runs the meshless carry over every chunk (``ssd_carry``), taking the
-    states that enter its own chunks (``ssd_out``).  Without a sequence
-    split both layouts run the meshless mixer on every position."""
+    the previous block's last W - 1 raw rows (the halo: one ``shift`` of
+    every block's tail along the sequence axes); each position computes
+    its chunks' states and decays (``ssd_local``); the carry is an
+    exclusive scan in position order (``Distribution.chain``): each
+    position runs ``ssd_carry`` over its own chunks from the state the
+    position before it passed on, and passes its final state on, which is
+    the meshless recurrence's order of operations.  With ``final_state``
+    the last block's final state is summed (with zeros) onto every
+    position.  Without a sequence split both layouts run the meshless
+    mixer on every position."""
     if cfg.mamba_layout == "seq_sp":
-        return _seq_sp_block(cfg, p, x, dist)
+        return _seq_sp_block(cfg, p, x, dist, final_state)
     hax = _head_axes(cfg, dist)
     xf = dist.constrain(x, "batch", None, "embed")
     b = xf.spec[0]
@@ -373,7 +384,8 @@ def mamba_block_mesh(cfg: ModelConfig, p: dict, x, *, dist) -> tuple:
     return _mixer_out_mesh(cfg, p, u, x.spec, dist), h_final
 
 
-def _seq_sp_block(cfg: ModelConfig, p: dict, x, dist) -> tuple:
+def _seq_sp_block(cfg: ModelConfig, p: dict, x, dist, final_state: bool
+                  ) -> tuple:
     b, sax = x.spec[0], x.spec[1]
     hspec = (b, (), (), ())
     if not sax:
@@ -392,15 +404,12 @@ def _seq_sp_block(cfg: ModelConfig, p: dict, x, dist) -> tuple:
     tails = dist.map(lambda a, bb, c: torch.cat([a, bb, c], -1)[:, S_loc
                                                                 - (W - 1):],
                      xr, Br, Cr, spec=x.spec)
-    tails = dist.all_gather(tails, 1)
+    halo = dist.shift(tails, sax)  # the first block's: zeros
     local = {}
 
-    def chunks(i, pi, xi, bi, ci, di, ti):
-        r = dist.mesh.rank(i, sax)
-        halo = (torch.zeros_like(ti[:, :W - 1]) if r == 0
-                else ti[:, (r - 1) * (W - 1):r * (W - 1)])
+    def chunks(i, pi, xi, bi, ci, di, hi):
         din = xi.shape[-1]
-        hx, hb, hc = halo.split([din, G * N, G * N], dim=-1)
+        hx, hb, hc = hi.split([din, G * N, G * N], dim=-1)
         xi = causal_conv(xi, pi["conv_x_w"], pi["conv_x_b"], hx)
         bi = causal_conv(bi, pi["conv_B_w"], pi["conv_B_b"], hb)
         ci = causal_conv(ci, pi["conv_C_w"], pi["conv_C_b"], hc)
@@ -411,46 +420,77 @@ def _seq_sp_block(cfg: ModelConfig, p: dict, x, dist) -> tuple:
         local[i] = t
         return t["a_c"], t["Sc"]
 
-    a_c, Sc = dist.map(chunks, p, xr, Br, Cr, dt, tails, pos=True,
+    a_c, Sc = dist.map(chunks, p, xr, Br, Cr, dt, halo, pos=True,
                        spec=((b, sax, ()), (b, sax, (), (), ())))
-    a_c, Sc = dist.all_gather(a_c, 1), dist.all_gather(Sc, 1)
 
-    def finish(i, pi, zi, ai, si):
-        h_prev, h_final = ssd_carry(ai, si)
-        c = local[i]["Sc"].shape[1]
-        r = dist.mesh.rank(i, sax)
-        y = ssd_out(local[i], h_prev[:, r * c:(r + 1) * c], pi["D"])
-        y = y.reshape(B, S_loc, H * P_)
+    def carry(i, h, ai, si):
+        h_prev, h_out = ssd_carry(ai, si, h)
+        return h_out, h_prev
+
+    h_prev, h_out = dist.chain(carry, sax, a_c, Sc,
+                               spec=(b, sax, (), (), ()))
+
+    def finish(i, pi, zi, hi):
+        y = ssd_out(local[i], hi, pi["D"]).reshape(B, S_loc, H * P_)
         u = (y * F.silu(zi.float())).to(zi.dtype)
-        return _gated_out(cfg, pi, u), h_final
+        return _gated_out(cfg, pi, u)
 
-    return dist.map(finish, p, z, a_c, Sc, pos=True, spec=(x.spec, hspec))
+    out = dist.map(finish, p, z, h_prev, pos=True, spec=x.spec)
+    if not final_state:
+        return out, None
+    n = dist.group_size(sax)
+    last = dist.map(lambda i, h: h if dist.mesh.rank(i, sax) == n - 1
+                    else torch.zeros_like(h), h_out, pos=True, spec=hspec)
+    return out, dist.psum(last, sax)
+
+
+def _decode_out(cfg: ModelConfig, p: dict, u, spec: tuple, dist):
+    """The decode's gated norm and w_out on a mesh: ``u`` bf16(y *
+    silu(z)) (B, 1, d_inner) moved to whole rows (``_mixer_out_mesh``), the
+    norm's gain and w_out gathered whole (w_out cast to bf16 on its shard
+    first), so that each position makes the meshless product at its rows.
+    The weights' own row blocks with a ``psum`` of the partial products
+    (the reference's layout) round apart from that one GEMM, and the
+    recurrent layers amplify it beyond phase 30a's limit on the card (in
+    f32 or f64 partials, or column blocks: ``tools/row_partials.py``)."""
+    whole = {k: dist.at_use(p[k], mode="prefill", name=k)
+             for k in ("norm", "w_out")}
+    return _mixer_out_mesh(cfg, whole, u, spec, dist)
 
 
 def mamba_decode_step_mesh(cfg: ModelConfig, p: dict, x, state: dict, *,
                            dist) -> tuple:
     """``mamba_decode_step`` on ``dist``'s mesh, under either layout (one
-    token): x (B, 1, D) ``Sharded`` (batch); ``p`` whole on every position;
-    ``state`` one layer's ``Sharded`` values (``h`` (batch, heads),
-    ``conv_x`` (batch, None, inner), ``conv_B`` and ``conv_C`` (batch)).
-    Each position steps its block of heads (``head_tp``'s); the gated norm
-    reads whole rows.  Returns (out (B, 1, D) in x's layout, the new state
-    in ``state``'s layouts)."""
+    token): x (B, 1, D) ``Sharded`` (batch); ``p`` the layer's weights in
+    their sharded layout; ``state`` one layer's ``Sharded`` values (``h``
+    (batch, heads), ``conv_x`` (batch, None, inner), ``conv_B`` and
+    ``conv_C`` (batch)).  Each position steps its block of heads
+    (``head_tp``'s) on its own column blocks of w_z, w_x and w_dt and the
+    matching blocks of the conv_x weights, A_log, D and dt_bias (w_B, w_C
+    and their convolutions are replicated); the gated norm reads whole
+    rows, and w_out is the one weight gathered (``_decode_out``).  Returns
+    (out (B, 1, D) in x's layout, the new state in ``state``'s
+    layouts)."""
     hax = _head_axes(cfg, dist)
     b = x.spec[0]
+    # a leaf split otherwise than the heads (an inner dim that "model"
+    # divides where the head count does not) is gathered whole
+    p = {k: dist.gather_all(v, keep=next(
+        (d for d, ax in enumerate(v.spec) if hax and ax == hax), None))
+        for k, v in p.items()}
     lay = {"h": (b, hax, (), ()), "conv_x": (b, (), hax),
            "conv_B": (b, (), ()), "conv_C": (b, (), ())}
     st = {k: dist.reshard(state[k], lay[k]) for k in STATE_KEYS}
 
     def local(i, pi, xi, *s):
         u, new = _decode_heads(cfg, pi, xi, dict(zip(STATE_KEYS, s)),
-                               *_head_block(cfg, dist, i, hax))
+                               *_head_block(cfg, dist, i, hax), own=True)
         return (u,) + tuple(new[k] for k in STATE_KEYS)
 
     u, *new = dist.map(local, p, x, *(st[k] for k in STATE_KEYS), pos=True,
                        spec=((b, (), hax),) + tuple(lay[k]
                                                     for k in STATE_KEYS))
-    out = _mixer_out_mesh(cfg, p, u, x.spec, dist)
+    out = _decode_out(cfg, p, u, x.spec, dist)
     return out, {k: dist.reshard(v, state[k].spec)
                  for k, v in zip(STATE_KEYS, new)}
 

@@ -43,13 +43,25 @@ the mesh in one process, the way the GNN meshes run (``launch/mesh.py``):
 * ``Distribution.constrain(x, *logical_axes)`` reshards to the spec the
   rules give: an ``all_gather`` where a dim becomes replicated, a local
   slice where one becomes sharded, an ``all_to_all`` where a shard moves
-  from one dim to another.
+  from one dim to another;
+* ``shift`` (a collective-permute: each position gets its predecessor's
+  value along an axis) and ``chain`` (an exclusive scan in position order,
+  one hop into each position) carry what a sequence block hands the next;
+* weights at their use (``at_use``): decode keeps every weight in its
+  sharded layout and ``matmul`` runs the products on the shards
+  (column-parallel where the weight's output dim is sharded, row-parallel
+  with a ``psum`` where the input's contracting dim is), as GSPMD runs the
+  reference's decode (the Mamba mixer's w_out aside:
+  ``mamba2._decode_out``); prefill and training gather the weights whole,
+  in the dtype they are read in where autograd records nothing.  The log
+  marks the collectives that moved a parameter (``param_calls``).
 
 Axes of size 1 split nothing, so a value's spec leaves them out; on a 1 x 1
 mesh every value is local and the models run the meshless path's ops.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Optional, Sequence
@@ -57,6 +69,7 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch.utils import _pytree
 
+from repro_torch.kernels import accounting
 from repro_torch.launch.mesh import LMMesh
 from repro_torch.models.params import Def, resolve_spec
 
@@ -110,18 +123,49 @@ def _entry(axes: tuple):
 
 # ------------------------------------------------------------ collectives --
 
+# the parameter leaves the models read in f32 wherever they use them (norm
+# gains, the SSM's convolution taps and per-head scalars); every other
+# weight is cast to the activations' type at its use
+READ_IN_F32 = frozenset({
+    "attn_norm", "mlp_norm", "cross_norm", "pre_norm", "final_norm",
+    "enc_norm", "q_norm", "k_norm", "norm", "conv_x_w", "conv_x_b",
+    "conv_B_w", "conv_B_b", "conv_C_w", "conv_C_b", "A_log", "D", "dt_bias"})
+
+
+# the type of a row-parallel product's partial sums (``Distribution.matmul``;
+# tools/row_partials.py holds f64 against it on the card)
+ROW_PARTIALS = torch.float32
+
+
 @dataclasses.dataclass
 class CollectiveLog:
     """Every collective a run made: (kind, mesh axes, result bytes of one
     position), in call order; ``launch.op_cost.parse_collectives`` sums
-    them by kind."""
+    them by kind.  ``params`` holds the indices of the calls that moved a
+    parameter (``Distribution.gather_all`` and ``at_use``)."""
     calls: list = dataclasses.field(default_factory=list)
+    params: set = dataclasses.field(default_factory=set)
 
     def record(self, kind: str, axes: tuple, nbytes: int) -> None:
         self.calls.append((kind, tuple(axes), int(nbytes)))
 
     def clear(self) -> None:
         self.calls.clear()
+        self.params.clear()
+
+    @property
+    def param_calls(self) -> list:
+        """The calls that moved a parameter, in call order."""
+        return [self.calls[i] for i in sorted(self.params)]
+
+    @contextlib.contextmanager
+    def moving_params(self):
+        """Marks the calls made inside as parameter moves."""
+        n0 = len(self.calls)
+        try:
+            yield
+        finally:
+            self.params.update(range(n0, len(self.calls)))
 
 
 class Sharded:
@@ -346,15 +390,8 @@ class Distribution:
         passed as is (with ``pos``, the position index comes first).
         Returns a ``Sharded`` with ``spec`` (a tuple of ``Sharded``, with a
         tuple of specs, where ``fn`` returns a tuple)."""
-        def local(a, i):
-            if isinstance(a, Sharded):
-                return a.local(i)
-            if isinstance(a, dict):
-                return {k: local(v, i) for k, v in a.items()}
-            return a
-
         outs = {i: fn(*(((i,) if pos else ())
-                        + tuple(local(a, i) for a in args)))
+                        + tuple(_local(a, i) for a in args)))
                 for i in self.mesh.active}
         first = outs[self.mesh.active[0]]
         if isinstance(first, tuple):
@@ -411,38 +448,69 @@ class Distribution:
     def gather_all(self, x: Sharded, keep: Optional[int] = None) -> Sharded:
         """``x`` whole on every position: every sharded dim all-gathered
         but ``keep`` (a weight at its use; the vocab dim of the tables and
-        the experts' dim stay sharded)."""
-        for d, ax in enumerate(x.spec):
-            if ax and d != keep:
-                x = self.all_gather(x, d)
+        the experts' dim stay sharded).  Logged as parameter moves."""
+        with self.log.moving_params():
+            for d, ax in enumerate(x.spec):
+                if ax and d != keep:
+                    x = self.all_gather(x, d)
         return x
 
-    def at_use(self, tree, layer: Optional[int] = None):
-        """A parameter tree (nested dicts of ``Sharded`` leaves) whole on
-        every position: each leaf's layer ``layer`` first where one is
-        given (``select``: ZeRO-3's layer dim fetched from its holder),
-        then ``gather_all``."""
+    def at_use(self, tree, layer: Optional[int] = None, mode: str = "train",
+               name: Optional[str] = None):
+        """A parameter tree (nested dicts of ``Sharded`` leaves; ``name``
+        the leaf's key) at its use in a pass of ``mode``, each leaf's layer
+        ``layer`` first where one is given (``select``: ZeRO-3's layer dim
+        fetched from its holder):
+
+        * ``"decode"``: as stored, every leaf in its sharded layout (the
+          products run on the shards: ``matmul``);
+        * ``"train"``: gathered whole in f32, so that the gather's
+          transpose, the gradient's reduce-scatter, sums in f32;
+        * any other (prefill): gathered whole (``gather_all``); a weight
+          read in the activations' bf16 (all but ``READ_IN_F32``) is cast
+          to it on its shard first where autograd records nothing: the
+          bits of a cast after the gather, at half the bytes on the
+          wire."""
         if isinstance(tree, dict):
-            return {k: self.at_use(v, layer) for k, v in tree.items()}
-        return self.gather_all(tree if layer is None
-                               else self.select(tree, layer))
+            return {k: self.at_use(v, layer, mode, k)
+                    for k, v in tree.items()}
+        with self.log.moving_params():
+            x = tree if layer is None else self.select(tree, layer)
+            if mode == "decode":
+                return x
+            if (mode != "train" and name not in READ_IN_F32
+                    and any(x.spec) and x.dtype == torch.float32
+                    and not _records(x)):
+                x = self.map(lambda t: t.to(torch.bfloat16), x, spec=x.spec)
+            return self.gather_all(x)
 
     def matmul(self, x: Sharded, w: Sharded) -> Sharded:
-        """``x @ w.to(x.dtype)`` with ``w`` whole on every position.  Where
-        x's last (contracting) dim is sharded, each position multiplies its
-        block by the matching rows of ``w`` in f32 (the products of the
-        rounded operands, as a GEMM accumulates them), the partial products
-        are summed over those axes (``psum``) and rounded to x's type
-        once."""
+        """``x @ w.to(x.dtype)`` for a weight ``w`` (d_in, d_out), whole or
+        in its sharded layout.  Where x's last (contracting) dim is whole,
+        each position multiplies by the columns of ``w`` it holds
+        (column-parallel where they are sharded: no communication, the
+        result sharded as ``w``'s columns).  Where that dim is sharded,
+        each position multiplies its block by the matching rows of ``w``
+        (its own where ``w``'s rows are sharded the same way, else a slice
+        of the whole) in ``ROW_PARTIALS`` (the products of the rounded
+        operands, as a GEMM accumulates them), the partial products are
+        summed over those axes (``psum``, row-parallel) and rounded to x's
+        type once.  Any other sharded dim of ``w`` is gathered first."""
         ax = x.spec[-1]
-        spec = x.spec[:-1] + ((),)
+        if w.spec[0] not in ((), ax):
+            w = self.gather_all(w, keep=1)
+        if {a for s in x.spec for a in s} & set(w.spec[1]):
+            w = self.gather_all(w, keep=0)
+        spec = x.spec[:-1] + (w.spec[1],)
         if not ax:
             return self.map(lambda xi, wi: xi @ wi.to(xi.dtype), x, w,
                             spec=spec)
+        own_rows = w.spec[0] == ax
 
         def part(i, xi, wi):
-            wi = self._local_slice(wi, i, 0, ax)
-            return xi.float() @ wi.to(xi.dtype).float()
+            if not own_rows:
+                wi = self._local_slice(wi, i, 0, ax)
+            return xi.to(ROW_PARTIALS) @ wi.to(xi.dtype).to(ROW_PARTIALS)
 
         out = self.psum(self.map(part, x, w, pos=True, spec=spec), ax)
         return self.map(lambda o, xi: o.to(xi.dtype), out, x, spec=spec)
@@ -691,6 +759,95 @@ class Distribution:
         self.log.record("all-to-all", axes, _nbytes(res.first))
         return res
 
+    def shift(self, x: Sharded, axes, fill: Optional[Sharded] = None
+              ) -> Sharded:
+        """A collective-permute in position order along ``axes``: the
+        position of rank r gets the tensor of rank r - 1, the first rank
+        zeros (or its own tensor of ``fill``, where one is given).  Logged
+        as one collective-permute of a position's result bytes (each
+        position receives one message).  Its gradient is the reverse
+        shift, taken the same way and logged too: rank r - 1 gets rank r's
+        gradient, the last rank none."""
+        axes = tuple(a for a in _axes(axes) if self.mesh.shape[a] > 1)
+        groups = self._groups(axes) if axes else []
+
+        def move(loc, step):
+            out = {}
+            for group, active in groups:
+                for p in active:
+                    r = group.index(p) - step
+                    if not 0 <= r < len(group):
+                        continue
+                    q = group[r] if group[r] in self.mesh.active \
+                        else active[0]
+                    if loc.get(q) is not None:
+                        t = loc[q].to(self.mesh.device(p))
+                        out[p] = t.view_as(t)
+            return out
+
+        def fwd(loc):
+            out = move(loc, 1)
+            for i in self.mesh.active:
+                if i not in out:
+                    out[i] = torch.zeros_like(loc[i])
+            return out
+
+        def bwd(gs):
+            out = move(gs, -1)
+            if out:
+                self.log.record("collective-permute", axes,
+                                _nbytes(next(iter(out.values()))))
+            return out
+
+        if axes:
+            res = self._collective(x, x.spec, fwd, bwd)
+            self.log.record("collective-permute", axes, _nbytes(res.first))
+        else:
+            res = self.map(torch.zeros_like, x, spec=x.spec)
+        if fill is None:
+            return res
+        return self.map(lambda i, t, f: f if self.mesh.rank(i, axes) == 0
+                        else t, res, fill, pos=True, spec=res.spec)
+
+    def chain(self, step: Callable, axes, *xs, spec=None):
+        """An exclusive scan in position order along ``axes``: within each
+        group, the first rank runs ``step(i, None, *locals)``, and each
+        later rank ``step(i, carry, *locals)`` from the carry the rank
+        before it returned, sent on to its device (one hop); ``step``
+        returns (carry, out).  Each position receives one carry and sends
+        one, so the scan is logged as one collective-permute of a carry's
+        bytes, and its backward (the reverse chain of the carries'
+        gradients, one hop each) as another.  Returns (the outs, ``spec``;
+        the carries each position passed on, no global layout).  An absent
+        peer's step (a position standing for all) runs on the present
+        position's values, uncounted by an op counter."""
+        axes = tuple(a for a in _axes(axes) if self.mesh.shape[a] > 1)
+        groups = self._groups(axes) if axes else [
+            ((i,), [i]) for i in self.mesh.active]
+
+        def back(g):
+            self.log.record("collective-permute", axes, _nbytes(g))
+
+        outs, carries, nbytes = {}, {}, 0
+        for g, (group, active) in enumerate(groups):
+            carry = None
+            for r, p in enumerate(group):
+                q = p if p in self.mesh.active else active[0]
+                if carry is not None:
+                    nbytes = _nbytes(carry)
+                    carry = _Hop.apply(carry, self.mesh.device(q),
+                                       back if (g, r) == (0, 1) else None)
+                counter = (accounting.counter(self.mesh.device(q))
+                           if p not in self.mesh.active else None)
+                with counter.quiet() if counter else contextlib.nullcontext():
+                    carry, out = step(q, carry, *(_local(a, q) for a in xs))
+                if p in self.mesh.active:
+                    outs[p], carries[p] = out, carry
+        if nbytes:
+            self.log.record("collective-permute", axes, nbytes)
+        return (Sharded(outs, spec, self.mesh),
+                Sharded(carries, None, self.mesh))
+
     # ---- resharding ---------------------------------------------------------
     def reshard(self, x, spec: tuple) -> Sharded:
         """``x`` in the layout ``spec`` (tuples of mesh axes per dim).  The
@@ -759,18 +916,19 @@ def remat(fn: Callable, *args):
     requiring grad where an input did)."""
     flat, spec = _pytree.tree_flatten(args)
     out_spec, extras = [], []
+    tensor = object()  # a tensor's place among the outputs
 
     def run(*leaves):
         out = fn(*_pytree.tree_unflatten(list(leaves), spec))
         out_flat, treespec = _pytree.tree_flatten(out)
         out_spec[:] = [treespec]
-        extras[:] = [None if isinstance(o, torch.Tensor) else o
+        extras[:] = [tensor if isinstance(o, torch.Tensor) else o
                      for o in out_flat]
         return [o for o in out_flat if isinstance(o, torch.Tensor)]
 
     outs = iter(_Remat.apply(run, *flat))
     return _pytree.tree_unflatten(
-        [next(outs) if e is None else e for e in extras], out_spec[0])
+        [next(outs) if e is tensor else e for e in extras], out_spec[0])
 
 
 class _Remat(torch.autograd.Function):
@@ -810,6 +968,24 @@ class _Remat(torch.autograd.Function):
              else None) for x in leaves)
 
 
+class _Hop(torch.autograd.Function):
+    """One hop of ``Distribution.chain``: the carry to the next rank's
+    device; its gradient back to the sender's (``on_back`` called with it:
+    the reverse chain's log entry)."""
+
+    @staticmethod
+    def forward(ctx, t, device, on_back):
+        ctx.src, ctx.on_back = t.device, on_back
+        out = t.to(device)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.on_back is not None:
+            ctx.on_back(g)
+        return g.to(ctx.src), None, None
+
+
 class _Collective(torch.autograd.Function):
     """One collective over every active position as one autograd node:
     ``fwd`` maps the positions' tensors (in ``mesh.active`` order) to
@@ -831,6 +1007,22 @@ class _Collective(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *gs):
         return (None, None) + tuple(ctx.bwd(list(gs)))
+
+
+def _local(a, i: int):
+    """Position ``i``'s part of ``a``: a ``Sharded``'s local tensor, a dict
+    of them its local dict, anything else as is."""
+    if isinstance(a, Sharded):
+        return a.local(i)
+    if isinstance(a, dict):
+        return {k: _local(v, i) for k, v in a.items()}
+    return a
+
+
+def _records(x: Sharded) -> bool:
+    """Whether autograd records what is done with ``x``."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in x.shards.values())
 
 
 def _shape(x) -> tuple:

@@ -28,11 +28,13 @@ logits of ``transformer``; each Mamba layer through
 ``attention.self_attention_mesh`` / ``decode_self_attention_mesh`` and
 ``transformer._mlp_block_mesh``, its KV caches over ``kv_seq``; the state
 laid out by ``state_defs`` (``h`` over "ssm_heads", ``conv_x`` over
-"ssm_inner").  Weights are gathered whole at their use, inside each
-layer, so that with ``cfg.remat`` each Mamba layer and each place of the
-shared block is one ``models.sharding.remat`` region whose recompute
-gathers them again.  The CE is ``transformer.mean_ce_mesh``, unchunked as
-the reference's ``loss_fn``.
+"ssm_inner").  Weights are taken at their use (``Distribution.at_use``),
+inside each layer: in decode as stored (the products run on the shards,
+but the Mamba mixer's w_out: ``mamba2._decode_out``), else gathered whole
+(bf16 in prefill, f32 in training), so that with ``cfg.remat`` each Mamba
+layer and each place of the shared block is one ``models.sharding.remat``
+region whose recompute gathers them again.  The CE is
+``transformer.mean_ce_mesh``, unchunked as the reference's ``loss_fn``.
 """
 from __future__ import annotations
 
@@ -301,12 +303,15 @@ def _mesh_schedule(cfg: ModelConfig):
         yield "mamba", G * k + i
 
 
-def _mamba_layer_mesh(cfg: ModelConfig, params: dict, i: int, x, dist):
+def _mamba_layer_mesh(cfg: ModelConfig, params: dict, i: int, x, dist,
+                      mode: str = "prefill", final_state: bool = True):
     """Mamba layer ``i`` on the mesh, its weights gathered at use inside
-    it: (x, h_final)."""
-    p = dist.at_use(params["layers"], i)
+    it: (x, h_final; None where ``final_state`` is off under
+    ``seq_sp``)."""
+    p = dist.at_use(params["layers"], i, mode)
     y, h_final = mamba2.mamba_block_mesh(
-        cfg, p, transformer._norm(cfg, x, p["pre_norm"], dist), dist=dist)
+        cfg, p, transformer._norm(cfg, x, p["pre_norm"], dist), dist=dist,
+        final_state=final_state)
     return dist.map(torch.add, x, y, spec=x.spec), h_final
 
 
@@ -314,7 +319,7 @@ def _shared_block_mesh(cfg: ModelConfig, params: dict, x, mode: str, dist):
     """The shared block on the mesh, its weights gathered at use inside it:
     (x, k, v), k and v as its attention read them (whole per data shard,
     for the cache)."""
-    p = dist.at_use(params["shared_attn"])
+    p = dist.at_use(params["shared_attn"], mode=mode)
     a, k, v = attn.self_attention_mesh(
         cfg, p, transformer._norm(cfg, x, p["attn_norm"], dist), dist=dist,
         mode=mode)
@@ -332,7 +337,7 @@ def _forward_hidden_mesh(cfg: ModelConfig, params: dict, tokens, mode: str,
     recompute = cfg.remat and mode == "train" and torch.is_grad_enabled()
     for kind, i in _mesh_schedule(cfg):
         if kind == "mamba":
-            args = (_mamba_layer_mesh, cfg, params, i, x, dist)
+            args = (_mamba_layer_mesh, cfg, params, i, x, dist, mode, False)
         else:
             args = (_shared_block_mesh, cfg, params, x, mode, dist)
         x = (remat(*args) if recompute else args[0](*args[1:]))[0]
@@ -367,7 +372,8 @@ def _prefill_mesh(cfg: ModelConfig, params: dict, tokens, max_len, dist):
     state = _state_mesh(cfg, B, max_len, dist)
     for kind, i in _mesh_schedule(cfg):
         if kind == "mamba":
-            x, h_final = _mamba_layer_mesh(cfg, params, i, x, dist)
+            x, h_final = _mamba_layer_mesh(cfg, params, i, x, dist,
+                                           "prefill")
             _write(dist, state["h"], i, h_final)
             continue
         x, k, v = _shared_block_mesh(cfg, params, x, "prefill", dist)
@@ -396,7 +402,7 @@ def _decode_step_mesh(cfg: ModelConfig, params: dict, state: dict, tokens,
     x = dist.constrain(x, "batch", None, "embed")
     for kind, i in _mesh_schedule(cfg):
         if kind == "mamba":
-            p = dist.at_use(params["layers"], i)
+            p = dist.at_use(params["layers"], i, "decode")
             st = {s: dist.select(state[s], i) for s in SSM_KEYS}
             y, new = mamba2.mamba_decode_step_mesh(
                 cfg, p, transformer._norm(cfg, x, p["pre_norm"], dist), st,
@@ -405,7 +411,7 @@ def _decode_step_mesh(cfg: ModelConfig, params: dict, state: dict, tokens,
             for s in SSM_KEYS:
                 _write(dist, state[s], i, new[s])
             continue
-        p = dist.at_use(params["shared_attn"])
+        p = dist.at_use(params["shared_attn"], mode="decode")
         cache = {n: dist.select(state["attn_" + n], i) for n in ("k", "v")}
         a, _ = attn.decode_self_attention(
             cfg, p, transformer._norm(cfg, x, p["attn_norm"], dist), cache,

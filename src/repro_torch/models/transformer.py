@@ -17,8 +17,11 @@ Serving on a mesh (``prefill`` and ``decode_step`` with ``dist`` a
 The embedding lookup is vocab-sharded (each position looks up the rows it
 holds, zeros elsewhere, and a ``psum`` over the vocab axis adds them: one
 nonzero row per token, so exact; the reference's ``embed_gather=
-"shard_map"`` path, taken for ``"auto"`` too); every other weight is
-gathered whole at its use and the experts stay sharded; activations are
+"shard_map"`` path, taken for ``"auto"`` too); the experts stay sharded,
+and every other weight is gathered whole at its use in prefill (cast to
+bf16 on its shard first) and kept in its sharded layout in decode, where
+the projections run column-parallel into "heads" and "ff" and
+row-parallel out of them (``Distribution.at_use``, ``matmul``); activations are
 sharded (batch, seq) in prefill and (batch) in decode; the logits are
 vocab-sharded; the caches are (batch, kv_seq)-sharded per position and
 written in place.  ``dist=None`` (or a ``Distribution`` without a mesh)
@@ -342,13 +345,15 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 
 # ------------------------------------------------------------------ mesh ----
 
-def _layer_at_use(cfg: ModelConfig, params: dict, l: int, dist) -> dict:
-    """Layer ``l``'s weights at use: each gathered whole on every position,
-    but the experts, which keep their shards (ZeRO-3's layer dim: only
-    layer ``l``, from the position that holds it)."""
+def _layer_at_use(cfg: ModelConfig, params: dict, l: int, dist,
+                  mode: str) -> dict:
+    """Layer ``l``'s weights at use in ``mode`` (``Distribution.at_use``:
+    as stored in decode, gathered whole in bf16 in prefill and in f32 in
+    training), but the experts, which keep their shards (ZeRO-3's layer
+    dim: only layer ``l``, from the position that holds it)."""
     experts = ("w_gate", "w_up", "w_down") if cfg.n_experts > 0 else ()
     return {k: (dist.select(v, l) if k in experts
-                else dist.gather_all(dist.select(v, l)))
+                else dist.at_use(v, l, mode, k))
             for k, v in params["layers"].items()}
 
 
@@ -362,15 +367,18 @@ def _mlp_block_mesh(cfg: ModelConfig, p: dict, x, mode: str, dist,
     """``_mlp_block`` on a mesh: the FFN behind its pre-norm and residual
     add, the sum constrained (batch, seq_axis, embed); (x, aux), aux the
     MoE's router loss (replicated) or 0.0.  The dense MLP's hidden dim is
-    constrained to "ff" as in the reference (in decode it shards there,
-    and the down projection sums its partial products)."""
+    constrained to "ff" as in the reference: in decode each position
+    computes ``silu(h @ w_gate) * (h @ w_up)`` on its "ff" block of the
+    weights (column-parallel) and the down projection sums the partial
+    products of its rows of w_down (row-parallel)."""
     h = _norm(cfg, x, p["mlp_norm"], dist)
     aux = 0.0
     if cfg.n_experts > 0:
         y, aux = moe_mod.moe_block_mesh(cfg, p, h, dist=dist, mode=mode)
     else:
-        u = dist.map(lambda pi, hi: F.silu(hi @ pi["w_gate"].to(hi.dtype))
-                     * (hi @ pi["w_up"].to(hi.dtype)), p, h, spec=h.spec)
+        g = dist.matmul(h, p["w_gate"])
+        u = dist.map(lambda gi, ui: F.silu(gi) * ui, g,
+                     dist.matmul(h, p["w_up"]), spec=g.spec)
         u = dist.constrain(u, "batch", seq_axis, "ff")
         y = dist.matmul(u, p["w_down"])
     x = dist.map(torch.add, x, y, spec=x.spec)
@@ -400,7 +408,7 @@ def prefill_mesh(cfg: ModelConfig, params: dict, tokens, *,
     window, theta = layer_flags(cfg)
     cache = None
     for l in range(cfg.n_layers):
-        p = _layer_at_use(cfg, params, l, dist)
+        p = _layer_at_use(cfg, params, l, dist, "prefill")
         h = _norm(cfg, x, p["attn_norm"], dist)
         a, k, v = attn.self_attention_mesh(cfg, p, h, dist=dist,
                                            window=window[l], theta=theta[l])
@@ -436,7 +444,7 @@ def decode_step_mesh(cfg: ModelConfig, params: dict, cache: dict, tokens,
     x = dist.constrain(x, "batch", None, "embed")
     window, theta = layer_flags(cfg)
     for l in range(cfg.n_layers):
-        p = _layer_at_use(cfg, params, l, dist)
+        p = _layer_at_use(cfg, params, l, dist, "decode")
         h = _norm(cfg, x, p["attn_norm"], dist)
         layer_cache = {n: dist.select(cache[n], l) for n in ("k", "v")}
         a, _ = attn.decode_self_attention(
@@ -454,7 +462,7 @@ def _block_mesh(cfg: ModelConfig, params: dict, l: int, x, window: int,
                 theta: float, mode: str, dist):
     """Layer ``l`` on a mesh, its weights gathered at use inside it (a
     checkpointed layer's recompute gathers them again): (x, aux)."""
-    p = _layer_at_use(cfg, params, l, dist)
+    p = _layer_at_use(cfg, params, l, dist, mode)
     h = _norm(cfg, x, p["attn_norm"], dist)
     a = attn.self_attention_mesh(cfg, p, h, dist=dist, window=window,
                                  theta=theta, mode=mode)[0]

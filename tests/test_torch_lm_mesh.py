@@ -458,7 +458,8 @@ def test_one_by_one_mesh_is_bitwise_the_meshless_path(arch):
 
 def test_generate_on_a_mesh_gathers_the_logits_before_the_argmax():
     """Greedy decode over the mesh: the vocab-sharded logits are gathered
-    whole (one all-gather over "model" each step) before the argmax; the
+    whole (one all-gather over "model" each step, apart from the
+    parameters' gathers, which the log marks) before the argmax; the
     tokens are the argmax of the returned logits."""
     cfg = get_config("gemma3-1b", smoke=True)
     defs = transformer.defs(cfg)
@@ -470,7 +471,8 @@ def test_generate_on_a_mesh_gathers_the_logits_before_the_argmax():
     assert g.tokens.shape == (B, 3) and g.logits.shape == (B, 3,
                                                            cfg.vocab_size)
     assert torch.equal(g.tokens, g.logits.argmax(-1))
-    gathers = [c for c in dist.log.calls if c[0] == "all-gather"
+    gathers = [c for n, c in enumerate(dist.log.calls)
+               if c[0] == "all-gather" and n not in dist.log.params
                and c[2] == (B // 2) * cfg.padded_vocab * 2]
     assert len(gathers) == 3
 
@@ -567,14 +569,19 @@ def test_offset_under_autograd_raises_with_the_roadmap_item():
 def test_collective_log_matches_a_hand_count():
     """A 2-layer gemma3 smoke prefill and one decode step on the 2 x 2
     mesh, every call against a hand count.  Prefill: per layer the seven
-    sharded weights gathered whole (wq, wk, wv, wo, w_gate, w_up, w_down;
-    f32), k and v gathered along seq (bf16); the embedding's ``psum`` and
-    the last rows' gather.  Decode: per layer the seven weights, the
-    decode attention's ``pmax`` and two ``psum``s, the output projection's
-    and the down projection's partial sums (their inputs are sharded on
-    "heads" and "ff", summed in f32); the embedding's ``psum``.  The cache
-    (S + 2 slots) splits over "model".  ``parse_collectives``
-    sums them, an all-reduce twice on the wire."""
+    sharded weights gathered whole (wq, wk, wv, wo, w_gate, w_up, w_down),
+    each cast to bf16 on its shard first (no autograd records: half the
+    f32 bytes), k and v gathered along seq (bf16); the embedding's ``psum``
+    and the last rows' gather.  Decode gathers no parameter: per layer q,
+    k and v projected on each position's column blocks and all-gathered
+    along their packed dim (bf16; the kv dim's one head of 16 splits
+    mid-head), the decode attention's ``pmax`` and two ``psum``s, the
+    output projection's and the down projection's partial sums over their
+    rows (their inputs sharded on "heads" and "ff", summed in f32); the
+    embedding's ``psum``.  The cache (S + 2 slots) splits over "model".
+    ``parse_collectives`` sums them, an all-reduce twice on the wire; the
+    log marks the prefill's weight gathers, and nothing in decode, as
+    parameter moves."""
     cfg = dataclasses.replace(get_config("gemma3-1b", smoke=True),
                               n_layers=2)
     defs = transformer.defs(cfg)
@@ -585,8 +592,8 @@ def test_collective_log_matches_a_hand_count():
     PQ = cfg.n_heads * cfg.resolved_head_dim
     PKV = cfg.n_kv_heads * cfg.resolved_head_dim
     # in the layer's key order: w_down, w_gate, w_up, wk, wo, wq, wv
-    weights = [F * D * 4, D * F * 4, D * F * 4, D * PKV * 4, PQ * D * 4,
-               D * PQ * 4, D * PKV * 4]
+    weights = [F * D * 2, D * F * 2, D * F * 2, D * PKV * 2, PQ * D * 2,
+               D * PQ * 2, D * PKV * 2]
     prompts = torch.from_numpy(np.random.default_rng(6).integers(
         0, cfg.vocab_size, (B, S)))
     with torch.no_grad():
@@ -598,6 +605,8 @@ def test_collective_log_matches_a_hand_count():
         want += [("all-gather", Bl * S * PKV * 2)] * 2
     want += [("all-gather", Bl * 2 * D * 2)]
     assert [(c[0], c[2]) for c in dist.log.calls] == want
+    assert [(c[0], c[2]) for c in dist.log.param_calls] == [
+        ("all-gather", n) for n in weights] * cfg.n_layers
     summary = op_cost.parse_collectives(dist.log)
     assert summary["all-gather"]["count"] == 9 * cfg.n_layers + 1
     dist.log.clear()
@@ -606,14 +615,17 @@ def test_collective_log_matches_a_hand_count():
     want = [("all-reduce", Bl * D * 2)]
     G = cfg.n_heads // cfg.n_kv_heads
     for _ in range(cfg.n_layers):
-        want += [("all-gather", n) for n in weights]
-        want += [("all-reduce", Bl * cfg.n_kv_heads * G * 4)] * 2  # m, l
-        want.insert(len(want) - 1, ("all-reduce", Bl * PQ * 4))     # u
+        want += [("all-gather", Bl * n * 2) for n in (PQ, PKV, PKV)]
+        want += [("all-reduce", Bl * cfg.n_kv_heads * G * 4),   # m
+                 ("all-reduce", Bl * PQ * 4),                   # u
+                 ("all-reduce", Bl * cfg.n_kv_heads * G * 4)]   # l
         want += [("all-reduce", Bl * D * 4)] * 2  # wo, w_down f32 partials
     assert [(c[0], c[2]) for c in dist.log.calls] == want
+    assert not dist.log.param_calls
     summary = op_cost.parse_collectives(dist.log)
     ar = summary["all-reduce"]["bytes"]
     assert summary["all-reduce"]["count"] == 1 + 5 * cfg.n_layers
+    assert summary["all-gather"]["count"] == 3 * cfg.n_layers
     assert summary["wire_bytes"] == summary["total_bytes"] + ar
     assert summary["total_bytes"] == sum(n for _, n in want)
 
@@ -699,7 +711,7 @@ def test_dryrun_mesh_multi_records_a_tiny_cell(tmp_path, monkeypatch):
     assert rec["positions_accounted"]["position"] == 0
     assert "busiest" in rec["positions_accounted"]["why"]
     colls = rec["collectives"]
-    assert colls["all-gather"]["count"] == 7 * 2
+    assert colls["all-gather"]["count"] == 3 * 2  # q, k, v: no weight
     assert colls["all-reduce"]["count"] == 1 + 5 * 2
     assert colls["wire_bytes"] == colls["total_bytes"] + \
         colls["all-reduce"]["bytes"]

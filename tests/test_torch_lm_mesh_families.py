@@ -506,13 +506,16 @@ def test_generate_on_a_mesh(tag):
 def test_collective_log_of_a_mamba_layer_matches_a_hand_count(tag):
     """One Mamba layer of the prefill on the 2 x 2 mesh logs, by kind and
     per-position bytes: the all-gathers of its weights that "ssm_inner"
-    or "ssm_heads" shard (w_z, w_x, w_dt, w_out, the conv_x weight and
-    bias, A_log, D, dt_bias, norm: f32, whole); under ``head_tp`` x's
-    sequence gathered (B, S, D) bf16 and bf16(y * silu(z)) moved from the
-    inner dim to the sequence (an all_to_all, (B, S / 2, d_inner) bf16);
-    under ``seq_sp`` the conv halo's tails (B, 2 (W - 1), d_inner + 2 G N)
-    bf16 and the chunks' decays (B, c, H) and states (B, c, H, N, P) f32,
-    each over the sequence's 2 positions."""
+    or "ssm_heads" shard, whole (w_z, w_x, w_dt, w_out cast to bf16 on
+    their shards first, as they are read; the conv_x weight and bias,
+    A_log, D, dt_bias and norm, read in f32, in f32), each marked as a
+    parameter move; under ``head_tp`` x's sequence gathered (B, S, D) bf16
+    and bf16(y * silu(z)) moved from the inner dim to the sequence (an
+    all_to_all, (B, S / 2, d_inner) bf16); under ``seq_sp`` the conv
+    halo, each block's last W - 1 raw rows (B, W - 1, d_inner + 2 G N)
+    bf16 shifted to the next block, the carry's exclusive scan (one
+    (B, H, N, P) f32 state into each position) and the last block's final
+    state summed onto both positions of the sequence (f32)."""
     cfg = _cfg(tag)
     dist = _dist()
     params = _seed_params(cfg)
@@ -525,19 +528,22 @@ def test_collective_log_of_a_mamba_layer_matches_a_hand_count(tag):
     D, din, H = cfg.d_model, cfg.d_inner, cfg.ssm_nheads
     N, Pd, W, G = cfg.ssm_state, cfg.ssm_headdim, cfg.conv_width, \
         cfg.ssm_ngroups
-    weights = [D * din, D * din, D * H, din * D, W * din, din, H, H, H, din]
-    want = [("all-gather", ("model",), 4 * n) for n in weights]
+    bf16 = [D * din, D * din, D * H, din * D]  # w_z, w_x, w_dt, w_out
+    f32 = [W * din, din, H, H, H, din]  # conv_x w, b, A_log, D, dt_bias, norm
+    weights = [("all-gather", ("model",), 2 * n) for n in bf16] + [
+        ("all-gather", ("model",), 4 * n) for n in f32]
+    want = list(weights)
     Bl = B // 2  # the batch over "data"
     if tag == "mamba2":
         want += [("all-gather", ("model",), 2 * Bl * S * D),
                  ("all-to-all", ("model",), 2 * Bl * (S // 2) * din)]
     else:
-        c = S // cfg.ssd_chunk
-        want += [("all-gather", ("model",),
-                  2 * Bl * 2 * (W - 1) * (din + 2 * G * N)),
-                 ("all-gather", ("model",), 4 * Bl * c * H),
-                 ("all-gather", ("model",), 4 * Bl * c * H * N * Pd)]
+        want += [("collective-permute", ("model",),
+                  2 * Bl * (W - 1) * (din + 2 * G * N)),
+                 ("collective-permute", ("model",), 4 * Bl * H * N * Pd),
+                 ("all-reduce", ("model",), 4 * Bl * H * N * Pd)]
     assert sorted(dist.log.calls) == sorted(want)
+    assert sorted(dist.log.param_calls) == sorted(weights)
 
 
 def test_mamba_head_blocks_split_groups_whole():

@@ -5,12 +5,12 @@ against ``jax.value_and_grad`` of the reference's ``loss_fn`` on the same
 numpy batch and the reference's own initial weights (``params_from_jax``);
 remat on and off bitwise (for the MoE and VLM smoke configs too, with the
 MoE routing of the remat recompute equal to the forward's); ``loss_chunk``
-against the unchunked loss; four ``train_step``s against the same steps
-rebuilt from the reference's ``loss_fn``, ``adamw`` and ``apply_updates``,
-for two dense configs and the MoE, SSM, hybrid, encoder-decoder and VLM
-smoke configs; and the training CLI (``python -m repro_torch.launch.train``)
-on the CPU, LM (dense, SSM and MoE, with checkpoint and resume) and GNN.  On
-the CPU the attention runs its plain versions (forward and backward).
+against the unchunked loss; and the training CLI (``python -m
+repro_torch.launch.train``) on the CPU, LM (dense, SSM and MoE, with
+checkpoint and resume) and GNN.  On the CPU the attention runs its plain
+versions (forward and backward).  Four ``train_step``s of each family
+against the reference's: ``tests/test_torch_lm_train_steps.py`` (a file of
+its own, so that a parallel run spreads the two).
 """
 import dataclasses
 import functools
@@ -25,7 +25,6 @@ from repro import configs as jconfigs
 from repro.models import get_module as jget_module
 from repro.models.params import init_from_defs as jinit_from_defs
 from repro.models.sharding import Distribution
-from repro.train import optimizer as joptimizer
 from repro_torch import configs as tconfigs
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import transformer
@@ -241,74 +240,6 @@ def test_loss_masks_negative_labels():
         batch["labels"][:, :S // 2].reshape(-1))
     np.testing.assert_allclose(float(half), float(ce), rtol=1e-5)
     assert float(full) != float(half) and float(m["ce"]) == float(half)
-
-
-# the families' smoke configs trained by test_train_steps_match_reference
-FAMILIES = ("phi3.5-moe-42b-a6.6b", "mamba2-780m", "zamba2-1.2b",
-            "seamless-m4t-large-v2", "chameleon-34b")
-# the MoE config is held to the reference run op by op (jax.disable_jit):
-# under jax.jit its fused router logits flip a near-tie token's expert
-# (tests/test_torch_moe.py), and a flip moves the capacity ranks of the
-# tokens after it
-OP_BY_OP = ("phi3.5-moe-42b-a6.6b",)
-
-
-@pytest.mark.parametrize("arch", ["gemma3-1b", "minitron-4b", *FAMILIES])
-def test_train_steps_match_reference(arch):
-    """Four AdamW steps (lr 1e-2, so the weights move) of ``train_step``
-    against the reference's loss_fn / adamw / apply_updates on the same
-    batches (the encoder-decoder's with frames), through each family's
-    ``loss_fn`` (the MoE's with its router loss): each step's loss within
-    the LM tolerance; ``train_step`` leaves the params it was given
-    unchanged and updates every leaf.  Measured on the CPU, the largest
-    |loss difference| over the 4 steps (the first step's at most 7.0e-4,
-    zamba2-smoke's 5.2e-3 from its shared block's rounding; AdamW's first
-    update is about lr times the sign of each gradient entry, so entries
-    near zero that round to the other sign move the weights apart): phi3.5-moe-smoke 6.70e-2 op by op (9.63e-2
-    against the jitted reference), mamba2-smoke 3.12e-2, zamba2-smoke
-    8.37e-2, seamless-smoke 1.42e-2, chameleon-smoke 4.70e-2, against an
-    allowance of about 0.26 (atol 6e-2 + rtol 3e-2 at losses near 6.7), so
-    zamba2 and seamless need none of the doubled atol their logits get."""
-    steps, lr = 4, 1e-2
-    jcfg = jconfigs.get_config(arch, smoke=True)
-    cfg = tconfigs.get_config(arch, smoke=True)
-    jmod = jget_module(jcfg)
-    jopt = joptimizer.adamw(lr)
-
-    def jstep(p, state, batch):
-        (loss, _), grads = jax.value_and_grad(
-            lambda q: jmod.loss_fn(jcfg, q, batch, dist=DIST),
-            has_aux=True)(p)
-        upd, state = jopt.update(grads, state, p)
-        return joptimizer.apply_updates(p, upd), state, loss
-
-    if arch not in OP_BY_OP:
-        jstep = jax.jit(jstep)
-    jp = jax.tree_util.tree_map(jnp.asarray, _reference_params(arch))
-    jstate = jopt.init(jp)
-    params = params_from_jax(_reference_params(arch), "cpu")
-    opt = toptimizer.adamw(lr)
-    state = opt.init(params)
-    mine, theirs = [], []
-    for step in range(steps):
-        batch = _batch(cfg, step)
-        before = {k: t.clone() for k, t in _flatten(params)}
-        new, state, loss = tlaunch.train_step(cfg, params, opt, state, batch)
-        for k, t in _flatten(params):  # functional: the old params stay
-            assert torch.equal(t, before[k]), k
-        params = new
-        if arch in OP_BY_OP:
-            with jax.disable_jit():
-                jp, jstate, jloss = jstep(jp, jstate, _jbatch(batch))
-        else:
-            jp, jstate, jloss = jstep(jp, jstate, _jbatch(batch))
-        mine.append(float(loss))
-        theirs.append(float(jloss))
-    assert state["count"] == steps
-    np.testing.assert_allclose(mine, theirs, rtol=LOSS_RTOL, atol=LOSS_ATOL)
-    first = params_from_jax(_reference_params(arch), "cpu")
-    for (key, a), (_, b) in zip(_flatten(params), _flatten(first)):
-        assert not torch.equal(a, b), key  # every leaf was updated
 
 
 def test_train_cli_runs_lm_on_the_cpu(capsys):

@@ -6,10 +6,14 @@ per leaf) do not hold: the reference's own jit and op-by-op
 seamless-smoke, whose bf16 rounding reaches beyond the LM tolerances inside
 the reference: ROADMAP section 3, finding 12), and the port's own CPU runs
 with the attention's sums taken in another order (chameleon-smoke's losses,
-zamba2-smoke's gradients).  A file of its own: the op-by-op runs take most
-of two minutes on the CPU."""
+zamba2-smoke's gradients), and with the attention backward's ds rounded
+to bf16 once or taken as two bf16 parts (zamba2-smoke's losses: the two
+forms of the ``mma_sync`` backward, ROADMAP section 3, finding 18).  A file
+of its own: the op-by-op runs take most of two minutes on the CPU."""
 import contextlib
 import functools
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -156,3 +160,46 @@ def test_reordered_attention_sums_spread_the_smoke_training(
         assert loss_band[0] < diffs.max() < loss_band[1], diffs
     if grad_band:
         assert grad_band[0] < rel[worst] < grad_band[1], (worst, rel[worst])
+
+
+def test_ds_rounding_spreads_the_zamba2_smoke_losses(monkeypatch, capsys):
+    """zamba2-smoke's 4 AdamW steps of phase 24 (lr 1e-3, 4 x 64, seed-0
+    weights) on the CPU through the plain attention backward, its ds
+    rounded to bf16 once (the ``mma_sync`` kernel with ``kMmaSyncDsParts =
+    1``) or taken as two bf16 parts (``= 2``, the ``wgmma`` route's form;
+    ``tools/bwd_ds_rounding.py``'s forms): the losses move apart by up to
+    3.33e-3 (measured), less than the reference's own jit vs op-by-op
+    spread of 7.13e-3 on the same steps.  By the rule that set phase 24's
+    other limits (the largest spread rounding alone makes, rounded up), the
+    limit for zamba2-smoke stays 8e-3 with either form.  Prints the
+    spread."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.models import get_module
+    from repro_torch.models.params import init_from_defs
+    from repro_torch.train.optimizer import adamw
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import bwd_ds_rounding
+
+    cfg = tconfigs.get_config("zamba2-1.2b", smoke=True)
+    params0 = init_from_defs(get_module(cfg).defs(cfg),
+                             torch.Generator().manual_seed(0), "cpu")
+    runs = {}
+    for form in ("bf16", "two parts"):
+        monkeypatch.setattr(ref, "flash_attention_bwd",
+                            bwd_ds_rounding.plain_backward_with(form))
+        opt, params, losses = adamw(1e-3), params0, []
+        state = opt.init(params)
+        for step in range(4):
+            b = tlaunch.make_batch(cfg, 4, 64, SEED, step, device="cpu")
+            params, state, loss = tlaunch.train_step(cfg, params, opt, state,
+                                                     b)
+            losses.append(float(loss))
+        runs[form] = losses
+    spread = float(np.abs(np.subtract(runs["bf16"], runs["two parts"])).max())
+    with capsys.disabled():
+        print(f"\nzamba2 smoke on the CPU, ds rounded once vs in two parts: "
+              f"losses {runs}, |difference| up to {spread:.4e}")
+    assert 1e-3 < spread < 7.13e-3, spread
