@@ -165,8 +165,20 @@ result line):
    timed at the two gemma3 prefill shapes and the layer shapes beside its
    bound (bf16 operations at 989 TFLOP/s or bytes, the larger) and SDPA;
    on the card
-   an f32 call autograd would differentiate must raise (there is no f32
-   backward), and a bf16 one must give gradients through the backward.
+   a call autograd differentiates gives each input that requires grad a
+   finite gradient through one forward and one backward launch: f32 on
+   ``simt`` both ways, bf16 on ``wgmma`` at Dh 256.
+11c. The f32 backward (``f32_backward_phase``): ``flash_attention_bwd``'s
+   ``simt`` route on f32 cases (``F32_BWD_CASES``: Dh 16, 64, 80, 128 and
+   256, G 1, 3 and 4, windows 0 and 64, causal and not, a query offset
+   inside a tile, Sq and Sk not multiples of the tile) against the plain
+   f32 backward and the f64 gradient by ``check_backward``'s rule with the
+   f32 floor (``BWD_F64_FLOOR_F32``), twice bitwise; then timed at
+   gemma3-1b's layer shapes in f32 at 4 x 4096 (local, window 512, and
+   global) in turns with its plain version and SDPA's f32 backward (the
+   backend named), beside its bound (the bytes at 3.35 TB/s or 10 Dh flops
+   per visible pair and head at the card's f32 CUDA-core rate, SMs x clock
+   x 256).  No main path trains in f32: these launches are checks only.
 11b. LM backward: ``flash_attention_bwd`` on q, k, v, o, lse and do
    captured from one real training step (layer 0, local, and layer 5,
    global) and on edge cases (Dh 16, 64, 80, 128 and 256, windows 64 and
@@ -450,7 +462,9 @@ kernel and shape 100 -> 50 (``TIMED_LAUNCHES``); phase 6 trains 7 steps (was
 10), phase 7 8 (12), phase 9 8 (12), phase 16 4 (6); phases 22, 23 and 26
 train 2 steps (3); phase 25 times 1 train and 1 prefill call and 2 decode
 steps after the counted call (2, 2, 4); phase 28 decodes 16 and 4 tokens
-(32, 8).  ``mesh_train_accounting`` runs in a subprocess beside phases 11-28.
+(32, 8); and for phase 11c phases 7, 9 and 10 train 6 steps (8) and the
+profiled runs of phases 6 and 9 take 7 (8).  ``mesh_train_accounting``
+runs in a subprocess beside phases 11-28.
 Phase 30 came in without a cut elsewhere: its own depth cuts are 30b's
 (``MESH_FAMILY_TRAIN``), and 30a runs 4 x 1024 prompts and 8 tokens.
 A ``[time]`` line gives each phase's start on the host clock.  The last
@@ -498,12 +512,12 @@ TIMED_LAUNCHES = 50
 TRAIN_STEPS = 7
 SHARD_TOPOLOGY = ("dgx-v100", 4)  # 2 cliques x 2 GPUs
 SHARD_MEM_PER_DEVICE = 150e6      # 300 MB per clique, the one-GPU budget
-SHARD_STEPS = 8  # 12 until phase 29 came in
+SHARD_STEPS = 6  # 12 until phase 29 came in, 8 until phase 11c did
 SHARD_REFRESH = 5
 SHARD_LAYER_STEPS = 3
-SHARD_PARITY_STEPS = 8
+SHARD_PARITY_STEPS = 6  # 8 until phase 11c came in
 PARITY_BATCH = 1024
-PARITY_STEPS = 8  # 12 until phase 29 came in
+PARITY_STEPS = 6  # 12 until phase 29 came in, 8 until phase 11c did
 UNFUSED_STEPS = 4
 # phase 10b: each run's steps (8 until the dense configs of phase 26 came
 # in; the refresh at step 4 needs 4 observed batches) and the refresh
@@ -519,7 +533,8 @@ RESIL_LOOKAHEAD = 2        # the store's lookahead there
 RESIL_LOSS = (4, 3)        # (step, device): device 3 of the 2 x 2 plan
 RESIL_CLI_STEPS = (2, 4)   # the CLIs: killed after, resumed to
 RESIL_CLI_VERTICES = 2000  # the GNN CLI's --max-vertices
-PROFILE_STEPS = 8        # the profiled run; its steps 2..6 are the window
+PROFILE_STEPS = 7        # the profiled run (8 until phase 11c came in);
+# its steps 2..6 are the window
 PROFILE_WINDOW = (2, 5)  # (first step, steps)
 SAGE_SHAPE = (416_768, 128, 200_000, 10)  # table rows, D, rows out, fanout
 LM_ARCH = "gemma3-1b"
@@ -627,12 +642,15 @@ TRAIN_PARITY = (MOE_ARCH,) + FAMILY_TRAIN_FULL + (VLM_ARCH,)
 # losses by 2.45e-3 and zamba2-smoke's first-step A_log gradient by 6.68e-2
 # between two CPU runs of the port whose attention sums in another order
 # (AdamW's first updates are about lr times each gradient entry's sign), so
-# 4e-3 and 1e-1; the attention backward's ds rounded once or in two bf16
-# parts moves zamba2-smoke's CPU losses by 3.33e-3, inside 8e-3 too, while
-# the card's two-part mma_sync kernel reads 1.21e-2 from the CPU (ROADMAP
-# section 3, 18: the kernel rounds ds once)
+# 4e-3 and 1e-1; zamba2-smoke's losses on the card through the plain
+# attention backward itself (the CPU's arithmetic, ds in f32, on the card's
+# tensors; tools/ds_split_leaves.py) read up to 1.258e-2 from the CPU's (by
+# step: 5.63e-5, 1.205e-3, 7.157e-3, 1.258e-2; H100 80GB HBM3 at 700 W),
+# beyond the 8e-3 the CPU spreads give, so rounding alone on the card sets
+# its limit, 1.3e-2 (the backward kernel with ds in two bf16 parts reads
+# 1.21e-2, with ds rounded once 2.58e-3: ROADMAP section 3, 18)
 TRAIN_GRAD_REL = {None: 5e-2, "zamba2-1.2b": 1e-1}
-TRAIN_SMOKE_ATOL = {"zamba2-1.2b": 8e-3, "seamless-m4t-large-v2": 8e-3,
+TRAIN_SMOKE_ATOL = {"zamba2-1.2b": 1.3e-2, "seamless-m4t-large-v2": 8e-3,
                     "chameleon-34b": 4e-3}
 # the training CLI on the card, as a user runs it (a subprocess each)
 TRAIN_CLI = (ENCDEC_ARCH, MOE_ARCH)
@@ -690,6 +708,26 @@ NARROW_STABLELM = {"n_layers": 2, "n_heads": 4, "n_kv_heads": 4,
 # also takes ds as two bf16 parts (wgmma) or rounds it (mma_sync) and sums
 # in another order)
 BWD_F64_FLOOR = 1e-3
+# the same rule's floor in f32 (the simt route; phase 11c): both the kernel
+# and the plain version keep every value in f32 and sum in other orders,
+# and the kernel reads the forward kernel's lse (their errors from f64 read
+# 1.7e-7 to 1.3e-6 of max |g| at F32_BWD_CASES-like shapes on an H100)
+BWD_F64_FLOOR_F32 = 1e-5
+# phase 11c: the simt backward's cases, (name, (B, Sq, Hq, Hkv, Dh), Sk,
+# window, causal, q_offset)
+F32_BWD_CASES = (
+    ("f32_s77_full_window64_g4_dh16", (1, 77, 4, 1, 16), 77, 64, False, 0),
+    ("f32_s200_g4_dh64", (1, 200, 8, 2, 64), 200, 0, True, 0),
+    ("f32_off37_sq130_sk260_g3_dh80", (2, 130, 6, 2, 80), 260, 0, True, 37),
+    ("f32_s300_window64_g1_dh128", (1, 300, 2, 2, 128), 300, 64, True, 0),
+    ("f32_s333_window64_g4_dh256", (1, 333, 4, 1, 256), 333, 64, True, 0),
+    ("f32_sq100_sk300_g4_dh256", (1, 100, 4, 1, 256), 300, 0, True, 0),
+    ("f32_sq130_sk70_full_g3_dh128", (1, 130, 3, 1, 128), 70, 0, False, 0),
+    ("f32_off101_window64_g3_dh16", (1, 90, 6, 2, 16), 200, 64, True, 101))
+# phase 11c's timed shapes: gemma3-1b's layers in f32 at 4 x 4096, (name,
+# window); its timed launches (tens of ms each) and the plain version's
+F32_BWD_TIMED = (("f32_gemma3_local", 512), ("f32_gemma3_global", 1 << 30))
+F32_BWD_LAUNCHES, F32_BWD_PLAIN = 5, 3
 # the forward kernel's lse (which the backward reads) against the plain
 # forward's, as tests/test_torch_lm_kernels.py holds it
 BWD_LSE_TOL = {"rtol": 1e-4, "atol": 1e-4}
@@ -709,7 +747,9 @@ TOLERANCE = {"flash_attention": {"bfloat16": {"rtol": 1e-2, "atol": 2e-3},
                                  "float32": {"rtol": 1e-3, "atol": 2e-4}}}
 # the backward kernel's rule (check_backward), for the kernels line
 BWD_RULE = {"bfloat16": f"max|kernel - f64| / max|f64| <= 2 x the plain "
-                        f"version's + {BWD_F64_FLOOR}"}
+                        f"version's + {BWD_F64_FLOOR}",
+            "float32": f"max|kernel - f64| / max|f64| <= 2 x the plain "
+                       f"version's + {BWD_F64_FLOOR_F32}"}
 # the forward on calls captured from a real prefill (phase 26) is held
 # element by element against the f64 output: there a value of v of order 5
 # meets a row that sees a few keys, so one bf16 step of p (rounded at
@@ -778,12 +818,16 @@ MESH_OFFSET_TIMED = 20  # the kernel's timed launches per case and offset
 # phase 29c, the attention backward at a query offset, beside
 # MESH_OFFSET_CASES's shapes: (name, (B, Sq, Hq, Hkv, Dh), Sk, window,
 # q_offset): an offset inside a tile; a window that ends inside a tile; Dh
-# 80 with G 3; Dh 16 (native on mma_sync)
+# 80 with G 3; Dh 16 (native on mma_sync); phi3.5-moe's 1 x 128 block
 MESH_BWD_EDGE_CASES = (
     ("bwd_off37_sq100_sk200_g4_dh64", (1, 100, 4, 1, 64), 200, 0, 37),
     ("bwd_off70_window50_g2_dh128", (2, 130, 4, 2, 128), 260, 50, 70),
     ("bwd_off170_g3_dh80", (1, 130, 6, 2, 80), 300, 0, 170),
-    ("bwd_off96_window100_g4_dh16", (1, 77, 4, 1, 16), 200, 100, 96))
+    ("bwd_off96_window100_g4_dh16", (1, 77, 4, 1, 16), 200, 100, 96),
+    # phi3.5-moe's heads in a 1 x 128 block at 384 over 512 keys, where
+    # ds rounded once put mma_sync's dk outside the rule (ROADMAP section 3,
+    # finding 18)
+    ("bwd_phi35_q128_at384", (1, 128, 32, 8, 128), 512, 0, 384))
 # phase 29, LM training over a mesh (every position on cuda:0): gemma3-1b
 # at full size on a 2 x 2 (data, model) mesh at LM_BATCH x LM_PROMPT (remat,
 # the CE in chunks of LM_TRAIN_CHUNK, AdamW at LM_TRAIN_LR with the state
@@ -3881,7 +3925,7 @@ def family_train_phase(torch, np, card: str, phase_launches: dict,
                    {r: f2[r] - f1[r] for r in f0},
                    {r: b2[r] - b1[r] for r in b0}, b1 == b0)
             want = (on_wgmma, {"wgmma": again, "mma_sync": 0, "simt": 0},
-                    {"wgmma": n_flash, "mma_sync": 0}, True)
+                    {"wgmma": n_flash, "mma_sync": 0, "simt": 0}, True)
             if got != want:
                 raise AssertionError(f"{tag} step {i}: forward, recompute, "
                                      f"backward launches {got[:3]}, "
@@ -5054,7 +5098,7 @@ def route_rule_agrees(torch, fa) -> None:
     c_route.restype = ctypes.c_int
     c_bwd = BWD_KERNEL.fn("flash_attention_bwd_route")
     names = {0: "simt", 1: "mma_sync", 2: "wgmma"}
-    bwd_names = {-1: None, 0: "wgmma", 1: "mma_sync"}
+    bwd_names = {-1: None, 0: "wgmma", 1: "mma_sync", 2: "simt"}
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
         for dh in range(16, MAX_HEAD_DIM + 1, 16):
             if names[c_route(code, dh)] != flash_route(dtype, dh):
@@ -5067,48 +5111,52 @@ def route_rule_agrees(torch, fa) -> None:
                                      f"Python {flash_bwd_route(dtype, dh)}")
 
 
-def flash_refuses_autograd(torch, fa, card) -> None:
-    """There is no f32 backward on the card: an f32 call autograd would
-    differentiate (grad mode on, q, k or v requiring grad) must raise
-    without a launch, and the same inputs under ``torch.no_grad()`` run; a
-    bf16 call under autograd runs and gives each input its gradient through
-    the backward kernel (one forward and one backward launch)."""
+def flash_f32_autograd(torch, fa, card) -> None:
+    """An f32 call autograd differentiates (grad mode on, q, k or v
+    requiring grad) gives that input a finite gradient through one forward
+    launch and one backward launch, both on ``simt``, and the same inputs
+    under ``torch.no_grad()`` launch the forward alone; a bf16 call under
+    autograd does the same on ``wgmma`` (Dh 256)."""
     from repro_torch.kernels.flash_attention import BWD_KERNEL, flash_attention
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     q, k, v = (torch.randn((1, 64, 4, 256), generator=gen, device="cuda")
                for _ in range(3))
     k, v = k[:, :, :1].contiguous(), v[:, :, :1].contiguous()
-    before = fa.kernel.launches
-    for name in ("q", "k", "v"):
-        args = {"q": q, "k": k, "v": v}
-        args[name] = args[name].clone().requires_grad_()
-        try:
-            flash_attention(**args)
-        except RuntimeError as e:
-            msg = str(e)
-        else:
-            raise AssertionError(f"flash_attention on CUDA gave an f32 output"
-                                 f" with {name} requiring grad")
-        with torch.no_grad():
-            flash_attention(**args)
-    torch.cuda.synchronize()
-    if fa.kernel.launches != before + 3:
-        raise AssertionError("flash_attention launched under autograd in f32")
-    bf = [t.bfloat16().requires_grad_() for t in (q, k, v)]
-    launches = (fa.kernel.launches, BWD_KERNEL.launches)
-    flash_attention(*bf).float().square().sum().backward()
-    torch.cuda.synchronize()
-    if (fa.kernel.launches, BWD_KERNEL.launches) != (launches[0] + 1,
-                                                     launches[1] + 1) \
-            or any(t.grad is None or not bool(torch.isfinite(t.grad).all())
-                   for t in bf):
-        raise AssertionError("bf16 flash_attention under autograd did not "
-                             "give finite gradients through the kernels")
-    print(f"[lm] flash_attention on CUDA refuses autograd in f32 for q, k and"
-          f" v (RuntimeError: {msg[:60]}...), runs under no_grad; bf16 under"
-          f" autograd gives q, k and v gradients through the backward kernel"
-          f" | {card}")
+    seen = []
+    for dtype, route in ((torch.float32, "simt"), (torch.bfloat16, "wgmma")):
+        for name in ("q", "k", "v"):
+            args = {"q": q.to(dtype), "k": k.to(dtype), "v": v.to(dtype)}
+            args[name] = args[name].clone().requires_grad_()
+            before = (dict(fa.kernel.route_launches),
+                      dict(BWD_KERNEL.route_launches))
+            flash_attention(**args).float().square().sum().backward()
+            torch.cuda.synchronize()
+            after = (dict(fa.kernel.route_launches),
+                     dict(BWD_KERNEL.route_launches))
+            grad = args[name].grad
+            if any(after[i] != {r: n + (r == route)
+                                for r, n in before[i].items()}
+                   for i in (0, 1)) or grad is None \
+                    or grad.dtype != dtype \
+                    or not bool(torch.isfinite(grad).all()):
+                raise AssertionError(
+                    f"{dtype} flash_attention under autograd with {name} "
+                    f"requiring grad: launches {before} -> {after}, "
+                    f"gradient {None if grad is None else grad.dtype}")
+            with torch.no_grad():
+                flash_attention(**args)
+            torch.cuda.synchronize()
+            if (fa.kernel.route_launches, BWD_KERNEL.route_launches) != (
+                    {r: n + (r == route) for r, n in after[0].items()},
+                    after[1]):
+                raise AssertionError("flash_attention under no_grad did not "
+                                     "launch the forward alone")
+            seen.append(f"{name} {float(grad.float().abs().max()):.3e}")
+    print(f"[lm] flash_attention on CUDA under autograd: f32 through one "
+          f"simt forward and one simt backward launch, bf16 through wgmma "
+          f"both ways, each of q, k, v a finite gradient (max |g| "
+          f"{', '.join(seen)}); under no_grad the forward alone | {card}")
 
 
 # ---- the attention backward and LM training (phases 11b, 14, 15) -----------
@@ -5249,14 +5297,17 @@ def check_backward(torch, fa, k, cases, card, forced=("mma_sync",)) -> dict:
     kernel's o and lse, as in training; those are first held to the plain
     forward's (``TOLERANCE``, ``BWD_LSE_TOL``), and the plain backward
     that sets the limit reads the plain forward's, so a wrong lse fails
-    rather than raise the limit."""
+    rather than raise the limit.  f32 cases (the ``simt`` route) take the
+    f32 tolerance and floor (``BWD_F64_FLOOR_F32``)."""
     from repro_torch.kernels import ref
 
     errs, rel, routes = {}, {}, {}
     for name, (q, kk, v, o, lse, do, kw) in cases.items():
+        dtype = str(q.dtype).removeprefix("torch.")
+        floor = BWD_F64_FLOOR if dtype == "bfloat16" else BWD_F64_FLOOR_F32
         ro, rlse = ref.flash_attention(q, kk, v, return_lse=True, **kw)
         for what, got, want, tol in (
-                ("o", o, ro, TOLERANCE["flash_attention"]["bfloat16"]),
+                ("o", o, ro, TOLERANCE["flash_attention"][dtype]),
                 ("lse", lse, rlse, BWD_LSE_TOL)):
             torch.testing.assert_close(
                 got.float(), want.float(), **tol,
@@ -5290,8 +5341,8 @@ def check_backward(torch, fa, k, cases, card, forced=("mma_sync",)) -> dict:
                 den = float(e.abs().max())
                 ek = float((g.double() - e).abs().max()) / den
                 ep = float((p.double() - e).abs().max()) / den
-                if not (g.dtype == torch.bfloat16 and g.shape == p.shape
-                        and ek <= 2 * ep + BWD_F64_FLOOR):
+                if not (g.dtype == q.dtype and g.shape == p.shape
+                        and ek <= 2 * ep + floor):
                     raise AssertionError(
                         f"flash_attention_bwd case {name} {route} {n}: "
                         f"kernel {ek:.3e}, plain {ep:.3e} of max |g| "
@@ -5494,6 +5545,172 @@ def time_family_backward(torch, np, fa, cases, flush, card) -> dict:
               f"(kernel, plain, SDPA) {runs} | {card}")
         del qt, kt, vt, dot
     return out
+
+
+def f32_cuda_core_rate(torch) -> tuple:
+    """The card's f32 rate outside the tensor cores, SMs x the maximum SM
+    clock x 256 flops (128 FMA lanes a clock per SM), read on the card:
+    (flops/s, SMs, MHz)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    return sms * mhz * 1e6 * 256, sms, mhz
+
+
+def f32_bwd_cases(torch, fa, seed: int = 32) -> dict:
+    """Phase 11c's f32 cases (``F32_BWD_CASES``), o and lse from the
+    forward kernel (``simt``) at the case's offset, as in training."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = {}
+    for name, (B, Sq, Hq, Hkv, Dh), Sk, window, causal, off in F32_BWD_CASES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       for shape in ((B, Sq, Hq, Dh), (B, Sk, Hkv, Dh),
+                                     (B, Sk, Hkv, Dh), (B, Sq, Hq, Dh)))
+        o, lse = fa._forward_cuda(q, k, v, causal, window, True, off)
+        cases[name] = (q, k, v, o, lse, do, {"causal": causal,
+                                             "window": window,
+                                             "q_offset": off})
+    return cases
+
+
+def time_f32_backward(torch, np, fa, flush, card) -> dict:
+    """The simt backward at gemma3-1b's layer shapes in f32 at 4 x 4096
+    (``F32_BWD_TIMED``: the local layer, window 512, and the global one),
+    in two rounds (kernel, plain, SDPA, then SDPA, plain, kernel): its
+    plain version and SDPA's f32 backward (k and v expanded to the query
+    heads, the explicit window mask or ``is_causal``; (forward + backward)
+    - forward; the efficient-attention backend where it takes the call,
+    else the math one, named), beside the bound: the bytes of q, k, v, o,
+    do, lse in and dq, dk, dv out at 3.35 TB/s, or 10 Dh flops per visible
+    pair and query head at the card's f32 CUDA-core rate
+    (``f32_cuda_core_rate``), the larger."""
+    import functools
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import ref
+
+    rate, sms, mhz = f32_cuda_core_rate(torch)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    out = {}
+    for name, window in F32_BWD_TIMED:
+        B, S, Hq, Hkv, Dh = LM_BATCH, LM_PROMPT, 4, 1, 256
+        q, do = (torch.randn((B, S, Hq, Dh), generator=gen, device="cuda")
+                 for _ in range(2))
+        kk, v = (torch.randn((B, S, Hkv, Dh), generator=gen, device="cuda")
+                 for _ in range(2))
+        o, lse = fa._forward_cuda(q, kk, v, True, window, True)
+        kw = {"window": window}
+        nbytes, flops = flash_work(q, kk, window, backward=True)
+        mask = None
+        if window < S:
+            i = torch.arange(S, device="cuda")
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
+                                                 < window)
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kt, vt = (t.repeat_interleave(Hq // Hkv, 2).transpose(1, 2)
+                  .contiguous().requires_grad_() for t in (kk, v))
+        dot = do.transpose(1, 2).contiguous()
+        backend = SDPBackend.EFFICIENT_ATTENTION
+
+        def sdpa():
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, is_causal=mask is None)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+        try:
+            sdpa_fwd_bwd()
+        except RuntimeError:
+            backend = SDPBackend.MATH
+        a = (q, kk, v, o, lse, do)
+        runs = [[], []]
+        for turn in (0, 1):
+            t = {}
+            for what in (("kernel", "plain", "sdpa") if turn == 0
+                         else ("sdpa", "plain", "kernel")):
+                if what == "kernel":
+                    t[what] = time_ms(torch, functools.partial(
+                        fa.flash_attention_bwd, **kw), a, F32_BWD_LAUNCHES,
+                        flush)
+                elif what == "plain":
+                    t[what] = time_ms(torch, functools.partial(
+                        ref.flash_attention_bwd, **kw), a, F32_BWD_PLAIN,
+                        flush)
+                else:
+                    t[what] = (time_ms(torch, sdpa_fwd_bwd, (),
+                                       F32_BWD_LAUNCHES, flush)
+                               - time_ms(torch, sdpa, (), F32_BWD_LAUNCHES,
+                                         flush))
+            runs[turn] = [t["kernel"], t["plain"], t["sdpa"]]
+        m = np.mean(runs, axis=0)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / rate * 1e3
+        call = (f"F.scaled_dot_product_attention f32 backward "
+                f"({backend.name} backend, TF32 off), k/v expanded to the "
+                f"query heads, "
+                + ("explicit window mask" if mask is not None
+                   else "is_causal") + ", (forward + backward) - forward")
+        out[name] = {"ms": float(m[0]), "route": "simt",
+                     "plain_ms": float(m[1]), "library_ms": float(m[2]),
+                     "library_call": call, "sdpa_backend": backend.name,
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "operations" if ops_ms > bytes_ms
+                     else "bytes", "bytes": int(nbytes), "flops": int(flops),
+                     "f32_flops_per_s": rate}
+        r = out[name]
+        print(f"[lm-bwd-f32] {name} @ q {tuple(q.shape)} k {tuple(kk.shape)}"
+              f" f32, window {window}: simt backward kernel {r['ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f} ms, SDPA f32 backward "
+              f"{r['library_ms']:.4f} ms ({call}), bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({flops / 1e9:.2f} GFLOP at {rate / 1e12:.2f} TFLOP/s = "
+              f"{sms} SMs x {mhz:.0f} MHz x 256, {nbytes / 1e6:.1f} MB): "
+              f"{r['bound_ms'] / r['ms']:.3f} of the bound, "
+              f"{r['ms'] / r['library_ms']:.3f}x SDPA's; runs (kernel, "
+              f"plain, SDPA) {runs} | {card}")
+        del qt, kt, vt, dot, mask, a, q, kk, v, o, lse, do
+    return out
+
+
+def f32_backward_phase(torch, np, card: str, measured: dict) -> None:
+    """Phase 11c: ``flash_attention_bwd``'s ``simt`` route (f32) held by
+    ``check_backward``'s rule with the f32 floor on ``F32_BWD_CASES``, then
+    timed at gemma3-1b's f32 layer shapes (``time_f32_backward``).  These
+    launches compare the kernel with its plain version, outside every
+    main-path count (no model trains in f32); the checks and times join
+    ``measured``'s ``flash_attention_bwd`` entry."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import flash_attention as fam
+
+    bwd = next(k for k in KERNELS if k.name == "flash_attention_bwd")
+    cases = f32_bwd_cases(torch, fam)
+    checked = check_backward(torch, fam, bwd, cases, card)
+    if any(r != ["simt"] for r in checked["routes"].values()):
+        raise AssertionError(f"f32 backward routes {checked['routes']}, "
+                             f"expected simt")
+    worst = max(checked["rel"].items(),
+                key=lambda kv: kv[1][0] / (2 * kv[1][1] + BWD_F64_FLOOR_F32))
+    print(f"[lm-bwd-f32] {len(cases)} f32 cases on simt within "
+          f"{BWD_RULE['float32']}, two calls bitwise: kernel errors from f64"
+          f" {min(e for e, _ in checked['rel'].values()):.3e} to "
+          f"{max(e for e, _ in checked['rel'].values()):.3e} of max |g| "
+          f"(plain {min(p for _, p in checked['rel'].values()):.3e} to "
+          f"{max(p for _, p in checked['rel'].values()):.3e}); nearest the "
+          f"limit {worst[0]}: {worst[1][0]:.3e} against "
+          f"{2 * worst[1][1] + BWD_F64_FLOOR_F32:.3e} | {card}")
+    mine = measured[bwd.name]
+    mine["max_abs_err"] = max(mine["max_abs_err"], checked["max_abs_err"])
+    mine["routes"].update(checked["routes"])
+    del cases
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    mine["timed"].update(time_f32_backward(torch, np, fam, flush, card))
+    del flush
 
 
 def lse_under_recompute(torch, fa, cases, card) -> None:
@@ -6411,7 +6628,8 @@ def mesh_train_steps(torch, np, phase_launches, phase_routes, phase: str,
             back = {r: fam.BWD_KERNEL.route_launches[r] - b0[r] for r in b0}
             if on_card and (fwd != {"wgmma": 2 * L * n, "mma_sync": 0,
                                     "simt": 0}
-                            or back != {"wgmma": L * n, "mma_sync": 0}):
+                            or back != {"wgmma": L * n, "mma_sync": 0,
+                                        "simt": 0}):
                 raise AssertionError(
                     f"{phase}: a step's forward launches {fwd}, backward "
                     f"{back}; expected {L} calls x {n} positions forward, "
@@ -7810,7 +8028,7 @@ def main() -> int:
     time_old_routes(torch, np, fam, measured[fa.name], flush, card)
     layer_attention_lse(torch, fam, card)
     route_rule_agrees(torch, fa)
-    flash_refuses_autograd(torch, fa, card)
+    flash_f32_autograd(torch, fa, card)
     prefill_routes = {c: r for c, r in measured[fa.name]["routes"].items()
                       if c.startswith("prefill_")}
     if len(prefill_routes) != 2 or any(r != ["wgmma"]
@@ -7850,6 +8068,11 @@ def main() -> int:
     measured[bwd.name]["timed"] |= time_family_backward(torch, np, fam,
                                                         bcases, flush, card)
     del bcases, flush
+
+    clock("11c")
+    # ---- 11c. the f32 backward (simt): checks and gemma3-1b's f32 shapes --
+    torch.cuda.empty_cache()
+    f32_backward_phase(torch, np, card, measured)
 
     clock("12")
     # ---- 12. LM serve: prefill 4 x 4096, 32 greedy tokens ------------------
@@ -8022,7 +8245,7 @@ def main() -> int:
         again = {r: f2[r] - f1[r] for r in f0}
         back = {r: b2[r] - b1[r] for r in b0}
         if fwd != on_wgmma or again != on_wgmma \
-                or back != {"wgmma": L, "mma_sync": 0} or b1 != b0:
+                or back != {"wgmma": L, "mma_sync": 0, "simt": 0} or b1 != b0:
             raise AssertionError(f"lm-train step {i}: forward launches {fwd}"
                                  f", recompute {again}, backward {back}; "
                                  f"expected {L} each, all on wgmma")

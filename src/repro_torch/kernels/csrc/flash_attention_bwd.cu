@@ -7,8 +7,8 @@
 // no backward Pallas kernel), and computes what kernels/ref.py's
 // flash_attention_bwd computes:
 //
-//   q, do (B, Sq, Hq, Dh), k, v (B, Sk, Hkv, Dh), o (B, Sq, Hq, Dh), bf16,
-//   contiguous; lse (B, Hq, Sq) f32 in natural log (flash_attention.cu writes
+//   q, do (B, Sq, Hq, Dh), k, v (B, Sk, Hkv, Dh), o (B, Sq, Hq, Dh), bf16
+//   (f32 on the simt route), contiguous; lse (B, Hq, Sq) f32 in natural log (flash_attention.cu writes
 //   it).  Query head h reads kv head h / G; query i sits at key position
 //   i + shift (shift = q_offset - kv_offset: a mesh position's sequence
 //   block, 0 on one card); key j is visible to query i when j < Sk, and
@@ -22,14 +22,14 @@
 // Rounding points: q * scale is rounded to bf16 (the scale itself is the
 // bf16-rounded one the wrapper passes), as the forward rounds it; p is
 // rounded to bf16 before p^T do, as the forward rounds p before p . v; on
-// the wgmma route ds stays f32 as in the plain version: the tensor cores
+// both bf16 routes ds stays f32 as in the plain version: the tensor cores
 // take it as two bf16 parts, hi = bf16(ds) and lo = bf16(ds - hi) (about
 // 16 bits of ds), so ds^T q and ds k are each two products, hi's and lo's,
 // into the same f32 accumulator (with ds rounded to bf16 once, the error
 // of dk and dq over rows that see a few hundred keys reached 2.6 times the
-// plain version's); the mma.sync route rounds ds to bf16 once
-// (kMmaSyncDsParts: its two-part form is written and measured, ROADMAP);
-// every product accumulates in f32; dq is multiplied by the scale once, at
+// plain version's: kMmaSyncDsParts = 1 builds that form of the mma.sync
+// route, which tools/ds_split_leaves.py measures); every product
+// accumulates in f32; dq is multiplied by the scale once, at
 // the end, and dq, dk and dv are each rounded to bf16 once.
 //
 // Bound on this card: operations.  The useful work is 5 products of 2 * Dh
@@ -37,8 +37,8 @@
 // 343.7 GFLOP for a global gemma3-1b layer at 4 x 4096, 0.348 ms at 989
 // TFLOP/s, against about 117 MB of bytes (0.035 ms).
 //
-// Two routes, chosen by (dtype, Dh) alone (flash_attention_bwd_route; the
-// wrapper's flash_bwd_route states the same rule).  Both are deterministic
+// Three routes, chosen by (dtype, Dh) alone (flash_attention_bwd_route;
+// the wrapper's flash_bwd_route states the same rule).  All are deterministic
 // (no atomics: two calls give the same bits) and split the work FA2's way
 // into dk/dv work that owns a key tile and dq work that owns query rows,
 // so s and dp are computed for both (7 products against 5; on wgmma ds's
@@ -108,19 +108,33 @@
 //    head and, for each, only the 64-query tiles that can see its keys
 //    (from the tile's first key, causal, up to its last key + window - 1).
 //    Per query tile, warp (kw, hw) computes s^T and dp^T for keys 16 kw ..
-//    16 kw + 15 and queries 32 hw .. 32 hw + 31, writes p^T and ds^T (bf16)
-//    to shared memory, and after a barrier accumulates dv and dk for its 16
-//    keys and the hw-th half of the head dim (so at Dh 256 a thread holds
+//    16 kw + 15 and queries 32 hw .. 32 hw + 31, writes p^T and ds^T's two
+//    parts (bf16) to shared memory, and after a barrier accumulates dv and
+//    dk (hi's product, then lo's) for its 16 keys and the hw-th half of
+//    the head dim (so at Dh 256 a thread holds
 //    64 + 64 f32 accumulators, not 256).  GQA needs no atomics: one CTA
 //    owns every query head of its keys.
 // 3. flash_bwd_dq: one CTA of 8 warps per (b, query head, 64-query tile),
 //    walking the key tiles its rows can see; the same split (s and dp for
-//    16 queries x 32 keys, ds through shared memory, dq for 16 queries and
-//    half the head dim).
+//    16 queries x 32 keys, ds's two parts through shared memory, dq for 16
+//    queries and half the head dim).
 //
 // Dh: any multiple of 16 up to 256 (templates for Dh <= 64, 128, 256;
 // rows padded by 8 elements in shared memory so that fragment loads are
 // free of bank conflicts).
+//
+// simt (f32, any Dh: what autograd through an f32 call needs; no model
+// trains in f32, so no main path launches it): the mma.sync route's three
+// launches in f32 with every product on the CUDA cores (no tensor cores:
+// TF32 would keep about 10 bits of each operand, and the route must match
+// the CPU's f32), so nothing is rounded but each f32 operation: s = (q *
+// scale) . k, p, ds, dq, dk and dv stay f32.  32-row tiles of Dh + 1
+// floats (four of them, 132 KB at Dh 256, plus the p^T and ds^T tiles);
+// each thread computes s and dp for one key and 4 queries, and owns 4 rows
+// x Dh / 32 columns of the f32 accumulators.  Bound on this card at
+// gemma3-1b's f32 shapes: operations at the CUDA cores' f32 rate (about
+// 67 TFLOP/s); the design is the simple one (each s and dp term reads a
+// shared-memory operand per FMA), made right before it is made fast.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -134,10 +148,11 @@ namespace {
 constexpr int kTile = 64;      // queries per query tile, keys per key tile
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kLdP = kTile + 8;  // padded row of the p^T / ds tiles
-// The mma.sync route's ds operand: 1 rounds ds to bf16 once; 2 takes it as
-// hi = bf16(ds) and lo = bf16(ds - hi), two products each for dk and dq
-// (tools/ds_split_leaves.py builds that form to compare the two).
-constexpr int kMmaSyncDsParts = 1;
+// The mma.sync route's ds operand: 2 takes it as hi = bf16(ds) and lo =
+// bf16(ds - hi), two products each for dk and dq, as the wgmma route does;
+// 1 rounds ds to bf16 once (tools/ds_split_leaves.py builds both forms to
+// compare them).
+constexpr int kMmaSyncDsParts = 2;
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
                                          uint32_t b0, uint32_t b1) {
@@ -586,6 +601,337 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, delta,
       static_cast<bf*>(dq), Sq, Sk, Hq, Hkv, Dh, causal, window, shift,
       scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------- f32 (simt) route ----
+constexpr int kF32Tile = 32;  // keys per key tile, queries per query tile
+constexpr int kF32Ld = kF32Tile + 1;  // padded row of the p^T / ds tiles
+constexpr int kF32Rows = kF32Tile / (kThreads / 32);  // rows a warp owns: 4
+constexpr int kF32Cols = 8;  // Dh <= 256 = 8 x 32 lanes
+
+// D = rowsum(do * o) in f32, one warp per row: lane l sums columns l, l +
+// 32, ... in order, then the warp's shuffle tree.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_f32(const float* __restrict__ o,
+                    const float* __restrict__ dout, float* __restrict__ delta,
+                    long long rows, int Sq, int Hq, int Dh) {
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  float acc = 0.f;
+  for (int d = lane; d < Dh; d += 32) acc += o[row * Dh + d] * dout[row * Dh + d];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {  // rows run over (b, i, h); D is (b, h, i)
+    const int h = static_cast<int>(row % Hq);
+    const long long bi = row / Hq;
+    const int i = static_cast<int>(bi % Sq);
+    const long long b = bi / Sq;
+    delta[(b * Hq + h) * Sq + i] = acc;
+  }
+}
+
+// kF32Tile rows of one (b, head) of a (B, S, H, Dh) f32 tensor, from row
+// r0, into shared memory with row stride ld, each value times mul; rows
+// past S are zero.
+__device__ __forceinline__ void load_f32(float* dst, int ld, const float* base,
+                                         size_t step, int r0, int S, int Dh,
+                                         float mul) {
+  for (int e = threadIdx.x; e < kF32Tile * Dh; e += kThreads) {
+    const int r = e / Dh, c = e % Dh;
+    dst[r * ld + c] = r0 + r < S ? base[(r0 + r) * step + c] * mul : 0.f;
+  }
+}
+
+// The f32 backward: the mma.sync route's split (dk/dv CTAs that own a key
+// tile, dq CTAs that own query rows, D from the pre-pass) in 32-row tiles
+// of f32 in shared memory, every product on the CUDA cores.  Rows are
+// padded to Dh + 1 floats, so lane l reading row l is free of bank
+// conflicts while the 4 rows a warp owns are read as broadcasts.
+//
+// dk/dv CTA per (b, kv head, 32-key tile): K and V loaded once; for each of
+// the G query heads in order and each 32-query tile that can see the keys,
+// in order: s^T = K (q * scale)^T and dp^T = V dO^T for key `lane` and the
+// warp's 4 queries (sums over Dh in column order), p^T = exp(s^T - lse) (0
+// where masked or past Sq) and ds^T = p^T (dp^T - D) into shared memory,
+// then dv += p^T dO and dk += ds^T (q * scale) for the warp's 4 keys and
+// columns lane + 32 c, summed over the tile's queries in order.  So dk and
+// dv sum over heads, tiles and queries in one fixed order: no atomics.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv,
+                   int Dh, int causal, int window, int shift, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = Dh + 1;
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + kF32Tile * ld;
+  float* Qs = Vs + kF32Tile * ld;  // q * scale
+  float* dOs = Qs + kF32Tile * ld;
+  float* Ps = dOs + kF32Tile * ld;      // p^T: keys x queries
+  float* dSs = Ps + kF32Tile * kF32Ld;  // ds^T
+  float* Ls = dSs + kF32Tile * kF32Ld;
+  float* Ds = Ls + kF32Tile;
+
+  const int j0 = blockIdx.x * kF32Tile;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = kF32Rows * warp;  // the warp's first query (s^T), key (dk)
+  const size_t q_step = static_cast<size_t>(Hq) * Dh;
+  const size_t kv_step = static_cast<size_t>(Hkv) * Dh;
+  const size_t kv_off = (static_cast<size_t>(b) * Sk * Hkv + hk) * Dh;
+  load_f32(Ks, ld, k + kv_off, kv_step, j0, Sk, Dh, 1.f);
+  load_f32(Vs, ld, v + kv_off, kv_step, j0, Sk, Dh, 1.f);
+
+  // the query tiles that can see a key of this tile
+  const int j_last = min(j0 + kF32Tile, Sk) - 1;
+  const long long i_lo =
+      causal ? max(0LL, static_cast<long long>(j0) - shift) : 0;
+  long long hi = Sq - 1;
+  if (window > 0)
+    hi = min(hi, static_cast<long long>(j_last) + window - 1 - shift);
+  const int t_lo = hi < i_lo ? 0 : static_cast<int>(i_lo / kF32Tile);
+  const int t_hi = hi < i_lo ? -1 : static_cast<int>(hi / kF32Tile);
+
+  float acc_dk[kF32Rows][kF32Cols], acc_dv[kF32Rows][kF32Cols];
+#pragma unroll
+  for (int r = 0; r < kF32Rows; ++r)
+#pragma unroll
+    for (int c = 0; c < kF32Cols; ++c) acc_dk[r][c] = acc_dv[r][c] = 0.f;
+
+  for (int gh = 0; gh < G; ++gh) {
+    const int h = hk * G + gh;
+    const size_t q_off = (static_cast<size_t>(b) * Sq * Hq + h) * Dh;
+    const float* lse_h = lse + (static_cast<size_t>(b) * Hq + h) * Sq;
+    const float* delta_h = delta + (static_cast<size_t>(b) * Hq + h) * Sq;
+    for (int t = t_lo; t <= t_hi; ++t) {
+      const int i0 = t * kF32Tile;
+      __syncthreads();  // the previous tile is consumed
+      load_f32(Qs, ld, q + q_off, q_step, i0, Sq, Dh, scale);
+      load_f32(dOs, ld, dout + q_off, q_step, i0, Sq, Dh, 1.f);
+      for (int r = threadIdx.x; r < kF32Tile; r += kThreads) {
+        Ls[r] = i0 + r < Sq ? lse_h[i0 + r] : 0.f;
+        Ds[r] = i0 + r < Sq ? delta_h[i0 + r] : 0.f;
+      }
+      __syncthreads();
+
+      float s[kF32Rows], dp[kF32Rows];
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r) s[r] = dp[r] = 0.f;
+      for (int d = 0; d < Dh; ++d) {
+        const float kd = Ks[lane * ld + d], vd = Vs[lane * ld + d];
+#pragma unroll
+        for (int r = 0; r < kF32Rows; ++r) {
+          s[r] += kd * Qs[(r0 + r) * ld + d];
+          dp[r] += vd * dOs[(r0 + r) * ld + d];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r) {
+        const int i = i0 + r0 + r;
+        const float p = i < Sq && visible(i + shift, j0 + lane, Sk, causal,
+                                          window)
+                            ? expf(s[r] - Ls[r0 + r])
+                            : 0.f;
+        Ps[lane * kF32Ld + r0 + r] = p;
+        dSs[lane * kF32Ld + r0 + r] = p * (dp[r] - Ds[r0 + r]);
+      }
+      __syncthreads();
+      for (int qq = 0; qq < kF32Tile; ++qq) {
+        float qv[kF32Cols], dov[kF32Cols];
+#pragma unroll
+        for (int c = 0; c < kF32Cols; ++c) {
+          const int d = lane + 32 * c;
+          qv[c] = d < Dh ? Qs[qq * ld + d] : 0.f;
+          dov[c] = d < Dh ? dOs[qq * ld + d] : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < kF32Rows; ++r) {
+          const float p = Ps[(r0 + r) * kF32Ld + qq];
+          const float ds = dSs[(r0 + r) * kF32Ld + qq];
+#pragma unroll
+          for (int c = 0; c < kF32Cols; ++c) {
+            acc_dv[r][c] += p * dov[c];
+            acc_dk[r][c] += ds * qv[c];
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kF32Rows; ++r) {
+    const int j = j0 + r0 + r;
+    if (j >= Sk) continue;
+    const size_t off = ((static_cast<size_t>(b) * Sk + j) * Hkv + hk) * Dh;
+#pragma unroll
+    for (int c = 0; c < kF32Cols; ++c) {
+      const int d = lane + 32 * c;
+      if (d < Dh) {
+        dk[off + d] = acc_dk[r][c];
+        dv[off + d] = acc_dv[r][c];
+      }
+    }
+  }
+}
+
+// dq CTA per (b, query head, 32-query tile): q * scale and dO loaded once;
+// for each key tile its rows can see, in order: s and dp for the warp's 4
+// queries and key `lane`, ds = p (dp - D) into shared memory, then dq += ds
+// K for the warp's 4 queries and columns lane + 32 c, summed over the
+// tile's keys in order; dq times the scale once, at the end.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 int Sq, int Sk, int Hq, int Hkv, int Dh, int causal,
+                 int window, int shift, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = Dh + 1;
+  float* Qs = reinterpret_cast<float*>(smem);  // q * scale
+  float* dOs = Qs + kF32Tile * ld;
+  float* Ks = dOs + kF32Tile * ld;
+  float* Vs = Ks + kF32Tile * ld;
+  float* dSs = Vs + kF32Tile * ld;  // ds: queries x keys
+  float* Ls = dSs + kF32Tile * kF32Ld;
+  float* Ds = Ls + kF32Tile;
+
+  const int i0 = blockIdx.x * kF32Tile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = kF32Rows * warp;  // the warp's first query row
+  const size_t q_step = static_cast<size_t>(Hq) * Dh;
+  const size_t kv_step = static_cast<size_t>(Hkv) * Dh;
+  const size_t q_off = (static_cast<size_t>(b) * Sq * Hq + h) * Dh;
+  const size_t kv_off = (static_cast<size_t>(b) * Sk * Hkv + hk) * Dh;
+  load_f32(Qs, ld, q + q_off, q_step, i0, Sq, Dh, scale);
+  load_f32(dOs, ld, dout + q_off, q_step, i0, Sq, Dh, 1.f);
+  const float* lse_h = lse + (static_cast<size_t>(b) * Hq + h) * Sq;
+  const float* delta_h = delta + (static_cast<size_t>(b) * Hq + h) * Sq;
+  for (int r = threadIdx.x; r < kF32Tile; r += kThreads) {
+    Ls[r] = i0 + r < Sq ? lse_h[i0 + r] : 0.f;
+    Ds[r] = i0 + r < Sq ? delta_h[i0 + r] : 0.f;
+  }
+
+  // the key tiles rows [i0, i0 + kF32Tile) can see
+  long long hi = Sk - 1;
+  if (causal)
+    hi = min(hi, static_cast<long long>(i0) + kF32Tile - 1 + shift);
+  const long long lo =
+      window > 0 ? max(0LL, static_cast<long long>(i0) + shift - window + 1)
+                 : 0;
+  const int t_lo = hi < lo ? 0 : static_cast<int>(lo / kF32Tile);
+  const int t_hi = hi < lo ? -1 : static_cast<int>(hi / kF32Tile);
+
+  float acc[kF32Rows][kF32Cols];
+#pragma unroll
+  for (int r = 0; r < kF32Rows; ++r)
+#pragma unroll
+    for (int c = 0; c < kF32Cols; ++c) acc[r][c] = 0.f;
+
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int j0 = t * kF32Tile;
+    __syncthreads();  // the previous tile is consumed
+    load_f32(Ks, ld, k + kv_off, kv_step, j0, Sk, Dh, 1.f);
+    load_f32(Vs, ld, v + kv_off, kv_step, j0, Sk, Dh, 1.f);
+    __syncthreads();
+
+    float s[kF32Rows], dp[kF32Rows];
+#pragma unroll
+    for (int r = 0; r < kF32Rows; ++r) s[r] = dp[r] = 0.f;
+    for (int d = 0; d < Dh; ++d) {
+      const float kd = Ks[lane * ld + d], vd = Vs[lane * ld + d];
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r) {
+        s[r] += Qs[(r0 + r) * ld + d] * kd;
+        dp[r] += dOs[(r0 + r) * ld + d] * vd;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kF32Rows; ++r) {
+      const int i = i0 + r0 + r;
+      const float p = i < Sq && visible(i + shift, j0 + lane, Sk, causal,
+                                        window)
+                          ? expf(s[r] - Ls[r0 + r])
+                          : 0.f;
+      dSs[(r0 + r) * kF32Ld + lane] = p * (dp[r] - Ds[r0 + r]);
+    }
+    __syncthreads();
+    for (int kk = 0; kk < kF32Tile; ++kk) {
+      float kv[kF32Cols];
+#pragma unroll
+      for (int c = 0; c < kF32Cols; ++c) {
+        const int d = lane + 32 * c;
+        kv[c] = d < Dh ? Ks[kk * ld + d] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r) {
+        const float ds = dSs[(r0 + r) * kF32Ld + kk];
+#pragma unroll
+        for (int c = 0; c < kF32Cols; ++c) acc[r][c] += ds * kv[c];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kF32Rows; ++r) {
+    const int i = i0 + r0 + r;
+    if (i >= Sq) continue;
+    float* row = dq + ((static_cast<size_t>(b) * Sq + i) * Hq + h) * Dh;
+#pragma unroll
+    for (int c = 0; c < kF32Cols; ++c) {
+      const int d = lane + 32 * c;
+      if (d < Dh) row[d] = acc[r][c] * scale;
+    }
+  }
+}
+
+cudaError_t launch_f32(const float* q, const float* k, const float* v,
+                       const float* o, const float* dout, const float* lse,
+                       float* delta, float* dq, float* dk, float* dv, int B,
+                       int Sq, int Sk, int Hq, int Hkv, int Dh, int causal,
+                       int window, int shift, float scale,
+                       cudaStream_t stream) {
+  const long long rows = static_cast<long long>(B) * Sq * Hq;
+  const long long blocks = (rows * 32 + kThreads - 1) / kThreads;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  flash_bwd_delta_f32<<<static_cast<unsigned>(blocks), kThreads, 0,
+                        stream>>>(o, dout, delta, rows, Sq, Hq, Dh);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // four 32-row tiles of Dh + 1 floats, the p^T and ds^T tiles (the dq CTA
+  // uses one), the row statistics
+  const size_t smem =
+      (4 * static_cast<size_t>(kF32Tile) * (Dh + 1) + 2 * kF32Tile * kF32Ld +
+       2 * kF32Tile) * sizeof(float);
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_f32,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_f32,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (Sk > 0) {
+    dim3 grid((Sk + kF32Tile - 1) / kF32Tile, Hkv, B);
+    flash_bwd_dkdv_f32<<<grid, kThreads, smem, stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, Sq, Sk, Hq, Hkv, Dh, causal,
+        window, shift, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid((Sq + kF32Tile - 1) / kF32Tile, Hq, B);
+  flash_bwd_dq_f32<<<grid, kThreads, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq, Sq, Sk, Hq, Hkv, Dh, causal, window,
+      shift, scale);
   return cudaGetLastError();
 }
 
@@ -1259,13 +1605,13 @@ flash_bwd_wgmma(const __grid_constant__ WgMaps maps, const WgParams prm) {
     dq_cta<DH>(smem, cta - prm.dkdv_ctas, maps.m, prm);
 }
 
-// Device scratch (bytes) a launch on `route` needs: on mma.sync (1) D, B *
-// Hq * Sq floats; on wgmma (0) lse2 and D for each packed row (B * Hkv *
-// ceil(G / 64) * ceil(Sq / P) * 64 rows, P = 64 / min(G, 64)) and, when the
-// scale is not a power of two, bf16(q * scale).
+// Device scratch (bytes) a launch on `route` needs: on mma.sync (1) and
+// simt (2) D, B * Hq * Sq floats; on wgmma (0) lse2 and D for each packed
+// row (B * Hkv * ceil(G / 64) * ceil(Sq / P) * 64 rows, P = 64 / min(G,
+// 64)) and, when the scale is not a power of two, bf16(q * scale).
 long long scratch_need(int route, int B, int Sq, int Hq, int Hkv, int Dh,
                        float scale) {
-  if (route == 1) return 4LL * B * Sq * Hq;
+  if (route != 0) return 4LL * B * Sq * Hq;
   const int G = Hq / Hkv, gt = min(G, kRows), P = kRows / gt;
   const long long rows = static_cast<long long>(B) * Hkv *
                          ((G + gt - 1) / gt) * ((Sq + P - 1) / P) * kRows;
@@ -1389,38 +1735,39 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// The route (dtype, Dh) takes: 0 = wgmma (bf16, Dh 64, 80, 128 or 256), 1 =
-// mma.sync (bf16, other head dims), -1 = none (the card has no f32
-// backward).  kernels/flash_attention.py's flash_bwd_route states the same
-// rule.
+// The route (dtype: 0 = f32, 1 = bf16; Dh) takes: 0 = wgmma (bf16, Dh 64,
+// 80, 128 or 256), 1 = mma.sync (bf16, other head dims), 2 = simt (f32,
+// any head dim), -1 = none (another dtype).  kernels/flash_attention.py's
+// flash_bwd_route states the same rule.
 extern "C" int flash_attention_bwd_route(int dtype, int Dh) {
+  if (dtype == 0) return 2;
   if (dtype != 1) return -1;
   return Dh == 64 || Dh == 80 || Dh == 128 || Dh == 256 ? 0 : 1;
 }
 
-// The device scratch a launch on `route` (0 = wgmma, 1 = mma.sync) needs,
-// in *bytes: the rule flash_attention_bwd checks its scratch against.
-// kernels/flash_attention.py's bwd_scratch_bytes asks here.
+// The device scratch a launch on `route` (0 = wgmma, 1 = mma.sync, 2 =
+// simt) needs, in *bytes: the rule flash_attention_bwd checks its scratch
+// against.  kernels/flash_attention.py's bwd_scratch_bytes asks here.
 extern "C" int flash_attention_bwd_scratch_bytes(int route, int B, int Sq,
                                                  int Hq, int Hkv, int Dh,
                                                  float scale,
                                                  long long* bytes) {
-  if ((route != 0 && route != 1) || B < 0 || Sq < 0 || Hkv < 1 ||
-      Hq % Hkv)
+  if (route < 0 || route > 2 || B < 0 || Sq < 0 || Hkv < 1 || Hq % Hkv)
     return cudaErrorInvalidValue;
   *bytes = scratch_need(route, B, Sq, Hq, Hkv, Dh, scale);
   return cudaSuccess;
 }
 
-// bf16 only; Dh a multiple of 16 up to 256, every pointer 16-byte aligned
-// (the wrapper checks); window <= 0 means unbounded; shift = q_offset -
-// kv_offset (query i sits at key position i + shift; shift + Sq and shift -
-// window fit in int32, which the wrapper checks).  route: the wrapper's
-// choice (flash_bwd_route), refused where it does not apply.  scratch:
-// scratch_bytes of device memory, at least what
-// flash_attention_bwd_scratch_bytes gives.  Launches the route's kernels
-// (three on mma.sync, two on wgmma) on `stream` and returns the first
-// launch error.
+// bf16 on wgmma and mma.sync, f32 on simt (the route names the type: the
+// wrapper passes f32 tensors to simt only); every pointer 16-byte aligned
+// and Dh a multiple of 16 up to 256 (the wrapper checks); window <= 0
+// means unbounded; shift = q_offset - kv_offset (query i sits at key
+// position i + shift; shift + Sq and shift - window fit in int32, which
+// the wrapper checks).  route: the wrapper's choice (flash_bwd_route),
+// refused where it does not apply.  scratch: scratch_bytes of device
+// memory, at least what flash_attention_bwd_scratch_bytes gives.  Launches
+// the route's kernels (three on mma.sync and simt, two on wgmma) on
+// `stream` and returns the first launch error.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const float* lse,
@@ -1449,11 +1796,20 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                              dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, window,
                              shift, scale, st);
   }
-  if (route != 1) return cudaErrorInvalidValue;
+  if (route != 1 && route != 2) return cudaErrorInvalidValue;
   const long long rows = static_cast<long long>(B) * Sq * Hq;
-  if (scratch_bytes < scratch_need(1, B, Sq, Hq, Hkv, Dh, scale))
+  if (scratch_bytes < scratch_need(route, B, Sq, Hq, Hkv, Dh, scale))
     return cudaErrorInvalidValue;
   float* delta = static_cast<float*>(scratch);
+  if (route == 2)
+    return launch_f32(static_cast<const float*>(q),
+                      static_cast<const float*>(k),
+                      static_cast<const float*>(v),
+                      static_cast<const float*>(o),
+                      static_cast<const float*>(dout), lse, delta,
+                      static_cast<float*>(dq), static_cast<float*>(dk),
+                      static_cast<float*>(dv), B, Sq, Sk, Hq, Hkv, Dh, causal,
+                      window, shift, scale, st);
   const long long blocks = (rows * 32 + kThreads - 1) / kThreads;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   flash_bwd_delta<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(

@@ -18,17 +18,20 @@ Under autograd (grad mode on and q, k or v requiring grad) the call is a
 ``torch.autograd.Function``: its forward also writes each row's
 log-sum-exp and saves q, k, v, the output and the lse; its backward is
 ``flash_attention_bwd``, the hand-written kernels of
-``csrc/flash_attention_bwd.cu`` (bf16, counted on ``BWD_KERNEL``; the
+``csrc/flash_attention_bwd.cu`` (counted on ``BWD_KERNEL``; the
 forward's offsets carried over, so that a mesh position's sequence block
 trains at its offset), on the
-route ``flash_bwd_route(dtype, Dh)`` gives: ``wgmma`` (Dh 64, 80, 128 or
-256: TMA, wgmma, warp-specialised, GQA heads packed into 64-row tiles) or
-``mma_sync`` (other head dims).  On CPU
+route ``flash_bwd_route(dtype, Dh)`` gives: in bf16 ``wgmma`` (Dh 64, 80,
+128 or 256: TMA, wgmma, warp-specialised, GQA heads packed into 64-row
+tiles) or ``mma_sync`` (other head dims), in f32 ``simt`` (any head dim:
+f32 products on the CUDA cores, nothing rounded but each f32 operation).
+So the card differentiates every call its forward takes, f32 through one
+``simt`` forward and one ``simt`` backward launch (``chip_smoke.py``'s
+``flash_f32_autograd`` and ``f32_backward_phase``, the ``gpu`` tests of
+``tests/test_torch_lm_kernels.py``).  On CPU
 tensors both directions run the plain versions (``ref.flash_attention``
-with ``return_lse``, ``ref.flash_attention_bwd``).  The card has no f32
-backward yet: an f32 call on the card under autograd raises rather than
-differentiate the plain version.  Without autograd (serving, under
-``inference_mode``) no lse is written.
+with ``return_lse``, ``ref.flash_attention_bwd``).  Without autograd
+(serving, under ``inference_mode``) no lse is written.
 
 On ``meta`` tensors (the dry-run's accounting, ``launch/dryrun.py``) both
 directions check their inputs as on the card and return empty outputs of
@@ -55,7 +58,7 @@ KERNEL = CudaKernel(
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_float,
                                                    ctypes.c_void_p],
     routes=ROUTES)
-BWD_ROUTES = ("wgmma", "mma_sync")  # the C entry's route codes, in order
+BWD_ROUTES = ("wgmma", "mma_sync", "simt")  # the C entry's codes, in order
 BWD_KERNEL = CudaKernel(
     "flash_attention_bwd", "csrc/flash_attention_bwd.cu",
     "flash_attention_bwd",
@@ -66,8 +69,6 @@ BWD_KERNEL = CudaKernel(
              "flash_attention_bwd_scratch_bytes":
                  [ctypes.c_int] * 6 + [ctypes.c_float,
                                        ctypes.POINTER(ctypes.c_int64)]})
-F32_BACKWARD = ("ROADMAP queue 2: the f32 backward of flash_attention on "
-                "the card")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 80, 128, 256)
@@ -153,14 +154,13 @@ def flash_route(dtype: torch.dtype, head_dim: int) -> str:
     return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
 
 
-def flash_bwd_route(dtype: torch.dtype, head_dim: int) -> str | None:
+def flash_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernel a CUDA call launches, by (dtype, Dh) alone — the
     rule ``flash_attention_bwd_route`` in ``csrc/flash_attention_bwd.cu``
     applies too: ``wgmma`` for bf16 with Dh 64, 80, 128 or 256, ``mma_sync``
-    for other bf16 head dims, None for f32 (no backward on the card:
-    ``F32_BACKWARD``)."""
+    for other bf16 head dims, ``simt`` for f32."""
     if dtype != torch.bfloat16:
-        return None
+        return "simt"
     return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
 
 
@@ -168,9 +168,9 @@ def bwd_scratch_bytes(route: str, B: int, Sq: int, Hq: int, Hkv: int,
                       Dh: int, scale: float) -> int:
     """Device scratch a backward launch on ``route`` needs, by the rule of
     ``flash_attention_bwd_scratch_bytes`` in ``csrc/flash_attention_bwd.cu``
-    (the one the launch checks): D on ``mma_sync``; on ``wgmma`` lse * log2
-    e and D for each GQA-packed row and, when the scale is not a power of
-    two (Dh 80, 128), bf16(q * scale).  Builds the library on first use; each
+    (the one the launch checks): D on ``mma_sync`` and ``simt``; on
+    ``wgmma`` lse * log2 e and D for each GQA-packed row and, when the
+    scale is not a power of two (Dh 80, 128), bf16(q * scale).  Builds the library on first use; each
     answer is kept in ``SCRATCH_ASKED``."""
     key = (route, B, Sq, Hq, Hkv, Dh, scale)
     if key not in SCRATCH_ASKED:
@@ -187,7 +187,7 @@ def scratch_rule(route: str, B: int, Sq: int, Hq: int, Hkv: int, Dh: int,
     """``bwd_scratch_bytes`` without the library: a copy of
     ``scratch_need`` in ``csrc/flash_attention_bwd.cu`` (the meta device's
     answer; ``chip_smoke.py`` holds it to the library's)."""
-    if route == "mma_sync":
+    if route != "wgmma":
         return 4 * B * Sq * Hq
     G = Hq // Hkv
     gt = min(G, BWD_ROWS)
@@ -342,17 +342,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the input type.  ``block_kv`` is the plain version's key block; the
     kernels tile keys by 64 (bf16) or 32 (f32) and visit only the tiles
     their queries can see.  A query that sees no key at all is undefined.
-    Differentiable (see the module's doc) at any offsets; on the card in
-    bf16 only.
+    Differentiable (see the module's doc) at any offsets, in either type.
     """
     _check(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if q.device.type != "cpu" and q.dtype != torch.bfloat16:
-            raise RuntimeError(
-                f"flash_attention on CUDA has a backward kernel for bf16 "
-                f"only, so it cannot give {q.dtype} q, k or v a gradient "
-                f"({F32_BACKWARD}): call it in bf16, or under "
-                f"torch.no_grad() or torch.inference_mode()")
         return _Attention.apply(q, k, v, causal, window, block_kv, q_offset,
                                 kv_offset)
     return _forward(q, k, v, causal, window, block_kv, False, q_offset,
@@ -369,9 +362,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log-sum-exp ``lse`` (B, Hq, Sq) f32, natural log.  On CUDA tensors one call of the
     hand-written kernels on the route ``flash_bwd_route`` gives (a
     pre-pass with D = rowsum(do * o), then dk and dv, and dq: three
-    launches on ``mma_sync``, two on ``wgmma``, whose dk/dv and dq CTAs
-    share one; bf16 only, no atomics, so repeated calls give the same bits;
-    counted once, under its route); on CPU tensors
+    launches on ``mma_sync`` and ``simt``, two on ``wgmma``, whose dk/dv
+    and dq CTAs share one; no atomics, so repeated calls give the same
+    bits; counted once, under its route); on CPU tensors
     ``ref.flash_attention_bwd`` (``block_kv`` its key block); on ``meta``
     tensors the card's empty outputs."""
     _check(q, k, v)
@@ -414,9 +407,6 @@ def _backward_device(q, k, v, o, lse, do, causal: bool, window: int,
     outputs and scratch, empty)."""
     B, Sq, Hq, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    if q.dtype != torch.bfloat16:
-        raise RuntimeError(f"flash_attention_bwd on CUDA takes bf16 only, "
-                           f"got {q.dtype} ({F32_BACKWARD})")
     ts = (q, k, v, o, do, lse)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("flash_attention_bwd needs contiguous inputs")

@@ -329,10 +329,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale rounded to the input type (the scale itself rounded too), p
     rounded to the value type before p^T do (the forward's p . v), o and do
     in the input type (the output cast); dq, dk and dv are each rounded to
-    the input type once, at the end.  Everything else is f32 (for its
-    products the kernel's ``wgmma`` route takes ds as two bf16 parts, hi =
-    bf16(ds) and lo = bf16(ds - hi); its ``mma_sync`` route rounds ds to
-    bf16).  In f32 none of these rounds."""
+    the input type once, at the end.  Everything else is f32 (for their
+    products the kernel's bf16 routes, ``wgmma`` and ``mma_sync``, both take
+    ds as two bf16 parts, hi = bf16(ds) and lo = bf16(ds - hi)).  In f32
+    none of these rounds (the kernel's ``simt`` route keeps every value in
+    f32 too)."""
     B, Sq, Hq, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv

@@ -18,7 +18,8 @@ domain, -1e30 masks) held to the plain version.
 GPU (``gpu``-marked, skipped without a card): each CUDA kernel against its
 plain version on the card, and the route each call took; the backward
 kernel against the f64 exact gradient beside its plain version, twice
-(bitwise), and autograd through the wrapper (bf16 runs, f32 raises).  The reference package is imported inside the
+(bitwise), in bf16 and in f32 (the simt route), and autograd through the
+wrapper in both types.  The reference package is imported inside the
 CPU tests only, so the ``gpu`` tests run on a GPU host that has no JAX:
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_lm_kernels.py``.
 """
@@ -395,19 +396,21 @@ def test_return_lse_is_the_logsumexp_of_the_masked_scores(window, causal,
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 16, "mma_sync"),
     (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 96, "mma_sync"),
-    (torch.float32, 64, None), (torch.float32, 256, None),
+    *((torch.float32, dh, "simt") for dh in range(16, 257, 16)),
 ])
 def test_flash_bwd_route_depends_on_dtype_and_head_dim_only(dtype, Dh, route):
     """gemma3 (256), qwen2.5 and minitron (128), stablelm (80) and Dh 64
     take the wgmma backward in bf16; the smoke configs' 16 and other head
-    dims the mma.sync one; f32 none (the card has no f32 backward)."""
+    dims the mma.sync one; f32 the simt one at every head dim."""
     assert fa.flash_bwd_route(dtype, Dh) == route
     assert set(fa.BWD_KERNEL.route_launches) == set(fa.BWD_ROUTES)
-    assert route is None or route in fa.BWD_ROUTES
+    assert route in fa.BWD_ROUTES
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("route,shape,scale,want", [
+# the backward's scratch by route, (B, Sq, Hq, Hkv, Dh), scale: what the
+# CUDA source's rule (flash_attention_bwd_scratch_bytes) and its copy
+# (scratch_rule, the meta device's answer) give
+BWD_SCRATCH = [
     # D for every (b, h, i)
     ("mma_sync", (2, 77, 4, 1, 80), 80 ** -0.5, 4 * 2 * 4 * 77),
     # G = 4: 16 positions a tile, 5 tiles of 64 rows; the scale is folded
@@ -422,7 +425,55 @@ def test_flash_bwd_route_depends_on_dtype_and_head_dim_only(dtype, Dh, route):
     # not a power of two, so bf16(q * scale) is kept
     ("wgmma", (2, 77, 4, 2, 80), 0.11181640625,
      8 * 2 * 2 * 3 * 64 + 2 * 2 * 77 * 4 * 80),
-])
+    # f32: D for every (b, h, i), whatever the scale and head dim
+    ("simt", (2, 77, 4, 1, 80), 80 ** -0.5, 4 * 2 * 4 * 77),
+    ("simt", (3, 1000, 6, 2, 256), 0.0625, 4 * 3 * 6 * 1000),
+]
+
+
+@pytest.mark.parametrize("route,shape,scale,want", BWD_SCRATCH)
+def test_scratch_rule_matches_the_table(route, shape, scale, want):
+    """``scratch_rule`` (the meta device's copy of the CUDA source's rule)
+    on the table the ``gpu`` test holds the library to."""
+    B, Sq, Hq, Hkv, Dh = shape
+    assert fa.scratch_rule(route, B, Sq, Hq, Hkv, Dh, scale) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
+def test_meta_autograd_gives_the_cards_shapes_and_cost(dtype, needs_grad):
+    """On ``meta`` tensors a call under autograd in either type runs both
+    directions as the card would, with empty outputs: the gradient of the
+    input that requires one has its shape and type, and a cost counter
+    records one forward (with its lse) and one backward of
+    ``flash_cost``'s work, the f32 backward counted as the bf16 one is
+    (its bytes at 4 a value)."""
+    from repro_torch.launch import op_cost
+
+    B, Sq, Hq, Hkv, Dh, window = 2, 96, 6, 2, 80, 40
+    qkv = {n: torch.empty(s, dtype=dtype, device="meta") for n, s in (
+        ("q", (B, Sq, Hq, Dh)), ("k", (B, Sq, Hkv, Dh)),
+        ("v", (B, Sq, Hkv, Dh)))}
+    qkv[needs_grad].requires_grad_()
+    with op_cost.OpCounter("meta") as c:
+        out = fa.flash_attention(**qkv, window=window)
+        assert out.shape == (B, Sq, Hq, Dh) and out.dtype == dtype
+        out.float().sum().backward()
+    g = qkv[needs_grad].grad
+    assert g is not None and g.device.type == "meta"
+    assert g.shape == qkv[needs_grad].shape and g.dtype == dtype
+    pairs = fa.causal_pairs(Sq, window)
+    es = torch.empty((), dtype=dtype).element_size()
+    k = c.kernels["flash_attention_bwd"]
+    assert k["calls"] == 1 and k["flops"] == 10 * Dh * B * Hq * pairs
+    assert k["bytes"] == 4 * (B * Sq * Hq * Dh + B * Sq * Hkv * Dh) * es \
+        + 4 * B * Hq * Sq
+    f = c.kernels["flash_attention"]
+    assert f["calls"] == 1 and f["flops"] == 4 * Dh * B * Hq * pairs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,shape,scale,want", BWD_SCRATCH)
 def test_bwd_scratch_bytes(cuda_device, route, shape, scale, want):
     """The CUDA source's scratch rule (``flash_attention_bwd_scratch_bytes``,
     which ``bwd_scratch_bytes`` asks and the launch checks) on a table."""
@@ -586,6 +637,126 @@ def test_wgmma_bwd_arithmetic_matches_the_exact_gradient(B, Sq, Sk, Hq, Hkv,
         assert stats["masked_first"] > 0
 
 
+def _emulate_simt_bwd(q, k, v, o, lse, do, *, causal, window, shift):
+    """The simt (f32) backward route's tile order in plain PyTorch: D =
+    rowsum(do * o); dk and dv per 32-key tile, summed over the G query
+    heads of its kv head in order and, for each, over the 32-query tiles
+    that can see the tile (from the kernel's range: the first query tile
+    whose last row reaches the tile's first key under the causal rule, to
+    the last whose first row still sees its last key inside the window),
+    in order; dq per 32-query tile of one head, summed over the key tiles
+    its rows can see, in order, times the scale once at the end.  p =
+    exp(s - lse) with s = (q * scale) . k, 0 where the key is not visible
+    (query i at key position i + ``shift``) or past Sq; ds = p (dp - D).
+    Nothing is rounded but each f32 operation."""
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G, T = Hq // Hkv, 32
+    scale = float(torch.tensor(Dh ** -0.5, dtype=torch.float32))
+    qs = q * torch.tensor(scale)
+    delta = (do * o).sum(-1).permute(0, 2, 1)  # (B, Hq, Sq)
+
+    def seen(i0, j0):
+        i = shift + torch.arange(i0, i0 + T)[:, None]
+        j = torch.arange(j0, j0 + T)[None, :]
+        vis = (j < Sk) & (i - shift < Sq)
+        if causal:
+            vis = vis & (j <= i)
+        if window > 0:
+            vis = vis & (i - j < window)
+        return vis
+
+    def tile(x, b, r0, h, S):
+        out = torch.zeros((T, Dh))
+        n = max(0, min(T, S - r0))
+        out[:n] = x[b, r0:r0 + n, h]
+        return out
+
+    def stats(x, b, h, i0):
+        out = torch.zeros(T)
+        n = max(0, min(T, Sq - i0))
+        out[:n] = x[b, h, i0:i0 + n]
+        return out
+
+    def ds_p(Q, dO, K, V, L, D, i0, j0):
+        p = torch.where(seen(i0, j0), torch.exp(Q @ K.T - L[:, None]), 0.0)
+        return p, p * (dO @ V.T - D[:, None])
+
+    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+    for b in range(B):
+        for hk in range(Hkv):
+            for j0 in range(0, Sk, T):
+                K, V = tile(k, b, j0, hk, Sk), tile(v, b, j0, hk, Sk)
+                j_last = min(j0 + T, Sk) - 1
+                lo = max(0, j0 - shift) if causal else 0
+                hi = Sq - 1
+                if window > 0:
+                    hi = min(hi, j_last + window - 1 - shift)
+                acc_k, acc_v = torch.zeros((T, Dh)), torch.zeros((T, Dh))
+                for gh in range(G):
+                    h = hk * G + gh
+                    for t in range(lo // T, hi // T + 1 if hi >= lo else 0):
+                        i0 = t * T
+                        Q, dO = tile(qs, b, i0, h, Sq), tile(do, b, i0, h, Sq)
+                        p, ds = ds_p(Q, dO, K, V, stats(lse, b, h, i0),
+                                     stats(delta, b, h, i0), i0, j0)
+                        acc_v = acc_v + p.T @ dO
+                        acc_k = acc_k + ds.T @ Q
+                n = j_last + 1 - j0
+                dk[b, j0:j0 + n, hk], dv[b, j0:j0 + n, hk] = (acc_k[:n],
+                                                              acc_v[:n])
+        for h in range(Hq):
+            hk = h // G
+            for i0 in range(0, Sq, T):
+                Q, dO = tile(qs, b, i0, h, Sq), tile(do, b, i0, h, Sq)
+                L, D = stats(lse, b, h, i0), stats(delta, b, h, i0)
+                hi = min(Sk - 1, i0 + T - 1 + shift) if causal else Sk - 1
+                lo = max(0, i0 + shift - window + 1) if window > 0 else 0
+                acc = torch.zeros((T, Dh))
+                for t in range(lo // T, hi // T + 1 if hi >= lo else 0):
+                    K, V = tile(k, b, t * T, hk, Sk), tile(v, b, t * T, hk, Sk)
+                    acc = acc + ds_p(Q, dO, K, V, L, D, i0, t * T)[1] @ K
+                n = min(T, Sq - i0)
+                dq[b, i0:i0 + n, h] = (acc * scale)[:n]
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,Dh,window,causal,off", [
+    (1, 45, 90, 6, 2, 16, 0, True, 37),     # G 3, an offset inside a tile
+    (1, 45, 90, 6, 2, 80, 20, True, 37),    # Dh 80, a window, the offset
+    (2, 40, 70, 3, 1, 16, 0, False, 0),     # not causal, Sq != Sk
+    (1, 70, 70, 6, 2, 80, 24, False, 5),    # not causal, a window, G 3
+])
+def test_simt_route_arithmetic_matches_the_plain_version_and_the_reference(
+        B, Sq, Sk, Hq, Hkv, Dh, window, causal, off):
+    """The simt backward's tile order (``_emulate_simt_bwd``) in f32
+    against ``ref.flash_attention_bwd`` and ``jax.vjp`` of the reference's
+    LM-path attention (``repro.models.layers.flash_attention``, the
+    ``lax.scan`` the kernel stands for) on the same inputs at the query
+    offset: per gradient within 1e-5 relative (Frobenius), the f32 sums
+    taken in other orders; the route's tile ranges therefore visit every
+    visible (query, key) pair."""
+    jnp, _, _, jlayers = _reference()
+    import jax
+
+    q, k, v = _qkv(Sq + Dh + off, B, Sq, Hq, Hkv, Dh, torch.float32, Sk=Sk)
+    do = _randn(np.random.default_rng(Sk + off), tuple(q.shape),
+                torch.float32)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    o, lse = tref.flash_attention(q, k, v, return_lse=True, **kw)
+    got = _emulate_simt_bwd(q, k, v, o, lse, do, causal=causal,
+                            window=window, shift=off)
+    plain = tref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    _, vjp = jax.vjp(lambda a, b, c: jlayers.flash_attention(
+        a, b, c, causal=causal, window=window, q_offset=off),
+        *(_to_jax(t) for t in (q, k, v)))
+    want = vjp(_to_jax(do))
+    for g, p, w in zip(got, plain, want):
+        assert g.shape == p.shape and g.dtype == torch.float32
+        assert _rel(g, p) <= BWD_TOL[torch.float32]
+        assert _rel(g, w) <= BWD_TOL[torch.float32]
+
+
 def test_flash_bwd_wrapper_checks_its_arguments():
     q, k, v = _qkv(0, 1, 8, 4, 1, 16, torch.float32)
     o, lse = tref.flash_attention(q, k, v, return_lse=True)
@@ -603,7 +774,7 @@ def test_flash_bwd_wrapper_checks_its_arguments():
         fa.flash_attention_bwd(q, k, v, o, lse, o[:, :4])
     assert (fa.BWD_KERNEL.launches,
             dict(fa.BWD_KERNEL.route_launches)) == before
-    assert fa.BWD_ROUTES == ("wgmma", "mma_sync")
+    assert fa.BWD_ROUTES == ("wgmma", "mma_sync", "simt")
 
 
 @pytest.mark.parametrize("N,D,B,F", [(64, 128, 8, 5), (128, 256, 16, 10),
@@ -725,6 +896,79 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the GPU host)")
     return torch.device("cuda")
+
+
+# the simt (f32) backward against the f64 gradient: per gradient, max
+# |kernel - f64| / max |f64| within twice the plain version's plus this
+# floor (both keep every value in f32; they sum in other orders, and the
+# kernel reads the forward kernel's lse, the plain version the plain
+# forward's)
+F32_BWD_FLOOR = 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Hq,Hkv,Dh,Sk,window,causal,off", [
+    (1, 77, 4, 1, 16, 77, 64, False, 0),     # Dh 16, G 4, not causal, ragged
+    (1, 200, 8, 2, 64, 200, 0, True, 0),     # Dh 64, G 4
+    (2, 130, 6, 2, 80, 260, 0, True, 37),    # Dh 80, G 3, an offset in a tile
+    (1, 300, 2, 2, 128, 300, 64, True, 0),   # Dh 128, G 1, window 64
+    (1, 333, 4, 1, 256, 333, 64, True, 0),   # Dh 256, G 4, window 64
+    (1, 100, 4, 1, 256, 300, 0, True, 0),    # Sq < Sk
+    (1, 130, 3, 1, 128, 70, 0, False, 0),    # G 3, Sq > Sk, not causal
+    (1, 90, 6, 2, 16, 200, 64, True, 101),   # G 3, window 64 at offset 101
+])
+def test_cuda_f32_backward_matches_plain_and_exact_gradient(
+        cuda_device, B, Sq, Hq, Hkv, Dh, Sk, window, causal, off):
+    """The simt backward kernel in f32 against the f64 exact gradient: per
+    gradient its max error over max |g| within twice the plain version's
+    plus F32_BWD_FLOOR.  o and lse come from the forward kernel (simt), as
+    in training, within the forward's f32 tolerance of the plain forward's;
+    the plain backward reads the plain forward's.  Two calls give the same
+    bits; one call counts one launch, under ``simt``."""
+    q, k, v = _qkv(Sq + Dh + off, B, Sq, Hq, Hkv, Dh, torch.float32,
+                   device=cuda_device, Sk=Sk)
+    do = _randn(np.random.default_rng(Sq + off), tuple(q.shape),
+                torch.float32, device=cuda_device)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    o, lse = fa._forward_cuda(q, k, v, causal, window, True, off)
+    assert fa.flash_bwd_route(torch.float32, Dh) == "simt"
+    before = dict(fa.BWD_KERNEL.route_launches)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.BWD_KERNEL.route_launches == {
+        r: n + 2 * (r == "simt") for r, n in before.items()}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ro, rlse = tref.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(o, ro, **CUDA_TOL[torch.float32])
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+    plain = tref.flash_attention_bwd(q, k, v, ro, rlse, do, **kw)
+    exact = _exact_offset_grads(q, k, v, do, causal, window, off)
+    for g, p, e in zip(got, plain, exact):
+        assert g.dtype == torch.float32 and g.shape == p.shape
+        assert _max_err(g, e) <= 2 * _max_err(p, e) + F32_BWD_FLOOR
+
+
+def _exact_offset_grads(q, k, v, do, causal, window, off):
+    """The f64 gradient of attention over q * the scale rounded to q's type
+    (the product not rounded), k and v, query i at key position i + off."""
+    Dh, G = q.shape[-1], q.shape[2] // k.shape[2]
+    scale = float(torch.tensor(Dh ** -0.5, dtype=q.dtype))
+    qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))
+    i = off + torch.arange(q.shape[1], device=q.device)[:, None]
+    j = torch.arange(k.shape[1], device=q.device)[None, :]
+    seen = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        seen &= j <= i
+    if window > 0:
+        seen &= i - j < window
+    s = torch.einsum("bqhd,bkhd->bhqk", qd * scale,
+                     kd.repeat_interleave(G, 2))
+    o = torch.einsum("bhqk,bkhd->bqhd",
+                     s.masked_fill(~seen, float("-inf")).softmax(-1),
+                     vd.repeat_interleave(G, 2))
+    return torch.autograd.grad(o, (qd, kd, vd), do.double())
 
 
 @pytest.mark.gpu
@@ -887,40 +1131,39 @@ def test_cuda_flash_bhsd_matches_plain_version(cuda_device, causal, dtype):
 @pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
 def test_cuda_flash_autograd_runs_bf16_and_refuses_f32(cuda_device,
                                                        needs_grad):
-    """Under autograd a bf16 call launches the forward (with its lse) and,
-    in ``backward``, the backward kernel once, and returns a gradient for
-    each input that requires one; with grad mode off, or in inference
-    mode, no backward exists and the output is the same bits.  There is no
-    f32 backward on the card: an f32 call under autograd raises without a
-    launch, and runs under no_grad."""
-    q, k, v = _qkv(5, 1, 64, 4, 1, 256, torch.bfloat16, device=cuda_device)
-    qkv = {"q": q, "k": k, "v": v}
-    qkv[needs_grad] = qkv[needs_grad].clone().requires_grad_()
-    before = (fa.KERNEL.launches, fa.BWD_KERNEL.launches)
-    out = fa.flash_attention(**qkv, window=8)
-    assert out.grad_fn is not None
-    out.float().square().sum().backward()
-    torch.cuda.synchronize()
-    assert (fa.KERNEL.launches, fa.BWD_KERNEL.launches) == (
-        before[0] + 1, before[1] + 1)
-    grad = qkv[needs_grad].grad
-    assert grad is not None and grad.shape == qkv[needs_grad].shape
-    assert bool(torch.isfinite(grad.float()).all()) and grad.abs().sum() > 0
-    with torch.no_grad():
-        got = fa.flash_attention(**qkv, window=8)
-    with torch.inference_mode():
-        again = fa.flash_attention(**qkv, window=8)
-    assert not got.requires_grad and torch.equal(got, again)
-    assert torch.equal(got, out.detach())
-    f32 = {n: t.detach().float() for n, t in qkv.items()}
-    f32[needs_grad].requires_grad_()
-    launches = fa.KERNEL.launches
-    with pytest.raises(RuntimeError, match="bf16 only"):
-        fa.flash_attention(**f32, window=8)
-    assert fa.KERNEL.launches == launches
-    with torch.no_grad():
-        fa.flash_attention(**f32, window=8)
-    assert fa.KERNEL.launches == launches + 1
+    """Under autograd a call in either type launches the forward (with its
+    lse) and, in ``backward``, the backward kernel once, on the routes its
+    type takes (bf16 at Dh 256: ``wgmma`` both ways; f32: ``simt`` both
+    ways), and returns a finite gradient for each input that requires
+    one; with grad mode off, or in inference mode, no backward exists and
+    the output is the same bits.  The card refuses no type any more: f32
+    differentiates through the simt backward."""
+    for dtype, route, bwd_route in ((torch.bfloat16, "wgmma", "wgmma"),
+                                    (torch.float32, "simt", "simt")):
+        q, k, v = _qkv(5, 1, 64, 4, 1, 256, dtype, device=cuda_device)
+        qkv = {"q": q, "k": k, "v": v}
+        qkv[needs_grad] = qkv[needs_grad].clone().requires_grad_()
+        before = (dict(fa.KERNEL.route_launches),
+                  dict(fa.BWD_KERNEL.route_launches))
+        out = fa.flash_attention(**qkv, window=8)
+        assert out.grad_fn is not None
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert fa.KERNEL.route_launches == {
+            r: n + (r == route) for r, n in before[0].items()}
+        assert fa.BWD_KERNEL.route_launches == {
+            r: n + (r == bwd_route) for r, n in before[1].items()}
+        grad = qkv[needs_grad].grad
+        assert grad is not None and grad.shape == qkv[needs_grad].shape
+        assert grad.dtype == dtype
+        assert bool(torch.isfinite(grad.float()).all())
+        assert grad.abs().sum() > 0
+        with torch.no_grad():
+            got = fa.flash_attention(**qkv, window=8)
+        with torch.inference_mode():
+            again = fa.flash_attention(**qkv, window=8)
+        assert not got.requires_grad and torch.equal(got, again)
+        assert torch.equal(got, out.detach())
 
 
 def _exact_grads(q, k, v, do, causal, window):

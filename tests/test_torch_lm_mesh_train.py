@@ -158,12 +158,14 @@ def _inputs() -> dict:
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """The inputs and the reference's outputs: one subprocess per model,
-    the two at once."""
+    the two at once, each with XLA on one thread (the jit compiles
+    dominate; the test run shares the host's cores among its workers)."""
     inp = _inputs()
     tmp = tmp_path_factory.mktemp("lm_mesh_train")
     np.savez(tmp / "in.npz", **inp)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
+                         "--xla_cpu_multi_thread_eigen=false")
 
     def run(arch):
         r = subprocess.run([sys.executable, "-c", _REFERENCE,
@@ -739,6 +741,43 @@ def test_offset_backward_plain_matches_the_reference_vjp(G, window, n, off):
     assert _rel(got[1], dk) <= 1e-5 and _rel(got[2], dv) <= 1e-5
 
 
+@pytest.mark.parametrize("draw", range(4))
+def test_ds_in_two_parts_meets_the_rule_that_rounding_once_misses(draw):
+    """The ``mma_sync`` backward's ds at phi3.5-moe's 1 x 128 block at
+    offset 384 over 512 keys (every row sees 385-512 keys), modelled on the
+    CPU as ``tools/bwd_ds_rounding.py`` does (the plain backward's
+    arithmetic in one key block, bf16 inputs, ds kept f32, rounded to bf16
+    once, or taken as two bf16 parts hi = bf16(ds) and lo = bf16(ds - hi)),
+    each against the f64 gradient by ``check_backward``'s rule (max error
+    over max |g| within twice the f32 form's + 1e-3): the two-part form
+    meets it on every draw, with dq and dk within 1% of the f32 form's
+    error; rounding once misses it on some draw (its dk up to 2.55 times
+    the f32 form's error), which is what kept the card's ``mma_sync`` case
+    at this block red until the kernel took ds in two parts."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import bwd_ds_rounding as dsr
+
+    B, Sq, Hq, Hkv, Dh, Sk, off = dsr.CASE
+    rng = np.random.default_rng(1000 + draw)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).bfloat16() for s in (
+            (B, Sq, Hq, Dh), (B, Sk, Hkv, Dh), (B, Sk, Hkv, Dh),
+            (B, Sq, Hq, Dh)))
+    o, lse = tref.flash_attention(q, k, v, return_lse=True, q_offset=off)
+    exact = dsr.exact(q, k, v, do, off)
+    errs = {form: [float((g.double() - e).abs().max() / e.abs().max())
+                   for g, e in zip(dsr.backward(q, k, v, o, lse, do, off,
+                                                form), exact)]
+            for form in ("f32", "bf16", "two parts")}
+    rule = [2 * e + 1e-3 for e in errs["f32"]]
+    assert all(e <= r for e, r in zip(errs["two parts"], rule)), errs
+    assert all(a <= 1.01 * b for a, b in zip(errs["two parts"][:2],
+                                             errs["f32"][:2])), errs
+    misses = [e > r for e, r in zip(errs["bf16"], rule)]
+    # the draws (seeds 1000-1003 of the tool) on which rounding once misses
+    assert any(misses) == (draw == 2), errs
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -755,16 +794,24 @@ OFFSET_GPU_CASES = [  # (B, Sq, Hq, Hkv, Dh, Sk, window, q_offset)
     (1, 130, 6, 2, 80, 300, 0, 170)]      # Dh 80, G 3
 
 
+# per route: the inputs' type and the floor of check_backward's rule (bf16
+# 1e-3; f32 1e-5, tests/test_torch_lm_kernels.py's F32_BWD_FLOOR)
+ROUTE_TYPE = {"wgmma": (torch.bfloat16, 1e-3), "mma_sync": (torch.bfloat16,
+                                                             1e-3),
+              "simt": (torch.float32, 1e-5)}
+
+
 def _exact_offset_grads(q, k, v, do, window: int, off: int):
-    """The f64 gradient of causal attention over q * the bf16-rounded scale
-    (the product not rounded), k and v, query i at key position i + off."""
+    """The f64 gradient of causal attention over q * the scale rounded to
+    q's type (the product not rounded), k and v, query i at key position i
+    + off."""
     Sq, Hq, Dh = q.shape[1:]
     Sk, G = k.shape[1], Hq // k.shape[2]
     i = off + torch.arange(Sq, device=q.device)[:, None]
     j = torch.arange(Sk, device=q.device)[None, :]
     seen = (j <= i) & ((i - j < window) if window > 0 else True)
     qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))
-    scale = float(torch.tensor(Dh ** -0.5, dtype=torch.bfloat16))
+    scale = float(torch.tensor(Dh ** -0.5, dtype=q.dtype))
     s = torch.einsum("bqhd,bkhd->bhqk", qd * scale,
                      kd.repeat_interleave(G, 2))
     o = torch.einsum("bhqk,bkhd->bqhd",
@@ -774,26 +821,29 @@ def _exact_offset_grads(q, k, v, do, window: int, off: int):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("route", ["wgmma", "mma_sync", "simt"])
 @pytest.mark.parametrize("B,Sq,Hq,Hkv,Dh,Sk,window,off", OFFSET_GPU_CASES)
 def test_cuda_offset_backward_matches_plain_and_exact(
         cuda_device, route, B, Sq, Hq, Hkv, Dh, Sk, window, off):
-    """The backward kernel at a query offset, on both routes (``mma_sync``
-    forced through the route rule), against the f64 exact gradient by
-    ``chip_smoke.py``'s ``check_backward`` rule: per gradient, max |kernel
-    - exact| / max |exact| within twice the plain version's + 1e-3.  The
-    kernel reads the forward kernel's o and lse at the offset (as in
-    training), the plain backward the plain forward's, so a wrong lse fails
-    the limit rather than raise it.  One launch, under the route.  The
-    ``mma_sync`` route still rounds ds to bf16 once and misses the rule at
-    phi3.5-moe's block (ROADMAP section 3, finding 18); ``wgmma`` takes ds
-    as two bf16 parts and meets it."""
+    """The backward kernel at a query offset, on its three routes (bf16 on
+    ``wgmma`` and on ``mma_sync``, forced through the route rule; f32 on
+    ``simt``), against the f64 exact gradient by ``chip_smoke.py``'s
+    ``check_backward`` rule: per gradient, max |kernel - exact| / max
+    |exact| within twice the plain version's + the route's floor
+    (``ROUTE_TYPE``).  The kernel reads the forward kernel's o and lse at
+    the offset (as in training), the plain backward the plain forward's, so
+    a wrong lse fails the limit rather than raise it.  One launch, under
+    the route.  Both bf16 routes take ds as two bf16 parts, so both meet
+    the rule at phi3.5-moe's block (rounding ds once missed it there on
+    ``mma_sync``: ROADMAP section 3, finding 18); ``simt`` keeps ds in
+    f32."""
+    dtype, floor = ROUTE_TYPE[route]
     rng = np.random.default_rng(off + Dh)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-               .to(cuda_device, torch.bfloat16)
+               .to(cuda_device, dtype)
                for s in ((B, Sq, Hq, Dh), (B, Sk, Hkv, Dh), (B, Sk, Hkv, Dh)))
     do = torch.from_numpy(rng.standard_normal((B, Sq, Hq, Dh)).astype(
-        np.float32)).to(cuda_device, torch.bfloat16)
+        np.float32)).to(cuda_device, dtype)
     kw = dict(causal=True, window=window, q_offset=off)
     o, lse = fa._forward_cuda(q, k, v, True, window, True, off)
     ro, rlse = tref.flash_attention(q, k, v, return_lse=True, **kw)
@@ -809,37 +859,39 @@ def test_cuda_offset_backward_matches_plain_and_exact(
     assert fa.BWD_KERNEL.route_launches[route] == before + 1
     exact = _exact_offset_grads(q, k, v, do, window, off)
     for n, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
-        assert g.dtype == torch.bfloat16 and g.shape == p.shape
+        assert g.dtype == dtype and g.shape == p.shape
         den = float(e.abs().max())
         ek = float((g.double() - e).abs().max()) / den
         ep = float((p.double() - e).abs().max()) / den
-        assert ek <= 2 * ep + 1e-3, (n, ek, ep)
+        assert ek <= 2 * ep + floor, (n, ek, ep)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("route", ["wgmma", "mma_sync", "simt"])
 @pytest.mark.parametrize("B,Sq,Hq,Hkv,Dh,Sk,window,off", OFFSET_GPU_CASES)
 def test_cuda_offset_backward_is_the_full_sequence_gradient(
         cuda_device, route, B, Sq, Hq, Hkv, Dh, Sk, window, off):
-    """The backward kernel at a query offset, on both routes (``mma_sync``
-    forced through the route rule), against the same kernel at offset 0 on
-    the whole sequence with the cotangent on the block's rows only (o and
-    lse from the forward kernel on the whole sequence, the block's rows
-    handed to the offset call): dq is those rows' bits (a row's dq walks
-    the same key tiles in the same order, fully masked ones adding zeros);
-    dk and dv are the full call's bits where the offset is a multiple of
-    the route's query tile (64 rows, packed 64 / G positions on ``wgmma``),
-    else within one bf16 step of the largest entry, 2^-7 of it (the rows
-    summed in other tile groups).  One launch per call, under the route.
-    So the offset adds no error of its own (the test above holds the error
-    itself)."""
+    """The backward kernel at a query offset, on its three routes (bf16 on
+    ``wgmma`` and ``mma_sync``, forced through the route rule; f32 on
+    ``simt``), against the same kernel at offset 0 on the whole sequence
+    with the cotangent on the block's rows only (o and lse from the forward
+    kernel on the whole sequence, the block's rows handed to the offset
+    call): dq is those rows' bits (a row's dq walks the same key tiles in
+    the same order, fully masked ones adding zeros); dk and dv are the full
+    call's bits where the offset is a multiple of the route's query tile
+    (64 rows on ``mma_sync``, packed 64 / G positions on ``wgmma``, 32 on
+    ``simt``), else within one step of the largest entry in the type, 2^-7
+    of it in bf16 and 2^-12 in f32 (the rows summed in other tile groups).
+    One launch per call, under the route.  So the offset adds no error of
+    its own (the test above holds the error itself)."""
+    dtype = ROUTE_TYPE[route][0]
     rng = np.random.default_rng(off + Dh)
     qf, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-                .to(cuda_device, torch.bfloat16)
+                .to(cuda_device, dtype)
                 for s in ((B, off + Sq, Hq, Dh), (B, Sk, Hkv, Dh),
                           (B, Sk, Hkv, Dh)))
     do = torch.from_numpy(rng.standard_normal((B, Sq, Hq, Dh)).astype(
-        np.float32)).to(cuda_device, torch.bfloat16)
+        np.float32)).to(cuda_device, dtype)
     dof = torch.zeros_like(qf)
     dof[:, off:] = do
     of, lsef = fa._forward_cuda(qf, k, v, True, window, True, 0)
@@ -857,11 +909,12 @@ def test_cuda_offset_backward_is_the_full_sequence_gradient(
     assert fa.BWD_KERNEL.route_launches[route] == before + 2
     assert torch.equal(got[0], full[0][:, off:])
     G = Hq // Hkv
-    rows = 64 if route == "mma_sync" else 64 // min(G, 64)
+    rows = {"mma_sync": 64, "simt": 32}.get(route, 64 // min(G, 64))
     for g, f in zip(got[1:], full[1:]):
-        assert g.dtype == torch.bfloat16
+        assert g.dtype == dtype
         if off % rows == 0:
             assert torch.equal(g, f)
         else:
-            step = float(f.float().abs().max()) * 2 ** -7
+            step = float(f.float().abs().max()) * 2 ** (
+                -7 if dtype == torch.bfloat16 else -12)
             assert float((g.float() - f.float()).abs().max()) <= step

@@ -80,9 +80,31 @@ def _port_loss_and_grads(cfg, params, batch):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_loss_and_grads(arch: str, loss_chunk: int = 0):
+def _port_unchunked(arch: str):
+    """``_port_loss_and_grads`` of the smoke config on the reference's
+    weights and batch 0, run once for the cases that read it (the
+    reference comparison and the chunked-loss one); read only."""
+    cfg = tconfigs.get_config(arch, smoke=True)
+    params = params_from_jax(_reference_params(arch), "cpu")
+    return _port_loss_and_grads(cfg, params, _batch(cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_chunked_loss(arch: str, loss_chunk: int) -> float:
+    """The reference's loss with ``loss_chunk``, forward only (one jit of
+    the loss, not of its gradient)."""
     cfg = dataclasses.replace(jconfigs.get_config(arch, smoke=True),
                               loss_chunk=loss_chunk)
+    mod = jget_module(cfg)
+    batch = _jbatch(_batch(tconfigs.get_config(arch, smoke=True)))
+    loss, _ = jax.jit(lambda p: mod.loss_fn(cfg, p, batch, dist=DIST))(
+        jax.tree_util.tree_map(jnp.asarray, _reference_params(arch)))
+    return float(loss)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_loss_and_grads(arch: str):
+    cfg = jconfigs.get_config(arch, smoke=True)
     mod = jget_module(cfg)
     batch = _jbatch(_batch(tconfigs.get_config(arch, smoke=True)))
     (loss, metrics), grads = jax.jit(jax.value_and_grad(
@@ -118,9 +140,7 @@ def test_make_batch_defaults_to_the_card():
 
 @pytest.mark.parametrize("arch", DENSE)
 def test_loss_and_grads_match_reference(arch):
-    cfg = tconfigs.get_config(arch, smoke=True)
-    params = params_from_jax(_reference_params(arch), "cpu")
-    loss, metrics, grads = _port_loss_and_grads(cfg, params, _batch(cfg))
+    loss, metrics, grads = _port_unchunked(arch)
     ref_loss, ref_ce, ref_grads = _reference_loss_and_grads(arch)
     np.testing.assert_allclose(float(loss), ref_loss, rtol=LOSS_RTOL,
                                atol=LOSS_ATOL)
@@ -213,14 +233,14 @@ def test_loss_chunk_matches_unchunked(arch):
     base = tconfigs.get_config(arch, smoke=True)
     params = params_from_jax(_reference_params(arch), "cpu")
     batch = _batch(base)
-    l0, _, g0 = _port_loss_and_grads(base, params, batch)
+    l0, _, g0 = _port_unchunked(arch)
     l1, _, g1 = _port_loss_and_grads(
         dataclasses.replace(base, loss_chunk=8), params, batch)
     np.testing.assert_allclose(float(l1), float(l0), rtol=1e-5)
     for (key, a), (_, b) in zip(_flatten(g0), _flatten(g1)):
         err = float((a - b).norm() / a.norm().clamp_min(1e-30))
         assert err <= 2 ** -8, (key, err)
-    ref_loss = _reference_loss_and_grads(arch, loss_chunk=8)[0]
+    ref_loss = _reference_chunked_loss(arch, 8)
     np.testing.assert_allclose(float(l1), ref_loss, rtol=LOSS_RTOL,
                                atol=LOSS_ATOL)
 

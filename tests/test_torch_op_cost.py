@@ -344,21 +344,23 @@ def test_scratch_rule_gives_the_c_rules_worked_cases(route, shape, scale,
 
 def test_meta_backward_allocates_the_cards_scratch():
     """On ``meta`` the backward returns the card's (empty) gradients and
-    allocates the scratch the card's launch would."""
-    q = torch.empty((1, 77, 6, 128), dtype=torch.bfloat16, device="meta")
-    k = torch.empty((1, 77, 2, 128), dtype=torch.bfloat16, device="meta")
+    allocates the scratch the card's launch would: bf16 on ``wgmma``, f32
+    on ``simt``."""
     lse = torch.empty((1, 6, 77), device="meta")
-    with op_cost.OpCounter("meta") as c:
-        c.track((q, k, lse))
-        base = c.live
-        dq, dk, dv = fa.flash_attention_bwd(q, k, k, q, lse, q)
-    scratch = fa.scratch_rule("wgmma", 1, 77, 6, 2, 128, 0.08837890625)
-    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, k.shape)
-    assert c.peak - base == 2 * (q.numel() + 2 * k.numel()) + scratch
-    assert c.kernels["flash_attention_bwd"]["calls"] == 1
-    with pytest.raises(RuntimeError):
-        fa.flash_attention_bwd(*(t.float() if t is not lse else t
-                                 for t in (q, k, k, q, lse, q)))
+    for dtype, route, scale in ((torch.bfloat16, "wgmma", 0.08837890625),
+                                (torch.float32, "simt", 128 ** -0.5)):
+        q = torch.empty((1, 77, 6, 128), dtype=dtype, device="meta")
+        k = torch.empty((1, 77, 2, 128), dtype=dtype, device="meta")
+        with op_cost.OpCounter("meta") as c:
+            c.track((q, k, lse))
+            base = c.live
+            dq, dk, dv = fa.flash_attention_bwd(q, k, k, q, lse, q)
+        scratch = fa.scratch_rule(route, 1, 77, 6, 2, 128, scale)
+        assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, k.shape)
+        assert dq.dtype == dk.dtype == dv.dtype == dtype
+        assert c.peak - base == q.element_size() * (
+            q.numel() + 2 * k.numel()) + scratch
+        assert c.kernels["flash_attention_bwd"]["calls"] == 1
 
 
 def test_full_size_accounting_allocates_no_parameters():

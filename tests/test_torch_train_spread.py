@@ -50,8 +50,10 @@ def test_reference_training_spreads_beyond_the_smoke_atol(arch, capsys):
     steps at lr 1e-3, batch 4 x 64) differ by more than that check's
     default atol of 2e-3 for zamba2-smoke and seamless-smoke (measured
     7.13e-3 and 5.52e-3),
-    as their logits do (ROADMAP section 3, finding 12), and by less than the
-    8e-3 the check gives these two configs.  Prints the spread."""
+    as their logits do (ROADMAP section 3, finding 12), and by less than
+    8e-3, the check's limit for seamless-smoke (zamba2-smoke's is 1.3e-2,
+    what the card reads through the plain attention backward itself:
+    ROADMAP section 3, finding 18).  Prints the spread."""
     steps, lr, batch, seq = 4, 1e-3, 4, 64
     jcfg = jconfigs.get_config(arch, smoke=True)
     cfg = tconfigs.get_config(arch, smoke=True)
@@ -169,10 +171,11 @@ def test_ds_rounding_spreads_the_zamba2_smoke_losses(monkeypatch, capsys):
     1``) or taken as two bf16 parts (``= 2``, the ``wgmma`` route's form;
     ``tools/bwd_ds_rounding.py``'s forms): the losses move apart by up to
     3.33e-3 (measured), less than the reference's own jit vs op-by-op
-    spread of 7.13e-3 on the same steps.  By the rule that set phase 24's
-    other limits (the largest spread rounding alone makes, rounded up), the
-    limit for zamba2-smoke stays 8e-3 with either form.  Prints the
-    spread."""
+    spread of 7.13e-3 on the same steps.  The CPU's spreads of ds alone
+    stay under 8e-3; the card's own rounding does not (its run through the
+    plain backward reads 1.258e-2 from the CPU, ``tools/ds_split_leaves.py``),
+    so phase 24 holds zamba2-smoke to 1.3e-2 (ROADMAP section 3, finding
+    18).  Prints the spread."""
     import torch
 
     from repro_torch.kernels import ref
