@@ -462,9 +462,7 @@ kernel and shape 100 -> 50 (``TIMED_LAUNCHES``); phase 6 trains 7 steps (was
 10), phase 7 8 (12), phase 9 8 (12), phase 16 4 (6); phases 22, 23 and 26
 train 2 steps (3); phase 25 times 1 train and 1 prefill call and 2 decode
 steps after the counted call (2, 2, 4); phase 28 decodes 16 and 4 tokens
-(32, 8); and for phase 11c phases 7, 9 and 10 train 6 steps (8) and the
-profiled runs of phases 6 and 9 take 7 (8).  ``mesh_train_accounting``
-runs in a subprocess beside phases 11-28.
+(32, 8).  ``mesh_train_accounting`` runs in a subprocess beside phases 11-28.
 Phase 30 came in without a cut elsewhere: its own depth cuts are 30b's
 (``MESH_FAMILY_TRAIN``), and 30a runs 4 x 1024 prompts and 8 tokens.
 A ``[time]`` line gives each phase's start on the host clock.  The last
@@ -512,12 +510,12 @@ TIMED_LAUNCHES = 50
 TRAIN_STEPS = 7
 SHARD_TOPOLOGY = ("dgx-v100", 4)  # 2 cliques x 2 GPUs
 SHARD_MEM_PER_DEVICE = 150e6      # 300 MB per clique, the one-GPU budget
-SHARD_STEPS = 6  # 12 until phase 29 came in, 8 until phase 11c did
+SHARD_STEPS = 8  # 12 until phase 29 came in
 SHARD_REFRESH = 5
 SHARD_LAYER_STEPS = 3
-SHARD_PARITY_STEPS = 6  # 8 until phase 11c came in
+SHARD_PARITY_STEPS = 8
 PARITY_BATCH = 1024
-PARITY_STEPS = 6  # 12 until phase 29 came in, 8 until phase 11c did
+PARITY_STEPS = 8  # 12 until phase 29 came in
 UNFUSED_STEPS = 4
 # phase 10b: each run's steps (8 until the dense configs of phase 26 came
 # in; the refresh at step 4 needs 4 observed batches) and the refresh
@@ -533,8 +531,7 @@ RESIL_LOOKAHEAD = 2        # the store's lookahead there
 RESIL_LOSS = (4, 3)        # (step, device): device 3 of the 2 x 2 plan
 RESIL_CLI_STEPS = (2, 4)   # the CLIs: killed after, resumed to
 RESIL_CLI_VERTICES = 2000  # the GNN CLI's --max-vertices
-PROFILE_STEPS = 7        # the profiled run (8 until phase 11c came in);
-# its steps 2..6 are the window
+PROFILE_STEPS = 8        # the profiled run; its steps 2..6 are the window
 PROFILE_WINDOW = (2, 5)  # (first step, steps)
 SAGE_SHAPE = (416_768, 128, 200_000, 10)  # table rows, D, rows out, fanout
 LM_ARCH = "gemma3-1b"
@@ -647,8 +644,13 @@ TRAIN_PARITY = (MOE_ARCH,) + FAMILY_TRAIN_FULL + (VLM_ARCH,)
 # tensors; tools/ds_split_leaves.py) read up to 1.258e-2 from the CPU's (by
 # step: 5.63e-5, 1.205e-3, 7.157e-3, 1.258e-2; H100 80GB HBM3 at 700 W),
 # beyond the 8e-3 the CPU spreads give, so rounding alone on the card sets
-# its limit, 1.3e-2 (the backward kernel with ds in two bf16 parts reads
-# 1.21e-2, with ds rounded once 2.58e-3: ROADMAP section 3, 18)
+# its limit, 1.3e-2 (the backward kernel, ds in two bf16 parts, reads
+# 1.21e-2; ROADMAP section 3, 18).  That gap is chaotic: with the weights
+# drawn from seeds 1 and 2 the plain backward reads 7.51e-3 and 5.94e-3,
+# the kernel 2.23e-3 and 3.21e-3 (the same tool and card), so the loss
+# limit separates little here; what holds the backward is the first-step
+# gradient check per leaf, 1e-1, where the kernel's worst leaf reads
+# 7.30e-2 and the plain backward's 7.20e-2 at seed 0
 TRAIN_GRAD_REL = {None: 5e-2, "zamba2-1.2b": 1e-1}
 TRAIN_SMOKE_ATOL = {"zamba2-1.2b": 1.3e-2, "seamless-m4t-large-v2": 8e-3,
                     "chameleon-34b": 4e-3}

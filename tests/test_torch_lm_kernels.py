@@ -1131,13 +1131,14 @@ def test_cuda_flash_bhsd_matches_plain_version(cuda_device, causal, dtype):
 @pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
 def test_cuda_flash_autograd_runs_bf16_and_refuses_f32(cuda_device,
                                                        needs_grad):
-    """Under autograd a call in either type launches the forward (with its
-    lse) and, in ``backward``, the backward kernel once, on the routes its
-    type takes (bf16 at Dh 256: ``wgmma`` both ways; f32: ``simt`` both
-    ways), and returns a finite gradient for each input that requires
-    one; with grad mode off, or in inference mode, no backward exists and
-    the output is the same bits.  The card refuses no type any more: f32
-    differentiates through the simt backward."""
+    """The card refuses f32 no longer, despite this test's name: f32
+    differentiates through the ``simt`` backward as bf16 does through
+    ``wgmma``.  Under autograd a call in either type launches the forward
+    (with its lse) and, in ``backward``, the backward kernel once, on the
+    routes its type takes (bf16 at Dh 256: ``wgmma`` both ways; f32:
+    ``simt`` both ways), and returns a finite gradient for each input that
+    requires one; with grad mode off, or in inference mode, no backward
+    exists and the output is the same bits."""
     for dtype, route, bwd_route in ((torch.bfloat16, "wgmma", "wgmma"),
                                     (torch.float32, "simt", "simt")):
         q, k, v = _qkv(5, 1, 64, 4, 1, 256, dtype, device=cuda_device)

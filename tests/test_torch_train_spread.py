@@ -167,8 +167,8 @@ def test_reordered_attention_sums_spread_the_smoke_training(
 def test_ds_rounding_spreads_the_zamba2_smoke_losses(monkeypatch, capsys):
     """zamba2-smoke's 4 AdamW steps of phase 24 (lr 1e-3, 4 x 64, seed-0
     weights) on the CPU through the plain attention backward, its ds
-    rounded to bf16 once (the ``mma_sync`` kernel with ``kMmaSyncDsParts =
-    1``) or taken as two bf16 parts (``= 2``, the ``wgmma`` route's form;
+    rounded to bf16 once (the form the ``mma_sync`` kernel once took) or
+    taken as two bf16 parts (the form both bf16 routes take;
     ``tools/bwd_ds_rounding.py``'s forms): the losses move apart by up to
     3.33e-3 (measured), less than the reference's own jit vs op-by-op
     spread of 7.13e-3 on the same steps.  The CPU's spreads of ds alone

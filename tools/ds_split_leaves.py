@@ -1,21 +1,18 @@
-"""The attention backward's ds on the ``mma_sync`` route, rounded to bf16
-once or taken as two bf16 parts, and the plain backward itself on the card,
-each held to the CPU on phase 24's smoke training (card only).
+"""The attention backward on the card, the kernel (ds in two bf16 parts on
+``mma_sync``) and the plain backward itself, each held to the CPU on phase
+24's smoke training (card only).
 
-    python3 tools/ds_split_leaves.py [--json PATH] [ARCH ...]
+    python3 tools/ds_split_leaves.py [--json PATH] [--seed N] [ARCH ...]
 
 For each named config (default zamba2-1.2b, whose smoke config runs its
 shared block at Dh 16 on ``mma_sync`` in ``chip_smoke.py``'s phase 24, and
 gemma3-1b, whose smoke config phase 15 (lm-train-parity) trains), as those
 phases train it (``LM_TRAIN_SMOKE``: 4 AdamW steps at 4 x 64 from the
-seed-0 weights, the same numpy batches): the CPU run through the plain
-versions, and three card runs that share the forward kernel and differ in
-the attention backward only:
+weights drawn with seed N, 0 by default as in the smoke, and the same
+numpy batches): the CPU run through the plain versions, and two card runs
+that share the forward kernel and differ in the attention backward only:
 
-- ``two parts``: the backward kernel built from a copy of its source with
-  ``kMmaSyncDsParts = 2`` (ds's hi and lo parts, two products each for dk
-  and dq);
-- ``once``: the same with ``kMmaSyncDsParts = 1`` (ds rounded to bf16);
+- ``kernel``: ``fa.BWD_KERNEL`` as the port launches it;
 - ``plain``: ``ref.flash_attention_bwd`` on the CUDA tensors (ds in f32, the
   CPU's arithmetic on the card).
 
@@ -23,19 +20,14 @@ Prints the losses of each and their gaps to the CPU's, and for every leaf
 of the first step's gradients two errors against the CPU's: ``fro`` = |g -
 g_cpu| / |g_cpu| (Frobenius, phase 24's measure) and ``max`` = max |g -
 g_cpu| / max |g_cpu|, under each form.  Then, call by call, the first
-step's attention backward calls as the ``plain`` run makes them: each
-kernel form against the plain version and the f64 gradient by
+step's attention backward calls as the ``plain`` run makes them: the
+kernel against the plain version and the f64 gradient by
 ``check_backward``'s rule (max |g - f64| / max |f64| <= 2 x the plain
-version's + 1e-3).  Last, what the two parts cost: both kernel forms
-timed in turns (two parts, once, once, two parts; ``chip_smoke.py``'s
-``time_ms``) at the smoke configs' Dh 16 training calls and at gemma3-1b's
-global layer (4 x 4096, bf16), which ``mma_sync`` runs when forced.
-With ``--json PATH`` every figure is also written to PATH.  Prints the
-card's name and power limit.
+version's + 1e-3).  With ``--json PATH`` every figure is also written to
+PATH.  Prints the card's name and power limit.
 """
 import contextlib
 import json
-import re
 import sys
 from pathlib import Path
 
@@ -50,34 +42,11 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels._build import BUILD_DIR, CudaKernel  # noqa: E402
 from repro_torch.launch.train import make_batch  # noqa: E402
 from repro_torch.models import get_module  # noqa: E402
 from repro_torch.models.params import init_from_defs  # noqa: E402
 
-PARTS = re.compile(r"^constexpr int kMmaSyncDsParts = \d;$", re.M)
-FORMS = ("two parts", "once", "plain")
-KERNEL_PARTS = {"two parts": 2, "once": 1}
-
-
-def kernel_with_parts(parts: int) -> CudaKernel:
-    """``fa.BWD_KERNEL`` built from a copy of its source with
-    ``kMmaSyncDsParts = parts``."""
-    src = fa.BWD_KERNEL.source
-    text, n = PARTS.subn(f"constexpr int kMmaSyncDsParts = {parts};",
-                         src.read_text())
-    if n != 1:
-        raise RuntimeError(f"{src.name} does not set kMmaSyncDsParts once")
-    out = BUILD_DIR / f"ds_parts_{parts}"
-    out.mkdir(parents=True, exist_ok=True)
-    for header in src.parent.glob("*.cuh"):
-        (out / header.name).write_text(header.read_text())
-    (out / src.name).write_text(text)
-    k = fa.BWD_KERNEL
-    return CudaKernel(k.name, str(out / src.name), k.symbol, k.argtypes,
-                      routes=tuple(k.route_launches),
-                      symbols={s: a for s, a in k.symbols.items()
-                               if s != k.symbol})
+FORMS = ("kernel", "plain")
 
 
 def plain_on_card(q, k, v, o, lse, do, causal, window, shift=0):
@@ -88,17 +57,15 @@ def plain_on_card(q, k, v, o, lse, do, causal, window, shift=0):
 
 
 @contextlib.contextmanager
-def backward_form(form: str, kernels: dict):
+def backward_form(form: str):
     """The attention backward on the card as ``form`` for the block."""
-    built, device = fa.BWD_KERNEL, fa._backward_device
+    device = fa._backward_device
     if form == "plain":
         fa._backward_device = plain_on_card
-    else:
-        fa.BWD_KERNEL = kernels[form]
     try:
         yield
     finally:
-        fa.BWD_KERNEL, fa._backward_device = built, device
+        fa._backward_device = device
 
 
 def errors(got: dict, want: dict) -> dict:
@@ -129,9 +96,9 @@ def captured_calls(mod, cfg, params, batch) -> list:
     return calls
 
 
-def call_by_call(calls: list, kernels: dict, card: str, name: str) -> list:
-    """Each captured call through each kernel form, against the plain
-    backward and the f64 gradient by ``check_backward``'s rule."""
+def call_by_call(calls: list, card: str, name: str) -> list:
+    """Each captured call through the kernel, against the plain backward and
+    the f64 gradient by ``check_backward``'s rule."""
     rows = []
     for n, (q, k, v, o, lse, do, kw) in enumerate(calls):
         shift = kw.get("q_offset", 0) - kw.get("kv_offset", 0)
@@ -141,84 +108,37 @@ def call_by_call(calls: list, kernels: dict, card: str, name: str) -> list:
         row = {"call": n, "q": list(q.shape), "k": list(k.shape),
                "kw": {a: b for a, b in kw.items() if a != "block_kv"},
                "route": fa.flash_bwd_route(q.dtype, q.shape[3])}
-        for form in kernels:
-            with backward_form(form, kernels):
-                got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-            torch.cuda.synchronize()
-            for g_name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
-                den = float(e.abs().max()) or 1.0
-                ek = float((g.double() - e).abs().max()) / den
-                ep = float((p.double() - e).abs().max()) / den
-                pden = float(p.float().abs().max()) or 1.0
-                row[f"{form}/{g_name}"] = {
-                    "err": ek, "plain_err": ep,
-                    "vs_plain": float((g.float() - p.float()).abs().max())
-                    / pden, "rule_ok": ek <= 2 * ep + cs.BWD_F64_FLOOR}
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        for g_name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+            den = float(e.abs().max()) or 1.0
+            ek = float((g.double() - e).abs().max()) / den
+            ep = float((p.double() - e).abs().max()) / den
+            pden = float(p.float().abs().max()) or 1.0
+            row[g_name] = {
+                "err": ek, "plain_err": ep,
+                "vs_plain": float((g.float() - p.float()).abs().max()) / pden,
+                "rule_ok": ek <= 2 * ep + cs.BWD_F64_FLOOR}
         rows.append(row)
-        worst = {f: max(row[f"{f}/{g}"]["err"]
-                        / (2 * row[f"{f}/{g}"]["plain_err"]
-                           + cs.BWD_F64_FLOOR) for g in ("dq", "dk", "dv"))
-                 for f in kernels}
+        worst = max(row[g]["err"] / (2 * row[g]["plain_err"]
+                                     + cs.BWD_F64_FLOOR)
+                    for g in ("dq", "dk", "dv"))
         print(f"[ds-calls] {name} call {n} q {tuple(q.shape)} k "
               f"{tuple(k.shape)} {row['kw']} on {row['route']}: "
-              + "; ".join(
-                  f"{f}: " + ", ".join(
-                      f"{g} {row[f'{f}/{g}']['err']:.3e} (plain "
-                      f"{row[f'{f}/{g}']['plain_err']:.3e}, vs plain "
-                      f"{row[f'{f}/{g}']['vs_plain']:.3e})"
-                      for g in ("dq", "dk", "dv"))
-                  + f", worst share of the rule {worst[f]:.3f}"
-                  for f in kernels) + f" | {card}")
+              + ", ".join(f"{g} {row[g]['err']:.3e} (plain "
+                          f"{row[g]['plain_err']:.3e}, vs plain "
+                          f"{row[g]['vs_plain']:.3e})"
+                          for g in ("dq", "dk", "dv"))
+              + f", worst share of the rule {worst:.3f} | {card}")
     return rows
 
 
-# the timed shapes: (name, (B, Sq, Hq, Hkv, Dh), window, timed launches)
-TIMED = (("zamba2_smoke_dh16", (4, 64, 4, 4, 16), 0, 50),
-         ("gemma3_smoke_dh16_window8", (4, 64, 4, 1, 16), 8, 50),
-         ("gemma3_smoke_dh16_global", (4, 64, 4, 1, 16), 0, 50),
-         ("gemma3_global_layer", (4, 4096, 4, 1, 256), 0, 10))
-
-
-def time_parts(kernels: dict, card: str) -> dict:
-    """Both kernel forms on ``mma_sync`` at ``TIMED``, causal, in turns."""
-    gen = torch.Generator(device="cuda").manual_seed(32)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    out = {}
-    for name, (B, S, Hq, Hkv, Dh), window, n in TIMED:
-        q, do = (torch.randn((B, S, Hq, Dh), generator=gen, device="cuda")
-                 .bfloat16() for _ in range(2))
-        k, v = (torch.randn((B, S, Hkv, Dh), generator=gen, device="cuda")
-                .bfloat16() for _ in range(2))
-        o, lse = fa._forward_cuda(q, k, v, True, window, True)
-
-        def run(*args):
-            return fa.flash_attention_bwd(*args, window=window)
-
-        times = {f: [] for f in KERNEL_PARTS}
-        for form in ("two parts", "once", "once", "two parts"):
-            with backward_form(form, kernels), \
-                    cs.forced_route(fa, "flash_bwd_route", "mma_sync"):
-                times[form].append(cs.time_ms(torch, run,
-                                              (q, k, v, o, lse, do), n,
-                                              flush))
-        out[name] = {f: float(np.mean(t)) for f, t in times.items()}
-        out[name]["runs"] = times
-        print(f"[ds-time] {name} q {tuple(q.shape)} k {tuple(k.shape)} "
-              f"window {window}, bf16 on mma_sync, in turns: two parts "
-              f"{out[name]['two parts']:.4f} ms, once "
-              f"{out[name]['once']:.4f} ms "
-              f"({out[name]['two parts'] / out[name]['once']:.3f}x); runs "
-              f"{times} | {card}")
-        del q, k, v, o, lse, do
-    return out
-
-
-def run(arch: str, card: str, kernels: dict) -> dict:
+def run(arch: str, card: str, seed: int) -> dict:
     B, S, N = cs.LM_TRAIN_SMOKE
     cfg = get_config(arch, smoke=True)
     mod = get_module(cfg)
-    params = init_from_defs(mod.defs(cfg), torch.Generator().manual_seed(0),
-                            "cpu")
+    params = init_from_defs(mod.defs(cfg),
+                            torch.Generator().manual_seed(seed), "cpu")
     batch = make_batch(cfg, B, S, 0, 0, "cpu")
     losses = {"cpu": cs.lm_train(torch, np, fa, cfg, params, B, S, N,
                                  "cpu")[0]}
@@ -227,7 +147,7 @@ def run(arch: str, card: str, kernels: dict) -> dict:
     dev_batch = cs.to_device(batch, "cuda")
     errs = {}
     for form in FORMS:
-        with backward_form(form, kernels):
+        with backward_form(form):
             losses[form] = cs.lm_train(torch, np, fa, cfg, dev, B, S, N,
                                        "cuda")[0]
             _, g = cs.loss_and_grads(torch, mod, cfg, dev, dev_batch)
@@ -236,7 +156,7 @@ def run(arch: str, card: str, kernels: dict) -> dict:
     for form in FORMS:
         gap = np.abs(np.subtract(losses[form], losses["cpu"]))
         gaps[form] = [float(d) for d in gap]
-        print(f"[ds-leaves] {cfg.name} {form}: losses {losses[form]} vs CPU "
+        print(f"[ds-leaves] {cfg.name} seed {seed} {form}: losses {losses[form]} vs CPU "
               f"{losses['cpu']}, |gap| {[float(f'{d:.4e}') for d in gap]}, "
               f"max {float(gap.max()):.4e} | {card}")
     print(f"[ds-leaves] {cfg.name} first-step gradients against the CPU's, "
@@ -252,11 +172,10 @@ def run(arch: str, card: str, kernels: dict) -> dict:
               f"{errs[form][worst][0]:.4e}, median fro "
               f"{float(np.median([e[0] for e in errs[form].values()])):.4e}"
               f", worst max {max(e[1] for e in errs[form].values()):.4e}")
-    with backward_form("plain", kernels):
+    with backward_form("plain"):
         calls = captured_calls(mod, cfg, dev, dev_batch)
-    rows = call_by_call(calls, {f: kernels[f] for f in KERNEL_PARTS}, card,
-                        cfg.name)
-    return {"losses": losses, "gaps": gaps,
+    rows = call_by_call(calls, card, cfg.name)
+    return {"seed": seed, "losses": losses, "gaps": gaps,
             "leaf_errors": {f: {n: list(e) for n, e in errs[f].items()}
                             for f in FORMS},
             "calls": rows}
@@ -268,16 +187,17 @@ def main(argv) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    path = None
-    if argv[:1] == ["--json"]:
-        path, argv = Path(argv[1]), argv[2:]
+    path, seed = None, 0
+    while argv[:1] in (["--json"], ["--seed"]):
+        if argv[0] == "--json":
+            path = Path(argv[1])
+        else:
+            seed = int(argv[1])
+        argv = argv[2:]
     card = cs.smi()
-    kernels = {form: kernel_with_parts(n)
-               for form, n in KERNEL_PARTS.items()}
     out = {"card": card}
     for arch in argv or ["zamba2-1.2b", "gemma3-1b"]:
-        out[arch] = run(arch, card, kernels)
-    out["timed"] = time_parts(kernels, card)
+        out[arch] = run(arch, card, seed)
     if path is not None:
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(out, indent=1))
